@@ -1,0 +1,192 @@
+"""Op registry: the one impl-dispatch site from planner to serving
+(counterpart of `repro.graph.registry`, main-path ops only).
+
+Every (node kind, impl) pair maps to one `OpImpl` carrying its forward, its
+cost hook and its fusion metadata. The (kind, impl) strings are the
+reference's, so plan signatures of the two packages compare one to one:
+
+  ("conv", "dense")             F.conv2d (cuDNN on the card, TF32 off)
+  ("conv", "ecr_pallas")        ECR sparse conv, CUDA kernel on the card
+  ("conv_pool", "pecr_pallas")  PECR fused conv+ReLU+maxpool, CUDA kernel
+
+The "_pallas" suffix names the reference's op family, not the kernel
+language. The fusion rule (`fusion_eligible`) and the fused <-> plain impl
+mapping live here too.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
+
+from repro_torch.graph.ir import ConvUnit
+
+
+@dataclass(frozen=True)
+class OpImpl:
+    """One registered (kind, impl) implementation.
+
+    forward: kind "conv"      -> f(x_padded, w, *, stride, block_c) -> y
+             kind "conv_pool" -> f(x_padded, w, *, stride, pool, block_c) -> y
+    cost:    f(c, h, w, o, kh, kw, *, stride, occupancy, batch, [pool]) -> dict
+             with "flops"/"bytes"/"out_elems".
+    sparse:  occupancy-dependent (skips dead channel blocks); on the card
+             these run the hand-written CUDA kernels.
+    fused_with: for kind "conv_pool", the kind-"conv" impl of the same family
+             (used on units whose pool is not fusion-eligible); for kind
+             "conv", the kind-"conv_pool" impl it upgrades to.
+    launch:  f(unit, *, block_c, batch) -> the `ConvLaunch` this impl would
+             resolve on `unit` (None for impls with no schedule).
+    """
+
+    kind: str
+    impl: str
+    forward: Callable
+    cost: Callable | None = None
+    sparse: bool = False
+    fused_with: str | None = None
+    launch: Callable | None = None
+
+
+_OPS: dict = {}
+
+
+def register_op(op: OpImpl) -> OpImpl:
+    key = (op.kind, op.impl)
+    if key in _OPS:
+        raise ValueError(f"op {key} already registered")
+    _OPS[key] = op
+    return op
+
+
+def get_op(kind: str, impl: str) -> OpImpl:
+    try:
+        return _OPS[(kind, impl)]
+    except KeyError:
+        known = sorted(i for k, i in _OPS if k == kind)
+        raise ValueError(
+            f"unknown {kind} impl {impl!r} (registered: {known})") from None
+
+
+# ---------------------------------------------------------------------------
+# Fusion rule
+# ---------------------------------------------------------------------------
+
+
+def fusion_eligible(unit: ConvUnit) -> bool:
+    """conv+ReLU+pool -> PECR is legal iff the triple is adjacent, the pool is
+    non-overlapping (stride == p, not ceil mode) and the conv output tiles
+    exactly (the fused epilogue floors)."""
+    pool = unit.pool
+    if pool is None or not unit.relu:
+        return False
+    if pool.s != pool.p or pool.mode == "ceil":
+        return False
+    _, oh, ow = unit.conv_out_shape
+    return oh % pool.p == 0 and ow % pool.p == 0
+
+
+def fused_impl(conv_impl: str) -> str | None:
+    """The kind-"conv_pool" impl of `conv_impl`'s family (None = no fusion)."""
+    return get_op("conv", conv_impl).fused_with
+
+
+def conv_impl(fused: str) -> str:
+    """The kind-"conv" impl a fused impl falls back to on unfusable units."""
+    op = get_op("conv_pool", fused)
+    if op.fused_with is None:
+        raise ValueError(f"fused impl {fused!r} declares no conv fallback")
+    return op.fused_with
+
+
+def unit_impl(unit: ConvUnit, impl: str) -> tuple:
+    """Resolve a requested impl against one unit's structure -> (kind, impl):
+    a fused-family request becomes the fused op on fusion-eligible units and
+    the family's plain conv elsewhere; a plain conv request passes through."""
+    if ("conv_pool", impl) in _OPS:
+        if fusion_eligible(unit):
+            return ("conv_pool", impl)
+        return ("conv", conv_impl(impl))
+    get_op("conv", impl)  # validate
+    return ("conv", impl)
+
+
+# ---------------------------------------------------------------------------
+# Launch descriptors
+# ---------------------------------------------------------------------------
+
+
+def _padded_unit_dims(unit):
+    """(c, h, w, o, k, stride) of the op call `run_unit` makes for this unit."""
+    c, h, w = unit.in_shape
+    conv = unit.conv
+    return c, h + 2 * conv.pad, w + 2 * conv.pad, conv.c_out, conv.k, conv.stride
+
+
+def unit_launch(kind: str, impl: str, unit: ConvUnit, *, block_c: int = 0,
+                batch: int = 1):
+    """The `ConvLaunch` of running `unit` as (kind, impl), None without one."""
+    op = get_op(kind, impl)
+    if op.launch is None:
+        return None
+    return op.launch(unit, block_c=block_c, batch=batch)
+
+
+# ---------------------------------------------------------------------------
+# Registrations
+# ---------------------------------------------------------------------------
+
+
+def _conv_dense(xp, w, *, stride, block_c=0):
+    from repro_torch.core.ecr import conv2d_dense
+
+    return conv2d_dense(xp, w, stride)
+
+
+def _conv_ecr(xp, w, *, stride, block_c=0):
+    from repro_torch.kernels.ecr_conv.ops import ecr_conv
+
+    return ecr_conv(xp, w, stride, block_c=block_c)
+
+
+def _conv_pool_pecr(xp, w, *, stride, pool, block_c=0):
+    from repro_torch.kernels.conv_pool.ops import fused_conv_pool
+
+    return fused_conv_pool(xp, w, stride, pool.p, p_s=pool.s, block_c=block_c)
+
+
+def _conv_cost(c, h, w, o, kh, kw, **kw_args):
+    from repro_torch.kernels.ecr_conv.ops import ecr_conv_cost
+
+    return ecr_conv_cost(c, h, w, o, kh, kw, **kw_args)
+
+
+def _conv_pool_cost(c, h, w, o, kh, kw, **kw_args):
+    from repro_torch.kernels.conv_pool.ops import conv_pool_cost
+
+    return conv_pool_cost(c, h, w, o, kh, kw, **kw_args)
+
+
+def _launch_ecr(unit, *, block_c=0, batch=1):
+    from repro_torch.kernels.ecr_conv.ops import ecr_conv_launch
+
+    c, h, w, o, k, stride = _padded_unit_dims(unit)
+    return ecr_conv_launch(c, h, w, o, k, k, stride=stride, block_c=block_c,
+                           batch=batch)
+
+
+def _launch_pecr(unit, *, block_c=0, batch=1):
+    from repro_torch.kernels.conv_pool.ops import conv_pool_launch
+
+    c, h, w, o, k, stride = _padded_unit_dims(unit)
+    return conv_pool_launch(c, h, w, o, k, k, stride=stride,
+                            pool=unit.pool.p if unit.pool is not None else 0,
+                            block_c=block_c, batch=batch)
+
+
+register_op(OpImpl("conv", "dense", _conv_dense, cost=_conv_cost))
+register_op(OpImpl("conv", "ecr_pallas", _conv_ecr, cost=_conv_cost,
+                   sparse=True, fused_with="pecr_pallas",
+                   launch=_launch_ecr))
+register_op(OpImpl("conv_pool", "pecr_pallas", _conv_pool_pecr,
+                   cost=_conv_pool_cost, sparse=True,
+                   fused_with="ecr_pallas", launch=_launch_pecr))

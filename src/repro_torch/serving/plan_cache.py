@@ -1,0 +1,65 @@
+"""Plan cache: one built runner per (bucket, plan) key (counterpart of
+`repro.serving.plan_cache`).
+
+The key is (batch bucket, block_c, per-layer (kind, impl) decisions, graph
+signature): the measured occupancies only reach the executed program through
+which side of `occ_threshold` each layer fell, so two re-plans whose
+occupancies drifted but whose schedules agree share one entry.
+
+The reference compiles each key ahead of time with XLA. PyTorch runs
+eagerly, so a build here makes the runner closure once per key, and
+`compiles` counts builds; capturing the runner as a CUDA graph is a later
+step.
+"""
+from __future__ import annotations
+
+from collections import OrderedDict
+from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class PlanKey:
+    bucket: int  # padded batch size the runner serves
+    block_c: int  # the plan's channel-block size (0 = per-layer auto)
+    occ_sig: tuple  # per-layer (kind, impl) decisions — the occupancy bucket
+    graph_sig: tuple  # LayerGraph.signature() — the network's structure
+
+
+def plan_key(bucket: int, plan) -> PlanKey:
+    """The cache key of executing `plan` at batch size `bucket`."""
+    return PlanKey(bucket=int(bucket), block_c=int(plan.block_c),
+                   occ_sig=tuple((lp.kind, lp.impl) for lp in plan.layers),
+                   graph_sig=plan.graph.signature())
+
+
+class PlanCache:
+    """LRU cache of built runners, with hit/miss/build counters."""
+
+    def __init__(self, max_entries: int = 32):
+        self.max_entries = max_entries
+        self._entries: OrderedDict = OrderedDict()  # PlanKey -> (runner, plan)
+        self.compiles = 0
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+
+    def get_or_compile(self, key: PlanKey, plan, build):
+        """Return the runner for `key`, building it via `build()` on a miss
+        (exactly once per distinct key while the entry is resident)."""
+        if key in self._entries:
+            self.hits += 1
+            self._entries.move_to_end(key)
+            return self._entries[key][0]
+        self.misses += 1
+        exe = build()
+        self.compiles += 1
+        self._entries[key] = (exe, plan)
+        if len(self._entries) > self.max_entries:
+            self._entries.popitem(last=False)
+            self.evictions += 1
+        return exe
+
+    def stats(self) -> dict:
+        return {"entries": len(self._entries), "compiles": self.compiles,
+                "hits": self.hits, "misses": self.misses,
+                "evictions": self.evictions}

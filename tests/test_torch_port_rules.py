@@ -1,0 +1,106 @@
+"""The port's import and device rules: repro_torch imports neither jax nor
+anything of the JAX package, imports cleanly with jax unavailable, and its
+entry points raise rather than fall back to the CPU when no card exists."""
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+SCRIPT = ROOT / "chip_smoke.py"
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + [SCRIPT],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_and_no_reference_imports(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_package_imports_with_jax_unavailable():
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["repro"] = None
+        import repro_torch.launch.serve_cnn
+        import repro_torch.kernels.conv_pool.ops
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, env=env, timeout=120)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+
+
+def test_entry_points_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the no-card rule is a host check")
+    from repro_torch.configs.lenet import LENET_REDUCED
+    from repro_torch.convert import params_from_jax
+    from repro_torch.graph import init_graph
+    from repro_torch.launch.serve_cnn import serve_cnn
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_cnn(model="lenet", n_requests=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_graph(torch.Generator().manual_seed(0), LENET_REDUCED)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params_from_jax({"conv": [], "dense": []})
+
+
+def test_kernel_wrapper_never_runs_the_plain_version_off_the_host():
+    """A tensor that is neither on the host nor on CUDA raises; it is not
+    quietly handed to the plain version."""
+    from repro_torch.kernels.ecr_conv.kernel import ecr_conv_batch
+
+    x = torch.zeros(1, 4, 4, 8, device="meta")
+    w = torch.zeros(3, 3, 8, 4, device="meta")
+    ids = torch.zeros(1, 1, dtype=torch.int32, device="meta")
+    cnt = torch.zeros(1, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        ecr_conv_batch(x, w, ids, cnt, stride=1, block_c=8)
+
+
+def test_kernel_build_stays_in_the_checkout(tmp_path, monkeypatch):
+    """The library builds into the checkout's build/, or the named
+    directory; an installed copy with no directory named raises."""
+    from repro_torch.kernels import cuda
+
+    monkeypatch.delenv("REPRO_TORCH_BUILD_DIR", raising=False)
+    assert cuda.build_dir() == ROOT / "build" / "kernels"
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path))
+    assert cuda.library_path().parent == tmp_path
+    monkeypatch.delenv("REPRO_TORCH_BUILD_DIR")
+    monkeypatch.setattr(cuda, "_CHECKOUT", tmp_path)
+    with pytest.raises(RuntimeError, match="REPRO_TORCH_BUILD_DIR"):
+        cuda.build_dir()
+
+
+def test_chip_smoke_refuses_without_cuda(tmp_path):
+    """The card check runs first: without CUDA the script exits non-zero and
+    prints no result line."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, str(SCRIPT)], capture_output=True,
+                       text=True, env=env, timeout=120, cwd=tmp_path)
+    assert r.returncode != 0
+    assert '"ok": true' not in r.stdout
