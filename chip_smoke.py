@@ -6,8 +6,8 @@
 1. Refuses at once without CUDA, or when it does not sit in a checkout of the
    repository (it needs src/repro_torch). Prints the card's name and power
    limit as nvidia-smi reports them.
-2. Builds the CUDA kernels from the checkout's sources with nvcc and times
-   the build.
+2. Builds the CUDA kernels from the checkout's sources with nvcc (one nvcc
+   per source, in parallel) and times the build.
 3. Serves the published VGG-19 (3x224x224, 1000 classes, random weights from
    a fixed generator seed with the dead-filter shift) through the port's
    Engine (block_c=8, occ_threshold=0.75, max_batch=8, SimClock): 16 requests
@@ -17,20 +17,42 @@
    path on cuDNN (TF32 off) at rtol=1e-3 plus atol=1e-3*max|dense| — sixteen
    fp32 conv layers summed in another order. Then LeNet-5 and AlexNet serve
    8 requests each with the same check.
-4. Holds each kernel against its plain PyTorch version on the same packed
-   operands, at the real input of every sparse layer of the served VGG-19
-   plan (batch 8, and the single-image branch at N=1), and at edge cases
-   (a cnt=0 sample, stride 4 with k 11, k 5 with pad 0, odd spatial sizes,
-   C % block_c != 0): max|kernel - plain| <= 1e-4*max|plain| + 1e-5. The
-   ops are also held against cuDNN. Times kernel, plain version and the
-   library call (F.conv2d, + relu + max_pool2d for PECR) with CUDA events
-   after warm-up, in turns, and computes each call's bound from its data.
-5. Prints the kernel table as one JSON line, the card line, and last
-   {"ok": true, "device": {...}}. Any failure exits non-zero without it.
-   In the table, ms / plain_ms / library_ms / bound_ms are sums over the
-   served plan's layers that run the kernel (one batch-8 VGG-19 forward);
-   launches count the serving run only. `--layers-out PATH` also writes the
-   per-layer numbers there as JSON.
+4. Three more VGG-19 phases, 16 requests each, counters set to 0 just before
+   each and read just after:
+   - pruned to block density 0.3 (prune_graph_params, probed on the
+     calibration batch), fp32: bsr_matmul must launch; logits within the
+     same tolerance of the dense cuDNN path on the pruned weights;
+   - unpruned, int8=True: ecr_conv_int8 must launch; engine logits bitwise
+     equal to run_plan on the same 8-bucket; top-1 agreement and max drift
+     against the fp32 dense path are printed;
+   - pruned to 0.3 and int8=True: bsr_matmul_int8 must launch; the same
+     checks. The int8 phases are planned once at the default int8_budget
+     0.98 (its Int8Report is printed) and served at int8_budget=0.0: random
+     weights give near-tied logits, so the probe is no accuracy claim here.
+5. Holds each kernel against its plain PyTorch version on the same packed
+   operands, at the real input of every layer of each served plan that runs
+   it (batch 8, and the single-image branch at N=1 for the conv kernels),
+   and at edge cases (a cnt=0 sample or row-block, stride 4 with k 11, k 5
+   with pad 0, K=27 and other ragged K/O/P, C % block_c != 0, int8 values at
+   +-127 over VGG-19's longest reduction). fp32 kernels:
+   max|kernel - plain| <= 1e-4*max|plain| + 1e-5*min(1, max|plain|): the
+   absolute floor shrinks with the data, since pruning leaves the deep
+   layers' outputs far below 1e-5; int8 kernels: bitwise equal. The ops are also held against cuDNN (fp32) or their int8 oracle.
+   Times kernel, plain version and the library call with CUDA events after
+   warm-up, in turns, and computes each call's bound from its data. The
+   library call is F.conv2d (+ relu + max_pool2d for PECR) for the fp32 conv
+   kernels, F.conv2d on the dequantized operands for the int8 conv,
+   torch.matmul on the padded dense operands for BSR, and torch._int_mm plus
+   the rescale for int8 BSR; none of these is on the port's path.
+6. Prints the kernel table as one JSON line (the eight TPU kernels of the
+   repo's CNN path; the single-image rows are the batched kernels at N=1),
+   the card line, and last {"ok": true, "device": {...}}. Any failure exits
+   non-zero without it. In the table, ms / plain_ms / library_ms / bound_ms
+   are sums over the served plan's layers that run the kernel (one batch-8
+   VGG-19 forward, or N=1 for the single-image rows); launches count the
+   serving run of the phase that runs the kernel, and are 0 for the
+   single-image rows, which the engine (buckets of 2 or more) never runs. `--layers-out PATH` also
+   writes the per-layer numbers there as JSON.
 """
 from __future__ import annotations
 
@@ -44,8 +66,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PEAK_FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores
+PEAK_INT8_OPS = 1979e12  # H100 SXM, int8 tensor cores, dense
 PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3
-KERNEL_TOL = "max|kernel - plain| <= 1e-4*max|plain| + 1e-5"
+KERNEL_TOL = ("fp32: max|kernel - plain| <= 1e-4*max|plain| + 1e-5*min(1, max|plain|); "
+              "int8: bitwise")
+PRUNE_DENSITY = 0.3
 
 
 def fail(msg: str) -> int:
@@ -84,11 +109,12 @@ def time_turns(fns: dict, rounds: int = 5, iters: int = 10) -> dict:
     return {k: sorted(v)[len(v) // 2] for k, v in samples.items()}
 
 
-def work_bound(x, w, ids, cnt, *, stride, block_c, out_elems):
-    """(flop time, byte time) in ms for what these inputs need: the live
-    blocks' multiply-adds, each scheduled input block read once, the weights
-    of the union of scheduled blocks read once, the schedules, the output
-    written once."""
+def work_bound(x, w, ids, cnt, *, stride, block_c, out_elems, elem_bytes=4,
+               peak=PEAK_FP32_FLOPS):
+    """(op time, byte time) in ms of a conv kernel for what these inputs
+    need: the live blocks' multiply-adds, each scheduled input block read
+    once, the weights of the union of scheduled blocks read once (operands
+    at `elem_bytes`), the schedules and the fp32 output written once."""
     n, h, wd, c = x.shape
     kh, kw, _, o = w.shape
     oh, ow = (h - kh) // stride + 1, (wd - kw) // stride + 1
@@ -96,10 +122,32 @@ def work_bound(x, w, ids, cnt, *, stride, block_c, out_elems):
     ids_h = ids.tolist()
     live = sum(counts)
     union = {j for b in range(n) for j in ids_h[b][:counts[b]]}
-    flops = 2.0 * oh * ow * o * kh * kw * block_c * live
-    nbytes = 4.0 * (live * block_c * h * wd + len(union) * block_c * kh * kw * o
-                    + ids.numel() + cnt.numel() + out_elems)
-    return flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    ops = 2.0 * oh * ow * o * kh * kw * block_c * live
+    nbytes = (elem_bytes * (live * block_c * h * wd + len(union) * block_c * kh * kw * o)
+              + 4.0 * (ids.numel() + cnt.numel() + out_elems))
+    return ops / peak * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+
+
+def bsr_bound(h, d, ids, cnt, block, *, elem_bytes, peak):
+    """(op time, byte time) in ms of a BSR matmul h (T,F) @ w (F,d) for what
+    this schedule needs: 2*d multiply-adds per live element of h (blocks
+    clipped to T and F), each live block of h read once, the rows of w under
+    the union of live reduction blocks read once, the fp32 output written
+    once, and the schedules."""
+    t, f = h.shape
+    bt, bf = block[0], block[1]
+    counts = cnt.clamp(0, ids.shape[1]).tolist()
+    ids_h = ids.tolist()
+    area, union = 0, set()
+    for i, c in enumerate(counts):
+        rows = min(bt, t - i * bt)
+        for j in ids_h[i][:c]:
+            area += rows * max(0, min(bf, f - j * bf))
+            union.add(j)
+    w_rows = sum(max(0, min(bf, f - j * bf)) for j in union)
+    ops = 2.0 * area * d
+    nbytes = elem_bytes * (area + w_rows * d) + 4.0 * (t * d + ids.numel() + cnt.numel())
+    return ops / peak * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
 
 
 class KernelBook:
@@ -107,15 +155,29 @@ class KernelBook:
 
     def __init__(self):
         self.rows = []
-        self.max_err = {"ecr_conv": 0.0, "conv_pool": 0.0}
+        self.max_err = {}
 
     def check(self, kernel, label, got, want):
         err = float((got - want).abs().max())
-        lim = 1e-4 * float(want.abs().max()) + 1e-5
-        self.max_err[kernel] = max(self.max_err[kernel], err)
-        print(f"  {kernel:9s} {label:44s} max_abs_err={err:.3e} (limit {lim:.3e})")
+        scale = float(want.abs().max())
+        lim = 1e-4 * scale + 1e-5 * min(1.0, scale)
+        self.max_err[kernel] = max(self.max_err.get(kernel, 0.0), err)
+        print(f"  {kernel:15s} {label:46s} max_abs_err={err:.3e} (limit {lim:.3e}, "
+              f"max|plain|={scale:.3e})")
         if not err <= lim:
             raise AssertionError(f"{kernel} {label}: {err} > {lim} ({KERNEL_TOL})")
+
+    def exact(self, kernel, label, got, want):
+        """int8 kernels: bitwise equal to the plain version."""
+        import torch
+
+        err = float((got - want).abs().max())
+        same = got.shape == want.shape and bool(torch.equal(got, want))
+        self.max_err[kernel] = max(self.max_err.get(kernel, 0.0), err)
+        print(f"  {kernel:15s} {label:46s} bitwise={same} max_abs_err={err:.3e}")
+        if not same:
+            raise AssertionError(f"{kernel} {label}: not bitwise equal ({KERNEL_TOL})")
+
 
 
 def check_layer_kernels(book, unit, kind, xp, w, pool, timed: bool):
@@ -222,16 +284,246 @@ def edge_cases(book, dev):
                             torch.from_numpy(w).to(dev), pool, timed=False)
 
 
+def _row(name, unit, xp, w, t, ft, bt, extra=None):
+    row = {"kernel": name, "layer": f"conv{unit.index + 1}",
+           "x_nchw": list(xp.shape), "w_oihw": list(w.shape),
+           "ms": t["kernel"], "plain_ms": t["plain"], "library_ms": t["library"],
+           "flop_ms": ft, "byte_ms": bt, "bound_ms": max(ft, bt),
+           "bound_by": "operations" if ft >= bt else "bytes"}
+    row.update(extra or {})
+    return row
+
+
+def _print_times(label, t, ft, bt):
+    print(f"    {label}: ms={t['kernel']:.4f} plain_ms={t['plain']:.4f} "
+          f"library_ms={t['library']:.4f} bound_ms={max(ft, bt):.4f} "
+          f"({'operations' if ft >= bt else 'bytes'})")
+
+
+def check_ecr_int8_layer(book, unit, xp, w, timed: bool):
+    """int8 ECR kernel vs its plain version (bitwise) on one layer's real
+    input, batched and at N=1 (the single-image kernel); the op vs its int8
+    oracle; when `timed`, kernel/plain/library times, where the library call
+    is F.conv2d on the dequantized operands."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.graph.registry import unit_launch
+    from repro_torch.quant.kernels import ecr_conv_int8_batch, ecr_conv_int8_plain
+    from repro_torch.quant.ops import (
+        ecr_conv_int8,
+        ecr_conv_int8_ref,
+        pack_int8_operands,
+        pack_int8_operands_single,
+    )
+
+    stride = unit.conv.stride
+    launch = unit_launch("conv", "ecr_int8", unit, block_c=8, batch=xp.shape[0])
+    bc = launch.block_c
+    label = f"conv{unit.index + 1} x{tuple(xp.shape)} w{tuple(w.shape)}"
+    packed = pack_int8_operands(xp, w, launch)
+    single = pack_int8_operands_single(xp[0], w, launch)
+
+    def kernel(args):
+        return ecr_conv_int8_batch(*args, stride=stride, block_c=bc)
+
+    def plain(args):
+        return ecr_conv_int8_plain(*args, stride=stride, block_c=bc)
+
+    got = kernel(packed)
+    torch.cuda.synchronize()
+    book.exact("ecr_conv_int8", label + f" N={xp.shape[0]}", got, plain(packed))
+    got1 = kernel(single)
+    book.exact("ecr_conv_int8_n1", label + " N=1", got1, plain(single))
+    book.check("ecr_conv_int8 op", label + " vs int8 oracle",
+               ecr_conv_int8(xp, w, stride, block_c=8), ecr_conv_int8_ref(xp, w, stride))
+    if not timed:
+        return
+
+    def dequantized(args):
+        x, wk, sx, sw = args[:4]
+        xd = (x.float() * sx.reshape(-1, 1, 1, 1)).permute(0, 3, 1, 2).contiguous()
+        wd = (wk.float() * sw.reshape(1, 1, 1, -1)).permute(3, 2, 0, 1).contiguous()
+        return xd, wd
+
+    xd, wd = dequantized(packed)
+    xd1, wd1 = dequantized(single)
+    t = time_turns({"kernel": lambda: kernel(packed), "plain": lambda: plain(packed),
+                    "library": lambda: F.conv2d(xd, wd, stride=stride)})
+    t1 = time_turns({"kernel": lambda: kernel(single), "plain": lambda: plain(single),
+                     "library": lambda: F.conv2d(xd1, wd1, stride=stride)})
+    x, wk, _, _, ids, cnt = packed
+    ft, bt = work_bound(x, wk, ids, cnt, stride=stride, block_c=bc,
+                        out_elems=got.numel(), elem_bytes=1, peak=PEAK_INT8_OPS)
+    x1, wk1, _, _, ids1, cnt1 = single
+    ft1, bt1 = work_bound(x1, wk1, ids1, cnt1, stride=stride, block_c=bc,
+                          out_elems=got1.numel(), elem_bytes=1, peak=PEAK_INT8_OPS)
+    meta = {"block_c": bc, "cnt": cnt.tolist(), "n_cb": launch.n_cb}
+    book.rows.append(_row("ecr_conv_int8", unit, xp, w, t, ft, bt, meta))
+    book.rows.append(_row("ecr_conv_int8_n1", unit, xp[:1], w, t1, ft1, bt1,
+                          {"block_c": bc, "cnt": cnt1.tolist(), "n_cb": launch.n_cb}))
+    _print_times(f"N={xp.shape[0]}", t, ft, bt)
+    _print_times("N=1", t1, ft1, bt1)
+
+
+def check_bsr_layer(book, unit, xp, w, *, int8: bool, timed: bool):
+    """BSR kernel (fp32 or int8) vs its plain version on one layer's real
+    input (fp32 within tolerance, int8 bitwise), the op vs cuDNN (fp32) or
+    its int8 oracle, and, when `timed`, kernel/plain/library times: the
+    library call is torch.matmul on the padded dense operands (fp32) or
+    torch._int_mm plus the rescale (int8)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.bsr_matmul.kernel import bsr_matmul, bsr_matmul_plain
+    from repro_torch.quant.kernels import bsr_matmul_int8, bsr_matmul_int8_plain
+    from repro_torch.quant.ops import conv2d_bsr_int8, conv2d_bsr_int8_ref, pack_bsr_int8_operands
+    from repro_torch.sparse_weights.conv import conv2d_bsr, pack_bsr_operands
+
+    stride = unit.conv.stride
+    label = f"conv{unit.index + 1} x{tuple(xp.shape)} w{tuple(w.shape)}"
+    if int8:
+        h, at, sh, sa, ids, cnt, launch, _, _ = pack_bsr_int8_operands(xp, w, stride)
+        name = "bsr_matmul_int8"
+    else:
+        h, at, ids, cnt, launch, _, _ = pack_bsr_operands(xp, w, stride)
+        name = "bsr_matmul"
+    blk = (launch.bt, launch.bf)
+
+    def kernel():
+        if int8:
+            return bsr_matmul_int8(h, at, sh, sa, ids, cnt, block=blk)
+        return bsr_matmul(h, at, ids, cnt, block=blk)
+
+    def plain():
+        if int8:
+            return bsr_matmul_int8_plain(h, at, sh, sa, ids, cnt, block=blk)
+        return bsr_matmul_plain(h, at, ids, cnt, block=blk)
+
+    got = kernel()
+    torch.cuda.synchronize()
+    if int8:
+        book.exact(name, label, got, plain())
+        book.check(name + " op", label + " vs int8 oracle",
+                   conv2d_bsr_int8(xp, w, stride), conv2d_bsr_int8_ref(xp, w, stride))
+    else:
+        book.check(name, label, got, plain())
+        book.check(name + " op", label + " vs cuDNN", conv2d_bsr(xp, w, stride),
+                   F.conv2d(xp, w, stride=stride))
+    if not timed:
+        return
+    # the dense operands padded as the reference pads them: rows and taps to
+    # block multiples, patches to a multiple of 128
+    t_pad, f_pad, d_pad = (-launch.t) % launch.bt, (-launch.f) % launch.bf, (-launch.d) % 128
+    hp = F.pad(h, (0, f_pad, 0, t_pad))
+    atp = F.pad(at, (0, d_pad, 0, f_pad))
+    if int8:
+        shp = F.pad(sh, (0, 0, 0, t_pad), value=1.0)
+
+        def library():
+            return (torch._int_mm(hp, atp).float() * shp) * sa
+    else:
+        def library():
+            return torch.matmul(hp, atp)
+
+    t = time_turns({"kernel": kernel, "plain": plain, "library": library})
+    ft, bt = bsr_bound(h, at.shape[1], ids, cnt, blk, elem_bytes=1 if int8 else 4,
+                       peak=PEAK_INT8_OPS if int8 else PEAK_FP32_FLOPS)
+    meta = {"block": list(blk), "live_blocks": int(cnt.clamp(min=0).sum()),
+            "blocks": launch.nt * launch.nf, "t_f_d": [launch.t, launch.f, launch.d]}
+    book.rows.append(_row(name, unit, xp, w, t, ft, bt, meta))
+    _print_times(f"live {meta['live_blocks']}/{meta['blocks']} blocks", t, ft, bt)
+
+
+def edge_cases_new(book, dev):
+    """The BSR and int8 kernels at shapes and values the served VGG-19 does
+    not reach: ragged K/O/P, an all-pruned row-block (cnt = 0), stride 4
+    with k 11, k 5 with pad 0, an int8 cnt = 0 pad sample, and int8 values
+    at +-127 over VGG-19's longest reduction (512 * 3 * 3 = 4608 taps)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.graph.ir import ConvSpec, ConvUnit
+    from repro_torch.kernels.bsr_matmul.ops import block_schedule
+    from repro_torch.quant.kernels import (
+        bsr_matmul_int8,
+        bsr_matmul_int8_plain,
+        ecr_conv_int8_batch,
+        ecr_conv_int8_plain,
+    )
+    from repro_torch.sparse_weights.format import conv_weight_matrix, weight_block
+    from repro_torch.sparse_weights.prune import prune_matrix
+
+    cases = [  # (c, h, o, k, stride, pad)
+        (3, 30, 64, 3, 1, 1),       # K = 27 (VGG-19 conv1_1), ragged P
+        (1, 32, 6, 5, 1, 0),        # LeNet-5 conv1: O = 6, K = 25, k 5 pad 0
+        (3, 224, 64, 11, 4, 2),     # AlexNet conv1: stride 4, k 11, K = 363
+        (64, 27, 192, 5, 1, 2),     # AlexNet conv2: k 5
+        (20, 15, 70, 3, 2, 1),      # ragged O and C at stride 2
+    ]
+    rng = np.random.default_rng(11)
+    for i, (c, h, o, k, s, pad) in enumerate(cases):
+        x = rng.random((3, c, h, h), dtype=np.float32)
+        x *= rng.random((3, c, 1, 1)) > 0.4
+        x[-1] = 0.0  # the batcher's all-zero pad sample
+        w = rng.standard_normal((o, c, k, k)).astype(np.float32) / (c * k * k) ** 0.5
+        wt = torch.from_numpy(w).to(dev)
+        m = conv_weight_matrix(wt)
+        m = prune_matrix(m, PRUNE_DENSITY, weight_block(*m.shape))[0]
+        m[:8] = 0.0  # an all-pruned row-block: cnt = 0
+        wt = m.reshape(wt.shape).contiguous()
+        spec = ConvSpec(o, k=k, stride=s, pad=pad)
+        oh = (h + 2 * pad - k) // s + 1
+        unit = ConvUnit(index=200 + i, stage=0, slot=0, conv=spec, relu=True,
+                        pool=None, in_shape=(c, h, h), out_shape=(o, oh, oh))
+        xp = F.pad(torch.from_numpy(x).to(dev), (pad,) * 4)
+        check_bsr_layer(book, unit, xp, wt, int8=False, timed=False)
+        check_bsr_layer(book, unit, xp, wt, int8=True, timed=False)
+        check_ecr_int8_layer(book, unit, xp, wt, timed=False)
+
+    # int8 extremes: every product is 127 * 127, summed over 4608 taps
+    taps = 512 * 9
+    h8 = torch.full((16, taps), 127, dtype=torch.int8, device=dev)
+    h8[8:] = -127
+    w8 = torch.full((taps, 300), 127, dtype=torch.int8, device=dev)
+    ids, cnt = block_schedule(h8, 8, 128)
+    one16, one = torch.ones(16, device=dev), torch.ones(1, device=dev)
+    got = bsr_matmul_int8(h8, w8, one16, one, ids, cnt, block=(8, 128))
+    book.exact("bsr_matmul_int8", "+-127 over K=4608", got,
+               bsr_matmul_int8_plain(h8, w8, one16, one, ids, cnt, block=(8, 128)))
+    if not (torch.all(got[:8] == 127 * 127 * taps) and torch.all(got[8:] == -127 * 127 * taps)):
+        raise AssertionError("bsr_matmul_int8 extremes are not exact")
+    x8 = torch.full((2, 16, 16, 512), 127, dtype=torch.int8, device=dev)
+    x8[1] = 0  # a cnt = 0 pad sample
+    w8 = torch.full((3, 3, 512, 64), -127, dtype=torch.int8, device=dev)
+    ids = torch.arange(64, dtype=torch.int32, device=dev).repeat(2, 1).contiguous()
+    cnt = torch.tensor([64, 0], dtype=torch.int32, device=dev)
+    ones2, ones64 = torch.ones(2, device=dev), torch.ones(64, device=dev)
+    got = ecr_conv_int8_batch(x8, w8, ones2, ones64, ids, cnt, stride=1, block_c=8)
+    book.exact("ecr_conv_int8", "+-127 over C*kh*kw=4608, a cnt=0 sample", got,
+               ecr_conv_int8_plain(x8, w8, ones2, ones64, ids, cnt, stride=1, block_c=8))
+    if not (torch.all(got[0] == -127 * 127 * taps) and torch.all(got[1] == 0)):
+        raise AssertionError("ecr_conv_int8 extremes are not exact")
+
+
 def kernel_category(name: str) -> str:
     """Coarse class of a CUDA kernel by its symbol name."""
+    int8 = "signed char" in name or "Iai" in name
+    if "bsr_matmul_kernel" in name:
+        return "bsr int8 kernel" if int8 else "bsr kernel"
     if "ecr_conv_kernel" in name:
-        return "pecr kernel" if "ILb1E" in name or "<true>" in name else "ecr kernel"
+        if int8:
+            return "ecr int8 kernel"
+        return "pecr kernel" if "Lb1E" in name or "true>" in name else "ecr kernel"
     low = name.lower()
     if any(t in low for t in ("cudnn", "xmma", "conv", "gemm", "cutlass")):
         return "cuDNN/cuBLAS (dense convs, head)"
     if "sort" in low or "radix" in low:
         return "argsort (compaction)"
-    return "other (pad/permute/gather/relu/pool/occupancy)"
+    if "im2col" in low:
+        return "im2col (BSR patches)"
+    return "other (pad/permute/gather/relu/pool/occupancy/quantize)"
 
 
 def service_breakdown(plan, params, imgs) -> dict:
@@ -280,28 +572,171 @@ def service_breakdown(plan, params, imgs) -> dict:
                             for k, v in top]}
 
 
-def serve(graph, n_requests, *, seed, dev):
-    """An Engine over `graph` (random weights from generator `seed`, dead
-    filters shifted, planned on 2 calibration images) and its request
-    images. Returns (engine, params, imgs, planning seconds, clock)."""
+def make_params(graph, *, seed, dev, prune_density=1.0):
+    """Random weights from generator `seed` with the dead filters shifted,
+    optionally block-pruned (the calibration batch as probe), and the 2
+    calibration images. Returns (params, calib, prune report or None)."""
     import torch
 
     from repro_torch.graph import init_graph
     from repro_torch.launch.serve_cnn import synth_requests
     from repro_torch.models.cnn import shift_dead_channels
-    from repro_torch.serving import Engine, SimClock
+    from repro_torch.sparse_weights.prune import prune_graph_params
 
     params = shift_dead_channels(init_graph(torch.Generator().manual_seed(seed),
                                             graph, device=dev))
     calib = torch.stack(synth_requests(graph, 2, seed=seed + 1, device=dev))
+    report = None
+    if prune_density < 1.0:
+        params, report = prune_graph_params(params, prune_density, graph, probe=calib)
+    return params, calib, report
+
+
+def serve(graph, n_requests, *, seed, dev, prune_density=1.0, int8=False,
+          int8_budget=0.98):
+    """An Engine over `make_params`' weights, planned on its 2 calibration
+    images, and its request images. Returns (engine, params, imgs, planning
+    seconds, clock, prune report)."""
+    from repro_torch.launch.serve_cnn import synth_requests
+    from repro_torch.serving import Engine, SimClock
+
+    params, calib, report = make_params(graph, seed=seed, dev=dev,
+                                        prune_density=prune_density)
     clock = SimClock()
     t0 = time.perf_counter()
     eng = Engine(params, graph=graph, calib=calib, occ_threshold=0.75,
-                 block_c=8, max_batch=8, clock=clock, device=dev)
+                 block_c=8, max_batch=8, clock=clock, int8=int8,
+                 int8_budget=int8_budget, device=dev)
     plan_s = time.perf_counter() - t0
     eng.warmup()
     imgs = synth_requests(graph, n_requests, seed=seed + 2, device=dev)
-    return eng, params, imgs, plan_s, clock
+    return eng, params, imgs, plan_s, clock, report
+
+
+def plan_line(plan) -> str:
+    return " ".join(f"conv{lp.index + 1}={lp.impl}@{lp.occupancy:.2f}"
+                    for lp in plan.layers)
+
+
+def reset_counts(wrappers) -> None:
+    for fn in wrappers.values():
+        fn.launches = 0
+
+
+def read_counts(wrappers) -> dict:
+    return {k: fn.launches for k, fn in wrappers.items()}
+
+
+def variant_phase(name, graph, dev, wrappers, failures, *, prune_density,
+                  int8, want):
+    """One served VGG-19 variant (pruned and/or int8): plan, counters to 0,
+    16 requests, counters read; `want` is the wrapper that must have
+    launched. Returns (engine plan, params, request batch, launches,
+    summary) for the kernel checks."""
+    import numpy as np
+    import torch
+
+    from repro_torch.graph import run_graph
+    from repro_torch.pipeline import plan_network, run_plan
+    from repro_torch.serving import replay_stream
+
+    budget = 0.98
+    if int8:
+        # plan once at the default budget, to show what the probe does
+        p0, calib0, _ = make_params(graph, seed=0, dev=dev, prune_density=prune_density)
+        t0 = time.perf_counter()
+        probed = plan_network(p0, calib0, graph, occ_threshold=0.75, block_c=8,
+                              int8=True, int8_budget=0.98)
+        rep = probed.int8_report
+        print(f"{name} int8 probe at int8_budget=0.98 ({time.perf_counter() - t0:.2f} s): "
+              f"{len(rep.layers)} layers kept {list(rep.layers)}, {len(rep.demoted)} "
+              f"demoted {list(rep.demoted)}, top-1 agreement {rep.top1_agreement:.3f}, "
+              f"max logit drift {rep.max_logit_drift:.3e}; plan {plan_line(probed)}")
+        del p0, calib0, probed
+        budget = 0.0
+    eng, params, imgs, plan_s, clock, prep = serve(
+        graph, 16, seed=0, dev=dev, prune_density=prune_density, int8=int8,
+        int8_budget=budget)
+    plan = eng.plan
+    if prep is not None:
+        print(f"{name} pruned to {prep.density:.4f} achieved block density (target "
+              f"{prune_density}): probe max logit drift {prep.max_logit_drift:.3e}, "
+              f"top-1 agreement {prep.top1_agreement:.2f}")
+    served_at = f" (served at int8_budget={budget})" if int8 else ""
+    print(f"{name} plan ({plan_s:.2f} s){served_at}: {plan_line(plan)}")
+    print(f"{name} plan counts: {plan.counts()}")
+    reset_counts(wrappers)
+    t_start = clock()
+    wall0 = time.perf_counter()
+    results = replay_stream(eng, imgs, rate_rps=1000.0)
+    wall = time.perf_counter() - wall0
+    launches = read_counts(wrappers)
+    makespan = clock() - t_start
+    stats = eng.stats()
+    print(f"{name} served {len(results)} requests: launches {launches}, "
+          f"{stats['batches']} batches, throughput {len(results) / makespan:.1f} req/s "
+          f"(SimClock, measured service), p50={stats['p50_ms']:.2f} ms "
+          f"p95={stats['p95_ms']:.2f} ms, host wall {wall:.2f} s")
+    if launches[want] < 1:
+        failures.append(f"{name}: {want} never launched on the served path: {launches}")
+    served = np.stack([r.logits for r in sorted(results, key=lambda r: r.id)])
+    batch = torch.stack(imgs)
+    dense = run_graph(graph, params, batch, "dense").cpu().numpy()
+    scale = float(np.abs(dense).max())
+    err = float(np.abs(served - dense).max())
+    if not np.all(np.isfinite(served)) or served.shape != (16, 1000):
+        failures.append(f"{name}: served logits not finite or of the wrong shape")
+    if int8:
+        agree = float((served.argmax(-1) == dense.argmax(-1)).mean())
+        print(f"{name} served logits vs the fp32 dense path: top-1 agreement "
+              f"{agree:.3f}, max drift {err:.3e} (max|dense|={scale:.3e})")
+        ref8 = run_plan(plan, params, batch[:8]).cpu().numpy()
+        same = bool(np.array_equal(served[:8], ref8))
+        print(f"{name} engine logits bitwise equal to run_plan on the same 8-bucket: "
+              f"{same} (max diff {float(np.abs(served[:8] - ref8).max()):.3e})")
+        if not same:
+            failures.append(f"{name}: engine logits differ from run_plan on its bucket")
+    else:
+        ok = np.allclose(served, dense, rtol=1e-3, atol=1e-3 * scale)
+        print(f"{name} engine vs dense cuDNN on the pruned weights: max_abs_err={err:.3e} "
+              f"(max|dense|={scale:.3e}, rtol=1e-3, atol=1e-3*max|dense|): "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"{name}: engine logits disagree with the dense path")
+    summary = {"plan": plan_line(plan), "counts": plan.counts(), "launches": launches,
+               "p50_ms": stats["p50_ms"], "p95_ms": stats["p95_ms"],
+               "throughput_rps": len(results) / makespan, "max_abs_vs_dense": err,
+               "max_abs_dense": scale,
+               "prune_density": None if prep is None else prep.density}
+    return plan, params, batch, launches, summary
+
+
+def variant_kernel_checks(book, plan, params, batch, failures, name):
+    """Every layer of a variant plan at its real input (batch 8): the new
+    kernels checked and timed, the ECR / PECR layers checked. Rows are
+    tagged with the phase."""
+    from repro_torch.graph import pad2d, run_unit
+
+    x = batch[:8]
+    first = len(book.rows)
+    for lp, w in zip(plan.layers, params["conv"]):
+        unit = lp.to_unit()
+        xp = pad2d(x, unit.conv.pad)
+        try:
+            if lp.impl in ("bsr", "bsr_int8"):
+                check_bsr_layer(book, unit, xp, w, int8=lp.impl == "bsr_int8",
+                                timed=True)
+            elif lp.impl == "ecr_int8":
+                check_ecr_int8_layer(book, unit, xp, w, timed=True)
+            elif lp.impl in ("ecr_pallas", "pecr_pallas"):
+                pool = unit.pool.p if lp.kind == "conv_pool" else 0
+                check_layer_kernels(book, unit, lp.kind, xp, w, pool, timed=False)
+        except Exception:
+            traceback.print_exc()
+            failures.append(f"{name}: kernel check failed at conv{unit.index + 1}")
+        x = run_unit(x, w, unit, "conv", "dense")
+    for row in book.rows[first:]:
+        row["phase"] = name
 
 
 def main() -> int:
@@ -325,9 +760,11 @@ def main() -> int:
     from repro_torch.device import resolve_device
     from repro_torch.graph import pad2d, run_graph, run_unit
     from repro_torch.kernels import cuda as kcuda
+    from repro_torch.kernels.bsr_matmul.kernel import bsr_matmul
     from repro_torch.kernels.conv_pool.kernel import conv_pool_batch
     from repro_torch.kernels.ecr_conv.kernel import ecr_conv_batch
     from repro_torch.pipeline import run_plan
+    from repro_torch.quant.kernels import bsr_matmul_int8, ecr_conv_int8_batch
     from repro_torch.serving import replay_stream
 
     dev = resolve_device("cuda")  # also turns TF32 off for cuDNN and cuBLAS
@@ -342,22 +779,22 @@ def main() -> int:
 
     book = KernelBook()
     failures = []
+    wrappers = {"ecr_conv": ecr_conv_batch, "conv_pool": conv_pool_batch,
+                "bsr_matmul": bsr_matmul, "ecr_conv_int8": ecr_conv_int8_batch,
+                "bsr_matmul_int8": bsr_matmul_int8}
 
     # ---- the main path: published VGG-19 through the Engine ----------------
     graph = vgg19_graph(CNNConfig())
-    eng, params, imgs, plan_s, clock = serve(graph, 16, seed=0, dev=dev)
+    eng, params, imgs, plan_s, clock, _ = serve(graph, 16, seed=0, dev=dev)
     plan = eng.plan
-    print(f"vgg19 plan ({plan_s:.2f} s): " + " ".join(
-        f"conv{lp.index + 1}={lp.impl}@{lp.occupancy:.2f}" for lp in plan.layers))
+    print(f"vgg19 plan ({plan_s:.2f} s): {plan_line(plan)}")
     impls = [lp.impl for lp in plan.layers]
-    ecr_conv_batch.launches = 0
-    conv_pool_batch.launches = 0
+    reset_counts(wrappers)
     t_start = clock()
     wall0 = time.perf_counter()
     results = replay_stream(eng, imgs, rate_rps=1000.0)
     wall = time.perf_counter() - wall0
-    launches = {"ecr_conv": ecr_conv_batch.launches,
-                "conv_pool": conv_pool_batch.launches}
+    launches = read_counts(wrappers)
     makespan = clock() - t_start
     stats = eng.stats()
     print(f"vgg19 served {len(results)} requests: launches {launches}, "
@@ -392,7 +829,7 @@ def main() -> int:
 
     # ---- LeNet-5 and AlexNet through the same spine ------------------------
     for name, g in (("lenet5", LENET), ("alexnet", ALEXNET)):
-        e2, p2, im2, _, _ = serve(g, 8, seed=0, dev=dev)
+        e2, p2, im2, _, _, _ = serve(g, 8, seed=0, dev=dev)
         res2 = sorted(replay_stream(e2, im2, rate_rps=1000.0), key=lambda r: r.id)
         got2 = np.stack([r.logits for r in res2])
         ref2 = run_graph(g, p2, torch.stack(im2), "dense").cpu().numpy()
@@ -426,35 +863,97 @@ def main() -> int:
                 traceback.print_exc()
                 failures.append(f"kernel check failed at conv{unit.index + 1}")
         x = run_unit(x, w, unit, "conv", "dense")
+    for row in book.rows:
+        row["phase"] = "vgg19"
     try:
         edge_cases(book, dev)
     except Exception:
         traceback.print_exc()
         failures.append("edge-case kernel check failed")
 
+    del eng
+    torch.cuda.empty_cache()
+
+    # ---- pruned, int8 and pruned+int8 VGG-19 through the Engine -------------
+    variants = {}
+    services = {"vgg19": svc}
+    phase_launches = {"vgg19": launches}
+    for name, prune, int8, want in (
+            ("vgg19-pruned", PRUNE_DENSITY, False, "bsr_matmul"),
+            ("vgg19-int8", 1.0, True, "ecr_conv_int8"),
+            ("vgg19-pruned-int8", PRUNE_DENSITY, True, "bsr_matmul_int8")):
+        try:
+            vplan, vparams, vbatch, vl, summary = variant_phase(
+                name, graph, dev, wrappers, failures, prune_density=prune,
+                int8=int8, want=want)
+        except Exception:
+            traceback.print_exc()
+            failures.append(f"{name} phase failed")
+            continue
+        phase_launches[name] = vl
+        variants[name] = summary
+        vs = service_breakdown(vplan, vparams, vbatch[:8])
+        services[name] = vs
+        print(f"{name} warm batch-8 service: wall {vs['wall_ms']:.2f} ms (median of 5), "
+              f"device {vs['device_ms']:.2f} ms, idle share {vs['idle_share']}")
+        for cat, ms in sorted(vs["by_class_ms"].items(), key=lambda kv: -kv[1]):
+            print(f"  {ms:8.3f} ms  {cat}")
+        print(f"{name} kernel checks ({KERNEL_TOL}):")
+        variant_kernel_checks(book, vplan, vparams, vbatch, failures, name)
+        del vplan, vparams, vbatch
+        torch.cuda.empty_cache()
+    try:
+        edge_cases_new(book, dev)
+    except Exception:
+        traceback.print_exc()
+        failures.append("edge-case check of the BSR / int8 kernels failed")
+
+    csrc = "src/repro_torch/kernels/csrc/"
+    # (name, book key, row suffix, source, replaces, the phase that serves it)
+    table = (
+        ("ecr_conv_batch", "ecr_conv", "", "ecr_conv.cu",
+         "src/repro/kernels/ecr_conv/kernel.py:166", "vgg19"),
+        ("conv_pool_batch", "conv_pool", "", "ecr_conv.cu",
+         "src/repro/kernels/conv_pool/kernel.py:181", "vgg19"),
+        ("ecr_conv_batch at N=1", "ecr_conv", "_n1", "ecr_conv.cu",
+         "src/repro/kernels/ecr_conv/kernel.py:94", "vgg19"),
+        ("conv_pool_batch at N=1", "conv_pool", "_n1", "ecr_conv.cu",
+         "src/repro/kernels/conv_pool/kernel.py:98", "vgg19"),
+        ("bsr_matmul", "bsr_matmul", "", "bsr_matmul.cu",
+         "src/repro/kernels/bsr_matmul/kernel.py:75", "vgg19-pruned"),
+        ("ecr_conv_int8_batch", "ecr_conv_int8", "", "ecr_conv.cu",
+         "src/repro/quant/kernels.py:183", "vgg19-int8"),
+        ("ecr_conv_int8_batch at N=1", "ecr_conv_int8_n1", "", "ecr_conv.cu",
+         "src/repro/quant/kernels.py:104", "vgg19-int8"),
+        ("bsr_matmul_int8", "bsr_matmul_int8", "", "bsr_matmul.cu",
+         "src/repro/quant/kernels.py:252", "vgg19-pruned-int8"),
+    )
     kernels = []
-    src = {"ecr_conv": ("ecr_conv_batch", "src/repro/kernels/ecr_conv/kernel.py:166"),
-           "conv_pool": ("conv_pool_batch", "src/repro/kernels/conv_pool/kernel.py:181")}
-    for key, (wrapper, replaces) in src.items():
-        rows = [r for r in book.rows if r["kernel"] == key]
-        flop_ms = sum(r["flop_ms"] for r in rows)
-        byte_ms = sum(r["byte_ms"] for r in rows)
+    for name, key, sfx, source, replaces, phase in table:
+        rows = [r for r in book.rows if r["kernel"] == key and r["phase"] == phase]
+        flop_ms = sum(r["flop_ms" + sfx] for r in rows)
+        byte_ms = sum(r["byte_ms" + sfx] for r in rows)
+        # the engine's buckets hold at least 2 requests: the single-image rows
+        # are never launched on the served path
+        single = "N=1" in name
         kernels.append({
-            "name": wrapper, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/ecr_conv.cu",
-            "replaces": replaces, "launches": launches[key],
-            "max_abs_err": book.max_err[key],
-            "ms": sum(r["ms"] for r in rows),
-            "plain_ms": sum(r["plain_ms"] for r in rows),
-            "bound_ms": sum(r["bound_ms"] for r in rows),
+            "name": name, "route": "cuda", "source": csrc + source,
+            "replaces": replaces,
+            "launches": 0 if single else phase_launches.get(phase, {}).get(key, 0),
+            "max_abs_err": book.max_err.get(key, 0.0),
+            "ms": sum(r["ms" + sfx] for r in rows),
+            "plain_ms": sum(r["plain_ms" + sfx] for r in rows),
+            "bound_ms": sum(r["bound_ms" + sfx] for r in rows),
             "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
-            "library_ms": sum(r["library_ms"] for r in rows),
-            "layers": [r["layer"] for r in rows]})
+            "library_ms": sum(r["library_ms" + sfx] for r in rows),
+            "phase": phase, "layers": [r["layer"] for r in rows]})
+        if not rows:
+            failures.append(f"no timed layer ran {name}")
     if args.layers_out is not None:
         args.layers_out.parent.mkdir(parents=True, exist_ok=True)
         args.layers_out.write_text(json.dumps(
-            {"card": card, "rows": book.rows, "kernels": kernels, "service": svc},
-            indent=1))
+            {"card": card, "rows": book.rows, "kernels": kernels,
+             "service": services, "variants": variants}, indent=1))
     if failures:
         for f in failures:
             print(f"FAILED: {f}", file=sys.stderr)

@@ -1,5 +1,6 @@
-"""Block-occupancy machinery of the ECR/PECR schedules (counterpart of the
-block-granularity half of `repro.core.sparsity`).
+"""Block-occupancy machinery of the ECR/PECR schedules and the im2col window
+matrix of the BSR conv (counterpart of the block-granularity half of
+`repro.core.sparsity`, plus its `extract_windows`).
 
 `block_occupancy` marks the blocks holding any nonzero; `compact_block_ids`
 turns an occupancy row into the `(ids, cnt)` gather schedule the kernels loop
@@ -10,6 +11,28 @@ which the kernels sum.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+
+
+def patches_t(x: torch.Tensor, kh: int, kw: int, stride: int = 1):
+    """(N,C,H,W) -> (A^T (C*kh*kw, N*oh*ow), oh, ow): the transposed im2col
+    patch matrix of a batch. `F.unfold` lists each window's taps in
+    (c, kh, kw) order, the order of `extract_windows` and of the weight
+    matrix's columns, so unfold's (N, K, L) permuted to (K, N*L) is already
+    A^T; columns run over (n, oh, ow)."""
+    n, _, h, w = x.shape
+    oh, ow = (h - kh) // stride + 1, (w - kw) // stride + 1
+    cols = F.unfold(x, (kh, kw), stride=stride)  # (N, K, oh*ow)
+    return cols.transpose(0, 1).reshape(cols.shape[1], n * oh * ow), oh, ow
+
+
+def extract_windows(x: torch.Tensor, kh: int, kw: int, stride: int = 1) -> torch.Tensor:
+    """(C,H,W) -> (n_oh, n_ow, C*kh*kw) window matrix (im2col rows), taps in
+    (c, kh, kw) order."""
+    if x.ndim == 2:
+        x = x[None]
+    at, oh, ow = patches_t(x[None], kh, kw, stride)
+    return at.T.reshape(oh, ow, -1)
 
 
 def block_occupancy(x: torch.Tensor, block: tuple) -> torch.Tensor:

@@ -8,10 +8,14 @@ reference's, so plan signatures of the two packages compare one to one:
   ("conv", "dense")             F.conv2d (cuDNN on the card, TF32 off)
   ("conv", "ecr_pallas")        ECR sparse conv, CUDA kernel on the card
   ("conv_pool", "pecr_pallas")  PECR fused conv+ReLU+maxpool, CUDA kernel
+  ("conv", "bsr")               weight-block-sparse conv, CUDA BSR kernel
+  ("conv", "ecr_int8")          int8 ECR conv, CUDA kernel
+  ("conv", "bsr_int8")          int8 weight-block-sparse conv, CUDA kernel
 
 The "_pallas" suffix names the reference's op family, not the kernel
-language. The fusion rule (`fusion_eligible`) and the fused <-> plain impl
-mapping live here too.
+language. The fusion rule (`fusion_eligible`), the fused <-> plain impl
+mapping and the modeled cost of a unit (`unit_cost`, `unit_model_us`, which
+the planner's BSR and int8 arms compare) live here too.
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ from dataclasses import dataclass
 from typing import Callable
 
 from repro_torch.graph.ir import ConvUnit
+from repro_torch.obs import constants
 
 
 @dataclass(frozen=True)
@@ -31,6 +36,9 @@ class OpImpl:
              with "flops"/"bytes"/"out_elems".
     sparse:  occupancy-dependent (skips dead channel blocks); on the card
              these run the hand-written CUDA kernels.
+    weight_sparse: weight-density-dependent (skips pruned weight blocks);
+             its cost hook takes `weight_density`.
+    quantized: runs int8 operands (int32 accumulation, fp32 in and out).
     fused_with: for kind "conv_pool", the kind-"conv" impl of the same family
              (used on units whose pool is not fusion-eligible); for kind
              "conv", the kind-"conv_pool" impl it upgrades to.
@@ -45,6 +53,8 @@ class OpImpl:
     sparse: bool = False
     fused_with: str | None = None
     launch: Callable | None = None
+    weight_sparse: bool = False
+    quantized: bool = False
 
 
 _OPS: dict = {}
@@ -111,6 +121,58 @@ def unit_impl(unit: ConvUnit, impl: str) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# Cost dispatch (the one place a unit is costed as a (kind, impl))
+# ---------------------------------------------------------------------------
+
+
+def _pool_round_trip(base: dict, pool: int, dtype_bytes: int = 4) -> dict:
+    """Cost of an unfused pool after a conv whose cost is `base`: the
+    intermediate write and read and the pooled write that PECR fusion
+    deletes, plus the pool's max."""
+    conv_out = base["out_elems"] * dtype_bytes
+    return {"flops": base["flops"] + base["out_elems"],
+            "bytes": base["bytes"] + conv_out + conv_out / (pool * pool),
+            "out_elems": base["out_elems"] // (pool * pool)}
+
+
+def unit_cost(kind: str, impl: str, *, c, h, w, o, k, stride=1, pool=None,
+              occupancy: float = 1.0, weight_density: float = 1.0,
+              batch: int = 1) -> dict:
+    """Modeled {"flops","bytes","out_elems"} of one conv unit executed as
+    (kind, impl). h/w are the padded input dims; `pool` is the unit's pool
+    window (None = no pool). A kind-"conv" impl with an adjacent pool is
+    costed as its own hook plus the unfused round trip; a kind-"conv_pool"
+    impl consumes the pool in its hook. Occupancy / weight_density reach
+    only hooks whose impl declares that sparsity."""
+    op = get_op(kind, impl)
+    kws = dict(stride=stride, batch=batch,
+               occupancy=occupancy if op.sparse else 1.0)
+    if op.weight_sparse:
+        kws["weight_density"] = weight_density
+    if pool is not None and kind != "conv_pool":
+        return _pool_round_trip(op.cost(c, h, w, o, k, k, **kws), pool)
+    if pool is not None:
+        kws["pool"] = pool
+    return op.cost(c, h, w, o, k, k, **kws)
+
+
+def unit_model_us(kind: str, impl: str, unit: ConvUnit, *,
+                  occupancy: float = 1.0, weight_density: float = 1.0,
+                  batch: int = 1) -> float:
+    """Roofline-modeled time (us) of executing `unit` as (kind, impl) at
+    `constants.DEFAULT_ROOFLINE` (read at call time). The reference's
+    `calibration=` (measured constants) comes in a later slice."""
+    conv = unit.conv
+    c, h, w = unit.in_shape
+    cost = unit_cost(kind, impl, c=c, h=h + 2 * conv.pad, w=w + 2 * conv.pad,
+                     o=conv.c_out, k=conv.k, stride=conv.stride,
+                     pool=unit.pool.p if unit.pool is not None else None,
+                     occupancy=occupancy, weight_density=weight_density,
+                     batch=batch)
+    return constants.DEFAULT_ROOFLINE.time_us(cost["flops"], cost["bytes"])
+
+
+# ---------------------------------------------------------------------------
 # Launch descriptors
 # ---------------------------------------------------------------------------
 
@@ -174,6 +236,42 @@ def _launch_ecr(unit, *, block_c=0, batch=1):
                            batch=batch)
 
 
+def _conv_bsr(xp, w, *, stride, block_c=0):
+    from repro_torch.sparse_weights.conv import conv2d_bsr
+
+    return conv2d_bsr(xp, w, stride)
+
+
+def _bsr_cost(c, h, w, o, kh, kw, **kw_args):
+    from repro_torch.sparse_weights.conv import bsr_conv_cost
+
+    return bsr_conv_cost(c, h, w, o, kh, kw, **kw_args)
+
+
+def _conv_ecr_int8(xp, w, *, stride, block_c=0):
+    from repro_torch.quant.ops import ecr_conv_int8
+
+    return ecr_conv_int8(xp, w, stride, block_c=block_c)
+
+
+def _conv_bsr_int8(xp, w, *, stride, block_c=0):
+    from repro_torch.quant.ops import conv2d_bsr_int8
+
+    return conv2d_bsr_int8(xp, w, stride)
+
+
+def _ecr_int8_cost(c, h, w, o, kh, kw, **kw_args):
+    from repro_torch.quant.ops import ecr_conv_int8_cost
+
+    return ecr_conv_int8_cost(c, h, w, o, kh, kw, **kw_args)
+
+
+def _bsr_int8_cost(c, h, w, o, kh, kw, **kw_args):
+    from repro_torch.quant.ops import bsr_conv_int8_cost
+
+    return bsr_conv_int8_cost(c, h, w, o, kh, kw, **kw_args)
+
+
 def _launch_pecr(unit, *, block_c=0, batch=1):
     from repro_torch.kernels.conv_pool.ops import conv_pool_launch
 
@@ -183,6 +281,33 @@ def _launch_pecr(unit, *, block_c=0, batch=1):
                             block_c=block_c, batch=batch)
 
 
+def _bsr_unit_dims(unit, batch):
+    """(o, k_taps, p) of the BSR lowering of `unit` at `batch`."""
+    c, _, _, o, k, _ = _padded_unit_dims(unit)
+    _, oh, ow = unit.conv_out_shape
+    return o, c * k * k, batch * oh * ow
+
+
+def _launch_bsr(unit, *, block_c=0, batch=1):
+    from repro_torch.sparse_weights.conv import bsr_conv_launch
+
+    return bsr_conv_launch(*_bsr_unit_dims(unit, batch))
+
+
+def _launch_ecr_int8(unit, *, block_c=0, batch=1):
+    from repro_torch.quant.ops import ecr_conv_int8_launch
+
+    c, h, w, o, k, stride = _padded_unit_dims(unit)
+    return ecr_conv_int8_launch(c, h, w, o, k, k, stride=stride,
+                                block_c=block_c, batch=batch)
+
+
+def _launch_bsr_int8(unit, *, block_c=0, batch=1):
+    from repro_torch.quant.ops import bsr_conv_int8_launch
+
+    return bsr_conv_int8_launch(*_bsr_unit_dims(unit, batch))
+
+
 register_op(OpImpl("conv", "dense", _conv_dense, cost=_conv_cost))
 register_op(OpImpl("conv", "ecr_pallas", _conv_ecr, cost=_conv_cost,
                    sparse=True, fused_with="pecr_pallas",
@@ -190,3 +315,10 @@ register_op(OpImpl("conv", "ecr_pallas", _conv_ecr, cost=_conv_cost,
 register_op(OpImpl("conv_pool", "pecr_pallas", _conv_pool_pecr,
                    cost=_conv_pool_cost, sparse=True,
                    fused_with="ecr_pallas", launch=_launch_pecr))
+register_op(OpImpl("conv", "bsr", _conv_bsr, cost=_bsr_cost,
+                   weight_sparse=True, launch=_launch_bsr))
+register_op(OpImpl("conv", "ecr_int8", _conv_ecr_int8, cost=_ecr_int8_cost,
+                   sparse=True, quantized=True, launch=_launch_ecr_int8))
+register_op(OpImpl("conv", "bsr_int8", _conv_bsr_int8, cost=_bsr_int8_cost,
+                   weight_sparse=True, quantized=True,
+                   launch=_launch_bsr_int8))

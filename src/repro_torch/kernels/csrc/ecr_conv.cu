@@ -40,6 +40,18 @@
 //   kTileO are masked; input channels must be a multiple of bc (the schedule
 //   indexes bc-wide blocks); output channels need no padding.
 //
+// int8 (`repro_ecr_conv_i8`, replaces repro/quant/kernels.py
+// ecr_conv_int8_pallas_batch, and ecr_conv_int8_pallas at N=1): the same
+// device body instantiated for int8 operands and int32 accumulators. The
+// tiles are staged as int8, so the launcher sizes the channel chunk in one
+// byte per element (a quarter of the fp32 tile's bytes), and the flush
+// rescales in the reference's order, ((float)acc * sx[b]) * sw[o]. The
+// integer sums are exact (|acc| <= 127 * 127 * C * kh * kw < 2^31 for every
+// layer the registry sends), so the kernel agrees bitwise with a plain
+// version that sums in float64. Plain int32 multiply-adds on CUDA cores, no
+// __dp4a yet: bound like the fp32 body by shared-memory loads, with 1/4 the
+// bytes of the fp32 operands to read.
+//
 // Launch hygiene: the entry points launch on the caller's stream, never
 // synchronise, allocate nothing, and return cudaGetLastError().
 
@@ -56,6 +68,25 @@ constexpr int kRO = kTileO / kOcGroups;      // output channels per thread
 constexpr int kRP = 4;                       // spatial positions per thread
 constexpr int kMaxTileP = kSpGroups * kRP;   // TH * TW <= 64
 constexpr size_t kSmemBudget = 48 * 1024;   // no opt-in attribute needed
+constexpr int kMaxChunkBytes = 64;           // 16 fp32 channels, 64 int8 ones
+
+// One multiply-add in the accumulator's type: fp32 FMA, or exact int32.
+__device__ __forceinline__ float mac(float acc, float x, float w) {
+  return fmaf(x, w, acc);
+}
+__device__ __forceinline__ int32_t mac(int32_t acc, int8_t x, int8_t w) {
+  return acc + (int32_t)x * (int32_t)w;
+}
+
+// The value an accumulator leaves the block as: fp32 as it is; int32
+// dequantized in the reference's order, ((float)acc * sx[b]) * sw[o].
+__device__ __forceinline__ float flush(float acc, const float*, const float*, int, int) {
+  return acc;
+}
+__device__ __forceinline__ float flush(int32_t acc, const float* sx, const float* sw,
+                                       int b, int o) {
+  return ((float)acc * sx[b]) * sw[o];
+}
 
 struct ConvParams {
   int n, h, w, c, o;
@@ -69,16 +100,20 @@ struct ConvParams {
   int ih_t, iw_t;    // input tile incl. halo
 };
 
-template <bool kPool>
+// T: operand type (float or int8_t); A: accumulator (float or int32_t).
+// sx (N,) / sw (O,) are the int8 scales (unused, may be null, for fp32).
+template <typename T, typename A, bool kPool>
 __global__ void __launch_bounds__(kThreads)
-ecr_conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
+ecr_conv_kernel(const T* __restrict__ x, const T* __restrict__ w,
                 const int32_t* __restrict__ ids, const int32_t* __restrict__ cnt,
+                const float* __restrict__ sx, const float* __restrict__ sw,
                 float* __restrict__ out, ConvParams p) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
   const int x_tile = p.ih_t * p.iw_t;
   const int taps = p.kh * p.kw;
-  float* xs = smem;                 // [cc][ih_t][iw_t]
-  float* ws = smem + p.cc * x_tile;  // [tap][cc][kTileO]
+  T* xs = smem;                 // [cc][ih_t][iw_t]
+  T* ws = smem + p.cc * x_tile;  // [tap][cc][kTileO]
 
   const int b = blockIdx.z;
   const int o0 = blockIdx.y * kTileO;
@@ -96,16 +131,16 @@ ecr_conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
     pos_off[r] = sp < tile_p ? (sp / p.tw) * p.stride * p.iw_t + (sp % p.tw) * p.stride : 0;
   }
 
-  float acc[kRP][kRO];
+  A acc[kRP][kRO];
 #pragma unroll
   for (int i = 0; i < kRP; ++i)
 #pragma unroll
-    for (int j = 0; j < kRO; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < kRO; ++j) acc[i][j] = A(0);
 
   // the schedule is the loop bound (the Pallas kernel's @pl.when(k < cnt))
   const int n_live = min(max(cnt[b], 0), p.n_cb);
   const int32_t* ids_b = ids + (size_t)b * p.n_cb;
-  const float* xb = x + (size_t)b * p.h * p.w * p.c;
+  const T* xb = x + (size_t)b * p.h * p.w * p.c;
   const int gy0 = ty0 * p.stride, gx0 = tx0 * p.stride;
 
   for (int k = 0; k < n_live; ++k) {
@@ -118,7 +153,7 @@ ecr_conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
         const int rest = l / p.cc;
         const int ix = rest % p.iw_t, iy = rest / p.iw_t;
         const int gy = gy0 + iy, gx = gx0 + ix;
-        float v = 0.f;
+        T v = T(0);
         if (ci < nc && gy < p.h && gx < p.w)
           v = xb[((size_t)gy * p.w + gx) * p.c + cbase + c0 + ci];
         xs[ci * x_tile + iy * p.iw_t + ix] = v;
@@ -127,18 +162,18 @@ ecr_conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
         const int oo = l % kTileO;
         const int rest = l / kTileO;
         const int ci = rest % p.cc, t = rest / p.cc;
-        float v = 0.f;
+        T v = T(0);
         if (ci < nc && o0 + oo < p.o)
           v = w[((size_t)t * p.c + cbase + c0 + ci) * p.o + o0 + oo];
         ws[l] = v;
       }
       __syncthreads();
       for (int ci = 0; ci < nc; ++ci) {
-        const float* xc = xs + ci * x_tile;
+        const T* xc = xs + ci * x_tile;
         for (int i = 0; i < p.kh; ++i) {
           for (int j = 0; j < p.kw; ++j) {
-            const float* wt = ws + ((i * p.kw + j) * p.cc + ci) * kTileO + og;
-            float wv[kRO], xv[kRP];
+            const T* wt = ws + ((i * p.kw + j) * p.cc + ci) * kTileO + og;
+            T wv[kRO], xv[kRP];
 #pragma unroll
             for (int r = 0; r < kRO; ++r) wv[r] = wt[kOcGroups * r];
 #pragma unroll
@@ -146,7 +181,7 @@ ecr_conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
             for (int a = 0; a < kRP; ++a)
 #pragma unroll
-              for (int q = 0; q < kRO; ++q) acc[a][q] = fmaf(xv[a], wv[q], acc[a][q]);
+              for (int q = 0; q < kRO; ++q) acc[a][q] = mac(acc[a][q], xv[a], wv[q]);
           }
         }
       }
@@ -164,7 +199,7 @@ ecr_conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
       for (int q = 0; q < kRO; ++q) {
         const int oc = o0 + og + kOcGroups * q;
-        if (oc < p.o) orow[oc] = acc[a][q];
+        if (oc < p.o) orow[oc] = flush(acc[a][q], sx, sw, b, oc);
       }
     }
     return;
@@ -172,7 +207,7 @@ ecr_conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
 
   // PECR epilogue: ReLU'd conv tile -> shared memory -> p x p max -> global
   __syncthreads();
-  float* cs = smem;  // [tile_p][kTileO]
+  float* cs = reinterpret_cast<float*>(smem_raw);  // [tile_p][kTileO]
 #pragma unroll
   for (int a = 0; a < kRP; ++a) {
     const int sp = sg + kSpGroups * a;
@@ -198,19 +233,22 @@ ecr_conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-// Largest channel chunk (<= bc) whose staged input tile and weight slab fit
-// kSmemBudget; 0 when even one channel does not fit.
-int pick_chunk(int bc, int ih_t, int iw_t, int taps) {
-  for (int cc = 16; cc >= 1; cc /= 2) {
-    const size_t bytes = (size_t)cc * (ih_t * iw_t + taps * kTileO) * sizeof(float);
+// Largest channel chunk (<= bc, at most kMaxChunkBytes / elem_bytes) whose
+// staged input tile and weight slab fit kSmemBudget in the operand's own
+// element size; 0 when even one channel does not fit.
+int pick_chunk(int bc, int ih_t, int iw_t, int taps, size_t elem_bytes) {
+  for (int cc = kMaxChunkBytes / (int)elem_bytes; cc >= 1; cc /= 2) {
+    const size_t bytes = (size_t)cc * (ih_t * iw_t + taps * kTileO) * elem_bytes;
     if (cc <= bc && bytes <= kSmemBudget) return cc;
   }
   return 0;
 }
 
-int launch(const float* x, const float* w, const int32_t* ids, const int32_t* cnt,
-           float* out, int n, int h, int wd, int c, int o, int kh, int kw,
-           int stride, int bc, int pool, cudaStream_t stream) {
+template <typename T, typename A>
+int launch(const T* x, const T* w, const int32_t* ids, const int32_t* cnt,
+           const float* sx, const float* sw, float* out, int n, int h, int wd,
+           int c, int o, int kh, int kw, int stride, int bc, int pool,
+           cudaStream_t stream) {
   if (n < 1 || bc < 1 || c % bc || stride < 1 || h < kh || wd < kw || pool < 0 ||
       pool > 8 || n > 65535)
     return (int)cudaErrorInvalidValue;
@@ -226,7 +264,7 @@ int launch(const float* x, const float* w, const int32_t* ids, const int32_t* cn
   if (p.th * p.tw > kMaxTileP) return (int)cudaErrorInvalidValue;
   p.ih_t = (p.th - 1) * stride + kh;
   p.iw_t = (p.tw - 1) * stride + kw;
-  p.cc = pick_chunk(bc, p.ih_t, p.iw_t, kh * kw);
+  p.cc = pick_chunk(bc, p.ih_t, p.iw_t, kh * kw, sizeof(T));
   if (p.cc == 0) return (int)cudaErrorInvalidValue;
   // the pooled launch tiles only the rows/cols the floor keeps
   const int cov_h = pool ? (p.oh / pool) * pool : p.oh;
@@ -234,14 +272,19 @@ int launch(const float* x, const float* w, const int32_t* ids, const int32_t* cn
   if (cov_h < 1 || cov_w < 1) return (int)cudaErrorInvalidValue;
   p.tiles_w = (cov_w + p.tw - 1) / p.tw;
   const int tiles_h = (cov_h + p.th - 1) / p.th;
-  const size_t stage = (size_t)p.cc * (p.ih_t * p.iw_t + kh * kw * kTileO);
-  const size_t epi = pool ? (size_t)p.th * p.tw * kTileO : 0;
-  const size_t smem = (stage > epi ? stage : epi) * sizeof(float);
+  const size_t stage = (size_t)p.cc * (p.ih_t * p.iw_t + kh * kw * kTileO) * sizeof(T);
+  const size_t epi = pool ? (size_t)p.th * p.tw * kTileO * sizeof(float) : 0;
+  const size_t smem = stage > epi ? stage : epi;
   dim3 grid(tiles_h * p.tiles_w, (o + kTileO - 1) / kTileO, n);
-  if (pool)
-    ecr_conv_kernel<true><<<grid, kThreads, smem, stream>>>(x, w, ids, cnt, out, p);
-  else
-    ecr_conv_kernel<false><<<grid, kThreads, smem, stream>>>(x, w, ids, cnt, out, p);
+  if constexpr (sizeof(T) == sizeof(float)) {  // the fused epilogue is fp32 only
+    if (pool) {
+      ecr_conv_kernel<T, A, true><<<grid, kThreads, smem, stream>>>(x, w, ids, cnt, sx, sw, out, p);
+      return (int)cudaGetLastError();
+    }
+  } else if (pool) {
+    return (int)cudaErrorInvalidValue;
+  }
+  ecr_conv_kernel<T, A, false><<<grid, kThreads, smem, stream>>>(x, w, ids, cnt, sx, sw, out, p);
   return (int)cudaGetLastError();
 }
 
@@ -254,8 +297,19 @@ int repro_ecr_conv_f32(const float* x, const float* w, const int32_t* ids,
                        const int32_t* cnt, float* out, int n, int h, int wd,
                        int c, int o, int kh, int kw, int stride, int bc,
                        void* stream) {
-  return launch(x, w, ids, cnt, out, n, h, wd, c, o, kh, kw, stride, bc, 0,
-                (cudaStream_t)stream);
+  return launch<float, float>(x, w, ids, cnt, nullptr, nullptr, out, n, h, wd,
+                              c, o, kh, kw, stride, bc, 0, (cudaStream_t)stream);
+}
+
+// int8 conv, int32 accumulation, rescaled at the flush: x (N,H,W,C) int8,
+// w (kh,kw,C,O) int8, sx (N,) per-sample and sw (O,) per-output-channel fp32
+// scales -> out (N, OH, OW, O) fp32.
+int repro_ecr_conv_i8(const int8_t* x, const int8_t* w, const int32_t* ids,
+                      const int32_t* cnt, const float* sx, const float* sw,
+                      float* out, int n, int h, int wd, int c, int o, int kh,
+                      int kw, int stride, int bc, void* stream) {
+  return launch<int8_t, int32_t>(x, w, ids, cnt, sx, sw, out, n, h, wd, c, o,
+                                 kh, kw, stride, bc, 0, (cudaStream_t)stream);
 }
 
 // Conv + ReLU + pool x pool max-pool (stride pool, floor): out (N, OH/p, OW/p, O).
@@ -264,8 +318,8 @@ int repro_conv_pool_f32(const float* x, const float* w, const int32_t* ids,
                         int c, int o, int kh, int kw, int stride, int bc,
                         int pool, void* stream) {
   if (pool < 1) return (int)cudaErrorInvalidValue;
-  return launch(x, w, ids, cnt, out, n, h, wd, c, o, kh, kw, stride, bc, pool,
-                (cudaStream_t)stream);
+  return launch<float, float>(x, w, ids, cnt, nullptr, nullptr, out, n, h, wd,
+                              c, o, kh, kw, stride, bc, pool, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -1,16 +1,18 @@
 """Build, load and launch the port's CUDA kernels.
 
 The sources under `csrc/` are compiled at first use with `nvcc` for
-`sm_90a` into a shared library with a plain C interface, loaded through
-`ctypes` (no PyTorch headers, so a build takes seconds). The library lands in
+`sm_90a`, one `nvcc` per source, all started together, and linked into one
+shared library with a plain C interface, loaded through `ctypes` (no PyTorch
+headers, so a build takes seconds). The library lands in
 `build/kernels/` at the root of the checkout (or `$REPRO_TORCH_BUILD_DIR`),
 named by a hash of the sources and flags, so an edited source rebuilds and a
 stale library is never loaded. A missing `nvcc` or a failed build raises.
 
-`launch_conv` is the one launch site: it checks device, dtype, contiguity and
-shapes, allocates the output with `torch.empty`, launches on PyTorch's
-current stream without synchronising, and raises on a nonzero
-`cudaGetLastError()`.
+`launch_conv` (the ECR / PECR conv kernels, fp32 and int8) and `launch_bsr`
+(the block-sparse matmul, fp32 and int8) are the launch sites: they check
+device, dtype, contiguity and shapes, allocate the output with `torch.empty`,
+launch on PyTorch's current stream without synchronising, and raise on a
+nonzero `cudaGetLastError()`.
 """
 from __future__ import annotations
 
@@ -25,9 +27,9 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("ecr_conv.cu",)
+SOURCES = ("ecr_conv.cu", "bsr_matmul.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 _CHECKOUT = Path(__file__).resolve().parents[3]
 
 _lock = threading.Lock()
@@ -73,22 +75,41 @@ def library_path() -> Path:
     return build_dir() / f"libreprotorch_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds: list, verbose: bool) -> None:
+    """Run the commands side by side; raise with the first failure's output."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                          f"{out}\n{err}")
+        elif verbose:
+            print(out + err)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build(verbose: bool = False) -> Path:
-    """Compile the kernels (if this exact source has not been built yet) and
-    return the library's path."""
+    """Compile the kernels (if this exact source has not been built yet), one
+    nvcc per source in parallel, link them, and return the library's path."""
     out = library_path()
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{' '.join(cmd)}\n"
-                           f"{r.stdout}\n{r.stderr}")
-    if verbose:
-        print(r.stdout + r.stderr)
+    tag = f"{os.getpid()}.tmp"
+    nvcc = nvcc_path()
+    objs = [out.with_name(f"{out.stem}.{Path(s).stem}.{tag}.o") for s in SOURCES]
+    ptxas = ["-Xptxas", "-v"] if verbose else []
+    _run([[nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", str(o), str(CSRC / s)]
+          for s, o in zip(SOURCES, objs)], verbose)
+    tmp = out.with_suffix(f".{tag}")
+    _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]],
+         verbose=False)
+    for o in objs:
+        o.unlink()
     os.replace(tmp, out)
     return out
 
@@ -105,6 +126,13 @@ def library() -> ctypes.CDLL:
             lib.repro_ecr_conv_f32.restype = ctypes.c_int
             lib.repro_conv_pool_f32.argtypes = ptrs + ints + [ctypes.c_int, ctypes.c_void_p]
             lib.repro_conv_pool_f32.restype = ctypes.c_int
+            lib.repro_ecr_conv_i8.argtypes = [ctypes.c_void_p] * 7 + ints + [ctypes.c_void_p]
+            lib.repro_ecr_conv_i8.restype = ctypes.c_int
+            bsr_ints = [ctypes.c_int] * 6
+            lib.repro_bsr_matmul_f32.argtypes = ptrs + bsr_ints + [ctypes.c_void_p]
+            lib.repro_bsr_matmul_f32.restype = ctypes.c_int
+            lib.repro_bsr_matmul_i8.argtypes = [ctypes.c_void_p] * 7 + bsr_ints + [ctypes.c_void_p]
+            lib.repro_bsr_matmul_i8.restype = ctypes.c_int
             _lib = lib
         return _lib
 
@@ -130,23 +158,49 @@ def check_conv_operands(x, w, ids, cnt, block_c: int, stride: int) -> tuple:
     return n, h, wd, c, o, kh, kw, (h - kh) // stride + 1, (wd - kw) // stride + 1
 
 
-def launch_conv(x, w, ids, cnt, *, stride: int, block_c: int, pool: int = 0):
+def _check_device(tensors) -> torch.device:
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError("CUDA kernel needs every operand on one CUDA device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("CUDA kernel needs contiguous operands")
+    return dev
+
+
+def check_scales(sa, sb, want_a: int, want_b: int, what: str) -> None:
+    if sa is None or sb is None:
+        raise ValueError(f"int8 {what} kernel needs both scales")
+    if sa.dtype != torch.float32 or sb.dtype != torch.float32:
+        raise TypeError(f"int8 {what} scales must be float32, got "
+                        f"{sa.dtype}/{sb.dtype}")
+    if sa.numel() != want_a or sb.numel() != want_b:
+        raise ValueError(f"int8 {what} scales hold {sa.numel()}/{sb.numel()} "
+                         f"values, want {want_a}/{want_b}")
+
+
+def launch_conv(x, w, ids, cnt, *, stride: int, block_c: int, pool: int = 0,
+                sx=None, sw=None):
     """Launch the ECR conv kernel (pool=0) or the PECR conv+ReLU+pool kernel
-    (pool=p) on CUDA tensors: x (N,H,W,C) f32, w (kh,kw,C,O) f32,
-    ids (N,n_cb) int32, cnt (N,) int32 -> (N,OH,OW,O) or (N,OH/p,OW/p,O)."""
+    (pool=p) on CUDA tensors: x (N,H,W,C), w (kh,kw,C,O), ids (N,n_cb) int32,
+    cnt (N,) int32 -> fp32 (N,OH,OW,O) or (N,OH/p,OW/p,O). x and w are both
+    float32, or both int8 with per-sample scales sx (N values) and
+    per-output-channel scales sw (O values), float32 (the int8 form has no
+    pooled epilogue)."""
     n, h, wd, c, o, kh, kw, oh, ow = check_conv_operands(x, w, ids, cnt,
                                                           block_c, stride)
-    tensors = (x, w, ids, cnt)
-    dev = x.device
-    if dev.type != "cuda" or any(t.device != dev for t in tensors):
-        raise ValueError("CUDA conv kernel needs every operand on one CUDA device")
-    if x.dtype != torch.float32 or w.dtype != torch.float32:
-        raise TypeError(f"CUDA conv kernel takes float32, got {x.dtype}/{w.dtype}")
+    int8 = x.dtype == torch.int8
+    tensors = (x, w, ids, cnt) + ((sx, sw) if int8 else ())
+    if int8:
+        check_scales(sx, sw, n, o, "conv")
+    dev = _check_device(tensors)
+    if x.dtype != w.dtype or x.dtype not in (torch.float32, torch.int8):
+        raise TypeError(f"CUDA conv kernel takes float32 or int8 operands of "
+                        f"one type, got {x.dtype}/{w.dtype}")
     if ids.dtype != torch.int32 or cnt.dtype != torch.int32:
         raise TypeError(f"schedules must be int32, got {ids.dtype}/{cnt.dtype}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("CUDA conv kernel needs contiguous operands")
     if pool:
+        if int8:
+            raise ValueError("the int8 conv kernel has no pooled epilogue")
         if pool > 8 or oh // pool < 1 or ow // pool < 1:
             raise ValueError(f"pool {pool} unsupported on a ({oh},{ow}) conv map")
         out = torch.empty((n, oh // pool, ow // pool, o), device=dev, dtype=torch.float32)
@@ -154,15 +208,78 @@ def launch_conv(x, w, ids, cnt, *, stride: int, block_c: int, pool: int = 0):
         out = torch.empty((n, oh, ow, o), device=dev, dtype=torch.float32)
     lib = library()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    ptrs = (x.data_ptr(), w.data_ptr(), ids.data_ptr(), cnt.data_ptr(), out.data_ptr())
     dims = (n, h, wd, c, o, kh, kw, stride, block_c)
     with torch.cuda.device(dev):
-        if pool:
-            err = lib.repro_conv_pool_f32(*ptrs, *dims, pool, stream)
+        if int8:
+            err = lib.repro_ecr_conv_i8(x.data_ptr(), w.data_ptr(), ids.data_ptr(),
+                                        cnt.data_ptr(), sx.data_ptr(), sw.data_ptr(),
+                                        out.data_ptr(), *dims, stream)
         else:
-            err = lib.repro_ecr_conv_f32(*ptrs, *dims, stream)
+            ptrs = (x.data_ptr(), w.data_ptr(), ids.data_ptr(), cnt.data_ptr(),
+                    out.data_ptr())
+            if pool:
+                err = lib.repro_conv_pool_f32(*ptrs, *dims, pool, stream)
+            else:
+                err = lib.repro_ecr_conv_f32(*ptrs, *dims, stream)
     if err != 0:
         raise RuntimeError(f"CUDA conv kernel launch failed: cudaError {err} "
-                           f"(x {tuple(x.shape)}, w {tuple(w.shape)}, "
+                           f"(x {tuple(x.shape)} {x.dtype}, w {tuple(w.shape)}, "
                            f"stride {stride}, block_c {block_c}, pool {pool})")
+    return out
+
+
+def check_bsr_operands(h, w, ids, cnt, block: tuple) -> tuple:
+    """Validate the operands of the block-sparse matmul; returns
+    (t, f, d, bt, bf, nt, nf). h (T,F) and w (F,D) need no padding: the
+    schedule counts ceil(T/bt) row-blocks of ceil(F/bf) reduction blocks."""
+    if h.ndim != 2 or w.ndim != 2 or h.shape[1] != w.shape[0]:
+        raise ValueError(f"expected h (T,F) and w (F,D), got {tuple(h.shape)} "
+                         f"and {tuple(w.shape)}")
+    t, f = h.shape
+    d = w.shape[1]
+    bt, bf = block
+    if bt < 1 or bf < 1 or min(t, f, d) < 1:
+        raise ValueError(f"bad block {block} for h {tuple(h.shape)}, w {tuple(w.shape)}")
+    nt, nf = -(-t // bt), -(-f // bf)
+    if tuple(ids.shape) != (nt, nf) or tuple(cnt.shape) != (nt,):
+        raise ValueError(f"schedule shapes ids {tuple(ids.shape)} / cnt "
+                         f"{tuple(cnt.shape)} do not match (nt={nt}, nf={nf})")
+    return t, f, d, bt, bf, nt, nf
+
+
+def launch_bsr(h, w, ids, cnt, *, block: tuple, sh=None, sw=None):
+    """Launch the block-sparse matmul kernel on CUDA tensors: h (T,F),
+    w (F,D), ids (ceil(T/bt), ceil(F/bf)) int32, cnt (ceil(T/bt),) int32 ->
+    fp32 (T,D), scheduled in block = (bt, bf) blocks of h. Both float32, or
+    both int8 with per-row scales sh (T values) and one scale sw, float32.
+    The kernel takes bt = 8 row-blocks."""
+    t, f, d, bt, bf, _, nf = check_bsr_operands(h, w, ids, cnt, block)
+    if bt != 8:
+        raise ValueError(f"the CUDA BSR kernel takes 8-row blocks, got bt={bt}")
+    int8 = h.dtype == torch.int8
+    tensors = (h, w, ids, cnt) + ((sh, sw) if int8 else ())
+    if int8:
+        check_scales(sh, sw, t, 1, "BSR")
+    dev = _check_device(tensors)
+    if h.dtype != w.dtype or h.dtype not in (torch.float32, torch.int8):
+        raise TypeError(f"CUDA BSR kernel takes float32 or int8 operands of "
+                        f"one type, got {h.dtype}/{w.dtype}")
+    if ids.dtype != torch.int32 or cnt.dtype != torch.int32:
+        raise TypeError(f"schedules must be int32, got {ids.dtype}/{cnt.dtype}")
+    out = torch.empty((t, d), device=dev, dtype=torch.float32)
+    lib = library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    dims = (t, f, d, bt, bf, nf)
+    with torch.cuda.device(dev):
+        if int8:
+            err = lib.repro_bsr_matmul_i8(h.data_ptr(), w.data_ptr(), ids.data_ptr(),
+                                          cnt.data_ptr(), sh.data_ptr(), sw.data_ptr(),
+                                          out.data_ptr(), *dims, stream)
+        else:
+            err = lib.repro_bsr_matmul_f32(h.data_ptr(), w.data_ptr(), ids.data_ptr(),
+                                           cnt.data_ptr(), out.data_ptr(), *dims, stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA BSR kernel launch failed: cudaError {err} "
+                           f"(h {tuple(h.shape)} {h.dtype}, w {tuple(w.shape)}, "
+                           f"block {tuple(block)})")
     return out

@@ -14,16 +14,15 @@ import torch
 from repro_torch.kernels.cuda import check_conv_operands, launch_conv
 
 
-def ecr_conv_plain(x: torch.Tensor, w: torch.Tensor, ids: torch.Tensor,
-                   cnt: torch.Tensor, *, stride: int = 1, block_c: int,
-                   pool: int = 0) -> torch.Tensor:
-    """The kernel's function in plain PyTorch, schedule honored.
-
+def scheduled_conv_sum(x: torch.Tensor, w: torch.Tensor, ids: torch.Tensor,
+                       cnt: torch.Tensor, *, stride: int, block_c: int,
+                       dtype: torch.dtype) -> torch.Tensor:
+    """The scheduled conv sums in plain PyTorch, accumulated in `dtype`:
     x (N,H,W,C), w (kh,kw,C,O), ids (N,n_cb), cnt (N,) -> (N,OH,OW,O).
+
     Sample b gathers its scheduled channel blocks ids[b, :cnt[b]] (a live
     block left out of the schedule contributes nothing, exactly as in the
-    kernel) and sums the per-tap (OH*OW, K) x (K, O) contractions. pool=p
-    adds the PECR epilogue: ReLU, then p x p max-pool at stride p (floor)."""
+    kernel) and sums the per-tap (OH*OW, K) x (K, O) contractions."""
     n, h, wd, c, o, kh, kw, oh, ow = check_conv_operands(x, w, ids, cnt,
                                                           block_c, stride)
     n_cb = c // block_c
@@ -33,21 +32,33 @@ def ecr_conv_plain(x: torch.Tensor, w: torch.Tensor, ids: torch.Tensor,
     outs = []
     for b in range(n):
         sel = ids[b, :counts[b]].long()
-        xs = xb[b][:, :, sel].reshape(h, wd, -1)  # (H, W, K)
-        ws = wb[:, :, sel].reshape(kh, kw, -1, o)  # (kh, kw, K, O)
-        acc = x.new_zeros(oh * ow, o)
+        xs = xb[b][:, :, sel].reshape(h, wd, -1).to(dtype)  # (H, W, K)
+        ws = wb[:, :, sel].reshape(kh, kw, -1, o).to(dtype)  # (kh, kw, K, O)
+        acc = torch.zeros((oh * ow, o), dtype=dtype, device=x.device)
         for i in range(kh):
             for j in range(kw):
                 patch = xs[i:i + (oh - 1) * stride + 1:stride,
                            j:j + (ow - 1) * stride + 1:stride]
                 acc = acc + torch.matmul(patch.reshape(oh * ow, -1), ws[i, j])
-        y = acc.reshape(oh, ow, o)
-        if pool:
-            poh, pw = oh // pool, ow // pool
-            y = torch.relu(y)[:poh * pool, :pw * pool]
-            y = y.reshape(poh, pool, pw, pool, o).amax(dim=(1, 3))
-        outs.append(y)
+        outs.append(acc.reshape(oh, ow, o))
     return torch.stack(outs)
+
+
+def ecr_conv_plain(x: torch.Tensor, w: torch.Tensor, ids: torch.Tensor,
+                   cnt: torch.Tensor, *, stride: int = 1, block_c: int,
+                   pool: int = 0) -> torch.Tensor:
+    """The kernel's function in plain PyTorch, schedule honored:
+    `scheduled_conv_sum` in fp32, x (N,H,W,C), w (kh,kw,C,O), ids (N,n_cb),
+    cnt (N,) -> (N,OH,OW,O). pool=p adds the PECR epilogue: ReLU, then
+    p x p max-pool at stride p (floor)."""
+    y = scheduled_conv_sum(x, w, ids, cnt, stride=stride, block_c=block_c,
+                           dtype=x.dtype)
+    if pool:
+        n, oh, ow, o = y.shape
+        poh, pw = oh // pool, ow // pool
+        y = torch.relu(y)[:, :poh * pool, :pw * pool]
+        y = y.reshape(n, poh, pool, pw, pool, o).amax(dim=(2, 4))
+    return y
 
 
 def ecr_conv_batch(x: torch.Tensor, w: torch.Tensor, ids: torch.Tensor,

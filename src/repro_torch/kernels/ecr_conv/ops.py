@@ -24,7 +24,8 @@ def ecr_conv_launch(c: int, h: int, w: int, o: int, kh: int = 3, kw: int = 3,
                     kernel: str = "ecr_conv") -> ConvLaunch:
     """The resolved `ConvLaunch` of one ECR conv call: the schedule's block
     size through `resolve_block_c` (exactly the resolution `ecr_conv` runs
-    with), the channel padding and schedule length derived once."""
+    with, at the operands' `dtype_bytes`), the channel padding and schedule
+    length derived once."""
     bc = resolve_block_c(h, w, c, TileConfig(block_c=block_c), dtype_bytes)
     cp = (-c) % bc
     return ConvLaunch(

@@ -1,5 +1,5 @@
-"""Schedule geometry of the ECR / PECR conv ops (counterpart of
-`repro.kernels.tiles`).
+"""Schedule geometry of the ECR / PECR conv ops and of the BSR conv lowering
+(counterpart of `repro.kernels.tiles`).
 
 `block_c` is the SCHEDULE granularity: the planner measures channel-block
 occupancy at it, and the `(ids, cnt)` schedules count `block_c`-wide blocks.
@@ -106,3 +106,35 @@ class ConvLaunch:
     oh: int  # conv output spatial dims (pre-pool)
     ow: int
     dtype_bytes: int
+
+
+@dataclass(frozen=True)
+class BsrLaunch:
+    """Resolved geometry of one BSR matmul kernel call: a (t, f) sparse left
+    operand against (f, d), scheduled in (bt, bf) blocks. Built by
+    `sparse_weights.conv.bsr_conv_launch` (t = output channels, f = K taps,
+    d = patches) from the same `resolve_bsr_tile` call the op executes with.
+
+    The schedule has nt = ceil(t/bt) row-blocks of nf = ceil(f/bf) reduction
+    blocks, exactly as in the reference. The CUDA kernel takes the unpadded
+    operands, masks the ragged edges and tiles the columns on its own, so
+    the reference's column block and paddings have no counterpart here."""
+
+    t: int
+    f: int
+    d: int
+    bt: int
+    bf: int
+    nt: int  # row blocks (per-row-block (ids, cnt) schedules)
+    nf: int  # reduction blocks = schedule width
+    dtype_bytes: int
+
+
+def resolve_bsr_tile(o: int, k_taps: int) -> tuple:
+    """(bt, bf) for the BSR conv lowering of an (O, K) weight:
+    `sparse_weights.format.weight_block`, the geometry the pruner aligned its
+    zeros to. The reference's per-dimension `tile=` override comes with tile
+    search, in a later slice."""
+    from repro_torch.sparse_weights.format import weight_block
+
+    return weight_block(o, k_taps)

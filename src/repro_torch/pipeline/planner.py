@@ -1,4 +1,4 @@
-"""Per-layer dense / ECR / PECR planning over the LayerGraph IR
+"""Per-layer dense / ECR / PECR / BSR / int8 planning over the LayerGraph IR
 (counterpart of `repro.pipeline.planner`).
 
 The planner walks a graph's conv units on a calibration batch, measures per
@@ -6,16 +6,22 @@ unit the channel-block occupancy the ECR kernel would run at (shared-union
 compaction, then per-sample block occupancy, averaged), and emits a
 `PipelinePlan`: one `LayerPlan` per unit — sparse when the occupancy is at
 most `occ_threshold`, fused with its pool (PECR) when the registry's fusion
-rule admits it. `run_plan` executes a plan over any batch of the calibrated
-shape, one whole-batch op per layer, every op resolved through the registry.
+rule admits it. Two more axes ride on that choice, both decided by the
+registry's modeled roofline time (`unit_model_us`):
+- weight sparsity: a layer whose params' block density is at most
+  `bsr_threshold` runs ("conv", "bsr") when that models faster;
+- precision (`int8=True`): a sparse or BSR layer moves to its int8 sibling
+  when that models faster, and the upgrades are then probed against the
+  dense fp32 logits and demoted until the top-1 agreement meets the budget.
+`run_plan` executes a plan over any batch of the calibrated shape, one
+whole-batch op per layer, every op resolved through the registry.
 
 Not ported in this slice: `calibration=` (measured cost constants), `tiles=`
-(searched geometry), `int8=` and `run_plan_sharded`. Weight-pruned layers
-raise instead of planning BSR, whose kernel is a later slice.
+(searched geometry), `use_pallas=` and `run_plan_sharded`.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import torch
 import torch.nn.functional as F
@@ -23,7 +29,7 @@ import torch.nn.functional as F
 from repro_torch.graph import as_graph
 from repro_torch.graph.executor import run_head, run_unit
 from repro_torch.graph.ir import ConvSpec, LayerGraph, PoolSpec, graph_weights, weight_shapes
-from repro_torch.graph.registry import fusion_eligible, get_op
+from repro_torch.graph.registry import fusion_eligible, get_op, unit_model_us
 from repro_torch.kernels.tiles import TileConfig, resolve_block_c
 from repro_torch.sparse_weights.format import weight_block_density
 
@@ -36,7 +42,7 @@ class LayerPlan:
     stage: int  # pooling stage (number of pools crossed before this conv)
     slot: int  # index within the stage
     kind: str  # "conv" | "conv_pool"
-    impl: str  # "dense" | "ecr_pallas" | "pecr_pallas"
+    impl: str  # "dense" | "ecr_pallas" | "pecr_pallas" | "bsr" | "ecr_int8" | "bsr_int8"
     occupancy: float  # measured mean channel-block occupancy of the input
     in_shape: tuple  # (C, H, W) entering the layer (pre-padding)
     out_shape: tuple  # (C, H, W) leaving the layer (post-pool if any)
@@ -61,11 +67,17 @@ class PipelinePlan:
     occ_threshold: float
     block_c: int  # 0 = auto per layer
     graph: LayerGraph  # the IR the plan was made for
+    int8_report: object = None  # quant.ops.Int8Report when int8 planning probed
 
     def counts(self) -> dict:
-        c = {"dense": 0, "sparse": 0, "fused": 0}
+        c = {"dense": 0, "sparse": 0, "fused": 0, "bsr": 0, "int8": 0}
         for lp in self.layers:
-            if get_op(lp.kind, lp.impl).sparse:
+            op = get_op(lp.kind, lp.impl)
+            if op.quantized:
+                c["int8"] += 1  # counted in its own bucket and its family's
+            if op.weight_sparse:
+                c["bsr"] += 1
+            elif op.sparse:
                 c["sparse"] += 1
                 if lp.kind == "conv_pool":
                     c["fused"] += 1
@@ -75,18 +87,21 @@ class PipelinePlan:
 
 
 def occupancy_stat(x: torch.Tensor, block_c: int = 0,
-                   n_valid: int | None = None) -> torch.Tensor:
+                   n_valid: int | None = None,
+                   dtype_bytes: int = 4) -> torch.Tensor:
     """Channel-block occupancy measured the way the batched kernel schedules:
     shared-union channel compaction, then per-sample block occupancy on the
     packed layout (mean_b cnt_b / n_cb of `batch_block_schedule`).
 
     x: (N,C,H,W) or (C,H,W). `n_valid` restricts the statistic to the first
     n_valid samples (the real requests of a padded serving bucket), clamped
-    to [0, N]; 0 reports 0.0. Returns a 0-dim float32 tensor."""
+    to [0, N]; 0 reports 0.0. `dtype_bytes` is the operand width the block
+    size is resolved at (1 for the int8 kernel). Returns a 0-dim float32
+    tensor."""
     if x.ndim == 3:
         x = x[None]
     n, c, h, w = x.shape
-    bc = resolve_block_c(h, w, c, TileConfig(block_c=block_c))
+    bc = resolve_block_c(h, w, c, TileConfig(block_c=block_c), dtype_bytes)
     n_cb = -(-c // bc)
     live = (x != 0).flatten(2).any(dim=2)  # (N, C) per-sample live channels
     if n_valid is not None:
@@ -101,36 +116,45 @@ def occupancy_stat(x: torch.Tensor, block_c: int = 0,
     return per_sample[:nv].sum() / max(nv, 1)
 
 
-def measure_occupancy(x: torch.Tensor, block_c: int = 0) -> float:
+def measure_occupancy(x: torch.Tensor, block_c: int = 0,
+                      dtype_bytes: int = 4) -> float:
     """Concrete-value wrapper of `occupancy_stat`."""
-    return float(occupancy_stat(x, block_c))
+    return float(occupancy_stat(x, block_c, dtype_bytes=dtype_bytes))
 
 
 def plan_network(params, calib: torch.Tensor, graph=None, *,
                  occ_threshold: float = 0.75, block_c: int = 0,
-                 bsr_threshold: float = 0.5) -> PipelinePlan:
+                 bsr_threshold: float = 0.5, int8: bool = False,
+                 int8_budget: float = 0.98) -> PipelinePlan:
     """Walk the graph's conv units on a calibration batch, emit the schedule.
 
     A unit goes sparse when its measured occupancy is <= occ_threshold; a
     sparse unit that passes the registry's fusion rule runs the fused
     conv+ReLU+pool op. The dense oracle (F.conv2d) produces each next
-    calibration input. A layer whose weights are pruned to a block density
-    <= `bsr_threshold` raises: the reference would consider its BSR kernel,
-    which comes in a later slice of the port."""
+    calibration input.
+
+    When a layer's weight block density is <= `bsr_threshold`,
+    ("conv", "bsr") competes with that choice on modeled roofline time and
+    displaces it iff it wins (BSR reads every window but only the live
+    weight blocks). `int8=True` then upgrades a sparse or BSR layer to its
+    int8 sibling (`ecr_int8` / `bsr_int8`) iff the quantized model wins,
+    with occupancy re-measured at the int8 block size, and probes the
+    result: int8 layers are demoted back to their fp32 choice, least modeled
+    saving first, until top-1 agreement with the dense fp32 logits on the
+    calibration batch is >= `int8_budget`. The probe lands on the plan as
+    `plan.int8_report`."""
     graph = as_graph(graph)
     if calib.ndim == 3:
         calib = calib[None]
     conv_ws, _ = graph_weights(params)
     layers = []
+    fp32_alt: dict = {}  # conv index -> the (kind, impl, occ) int8 displaced
+    q_saving: dict = {}  # conv index -> modeled us the int8 upgrade saved
     x = calib
+    batch = int(calib.shape[0])
     for unit, w in zip(graph.units(), conv_ws):
         occ = measure_occupancy(x, block_c)
         wd = weight_block_density(w)
-        if wd <= bsr_threshold:
-            raise NotImplementedError(
-                f"conv_{unit.index + 1} has weight block density {wd:.3f} <= "
-                f"bsr_threshold {bsr_threshold}: BSR weight-sparse planning "
-                "comes in a later slice of repro_torch")
         if occ <= occ_threshold:
             fused = get_op("conv", "ecr_pallas").fused_with
             if fused is not None and fusion_eligible(unit):
@@ -139,14 +163,76 @@ def plan_network(params, calib: torch.Tensor, graph=None, *,
                 kind, impl = "conv", "ecr_pallas"
         else:
             kind, impl = "conv", "dense"
+        if wd <= bsr_threshold:
+            base_us = unit_model_us(kind, impl, unit, occupancy=occ, batch=batch)
+            bsr_us = unit_model_us("conv", "bsr", unit, weight_density=wd,
+                                   batch=batch)
+            if bsr_us < base_us:
+                kind, impl = "conv", "bsr"
+        if int8:
+            op = get_op(kind, impl)
+            q_impl = "bsr_int8" if op.weight_sparse else (
+                "ecr_int8" if op.sparse else None)
+            if q_impl is not None:
+                q_occ = occ
+                if get_op("conv", q_impl).sparse:
+                    # int8 operands resolve wider channel blocks
+                    q_occ = measure_occupancy(x, block_c, dtype_bytes=1)
+                base_us = unit_model_us(kind, impl, unit, occupancy=occ,
+                                        weight_density=wd, batch=batch)
+                q_us = unit_model_us("conv", q_impl, unit, occupancy=q_occ,
+                                     weight_density=wd, batch=batch)
+                if q_us < base_us:
+                    fp32_alt[unit.index] = (kind, impl, occ)
+                    q_saving[unit.index] = base_us - q_us
+                    kind, impl, occ = "conv", q_impl, q_occ
         x = run_unit(x, w, unit, "conv", "dense")
         layers.append(LayerPlan(
             index=unit.index, stage=unit.stage, slot=unit.slot, kind=kind,
             impl=impl, occupancy=occ, in_shape=unit.in_shape,
             out_shape=unit.out_shape, conv=unit.conv, relu=unit.relu,
             pool=unit.pool, weight_density=wd))
-    return PipelinePlan(layers=tuple(layers), occ_threshold=occ_threshold,
+    plan = PipelinePlan(layers=tuple(layers), occ_threshold=occ_threshold,
                         block_c=block_c, graph=graph)
+    if int8:
+        plan = _probe_int8(plan, params, calib, fp32_alt, q_saving, int8_budget)
+    return plan
+
+
+def _probe_int8(plan: PipelinePlan, params, calib: torch.Tensor,
+                fp32_alt: dict, q_saving: dict, budget: float) -> PipelinePlan:
+    """Accuracy-gate a plan's int8 placements: planned logits vs the dense
+    fp32 logits on the calibration batch. While top-1 agreement < `budget`,
+    demote the int8 layer with the least modeled saving back to its
+    recorded fp32 choice and probe again. With every int8 layer demoted the
+    plan is fp32 again, so the loop ends. Returns the plan with its
+    `int8_report`."""
+    from repro_torch.graph.executor import run_graph
+    from repro_torch.quant.ops import Int8Report
+
+    ref = run_graph(plan.graph, params, calib, "dense")
+
+    def probe(p):
+        got = run_plan(p, params, calib)
+        agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+        return agree, float((got - ref).abs().max())
+
+    agree, drift = probe(plan)
+    demoted = []
+    order = sorted(fp32_alt, key=lambda i: q_saving[i])  # cheapest give-back
+    layers = list(plan.layers)
+    while agree < budget and order:
+        i = order.pop(0)
+        kind, impl, occ = fp32_alt[i]
+        pos = next(p for p, lp in enumerate(layers) if lp.index == i)
+        layers[pos] = replace(layers[pos], kind=kind, impl=impl, occupancy=occ)
+        demoted.append(i)
+        plan = replace(plan, layers=tuple(layers))
+        agree, drift = probe(plan)
+    report = Int8Report(
+        layers=tuple(i for i in sorted(fp32_alt) if i not in demoted),
+        max_logit_drift=drift, top1_agreement=agree, demoted=tuple(demoted))
+    return replace(plan, int8_report=report)
 
 
 def validate_plan(plan: PipelinePlan, params, imgs) -> None:

@@ -19,9 +19,12 @@ the same images whenever the co-batched samples share a live-channel union
 dense layers and the head give per-sample results independent of the batch
 size; the all-zero pad samples never perturb the union.
 
+`int8=True` lets the first plan and every re-plan upgrade layers to the
+int8 kernels under the probe's top-1 agreement budget `int8_budget`
+(`plan_network(int8=...)`).
+
 Not ported in this slice: the data-parallel mesh, `profile()`, calibration,
-tile and int8 planning, the static-verifier hooks, `hot_swap` and the span
-tracer.
+tile search, the static-verifier hooks, `hot_swap` and the span tracer.
 """
 from __future__ import annotations
 
@@ -85,8 +88,11 @@ class Engine:
                  replan_cooldown: int = 2, replan_async: bool = False,
                  cache_entries: int = 32, cache: PlanCache | None = None,
                  metrics: MetricsTracker | None = None,
-                 sim_service_s=None, device=None):
+                 sim_service_s=None, int8: bool = False,
+                 int8_budget: float = 0.98, device=None):
         self.device = resolve_device(device)
+        self.int8 = bool(int8)
+        self.int8_budget = float(int8_budget)
         conv_ws, dense_ws = graph_weights(params)
         for w in conv_ws + dense_ws:
             if w.device.type != self.device.type:
@@ -99,7 +105,8 @@ class Engine:
                 raise ValueError("Engine needs either a prebuilt plan= or "
                                  "calib= images to plan on")
             plan = plan_network(params, self._to_device(calib), graph,
-                                occ_threshold=occ_threshold, block_c=block_c)
+                                occ_threshold=occ_threshold, block_c=block_c,
+                                int8=self.int8, int8_budget=self.int8_budget)
         self.params = params
         self.graph = graph
         self.plan = plan
@@ -204,6 +211,8 @@ class Engine:
             "plan_sparse": c["sparse"],
             "plan_fused": c["fused"],
             "plan_dense": c["dense"],
+            "plan_bsr": c["bsr"],
+            "plan_int8": c["int8"],
             "occ_ema": [float(v) for v in np.round(self._occ_ema, 4)],
             **{k: v for k, v in self.metrics.latency.percentiles_ms().items()
                if k != "count"},
@@ -284,7 +293,8 @@ class Engine:
             try:
                 new = plan_network(self.params, calib, self.graph,
                                    occ_threshold=plan.occ_threshold,
-                                   block_c=plan.block_c)
+                                   block_c=plan.block_c, int8=self.int8,
+                                   int8_budget=self.int8_budget)
             except Exception:
                 # a failed re-plan must not take down the serving loop: keep
                 # the current plan, count the failure, retry on next drift

@@ -1,1 +1,2 @@
-"""Weight block density (counterpart of `repro.sparse_weights.format`)."""
+"""Weight sparsity: block pruning, the BSR conv and its block geometry
+(counterpart of `repro.sparse_weights`)."""

@@ -1,10 +1,11 @@
-"""BSR weight-block density (counterpart of the part of
-`repro.sparse_weights.format` that `plan_network` reads).
+"""BSR weight format: the block geometry shared by pruning, planning and the
+conv lowering (counterpart of `repro.sparse_weights.format`).
 
 A conv weight (O, C, kh, kw) is viewed as the GEMM operand W:(O, K),
-K = C*kh*kw, cut into (bt, bf) blocks by `weight_block`; the density is the
-fraction of blocks holding any nonzero. The planner records it per layer and
-refuses layers pruned below its BSR gate, whose kernel is a later slice.
+K = C*kh*kw, cut into (bt, bf) blocks by `weight_block`: the pruner zeros
+whole blocks of it, `conv2d_bsr` hands it to the BSR kernel as the sparse
+left operand, and the density (the fraction of blocks holding any nonzero)
+is what the planner's BSR arm prices.
 """
 from __future__ import annotations
 

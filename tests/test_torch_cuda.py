@@ -1,20 +1,33 @@
 """The CUDA kernels against their plain PyTorch versions on the card. These
 tests need an NVIDIA GPU and nvcc; without a card they skip (the check runs
 inside the fixture, never at import). Run them on the card with
-`python -m pytest -m cuda tests/test_torch_cuda.py`.
+`PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py`
+(`tests/conftest.py` imports JAX, which the card's machine need not have).
 
-Tolerance: max|kernel - plain| <= 1e-4 * max|plain| + 1e-5 — fp32 sums in
-another order (the kernel per channel then per tap, the plain version one
-matmul per tap over every scheduled channel)."""
+Tolerances: fp32 kernels max|kernel - plain| <= 1e-4 * max|plain|
++ 1e-5 * min(1, max|plain|) (the floor shrinks with small outputs) —
+fp32 sums in another order (the conv kernel per channel then per tap, its
+plain version one matmul per tap over every scheduled channel; the BSR kernel
+block by block, its plain version one matmul). int8 kernels: bitwise equal —
+both sum the same integers exactly (int32 in the kernel, float64 in the plain
+version) and rescale in the same order."""
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels.bsr_matmul.kernel import bsr_matmul, bsr_matmul_plain  # noqa: E402
+from repro_torch.kernels.bsr_matmul.ops import block_schedule  # noqa: E402
 from repro_torch.kernels.conv_pool.kernel import conv_pool_batch, conv_pool_plain  # noqa: E402
 from repro_torch.kernels.conv_pool.ops import conv_pool_launch  # noqa: E402
 from repro_torch.kernels.ecr_conv.kernel import ecr_conv_batch, ecr_conv_plain  # noqa: E402
 from repro_torch.kernels.ecr_conv.ops import ecr_conv_launch, pack_operands  # noqa: E402
+from repro_torch.quant.kernels import (  # noqa: E402
+    bsr_matmul_int8,
+    bsr_matmul_int8_plain,
+    ecr_conv_int8_batch,
+    ecr_conv_int8_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -31,7 +44,8 @@ def dev():
 
 def _close(got, want):
     err = float((got - want).abs().max())
-    assert err <= 1e-4 * float(want.abs().max()) + 1e-5, err
+    scale = float(want.abs().max())
+    assert err <= 1e-4 * scale + 1e-5 * min(1.0, scale), (err, scale)
 
 
 def _packed(dev, n, c, hw, o, k, stride, pool, seed):
@@ -75,3 +89,112 @@ def test_pecr_kernel_matches_plain(dev, n, c, hw, o, k, stride):
     assert conv_pool_batch.launches == before + 1
     _close(got, conv_pool_plain(x, w, ids, cnt, stride=stride, pool=2, block_c=bc))
     assert torch.all(got[-1] == 0)
+
+
+def _bsr_operands(dev, t, f, d, bf, density, seed, dtype=np.float32):
+    """A block-pruned h (T,F) with row-block 0 pruned away entirely
+    (cnt = 0), a dense w (F,D), and h's schedule."""
+    rng = np.random.default_rng(seed)
+    nt, nf = -(-t // 8), -(-f // bf)
+    keep = rng.random((nt, nf)) < density
+    keep[0] = False
+    mask = np.repeat(np.repeat(keep, 8, 0), bf, 1)[:t, :f]
+    if dtype == np.int8:
+        h = rng.integers(-127, 128, (t, f)).astype(np.int8) * mask.astype(np.int8)
+        w = rng.integers(-127, 128, (f, d)).astype(np.int8)
+    else:
+        h = (rng.standard_normal((t, f)) * mask).astype(np.float32)
+        w = rng.standard_normal((f, d)).astype(np.float32)
+    ht, wt = torch.from_numpy(h).to(dev), torch.from_numpy(w).to(dev)
+    ids, cnt = block_schedule(ht, 8, bf)
+    assert int(cnt[0]) == 0
+    return ht, wt, ids.contiguous(), cnt.contiguous()
+
+
+@pytest.mark.parametrize("t,f,d,bf", [
+    (6, 25, 300, 8),       # LeNet-5 conv1: O=6, K=25
+    (64, 27, 1000, 8),     # VGG-19 conv1_1: K=27, ragged P
+    (64, 576, 4099, 128),  # VGG-19 conv1_2 width, ragged P
+    (70, 200, 129, 32),    # ragged everything
+])
+def test_bsr_kernel_matches_plain(dev, t, f, d, bf):
+    h, w, ids, cnt = _bsr_operands(dev, t, f, d, bf, 0.4, seed=t + f)
+    before = bsr_matmul.launches
+    got = bsr_matmul(h, w, ids, cnt, block=(8, bf))
+    torch.cuda.synchronize()
+    assert bsr_matmul.launches == before + 1
+    _close(got, bsr_matmul_plain(h, w, ids, cnt, block=(8, bf)))
+    assert torch.all(got[:8] == 0)  # the all-pruned row-block writes zeros
+
+
+@pytest.mark.parametrize("t,f,d,bf", [(6, 25, 300, 8), (64, 576, 4099, 128),
+                                      (512, 4608, 300, 128)])
+def test_bsr_int8_kernel_is_bitwise_plain(dev, t, f, d, bf):
+    h, w, ids, cnt = _bsr_operands(dev, t, f, d, bf, 0.4, seed=t, dtype=np.int8)
+    rng = np.random.default_rng(t)
+    sh = torch.from_numpy(rng.random(t).astype(np.float32) * 1e-2 + 1e-4).to(dev)
+    sw = torch.tensor([3.7e-3], device=dev)
+    before = bsr_matmul_int8.launches
+    got = bsr_matmul_int8(h, w, sh, sw, ids, cnt, block=(8, bf))
+    torch.cuda.synchronize()
+    assert bsr_matmul_int8.launches == before + 1
+    assert torch.equal(got, bsr_matmul_int8_plain(h, w, sh, sw, ids, cnt,
+                                                  block=(8, bf)))
+
+
+def test_bsr_int8_extremes_stay_exact(dev):
+    """All +-127 over VGG-19's longest reduction (K = 512 * 9): every
+    product is 16129 and the int32 sum reaches 74.3M without overflow."""
+    t, f, d = 16, 4608, 256
+    h = torch.full((t, f), 127, dtype=torch.int8, device=dev)
+    h[8:] = -127
+    w = torch.full((f, d), 127, dtype=torch.int8, device=dev)
+    ids, cnt = block_schedule(h, 8, 128)
+    one = torch.ones(t, device=dev)
+    got = bsr_matmul_int8(h, w, one, torch.ones(1, device=dev), ids, cnt,
+                          block=(8, 128))
+    assert torch.all(got[:8] == float(127 * 127 * f))
+    assert torch.all(got[8:] == -float(127 * 127 * f))
+
+
+def _packed_int8(dev, n, c, hw, o, k, stride, seed, extreme=False):
+    rng = np.random.default_rng(seed)
+    if extreme:
+        x = np.full((n, c, hw, hw), 127, np.int8)
+        w = np.full((o, c, k, k), -127, np.int8)
+    else:
+        x = rng.integers(-127, 128, (n, c, hw, hw)).astype(np.int8)
+        x *= (rng.random((n, c, 1, 1)) > 0.4).astype(np.int8)
+        w = rng.integers(-127, 128, (o, c, k, k)).astype(np.int8)
+    x[-1] = 0  # a pad sample: cnt = 0
+    launch = ecr_conv_launch(c, hw, hw, o, k, k, stride=stride, block_c=8,
+                             batch=n, dtype_bytes=1)
+    xt = torch.from_numpy(x).to(dev)
+    wt = torch.from_numpy(w).to(dev)
+    xp, wp, ids, cnt = pack_operands(xt, wt, launch)
+    sx = torch.from_numpy(rng.random(n).astype(np.float32) * 1e-2 + 1e-4).to(dev)
+    sw = torch.from_numpy(rng.random(o).astype(np.float32) * 1e-2 + 1e-4).to(dev)
+    return (xp, wp, sx, sw, ids, cnt), launch.block_c
+
+
+@pytest.mark.parametrize("n,c,hw,o,k,stride", [
+    (4, 20, 17, 70, 3, 1), (3, 3, 227, 64, 11, 4), (2, 6, 14, 16, 5, 1),
+    (8, 256, 58, 256, 3, 1), (1, 64, 30, 64, 3, 1),
+])
+def test_ecr_int8_kernel_is_bitwise_plain(dev, n, c, hw, o, k, stride):
+    args, bc = _packed_int8(dev, n, c, hw, o, k, stride, seed=hw + k)
+    before = ecr_conv_int8_batch.launches
+    got = ecr_conv_int8_batch(*args, stride=stride, block_c=bc)
+    torch.cuda.synchronize()
+    assert ecr_conv_int8_batch.launches == before + 1
+    assert torch.equal(got, ecr_conv_int8_plain(*args, stride=stride, block_c=bc))
+    assert torch.all(got[-1] == 0)
+
+
+def test_ecr_int8_extremes_stay_exact(dev):
+    args, bc = _packed_int8(dev, 2, 512, 16, 64, 3, 1, seed=0, extreme=True)
+    x, w, _, _, ids, cnt = args
+    ones_n, ones_o = torch.ones(2, device=dev), torch.ones(64, device=dev)
+    got = ecr_conv_int8_batch(x, w, ones_n, ones_o, ids, cnt, stride=1, block_c=bc)
+    assert torch.all(got[0] == -float(127 * 127 * 512 * 9))
+    assert torch.all(got[1] == 0)

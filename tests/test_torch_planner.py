@@ -85,7 +85,7 @@ def test_vgg_tiny_sparse_layer_occupancy_is_half():
     _, tg, _, tp, calib = _setup("vgg-tiny")
     plan = plan_network(tp, torch.from_numpy(calib), tg, occ_threshold=0.75, block_c=8)
     assert plan.layers[0].occupancy == pytest.approx(0.5)
-    assert plan.counts() == {"dense": 2, "sparse": 1, "fused": 0}
+    assert plan.counts() == {"dense": 2, "sparse": 1, "fused": 0, "bsr": 0, "int8": 0}
 
 
 def test_run_plan_collects_occupancy_with_n_valid():
@@ -100,11 +100,21 @@ def test_run_plan_collects_occupancy_with_n_valid():
 
 
 def test_plan_network_refuses_pruned_weights():
+    """Pruned weights are no longer refused: a layer whose block density is
+    at or below `bsr_threshold` is priced on the BSR arm (which, at zero
+    density, wins), and the plan runs to the dense logits of the same
+    params."""
     _, tg, _, tp, calib = _setup("lenet-tiny")
     pruned = {"conv": [w.clone() for w in tp["conv"]], "dense": tp["dense"]}
     pruned["conv"][1][:, :, :, :] = 0.0
-    with pytest.raises(NotImplementedError, match="later slice"):
-        plan_network(pruned, torch.from_numpy(calib), tg, block_c=8)
+    plan = plan_network(pruned, torch.from_numpy(calib), tg, block_c=8)
+    assert plan.layers[1].weight_density == 0.0
+    assert plan.layers[1].impl == "bsr"
+    from repro_torch.graph.executor import run_graph
+
+    torch.testing.assert_close(run_plan(plan, pruned, torch.from_numpy(calib)),
+                               run_graph(tg, pruned, torch.from_numpy(calib)),
+                               rtol=1e-5, atol=1e-6)
 
 
 def test_validate_plan_rejects_mismatches():

@@ -142,3 +142,52 @@ def test_serve_cnn_end_to_end_on_cpu():
     assert summary["requests"] == 6 and summary["model"] == "vgg-tiny"
     assert summary["plan"][0].startswith("ecr_pallas")
     assert summary["compiles"] == 3 and summary["throughput_rps"] > 0
+
+
+def test_engine_int8_on_pruned_params_matches_run_plan(params):
+    """Pruned to 0.3 and served at int8=True: the plan holds a bsr_int8
+    layer, the engine's logits equal run_plan's on the same bucket bit for
+    bit, and stats() reports the BSR and int8 placements. (bsr_int8 takes
+    one patch scale over the whole batch, as in the reference, so a
+    request's logits depend on the requests it is batched with: the check
+    is per bucket.)"""
+    from repro_torch.sparse_weights.prune import prune_graph_params
+
+    pruned, rep = prune_graph_params(params, 0.3, GRAPH)
+    assert rep.density <= 0.55
+    eng = _engine(pruned, occ_threshold=0.75, int8=True)
+    assert "bsr_int8" in [lp.impl for lp in eng.plan.layers]
+    assert eng.plan.int8_report is not None
+    imgs = synth_requests(GRAPH, 4, seed=11, device="cpu")  # one full bucket
+    served = eng.serve(imgs)
+    ref = run_plan(eng.plan, pruned, torch.stack(imgs)).numpy()
+    assert np.array_equal(served, ref)
+    stats = eng.stats()
+    assert stats["plan_bsr"] >= 1 and stats["plan_int8"] >= 1
+
+
+def test_serve_cnn_pruned_int8_end_to_end_on_cpu():
+    summary = serve_cnn(model="vgg19", n_requests=8, rate=200.0,
+                        prune_density=0.3, int8=True, device="cpu")
+    assert summary["requests"] == 8
+    assert 0.0 < summary["prune_density"] <= 0.55
+    assert summary["plan_bsr"] >= 1 and summary["plan_int8"] >= 1
+    assert summary["plan"][0].startswith("bsr_int8")
+
+
+def test_serve_cnn_cli_pruned_int8_on_cpu(monkeypatch, caplog):
+    """`python -m repro_torch.launch.serve_cnn --device cpu --prune-density
+    0.3 --int8` logs the prune report, the int8 probe and a bsr_int8 plan."""
+    import logging
+    import sys
+
+    from repro_torch.launch import serve_cnn as launcher
+
+    monkeypatch.setattr(sys, "argv", ["serve_cnn", "--device", "cpu", "--prune-density",
+                                      "0.3", "--int8", "--n-requests", "4"])
+    with caplog.at_level(logging.INFO, logger="repro_torch.serve_cnn"):
+        launcher.main()
+    assert "pruned to 0.30 achieved block density" in caplog.text
+    assert "int8 probe:" in caplog.text
+    assert "vgg-tiny plan: conv1=bsr_int8@" in caplog.text
+    assert "served 4 requests" in caplog.text
