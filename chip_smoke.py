@@ -44,14 +44,52 @@
    kernels, F.conv2d on the dequantized operands for the int8 conv,
    torch.matmul on the padded dense operands for BSR, and torch._int_mm plus
    the rescale for int8 BSR; none of these is on the port's path.
-6. Prints the kernel table as one JSON line (the eight TPU kernels of the
-   repo's CNN path; the single-image rows are the batched kernels at N=1),
-   the card line, and last {"ok": true, "device": {...}}. Any failure exits
-   non-zero without it. In the table, ms / plain_ms / library_ms / bound_ms
-   are sums over the served plan's layers that run the kernel (one batch-8
-   VGG-19 forward, or N=1 for the single-image rows); launches count the
-   serving run of the phase that runs the kernel, and are 0 for the
-   single-image rows, which the engine (buckets of 2 or more) never runs. `--layers-out PATH` also
+6. Serves full-width qwen3-0.6b (28 layers, d_model 1024, 16 query / 8 KV
+   heads, head_dim 128, vocab 151,936; random weights from generator seed
+   0) through `repro_torch.launch.serve.serve` at batch 4, prompt 32, 32
+   generated tokens, once with the fp32 KV cache and once with the int8
+   cache, after a 2-token warm-up of each. The flash counters are set to 0
+   just before each run and read just after: flash_fwd must launch 28 * 32 =
+   896 times in the fp32 run and flash_fwd_q8 896 times in the int8 run (one
+   launch per layer at prefill and at each of the 31 decode steps). The
+   card's weights are carried to the host and the port's plain path runs
+   teacher-forced on the served tokens (prefill plus 4 decode steps, fp32
+   and int8 cache): card logits within rtol 1e-3 + 1e-3*max|host| of the
+   host's, and the served tokens equal to the card's argmax. For the int8
+   cache the host first quantizes its own K/V and must land within one step
+   of the card's values (scales within 1e-5 relative), then attends over
+   the card's values: a value on a rounding boundary may round either way
+   after fp32 noise, and one step apart moves the logits by more than the
+   limit. int8-cache top-1 agreement and drift against the fp32 cache are
+   printed. Then both
+   flash kernels are held against their plain versions (out, m and l for
+   fp32; same tolerance as the fp32 conv kernels) at the real q, k, v of
+   layers 0 and 27 at prefill and at the first decode step (captured from
+   the teacher-forced card run), at a long prefill (Sq = Sk = 2048, causal)
+   and a long decode (kv_len 4096 in a 4160-slot cache) at batch 4, and at
+   edge shapes (ragged Sq/Sk, kv_len < Sk, q_offset > 0, Sq = 1, a fully
+   masked block, G = 3). Kernel, plain version and the library call
+   (F.scaled_dot_product_attention in fp32 with K/V expanded to the query
+   heads and the same boolean mask; dequantize + SDPA for the int8 kernel)
+   are timed in turns at layer 0 of the served shapes and at the long ones,
+   as CUDA-graph replays (device time: the eager call's host overhead
+   exceeds the kernel at the served shapes) and as eager calls.
+   A torch.profiler trace of one warm prefill and one warm decode step per
+   cache type gives wall, device time and idle share.
+7. Prints the kernel table as one JSON line (the ten TPU kernels of the
+   repo's serving paths; the single-image rows are the batched kernels at
+   N=1), the card line, and last {"ok": true, "device": {...}}. Any failure
+   exits non-zero without it. In the CNN rows, ms / plain_ms / library_ms /
+   bound_ms are sums over the served plan's layers that run the kernel (one
+   batch-8 VGG-19 forward, or N=1 for the single-image rows); launches count
+   the serving run of the phase that runs the kernel, and are 0 for the
+   single-image rows, which the engine (buckets of 2 or more) never runs. In
+   the flash rows they are sums of one prefill launch and one decode launch
+   at the served shapes (layer 0), with every timed shape listed under
+   "shapes", and launches count the served qwen3-0.6b run. The flash bound is
+   max(4*B*H*(visible q.k pairs)*D / 67 TFLOP/s, bytes / 3.35 TB/s), the
+   bytes being the K/V of the keys read (4 bytes, or 1 byte plus the fp32
+   scales), Q, O, and m, l for fp32, once. `--layers-out PATH` also
    writes the per-layer numbers there as JSON.
 """
 from __future__ import annotations
@@ -106,6 +144,46 @@ def time_turns(fns: dict, rounds: int = 5, iters: int = 10) -> dict:
             end.record()
             torch.cuda.synchronize()
             samples[k].append(start.elapsed_time(end) / iters)
+    return {k: sorted(v)[len(v) // 2] for k, v in samples.items()}
+
+
+def time_graph_turns(fns: dict, rounds: int = 5, iters: int = 10) -> dict:
+    """Median device ms per call of each function: `iters` calls captured in
+    one CUDA graph per function and replayed, timed with CUDA events, the
+    functions taking turns round by round. Graph replay leaves the host's
+    per-call overhead out, which at the served LM shapes exceeds the
+    kernels' own time."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in fns.values():
+            for _ in range(2):
+                fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graphs = {}
+    for k, fn in fns.items():
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(iters):
+                fn()
+        graphs[k] = g
+    for g in graphs.values():
+        g.replay()
+    torch.cuda.synchronize()
+    samples = {k: [] for k in fns}
+    for _ in range(rounds):
+        for k, g in graphs.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            g.replay()
+            end.record()
+            torch.cuda.synchronize()
+            samples[k].append(start.elapsed_time(end) / iters)
+    del graphs
     return {k: sorted(v)[len(v) // 2] for k, v in samples.items()}
 
 
@@ -509,6 +587,9 @@ def edge_cases_new(book, dev):
 
 def kernel_category(name: str) -> str:
     """Coarse class of a CUDA kernel by its symbol name."""
+    if "flash_fwd_kernel" in name:
+        q8 = "<signed char" in name or "IaLi" in name
+        return "flash q8 kernel" if q8 else "flash kernel"
     int8 = "signed char" in name or "Iai" in name
     if "bsr_matmul_kernel" in name:
         return "bsr int8 kernel" if int8 else "bsr kernel"
@@ -518,7 +599,7 @@ def kernel_category(name: str) -> str:
         return "pecr kernel" if "Lb1E" in name or "true>" in name else "ecr kernel"
     low = name.lower()
     if any(t in low for t in ("cudnn", "xmma", "conv", "gemm", "cutlass")):
-        return "cuDNN/cuBLAS (dense convs, head)"
+        return "cuDNN/cuBLAS (dense convs, head, LM matmuls)"
     if "sort" in low or "radix" in low:
         return "argsort (compaction)"
     if "im2col" in low:
@@ -526,32 +607,25 @@ def kernel_category(name: str) -> str:
     return "other (pad/permute/gather/relu/pool/occupancy/quantize)"
 
 
-def service_breakdown(plan, params, imgs) -> dict:
-    """One warm batch through the engine's runner: host wall time (median of
-    5, synchronised) and a torch.profiler trace of one more run, summed by
-    kernel class. The device idle share is 1 - device time / wall time."""
+def trace_breakdown(fn, extra=None) -> dict:
+    """Host wall time of `fn` (median of 5, synchronised, after 2 warm-up
+    runs) and a torch.profiler trace of one more run, summed by kernel class.
+    The device idle share is 1 - device time / wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.pipeline import run_plan
-
-    n = imgs.shape[0]
-
-    def service():
-        return run_plan(plan, params, imgs, collect_occupancy=True, n_valid=n)
-
     for _ in range(2):
-        service()
+        fn()
     torch.cuda.synchronize()
     walls = []
     for _ in range(5):
         t0 = time.perf_counter()
-        service()
+        fn()
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     wall_ms = sorted(walls)[2]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        service()
+        fn()
         torch.cuda.synchronize()
     kernels = {}
     for e in prof.key_averages():
@@ -564,12 +638,24 @@ def service_breakdown(plan, params, imgs) -> dict:
         cats[kernel_category(name)] = cats.get(kernel_category(name), 0.0) + us / 1e3
     device_ms = sum(cats.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
-    return {"batch": n, "wall_ms": wall_ms, "walls_ms": walls,
-            "device_ms": device_ms,
-            "idle_share": max(0.0, 1.0 - device_ms / wall_ms) if device_ms else None,
-            "by_class_ms": cats,
-            "top_kernels": [{"name": k[:120], "ms": v[0] / 1e3, "count": v[1]}
-                            for k, v in top]}
+    out = {"wall_ms": wall_ms, "walls_ms": walls, "device_ms": device_ms,
+           "device_ops": sum(n for _, n in kernels.values()),
+           "idle_share": max(0.0, 1.0 - device_ms / wall_ms) if device_ms else None,
+           "by_class_ms": cats,
+           "top_kernels": [{"name": k[:120], "ms": v[0] / 1e3, "count": v[1]}
+                           for k, v in top]}
+    out.update(extra or {})
+    return out
+
+
+def service_breakdown(plan, params, imgs) -> dict:
+    """One warm batch through the engine's runner (`trace_breakdown`)."""
+    from repro_torch.pipeline import run_plan
+
+    n = imgs.shape[0]
+    return trace_breakdown(
+        lambda: run_plan(plan, params, imgs, collect_occupancy=True, n_valid=n),
+        {"batch": n})
 
 
 def make_params(graph, *, seed, dev, prune_density=1.0):
@@ -737,6 +823,400 @@ def variant_kernel_checks(book, plan, params, batch, failures, name):
         x = run_unit(x, w, unit, "conv", "dense")
     for row in book.rows[first:]:
         row["phase"] = name
+
+
+LM_ARCH = "qwen3-0.6b"
+LM_SERVE = dict(batch=4, prompt_len=32, gen_len=32, seed=0)
+LM_TF_STEPS = 4  # teacher-forced decode steps held against the CPU
+LM_LONG = dict(b=4, sq=2048, dec_kv_len=4096, dec_s_max=4160)
+
+
+def tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+class capture_attention:
+    """Within the block, record the (q, k, v[, scales], kwargs) of the
+    model's flash calls whose running index is in `keep` (cloned: the cache
+    is written in place), then run the call as usual."""
+
+    def __init__(self, keep):
+        self.keep, self.calls, self.n = set(keep), {}, 0
+
+    def __enter__(self):
+        import repro_torch.models.attention as A
+
+        self.A, self.orig = A, (A.flash_fwd, A.flash_fwd_q8)
+
+        def wrap(fn):
+            def rec(*args, **kw):
+                if self.n in self.keep:
+                    self.calls[self.n] = (tuple(a.clone() for a in args), dict(kw))
+                self.n += 1
+                return fn(*args, **kw)
+            return rec
+
+        A.flash_fwd, A.flash_fwd_q8 = wrap(self.orig[0]), wrap(self.orig[1])
+        return self
+
+    def __exit__(self, *exc):
+        self.A.flash_fwd, self.A.flash_fwd_q8 = self.orig
+
+
+class pin_quantization:
+    """The int8 cache's rounding, pinned. Mode "record" (the card's run) keeps
+    each `_quantize_kv` result in call order; mode "replay" (the host's run)
+    quantizes its own K/V, holds the result to the card's (values within one
+    step, scales within 1e-5 relative: an fp32 difference of 1e-7 moves a
+    value sitting on a rounding boundary by one step) and hands on the
+    card's values, so the host attends over the cache the card attended
+    over."""
+
+    def __init__(self, mode, recorded=None):
+        self.mode, self.recorded = mode, recorded if recorded is not None else []
+        self.i, self.moved, self.total, self.worst_step, self.worst_scale = 0, 0, 0, 0, 0.0
+
+    def __enter__(self):
+        import repro_torch.models.attention as A
+
+        self.A, self.orig = A, A._quantize_kv
+
+        def quantize(x):
+            q, sc = self.orig(x)
+            if self.mode == "record":
+                self.recorded.append((q.cpu(), sc.cpu()))
+                return q, sc
+            qc, scc = self.recorded[self.i]
+            self.i += 1
+            step = (q.int() - qc.int()).abs()
+            self.moved += int((step > 0).sum())
+            self.total += q.numel()
+            self.worst_step = max(self.worst_step, int(step.max()))
+            self.worst_scale = max(self.worst_scale,
+                                   float(((sc - scc).abs() / scc.abs()).max()))
+            return qc.to(q.device), scc.to(sc.device)
+
+        A._quantize_kv = quantize
+        return self
+
+    def __exit__(self, *exc):
+        self.A._quantize_kv = self.orig
+
+
+def teacher_forced(cfg, params, prompt, follow, kv_dtype, dev, max_len):
+    """Prefill the prompt, then decode the `follow` tokens one by one:
+    [prefill logits (B,S,V)] + one (B,1,V) per step, on the host."""
+    import torch
+
+    from repro_torch.models import model as M
+
+    dt = torch.int8 if kv_dtype == "int8" else torch.float32
+    cache = M.init_cache(cfg, prompt.shape[0], max_len, dt, device=dev)
+    out = []
+    with torch.no_grad():
+        lg, cache = M.prefill(cfg, params, cache, {"tokens": prompt.to(dev)})
+        out.append(lg.cpu())
+        for t in range(follow.shape[1]):
+            lg, cache = M.decode_step(cfg, params, cache,
+                                      {"tokens": follow[:, t:t + 1].to(dev)},
+                                      prompt.shape[1] + t)
+            out.append(lg.cpu())
+    return out
+
+
+def visible_pairs(sq, sk, causal, q_offset, kv_len):
+    """(visible q.k pairs per head, keys any row reads) under the masks."""
+    lim = sk if kv_len is None else max(0, min(sk, kv_len))
+    per_row = [lim if not causal else max(0, min(lim, q_offset + s + 1))
+               for s in range(sq)]
+    return sum(per_row), max(per_row)
+
+
+def flash_bound(q, k, kw, *, q8):
+    """(op time, byte time) in ms: 4 * B * H * pairs * D fp32 operations
+    (q.k and p.v) over 67 TFLOP/s; K/V of the keys read (4 bytes, or 1 byte
+    plus the fp32 scales), Q and O once, and m and l (fp32 kernel) over
+    3.35 TB/s."""
+    b, sq, kvh, g, d = q.shape
+    sk = k.shape[1]
+    pairs, keys = visible_pairs(sq, sk, kw["causal"], kw["q_offset"], kw["kv_len"])
+    ops = 4.0 * b * kvh * g * pairs * d
+    kv_bytes = 2.0 * b * kvh * keys * (d * 1 + 4 if q8 else d * 4)
+    nbytes = kv_bytes + 8.0 * b * kvh * g * sq * d + (0 if q8 else 8.0 * b * kvh * g * sq)
+    return ops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+
+
+def flash_library(q, k, v, kw, ks=None, vs=None):
+    """F.scaled_dot_product_attention on the same inputs: q to (B,H,Sq,D),
+    K/V expanded to the H query heads (outside the call for fp32; for int8
+    the dequantize and the expansion are inside it), the same boolean mask."""
+    import torch
+    import torch.nn.functional as F
+
+    b, sq, kvh, g, d = q.shape
+    sk = k.shape[1]
+    qh = q.reshape(b, sq, kvh * g, d).transpose(1, 2)
+    qpos = kw["q_offset"] + torch.arange(sq, device=q.device)
+    kpos = torch.arange(sk, device=q.device)
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if kw["causal"]:
+        mask &= qpos[:, None] >= kpos[None, :]
+    if kw["kv_len"] is not None:
+        mask &= (kpos < kw["kv_len"])[None, :]
+
+    def heads(x):
+        return x.repeat_interleave(g, dim=2).transpose(1, 2)
+
+    if ks is None:
+        kh, vh = heads(k), heads(v)
+        return lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                                      scale=kw["scale"])
+    return lambda: F.scaled_dot_product_attention(
+        qh, heads(k.float() * ks[..., None]), heads(v.float() * vs[..., None]),
+        attn_mask=mask, scale=kw["scale"])
+
+
+def check_flash(book, label, args, kw, *, timed):
+    """A flash kernel against its plain version (out, and m, l for fp32) on
+    model-layout operands; when `timed`, kernel / plain / library times and
+    the bound. Returns the timing row or None."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_fwd,
+        flash_fwd_plain,
+        flash_fwd_q8,
+        flash_fwd_q8_plain,
+    )
+
+    q8 = len(args) == 5
+    name = "flash_fwd_q8" if q8 else "flash_fwd"
+    kernel = (lambda: flash_fwd_q8(*args, **kw)) if q8 else (lambda: flash_fwd(*args, **kw))
+    plain = (lambda: flash_fwd_q8_plain(*args, **kw)) if q8 else \
+        (lambda: flash_fwd_plain(*args, **kw))
+    got = kernel()
+    torch.cuda.synchronize()
+    want = plain()
+    tag = (f"{label} q{tuple(args[0].shape)} k{tuple(args[1].shape)} "
+           f"q_offset={kw['q_offset']} kv_len={kw['kv_len']}")
+    if q8:
+        book.check(name, tag, got, want)
+    else:
+        for part, g_, w_ in zip(("out", "m", "l"), got, want):
+            book.check(name, f"{tag} {part}", g_, w_)
+    if not timed:
+        return None
+    lib = flash_library(*args[:3], kw, *(args[3:] if q8 else ()))
+    lib_out = lib()
+    got_out = got if q8 else got[0]
+    b, sq, kvh, g, d = args[0].shape
+    lib_err = float((lib_out.transpose(1, 2).reshape(got_out.shape) - got_out).abs().max())
+    fns = {"kernel": kernel, "plain": plain, "library": lib}
+    t = time_graph_turns(fns)
+    te = time_turns(fns)
+    ft, bt = flash_bound(args[0], args[1], kw, q8=q8)
+    row = {"kernel": name, "shape": label, "q": list(args[0].shape),
+           "k": list(args[1].shape), "q_offset": kw["q_offset"], "kv_len": kw["kv_len"],
+           "ms": t["kernel"], "plain_ms": t["plain"], "library_ms": t["library"],
+           "eager_ms": te["kernel"], "eager_plain_ms": te["plain"],
+           "eager_library_ms": te["library"],
+           "flop_ms": ft, "byte_ms": bt, "bound_ms": max(ft, bt),
+           "bound_by": "operations" if ft >= bt else "bytes",
+           "library_max_abs_diff": lib_err, "phase": LM_ARCH}
+    book.rows.append(row)
+    print(f"    {name} {label}: ms={t['kernel']:.4f} plain_ms={t['plain']:.4f} "
+          f"library_ms={t['library']:.4f} bound_ms={max(ft, bt):.4f} "
+          f"({row['bound_by']}) [CUDA-graph replay]; eager calls: "
+          f"{te['kernel']:.4f} / {te['plain']:.4f} / {te['library']:.4f} ms; "
+          f"|kernel - SDPA| {lib_err:.2e}")
+    return row
+
+
+def lm_phase(book, dev, failures) -> dict:
+    """Full-width qwen3-0.6b served through the port (fp32 and int8 cache):
+    counters, teacher-forced logits against the CPU, the flash kernels at the
+    served, long and edge shapes, and a trace of prefill and decode."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention.kernel import flash_fwd, flash_fwd_q8
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import model as M
+    from repro_torch.models.attention import _quantize_kv
+
+    cfg = get_config(LM_ARCH)
+    wrappers = {"flash_fwd": flash_fwd, "flash_fwd_q8": flash_fwd_q8}
+    max_len = LM_SERVE["prompt_len"] + LM_SERVE["gen_len"]
+    expect = cfg.n_layers * LM_SERVE["gen_len"]  # prefill + gen_len - 1 steps
+    summary = {"runs": {}}
+    served = {}
+    for kvd, want in (("float32", "flash_fwd"), ("int8", "flash_fwd_q8")):
+        # warm-up: cuBLAS handles and first launches stay out of the timed run
+        serve(LM_ARCH, reduced=False, device=dev, kv_cache_dtype=kvd,
+              **dict(LM_SERVE, gen_len=2))
+        reset_counts(wrappers)
+        res = serve(LM_ARCH, reduced=False, device=dev, kv_cache_dtype=kvd, **LM_SERVE)
+        launches = read_counts(wrappers)
+        served[kvd] = res
+        print(f"{LM_ARCH} served ({kvd} KV cache): batch {LM_SERVE['batch']}, prompt "
+              f"{LM_SERVE['prompt_len']}, {LM_SERVE['gen_len']} tokens: prefill "
+              f"{res.prefill_ms:.2f} ms, decode {res.decode_ms:.3f} ms/step, "
+              f"{res.tok_s:.1f} tok/s; launches {launches} (expected {expect} of {want})")
+        other = "flash_fwd_q8" if want == "flash_fwd" else "flash_fwd"
+        if launches[want] != expect or launches[other] != 0:
+            failures.append(f"{LM_ARCH} {kvd}: launches {launches}, expected {expect} "
+                            f"of {want} and none of {other}")
+        toks = res.tokens.cpu()
+        if toks.shape != (LM_SERVE["batch"], LM_SERVE["gen_len"]) or not bool(
+                ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+            failures.append(f"{LM_ARCH} {kvd}: served tokens malformed")
+        summary["runs"][kvd] = {"prefill_ms": res.prefill_ms, "decode_ms": res.decode_ms,
+                                "tok_s": res.tok_s, "launches": launches}
+
+    # the weights serve drew (host generator, seed 0), on the card and the host
+    params = M.init_params(cfg, torch.Generator().manual_seed(LM_SERVE["seed"]), device=dev)
+    params_cpu = tree_to(params, "cpu")
+    n_layers = cfg.n_layers
+    keep = (0, n_layers - 1, n_layers, 2 * n_layers - 1)  # prefill / first decode step
+    card_logits, captured = {}, {}
+    for kvd, res in served.items():
+        prompt, follow = res.prompt.cpu(), res.tokens.cpu()[:, :LM_TF_STEPS]
+        with capture_attention(keep) as cap, pin_quantization("record") as rec:
+            card = teacher_forced(cfg, params, prompt, follow, kvd, dev, max_len)
+        captured[kvd] = cap.calls
+        card_logits[kvd] = card
+        host = teacher_forced(cfg, params_cpu, prompt, follow, kvd, "cpu", max_len)
+        pinned = None
+        if kvd == "int8":
+            # each side's own rounding (reported), then the host on the card's values
+            raw = max(float((c - h).abs().max()) for c, h in zip(card, host))
+            with pin_quantization("replay", rec.recorded) as pinned:
+                host = teacher_forced(cfg, params_cpu, prompt, follow, kvd, "cpu", max_len)
+            q_ok = pinned.worst_step <= 1 and pinned.worst_scale <= 1e-5
+            print(f"{LM_ARCH} int8 host vs card quantization of the cache: "
+                  f"{pinned.moved} of {pinned.total} values one step apart "
+                  f"(max step {pinned.worst_step}, limit 1), scales within "
+                  f"{pinned.worst_scale:.2e} relative (limit 1e-5): "
+                  f"{'ok' if q_ok else 'FAIL'}; logits on each side's own "
+                  f"rounding differ by up to {raw:.3e}")
+            if not q_ok:
+                failures.append(f"{LM_ARCH} int8: host and card quantize the cache apart")
+            summary["runs"][kvd].update(
+                quant_values_moved=pinned.moved, quant_values=pinned.total,
+                quant_worst_step=pinned.worst_step, quant_worst_scale=pinned.worst_scale,
+                max_abs_unpinned=raw)
+        worst, ok = 0.0, True
+        for c, h in zip(card, host):
+            c, h = c.numpy(), h.numpy()
+            scale = float(np.abs(h).max())
+            worst = max(worst, float(np.abs(c - h).max()))
+            ok &= bool(np.all(np.isfinite(c))) and np.allclose(c, h, rtol=1e-3,
+                                                               atol=1e-3 * scale)
+        greedy = torch.stack([card[0][:, -1].argmax(-1)] + [
+            lg[:, 0].argmax(-1) for lg in card[1:LM_TF_STEPS]], 1).to(torch.int32)
+        same = bool(torch.equal(greedy, follow))
+        on = " (host on the card's int8 cache values)" if pinned is not None else ""
+        print(f"{LM_ARCH} {kvd} card vs host plain path{on}, teacher-forced prefill + "
+              f"{LM_TF_STEPS} decode steps: max_abs_err={worst:.3e} (max|host|="
+              f"{max(float(h.abs().max()) for h in host):.3e}, rtol=1e-3, "
+              f"atol=1e-3*max|host|): {'ok' if ok else 'FAIL'}; served tokens are "
+              f"the card's argmax: {same}")
+        if not ok:
+            failures.append(f"{LM_ARCH} {kvd}: card logits disagree with the host")
+        if not same:
+            failures.append(f"{LM_ARCH} {kvd}: served tokens are not the greedy argmax")
+        summary["runs"][kvd]["max_abs_vs_host"] = worst
+    agree = [float((a.argmax(-1) == b.argmax(-1)).float().mean())
+             for a, b in zip(card_logits["int8"], card_logits["float32"])]
+    drift = max(float((a - b).abs().max())
+                for a, b in zip(card_logits["int8"], card_logits["float32"]))
+    print(f"{LM_ARCH} int8 cache vs fp32 cache logits (card, teacher-forced): top-1 "
+          f"agreement {np.mean(agree):.3f} (per step {['%.3f' % a for a in agree]}), "
+          f"max drift {drift:.3e}")
+    summary["int8_vs_fp32"] = {"top1_agreement": float(np.mean(agree)), "max_drift": drift}
+
+    # ---- the flash kernels at the served, long and edge shapes -------------
+    print(f"{LM_ARCH} flash kernel checks (both kernels at the fp32 limit, "
+          f"{KERNEL_TOL.split(';')[0]}):")
+    for kvd, calls in captured.items():
+        for idx in keep:
+            if idx not in calls:
+                failures.append(f"{LM_ARCH} {kvd}: attention call {idx} not captured")
+                continue
+            args, kw = calls[idx]
+            layer = idx % n_layers
+            label = f"{'prefill' if idx < n_layers else 'decode'} layer {layer}"
+            check_flash(book, label, args, kw, timed=(layer == 0))
+    gen = torch.Generator(device=dev).manual_seed(5)
+    kvh, g, d = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.resolved_head_dim
+    b, sq = LM_LONG["b"], LM_LONG["sq"]
+    q = torch.randn((b, sq, kvh, g, d), generator=gen, device=dev)
+    k = torch.randn((b, sq, kvh, d), generator=gen, device=dev)
+    v = torch.randn((b, sq, kvh, d), generator=gen, device=dev)
+    sc = d ** -0.5
+    longs = [("long prefill", (q, k, v), dict(scale=sc, causal=True, q_offset=0, kv_len=None))]
+    kl, smax = LM_LONG["dec_kv_len"], LM_LONG["dec_s_max"]
+    qd = torch.randn((b, 1, kvh, g, d), generator=gen, device=dev)
+    kd = torch.randn((b, smax, kvh, d), generator=gen, device=dev)
+    vd = torch.randn((b, smax, kvh, d), generator=gen, device=dev)
+    longs.append(("long decode", (qd, kd, vd),
+                  dict(scale=sc, causal=True, q_offset=kl - 1, kv_len=kl)))
+    for label, (qq, kk, vv), kw in longs:
+        check_flash(book, label, (qq, kk, vv), kw, timed=True)
+        kq, ks = _quantize_kv(kk)
+        vq, vs = _quantize_kv(vv)
+        check_flash(book, label, (qq, kq, vq, ks, vs), kw, timed=True)
+    del q, k, v, kd, vd
+    # edge shapes: ragged Sq/Sk, kv_len < Sk, q_offset > 0, Sq = 1, a fully
+    # masked block, G = 3
+    edges = [  # (b, sq, kvh, g, sk, d, causal, q_offset, kv_len)
+        (3, 37, 2, 2, 53, 128, False, 0, None),
+        (3, 37, 2, 2, 53, 128, True, 16, None),
+        (2, 100, 1, 3, 300, 64, True, 200, 290),
+        (2, 1, 8, 2, 130, 128, True, 99, 100),
+        (2, 8, 2, 2, 32, 128, False, 0, 0),
+    ]
+    for eb, esq, ekv, eg, esk, ed, causal, qo, kvl in edges:
+        qq = torch.randn((eb, esq, ekv, eg, ed), generator=gen, device=dev)
+        kk = torch.randn((eb, esk, ekv, ed), generator=gen, device=dev)
+        vv = torch.randn((eb, esk, ekv, ed), generator=gen, device=dev)
+        kw = dict(scale=ed ** -0.5, causal=causal, q_offset=qo, kv_len=kvl)
+        check_flash(book, "edge", (qq, kk, vv), kw, timed=False)
+        kq, ks = _quantize_kv(kk)
+        vq, vs = _quantize_kv(vv)
+        check_flash(book, "edge", (qq, kq, vq, ks, vs), kw, timed=False)
+
+    # ---- where the time goes: one prefill and one decode step, warm --------
+    summary["service"] = {}
+    for kvd in ("float32", "int8"):
+        dt = torch.int8 if kvd == "int8" else torch.float32
+        cache = M.init_cache(cfg, LM_SERVE["batch"], max_len, dt, device=dev)
+        prompt = served[kvd].prompt
+        nxt = served[kvd].tokens[:, :1]
+
+        def prefill():
+            with torch.no_grad():
+                return M.prefill(cfg, params, cache, {"tokens": prompt})
+
+        def decode():
+            with torch.no_grad():
+                return M.decode_step(cfg, params, cache, {"tokens": nxt},
+                                     LM_SERVE["prompt_len"])
+
+        for step, fn in (("prefill", prefill), ("decode", decode)):
+            br = trace_breakdown(fn)
+            summary["service"][f"{kvd} {step}"] = br
+            print(f"{LM_ARCH} {kvd} warm {step}: wall {br['wall_ms']:.3f} ms (median of 5), "
+                  f"device {br['device_ms']:.3f} ms in {br['device_ops']} device ops, "
+                  f"idle share {br['idle_share']}")
+            for cat, ms in sorted(br["by_class_ms"].items(), key=lambda kv: -kv[1]):
+                print(f"  {ms:8.3f} ms  {cat}")
+    del params, params_cpu
+    torch.cuda.empty_cache()
+    return summary
 
 
 def main() -> int:
@@ -908,6 +1388,14 @@ def main() -> int:
         traceback.print_exc()
         failures.append("edge-case check of the BSR / int8 kernels failed")
 
+    # ---- full-width qwen3-0.6b served through the flash kernels ------------
+    lm = {}
+    try:
+        lm = lm_phase(book, dev, failures)
+    except Exception:
+        traceback.print_exc()
+        failures.append(f"{LM_ARCH} phase failed")
+
     csrc = "src/repro_torch/kernels/csrc/"
     # (name, book key, row suffix, source, replaces, the phase that serves it)
     table = (
@@ -949,11 +1437,36 @@ def main() -> int:
             "phase": phase, "layers": [r["layer"] for r in rows]})
         if not rows:
             failures.append(f"no timed layer ran {name}")
+    # the flash rows: one prefill plus one decode launch at the served shapes
+    # (layer 0), with every timed shape listed under "shapes"
+    flash_src = "src/repro/kernels/flash_attention/kernel.py"
+    for name, kvd, replaces in (("flash_fwd", "float32", flash_src + ":94"),
+                                ("flash_fwd_q8", "int8", flash_src + ":165")):
+        rows = [r for r in book.rows if r["kernel"] == name and r["phase"] == LM_ARCH]
+        main_rows = [r for r in rows if r["shape"] in ("prefill layer 0", "decode layer 0")]
+        flop_ms = sum(r["flop_ms"] for r in main_rows)
+        byte_ms = sum(r["byte_ms"] for r in main_rows)
+        kernels.append({
+            "name": name, "route": "cuda", "source": csrc + "flash_attention.cu",
+            "replaces": replaces,
+            "launches": lm.get("runs", {}).get(kvd, {}).get("launches", {}).get(name, 0),
+            "max_abs_err": book.max_err.get(name, 0.0),
+            "ms": sum(r["ms"] for r in main_rows),
+            "plain_ms": sum(r["plain_ms"] for r in main_rows),
+            "bound_ms": sum(r["bound_ms"] for r in main_rows),
+            "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
+            "library_ms": sum(r["library_ms"] for r in main_rows),
+            "phase": LM_ARCH,
+            "shapes": [{k: r[k] for k in ("shape", "q", "k", "ms", "plain_ms",
+                                          "library_ms", "bound_ms", "bound_by")}
+                       for r in rows]})
+        if len(main_rows) != 2:
+            failures.append(f"{name}: the served shapes were not timed")
     if args.layers_out is not None:
         args.layers_out.parent.mkdir(parents=True, exist_ok=True)
         args.layers_out.write_text(json.dumps(
             {"card": card, "rows": book.rows, "kernels": kernels,
-             "service": services, "variants": variants}, indent=1))
+             "service": services, "variants": variants, "lm": lm}, indent=1))
     if failures:
         for f in failures:
             print(f"FAILED: {f}", file=sys.stderr)

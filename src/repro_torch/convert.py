@@ -24,3 +24,45 @@ def params_from_jax(np_params: dict, device=None) -> dict:
 
     return {"conv": [t(w) for w in np_params["conv"]],
             "dense": [t(w) for w in np_params["dense"]]}
+
+
+def lm_params_from_jax(np_params: dict, cfg, device=None) -> dict:
+    """The JAX LM's parameter values tree (`repro.models.model.init_params`'s
+    first result, leaves as array-likes) -> the port's tree on `device`
+    (None = the card): `embed`, `final_norm`, [`unembed`] and
+    `groups.sub0.{ln1, mix.{wq, wk, wv, wo[, q_norm, k_norm]}, ln2,
+    ffn.{w1[, w3], w2}}`, each group leaf with its leading layer axis. The two
+    trees have the same keys and layouts; a missing or misshapen leaf raises.
+    Dense LMs only (the families the port serves)."""
+    from repro_torch.models.transformer import group_layout, n_groups
+
+    dev = resolve_device(device)
+    group_layout(cfg)  # raises for a family the port does not serve
+    n = n_groups(cfg)
+
+    def t(a, where):
+        x = np.array(a, dtype=np.float32)
+        if where.startswith("groups") and (x.ndim == 0 or x.shape[0] != n):
+            raise ValueError(f"{where}: leading axis {x.shape[:1]} is not the "
+                             f"{n} layers of {cfg.name}")
+        return torch.from_numpy(x).to(dev)
+
+    sub = np_params["groups"]["sub0"]
+    mix = ("wq", "wk", "wv", "wo") + (("q_norm", "k_norm") if cfg.qk_norm else ())
+    ffn = ("w1", "w2") if cfg.mlp_activation in ("relu", "relu2") else ("w1", "w3", "w2")
+    out = {
+        "embed": t(np_params["embed"], "embed"),
+        "final_norm": t(np_params["final_norm"], "final_norm"),
+        "groups": {"sub0": {
+            "ln1": t(sub["ln1"], "groups.sub0.ln1"),
+            "mix": {k: t(sub["mix"][k], f"groups.sub0.mix.{k}") for k in mix},
+            "ln2": t(sub["ln2"], "groups.sub0.ln2"),
+            "ffn": {k: t(sub["ffn"][k], f"groups.sub0.ffn.{k}") for k in ffn},
+        }},
+    }
+    if not cfg.tie_embeddings:
+        out["unembed"] = t(np_params["unembed"], "unembed")
+    d, v = cfg.d_model, cfg.vocab_size
+    if tuple(out["embed"].shape) != (v, d):
+        raise ValueError(f"embed {tuple(out['embed'].shape)} is not ({v}, {d})")
+    return out

@@ -8,11 +8,13 @@ headers, so a build takes seconds). The library lands in
 named by a hash of the sources and flags, so an edited source rebuilds and a
 stale library is never loaded. A missing `nvcc` or a failed build raises.
 
-`launch_conv` (the ECR / PECR conv kernels, fp32 and int8) and `launch_bsr`
-(the block-sparse matmul, fp32 and int8) are the launch sites: they check
-device, dtype, contiguity and shapes, allocate the output with `torch.empty`,
+`launch_conv` (the ECR / PECR conv kernels, fp32 and int8), `launch_bsr`
+(the block-sparse matmul, fp32 and int8) and `launch_flash` (the flash
+attention forward over fp32 or int8 K/V) are the launch sites: they check
+device, dtype, layout and shapes, allocate the outputs with `torch.empty`,
 launch on PyTorch's current stream without synchronising, and raise on a
-nonzero `cudaGetLastError()`.
+nonzero `cudaGetLastError()`. The conv and BSR kernels take contiguous
+operands; the flash kernel reads its operands through element strides.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("ecr_conv.cu", "bsr_matmul.cu")
+SOURCES = ("ecr_conv.cu", "bsr_matmul.cu", "flash_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 _CHECKOUT = Path(__file__).resolve().parents[3]
@@ -133,6 +135,14 @@ def library() -> ctypes.CDLL:
             lib.repro_bsr_matmul_f32.restype = ctypes.c_int
             lib.repro_bsr_matmul_i8.argtypes = [ctypes.c_void_p] * 7 + bsr_ints + [ctypes.c_void_p]
             lib.repro_bsr_matmul_i8.restype = ctypes.c_int
+            dims = ctypes.POINTER(ctypes.c_int)
+            strides = ctypes.POINTER(ctypes.c_longlong)
+            lib.repro_flash_fwd_f32.argtypes = [ctypes.c_void_p] * 6 + [
+                dims, strides, ctypes.c_float, ctypes.c_void_p]
+            lib.repro_flash_fwd_f32.restype = ctypes.c_int
+            lib.repro_flash_fwd_q8.argtypes = [ctypes.c_void_p] * 6 + [
+                dims, strides, ctypes.c_float, ctypes.c_void_p]
+            lib.repro_flash_fwd_q8.restype = ctypes.c_int
             _lib = lib
         return _lib
 
@@ -283,3 +293,114 @@ def launch_bsr(h, w, ids, cnt, *, block: tuple, sh=None, sw=None):
                            f"(h {tuple(h.shape)} {h.dtype}, w {tuple(w.shape)}, "
                            f"block {tuple(block)})")
     return out
+
+
+FLASH_HEAD_DIMS = (8, 16, 32, 64, 128, 256)
+FLASH_MAX_GROUPS = 64  # query rows per block of the flash kernel
+
+
+def check_flash_operands(q, k, v, k_scale=None, v_scale=None) -> tuple:
+    """Validate the flash-attention operands in either layout and return
+    (nbkv, nh, g, sq, sk, d): the kernel's (BKV, G, Sq, D) queries over
+    (BKV, Sk, D) keys (nh = 1), or the model's (B, Sq, KV, G, D) queries over
+    the cache's (B, Sk, KV, D) keys (nh = KV, bkv = b * KV + h). Scales, for
+    int8 K/V, are (BKV, Sk) or (B, Sk, KV)."""
+    if q.ndim == 4 and k.ndim == 3:
+        nbkv, g, sq, d = q.shape
+        nh, sk = 1, k.shape[1]
+        kv_shape, s_shape = (nbkv, sk, d), (nbkv, sk)
+    elif q.ndim == 5 and k.ndim == 4:
+        b, sq, nh, g, d = q.shape
+        nbkv, sk = b * nh, k.shape[1]
+        kv_shape, s_shape = (b, sk, nh, d), (b, sk, nh)
+    else:
+        raise ValueError(f"expected q (BKV,G,Sq,D) with k, v (BKV,Sk,D), or q "
+                         f"(B,Sq,KV,G,D) with k, v (B,Sk,KV,D); got q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}")
+    if tuple(k.shape) != kv_shape or tuple(v.shape) != kv_shape:
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not match "
+                         f"q {tuple(q.shape)} (want {kv_shape})")
+    if min(nbkv, g, sq, sk, d) < 1:
+        raise ValueError(f"empty attention operands: q {tuple(q.shape)}, k {tuple(k.shape)}")
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("int8 K/V need both scales")
+    if k_scale is not None and (tuple(k_scale.shape) != s_shape
+                                or tuple(v_scale.shape) != s_shape):
+        raise ValueError(f"scales {tuple(k_scale.shape)} / {tuple(v_scale.shape)} "
+                         f"do not match the keys (want {s_shape})")
+    return nbkv, nh, g, sq, sk, d
+
+
+def flash_strides(q, k, v, out, scale_t=None) -> tuple:
+    """The kernel's element strides, in its order: q (b, h, g, s), k (b, h, s),
+    v (b, h, s), the scales (b, h, s), out (b, h, g, s). The bkv axis splits
+    as bkv = b * nh + h; in the (BKV, ...) layout h is always 0."""
+    if q.ndim == 4:
+        qs = (q.stride(0), 0, q.stride(1), q.stride(2))
+        os_ = (out.stride(0), 0, out.stride(1), out.stride(2))
+        ks, vs = (k.stride(0), 0, k.stride(1)), (v.stride(0), 0, v.stride(1))
+        ss = (0, 0, 0) if scale_t is None else (scale_t.stride(0), 0, scale_t.stride(1))
+    else:
+        qs = (q.stride(0), q.stride(2), q.stride(3), q.stride(1))
+        os_ = (out.stride(0), out.stride(2), out.stride(3), out.stride(1))
+        ks, vs = (k.stride(0), k.stride(2), k.stride(1)), (v.stride(0), v.stride(2), v.stride(1))
+        ss = (0, 0, 0) if scale_t is None else (
+            scale_t.stride(0), scale_t.stride(2), scale_t.stride(1))
+    return qs + ks + vs + ss + os_
+
+
+def launch_flash(q, k, v, *, scale: float, causal: bool, q_offset: int = 0,
+                 kv_len=None, k_scale=None, v_scale=None):
+    """Launch the flash-attention forward on CUDA tensors, in either layout of
+    `check_flash_operands`. q float32; k, v float32 (-> out, m, l) or int8
+    with float32 per-position scales k_scale, v_scale (-> out). out has q's
+    shape and layout, m and l are (BKV, G, Sq). Operands may be strided
+    views (a cache read in place) as long as the head dim is contiguous."""
+    nbkv, nh, g, sq, sk, d = check_flash_operands(q, k, v, k_scale, v_scale)
+    int8 = k.dtype == torch.int8
+    if int8 != (k_scale is not None):
+        raise ValueError("int8 K/V take per-position scales, float32 K/V none")
+    tensors = (q, k, v) + ((k_scale, v_scale) if int8 else ())
+    dev = q.device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError("CUDA kernel needs every operand on one CUDA device")
+    if q.dtype != torch.float32 or v.dtype != k.dtype or k.dtype not in (
+            torch.float32, torch.int8):
+        raise TypeError(f"the CUDA flash kernel takes float32 q and float32 or "
+                        f"int8 k/v, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if int8 and (k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32
+                 or k_scale.stride() != v_scale.stride()):
+        raise TypeError(f"k_scale and v_scale must be float32 in one layout, got "
+                        f"{k_scale.dtype}/{v_scale.dtype}")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("the CUDA flash kernel needs a contiguous head dim")
+    if d not in FLASH_HEAD_DIMS:
+        raise ValueError(f"the CUDA flash kernel takes head dims {FLASH_HEAD_DIMS}, got {d}")
+    if g > FLASH_MAX_GROUPS or nbkv > 65535:
+        raise ValueError(f"{g} groups / {nbkv} kv heads exceed the CUDA flash "
+                         f"kernel's grid ({FLASH_MAX_GROUPS} / 65535)")
+    out = torch.empty(q.shape, device=dev, dtype=torch.float32)
+    kvl = -1 if kv_len is None else max(0, int(kv_len))
+    dims = (ctypes.c_int * 9)(nbkv, nh, g, sq, sk, d, int(bool(causal)),
+                              int(q_offset), kvl)
+    strides = (ctypes.c_longlong * 17)(*flash_strides(q, k, v, out, k_scale))
+    lib = library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        if int8:
+            m = l = None
+            err = lib.repro_flash_fwd_q8(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                         k_scale.data_ptr(), v_scale.data_ptr(),
+                                         out.data_ptr(), dims, strides, float(scale),
+                                         stream)
+        else:
+            m = torch.empty((nbkv, g, sq), device=dev, dtype=torch.float32)
+            l = torch.empty((nbkv, g, sq), device=dev, dtype=torch.float32)
+            err = lib.repro_flash_fwd_f32(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                          out.data_ptr(), m.data_ptr(), l.data_ptr(),
+                                          dims, strides, float(scale), stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA flash kernel launch failed: cudaError {err} "
+                           f"(q {tuple(q.shape)}, k {tuple(k.shape)} {k.dtype}, "
+                           f"causal {causal}, q_offset {q_offset}, kv_len {kv_len})")
+    return (out, m, l) if not int8 else out

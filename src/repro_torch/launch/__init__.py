@@ -1,1 +1,2 @@
-"""Command-line entry points of the port."""
+"""Entry points of the port: CNN serving (`serve_cnn`) and LM serving
+(`serve`, over the step functions of `steps`)."""

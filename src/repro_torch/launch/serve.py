@@ -1,0 +1,107 @@
+"""LM serving launcher on the port: batched prefill, then a greedy decode
+loop over a KV cache, fp32 or int8 (counterpart of `repro.launch.serve`,
+dense LMs; no mesh).
+
+Run on the card (default device "cuda"):
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b --full
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b --full --kv-cache-dtype int8
+On the host, through the kernels' plain PyTorch versions (reduced config):
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b --device cpu
+"""
+from __future__ import annotations
+
+import argparse
+import logging
+import time
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.configs.base import DEFAULT_RUN, get_config
+from repro_torch.device import resolve_device
+from repro_torch.launch.steps import make_prefill_step, make_serve_step
+from repro_torch.models import model as M
+
+log = logging.getLogger("repro_torch.serve")
+
+KV_CACHE_DTYPES = {"float32": torch.float32, "int8": torch.int8}
+
+
+class ServeResult(NamedTuple):
+    tokens: torch.Tensor  # (batch, gen_len) int32, the greedy continuation
+    prompt: torch.Tensor  # (batch, prompt_len) int32
+    prefill_ms: float  # the prefill step, synchronised
+    decode_ms: float  # mean decode step (gen_len - 1 steps), synchronised
+    tok_s: float  # batch * gen_len over prefill plus decode
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def serve(arch: str, *, reduced: bool = True, batch: int = 4, prompt_len: int = 32,
+          gen_len: int = 32, seed: int = 0, device=None,
+          kv_cache_dtype: str = "float32") -> ServeResult:
+    """Random weights from `torch.Generator(seed)`, random prompt tokens from
+    `seed + 1`; returns the generated tokens and the step times."""
+    if kv_cache_dtype not in KV_CACHE_DTYPES:
+        raise ValueError(f"kv_cache_dtype {kv_cache_dtype!r}: choose from "
+                         f"{sorted(KV_CACHE_DTYPES)}")
+    dev = resolve_device(device)
+    cfg = get_config(arch, reduced=reduced)
+    run = DEFAULT_RUN.replace(kv_cache_dtype=kv_cache_dtype)
+    params = M.init_params(cfg, torch.Generator().manual_seed(seed), device=dev)
+    caches = M.init_cache(cfg, batch, prompt_len + gen_len,
+                          KV_CACHE_DTYPES[kv_cache_dtype], device=dev)
+    prefill = make_prefill_step(cfg, run)
+    step = make_serve_step(cfg, run)
+    toks = torch.randint(0, cfg.vocab_size, (batch, prompt_len), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(seed + 1)).to(dev)
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, caches = prefill(params, caches, {"tokens": toks})
+        nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+    _sync(dev)
+    t1 = time.perf_counter()
+    out_tokens = [nxt]
+    for i in range(gen_len - 1):
+        nxt, caches = step(params, caches, {"tokens": nxt[:, None]}, prompt_len + i)
+        out_tokens.append(nxt)
+    _sync(dev)
+    t2 = time.perf_counter()
+    gen = torch.stack(out_tokens, 1)
+    tok_s = batch * gen_len / (t2 - t0)
+    res = ServeResult(tokens=gen, prompt=toks, prefill_ms=(t1 - t0) * 1e3,
+                      decode_ms=(t2 - t1) * 1e3 / max(gen_len - 1, 1), tok_s=tok_s)
+    log.info("served %d seqs x %d tokens in %.2fs (%.1f tok/s): prefill %.2f ms, "
+             "decode %.3f ms/step, %s cache, %s", batch, gen_len, t2 - t0, tok_s,
+             res.prefill_ms, res.decode_ms, kv_cache_dtype, dev)
+    return res
+
+
+def main():
+    logging.basicConfig(level=logging.INFO, format="%(message)s")
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--full", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen-len", type=int, default=32)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default cuda; 'cpu' runs the kernels' "
+                         "plain PyTorch versions)")
+    ap.add_argument("--kv-cache-dtype", choices=sorted(KV_CACHE_DTYPES),
+                    default="float32")
+    args = ap.parse_args()
+    serve(args.arch, reduced=not args.full, batch=args.batch,
+          prompt_len=args.prompt_len, gen_len=args.gen_len, seed=args.seed,
+          device=args.device, kv_cache_dtype=args.kv_cache_dtype)
+
+
+if __name__ == "__main__":
+    main()

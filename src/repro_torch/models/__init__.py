@@ -1,1 +1,2 @@
-"""CNN helpers (counterpart of `repro.models.cnn`)."""
+"""CNN helpers (`models.cnn`) and the dense LM (`layers`, `attention`,
+`transformer`, `model`): counterparts of `repro.models`."""

@@ -1,0 +1,48 @@
+"""Shared LM layer primitives: norms, rotary embeddings, initializers
+(counterpart of `repro.models.layers`; parameters are plain tensors, with no
+logical-axis annotations, since the port has no mesh).
+
+The initializers draw on the host from a `torch.Generator`, so one seed gives
+the same weights on every device; the caller moves them."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def dense_init(generator: torch.Generator, shape, fan_in: Optional[int] = None,
+               dtype=torch.float32) -> torch.Tensor:
+    """Normal, scaled by fan_in ** -0.5; fan_in defaults to shape[-2] (the
+    reference's rule, so wq (d, h, hd) takes fan_in = h)."""
+    fi = fan_in or (shape[-2] if len(shape) >= 2 else shape[-1])
+    return torch.randn(tuple(shape), generator=generator, dtype=dtype) * (fi ** -0.5)
+
+
+def embed_init(generator: torch.Generator, shape, dtype=torch.float32) -> torch.Tensor:
+    return torch.randn(tuple(shape), generator=generator, dtype=dtype) * 0.02
+
+
+def ones_init(shape, dtype=torch.float32) -> torch.Tensor:
+    return torch.ones(tuple(shape), dtype=dtype)
+
+
+def rms_norm(x, scale, eps=1e-5):
+    x32 = x.float()
+    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def rope(x, positions, theta: float = 10_000.0):
+    """x: (B, S, *H, d) rotated over its last dim in split halves (not
+    interleaved); positions: (B, S) or (S,)."""
+    d = x.shape[-1]
+    if d % 2:
+        raise ValueError(f"rope needs an even head dim, got {d}")
+    freq = theta ** (-torch.arange(0, d, 2, dtype=torch.float32, device=x.device) / d)
+    ang = positions.to(device=x.device, dtype=torch.float32)[..., None] * freq
+    while ang.ndim < x.ndim:
+        ang = ang[..., None, :]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)

@@ -1,0 +1,153 @@
+"""Decoder stack as a loop over repeating layer groups (counterpart of
+`repro.models.transformer`).
+
+A *group* is the smallest repeating pattern of sublayers. The port covers
+the dense LM, whose group is one [attn] sublayer with a dense FFN; the other
+families (MoE, MLA, hybrid, SSM, VLM, audio) raise NotImplementedError until
+ROADMAP queue 1 item 16 ports them.
+
+Group parameters keep the reference's stacked leaves: every leaf of
+`groups["sub0"]` carries a leading (n_layers,) axis, so weights carry over
+from the JAX tree as they are. The reference's `lax.scan` over groups is a
+Python loop over that axis here, and a layer's cache is a view into the
+stacked (n_layers, ...) cache, written in place.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.sparse_ffn import activation_fn
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.layers import dense_init, ones_init, rms_norm
+
+FAMILIES_TODO = "ROADMAP queue 1 item 16 (the other LM families)"
+
+
+class Sub(NamedTuple):
+    kind: str  # attn (mla | cross | mamba | mlstm | slstm: not ported)
+    ffn: str  # dense | none (moe | moe+dense: not ported)
+
+
+def group_layout(cfg: ModelConfig) -> list:
+    if cfg.family == "dense" and not cfg.n_experts and cfg.attn_type == "gqa":
+        return [Sub("attn", "dense")]
+    raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not ported "
+                              f"yet; see {FAMILIES_TODO}")
+
+
+def n_groups(cfg: ModelConfig) -> int:
+    lay = group_layout(cfg)
+    if cfg.n_layers % len(lay):
+        raise ValueError(f"{cfg.name}: {cfg.n_layers} layers do not tile a group of {len(lay)}")
+    return cfg.n_layers // len(lay)
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+
+def init_ffn(generator: torch.Generator, cfg: ModelConfig, d_ff: int) -> dict:
+    d = cfg.d_model
+    if cfg.mlp_activation in ("relu", "relu2"):  # non-gated: the ECR-sparse form
+        return {"w1": dense_init(generator, (d, d_ff)),
+                "w2": dense_init(generator, (d_ff, d), fan_in=d_ff)}
+    return {"w1": dense_init(generator, (d, d_ff)),
+            "w3": dense_init(generator, (d, d_ff)),
+            "w2": dense_init(generator, (d_ff, d), fan_in=d_ff)}
+
+
+def ffn_apply(p, x, cfg: ModelConfig):
+    act = activation_fn(cfg.mlp_activation)
+    if "w3" in p:
+        h = act(x @ p["w1"].to(x.dtype)) * (x @ p["w3"].to(x.dtype))
+    else:
+        h = act(x @ p["w1"].to(x.dtype))
+    return h @ p["w2"].to(x.dtype)
+
+
+def init_sublayer(generator: torch.Generator, sub: Sub, cfg: ModelConfig) -> dict:
+    if sub.kind != "attn":
+        raise NotImplementedError(f"sublayer {sub.kind!r}: see {FAMILIES_TODO}")
+    p = {"ln1": ones_init((cfg.d_model,)), "mix": attn_mod.init_gqa(generator, cfg)}
+    if sub.ffn != "none":
+        p["ln2"] = ones_init((cfg.d_model,))
+        p["ffn"] = init_ffn(generator, cfg, cfg.d_ff)
+    return p
+
+
+def _stack(trees: list):
+    """Stack a list of parameter trees along a new leading layers axis."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def init_groups(generator: torch.Generator, cfg: ModelConfig) -> dict:
+    """{"sub0": {...}} with every leaf stacked (n_groups, ...), on the host."""
+    lay = group_layout(cfg)
+    return _stack([{f"sub{i}": init_sublayer(generator, s, cfg)
+                    for i, s in enumerate(lay)} for _ in range(n_groups(cfg))])
+
+
+def layer_params(tree, i: int):
+    """Group i's parameters: every stacked leaf indexed at i (views)."""
+    if isinstance(tree, dict):
+        return {k: layer_params(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+# ---------------------------------------------------------------------------
+# caches (decode / prefill state), aligned with the group layout
+# ---------------------------------------------------------------------------
+
+
+def init_group_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                      device=None) -> tuple:
+    """Per sublayer position, a KVCache stacked (n_groups, B, S_max, KV, hd);
+    dtype torch.int8 gives the quantized cache with its scales."""
+    g = n_groups(cfg)
+    caches = []
+    for _ in group_layout(cfg):
+        c = attn_mod.init_gqa_cache(cfg, batch, max_len, dtype, device=device)
+        caches.append(attn_mod.KVCache(*(None if x is None else
+                                         x.expand((g,) + x.shape).contiguous()
+                                         for x in c)))
+    return tuple(caches)
+
+
+def _layer_cache(cache, i: int):
+    return attn_mod.KVCache(*(None if x is None else x[i] for x in cache))
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+
+def apply_sublayer(sub: Sub, p, x, *, cfg, positions, cache, write_pos, causal):
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    out, new_cache = attn_mod.gqa_attention(
+        p["mix"], h, cfg=cfg, positions=positions, causal=causal, cache=cache,
+        write_pos=write_pos)
+    x = x + out
+    if sub.ffn != "none":
+        x = x + ffn_apply(p["ffn"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
+    return x, new_cache
+
+
+def stack_apply(groups_params, x, *, cfg: ModelConfig, positions, caches=None,
+                write_pos=None, causal=True):
+    """Run the full group stack. Returns (x, caches, aux_loss); the caches are
+    the ones given, updated in place (None without caches)."""
+    lay = group_layout(cfg)
+    for gi in range(n_groups(cfg)):
+        gp = layer_params(groups_params, gi)
+        for i, sub in enumerate(lay):
+            cache = None if caches is None else _layer_cache(caches[i], gi)
+            x, _ = apply_sublayer(sub, gp[f"sub{i}"], x, cfg=cfg, positions=positions,
+                                  cache=cache, write_pos=write_pos, causal=causal)
+    return x, caches, torch.zeros((), dtype=torch.float32, device=x.device)

@@ -8,7 +8,9 @@ Tolerances: fp32 kernels max|kernel - plain| <= 1e-4 * max|plain|
 + 1e-5 * min(1, max|plain|) (the floor shrinks with small outputs) —
 fp32 sums in another order (the conv kernel per channel then per tap, its
 plain version one matmul per tap over every scheduled channel; the BSR kernel
-block by block, its plain version one matmul). int8 kernels: bitwise equal —
+block by block, its plain version one matmul; the flash kernels tile by
+tile with an online softmax, their plain versions in one pass, for out, m
+and l). int8 kernels: bitwise equal —
 both sum the same integers exactly (int32 in the kernel, float64 in the plain
 version) and rescale in the same order."""
 import numpy as np
@@ -22,6 +24,13 @@ from repro_torch.kernels.conv_pool.kernel import conv_pool_batch, conv_pool_plai
 from repro_torch.kernels.conv_pool.ops import conv_pool_launch  # noqa: E402
 from repro_torch.kernels.ecr_conv.kernel import ecr_conv_batch, ecr_conv_plain  # noqa: E402
 from repro_torch.kernels.ecr_conv.ops import ecr_conv_launch, pack_operands  # noqa: E402
+from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
+    flash_fwd,
+    flash_fwd_plain,
+    flash_fwd_q8,
+    flash_fwd_q8_plain,
+)
+from repro_torch.models.attention import _quantize_kv  # noqa: E402
 from repro_torch.quant.kernels import (  # noqa: E402
     bsr_matmul_int8,
     bsr_matmul_int8_plain,
@@ -198,3 +207,65 @@ def test_ecr_int8_extremes_stay_exact(dev):
     got = ecr_conv_int8_batch(x, w, ones_n, ones_o, ids, cnt, stride=1, block_c=bc)
     assert torch.all(got[0] == -float(127 * 127 * 512 * 9))
     assert torch.all(got[1] == 0)
+
+
+# (layout, b, kv, g, sq, sk, d, causal, q_offset, kv_len): the served
+# qwen3-0.6b prefill and decode shapes (read from a layer slice of a stacked
+# cache), ragged Sq/Sk, q_offset > 0, kv_len < Sk, Sq = 1, a fully masked
+# block (kv_len = 0), G = 3 and 4, head dims 8 to 256.
+FLASH_CASES = [
+    ("model", 4, 8, 2, 32, 64, 128, True, 0, 32),
+    ("model", 4, 8, 2, 1, 64, 128, True, 40, 41),
+    ("kernel", 3, 1, 3, 37, 53, 64, False, 0, None),
+    ("kernel", 3, 1, 3, 37, 53, 64, True, 16, None),
+    ("kernel", 2, 1, 1, 100, 300, 32, True, 200, 290),
+    ("kernel", 2, 1, 4, 1, 128, 32, True, 99, 100),
+    ("kernel", 2, 1, 2, 8, 32, 16, False, 0, 0),
+    ("kernel", 1, 1, 4, 16, 16, 8, True, 0, None),
+    ("model", 2, 2, 2, 5, 70, 256, True, 65, None),
+]
+
+
+def _flash_operands(dev, layout, b, kv, g, sq, sk, d, seed):
+    rng = np.random.default_rng(seed)
+    if layout == "kernel":
+        q = rng.standard_normal((b * kv, g, sq, d)).astype(np.float32)
+        k = rng.standard_normal((b * kv, sk, d)).astype(np.float32)
+        v = rng.standard_normal((b * kv, sk, d)).astype(np.float32)
+        return tuple(torch.from_numpy(x).to(dev) for x in (q, k, v))
+    q = torch.from_numpy(rng.standard_normal((b, sq, kv, g, d)).astype(np.float32)).to(dev)
+    cache = torch.from_numpy(rng.standard_normal((2, 3, b, sk, kv, d)).astype(np.float32)).to(dev)
+    return q, cache[0, 1], cache[1, 1]  # layer 1 of a stacked cache, in place
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_flash_kernel_matches_plain(dev, case):
+    layout, b, kv, g, sq, sk, d, causal, q_offset, kv_len = case
+    q, k, v = _flash_operands(dev, layout, b, kv, g, sq, sk, d, seed=sq + sk + d)
+    kw = dict(scale=d ** -0.5, causal=causal, q_offset=q_offset, kv_len=kv_len)
+    before = flash_fwd.launches
+    out, m, l = flash_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_fwd.launches == before + 1
+    po, pm, pl = flash_fwd_plain(q, k, v, **kw)
+    assert out.shape == q.shape and m.shape == pm.shape
+    for got, want in ((out, po), (m, pm), (l, pl)):
+        _close(got, want)
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_flash_q8_kernel_matches_plain(dev, case):
+    layout, b, kv, g, sq, sk, d, causal, q_offset, kv_len = case
+    q, k, v = _flash_operands(dev, layout, b, kv, g, sq, sk, d, seed=sq + sk + d + 1)
+    if layout == "kernel":  # per-position scales (BKV, Sk) from a 1-head view
+        kq, ks = (t[:, :, 0] for t in _quantize_kv(k[:, :, None]))
+        vq, vs = (t[:, :, 0] for t in _quantize_kv(v[:, :, None]))
+    else:
+        kq, ks = _quantize_kv(k)
+        vq, vs = _quantize_kv(v)
+    kw = dict(scale=d ** -0.5, causal=causal, q_offset=q_offset, kv_len=kv_len)
+    before = flash_fwd_q8.launches
+    out = flash_fwd_q8(q, kq, vq, ks, vs, **kw)
+    torch.cuda.synchronize()
+    assert flash_fwd_q8.launches == before + 1
+    _close(out, flash_fwd_q8_plain(q, kq, vq, ks, vs, **kw))

@@ -41,6 +41,7 @@ def test_package_imports_with_jax_unavailable():
         sys.modules["jax"] = None
         sys.modules["repro"] = None
         import repro_torch.launch.serve_cnn
+        import repro_torch.launch.serve
         import repro_torch.kernels.conv_pool.ops
         print("ok")
     """)
@@ -56,10 +57,13 @@ def test_entry_points_raise_without_a_card():
     from repro_torch.configs.lenet import LENET_REDUCED
     from repro_torch.convert import params_from_jax
     from repro_torch.graph import init_graph
+    from repro_torch.launch.serve import serve
     from repro_torch.launch.serve_cnn import serve_cnn
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve_cnn(model="lenet", n_requests=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve("qwen3-0.6b", batch=1, prompt_len=2, gen_len=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         init_graph(torch.Generator().manual_seed(0), LENET_REDUCED)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -77,6 +81,20 @@ def test_kernel_wrapper_never_runs_the_plain_version_off_the_host():
     cnt = torch.zeros(1, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         ecr_conv_batch(x, w, ids, cnt, stride=1, block_c=8)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_flash_wrappers_never_run_the_plain_version_off_the_host(int8):
+    from repro_torch.kernels.flash_attention.kernel import flash_fwd, flash_fwd_q8
+
+    q = torch.zeros(2, 2, 3, 8, device="meta")
+    kv = torch.zeros(2, 5, 8, device="meta", dtype=torch.int8 if int8 else torch.float32)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        if int8:
+            sc = torch.zeros(2, 5, device="meta")
+            flash_fwd_q8(q, kv, kv, sc, sc, scale=1.0, causal=True)
+        else:
+            flash_fwd(q, kv, kv, scale=1.0, causal=True)
 
 
 def test_kernel_build_stays_in_the_checkout(tmp_path, monkeypatch):
