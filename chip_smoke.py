@@ -76,10 +76,34 @@
    exceeds the kernel at the served shapes) and as eager calls.
    A torch.profiler trace of one warm prefill and one warm decode step per
    cache type gives wall, device time and idle share.
-7. Prints the kernel table as one JSON line (the ten TPU kernels of the
-   repo's serving paths; the single-image rows are the batched kernels at
-   N=1), the card line, and last {"ok": true, "device": {...}}. Any failure
-   exits non-zero without it. In the CNN rows, ms / plain_ms / library_ms /
+7. Trains full-width qwen3-0.6b (the same config, fp32 weights from
+   generator seed 0) through `repro_torch.launch.train.train` at the
+   reference launcher's defaults: global batch 8, sequence 128, remat
+   "full", 6 steps, checkpoints into a temporary directory the phase
+   removes. Prints each step's loss, grad norm, synchronised step time and
+   tok/s. The flash counters are set to 0 just before and read just after:
+   per step flash_fwd must launch 56 times (28 layers, and again under
+   remat), flash_bwd_dq and flash_bwd_dkv 28 times each. Then: the save time
+   of a checkpoint of the trained params and both moments; a torch.profiler
+   trace of one warm step; one step's loss and gradients on the card against
+   the host's plain path at batch 2 (loss within 1e-4 relative, grad norm
+   1e-3 relative, every leaf within 1e-3*max|host leaf|, and every layer of
+   every leaf with a nonzero gradient on the card); both backward kernels
+   against their plain versions (dq; dk and dv; the fp32 limit above) at
+   the real operands of layers 0 and 27 of a batch-8 step, at a long causal
+   shape (batch 4, Sq = Sk = 2048) and at edge shapes (every head dim,
+   ragged Sq/Sk, G = 1, 2, 8, q_offset/kv_len, non-causal, rows that see
+   no key); kernel, plain version and the library call (the backward of
+   fp32 F.scaled_dot_product_attention with K/V expanded, all three
+   gradients in one call) timed in turns at layer 0 and at the long shape,
+   eager, with CUDA events; the bound per pass is max(6 (dq) or 8 (dk/dv)
+   * B*H*pairs*D / 67 TFLOP/s, bytes / 3.35 TB/s). Last, at the reduced
+   config, a 10-step run against one with a failure at step 7 (checkpoints
+   every 3): losses within 1e-6.
+8. Prints the kernel table as one JSON line (the twelve TPU kernel sites of
+   the repo; the single-image rows are the batched kernels at N=1), the card
+   line, and last {"ok": true, "device": {...}}. Any failure exits non-zero
+   without it. In the CNN rows, ms / plain_ms / library_ms /
    bound_ms are sums over the served plan's layers that run the kernel (one
    batch-8 VGG-19 forward, or N=1 for the single-image rows); launches count
    the serving run of the phase that runs the kernel, and are 0 for the
@@ -89,8 +113,10 @@
    "shapes", and launches count the served qwen3-0.6b run. The flash bound is
    max(4*B*H*(visible q.k pairs)*D / 67 TFLOP/s, bytes / 3.35 TB/s), the
    bytes being the K/V of the keys read (4 bytes, or 1 byte plus the fp32
-   scales), Q, O, and m, l for fp32, once. `--layers-out PATH` also
-   writes the per-layer numbers there as JSON.
+   scales), Q, O, and m, l for fp32, once. The backward rows time one
+   launch of each pass at layer 0 of the trained batch-8 step, with every
+   timed shape under "shapes", and launches count the 6-step training run.
+   `--layers-out PATH` also writes the per-layer numbers there as JSON.
 """
 from __future__ import annotations
 
@@ -587,6 +613,10 @@ def edge_cases_new(book, dev):
 
 def kernel_category(name: str) -> str:
     """Coarse class of a CUDA kernel by its symbol name."""
+    if "flash_bwd_dq_kernel" in name:
+        return "flash bwd dq kernel"
+    if "flash_bwd_dkv_kernel" in name:
+        return "flash bwd dk/dv kernel"
     if "flash_fwd_kernel" in name:
         q8 = "<signed char" in name or "IaLi" in name
         return "flash q8 kernel" if q8 else "flash kernel"
@@ -948,23 +978,29 @@ def flash_bound(q, k, kw, *, q8):
     return ops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
 
 
-def flash_library(q, k, v, kw, ks=None, vs=None):
-    """F.scaled_dot_product_attention on the same inputs: q to (B,H,Sq,D),
-    K/V expanded to the H query heads (outside the call for fp32; for int8
-    the dequantize and the expansion are inside it), the same boolean mask."""
+def attention_mask(sq, sk, kw, device):
+    """The kernels' causal / q_offset / kv_len mask as a boolean (Sq, Sk)."""
     import torch
-    import torch.nn.functional as F
 
-    b, sq, kvh, g, d = q.shape
-    sk = k.shape[1]
-    qh = q.reshape(b, sq, kvh * g, d).transpose(1, 2)
-    qpos = kw["q_offset"] + torch.arange(sq, device=q.device)
-    kpos = torch.arange(sk, device=q.device)
-    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    qpos = kw["q_offset"] + torch.arange(sq, device=device)
+    kpos = torch.arange(sk, device=device)
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
     if kw["causal"]:
         mask &= qpos[:, None] >= kpos[None, :]
     if kw["kv_len"] is not None:
         mask &= (kpos < kw["kv_len"])[None, :]
+    return mask
+
+
+def flash_library(q, k, v, kw, ks=None, vs=None):
+    """F.scaled_dot_product_attention on the same inputs: q to (B,H,Sq,D),
+    K/V expanded to the H query heads (outside the call for fp32; for int8
+    the dequantize and the expansion are inside it), the same boolean mask."""
+    import torch.nn.functional as F
+
+    b, sq, kvh, g, d = q.shape
+    qh = q.reshape(b, sq, kvh * g, d).transpose(1, 2)
+    mask = attention_mask(sq, k.shape[1], kw, q.device)
 
     def heads(x):
         return x.repeat_interleave(g, dim=2).transpose(1, 2)
@@ -1219,6 +1255,336 @@ def lm_phase(book, dev, failures) -> dict:
     return summary
 
 
+LM_TRAIN = dict(steps=6, global_batch=8, seq_len=128, seed=0)
+LM_TRAIN_HOST_BATCH = 2  # the host's gradient check, batch cut for its sake
+LM_RESTART = dict(steps=10, global_batch=2, seq_len=32, checkpoint_every=3, fail_at=(7,))
+
+
+class capture_backward:
+    """Within the block, record (q, k, v, out, m, l, do, kwargs) of the
+    attention backward calls (`FlashAttentionFn.backward`'s `flash_bwd`)
+    whose running index is in `keep`, cloned, then run the call as usual.
+    The backward visits the layers last to first: index 0 is the last
+    layer."""
+
+    def __init__(self, keep):
+        self.keep, self.calls, self.n = set(keep), {}, 0
+
+    def __enter__(self):
+        import repro_torch.kernels.flash_attention.ops as O
+
+        self.O, self.orig = O, O.flash_bwd
+
+        def rec(*args, **kw):
+            if self.n in self.keep:
+                self.calls[self.n] = (tuple(a.detach().clone() for a in args), dict(kw))
+            self.n += 1
+            return self.orig(*args, **kw)
+
+        O.flash_bwd = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.O.flash_bwd = self.orig
+
+
+def flash_bwd_bound(q, k, kw, *, part):
+    """(op time, byte time) in ms of one backward pass for these inputs:
+    per visible (q, k) pair and head-dim element 6 fp32 operations for dq
+    (scores, dp, ds.k) and 8 for dk/dv (scores, dp, p^T.do, ds^T.q), over
+    67 TFLOP/s; q, do, k, v of the keys read, m, l, delta read, and dq, or
+    dk and dv, written once, over 3.35 TB/s."""
+    b, sq, kvh, g, d = q.shape
+    sk = k.shape[1]
+    pairs, keys = visible_pairs(sq, sk, kw["causal"], kw["q_offset"], kw["kv_len"])
+    per = 6.0 if part == "dq" else 8.0
+    ops = per * b * kvh * g * pairs * d
+    rows = b * kvh * g * sq
+    qbytes = 4.0 * rows * d
+    kbytes = 4.0 * b * kvh * keys * d
+    nbytes = 2 * qbytes + 2 * kbytes + 12.0 * rows + (qbytes if part == "dq" else 2 * kbytes)
+    return ops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+
+
+def sdpa_backward(q, k, v, do, kw):
+    """The backward of fp32 F.scaled_dot_product_attention on the same
+    inputs (K/V expanded to the query heads, the same boolean mask): a
+    closure that computes its three gradients."""
+    import torch
+    import torch.nn.functional as F
+
+    b, sq, kvh, g, d = q.shape
+    qh = q.reshape(b, sq, kvh * g, d).transpose(1, 2).detach().requires_grad_(True)
+    kh = k.repeat_interleave(g, dim=2).transpose(1, 2).detach().requires_grad_(True)
+    vh = v.repeat_interleave(g, dim=2).transpose(1, 2).detach().requires_grad_(True)
+    mask = attention_mask(sq, k.shape[1], kw, q.device)
+    out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, scale=kw["scale"])
+    doh = do.reshape(b, sq, kvh * g, d).transpose(1, 2)
+    return lambda: torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True)
+
+
+def check_flash_bwd(book, label, args, kw, *, timed):
+    """Both backward kernels against their plain versions (dq; dk and dv) on
+    model-layout operands (q, k, v, out, m, l, do); when `timed`, kernel /
+    plain / library times and the bound of each pass. Returns the rows."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_bwd_dkv,
+        flash_bwd_dkv_plain,
+        flash_bwd_dq,
+        flash_bwd_dq_plain,
+        flash_delta,
+    )
+
+    q, k, v, out, m, l, do = args
+    delta = flash_delta(do, out)
+    ops = (q, k, v, do, m, l, delta)
+    dq = flash_bwd_dq(*ops, **kw)
+    dk, dv = flash_bwd_dkv(*ops, **kw)
+    torch.cuda.synchronize()
+    pdq = flash_bwd_dq_plain(*ops, **kw)
+    pdk, pdv = flash_bwd_dkv_plain(*ops, **kw)
+    tag = (f"{label} q{tuple(q.shape)} k{tuple(k.shape)} q_offset={kw['q_offset']} "
+           f"kv_len={kw['kv_len']} causal={kw['causal']}")
+    book.check("flash_bwd_dq", f"{tag} dq", dq, pdq)
+    book.check("flash_bwd_dkv", f"{tag} dk", dk, pdk)
+    book.check("flash_bwd_dkv", f"{tag} dv", dv, pdv)
+    if not timed:
+        return []
+    lib = sdpa_backward(q, k, v, do, kw)
+    gq, gk, gv = lib()
+    b, sq, kvh, g, d = q.shape
+    lib_err = float((gq.transpose(1, 2).reshape(q.shape) - dq).abs().max())
+    t = time_turns({
+        "dq": lambda: flash_bwd_dq(*ops, **kw), "dkv": lambda: flash_bwd_dkv(*ops, **kw),
+        "dq_plain": lambda: flash_bwd_dq_plain(*ops, **kw),
+        "dkv_plain": lambda: flash_bwd_dkv_plain(*ops, **kw), "library": lib})
+    rows = []
+    for part, name in (("dq", "flash_bwd_dq"), ("dkv", "flash_bwd_dkv")):
+        ft, bt = flash_bwd_bound(q, k, kw, part=part)
+        row = {"kernel": name, "shape": label, "q": list(q.shape), "k": list(k.shape),
+               "q_offset": kw["q_offset"], "kv_len": kw["kv_len"], "ms": t[part],
+               "plain_ms": t[part + "_plain"], "library_ms": t["library"],
+               "flop_ms": ft, "byte_ms": bt, "bound_ms": max(ft, bt),
+               "bound_by": "operations" if ft >= bt else "bytes",
+               "library_max_abs_diff_dq": lib_err, "phase": LM_ARCH + "-train"}
+        book.rows.append(row)
+        rows.append(row)
+        print(f"    {name} {label}: ms={t[part]:.4f} plain_ms={t[part + '_plain']:.4f} "
+              f"library_ms={t['library']:.4f} (SDPA backward, all three gradients) "
+              f"bound_ms={max(ft, bt):.4f} ({row['bound_by']}) [eager, CUDA events]")
+    print(f"    |dq - SDPA dq| {lib_err:.2e}")
+    return rows
+
+
+def train_phase(book, dev, failures) -> dict:
+    """Full-width qwen3-0.6b trained through `repro_torch.launch.train.train`:
+    launch counters per step, one step's gradients against the host's plain
+    path, the backward kernels at the trained, long and edge shapes, a trace
+    of one warm step, the final checkpoint's save time, and restart equality
+    at the reduced config."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs.base import DEFAULT_RUN, get_config
+    from repro_torch.data import make_pipeline
+    from repro_torch.kernels.cuda import FLASH_HEAD_DIMS
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_bwd,
+        flash_bwd_dkv,
+        flash_bwd_dq,
+        flash_fwd,
+    )
+    from repro_torch.launch.steps import loss_and_grads, make_train_step, to_device
+    from repro_torch.launch.train import train
+    from repro_torch.models import model as M
+    from repro_torch.optim import global_norm
+    from repro_torch.tree import tree_leaves, tree_paths
+
+    cfg = get_config(LM_ARCH)
+    n_layers, steps = cfg.n_layers, LM_TRAIN["steps"]
+    gb, sl = LM_TRAIN["global_batch"], LM_TRAIN["seq_len"]
+    wrappers = {"flash_fwd": flash_fwd, "flash_bwd": flash_bwd,
+                "flash_bwd_dq": flash_bwd_dq, "flash_bwd_dkv": flash_bwd_dkv}
+    expect = {"flash_fwd": 2 * n_layers * steps, "flash_bwd": n_layers * steps,
+              "flash_bwd_dq": n_layers * steps, "flash_bwd_dkv": n_layers * steps}
+    summary = {}
+    tmp = Path(tempfile.mkdtemp(prefix="repro_torch_train_"))
+    try:
+        # ---- the main run: train() at the reference launcher's defaults ----
+        reset_counts(wrappers)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, hist = train(LM_ARCH, reduced=False, steps=steps, global_batch=gb,
+                            seq_len=sl, ckpt_dir=str(tmp / "main"),
+                            checkpoint_every=10 * steps, resume=False,
+                            seed=LM_TRAIN["seed"], device=dev)
+        wall = time.perf_counter() - t0
+        launches = read_counts(wrappers)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        for h in hist:
+            print(f"{LM_ARCH} train step {h['step']}: loss {h['loss']:.5f} grad_norm "
+                  f"{h['grad_norm']:.5f} lr {h['lr']:.3e} step {h['step_ms']:.1f} ms "
+                  f"(synchronised) {gb * sl / h['step_ms'] * 1e3:.0f} tok/s")
+        per_step = {k: v / max(len(hist), 1) for k, v in launches.items()}
+        print(f"{LM_ARCH} trained {len(hist)} steps (batch {gb} x {sl}, remat full, "
+              f"fp32) in {wall:.2f} s with set-up and the final checkpoint; launches "
+              f"{launches} = {per_step} per step (expected {expect}); peak device "
+              f"memory {peak_gb:.2f} GB")
+        if launches != expect:
+            failures.append(f"{LM_ARCH} train: launches {launches}, expected {expect}")
+        if len(hist) != steps or not all(np.isfinite(h["loss"]) and np.isfinite(
+                h["grad_norm"]) for h in hist):
+            failures.append(f"{LM_ARCH} train: history malformed or not finite")
+        warm = hist[1:]
+        summary["main"] = {
+            "history": hist, "launches": launches, "wall_s": wall, "peak_gb": peak_gb,
+            "step_ms_warm_median": sorted(h["step_ms"] for h in warm)[len(warm) // 2],
+            "tok_s_warm": gb * sl * len(warm) / sum(h["step_ms"] for h in warm) * 1e3}
+
+        # ---- the final checkpoint's size and save time ----------------------
+        ck = CheckpointManager(tmp / "save", keep=1)
+        nbytes = sum(t.numel() * t.element_size() for t in
+                     tree_leaves(state.params) + tree_leaves(state.opt.m)
+                     + tree_leaves(state.opt.v))
+        t0 = time.perf_counter()
+        ck.save(steps, state, extra={"step": steps}, block=True)
+        save_s = time.perf_counter() - t0
+        ck.close()
+        print(f"{LM_ARCH} checkpoint of params + m + v ({nbytes / 1e9:.2f} GB): "
+              f"save {save_s:.2f} s (host copy + npz write + atomic commit)")
+        summary["save"] = {"bytes": nbytes, "save_s": save_s}
+        shutil.rmtree(tmp / "save", ignore_errors=True)
+
+        # ---- where the time goes: one warm train step ----------------------
+        run = DEFAULT_RUN.replace(remat="full", param_dtype="float32")
+        step_fn = make_train_step(cfg, run, steps, device=dev)
+        batch0 = make_pipeline(cfg, sl, gb, seed=LM_TRAIN["seed"]).batch_at(0)
+        br = trace_breakdown(lambda: step_fn(state, batch0), {"batch": gb, "seq": sl})
+        summary["service"] = br
+        print(f"{LM_ARCH} warm train step: wall {br['wall_ms']:.3f} ms (median of 5), "
+              f"device {br['device_ms']:.3f} ms in {br['device_ops']} device ops, "
+              f"idle share {br['idle_share']}")
+        for cat, ms in sorted(br["by_class_ms"].items(), key=lambda kv: -kv[1]):
+            print(f"  {ms:8.3f} ms  {cat}")
+        del state, step_fn
+        torch.cuda.empty_cache()
+
+        # ---- one step's gradients, card against the host's plain path ------
+        params = M.init_params(cfg, torch.Generator().manual_seed(LM_TRAIN["seed"]),
+                               device=dev)
+        keep = (0, n_layers - 1)  # backward order: layer 27, then layer 0
+        with capture_backward(keep) as cap:
+            loss_and_grads(cfg, run, params, to_device(batch0, dev))
+        hb = {k: v[:LM_TRAIN_HOST_BATCH] for k, v in batch0.items()}
+        loss_c, grads_c = loss_and_grads(cfg, run, params, to_device(hb, dev))
+        params_cpu = tree_to(params, "cpu")
+        del params
+        grads_c = tree_to(grads_c, "cpu")
+        t0 = time.perf_counter()
+        loss_h, grads_h = loss_and_grads(cfg, run.replace(remat="none"), params_cpu,
+                                         to_device(hb, "cpu"))
+        host_s = time.perf_counter() - t0
+        lc, lh = float(loss_c), float(loss_h)
+        nc, nh = float(global_norm(grads_c)), float(global_norm(grads_h))
+        worst, zero_layers, ok_leaves = 0.0, [], True
+        for (path_c, gc), gh in zip(tree_paths(grads_c), tree_leaves(grads_h)):
+            scale = float(gh.abs().max())
+            err = float((gc - gh).abs().max())
+            worst = max(worst, err / scale if scale else err)
+            ok_leaves &= err <= 1e-3 * scale
+            per_layer = gc.reshape(gc.shape[0], -1) if path_c.startswith("groups") else \
+                gc.reshape(1, -1)
+            zero_layers += [f"{path_c}[{i}]" for i in range(per_layer.shape[0])
+                            if not bool(per_layer[i].abs().max() > 0)]
+        ok_loss = abs(lc - lh) <= 1e-4 * abs(lh)
+        ok_norm = abs(nc - nh) <= 1e-3 * nh
+        print(f"{LM_ARCH} one step's gradients, card vs host plain path (batch "
+              f"{LM_TRAIN_HOST_BATCH} x {sl}; host {host_s:.1f} s): loss {lc:.6f} vs "
+              f"{lh:.6f} ({'ok' if ok_loss else 'FAIL'}, 1e-4 rel), grad norm {nc:.6f} "
+              f"vs {nh:.6f} ({'ok' if ok_norm else 'FAIL'}, 1e-3 rel), worst leaf "
+              f"max|card - host| / max|host| = {worst:.2e} ({'ok' if ok_leaves else 'FAIL'},"
+              f" 1e-3); leaves (per layer) with a zero gradient on the card: "
+              f"{zero_layers or 'none'}")
+        if not (ok_loss and ok_norm and ok_leaves):
+            failures.append(f"{LM_ARCH} train: card gradients disagree with the host")
+        if zero_layers:
+            failures.append(f"{LM_ARCH} train: zero gradients on the card: {zero_layers}")
+        summary["grads_vs_host"] = {"loss": [lc, lh], "grad_norm": [nc, nh],
+                                    "worst_leaf_rel": worst, "zero": zero_layers,
+                                    "host_s": host_s}
+        del params_cpu, grads_c, grads_h
+        torch.cuda.empty_cache()
+
+        # ---- the backward kernels: trained, long and edge shapes -----------
+        print(f"{LM_ARCH} flash backward kernel checks ({KERNEL_TOL.split(';')[0]}):")
+        for idx in keep:
+            if idx not in cap.calls:
+                failures.append(f"{LM_ARCH} train: backward call {idx} not captured")
+                continue
+            args, kw = cap.calls[idx]
+            layer = n_layers - 1 - idx
+            check_flash_bwd(book, f"trained layer {layer}", args, kw, timed=(layer == 0))
+        del cap
+        gen = torch.Generator(device=dev).manual_seed(6)
+
+        def operands(b, sq, kvh, g, sk, d, kw):
+            q = torch.randn((b, sq, kvh, g, d), generator=gen, device=dev)
+            k = torch.randn((b, sk, kvh, d), generator=gen, device=dev)
+            v = torch.randn((b, sk, kvh, d), generator=gen, device=dev)
+            with torch.no_grad():
+                out, m, l = flash_fwd(q, k, v, **kw)
+            do = torch.randn(q.shape, generator=gen, device=dev)
+            return q, k, v, out, m, l, do
+
+        kvh, g, d = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.resolved_head_dim
+        lb, ls = LM_LONG["b"], LM_LONG["sq"]
+        kw = dict(scale=d ** -0.5, causal=True, q_offset=0, kv_len=None)
+        check_flash_bwd(book, "long 2048x2048 causal", operands(lb, ls, kvh, g, ls, d, kw),
+                        kw, timed=True)
+        torch.cuda.empty_cache()
+        # every head dim; ragged Sq / Sk; G = 1, 2, 8; q_offset / kv_len; non-causal
+        edges = [(2, 37, 2, 2, 53, hd, hd % 16 == 0, 0, None) for hd in FLASH_HEAD_DIMS]
+        edges += [(3, 37, 1, 1, 53, 128, True, 16, None),
+                  (2, 70, 1, 8, 130, 64, True, 200, 250),
+                  (2, 65, 2, 8, 97, 256, False, 0, 80),
+                  (2, 1, 8, 2, 130, 128, True, 99, 100),
+                  (2, 40, 2, 2, 40, 128, True, -8, None)]
+        for eb, esq, ekv, eg, esk, ed, causal, qo, kvl in edges:
+            ekw = dict(scale=ed ** -0.5, causal=causal, q_offset=qo, kv_len=kvl)
+            check_flash_bwd(book, "edge", operands(eb, esq, ekv, eg, esk, ed, ekw), ekw,
+                            timed=False)
+
+        # ---- restart on the card at the reduced config ---------------------
+        losses = {}
+        for tag, fail_at in (("uninterrupted", ()), ("failed", LM_RESTART["fail_at"])):
+            _, h = train(LM_ARCH, reduced=True, steps=LM_RESTART["steps"],
+                         global_batch=LM_RESTART["global_batch"],
+                         seq_len=LM_RESTART["seq_len"], ckpt_dir=str(tmp / tag),
+                         checkpoint_every=LM_RESTART["checkpoint_every"],
+                         fail_at=fail_at, resume=False, seed=7, device=dev)
+            losses[tag] = {x["step"]: x["loss"] for x in h}
+        a, b = losses["uninterrupted"], losses["failed"]
+        diff = max(abs(a[s_] - b[s_]) for s_ in a) if sorted(a) == sorted(b) else float("inf")
+        ok = diff < 1e-6
+        print(f"{LM_ARCH} reduced restart on the card ({LM_RESTART['steps']} steps, "
+              f"failure at {LM_RESTART['fail_at']}, checkpoints every "
+              f"{LM_RESTART['checkpoint_every']}): max |loss difference| {diff:.3e} "
+              f"(limit 1e-6): {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"{LM_ARCH} train: restart changed the losses by {diff}")
+        summary["restart_max_loss_diff"] = diff
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return summary
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -1396,6 +1762,14 @@ def main() -> int:
         traceback.print_exc()
         failures.append(f"{LM_ARCH} phase failed")
 
+    # ---- full-width qwen3-0.6b trained through the flash backward kernels --
+    train_summary = {}
+    try:
+        train_summary = train_phase(book, dev, failures)
+    except Exception:
+        traceback.print_exc()
+        failures.append(f"{LM_ARCH}-train phase failed")
+
     csrc = "src/repro_torch/kernels/csrc/"
     # (name, book key, row suffix, source, replaces, the phase that serves it)
     table = (
@@ -1457,16 +1831,39 @@ def main() -> int:
             "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
             "library_ms": sum(r["library_ms"] for r in main_rows),
             "phase": LM_ARCH,
+            "train_launches": train_summary.get("main", {}).get("launches", {}).get(name, 0),
             "shapes": [{k: r[k] for k in ("shape", "q", "k", "ms", "plain_ms",
                                           "library_ms", "bound_ms", "bound_by")}
                        for r in rows]})
         if len(main_rows) != 2:
             failures.append(f"{name}: the served shapes were not timed")
+    # the backward rows: one launch of each pass at the trained shape (layer
+    # 0 of a batch-8 step), with every timed shape listed under "shapes"
+    for name, site in (("flash_bwd_dq", ":265"), ("flash_bwd_dkv", ":284")):
+        rows = [r for r in book.rows if r["kernel"] == name]
+        main_rows = [r for r in rows if r["shape"] == "trained layer 0"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": csrc + "flash_attention_bwd.cu",
+            "replaces": flash_src + site,
+            "launches": train_summary.get("main", {}).get("launches", {}).get(name, 0),
+            "max_abs_err": book.max_err.get(name, 0.0),
+            "ms": sum(r["ms"] for r in main_rows),
+            "plain_ms": sum(r["plain_ms"] for r in main_rows),
+            "bound_ms": sum(r["bound_ms"] for r in main_rows),
+            "bound_by": main_rows[0]["bound_by"] if main_rows else "operations",
+            "library_ms": sum(r["library_ms"] for r in main_rows),
+            "phase": LM_ARCH + "-train",
+            "shapes": [{k: r[k] for k in ("shape", "q", "k", "ms", "plain_ms",
+                                          "library_ms", "bound_ms", "bound_by")}
+                       for r in rows]})
+        if len(main_rows) != 1:
+            failures.append(f"{name}: the trained shape was not timed")
     if args.layers_out is not None:
         args.layers_out.parent.mkdir(parents=True, exist_ok=True)
         args.layers_out.write_text(json.dumps(
             {"card": card, "rows": book.rows, "kernels": kernels,
-             "service": services, "variants": variants, "lm": lm}, indent=1))
+             "service": services, "variants": variants, "lm": lm,
+             "train": train_summary}, indent=1, default=str))
     if failures:
         for f in failures:
             print(f"FAILED: {f}", file=sys.stderr)

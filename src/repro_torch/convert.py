@@ -1,4 +1,5 @@
-"""Carry weights made by the JAX package into the port.
+"""Carry weights (and a training state) made by the JAX package into the
+port.
 
 `torch.Generator` cannot reproduce `jax.random` bits, so a comparison of the
 two packages makes its weights once (on the JAX side, as numpy arrays) and
@@ -66,3 +67,20 @@ def lm_params_from_jax(np_params: dict, cfg, device=None) -> dict:
     if tuple(out["embed"].shape) != (v, d):
         raise ValueError(f"embed {tuple(out['embed'].shape)} is not ({v}, {d})")
     return out
+
+
+def train_state_from_jax(np_state, cfg, device=None):
+    """The JAX package's `TrainState` (`repro.launch.steps`), leaves as
+    array-likes -> the port's `TrainState` on `device` (None = the card):
+    params, and the AdamW moments m and v, through `lm_params_from_jax`
+    (float32), and the step count as an int32 scalar."""
+    from repro_torch.launch.steps import TrainState
+    from repro_torch.optim.adamw import OptState
+
+    dev = resolve_device(device)
+    opt = np_state.opt
+    step = torch.tensor(int(np.asarray(opt.step)), dtype=torch.int32, device=dev)
+    return TrainState(
+        params=lm_params_from_jax(np_state.params, cfg, device=dev),
+        opt=OptState(step=step, m=lm_params_from_jax(opt.m, cfg, device=dev),
+                     v=lm_params_from_jax(opt.v, cfg, device=dev)))

@@ -9,8 +9,9 @@ named by a hash of the sources and flags, so an edited source rebuilds and a
 stale library is never loaded. A missing `nvcc` or a failed build raises.
 
 `launch_conv` (the ECR / PECR conv kernels, fp32 and int8), `launch_bsr`
-(the block-sparse matmul, fp32 and int8) and `launch_flash` (the flash
-attention forward over fp32 or int8 K/V) are the launch sites: they check
+(the block-sparse matmul, fp32 and int8), `launch_flash` (the flash
+attention forward over fp32 or int8 K/V) and `launch_flash_bwd` (its two
+backward passes) are the launch sites: they check
 device, dtype, layout and shapes, allocate the outputs with `torch.empty`,
 launch on PyTorch's current stream without synchronising, and raise on a
 nonzero `cudaGetLastError()`. The conv and BSR kernels take contiguous
@@ -29,7 +30,7 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("ecr_conv.cu", "bsr_matmul.cu", "flash_attention.cu")
+SOURCES = ("ecr_conv.cu", "bsr_matmul.cu", "flash_attention.cu", "flash_attention_bwd.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 _CHECKOUT = Path(__file__).resolve().parents[3]
@@ -143,6 +144,12 @@ def library() -> ctypes.CDLL:
             lib.repro_flash_fwd_q8.argtypes = [ctypes.c_void_p] * 6 + [
                 dims, strides, ctypes.c_float, ctypes.c_void_p]
             lib.repro_flash_fwd_q8.restype = ctypes.c_int
+            lib.repro_flash_bwd_dq_f32.argtypes = [ctypes.c_void_p] * 8 + [
+                dims, strides, ctypes.c_float, ctypes.c_void_p]
+            lib.repro_flash_bwd_dq_f32.restype = ctypes.c_int
+            lib.repro_flash_bwd_dkv_f32.argtypes = [ctypes.c_void_p] * 9 + [
+                dims, strides, ctypes.c_float, ctypes.c_void_p]
+            lib.repro_flash_bwd_dkv_f32.restype = ctypes.c_int
             _lib = lib
         return _lib
 
@@ -331,22 +338,56 @@ def check_flash_operands(q, k, v, k_scale=None, v_scale=None) -> tuple:
     return nbkv, nh, g, sq, sk, d
 
 
+def _row_strides(t, kernel_layout: bool) -> tuple:
+    """(b, h, g, s) element strides of a query-shaped tensor."""
+    if kernel_layout:
+        return (t.stride(0), 0, t.stride(1), t.stride(2))
+    return (t.stride(0), t.stride(2), t.stride(3), t.stride(1))
+
+
+def _key_strides(t, kernel_layout: bool) -> tuple:
+    """(b, h, s) element strides of a key-shaped tensor (or its scales)."""
+    if t is None:
+        return (0, 0, 0)
+    if kernel_layout:
+        return (t.stride(0), 0, t.stride(1))
+    return (t.stride(0), t.stride(2), t.stride(1))
+
+
 def flash_strides(q, k, v, out, scale_t=None) -> tuple:
     """The kernel's element strides, in its order: q (b, h, g, s), k (b, h, s),
     v (b, h, s), the scales (b, h, s), out (b, h, g, s). The bkv axis splits
     as bkv = b * nh + h; in the (BKV, ...) layout h is always 0."""
-    if q.ndim == 4:
-        qs = (q.stride(0), 0, q.stride(1), q.stride(2))
-        os_ = (out.stride(0), 0, out.stride(1), out.stride(2))
-        ks, vs = (k.stride(0), 0, k.stride(1)), (v.stride(0), 0, v.stride(1))
-        ss = (0, 0, 0) if scale_t is None else (scale_t.stride(0), 0, scale_t.stride(1))
-    else:
-        qs = (q.stride(0), q.stride(2), q.stride(3), q.stride(1))
-        os_ = (out.stride(0), out.stride(2), out.stride(3), out.stride(1))
-        ks, vs = (k.stride(0), k.stride(2), k.stride(1)), (v.stride(0), v.stride(2), v.stride(1))
-        ss = (0, 0, 0) if scale_t is None else (
-            scale_t.stride(0), scale_t.stride(2), scale_t.stride(1))
-    return qs + ks + vs + ss + os_
+    kl = q.ndim == 4
+    return (_row_strides(q, kl) + _key_strides(k, kl) + _key_strides(v, kl)
+            + _key_strides(scale_t, kl) + _row_strides(out, kl))
+
+
+def flash_bwd_strides(q, k, v, do, dq, dk, dv) -> tuple:
+    """The backward kernels' element strides, in their order: q, do, dq as
+    (b, h, g, s) and k, v, dk, dv as (b, h, s): q k v do dq dk dv."""
+    kl = q.ndim == 4
+    return (_row_strides(q, kl) + _key_strides(k, kl) + _key_strides(v, kl)
+            + _row_strides(do, kl) + _row_strides(dq, kl) + _key_strides(dk, kl)
+            + _key_strides(dv, kl))
+
+
+def _check_flash_kernel(nbkv: int, g: int, d: int, tensors) -> None:
+    """What every CUDA flash kernel refuses: a contiguous head dim, the head
+    dims it is built for, the groups a 64-row block holds, the grid."""
+    if any(t.stride(-1) != 1 for t in tensors):
+        raise ValueError("the CUDA flash kernel needs a contiguous head dim")
+    if d not in FLASH_HEAD_DIMS:
+        raise ValueError(f"the CUDA flash kernel takes head dims {FLASH_HEAD_DIMS}, got {d}")
+    if g > FLASH_MAX_GROUPS or nbkv > 65535:
+        raise ValueError(f"{g} groups / {nbkv} kv heads exceed the CUDA flash "
+                         f"kernel's grid ({FLASH_MAX_GROUPS} / 65535)")
+
+
+def _flash_dims(nbkv, nh, g, sq, sk, d, causal, q_offset, kv_len):
+    kvl = -1 if kv_len is None else max(0, int(kv_len))
+    return (ctypes.c_int * 9)(nbkv, nh, g, sq, sk, d, int(bool(causal)),
+                              int(q_offset), kvl)
 
 
 def launch_flash(q, k, v, *, scale: float, causal: bool, q_offset: int = 0,
@@ -372,17 +413,14 @@ def launch_flash(q, k, v, *, scale: float, causal: bool, q_offset: int = 0,
                  or k_scale.stride() != v_scale.stride()):
         raise TypeError(f"k_scale and v_scale must be float32 in one layout, got "
                         f"{k_scale.dtype}/{v_scale.dtype}")
-    if any(t.stride(-1) != 1 for t in (q, k, v)):
-        raise ValueError("the CUDA flash kernel needs a contiguous head dim")
-    if d not in FLASH_HEAD_DIMS:
-        raise ValueError(f"the CUDA flash kernel takes head dims {FLASH_HEAD_DIMS}, got {d}")
-    if g > FLASH_MAX_GROUPS or nbkv > 65535:
-        raise ValueError(f"{g} groups / {nbkv} kv heads exceed the CUDA flash "
-                         f"kernel's grid ({FLASH_MAX_GROUPS} / 65535)")
+    _check_flash_kernel(nbkv, g, d, (q, k, v))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("the CUDA flash forward records no autograd graph: "
+                           "differentiate through FlashAttentionFn "
+                           "(kernels/flash_attention/ops.py), or call it under "
+                           "torch.no_grad()")
     out = torch.empty(q.shape, device=dev, dtype=torch.float32)
-    kvl = -1 if kv_len is None else max(0, int(kv_len))
-    dims = (ctypes.c_int * 9)(nbkv, nh, g, sq, sk, d, int(bool(causal)),
-                              int(q_offset), kvl)
+    dims = _flash_dims(nbkv, nh, g, sq, sk, d, causal, q_offset, kv_len)
     strides = (ctypes.c_longlong * 17)(*flash_strides(q, k, v, out, k_scale))
     lib = library()
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -404,3 +442,49 @@ def launch_flash(q, k, v, *, scale: float, causal: bool, q_offset: int = 0,
                            f"(q {tuple(q.shape)}, k {tuple(k.shape)} {k.dtype}, "
                            f"causal {causal}, q_offset {q_offset}, kv_len {kv_len})")
     return (out, m, l) if not int8 else out
+
+
+def launch_flash_bwd(q, k, v, do, m, l, delta, *, part: str, scale: float,
+                     causal: bool, q_offset: int = 0, kv_len=None):
+    """Launch one flash-attention backward pass on CUDA tensors, in either
+    layout of `check_flash_operands`: float32 q, k, v and do (do in q's
+    layout), the forward's m and l and delta = rowsum(do * out), each
+    (BKV, G, Sq) float32 contiguous. part "dq" -> dq in q's shape; part
+    "dkv" -> (dk, dv) in k's shape. Operands may be strided views with a
+    contiguous head dim."""
+    nbkv, nh, g, sq, sk, d = check_flash_operands(q, k, v)
+    dev = q.device
+    stats = (m, l, delta)
+    if dev.type != "cuda" or any(t.device != dev for t in (k, v, do) + stats):
+        raise ValueError("CUDA kernel needs every operand on one CUDA device")
+    if any(t.dtype != torch.float32 for t in (q, k, v, do) + stats):
+        raise TypeError("the CUDA flash backward takes float32 operands, got "
+                        f"{[str(t.dtype) for t in (q, k, v, do) + stats]}")
+    if tuple(do.shape) != tuple(q.shape):
+        raise ValueError(f"do {tuple(do.shape)} does not match q {tuple(q.shape)}")
+    if any(tuple(t.shape) != (nbkv, g, sq) or not t.is_contiguous() for t in stats):
+        raise ValueError(f"m, l and delta must be contiguous ({nbkv}, {g}, {sq})")
+    if part not in ("dq", "dkv"):
+        raise ValueError(f"part {part!r}: choose 'dq' or 'dkv'")
+    _check_flash_kernel(nbkv, g, d, (q, k, v, do))
+    dq = torch.empty(q.shape, device=dev, dtype=torch.float32) if part == "dq" else q
+    dk, dv = (torch.empty(k.shape, device=dev, dtype=torch.float32),
+              torch.empty(v.shape, device=dev, dtype=torch.float32)) \
+        if part == "dkv" else (k, v)
+    dims = _flash_dims(nbkv, nh, g, sq, sk, d, causal, q_offset, kv_len)
+    strides = (ctypes.c_longlong * 24)(*flash_bwd_strides(q, k, v, do, dq, dk, dv))
+    ptrs = tuple(t.data_ptr() for t in (q, k, v, do, m, l, delta))
+    lib = library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        if part == "dq":
+            err = lib.repro_flash_bwd_dq_f32(*ptrs, dq.data_ptr(), dims, strides,
+                                             float(scale), stream)
+        else:
+            err = lib.repro_flash_bwd_dkv_f32(*ptrs, dk.data_ptr(), dv.data_ptr(), dims,
+                                              strides, float(scale), stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA flash backward ({part}) launch failed: cudaError "
+                           f"{err} (q {tuple(q.shape)}, k {tuple(k.shape)}, causal "
+                           f"{causal}, q_offset {q_offset}, kv_len {kv_len})")
+    return dq if part == "dq" else (dk, dv)

@@ -1,24 +1,27 @@
-"""Flash attention forward kernel wrappers and their plain PyTorch versions.
+"""Flash attention kernel wrappers and their plain PyTorch versions.
 
 `flash_fwd` replaces `repro.kernels.flash_attention.kernel.flash_fwd_pallas`
-and `flash_fwd_q8` replaces `flash_fwd_q8_pallas`. On a CUDA tensor each
-launches the hand-written kernel in
-`repro_torch/kernels/csrc/flash_attention.cu` and counts the launch in its
-`.launches`; on a CPU tensor it runs its plain version. There is no fallback
-from one to the other.
+and `flash_fwd_q8` replaces `flash_fwd_q8_pallas` (kernels in
+`repro_torch/kernels/csrc/flash_attention.cu`); `flash_bwd` replaces
+`flash_bwd_pallas` through its two passes, `flash_bwd_dq` (the `_dq_kernel`
+call) and `flash_bwd_dkv` (the `_dkv_kernel` call), kernels in
+`csrc/flash_attention_bwd.cu`. On a CUDA tensor each wrapper launches its
+hand-written kernel and counts the launch in its `.launches`; on a CPU tensor
+it runs its plain version. There is no fallback from one to the other.
 
-Both take the Pallas kernels' layout, q (BKV, G, Sq, D) with k, v (BKV, Sk, D),
+All take the Pallas kernels' layout, q (BKV, G, Sq, D) with k, v (BKV, Sk, D),
 or the model's, q (B, Sq, KV, G, D) with k, v (B, Sk, KV, D) read in place
 (the KV cache needs no transpose), and return out in q's layout. m and l are
 (BKV, G, Sq) in both, with bkv = b * KV + h. Unlike the Pallas wrappers there
 are no `qc`/`kc` tile sizes: the kernel picks its own tiles and masks ragged
-edges itself, for any Sq and Sk.
+edges itself, for any Sq and Sk. The plain versions compute in float32, or
+in float64 when given float64 (the gradient checks).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.cuda import check_flash_operands, launch_flash
+from repro_torch.kernels.cuda import check_flash_operands, launch_flash, launch_flash_bwd
 
 NEG = -1e30
 
@@ -46,11 +49,15 @@ def _model_layout(out, q):
     return out.reshape(b, kvh, g, sq, d).permute(0, 3, 1, 2, 4).contiguous()
 
 
-def _plain_softmax(q, k, v, *, scale, causal, q_offset, kv_len):
-    """The kernels' function in the (BKV, ...) layout: scores from the
-    pre-scaled q, masked at -1e30, then (out, m, max(l, 1e-30))."""
+def _wide(x):
+    """x in float32, or wider when it already is (float64 stays float64)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def _scores(q, k, *, scale, causal, q_offset, kv_len):
+    """Scores from the pre-scaled q in the (BKV, ...) layout, masked at -1e30."""
     sq, sk = q.shape[2], k.shape[1]
-    s = torch.einsum("bgqd,bkd->bgqk", q.float() * scale, k.float())
+    s = torch.einsum("bgqd,bkd->bgqk", _wide(q) * scale, _wide(k))
     qpos = q_offset + torch.arange(sq, device=q.device)
     kpos = torch.arange(sk, device=q.device)
     mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
@@ -58,11 +65,17 @@ def _plain_softmax(q, k, v, *, scale, causal, q_offset, kv_len):
         mask &= qpos[:, None] >= kpos[None, :]
     if kv_len is not None:
         mask &= (kpos < kv_len)[None, :]
-    s = torch.where(mask, s, torch.full((), NEG, device=q.device))
+    return torch.where(mask, s, torch.full((), NEG, dtype=s.dtype, device=q.device))
+
+
+def _plain_softmax(q, k, v, *, scale, causal, q_offset, kv_len):
+    """The kernels' function in the (BKV, ...) layout: scores from the
+    pre-scaled q, masked at -1e30, then (out, m, max(l, 1e-30))."""
+    s = _scores(q, k, scale=scale, causal=causal, q_offset=q_offset, kv_len=kv_len)
     m = s.amax(-1)
     p = torch.exp(s - m[..., None])
     l = torch.clamp_min(p.sum(-1), 1e-30)
-    out = torch.einsum("bgqk,bkd->bgqd", p, v.float()) / l[..., None]
+    out = torch.einsum("bgqk,bkd->bgqd", p, _wide(v)) / l[..., None]
     return out, m, l
 
 
@@ -129,3 +142,120 @@ def flash_fwd_q8(q, k_q8, v_q8, k_scale, v_scale, *, scale, causal, q_offset=0,
 
 
 flash_fwd_q8.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# backward: the dq pass and the dk/dv pass
+# ---------------------------------------------------------------------------
+
+
+def flash_delta(do, out):
+    """delta = rowsum(do * out), (BKV, G, Sq), contiguous: the reference forms
+    it outside its kernels (`flash_bwd_pallas`, kernel.py:263), and so does
+    the port."""
+    dl = (_wide(do) * _wide(out)).sum(-1)
+    if do.ndim == 5:  # (B, Sq, KV, G) -> (B*KV, G, Sq)
+        b, sq, kvh, g = dl.shape
+        dl = dl.permute(0, 2, 3, 1).reshape(b * kvh, g, sq)
+    return dl.contiguous()
+
+
+def _plain_bwd(q, k, v, do, m, l, delta, *, scale, causal, q_offset, kv_len):
+    """The backward kernels' function in plain PyTorch, any layout ->
+    (dq, dk, dv) in the operands' layouts: p recomputed from the pre-scaled
+    q and (m, l), ds = p * (dp - delta), dq = scale * ds k, dk = ds^T
+    (scale q), dv = p^T do."""
+    check_flash_operands(q, k, v)
+    qk, kk, vk, _, _ = _kernel_layout(q, k, v)
+    dok = _kernel_layout(do, k, v)[0]
+    s = _scores(qk, kk, scale=scale, causal=causal, q_offset=q_offset, kv_len=kv_len)
+    p = torch.exp(s - m[..., None]) / torch.clamp_min(l, 1e-30)[..., None]
+    dok = _wide(dok)
+    dp = torch.einsum("bgqd,bkd->bgqk", dok, _wide(vk))
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bgqk,bkd->bgqd", ds, _wide(kk)) * scale
+    dk = torch.einsum("bgqk,bgqd->bkd", ds, _wide(qk) * scale)
+    dv = torch.einsum("bgqk,bgqd->bkd", p, dok)
+    if q.ndim == 5:
+        b, sk, kvh, d = k.shape
+        dk = dk.reshape(b, kvh, sk, d).permute(0, 2, 1, 3)
+        dv = dv.reshape(b, kvh, sk, d).permute(0, 2, 1, 3)
+    return (_model_layout(dq, q).to(q.dtype), dk.contiguous().to(k.dtype),
+            dv.contiguous().to(v.dtype))
+
+
+def flash_bwd_dq_plain(q, k, v, do, m, l, delta, *, scale, causal, q_offset=0,
+                       kv_len=None):
+    """The dq kernel's function in plain PyTorch -> dq in q's layout."""
+    return _plain_bwd(q, k, v, do, m, l, delta, scale=scale, causal=causal,
+                      q_offset=q_offset, kv_len=kv_len)[0]
+
+
+def flash_bwd_dkv_plain(q, k, v, do, m, l, delta, *, scale, causal, q_offset=0,
+                        kv_len=None):
+    """The dk/dv kernel's function in plain PyTorch -> (dk, dv) in k's layout."""
+    return _plain_bwd(q, k, v, do, m, l, delta, scale=scale, causal=causal,
+                      q_offset=q_offset, kv_len=kv_len)[1:]
+
+
+def _on_card(q, name: str) -> bool:
+    """True on a CUDA tensor, False on a CPU one; raises elsewhere."""
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cuda or cpu, got {q.device}")
+    return q.device.type == "cuda"
+
+
+def flash_bwd_dq(q, k, v, do, m, l, delta, *, scale, causal, q_offset=0,
+                 kv_len=None):
+    """The dq pass (`flash_bwd_pallas`'s first call) -> dq in q's layout.
+    CUDA tensor: `repro_flash_bwd_dq_f32`; CPU tensor: the plain version."""
+    kw = dict(scale=scale, causal=causal, q_offset=q_offset, kv_len=kv_len)
+    if not _on_card(q, "flash_bwd_dq"):
+        return flash_bwd_dq_plain(q, k, v, do, m, l, delta, **kw)
+    dq = launch_flash_bwd(q, k, v, do, m, l, delta, part="dq", **kw)
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dq.launches = 0
+
+
+def flash_bwd_dkv(q, k, v, do, m, l, delta, *, scale, causal, q_offset=0,
+                  kv_len=None):
+    """The dk/dv pass (`flash_bwd_pallas`'s second call) -> (dk, dv) in k's
+    layout. CUDA tensor: `repro_flash_bwd_dkv_f32`; CPU tensor: the plain
+    version."""
+    kw = dict(scale=scale, causal=causal, q_offset=q_offset, kv_len=kv_len)
+    if not _on_card(q, "flash_bwd_dkv"):
+        return flash_bwd_dkv_plain(q, k, v, do, m, l, delta, **kw)
+    dk, dv = launch_flash_bwd(q, k, v, do, m, l, delta, part="dkv", **kw)
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv.launches = 0
+
+
+def flash_bwd_plain(q, k, v, out, m, l, do, *, scale, causal, q_offset=0,
+                    kv_len=None):
+    """`flash_bwd`'s function in plain PyTorch -> (dq, dk, dv)."""
+    return _plain_bwd(q, k, v, do, m, l, flash_delta(do, out), scale=scale,
+                      causal=causal, q_offset=q_offset, kv_len=kv_len)
+
+
+def flash_bwd(q, k, v, out, m, l, do, *, scale, causal, q_offset=0, kv_len=None):
+    """GQA flash attention backward -> (dq, dk, dv) in the operands' layouts,
+    from the forward's out, m and l and the output gradient do (q's layout).
+    CUDA tensor: delta = rowsum(do * out), then the dq and the dk/dv kernels
+    (`.launches` counts these pairs); CPU tensor: the plain version."""
+    kw = dict(scale=scale, causal=causal, q_offset=q_offset, kv_len=kv_len)
+    if not _on_card(q, "flash_bwd"):
+        return flash_bwd_plain(q, k, v, out, m, l, do, **kw)
+    delta = flash_delta(do, out)
+    dq = flash_bwd_dq(q, k, v, do, m, l, delta, **kw)
+    dk, dv = flash_bwd_dkv(q, k, v, do, m, l, delta, **kw)
+    flash_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_bwd.launches = 0

@@ -1,22 +1,46 @@
-"""Model-facing flash attention (GQA layout), forward only.
+"""Differentiable flash attention (GQA layout): the counterpart of the JAX
+package's `flash_attention_p` and its `jax.custom_vjp`
+(`repro/kernels/flash_attention/ops.py`).
 
-The JAX package wraps its Pallas kernels in a `jax.custom_vjp`; the port's
-backward kernel comes with the training slice, and with it a
-`torch.autograd.Function`. Until then this entry has no gradient, and the
-port's LM runs under `torch.no_grad()`.
+`FlashAttentionFn` runs `flash_fwd` forward, keeps q, k, v, out, m and l,
+and runs `flash_bwd` backward: on the card the CUDA forward kernel and the
+two CUDA backward kernels, on the host their plain versions. It takes either
+layout `flash_fwd` takes and returns the gradients in the inputs' layouts.
 """
 from __future__ import annotations
 
-from repro_torch.kernels.flash_attention.kernel import flash_fwd
+import torch
+
+from repro_torch.kernels.flash_attention.kernel import flash_bwd, flash_fwd
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """apply(q, k, v, scale, causal, q_offset, kv_len) -> out in q's layout;
+    differentiable in q, k and v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, q_offset, kv_len):
+        out, m, l = flash_fwd(q, k, v, scale=scale, causal=causal, q_offset=q_offset,
+                              kv_len=kv_len)
+        ctx.save_for_backward(q, k, v, out, m, l)
+        ctx.kw = dict(scale=scale, causal=causal, q_offset=q_offset, kv_len=kv_len)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, m, l = ctx.saved_tensors
+        if do.stride(-1) != 1:  # the kernels read the head dim contiguously
+            do = do.contiguous()
+        dq, dk, dv = flash_bwd(q, k, v, out, m, l, do, **ctx.kw)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_mha(q, k, v, *, causal=True, scale=None, q_offset=0, kv_len=None):
-    """q (B,Sq,KV,G,D), k/v (B,Sk,KV,D) -> (B,Sq,KV,G,D).
+    """q (B,Sq,KV,G,D), k/v (B,Sk,KV,D) -> (B,Sq,KV,G,D), differentiable in
+    q, k and v through `FlashAttentionFn`.
 
-    The kernel reads the model layout through strides, so neither q nor the
+    The kernels read the model layout through strides, so neither q nor the
     keys are transposed; GQA groups share one read of each K/V tile."""
     d = q.shape[-1]
     scale = d ** -0.5 if scale is None else scale
-    out, _, _ = flash_fwd(q, k, v, scale=scale, causal=causal, q_offset=q_offset,
-                          kv_len=kv_len)
-    return out
+    return FlashAttentionFn.apply(q, k, v, scale, causal, q_offset, kv_len)

@@ -2,11 +2,14 @@
 `repro.models.attention`; MLA, cross-attention, the mesh head-padding branch
 and the dry-run stand-in are not ported).
 
-The attention region runs through the flash kernels: an fp32 cache through
-`flash_fwd`, an int8 cache straight through `flash_fwd_q8` with its scales
-(the reference dequantizes the whole cache first, then attends; the q8 kernel
-forms the same fp32 products per tile). The kernels read the model's
-(B, S, KV, G, hd) queries and the (B, S_max, KV, hd) cache in place.
+The attention region runs through the flash kernels. Without a cache (the
+training path) it goes through `FlashAttentionFn`, whose backward is the
+flash backward kernels. With a cache (prefill and decode, under
+`torch.no_grad()`) an fp32 cache goes through `flash_fwd`, an int8 cache
+straight through `flash_fwd_q8` with its scales (the reference dequantizes
+the whole cache first, then attends; the q8 kernel forms the same fp32
+products per tile). The kernels read the model's (B, S, KV, G, hd) queries
+and the (B, S_max, KV, hd) cache in place.
 
 Unlike the reference's functional update, the cache is written in place:
 `gqa_attention` returns the same `KVCache` it was given.
@@ -19,12 +22,13 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.kernel import dequantize, flash_fwd, flash_fwd_q8
+from repro_torch.kernels.flash_attention.ops import FlashAttentionFn
 from repro_torch.models.layers import dense_init, ones_init, rms_norm, rope
 
 
 def flash_attention(q, k, v, *, causal: bool, scale: float, q_offset=0,
                     kv_len=None, k_scale=None, v_scale=None):
-    """q: (B,Sq,KV,G,D)  k, v: (B,Sk,KV,D) -> (B,Sq,KV,G,D).
+    """q: (B,Sq,KV,G,D)  k, v: (B,Sk,KV,D) -> (B,Sq,KV,G,D), forward only.
 
     `q_offset` is the absolute position of q[0] (decode: the cache write pos);
     `kv_len` masks keys at index >= kv_len (unwritten cache tail). int8 k, v
@@ -102,9 +106,10 @@ def gqa_attention(p, x, *, cfg: ModelConfig, positions, causal=True,
         k = rope(k, positions, cfg.rope_theta)
     q = q.reshape(b, s, kv, h // kv, hd)
 
-    kv_len, q_offset, scales = None, 0, {}
-    if cache is not None:
-        wp = int(write_pos)
+    if cache is None:  # training: differentiable through the backward kernels
+        out = FlashAttentionFn.apply(q, k, v, hd ** -0.5, causal, 0, None)
+    else:
+        wp, scales = int(write_pos), {}
         if cache.k.dtype == torch.int8:
             kq, ks = _quantize_kv(k)
             vq, vs = _quantize_kv(v)
@@ -116,10 +121,8 @@ def gqa_attention(p, x, *, cfg: ModelConfig, positions, causal=True,
         else:
             cache.k[:, wp:wp + s] = k.to(cache.k.dtype)
             cache.v[:, wp:wp + s] = v.to(cache.v.dtype)
-        k, v = cache.k, cache.v
-        kv_len, q_offset = wp + s, wp
-    out = flash_attention(q, k, v, causal=causal, scale=hd ** -0.5,
-                          q_offset=q_offset, kv_len=kv_len, **scales)
+        out = flash_attention(q, cache.k, cache.v, causal=causal, scale=hd ** -0.5,
+                              q_offset=wp, kv_len=wp + s, **scales)
     out = out.reshape(b, s, h, hd)
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(out.dtype))
     return out, cache

@@ -1,19 +1,22 @@
-"""Public LM API: init / cache / forward / prefill / decode (counterpart of
-`repro.models.model`, the decoder-only LM branch).
+"""Public LM API: init / cache / forward / loss / prefill / decode
+(counterpart of `repro.models.model`, the decoder-only LM branch).
 
 Step semantics:
+  train:   lm_loss(batch with tokens, labels) -> scalar next-token loss
   prefill: forward(tokens, caches, write_pos=0) -> logits + filled caches
   decode:  forward(one token, caches, write_pos=pos) -> next-token logits
 
 Parameters are a plain dict with the reference's tree and layouts
 ({"embed", "final_norm", "groups", ["unembed"]}), drawn on the host from a
-`torch.Generator` and moved to `device` (None = the card). The LM has no
-backward yet (the flash backward kernel comes with the training slice): run
-it under `torch.no_grad()`, as `launch/serve.py` does.
+`torch.Generator` and moved to `device` (None = the card). Without caches
+`forward` and `lm_loss` are differentiable (the attention backward is the
+flash backward kernels); the cache paths are for serving and run under
+`torch.no_grad()`, as `launch/serve.py` does.
 """
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -69,9 +72,11 @@ def _logits(cfg, params, x):
     return logits
 
 
-def forward(cfg: ModelConfig, params, batch: dict, *, caches=None, write_pos=None):
-    """Returns (logits, caches, aux_loss); the caches, if given, are updated
-    in place and returned."""
+def forward(cfg: ModelConfig, params, batch: dict, *, caches=None, write_pos=None,
+            remat: str = "none", return_hidden: bool = False):
+    """Returns (logits, caches, aux_loss), or (final-normed hidden states,
+    caches, aux_loss) with `return_hidden`; the caches, if given, are
+    updated in place and returned."""
     _check_family(cfg)
     wp = 0 if write_pos is None else int(write_pos)
     tokens = batch["tokens"]
@@ -79,8 +84,63 @@ def forward(cfg: ModelConfig, params, batch: dict, *, caches=None, write_pos=Non
     x = params["embed"][tokens]
     positions = (wp + torch.arange(s, device=tokens.device))[None, :].expand(b, s)
     x, new_caches, aux = stack_apply(params["groups"], x, cfg=cfg, positions=positions,
-                                     caches=caches, write_pos=write_pos, causal=True)
+                                     caches=caches, write_pos=write_pos, causal=True,
+                                     remat=remat)
+    if return_hidden:
+        return rms_norm(x, params["final_norm"], cfg.norm_eps), new_caches, aux
     return _logits(cfg, params, x), new_caches, aux
+
+
+def _chunked_xent(x, w_t, labels, vocab_chunk: int = 16384):
+    """Cross-entropy without materializing the (B,S,V) logits: a loop over
+    vocab chunks with running (max, sumexp, gold), each chunk checkpointed so
+    the backward recomputes its logits (the reference's scan of
+    `jax.checkpoint`ed bodies). Mean over labels >= 0."""
+    b, s, _ = x.shape
+    v = w_t.shape[1]
+    cs = min(vocab_chunk, v)
+    lab = labels.long()
+
+    def chunk(m, acc, gold, c0):
+        lg = (x @ w_t[:, c0:c0 + cs]).float()  # the last chunk may be short
+        m_new = torch.maximum(m, lg.amax(-1))
+        acc = acc * torch.exp(m - m_new) + torch.exp(lg - m_new[..., None]).sum(-1)
+        idx = lab - c0
+        in_range = (idx >= 0) & (idx < lg.shape[-1])
+        g = torch.gather(lg, -1, idx.clamp(0, lg.shape[-1] - 1)[..., None])[..., 0]
+        return m_new, acc, gold + torch.where(in_range, g, torch.zeros_like(g))
+
+    m = torch.full((b, s), -1e30, dtype=torch.float32, device=x.device)
+    acc = torch.zeros((b, s), dtype=torch.float32, device=x.device)
+    gold = torch.zeros((b, s), dtype=torch.float32, device=x.device)
+    for c0 in range(0, v, cs):
+        m, acc, gold = torch.utils.checkpoint.checkpoint(chunk, m, acc, gold, c0,
+                                                         use_reentrant=False)
+    lse = torch.log(torch.clamp_min(acc, 1e-30)) + m
+    mask = (labels >= 0).float()
+    return ((lse - gold) * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+
+
+# The reference's threshold (`repro.models.model.LOSS_VOCAB_CHUNK_MIN`): the
+# chunked loss cuts peak logits memory but not traffic, so it is off for
+# every vocab the configs have.
+LOSS_VOCAB_CHUNK_MIN = 1 << 30
+
+
+def lm_loss(cfg: ModelConfig, params, batch, *, remat: str = "none"):
+    """Mean next-token cross-entropy over labels >= 0, plus the aux loss."""
+    labels = batch["labels"]
+    if cfg.vocab_size >= LOSS_VOCAB_CHUNK_MIN and not cfg.logit_softcap:
+        x, _, aux = forward(cfg, params, batch, remat=remat, return_hidden=True)
+        w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+        return _chunked_xent(x, w.to(x.dtype), labels) + aux
+    logits, _, aux = forward(cfg, params, batch, remat=remat)
+    lg = logits.float()
+    lse = torch.logsumexp(lg, dim=-1)
+    gold = torch.gather(lg, -1, labels.long().clamp_min(0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    nll = ((lse - gold) * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    return nll + aux
 
 
 def prefill(cfg, params, caches, batch):

@@ -17,6 +17,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sparse_ffn import activation_fn
@@ -93,11 +94,17 @@ def init_groups(generator: torch.Generator, cfg: ModelConfig) -> dict:
                     for i, s in enumerate(lay)} for _ in range(n_groups(cfg))])
 
 
-def layer_params(tree, i: int):
-    """Group i's parameters: every stacked leaf indexed at i (views)."""
+def unstack_groups(tree, n: int) -> list:
+    """The n groups' parameter trees: every stacked leaf unbound along its
+    layers axis (views). Under autograd one unbind per leaf gathers the n
+    layer gradients with one stack; indexing each layer instead would add a
+    full-size zero-filled gradient per layer and leaf."""
     if isinstance(tree, dict):
-        return {k: layer_params(v, i) for k, v in tree.items()}
-    return tree[i]
+        parts = {k: unstack_groups(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    if tree.shape[0] != n:
+        raise ValueError(f"stacked leaf {tuple(tree.shape)} does not hold {n} groups")
+    return tree.unbind(0)
 
 
 # ---------------------------------------------------------------------------
@@ -139,15 +146,36 @@ def apply_sublayer(sub: Sub, p, x, *, cfg, positions, cache, write_pos, causal):
     return x, new_cache
 
 
+REMAT_DOTS_TODO = "ROADMAP queue 1 item 17 (remat=\"dots\")"
+
+
 def stack_apply(groups_params, x, *, cfg: ModelConfig, positions, caches=None,
-                write_pos=None, causal=True):
+                write_pos=None, causal=True, remat: str = "none"):
     """Run the full group stack. Returns (x, caches, aux_loss); the caches are
-    the ones given, updated in place (None without caches)."""
+    the ones given, updated in place (None without caches).
+
+    remat "full" recomputes each group's activations in the backward pass
+    (`torch.utils.checkpoint`, non-reentrant: the reference's
+    `jax.checkpoint` around its scan body); "none" keeps them."""
+    if remat == "dots":
+        raise NotImplementedError(f"remat='dots' (save only the matmul outputs) is "
+                                  f"not ported yet; see {REMAT_DOTS_TODO}")
+    if remat not in ("none", "full"):
+        raise ValueError(f"remat {remat!r}: choose from 'none', 'full', 'dots'")
     lay = group_layout(cfg)
-    for gi in range(n_groups(cfg)):
-        gp = layer_params(groups_params, gi)
+    groups = unstack_groups(groups_params, n_groups(cfg))
+
+    def group(gi, x):
+        gp = groups[gi]
         for i, sub in enumerate(lay):
             cache = None if caches is None else _layer_cache(caches[i], gi)
             x, _ = apply_sublayer(sub, gp[f"sub{i}"], x, cfg=cfg, positions=positions,
                                   cache=cache, write_pos=write_pos, causal=causal)
+        return x
+
+    for gi in range(n_groups(cfg)):
+        if remat == "full":
+            x = torch.utils.checkpoint.checkpoint(group, gi, x, use_reentrant=False)
+        else:
+            x = group(gi, x)
     return x, caches, torch.zeros((), dtype=torch.float32, device=x.device)

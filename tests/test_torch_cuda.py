@@ -269,3 +269,78 @@ def test_flash_q8_kernel_matches_plain(dev, case):
     torch.cuda.synchronize()
     assert flash_fwd_q8.launches == before + 1
     _close(out, flash_fwd_q8_plain(q, kq, vq, ks, vs, **kw))
+
+
+# the flash backward: (layout, b, kv, g, sq, sk, d, causal, q_offset, kv_len)
+# — every head dim the kernels take, ragged Sq / Sk, G = 1, 2, 3, 8,
+# q_offset / kv_len, non-causal, a partly masked first tile (q_offset < 0
+# rows see nothing: the exact-skip guard), and the trained qwen3 layer shape.
+FLASH_BWD_CASES = [
+    ("model", 2, 8, 2, 128, 128, 128, True, 0, None),
+    ("kernel", 3, 1, 1, 37, 53, 8, True, 0, None),
+    ("kernel", 3, 1, 2, 37, 53, 16, False, 0, None),
+    ("kernel", 2, 1, 8, 70, 130, 32, True, 16, None),
+    ("kernel", 2, 1, 3, 100, 300, 64, True, 200, 290),
+    ("model", 2, 2, 2, 65, 97, 256, True, 32, None),
+    ("model", 1, 2, 8, 33, 33, 256, False, 0, 20),
+    ("kernel", 2, 1, 2, 8, 32, 128, False, 0, 0),
+    ("kernel", 2, 1, 2, 40, 40, 128, True, -8, None),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_BWD_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_flash_bwd_kernels_match_plain(dev, case):
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_bwd,
+        flash_bwd_dkv,
+        flash_bwd_dq,
+        flash_bwd_plain,
+    )
+
+    layout, b, kv, g, sq, sk, d, causal, q_offset, kv_len = case
+    q, k, v = _flash_operands(dev, layout, b, kv, g, sq, sk, d, seed=sq + sk + d + 2)
+    kw = dict(scale=d ** -0.5, causal=causal, q_offset=q_offset, kv_len=kv_len)
+    out, m, l = flash_fwd(q, k, v, **kw)
+    do = torch.from_numpy(np.random.default_rng(d).standard_normal(tuple(q.shape))
+                          .astype(np.float32)).to(dev)
+    before = (flash_bwd.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches)
+    got = flash_bwd(q, k, v, out, m, l, do, **kw)
+    torch.cuda.synchronize()
+    assert (flash_bwd.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches) == \
+        tuple(n + 1 for n in before)
+    want = flash_bwd_plain(q, k, v, out, m, l, do, **kw)
+    for gt, wt, ref in zip(got, want, (q, k, v)):
+        assert gt.shape == ref.shape
+        _close(gt, wt)
+
+
+def test_flash_function_grads_on_the_card(dev):
+    """`FlashAttentionFn` carries gradients on the card: the same q, k, v and
+    output gradient give the host's plain-path gradients."""
+    from repro_torch.kernels.flash_attention.ops import flash_mha
+
+    rng = np.random.default_rng(3)
+    shapes = ((2, 48, 2, 4, 64), (2, 48, 2, 64), (2, 48, 2, 64))
+    host = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)) for s in shapes]
+    w = torch.from_numpy(rng.standard_normal(shapes[0]).astype(np.float32))
+    grads = []
+    for device in ("cpu", dev):
+        ts = [t.clone().to(device).requires_grad_(True) for t in host]
+        out = flash_mha(*ts, causal=True)
+        (out * w.to(device)).sum().backward()
+        grads.append([t.grad.cpu() for t in ts])
+    for gc, gh in zip(grads[1], grads[0]):
+        assert bool(gc.abs().max() > 0)
+        _close(gc, gh)
+
+
+def test_flash_forward_kernel_refuses_to_drop_the_graph(dev):
+    """The CUDA forward records no autograd graph: called on tensors that
+    need gradients it raises, rather than return an out cut off from them;
+    `FlashAttentionFn` (flash_mha) is the differentiable entry."""
+    q, k, v = _flash_operands(dev, "model", 1, 2, 2, 8, 8, 16, seed=1)
+    q.requires_grad_(True)
+    with pytest.raises(RuntimeError, match="FlashAttentionFn"):
+        flash_fwd(q, k, v, scale=0.25, causal=True)
+    with torch.no_grad():
+        flash_fwd(q, k, v, scale=0.25, causal=True)

@@ -42,7 +42,10 @@ def test_package_imports_with_jax_unavailable():
         sys.modules["repro"] = None
         import repro_torch.launch.serve_cnn
         import repro_torch.launch.serve
+        import repro_torch.launch.train
         import repro_torch.kernels.conv_pool.ops
+        import repro_torch.kernels.flash_attention.ops
+        import repro_torch.convert
         print("ok")
     """)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -70,6 +73,23 @@ def test_entry_points_raise_without_a_card():
         params_from_jax({"conv": [], "dense": []})
 
 
+def test_training_entry_points_raise_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the no-card rule is a host check")
+    from repro_torch.configs.base import DEFAULT_RUN, get_config
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.launch.train import train
+
+    cfg = get_config("qwen3-0.6b", reduced=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train("qwen3-0.6b", steps=1, ckpt_dir=tmp_path)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_train_step(cfg, DEFAULT_RUN)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_train_state(cfg, DEFAULT_RUN, torch.Generator().manual_seed(0))
+    assert not any(tmp_path.iterdir())  # refused before anything was written
+
+
 def test_kernel_wrapper_never_runs_the_plain_version_off_the_host():
     """A tensor that is neither on the host nor on CUDA raises; it is not
     quietly handed to the plain version."""
@@ -95,6 +115,20 @@ def test_flash_wrappers_never_run_the_plain_version_off_the_host(int8):
             flash_fwd_q8(q, kv, kv, sc, sc, scale=1.0, causal=True)
         else:
             flash_fwd(q, kv, kv, scale=1.0, causal=True)
+
+
+@pytest.mark.parametrize("which", ["flash_bwd", "flash_bwd_dq", "flash_bwd_dkv"])
+def test_flash_backward_wrappers_never_run_the_plain_version_off_the_host(which):
+    from repro_torch.kernels.flash_attention import kernel as K
+
+    q = torch.zeros(2, 2, 3, 8, device="meta")
+    kv = torch.zeros(2, 5, 8, device="meta")
+    st = torch.zeros(2, 2, 3, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        if which == "flash_bwd":
+            K.flash_bwd(q, kv, kv, q, st, st, q, scale=1.0, causal=True)
+        else:
+            getattr(K, which)(q, kv, kv, q, st, st, st, scale=1.0, causal=True)
 
 
 def test_kernel_build_stays_in_the_checkout(tmp_path, monkeypatch):
