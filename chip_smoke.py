@@ -34,12 +34,21 @@
    it (batch 8, and the single-image branch at N=1 for the conv kernels),
    and at edge cases (a cnt=0 sample or row-block, stride 4 with k 11, k 5
    with pad 0, K=27 and other ragged K/O/P, C % block_c != 0, int8 values at
-   +-127 over VGG-19's longest reduction). fp32 kernels:
+   +-127 over VGG-19's longest reduction). The int8 tensor-core kernels
+   also meet the paths they add: ECR schedules whose live blocks leave 1, 2
+   or 3 blocks of a 32-channel step (cnt % 4 at block_c 8), cnt = n_cb,
+   ids out of order, block_c 4 and 16, and N=1 at conv13's shape (a grid
+   of 8 blocks); BSR at every block width 8-128 with F = 25 and 27, T not
+   a multiple of 8, ragged P, and density 0.3 with schedules that differ
+   per row-block. fp32 kernels:
    max|kernel - plain| <= 1e-4*max|plain| + 1e-5*min(1, max|plain|): the
    absolute floor shrinks with the data, since pruning leaves the deep
-   layers' outputs far below 1e-5; int8 kernels: bitwise equal. The ops are also held against cuDNN (fp32) or their int8 oracle.
+   layers' outputs far below 1e-5; int8 kernels: bitwise equal. The ops
+   are also held against cuDNN (fp32) or their int8 oracle.
    Times kernel, plain version and the library call with CUDA events after
-   warm-up, in turns, and computes each call's bound from its data. The
+   warm-up, in turns (eager calls; for the int8 kernels and their library
+   calls also as CUDA-graph replays, which leave out the host's per-call
+   overhead), and computes each call's bound from its data. The
    library call is F.conv2d (+ relu + max_pool2d for PECR) for the fp32 conv
    kernels, F.conv2d on the dequantized operands for the int8 conv,
    torch.matmul on the padded dense operands for BSR, and torch._int_mm plus
@@ -116,6 +125,13 @@
    scales), Q, O, and m, l for fp32, once. The backward rows time one
    launch of each pass at layer 0 of the trained batch-8 step, with every
    timed shape under "shapes", and launches count the 6-step training run.
+   The int8 rows (ecr_conv_int8_batch, at N=1, bsr_matmul_int8), whose
+   kernels were redesigned for the int8 tensor cores, time kernel and
+   library as device time (CUDA-graph replay, as the flash rows do; the
+   eager times ride along as eager_ms and eager_library_ms, the plain
+   version is timed eager) and carry "redesigned_in", the achieved int8
+   TOPS on the live multiply-adds, the achieved GB/s on the bytes of the
+   bound, and "bound_share" = bound_ms / ms, all from the device time.
    `--layers-out PATH` also writes the per-layer numbers there as JSON.
 """
 from __future__ import annotations
@@ -211,6 +227,18 @@ def time_graph_turns(fns: dict, rounds: int = 5, iters: int = 10) -> dict:
             samples[k].append(start.elapsed_time(end) / iters)
     del graphs
     return {k: sorted(v)[len(v) // 2] for k, v in samples.items()}
+
+
+def device_times(fns: dict) -> dict:
+    """Kernel and library ms per call as device time (CUDA-graph replay,
+    `time_graph_turns`), the plain version's eager (its schedule loop reads
+    the counts on the host, so it cannot be captured); the eager times of
+    kernel and library ride along under "eager" as eager_ms and
+    eager_library_ms."""
+    te = time_turns(fns)
+    tg = time_graph_turns({k: fns[k] for k in ("kernel", "library")})
+    return {"kernel": tg["kernel"], "plain": te["plain"], "library": tg["library"],
+            "eager": {"eager_ms": te["kernel"], "eager_library_ms": te["library"]}}
 
 
 def work_bound(x, w, ids, cnt, *, stride, block_c, out_elems, elem_bytes=4,
@@ -399,9 +427,12 @@ def _row(name, unit, xp, w, t, ft, bt, extra=None):
 
 
 def _print_times(label, t, ft, bt):
+    eager = t.get("eager")
+    note = (f" [kernel and library: CUDA-graph replay; eager calls: "
+            f"{eager['eager_ms']:.4f} / {eager['eager_library_ms']:.4f} ms]" if eager else "")
     print(f"    {label}: ms={t['kernel']:.4f} plain_ms={t['plain']:.4f} "
           f"library_ms={t['library']:.4f} bound_ms={max(ft, bt):.4f} "
-          f"({'operations' if ft >= bt else 'bytes'})")
+          f"({'operations' if ft >= bt else 'bytes'}){note}")
 
 
 def check_ecr_int8_layer(book, unit, xp, w, timed: bool):
@@ -452,20 +483,21 @@ def check_ecr_int8_layer(book, unit, xp, w, timed: bool):
 
     xd, wd = dequantized(packed)
     xd1, wd1 = dequantized(single)
-    t = time_turns({"kernel": lambda: kernel(packed), "plain": lambda: plain(packed),
-                    "library": lambda: F.conv2d(xd, wd, stride=stride)})
-    t1 = time_turns({"kernel": lambda: kernel(single), "plain": lambda: plain(single),
-                     "library": lambda: F.conv2d(xd1, wd1, stride=stride)})
+    t = device_times({"kernel": lambda: kernel(packed), "plain": lambda: plain(packed),
+                      "library": lambda: F.conv2d(xd, wd, stride=stride)})
+    t1 = device_times({"kernel": lambda: kernel(single), "plain": lambda: plain(single),
+                       "library": lambda: F.conv2d(xd1, wd1, stride=stride)})
     x, wk, _, _, ids, cnt = packed
     ft, bt = work_bound(x, wk, ids, cnt, stride=stride, block_c=bc,
                         out_elems=got.numel(), elem_bytes=1, peak=PEAK_INT8_OPS)
     x1, wk1, _, _, ids1, cnt1 = single
     ft1, bt1 = work_bound(x1, wk1, ids1, cnt1, stride=stride, block_c=bc,
                           out_elems=got1.numel(), elem_bytes=1, peak=PEAK_INT8_OPS)
-    meta = {"block_c": bc, "cnt": cnt.tolist(), "n_cb": launch.n_cb}
+    meta = {"block_c": bc, "cnt": cnt.tolist(), "n_cb": launch.n_cb, **t["eager"]}
     book.rows.append(_row("ecr_conv_int8", unit, xp, w, t, ft, bt, meta))
     book.rows.append(_row("ecr_conv_int8_n1", unit, xp[:1], w, t1, ft1, bt1,
-                          {"block_c": bc, "cnt": cnt1.tolist(), "n_cb": launch.n_cb}))
+                          {"block_c": bc, "cnt": cnt1.tolist(), "n_cb": launch.n_cb,
+                           **t1["eager"]}))
     _print_times(f"N={xp.shape[0]}", t, ft, bt)
     _print_times("N=1", t1, ft1, bt1)
 
@@ -530,11 +562,13 @@ def check_bsr_layer(book, unit, xp, w, *, int8: bool, timed: bool):
         def library():
             return torch.matmul(hp, atp)
 
-    t = time_turns({"kernel": kernel, "plain": plain, "library": library})
+    t = (device_times if int8 else time_turns)(
+        {"kernel": kernel, "plain": plain, "library": library})
     ft, bt = bsr_bound(h, at.shape[1], ids, cnt, blk, elem_bytes=1 if int8 else 4,
                        peak=PEAK_INT8_OPS if int8 else PEAK_FP32_FLOPS)
     meta = {"block": list(blk), "live_blocks": int(cnt.clamp(min=0).sum()),
-            "blocks": launch.nt * launch.nf, "t_f_d": [launch.t, launch.f, launch.d]}
+            "blocks": launch.nt * launch.nf, "t_f_d": [launch.t, launch.f, launch.d],
+            **t.get("eager", {})}
     book.rows.append(_row(name, unit, xp, w, t, ft, bt, meta))
     _print_times(f"live {meta['live_blocks']}/{meta['blocks']} blocks", t, ft, bt)
 
@@ -611,6 +645,67 @@ def edge_cases_new(book, dev):
         raise AssertionError("ecr_conv_int8 extremes are not exact")
 
 
+def edge_cases_int8_tc(book, dev):
+    """The int8 tensor-core kernels' own paths, bitwise against the plain
+    versions: ECR schedules that leave 1, 2 or 3 blocks of a 32-channel
+    step, cnt = n_cb, cnt = 0 and ids out of order at block_c 4, 8 and 16
+    and O not a multiple of 128; N=1 at VGG-19 conv13's shape (a grid of 8
+    blocks); BSR at block widths 8-128 with F = 25 and 27, T = 70, ragged P
+    and density 0.3 (schedules differ per row-block, row-block 0 fully
+    pruned), in grids that take 2 and 8 row-blocks per block."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.bsr_matmul.ops import block_schedule
+    from repro_torch.quant.kernels import (
+        bsr_matmul_int8,
+        bsr_matmul_int8_plain,
+        ecr_conv_int8_batch,
+        ecr_conv_int8_plain,
+    )
+
+    rng = np.random.default_rng(15)
+
+    def i8(shape):
+        return torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8)).to(dev)
+
+    def scales(n):
+        return torch.from_numpy(rng.random(n).astype(np.float32) * 1e-2 + 1e-4).to(dev)
+
+    cnts = [1, 2, 3, 8, 0, 5]
+    for bc, o in ((8, 96), (8, 70), (16, 128), (4, 64)):
+        x, w = i8((len(cnts), 13, 19, 8 * bc)), i8((3, 3, 8 * bc, o))
+        ids = torch.from_numpy(np.stack([rng.permutation(8) for _ in cnts])
+                               .astype(np.int32)).to(dev)
+        cnt = torch.tensor(cnts, dtype=torch.int32, device=dev)
+        args = (x, w, scales(len(cnts)), scales(o), ids, cnt)
+        book.exact("ecr_conv_int8", f"cnt {cnts}, ids permuted, block_c {bc}, O={o}",
+                   ecr_conv_int8_batch(*args, stride=1, block_c=bc),
+                   ecr_conv_int8_plain(*args, stride=1, block_c=bc))
+    x, w = i8((1, 16, 16, 512)), i8((3, 3, 512, 512))
+    x[..., 36 * 8:] = 0
+    ids = torch.arange(64, dtype=torch.int32, device=dev)[None].contiguous()
+    args = (x, w, scales(1), scales(512), ids, torch.tensor([36], dtype=torch.int32,
+                                                            device=dev))
+    book.exact("ecr_conv_int8_n1", "N=1 conv13 shape, 36/64 blocks",
+               ecr_conv_int8_batch(*args, stride=1, block_c=8),
+               ecr_conv_int8_plain(*args, stride=1, block_c=8))
+
+    for bf in (8, 16, 32, 64, 128):
+        for t, f, d in ((70, 25, 1001), (70, 27, 1002), (256, 1152, 2048),
+                        (256, 1152, 34816)):
+            nt, nf = -(-t // 8), -(-f // bf)
+            keep = rng.random((nt, nf)) < 0.3
+            keep[0] = False
+            mask = np.repeat(np.repeat(keep, 8, 0), bf, 1)[:t, :f]
+            h = i8((t, f)) * torch.from_numpy(mask.astype(np.int8)).to(dev)
+            ids, cnt = block_schedule(h, 8, bf)
+            args = (h, i8((f, d)), scales(t), scales(1), ids.contiguous(), cnt.contiguous())
+            book.exact("bsr_matmul_int8", f"T={t} F={f} P={d} bf={bf} density 0.3",
+                       bsr_matmul_int8(*args, block=(8, bf)),
+                       bsr_matmul_int8_plain(*args, block=(8, bf)))
+
+
 def kernel_category(name: str) -> str:
     """Coarse class of a CUDA kernel by its symbol name."""
     if "flash_bwd_dq_kernel" in name:
@@ -620,12 +715,13 @@ def kernel_category(name: str) -> str:
     if "flash_fwd_kernel" in name:
         q8 = "<signed char" in name or "IaLi" in name
         return "flash q8 kernel" if q8 else "flash kernel"
-    int8 = "signed char" in name or "Iai" in name
+    if "bsr_matmul_i8_kernel" in name:
+        return "bsr int8 kernel"
+    if "ecr_conv_i8_kernel" in name:
+        return "ecr int8 kernel"
     if "bsr_matmul_kernel" in name:
-        return "bsr int8 kernel" if int8 else "bsr kernel"
+        return "bsr kernel"
     if "ecr_conv_kernel" in name:
-        if int8:
-            return "ecr int8 kernel"
         return "pecr kernel" if "Lb1E" in name or "true>" in name else "ecr kernel"
     low = name.lower()
     if any(t in low for t in ("cudnn", "xmma", "conv", "gemm", "cutlass")):
@@ -1753,6 +1849,11 @@ def main() -> int:
     except Exception:
         traceback.print_exc()
         failures.append("edge-case check of the BSR / int8 kernels failed")
+    try:
+        edge_cases_int8_tc(book, dev)
+    except Exception:
+        traceback.print_exc()
+        failures.append("edge-case check of the int8 tensor-core kernels failed")
 
     # ---- full-width qwen3-0.6b served through the flash kernels ------------
     lm = {}
@@ -1783,13 +1884,15 @@ def main() -> int:
          "src/repro/kernels/conv_pool/kernel.py:98", "vgg19"),
         ("bsr_matmul", "bsr_matmul", "", "bsr_matmul.cu",
          "src/repro/kernels/bsr_matmul/kernel.py:75", "vgg19-pruned"),
-        ("ecr_conv_int8_batch", "ecr_conv_int8", "", "ecr_conv.cu",
+        ("ecr_conv_int8_batch", "ecr_conv_int8", "", "ecr_conv_int8.cu",
          "src/repro/quant/kernels.py:183", "vgg19-int8"),
-        ("ecr_conv_int8_batch at N=1", "ecr_conv_int8_n1", "", "ecr_conv.cu",
+        ("ecr_conv_int8_batch at N=1", "ecr_conv_int8_n1", "", "ecr_conv_int8.cu",
          "src/repro/quant/kernels.py:104", "vgg19-int8"),
-        ("bsr_matmul_int8", "bsr_matmul_int8", "", "bsr_matmul.cu",
+        ("bsr_matmul_int8", "bsr_matmul_int8", "", "bsr_matmul_int8.cu",
          "src/repro/quant/kernels.py:252", "vgg19-pruned-int8"),
     )
+    # rows whose kernels were redesigned for the int8 tensor cores
+    redesigned = {"ecr_conv_int8_batch", "ecr_conv_int8_batch at N=1", "bsr_matmul_int8"}
     kernels = []
     for name, key, sfx, source, replaces, phase in table:
         rows = [r for r in book.rows if r["kernel"] == key and r["phase"] == phase]
@@ -1798,17 +1901,27 @@ def main() -> int:
         # the engine's buckets hold at least 2 requests: the single-image rows
         # are never launched on the served path
         single = "N=1" in name
+        ms = sum(r["ms" + sfx] for r in rows)
+        bound = sum(r["bound_ms" + sfx] for r in rows)
         kernels.append({
             "name": name, "route": "cuda", "source": csrc + source,
             "replaces": replaces,
             "launches": 0 if single else phase_launches.get(phase, {}).get(key, 0),
             "max_abs_err": book.max_err.get(key, 0.0),
-            "ms": sum(r["ms" + sfx] for r in rows),
+            "ms": ms,
             "plain_ms": sum(r["plain_ms" + sfx] for r in rows),
-            "bound_ms": sum(r["bound_ms" + sfx] for r in rows),
+            "bound_ms": bound,
             "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
             "library_ms": sum(r["library_ms" + sfx] for r in rows),
             "phase": phase, "layers": [r["layer"] for r in rows]})
+        if name in redesigned and ms > 0:
+            kernels[-1].update({
+                "redesigned_in": 15, "timing": "CUDA-graph replay (plain_ms eager)",
+                "eager_ms": sum(r["eager_ms"] for r in rows),
+                "eager_library_ms": sum(r["eager_library_ms"] for r in rows),
+                "achieved_tops": flop_ms / ms * PEAK_INT8_OPS / 1e12,
+                "achieved_gbs": byte_ms / ms * PEAK_HBM_BYTES / 1e9,
+                "bound_share": bound / ms})
         if not rows:
             failures.append(f"no timed layer ran {name}")
     # the flash rows: one prefill plus one decode launch at the served shapes

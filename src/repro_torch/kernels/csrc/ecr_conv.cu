@@ -40,17 +40,8 @@
 //   kTileO are masked; input channels must be a multiple of bc (the schedule
 //   indexes bc-wide blocks); output channels need no padding.
 //
-// int8 (`repro_ecr_conv_i8`, replaces repro/quant/kernels.py
-// ecr_conv_int8_pallas_batch, and ecr_conv_int8_pallas at N=1): the same
-// device body instantiated for int8 operands and int32 accumulators. The
-// tiles are staged as int8, so the launcher sizes the channel chunk in one
-// byte per element (a quarter of the fp32 tile's bytes), and the flush
-// rescales in the reference's order, ((float)acc * sx[b]) * sw[o]. The
-// integer sums are exact (|acc| <= 127 * 127 * C * kh * kw < 2^31 for every
-// layer the registry sends), so the kernel agrees bitwise with a plain
-// version that sums in float64. Plain int32 multiply-adds on CUDA cores, no
-// __dp4a yet: bound like the fp32 body by shared-memory loads, with 1/4 the
-// bytes of the fp32 operands to read.
+// The int8 form of this conv (`repro_ecr_conv_i8`) has its own tensor-core
+// body in ecr_conv_int8.cu.
 //
 // Launch hygiene: the entry points launch on the caller's stream, never
 // synchronise, allocate nothing, and return cudaGetLastError().
@@ -68,25 +59,7 @@ constexpr int kRO = kTileO / kOcGroups;      // output channels per thread
 constexpr int kRP = 4;                       // spatial positions per thread
 constexpr int kMaxTileP = kSpGroups * kRP;   // TH * TW <= 64
 constexpr size_t kSmemBudget = 48 * 1024;   // no opt-in attribute needed
-constexpr int kMaxChunkBytes = 64;           // 16 fp32 channels, 64 int8 ones
-
-// One multiply-add in the accumulator's type: fp32 FMA, or exact int32.
-__device__ __forceinline__ float mac(float acc, float x, float w) {
-  return fmaf(x, w, acc);
-}
-__device__ __forceinline__ int32_t mac(int32_t acc, int8_t x, int8_t w) {
-  return acc + (int32_t)x * (int32_t)w;
-}
-
-// The value an accumulator leaves the block as: fp32 as it is; int32
-// dequantized in the reference's order, ((float)acc * sx[b]) * sw[o].
-__device__ __forceinline__ float flush(float acc, const float*, const float*, int, int) {
-  return acc;
-}
-__device__ __forceinline__ float flush(int32_t acc, const float* sx, const float* sw,
-                                       int b, int o) {
-  return ((float)acc * sx[b]) * sw[o];
-}
+constexpr int kMaxChunk = 16;                // channels staged per chunk
 
 struct ConvParams {
   int n, h, w, c, o;
@@ -100,20 +73,17 @@ struct ConvParams {
   int ih_t, iw_t;    // input tile incl. halo
 };
 
-// T: operand type (float or int8_t); A: accumulator (float or int32_t).
-// sx (N,) / sw (O,) are the int8 scales (unused, may be null, for fp32).
-template <typename T, typename A, bool kPool>
+template <bool kPool>
 __global__ void __launch_bounds__(kThreads)
-ecr_conv_kernel(const T* __restrict__ x, const T* __restrict__ w,
+ecr_conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
                 const int32_t* __restrict__ ids, const int32_t* __restrict__ cnt,
-                const float* __restrict__ sx, const float* __restrict__ sw,
                 float* __restrict__ out, ConvParams p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
+  float* smem = reinterpret_cast<float*>(smem_raw);
   const int x_tile = p.ih_t * p.iw_t;
   const int taps = p.kh * p.kw;
-  T* xs = smem;                 // [cc][ih_t][iw_t]
-  T* ws = smem + p.cc * x_tile;  // [tap][cc][kTileO]
+  float* xs = smem;                 // [cc][ih_t][iw_t]
+  float* ws = smem + p.cc * x_tile;  // [tap][cc][kTileO]
 
   const int b = blockIdx.z;
   const int o0 = blockIdx.y * kTileO;
@@ -131,16 +101,16 @@ ecr_conv_kernel(const T* __restrict__ x, const T* __restrict__ w,
     pos_off[r] = sp < tile_p ? (sp / p.tw) * p.stride * p.iw_t + (sp % p.tw) * p.stride : 0;
   }
 
-  A acc[kRP][kRO];
+  float acc[kRP][kRO];
 #pragma unroll
   for (int i = 0; i < kRP; ++i)
 #pragma unroll
-    for (int j = 0; j < kRO; ++j) acc[i][j] = A(0);
+    for (int j = 0; j < kRO; ++j) acc[i][j] = 0.f;
 
   // the schedule is the loop bound (the Pallas kernel's @pl.when(k < cnt))
   const int n_live = min(max(cnt[b], 0), p.n_cb);
   const int32_t* ids_b = ids + (size_t)b * p.n_cb;
-  const T* xb = x + (size_t)b * p.h * p.w * p.c;
+  const float* xb = x + (size_t)b * p.h * p.w * p.c;
   const int gy0 = ty0 * p.stride, gx0 = tx0 * p.stride;
 
   for (int k = 0; k < n_live; ++k) {
@@ -153,7 +123,7 @@ ecr_conv_kernel(const T* __restrict__ x, const T* __restrict__ w,
         const int rest = l / p.cc;
         const int ix = rest % p.iw_t, iy = rest / p.iw_t;
         const int gy = gy0 + iy, gx = gx0 + ix;
-        T v = T(0);
+        float v = 0.f;
         if (ci < nc && gy < p.h && gx < p.w)
           v = xb[((size_t)gy * p.w + gx) * p.c + cbase + c0 + ci];
         xs[ci * x_tile + iy * p.iw_t + ix] = v;
@@ -162,18 +132,18 @@ ecr_conv_kernel(const T* __restrict__ x, const T* __restrict__ w,
         const int oo = l % kTileO;
         const int rest = l / kTileO;
         const int ci = rest % p.cc, t = rest / p.cc;
-        T v = T(0);
+        float v = 0.f;
         if (ci < nc && o0 + oo < p.o)
           v = w[((size_t)t * p.c + cbase + c0 + ci) * p.o + o0 + oo];
         ws[l] = v;
       }
       __syncthreads();
       for (int ci = 0; ci < nc; ++ci) {
-        const T* xc = xs + ci * x_tile;
+        const float* xc = xs + ci * x_tile;
         for (int i = 0; i < p.kh; ++i) {
           for (int j = 0; j < p.kw; ++j) {
-            const T* wt = ws + ((i * p.kw + j) * p.cc + ci) * kTileO + og;
-            T wv[kRO], xv[kRP];
+            const float* wt = ws + ((i * p.kw + j) * p.cc + ci) * kTileO + og;
+            float wv[kRO], xv[kRP];
 #pragma unroll
             for (int r = 0; r < kRO; ++r) wv[r] = wt[kOcGroups * r];
 #pragma unroll
@@ -181,7 +151,7 @@ ecr_conv_kernel(const T* __restrict__ x, const T* __restrict__ w,
 #pragma unroll
             for (int a = 0; a < kRP; ++a)
 #pragma unroll
-              for (int q = 0; q < kRO; ++q) acc[a][q] = mac(acc[a][q], xv[a], wv[q]);
+              for (int q = 0; q < kRO; ++q) acc[a][q] = fmaf(xv[a], wv[q], acc[a][q]);
           }
         }
       }
@@ -199,7 +169,7 @@ ecr_conv_kernel(const T* __restrict__ x, const T* __restrict__ w,
 #pragma unroll
       for (int q = 0; q < kRO; ++q) {
         const int oc = o0 + og + kOcGroups * q;
-        if (oc < p.o) orow[oc] = flush(acc[a][q], sx, sw, b, oc);
+        if (oc < p.o) orow[oc] = acc[a][q];
       }
     }
     return;
@@ -233,22 +203,19 @@ ecr_conv_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
-// Largest channel chunk (<= bc, at most kMaxChunkBytes / elem_bytes) whose
-// staged input tile and weight slab fit kSmemBudget in the operand's own
-// element size; 0 when even one channel does not fit.
-int pick_chunk(int bc, int ih_t, int iw_t, int taps, size_t elem_bytes) {
-  for (int cc = kMaxChunkBytes / (int)elem_bytes; cc >= 1; cc /= 2) {
-    const size_t bytes = (size_t)cc * (ih_t * iw_t + taps * kTileO) * elem_bytes;
+// Largest channel chunk (<= bc, at most kMaxChunk) whose staged input tile
+// and weight slab fit kSmemBudget; 0 when even one channel does not fit.
+int pick_chunk(int bc, int ih_t, int iw_t, int taps) {
+  for (int cc = kMaxChunk; cc >= 1; cc /= 2) {
+    const size_t bytes = (size_t)cc * (ih_t * iw_t + taps * kTileO) * sizeof(float);
     if (cc <= bc && bytes <= kSmemBudget) return cc;
   }
   return 0;
 }
 
-template <typename T, typename A>
-int launch(const T* x, const T* w, const int32_t* ids, const int32_t* cnt,
-           const float* sx, const float* sw, float* out, int n, int h, int wd,
-           int c, int o, int kh, int kw, int stride, int bc, int pool,
-           cudaStream_t stream) {
+int launch(const float* x, const float* w, const int32_t* ids, const int32_t* cnt,
+           float* out, int n, int h, int wd, int c, int o, int kh, int kw, int stride,
+           int bc, int pool, cudaStream_t stream) {
   if (n < 1 || bc < 1 || c % bc || stride < 1 || h < kh || wd < kw || pool < 0 ||
       pool > 8 || n > 65535)
     return (int)cudaErrorInvalidValue;
@@ -264,7 +231,7 @@ int launch(const T* x, const T* w, const int32_t* ids, const int32_t* cnt,
   if (p.th * p.tw > kMaxTileP) return (int)cudaErrorInvalidValue;
   p.ih_t = (p.th - 1) * stride + kh;
   p.iw_t = (p.tw - 1) * stride + kw;
-  p.cc = pick_chunk(bc, p.ih_t, p.iw_t, kh * kw, sizeof(T));
+  p.cc = pick_chunk(bc, p.ih_t, p.iw_t, kh * kw);
   if (p.cc == 0) return (int)cudaErrorInvalidValue;
   // the pooled launch tiles only the rows/cols the floor keeps
   const int cov_h = pool ? (p.oh / pool) * pool : p.oh;
@@ -272,19 +239,15 @@ int launch(const T* x, const T* w, const int32_t* ids, const int32_t* cnt,
   if (cov_h < 1 || cov_w < 1) return (int)cudaErrorInvalidValue;
   p.tiles_w = (cov_w + p.tw - 1) / p.tw;
   const int tiles_h = (cov_h + p.th - 1) / p.th;
-  const size_t stage = (size_t)p.cc * (p.ih_t * p.iw_t + kh * kw * kTileO) * sizeof(T);
+  const size_t stage = (size_t)p.cc * (p.ih_t * p.iw_t + kh * kw * kTileO) * sizeof(float);
   const size_t epi = pool ? (size_t)p.th * p.tw * kTileO * sizeof(float) : 0;
   const size_t smem = stage > epi ? stage : epi;
   dim3 grid(tiles_h * p.tiles_w, (o + kTileO - 1) / kTileO, n);
-  if constexpr (sizeof(T) == sizeof(float)) {  // the fused epilogue is fp32 only
-    if (pool) {
-      ecr_conv_kernel<T, A, true><<<grid, kThreads, smem, stream>>>(x, w, ids, cnt, sx, sw, out, p);
-      return (int)cudaGetLastError();
-    }
-  } else if (pool) {
-    return (int)cudaErrorInvalidValue;
+  if (pool) {
+    ecr_conv_kernel<true><<<grid, kThreads, smem, stream>>>(x, w, ids, cnt, out, p);
+    return (int)cudaGetLastError();
   }
-  ecr_conv_kernel<T, A, false><<<grid, kThreads, smem, stream>>>(x, w, ids, cnt, sx, sw, out, p);
+  ecr_conv_kernel<false><<<grid, kThreads, smem, stream>>>(x, w, ids, cnt, out, p);
   return (int)cudaGetLastError();
 }
 
@@ -297,19 +260,8 @@ int repro_ecr_conv_f32(const float* x, const float* w, const int32_t* ids,
                        const int32_t* cnt, float* out, int n, int h, int wd,
                        int c, int o, int kh, int kw, int stride, int bc,
                        void* stream) {
-  return launch<float, float>(x, w, ids, cnt, nullptr, nullptr, out, n, h, wd,
-                              c, o, kh, kw, stride, bc, 0, (cudaStream_t)stream);
-}
-
-// int8 conv, int32 accumulation, rescaled at the flush: x (N,H,W,C) int8,
-// w (kh,kw,C,O) int8, sx (N,) per-sample and sw (O,) per-output-channel fp32
-// scales -> out (N, OH, OW, O) fp32.
-int repro_ecr_conv_i8(const int8_t* x, const int8_t* w, const int32_t* ids,
-                      const int32_t* cnt, const float* sx, const float* sw,
-                      float* out, int n, int h, int wd, int c, int o, int kh,
-                      int kw, int stride, int bc, void* stream) {
-  return launch<int8_t, int32_t>(x, w, ids, cnt, sx, sw, out, n, h, wd, c, o,
-                                 kh, kw, stride, bc, 0, (cudaStream_t)stream);
+  return launch(x, w, ids, cnt, out, n, h, wd, c, o, kh, kw, stride, bc, 0,
+                (cudaStream_t)stream);
 }
 
 // Conv + ReLU + pool x pool max-pool (stride pool, floor): out (N, OH/p, OW/p, O).
@@ -318,8 +270,8 @@ int repro_conv_pool_f32(const float* x, const float* w, const int32_t* ids,
                         int c, int o, int kh, int kw, int stride, int bc,
                         int pool, void* stream) {
   if (pool < 1) return (int)cudaErrorInvalidValue;
-  return launch<float, float>(x, w, ids, cnt, nullptr, nullptr, out, n, h, wd,
-                              c, o, kh, kw, stride, bc, pool, (cudaStream_t)stream);
+  return launch(x, w, ids, cnt, out, n, h, wd, c, o, kh, kw, stride, bc, pool,
+                (cudaStream_t)stream);
 }
 
 }  // extern "C"

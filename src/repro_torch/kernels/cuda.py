@@ -8,8 +8,9 @@ headers, so a build takes seconds). The library lands in
 named by a hash of the sources and flags, so an edited source rebuilds and a
 stale library is never loaded. A missing `nvcc` or a failed build raises.
 
-`launch_conv` (the ECR / PECR conv kernels, fp32 and int8), `launch_bsr`
-(the block-sparse matmul, fp32 and int8), `launch_flash` (the flash
+`launch_conv` (the ECR / PECR conv kernels, fp32, and the int8 tensor-core
+ECR conv), `launch_bsr` (the block-sparse matmul, fp32, and its int8
+tensor-core form), `launch_flash` (the flash
 attention forward over fp32 or int8 K/V) and `launch_flash_bwd` (its two
 backward passes) are the launch sites: they check
 device, dtype, layout and shapes, allocate the outputs with `torch.empty`,
@@ -30,7 +31,9 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("ecr_conv.cu", "bsr_matmul.cu", "flash_attention.cu", "flash_attention_bwd.cu")
+SOURCES = ("ecr_conv.cu", "ecr_conv_int8.cu", "bsr_matmul.cu", "bsr_matmul_int8.cu",
+           "flash_attention.cu", "flash_attention_bwd.cu")
+HEADERS = ("int8_mma.cuh",)  # included by sources; part of the build's hash
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 _CHECKOUT = Path(__file__).resolve().parents[3]
@@ -73,7 +76,7 @@ def nvcc_path() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update((CSRC / name).read_bytes())
     return build_dir() / f"libreprotorch_kernels_{h.hexdigest()[:16]}.so"
 

@@ -3,9 +3,9 @@ versions (counterparts of the kernels in `repro.quant.kernels`).
 
 - `ecr_conv_int8_batch` replaces `ecr_conv_int8_pallas_batch` (and, at N=1
   with an identity-prefix schedule, `ecr_conv_int8_pallas`): the int8 entry
-  point of `repro_torch/kernels/csrc/ecr_conv.cu`.
+  point of `repro_torch/kernels/csrc/ecr_conv_int8.cu`.
 - `bsr_matmul_int8` replaces `bsr_matmul_int8_pallas`: the int8 entry point
-  of `repro_torch/kernels/csrc/bsr_matmul.cu`.
+  of `repro_torch/kernels/csrc/bsr_matmul_int8.cu`.
 
 Both take int8 operands, accumulate exactly in int32 and rescale at the
 flush, in the reference's order: ((float)acc * sx[b]) * sw[o] for the conv,

@@ -136,8 +136,17 @@ def test_bsr_kernel_matches_plain(dev, t, f, d, bf):
     assert torch.all(got[:8] == 0)  # the all-pruned row-block writes zeros
 
 
-@pytest.mark.parametrize("t,f,d,bf", [(6, 25, 300, 8), (64, 576, 4099, 128),
-                                      (512, 4608, 300, 128)])
+# The tensor-core kernel's paths: every block width the pruner makes
+# (bf < 32 gathers 32 / bf blocks per k-step) with F = 25 and 27 (the ragged
+# last block), T not a multiple of 8, ragged P (16-byte copies of the patch
+# matrix, or byte loads), 8 row-blocks per block (grids that fill the card: the
+# served conv10 shape, P = 40000) and 2 (smaller grids: conv13's shape).
+@pytest.mark.parametrize("t,f,d,bf", [
+    (6, 25, 300, 8), (64, 576, 4099, 128), (512, 4608, 300, 128),
+    (64, 27, 1000, 8), (70, 25, 333, 16), (24, 27, 257, 32), (16, 25, 130, 64),
+    (40, 27, 64, 128), (13, 200, 4096, 16), (512, 4608, 6272, 128),
+    (512, 4608, 1568, 128), (64, 27, 40000, 8), (70, 200, 40001, 16),
+])
 def test_bsr_int8_kernel_is_bitwise_plain(dev, t, f, d, bf):
     h, w, ids, cnt = _bsr_operands(dev, t, f, d, bf, 0.4, seed=t, dtype=np.int8)
     rng = np.random.default_rng(t)
@@ -149,6 +158,22 @@ def test_bsr_int8_kernel_is_bitwise_plain(dev, t, f, d, bf):
     assert bsr_matmul_int8.launches == before + 1
     assert torch.equal(got, bsr_matmul_int8_plain(h, w, sh, sw, ids, cnt,
                                                   block=(8, bf)))
+
+
+@pytest.mark.parametrize("bf", [8, 16, 32, 64, 128])
+def test_bsr_int8_kernel_at_served_density(dev, bf):
+    """Density 0.3, where every row-block keeps its own blocks (schedules
+    differ from row-block to row-block), row-block 0 keeps none."""
+    h, w, ids, cnt = _bsr_operands(dev, 256, 1152, 40960, bf, 0.3, seed=bf,
+                                   dtype=np.int8)
+    assert len({tuple(r) for r in ids[cnt > 0].tolist()}) > 1
+    sh = torch.rand(256, device=dev) * 1e-2 + 1e-4
+    sw = torch.tensor([2.1e-3], device=dev)
+    got = bsr_matmul_int8(h, w, sh, sw, ids, cnt, block=(8, bf))
+    torch.cuda.synchronize()
+    assert torch.equal(got, bsr_matmul_int8_plain(h, w, sh, sw, ids, cnt,
+                                                  block=(8, bf)))
+    assert torch.all(got[:8] == 0)
 
 
 def test_bsr_int8_extremes_stay_exact(dev):
@@ -186,9 +211,14 @@ def _packed_int8(dev, n, c, hw, o, k, stride, seed, extreme=False):
     return (xp, wp, sx, sw, ids, cnt), launch.block_c
 
 
+# The tensor-core kernel's paths: O not a multiple of its 128-channel tile
+# (70, 16, 192), output maps not a multiple of its spatial tile, 11x11
+# stride 4 and 5x5 (taps staged in chunks), conv13-16 at batch 8; N=1 at
+# conv13's shape, the kernel's smallest served grid, is its own test below.
 @pytest.mark.parametrize("n,c,hw,o,k,stride", [
     (4, 20, 17, 70, 3, 1), (3, 3, 227, 64, 11, 4), (2, 6, 14, 16, 5, 1),
-    (8, 256, 58, 256, 3, 1), (1, 64, 30, 64, 3, 1),
+    (8, 256, 58, 256, 3, 1), (1, 64, 30, 64, 3, 1), (2, 64, 37, 192, 3, 1),
+    (2, 16, 67, 96, 11, 4), (3, 64, 31, 192, 5, 1), (8, 512, 16, 512, 3, 1),
 ])
 def test_ecr_int8_kernel_is_bitwise_plain(dev, n, c, hw, o, k, stride):
     args, bc = _packed_int8(dev, n, c, hw, o, k, stride, seed=hw + k)
@@ -198,6 +228,49 @@ def test_ecr_int8_kernel_is_bitwise_plain(dev, n, c, hw, o, k, stride):
     assert ecr_conv_int8_batch.launches == before + 1
     assert torch.equal(got, ecr_conv_int8_plain(*args, stride=stride, block_c=bc))
     assert torch.all(got[-1] == 0)
+
+
+@pytest.mark.parametrize("bc,o", [(8, 96), (8, 70), (16, 128), (4, 64)])
+def test_ecr_int8_kernel_schedule_tails(dev, bc, o):
+    """Schedules the kernel gathers 32 channels at a time from: cnt % (32 /
+    bc) of 1, 2 and 3 blocks, cnt = n_cb, cnt = 0, ids out of order."""
+    rng = np.random.default_rng(bc + o)
+    n_cb = 8
+    c = n_cb * bc
+    cnts = [1, 2, 3, n_cb, 0, 5]
+    x = torch.from_numpy(rng.integers(-127, 128, (len(cnts), 13, 19, c)).astype(np.int8))
+    w = torch.from_numpy(rng.integers(-127, 128, (3, 3, c, o)).astype(np.int8))
+    ids = np.stack([rng.permutation(n_cb) for _ in cnts]).astype(np.int32)
+    args = [t.to(dev) for t in (x, w)]
+    sx = torch.from_numpy(rng.random(len(cnts)).astype(np.float32) * 1e-2 + 1e-4).to(dev)
+    sw = torch.from_numpy(rng.random(o).astype(np.float32) * 1e-2 + 1e-4).to(dev)
+    ids_t = torch.from_numpy(ids).to(dev)
+    cnt_t = torch.tensor(cnts, dtype=torch.int32, device=dev)
+    got = ecr_conv_int8_batch(*args, sx, sw, ids_t, cnt_t, stride=1, block_c=bc)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ecr_conv_int8_plain(*args, sx, sw, ids_t, cnt_t,
+                                                stride=1, block_c=bc))
+    assert torch.all(got[4] == 0)
+
+
+def test_ecr_int8_kernel_single_image(dev):
+    """N=1 at a VGG-19 conv13 shape (1x512x16x16 -> 512), 36 of 64 blocks
+    live as an identity prefix (the single-image schedule): a grid of 8
+    blocks, each reducing over all 36 live blocks."""
+    rng = np.random.default_rng(13)
+    x = rng.integers(-127, 128, (1, 16, 16, 512)).astype(np.int8)
+    x[..., 36 * 8:] = 0
+    w = rng.integers(-127, 128, (3, 3, 512, 512)).astype(np.int8)
+    x, w = torch.from_numpy(x).to(dev), torch.from_numpy(w).to(dev)
+    ids = torch.arange(64, dtype=torch.int32, device=dev)[None].contiguous()
+    cnt = torch.tensor([36], dtype=torch.int32, device=dev)
+    sx = torch.tensor([3.1e-3], device=dev)
+    sw = torch.rand(512, device=dev) * 1e-2 + 1e-4
+    got = ecr_conv_int8_batch(x, w, sx, sw, ids, cnt, stride=1, block_c=8)
+    torch.cuda.synchronize()
+    want = ecr_conv_int8_plain(x, w, sx, sw, ids, cnt, stride=1, block_c=8)
+    assert torch.equal(got, want)
+    assert float(want.abs().max()) > 0
 
 
 def test_ecr_int8_extremes_stay_exact(dev):

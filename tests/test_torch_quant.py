@@ -245,6 +245,68 @@ def test_bsr_int8_matches_reference(n, c, o, hw, k, stride):
 
 
 # ---------------------------------------------------------------------------
+# the int8 kernels' plain versions against the Pallas kernels, at the tails
+# the tensor-core kernels gather over
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("cnts,o", [
+    ((1, 2, 3, 8, 0, 5), 16),  # cnt % 4 of 1, 2, 3 at block_c 8; cnt = n_cb; cnt = 0
+    ((7, 6, 4), 24),
+])
+def test_ecr_int8_plain_matches_pallas_at_schedule_tails(cnts, o):
+    from repro.quant.kernels import ecr_conv_int8_pallas_batch
+    from repro_torch.quant.kernels import ecr_conv_int8_plain
+
+    rng = np.random.default_rng(sum(cnts) + o)
+    n, n_cb, bc = len(cnts), 8, 8
+    x = rng.integers(-127, 128, (n, 7, 6, n_cb * bc)).astype(np.int8)
+    w = rng.integers(-127, 128, (3, 3, n_cb * bc, o)).astype(np.int8)
+    sx = (rng.random((n, 1)) * 1e-2 + 1e-4).astype(np.float32)
+    sw = (rng.random((1, o)) * 1e-2 + 1e-4).astype(np.float32)
+    ids = np.stack([rng.permutation(n_cb) for _ in cnts]).astype(np.int32)
+    cnt = np.asarray(cnts, np.int32)
+    want = ecr_conv_int8_pallas_batch(*map(jnp.asarray, (x, w, sx, sw, ids, cnt)),
+                                      stride=1, block_c=bc, block_o=o, interpret=True)
+    got = ecr_conv_int8_plain(*map(torch.from_numpy, (x, w, sx, sw, ids, cnt)),
+                              stride=1, block_c=bc)
+    _close(got.numpy(), want)
+    assert float(np.abs(np.asarray(want)).max()) > 0.0
+    if 0 in cnts:
+        assert float(got[cnts.index(0)].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("t,f,d,bf", [(16, 27, 48, 8), (24, 25, 40, 8), (16, 27, 24, 16)])
+def test_bsr_int8_plain_matches_pallas_at_ragged_blocks(t, f, d, bf):
+    """bf = 8 (and 16) with F = 27 or 25: the ragged last block; the Pallas
+    kernel takes h and w zero-padded to block multiples, the plain version
+    the unpadded operands."""
+    from repro.quant.kernels import bsr_matmul_int8_pallas
+    from repro_torch.quant.kernels import bsr_matmul_int8_plain
+
+    rng = np.random.default_rng(t + f + bf)
+    nt, nf = -(-t // 8), -(-f // bf)
+    keep = rng.random((nt, nf)) < 0.5
+    keep[0] = False  # an all-pruned row-block: cnt = 0
+    mask = np.repeat(np.repeat(keep, 8, 0), bf, 1)[:t, :f]
+    h = rng.integers(-127, 128, (t, f)).astype(np.int8) * mask.astype(np.int8)
+    w = rng.integers(-127, 128, (f, d)).astype(np.int8)
+    sh = (rng.random((t, 1)) * 1e-2 + 1e-4).astype(np.float32)
+    sw = np.asarray([[3.7e-3]], np.float32)
+    ids, cnt = block_schedule(torch.from_numpy(h), 8, bf)
+    hp = np.pad(h, ((0, 0), (0, nf * bf - f)))
+    wp = np.pad(w, ((0, nf * bf - f), (0, 0)))
+    want = bsr_matmul_int8_pallas(*map(jnp.asarray, (hp, wp, sh, sw, ids.numpy(),
+                                                     cnt.numpy())),
+                                  block=(8, bf, d), interpret=True)
+    got = bsr_matmul_int8_plain(torch.from_numpy(h), torch.from_numpy(w),
+                                torch.from_numpy(sh), torch.from_numpy(sw), ids, cnt,
+                                block=(8, bf))
+    _close(got.numpy(), want)
+    assert float(got[:8].abs().max()) == 0.0
+
+
+# ---------------------------------------------------------------------------
 # registry, launch builders and cost hooks
 # ---------------------------------------------------------------------------
 
