@@ -7,7 +7,9 @@
    repository (it needs src/repro_torch). Prints the card's name and power
    limit as nvidia-smi reports them.
 2. Builds the CUDA kernels from the checkout's sources with nvcc (one nvcc
-   per source, in parallel) and times the build.
+   per source, in parallel) and times the build; counts HMMA, LDGSTS, LDS
+   and FFMA in the SASS (cuobjdump) of each instantiation of the fp32 ECR /
+   PECR kernel and fails unless every one has HMMA and LDGSTS.
 3. Serves the published VGG-19 (3x224x224, 1000 classes, random weights from
    a fixed generator seed with the dead-filter shift) through the port's
    Engine (block_c=8, occ_threshold=0.75, max_batch=8, SimClock): 16 requests
@@ -40,15 +42,22 @@
    ids out of order, block_c 4 and 16, and N=1 at conv13's shape (a grid
    of 8 blocks); BSR at every block width 8-128 with F = 25 and 27, T not
    a multiple of 8, ragged P, and density 0.3 with schedules that differ
-   per row-block. fp32 kernels:
+   per row-block. The split-TF32 ECR / PECR kernel meets its own paths
+   (`edge_cases_tf32`): schedules that leave half an 8-channel k-step
+   (block_c 4) or take two per block (block_c 16), cnt = n_cb, cnt = 0, ids
+   out of order, ragged O, with and without the pool; N=1 at conv13's shape;
+   the served conv10 and conv12 shapes at batch 8; x and w spread over
+   2^+-12 at K = 4608, where one TF32 product per multiply-add fails the
+   limit; operands off 16-byte alignment. fp32 kernels:
    max|kernel - plain| <= 1e-4*max|plain| + 1e-5*min(1, max|plain|): the
    absolute floor shrinks with the data, since pruning leaves the deep
    layers' outputs far below 1e-5; int8 kernels: bitwise equal. The ops
    are also held against cuDNN (fp32) or their int8 oracle.
    Times kernel, plain version and the library call with CUDA events after
-   warm-up, in turns (eager calls; for the int8 kernels and their library
-   calls also as CUDA-graph replays, which leave out the host's per-call
-   overhead), and computes each call's bound from its data. The
+   warm-up, in turns (eager calls; for the fp32 conv kernels, the int8
+   kernels and their library calls also as CUDA-graph replays, which leave
+   out the host's per-call overhead), and computes each call's bound from
+   its data. The
    library call is F.conv2d (+ relu + max_pool2d for PECR) for the fp32 conv
    kernels, F.conv2d on the dequantized operands for the int8 conv,
    torch.matmul on the padded dense operands for BSR, and torch._int_mm plus
@@ -125,13 +134,19 @@
    scales), Q, O, and m, l for fp32, once. The backward rows time one
    launch of each pass at layer 0 of the trained batch-8 step, with every
    timed shape under "shapes", and launches count the 6-step training run.
-   The int8 rows (ecr_conv_int8_batch, at N=1, bsr_matmul_int8), whose
-   kernels were redesigned for the int8 tensor cores, time kernel and
-   library as device time (CUDA-graph replay, as the flash rows do; the
-   eager times ride along as eager_ms and eager_library_ms, the plain
-   version is timed eager) and carry "redesigned_in", the achieved int8
-   TOPS on the live multiply-adds, the achieved GB/s on the bytes of the
-   bound, and "bound_share" = bound_ms / ms, all from the device time.
+   The rows whose kernels were redesigned for the tensor cores, the fp32
+   ECR / PECR rows (ecr_conv_batch, conv_pool_batch and both at N=1;
+   split-TF32, "redesigned_in": 16) and the int8 rows (ecr_conv_int8_batch,
+   at N=1, bsr_matmul_int8; 15), time kernel and library as device time
+   (CUDA-graph replay, as the flash rows do; the eager times ride along as
+   eager_ms and eager_library_ms, the plain version is timed eager) and
+   carry the achieved GB/s on the bytes of the bound and "bound_share" =
+   bound_ms / ms, all from the device time, with the achieved TFLOP/s (fp32
+   rows) or TOPS (int8 rows) on the live multiply-adds. The fp32 rows' bound
+   is at 495 / 3 = 165 TFLOP/s, the rate of three TF32 products per
+   multiply-add, and "fp32_core_bound_ms" beside it at the CUDA cores' 67
+   TFLOP/s; the N=1 rows say "split_reduction": false (the kernel does not
+   split its reduction across blocks).
    `--layers-out PATH` also writes the per-layer numbers there as JSON.
 """
 from __future__ import annotations
@@ -146,6 +161,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 PEAK_FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores
+# H100 SXM, TF32 tensor cores (495 TFLOP/s dense) at three products per
+# fp32-accurate multiply-add (split-TF32): the fp32 ECR / PECR kernels' rate
+PEAK_TF32_SPLIT_FLOPS = 495e12 / 3
 PEAK_INT8_OPS = 1979e12  # H100 SXM, int8 tensor cores, dense
 PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3
 KERNEL_TOL = ("fp32: max|kernel - plain| <= 1e-4*max|plain| + 1e-5*min(1, max|plain|); "
@@ -241,8 +259,7 @@ def device_times(fns: dict) -> dict:
             "eager": {"eager_ms": te["kernel"], "eager_library_ms": te["library"]}}
 
 
-def work_bound(x, w, ids, cnt, *, stride, block_c, out_elems, elem_bytes=4,
-               peak=PEAK_FP32_FLOPS):
+def work_bound(x, w, ids, cnt, *, stride, block_c, out_elems, peak, elem_bytes=4):
     """(op time, byte time) in ms of a conv kernel for what these inputs
     need: the live blocks' multiply-adds, each scheduled input block read
     once, the weights of the union of scheduled blocks read once (operands
@@ -362,28 +379,27 @@ def check_layer_kernels(book, unit, kind, xp, w, pool, timed: bool):
         y = F.conv2d(x1, w, stride=stride)
         return F.max_pool2d(torch.relu(y), pool, pool) if pool else y
 
-    t = time_turns({"kernel": lambda: kernel(packed), "plain": lambda: plain(packed),
-                    "library": library, "kernel_n1": lambda: kernel(single),
-                    "plain_n1": lambda: plain(single), "library_n1": library_n1})
-    ft, bt = work_bound(*packed, stride=stride, block_c=bc, out_elems=got.numel())
-    ft1, bt1 = work_bound(*single, stride=stride, block_c=bc,
-                          out_elems=got.numel() // got.shape[0])
     row = {"kernel": name, "layer": f"conv{unit.index + 1}",
            "x_nchw": list(xp.shape), "w_oihw": list(w.shape), "block_c": bc,
-           "cnt": packed[3].tolist(), "n_cb": launch.n_cb,
-           "ms": t["kernel"], "plain_ms": t["plain"], "library_ms": t["library"],
-           "flop_ms": ft, "byte_ms": bt, "bound_ms": max(ft, bt),
-           "bound_by": "operations" if ft >= bt else "bytes",
-           "n1_cnt": int(single[3][0]), "ms_n1": t["kernel_n1"],
-           "plain_ms_n1": t["plain_n1"], "library_ms_n1": t["library_n1"],
-           "flop_ms_n1": ft1, "byte_ms_n1": bt1, "bound_ms_n1": max(ft1, bt1),
-           "bound_by_n1": "operations" if ft1 >= bt1 else "bytes"}
+           "cnt": packed[3].tolist(), "n_cb": launch.n_cb, "n1_cnt": int(single[3][0])}
+    for sfx, args, lib_fn, n_out in (("", packed, library, got.numel()),
+                                     ("_n1", single, library_n1, got.numel() // got.shape[0])):
+        t = device_times({"kernel": lambda a=args: kernel(a),
+                          "plain": lambda a=args: plain(a), "library": lib_fn})
+        # the bound at the rate of the kernel's arithmetic (split-TF32), and
+        # at the CUDA cores' fp32 rate beside it
+        ft, bt = work_bound(*args, stride=stride, block_c=bc, out_elems=n_out,
+                            peak=PEAK_TF32_SPLIT_FLOPS)
+        fc = ft * PEAK_TF32_SPLIT_FLOPS / PEAK_FP32_FLOPS
+        row.update({"ms" + sfx: t["kernel"], "plain_ms" + sfx: t["plain"],
+                    "library_ms" + sfx: t["library"],
+                    "eager_ms" + sfx: t["eager"]["eager_ms"],
+                    "eager_library_ms" + sfx: t["eager"]["eager_library_ms"],
+                    "flop_ms" + sfx: ft, "byte_ms" + sfx: bt, "bound_ms" + sfx: max(ft, bt),
+                    "fp32_core_bound_ms" + sfx: max(fc, bt),
+                    "bound_by" + sfx: "operations" if ft >= bt else "bytes"})
+        _print_times(f"N={args[0].shape[0]}", t, ft, bt)
     book.rows.append(row)
-    print(f"    N={xp.shape[0]}: ms={t['kernel']:.4f} plain_ms={t['plain']:.4f} "
-          f"library_ms={t['library']:.4f} bound_ms={max(ft, bt):.4f} "
-          f"({row['bound_by']}); N=1: ms={t['kernel_n1']:.4f} "
-          f"plain_ms={t['plain_n1']:.4f} library_ms={t['library_n1']:.4f} "
-          f"bound_ms={max(ft1, bt1):.4f} ({row['bound_by_n1']})")
 
 
 def edge_cases(book, dev):
@@ -704,6 +720,128 @@ def edge_cases_int8_tc(book, dev):
             book.exact("bsr_matmul_int8", f"T={t} F={f} P={d} bf={bf} density 0.3",
                        bsr_matmul_int8(*args, block=(8, bf)),
                        bsr_matmul_int8_plain(*args, block=(8, bf)))
+
+
+def tf32_probe_operands(kind: str, seed: int = 0):
+    """A conv with VGG-19 conv10's reduction (3x3x512 = 4,608 terms) over
+    16x16 positions and 64 output channels: x uniform on [0, 1) and w normal
+    over sqrt(K) ("uniform"), or both scaled elementwise by 2^e, e uniform
+    over -12..12 ("wide"). The same operands as the host's
+    tests/test_torch_kernels.py, which shows that one TF32 product per
+    multiply-add fails the fp32 limit on them and split-TF32 holds it."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    x = rng.random((1, 18, 18, 512), dtype=np.float32)
+    w = (rng.standard_normal((3, 3, 512, 64)) / np.sqrt(4608)).astype(np.float32)
+    if kind == "wide":
+        x = (x * np.exp2(rng.integers(-12, 13, x.shape))).astype(np.float32)
+        w = (w * np.exp2(rng.integers(-12, 13, w.shape))).astype(np.float32)
+    return torch.from_numpy(x), torch.from_numpy(w)
+
+
+def edge_cases_tf32(book, dev):
+    """The split-TF32 ECR / PECR kernel's own paths against the plain
+    versions (fp32 limit), each launch counted and every cnt = 0 sample all
+    zeros: schedules that leave half an 8-channel k-step (block_c 4), two
+    k-steps per block (block_c 16), cnt = n_cb, cnt = 0 and ids out of order,
+    O not a multiple of the tile; N=1 at VGG-19 conv13's shape (36 of 64
+    blocks, the kernel's smallest served grid); the served conv10 and conv12
+    shapes at batch 8; an input spread over 2^+-12 at K = 4608, where one
+    TF32 product per multiply-add fails the limit; operands off 16-byte
+    alignment (plain loads instead of cp.async)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.conv_pool.kernel import conv_pool_batch, conv_pool_plain
+    from repro_torch.kernels.ecr_conv.kernel import ecr_conv_batch, ecr_conv_plain
+
+    rng = np.random.default_rng(16)
+
+    def operands(n, h, w_, c, o):
+        x = torch.from_numpy(rng.random((n, h, w_, c), dtype=np.float32)).to(dev)
+        w = rng.standard_normal((3, 3, c, o)) / np.sqrt(9 * c)
+        return x, torch.from_numpy(w.astype(np.float32)).to(dev)
+
+    def schedule(cnts, n_cb, permuted=True):
+        order = [rng.permutation(n_cb) if permuted else np.arange(n_cb) for _ in cnts]
+        return (torch.from_numpy(np.stack(order).astype(np.int32)).to(dev),
+                torch.tensor(cnts, dtype=torch.int32, device=dev))
+
+    def run(label, x, w, ids, cnt, *, bc, pool=0):
+        wrapper = conv_pool_batch if pool else ecr_conv_batch
+        before = wrapper.launches
+        if pool:
+            got = conv_pool_batch(x, w, ids, cnt, stride=1, pool=pool, block_c=bc)
+            want = conv_pool_plain(x, w, ids, cnt, stride=1, pool=pool, block_c=bc)
+        else:
+            got = ecr_conv_batch(x, w, ids, cnt, stride=1, block_c=bc)
+            want = ecr_conv_plain(x, w, ids, cnt, stride=1, block_c=bc)
+        torch.cuda.synchronize()
+        if wrapper.launches != before + 1:
+            raise AssertionError(f"{label}: the launch was not counted once")
+        book.check("conv_pool" if pool else "ecr_conv", label, got, want)
+        for b in (cnt == 0).nonzero().flatten().tolist():
+            if bool(torch.any(got[b] != 0)):
+                raise AssertionError(f"{label}: the cnt = 0 sample {b} is not all zeros")
+
+    cnts = [1, 2, 3, 8, 0, 5]
+    for bc, o, pool in ((8, 96, 0), (8, 70, 2), (16, 128, 0), (4, 64, 2), (4, 70, 0),
+                        (16, 64, 2)):
+        x, w = operands(len(cnts), 13, 19, 8 * bc, o)
+        ids, cnt = schedule(cnts, 8)
+        run(f"cnt {cnts}, ids permuted, block_c {bc}, O={o}, pool {pool}", x, w, ids, cnt,
+            bc=bc, pool=pool)
+    x, w = operands(1, 16, 16, 512, 512)
+    x[..., 36 * 8:] = 0.0
+    ids, cnt = schedule([36], 64, permuted=False)
+    run("N=1 conv13 shape, 36/64 blocks", x, w, ids, cnt, bc=8)
+    x, w = operands(8, 30, 30, 512, 512)
+    x[-1] = 0.0
+    ids, cnt = schedule([42] * 7 + [0], 64)
+    run("conv10 shape, batch 8, 42/64 blocks", x, w, ids, cnt, bc=8)
+    run("conv12 shape, batch 8, 42/64 blocks, pool 2", x, w, ids, cnt, bc=8, pool=2)
+    x, w = (t.to(dev) for t in tf32_probe_operands("wide"))
+    ids, cnt = schedule([64], 64, permuted=False)
+    run("x and w over 2^+-12, K=4608", x, w, ids, cnt, bc=8)
+    x, w = operands(3, 12, 12, 32, 64)
+
+    def misaligned(t):  # the same values, 4 bytes past a 16-byte boundary
+        buf = torch.empty(t.numel() + 4, device=dev)
+        v = buf[1:1 + t.numel()].view(t.shape)
+        v.copy_(t)
+        return v
+
+    ids, cnt = schedule([4, 0, 2], 4)
+    run("x and w off 16-byte alignment", misaligned(x), misaligned(w), ids, cnt, bc=8)
+    run("x and w off 16-byte alignment, pool 2", misaligned(x), misaligned(w), ids, cnt,
+        bc=8, pool=2)
+
+
+def sass_counts(lib_path) -> dict:
+    """{kernel symbol: {opcode: count}} of the built library's SASS
+    (cuobjdump -sass from the toolkit that built it)."""
+    import re
+
+    from repro_torch.kernels.cuda import nvcc_path
+
+    cuobjdump = Path(nvcc_path()).with_name("cuobjdump")
+    r = subprocess.run([str(cuobjdump), "-sass", str(lib_path)], capture_output=True,
+                       text=True, timeout=300)
+    if r.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed: {r.stderr.strip()}")
+    counts, fn = {}, None
+    for line in r.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = {}
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)", line)
+        if m and fn:
+            counts[fn][m.group(1)] = counts[fn].get(m.group(1), 0) + 1
+    return counts
 
 
 def kernel_category(name: str) -> str:
@@ -1721,6 +1859,16 @@ def main() -> int:
 
     book = KernelBook()
     failures = []
+    # the fp32 ECR / PECR body runs on the TF32 tensor cores (HMMA), staged
+    # by cp.async (LDGSTS), with no CUDA-core fp32 multiply-add body (FFMA)
+    sass = {k: v for k, v in sass_counts(lib_path).items() if "ecr_conv_kernel" in k}
+    for fn, ops in sorted(sass.items()):
+        print(f"sass {fn[:100]}: " + ", ".join(f"{op} {ops.get(op, 0)}" for op in
+                                              ("HMMA", "LDGSTS", "LDS", "FFMA")))
+        if not ops.get("HMMA") or not ops.get("LDGSTS"):
+            failures.append(f"{fn}: no HMMA or no LDGSTS in its SASS")
+    if len(sass) != 8:
+        failures.append(f"expected 8 ecr_conv_kernel instantiations, found {len(sass)}")
     wrappers = {"ecr_conv": ecr_conv_batch, "conv_pool": conv_pool_batch,
                 "bsr_matmul": bsr_matmul, "ecr_conv_int8": ecr_conv_int8_batch,
                 "bsr_matmul_int8": bsr_matmul_int8}
@@ -1812,6 +1960,11 @@ def main() -> int:
     except Exception:
         traceback.print_exc()
         failures.append("edge-case kernel check failed")
+    try:
+        edge_cases_tf32(book, dev)
+    except Exception:
+        traceback.print_exc()
+        failures.append("edge-case check of the split-TF32 ECR / PECR kernel failed")
 
     del eng
     torch.cuda.empty_cache()
@@ -1891,8 +2044,11 @@ def main() -> int:
         ("bsr_matmul_int8", "bsr_matmul_int8", "", "bsr_matmul_int8.cu",
          "src/repro/quant/kernels.py:252", "vgg19-pruned-int8"),
     )
-    # rows whose kernels were redesigned for the int8 tensor cores
-    redesigned = {"ecr_conv_int8_batch", "ecr_conv_int8_batch at N=1", "bsr_matmul_int8"}
+    # rows whose kernels were redesigned for the tensor cores, and in which PR
+    # (16: fp32 on split-TF32; 15: int8)
+    redesigned = {"ecr_conv_batch": 16, "conv_pool_batch": 16, "ecr_conv_batch at N=1": 16,
+                  "conv_pool_batch at N=1": 16, "ecr_conv_int8_batch": 15,
+                  "ecr_conv_int8_batch at N=1": 15, "bsr_matmul_int8": 15}
     kernels = []
     for name, key, sfx, source, replaces, phase in table:
         rows = [r for r in book.rows if r["kernel"] == key and r["phase"] == phase]
@@ -1916,12 +2072,20 @@ def main() -> int:
             "phase": phase, "layers": [r["layer"] for r in rows]})
         if name in redesigned and ms > 0:
             kernels[-1].update({
-                "redesigned_in": 15, "timing": "CUDA-graph replay (plain_ms eager)",
-                "eager_ms": sum(r["eager_ms"] for r in rows),
-                "eager_library_ms": sum(r["eager_library_ms"] for r in rows),
-                "achieved_tops": flop_ms / ms * PEAK_INT8_OPS / 1e12,
+                "redesigned_in": redesigned[name],
+                "timing": "CUDA-graph replay (plain_ms eager)",
+                "eager_ms": sum(r["eager_ms" + sfx] for r in rows),
+                "eager_library_ms": sum(r["eager_library_ms" + sfx] for r in rows),
                 "achieved_gbs": byte_ms / ms * PEAK_HBM_BYTES / 1e9,
                 "bound_share": bound / ms})
+            if redesigned[name] == 16:
+                kernels[-1].update({
+                    "achieved_tflops": flop_ms / ms * PEAK_TF32_SPLIT_FLOPS / 1e12,
+                    "fp32_core_bound_ms": sum(r["fp32_core_bound_ms" + sfx] for r in rows)})
+                if single:
+                    kernels[-1]["split_reduction"] = False  # not implemented
+            else:
+                kernels[-1]["achieved_tops"] = flop_ms / ms * PEAK_INT8_OPS / 1e12
         if not rows:
             failures.append(f"no timed layer ran {name}")
     # the flash rows: one prefill plus one decode launch at the served shapes

@@ -1,4 +1,5 @@
-// ECR sparse convolution and PECR fused conv+ReLU+maxpool for Hopper (sm_90a).
+// ECR sparse convolution and PECR fused conv+ReLU+maxpool on Hopper's TF32
+// tensor cores, at fp32 accuracy through split-TF32 (sm_90a).
 //
 // Replaces the TPU kernels
 //   repro/kernels/ecr_conv/kernel.py  ecr_conv_pallas_batch (and ecr_conv_pallas at N=1)
@@ -7,248 +8,495 @@
 // conv result, `repro_conv_pool_f32` applies ReLU and a p x p max-pool
 // (stride p, floor) in shared memory and writes only the pooled tile.
 //
-// What it computes (the same function as the Pallas kernels): VALID conv of
+// What it computes (the Pallas kernels' function): the VALID conv of
 // x (N,H,W,C) with w (kh,kw,C,O) at `stride`, where sample b sums only over
 // the channel blocks ids[b, 0..cnt[b]) of width bc. A block left out of the
 // schedule contributes nothing; cnt[b] = 0 (an all-zero pad sample) does no
-// multiply-adds and writes zeros. fp32 in, fp32 accumulate, fp32 out.
+// multiply-adds and writes zeros. fp32 in, fp32 out, within the port's fp32
+// limit of a plain fp32 sum (1e-4 * max|plain| + 1e-5 * min(1, max|plain|)).
 //
-// Design for this card, and what bounds it:
-// - The Pallas kernel keeps a whole (H,W,bc) map resident in 8 MiB of VMEM
-//   and reduces over the channel blocks along a sequential grid axis into
-//   scratch. A Hopper block has at most 227 KB of shared memory and blocks run
-//   in no order, so here one CUDA block owns one spatial output tile
-//   (TH x TW) x kTileO output channels x one sample, and the reduction over
-//   channel blocks is a loop inside the block: `for k < cnt[b]` over block
-//   ids[b,k] (the block reads its own ids/cnt; nothing is prefetched). The
-//   accumulators stay in registers; nothing is reduced across blocks.
-// - Per channel chunk of `cc` channels the block stages its input tile with
-//   the halo, ((TH-1)*stride+kh) x ((TW-1)*stride+kw) x cc, and the weight
-//   slab kh x kw x cc x kTileO in shared memory; the launcher sizes cc so
-//   the two fit in 48 KB for any k and stride the registry sends (VGG 3x3/1,
-//   LeNet 5x5, AlexNet 11x11/4).
-// - The work is fp32 FMA on CUDA cores (no TF32: the port holds fp32
-//   parity). Each thread owns kRP spatial positions x kRO output channels,
-//   so one (tap, channel) step loads kRP + kRO values from shared memory for
-//   kRP * kRO FMAs: at this size the kernel is bound by shared-memory loads
-//   and by the fp32 FMA rate, well below the card's 67 TFLOP/s; it is the
-//   simple, correct first kernel, and wgmma/TMA come later.
+// What bounds it on this card: the multiply-adds. A served VGG-19 layer at
+// batch 8 is 5-20 GFLOP of live work against a few MB of operands, far above
+// the H100's ridge. An fp32 FMA body on the CUDA cores (67 TFLOP/s) runs
+// the live work at a lower rate than cuDNN runs all of it, so skipping
+// cannot pay there. Plain TF32 on the tensor cores errs by about 3x the
+// limit over a 4,608-term reduction; split-TF32 (tf32_mma.cuh: three TF32
+// products per multiply-add) holds it, at 495 / 3 = 165 TFLOP/s.
+// What stands between the kernel and that rate: mma.sync itself (wgmma is
+// not used; scripts/mma_rate.py measures what mma.sync's TF32 products
+// reach with nothing else in the way), the instructions that feed it from
+// shared memory (fragment loads, B's split), barriers per staged step, tile
+// padding on 28- and 14-wide maps, and filling 132 SMs.
+//
+// Design:
+// - Implicit GEMM per sample on mma.sync m16n8k8 TF32. One block owns a
+//   spatial output tile of TM = TH x TW positions (M), TN output channels (N)
+//   and one sample; K = taps x scheduled channels, in k-steps of 8 channels.
+//   At the served block_c = 8 a k-step is one scheduled block ids[b, k];
+//   block_c = 4 packs two blocks into a step, 16 takes two steps, and the
+//   tail of the last step is zero-filled. The skip is the loop bound: a
+//   sample runs ceil(cnt[b] * bc / 8) steps.
+// - Tile sizes: (TM, TN) from {128, 64}^2 per launch. Of the tiles whose grid
+//   (M tiles x N tiles x samples) covers the SMs, the one with the least
+//   padded work, ties to the larger tile (VGG-19 at batch 8: 64 x 128 on
+//   56 x 56 maps, which 8 x 8 tiles cover exactly, 128 x 128 on 28 x 28);
+//   else the grid with the most blocks (conv13-16 at batch 8 and N=1:
+//   64 x 64). TH x TW is the spatial tile of at most TM positions needing the
+//   fewest tiles, then a width that is a multiple of 8, then the smallest halo.
+// - 8 warps, 2 along M x 4 along N; a warp owns (TM/2) x (TN/4): at 128 x 128
+//   4 m16 x 4 n8 tiles, 16 MMA tiles x 3 products = 48 MMAs per tap and step.
+//   3 x 3 convs run their 9 taps unrolled, so the next tap's fragment loads
+//   issue under this tap's MMAs.
+// - Staging: per k-step, cp.async (16 bytes) into a double buffer: the halo'd
+//   input tile ((TH-1)*s+kh) x ((TW-1)*s+kw) positions x 8 channels (32
+//   contiguous bytes per position in NHWC) and the weight slab
+//   taps x 8 x TN, so the next step loads while this one multiplies. Above
+//   48 KB the shared memory is dynamic (cudaFuncSetAttribute); 3x3 at
+//   128 x 128 takes about 100 KB, two blocks per SM. 5x5 and 11x11 stage
+//   their taps in chunks that keep two blocks per SM where they can.
+// - Where the split happens. A (the halo): once per k-step, when it has
+//   landed, into a split halo (one more barrier per step, twice the halo's
+//   shared memory), because each halo value feeds up to kh*kw taps x 4 warps
+//   along N. B (the slab): as its fragments are loaded, since each value
+//   feeds only the 2 warps along M and a split slab would double the largest
+//   buffer (one block per SM at 3x3, TN = 128).
+// - A fragments by ldmatrix. The split halo holds per position four 16-byte
+//   chunks, hi(c0-3), hi(c4-7), lo(c0-3), lo(c4-7); an m16n8k8 TF32 A
+//   fragment is four 8-row x 4-value matrices, which is what ldmatrix.x4
+//   (b16) delivers, so one ldmatrix gives the hi fragment and one the lo
+//   fragment, each lane naming the position of its own row (the im2col row
+//   of any tap, straight from the halo). Chunk c of position p lies at chunk
+//   c ^ ((p >> 1) & 3), so the 8 rows of an ldmatrix phase (consecutive
+//   positions at stride 1) hit 8 distinct 16-byte bank groups. On the card
+//   this beat 16-byte loads regrouped in registers, and splitting A at every
+//   fragment load.
+// - B fragments: b0 is (k = t, n = g), b1 (k = t + 4, n = g). Slab rows are
+//   padded to TN + 8 floats, so rows t = 0..3 start 8 banks apart, and a
+//   lane reads two adjacent columns with one 8-byte load: column 2g of a
+//   16-column pair is n = g of n8 tile 2q, column 2g + 1 that of tile
+//   2q + 1; a half-warp hits 32 distinct banks. The accumulators then hold 4
+//   consecutive output channels per row, written as one float4.
 // - PECR epilogue: TH and TW are multiples of p, so no pool window straddles
-//   two tiles; the ReLU'd conv tile goes through shared memory, and only
-//   pooled outputs with py < oh/p, px < ow/p (floor) reach global memory.
-// - Ragged spatial edges and output-channel counts that are not a multiple of
-//   kTileO are masked; input channels must be a multiple of bc (the schedule
-//   indexes bc-wide blocks); output channels need no padding.
-//
-// The int8 form of this conv (`repro_ecr_conv_i8`) has its own tensor-core
-// body in ecr_conv_int8.cu.
+//   two tiles; the ReLU'd accumulators go to shared memory and only pooled
+//   outputs with py < OH/p, px < OW/p (floor) reach global memory.
+// - Every block reduces its own tile over all of its sample's live channels;
+//   nothing is reduced across blocks, so results repeat bitwise from run to
+//   run. At N=1 (never launched by the engine, whose buckets hold 2 or more
+//   requests) conv13-16 fill 32 of 132 SMs; a split reduction over channel
+//   groups is not implemented.
+// - Ragged edges: positions past OH/OW and output channels past O are masked;
+//   C must be a multiple of bc. Operands that are not 16-byte aligned, a bc
+//   that is not a multiple of 4, or O not a multiple of 4, are staged with
+//   plain loads into the same layout (the same results, slower).
 //
 // Launch hygiene: the entry points launch on the caller's stream, never
-// synchronise, allocate nothing, and return cudaGetLastError().
+// synchronise, allocate nothing, and return cudaGetLastError() (or the error
+// of a shape they cannot take).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
+#include "tf32_mma.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTileO = 64;                   // output channels per block
-constexpr int kOcGroups = 16;                // threads along O
-constexpr int kSpGroups = kThreads / kOcGroups;  // threads along space
-constexpr int kRO = kTileO / kOcGroups;      // output channels per thread
-constexpr int kRP = 4;                       // spatial positions per thread
-constexpr int kMaxTileP = kSpGroups * kRP;   // TH * TW <= 64
-constexpr size_t kSmemBudget = 48 * 1024;   // no opt-in attribute needed
-constexpr int kMaxChunk = 16;                // channels staged per chunk
+using namespace tf32mma;
 
-struct ConvParams {
-  int n, h, w, c, o;
-  int kh, kw, stride;
-  int bc, n_cb;
-  int oh, ow;        // conv output dims
-  int pool;          // 0 = no epilogue
-  int th, tw;        // spatial output tile
-  int tiles_w;       // tiles along the output width
-  int cc;            // channels staged per chunk
-  int ih_t, iw_t;    // input tile incl. halo
+constexpr int kThreads = 256;          // 8 warps: 2 along M x 4 along N
+constexpr int kK = 8;                  // channels per k-step (m16n8k8)
+constexpr int kPad = 8;                // floats after each slab row (banks)
+constexpr int kMaxSmem = 227 * 1024;   // a block's shared memory on sm_90
+constexpr int kTwoPerSm = 113 * 1024;  // stay under this for 2 blocks per SM
+
+struct Params {
+  int n, h, w, c, o, kh, kw, stride, bc, n_cb;
+  int oh, ow, pool;                 // pool = 0: no epilogue
+  int th, tw, tiles, tiles_w;       // spatial tile, tiles in all / along OW
+  int ih_t, iw_t;                   // its halo'd input tile
+  int taps, tc, n_chunks;           // taps per staged chunk, chunks per step
+  int fast_x, fast_w;               // cp.async staging usable
+  int halo_floats, slab_floats;     // one buffer of each
 };
 
-template <bool kPool>
-__global__ void __launch_bounds__(kThreads)
+// Input channel of virtual channel v (v < n_live * bc) of sample b.
+__device__ __forceinline__ int channel_of(const int32_t* ids_b, int v, int bc) {
+  const int kb = v / bc;
+  return ids_b[kb] * bc + (v - kb * bc);
+}
+
+// Stage the halo'd input tile of k-step grp: [position][8 channels].
+__device__ void stage_halo(float* halo, const float* __restrict__ xb,
+                           const int32_t* __restrict__ ids_b, int total_v, int grp,
+                           int gy0, int gx0, const Params& p) {
+  const int npos = p.ih_t * p.iw_t;
+  const int v0 = grp * kK;
+  if (p.fast_x) {  // 4 channels (within one block) per cp.async
+    // a thread stages the same 4 channels at every position it visits
+    const int q = threadIdx.x & 1, v = v0 + 4 * q;
+    const bool vok = v < total_v;
+    const float* xc = vok ? xb + channel_of(ids_b, v, p.bc) : xb;
+    for (int pos = threadIdx.x >> 1; pos < npos; pos += kThreads / 2) {
+      const int iy = pos / p.iw_t, ix = pos - iy * p.iw_t;
+      const int gy = gy0 + iy, gx = gx0 + ix;
+      const bool ok = vok && gy < p.h && gx < p.w;
+      cp_async16(smem_addr(halo + pos * kK + 4 * q),
+                 ok ? xc + ((size_t)gy * p.w + gx) * p.c : xb, ok);
+    }
+  } else {
+    for (int l = threadIdx.x; l < npos * kK; l += kThreads) {
+      const int pos = l / kK, kk = l % kK;
+      const int iy = pos / p.iw_t, ix = pos - iy * p.iw_t;
+      const int gy = gy0 + iy, gx = gx0 + ix, v = v0 + kk;
+      float val = 0.f;
+      if (v < total_v && gy < p.h && gx < p.w)
+        val = xb[((size_t)gy * p.w + gx) * p.c + channel_of(ids_b, v, p.bc)];
+      halo[l] = val;
+    }
+  }
+}
+
+// Stage taps [t0, t0 + nt) of the weight slab of k-step grp, output channels
+// [o0, o0 + TN): [tap][8 channels][TN + kPad].
+template <int TN>
+__device__ void stage_slab(float* slab, const float* __restrict__ w,
+                           const int32_t* __restrict__ ids_b, int total_v, int grp,
+                           int t0, int nt, int o0, const Params& p) {
+  constexpr int kRow = TN + kPad;
+  const int v0 = grp * kK;
+  const size_t tap_stride = (size_t)p.c * p.o;
+  if (p.fast_w) {  // 4 output channels per cp.async
+    // a thread stages the same (row, 4 channels) of every tap it visits
+    constexpr int kPerTap = kK * TN / 4;
+    static_assert(kThreads % kPerTap == 0, "a thread keeps its row and columns");
+    const int r = threadIdx.x % kPerTap, k = r / (TN / 4), c4 = r % (TN / 4);
+    const int v = v0 + k, oc = o0 + 4 * c4;
+    const bool ok = v < total_v && oc < p.o;
+    const float* src = ok ? w + (size_t)t0 * tap_stride +
+                                (size_t)channel_of(ids_b, v, p.bc) * p.o + oc
+                          : w;
+    for (int tt = threadIdx.x / kPerTap; tt < nt; tt += kThreads / kPerTap)
+      cp_async16(smem_addr(slab + (tt * kK + k) * kRow + 4 * c4),
+                 ok ? src + tt * tap_stride : w, ok);
+  } else {
+    for (int l = threadIdx.x; l < nt * kK * TN; l += kThreads) {
+      const int oo = l % TN, k = (l / TN) % kK, tt = l / (kK * TN);
+      const int v = v0 + k, oc = o0 + oo;
+      float val = 0.f;
+      if (v < total_v && oc < p.o)
+        val = w[(size_t)(t0 + tt) * tap_stride + (size_t)channel_of(ids_b, v, p.bc) * p.o + oc];
+      slab[(tt * kK + k) * kRow + oo] = val;
+    }
+  }
+}
+
+// MT m16 tiles x NT n8 tiles per warp: a block of TM = 32 * MT positions x
+// TN = 32 * NT output channels.
+template <int MT, int NT, bool kPool>
+__global__ void __launch_bounds__(kThreads, 2)
 ecr_conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
                 const int32_t* __restrict__ ids, const int32_t* __restrict__ cnt,
-                float* __restrict__ out, ConvParams p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* smem = reinterpret_cast<float*>(smem_raw);
-  const int x_tile = p.ih_t * p.iw_t;
-  const int taps = p.kh * p.kw;
-  float* xs = smem;                 // [cc][ih_t][iw_t]
-  float* ws = smem + p.cc * x_tile;  // [tap][cc][kTileO]
+                float* __restrict__ out, Params p) {
+  constexpr int TM = 32 * MT, TN = 32 * NT, kRow = TN + kPad;
+  extern __shared__ __align__(128) float smem[];
+  // [halo 0][halo 1][split halo][slab 0][slab 1]
+  float* const hs = smem + 2 * p.halo_floats;
+  float* const slab0 = smem + 4 * p.halo_floats;
 
   const int b = blockIdx.z;
-  const int o0 = blockIdx.y * kTileO;
+  const int o0 = blockIdx.y * TN;
   const int ty0 = (blockIdx.x / p.tiles_w) * p.th;
   const int tx0 = (blockIdx.x % p.tiles_w) * p.tw;
-  const int tid = threadIdx.x;
-  const int og = tid % kOcGroups;  // channels o0 + og + kOcGroups * r
-  const int sg = tid / kOcGroups;  // positions sg + kSpGroups * r
-  const int tile_p = p.th * p.tw;
-
-  int pos_off[kRP];
-#pragma unroll
-  for (int r = 0; r < kRP; ++r) {
-    const int sp = sg + kSpGroups * r;
-    pos_off[r] = sp < tile_p ? (sp / p.tw) * p.stride * p.iw_t + (sp % p.tw) * p.stride : 0;
-  }
-
-  float acc[kRP][kRO];
-#pragma unroll
-  for (int i = 0; i < kRP; ++i)
-#pragma unroll
-    for (int j = 0; j < kRO; ++j) acc[i][j] = 0.f;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 2, wn = warp & 3;  // warp tile: TM/2 positions x TN/4 channels
+  const int g = lane >> 2, t = lane & 3;
 
   // the schedule is the loop bound (the Pallas kernel's @pl.when(k < cnt))
   const int n_live = min(max(cnt[b], 0), p.n_cb);
+  const int total_v = n_live * p.bc;  // scheduled channels, in schedule order
+  const int n_units = (total_v + kK - 1) / kK * p.n_chunks;
+
   const int32_t* ids_b = ids + (size_t)b * p.n_cb;
   const float* xb = x + (size_t)b * p.h * p.w * p.c;
   const int gy0 = ty0 * p.stride, gx0 = tx0 * p.stride;
+  const int tile_p = p.th * p.tw;
 
-  for (int k = 0; k < n_live; ++k) {
-    const int cbase = ids_b[k] * p.bc;
-    for (int c0 = 0; c0 < p.bc; c0 += p.cc) {
-      const int nc = min(p.cc, p.bc - c0);
-      __syncthreads();  // the previous chunk is consumed
-      for (int l = tid; l < p.cc * x_tile; l += kThreads) {
-        const int ci = l % p.cc;
-        const int rest = l / p.cc;
-        const int ix = rest % p.iw_t, iy = rest / p.iw_t;
-        const int gy = gy0 + iy, gx = gx0 + ix;
-        float v = 0.f;
-        if (ci < nc && gy < p.h && gx < p.w)
-          v = xb[((size_t)gy * p.w + gx) * p.c + cbase + c0 + ci];
-        xs[ci * x_tile + iy * p.iw_t + ix] = v;
-      }
-      for (int l = tid; l < taps * p.cc * kTileO; l += kThreads) {
-        const int oo = l % kTileO;
-        const int rest = l / kTileO;
-        const int ci = rest % p.cc, t = rest / p.cc;
-        float v = 0.f;
-        if (ci < nc && o0 + oo < p.o)
-          v = w[((size_t)t * p.c + cbase + c0 + ci) * p.o + o0 + oo];
-        ws[l] = v;
+  // A by ldmatrix: lane gives row (lane & 7) of matrix lane >> 3; matrices 0
+  // and 1 are rows 0-7 and 8-15 of m16 tile mt at channels 0-3 (chunk 0),
+  // matrices 2 and 3 the same at channels 4-7 (chunk 1). apos = the halo
+  // position of the lane's row at tap 0.
+  int apos[MT];
+  const int achunk = lane >> 4;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    int m = wm * (TM / 2) + mt * 16 + (lane & 7) + 8 * ((lane >> 3) & 1);
+    if (m >= tile_p) m = 0;  // a dummy row: computes on a real position, never stored
+    const int py = m / p.tw, px = m - py * p.tw;
+    apos[mt] = py * p.stride * p.iw_t + px * p.stride;
+  }
+  const uint32_t hs_s = smem_addr(hs);
+  // B: slab row t (k = t; row t + 4 is k = t + 4), columns 2g and 2g + 1 of
+  // each 16-column pair of this warp's TN/4 channels
+  const int b_off = t * kRow + wn * (TN / 4) + 2 * g;
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
+
+  auto stage = [&](int u) {
+    const int grp = u / p.n_chunks, chunk = u % p.n_chunks;
+    const int t0 = chunk * p.tc;
+    if (chunk == 0)
+      stage_halo(smem + (grp & 1) * p.halo_floats, xb, ids_b, total_v, grp, gy0, gx0, p);
+    stage_slab<TN>(slab0 + (u & 1) * p.slab_floats, w, ids_b, total_v, grp, t0,
+                   min(p.tc, p.taps - t0), o0, p);
+  };
+
+  if (n_units > 0) stage(0);
+  cp_async_commit();
+  for (int u = 0; u < n_units; ++u) {
+    if (u + 1 < n_units) stage(u + 1);  // its buffers were released by the last barrier
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    if (u % p.n_chunks == 0) {  // split the step's halo once, chunks swizzled
+      const float* halo = smem + ((u / p.n_chunks) & 1) * p.halo_floats;
+      for (int l = tid; l < p.halo_floats / 4; l += kThreads) {
+        const int pos = l >> 1, q = l & 1, sw = (pos >> 1) & 3;
+        const float4 v = *reinterpret_cast<const float4*>(halo + 4 * l);
+        uint32_t h[4], lo[4];
+        split(v.x, h[0], lo[0]);
+        split(v.y, h[1], lo[1]);
+        split(v.z, h[2], lo[2]);
+        split(v.w, h[3], lo[3]);
+        *reinterpret_cast<uint4*>(hs + pos * 16 + 4 * (q ^ sw)) = make_uint4(h[0], h[1], h[2], h[3]);
+        *reinterpret_cast<uint4*>(hs + pos * 16 + 4 * ((q + 2) ^ sw)) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
       }
       __syncthreads();
-      for (int ci = 0; ci < nc; ++ci) {
-        const float* xc = xs + ci * x_tile;
-        for (int i = 0; i < p.kh; ++i) {
-          for (int j = 0; j < p.kw; ++j) {
-            const float* wt = ws + ((i * p.kw + j) * p.cc + ci) * kTileO + og;
-            float wv[kRO], xv[kRP];
+    }
+    const float* slab = slab0 + (u & 1) * p.slab_floats;
+    const int t0 = (u % p.n_chunks) * p.tc;
+    const int nt = min(p.tc, p.taps - t0);
+    // one tap: the slab rows of tap tt of this chunk against the halo
+    // shifted by toff positions
+    auto tap_step = [&](int tt, int toff) {
+      uint32_t bh[NT][2], bl[NT][2];
+      const float* brow = slab + tt * kK * kRow + b_off;
 #pragma unroll
-            for (int r = 0; r < kRO; ++r) wv[r] = wt[kOcGroups * r];
+      for (int q = 0; q < NT / 2; ++q) {
+        const float2 r0 = *reinterpret_cast<const float2*>(brow + 16 * q);
+        const float2 r1 = *reinterpret_cast<const float2*>(brow + 4 * kRow + 16 * q);
+        split(r0.x, bh[2 * q][0], bl[2 * q][0]);
+        split(r0.y, bh[2 * q + 1][0], bl[2 * q + 1][0]);
+        split(r1.x, bh[2 * q][1], bl[2 * q][1]);
+        split(r1.y, bh[2 * q + 1][1], bl[2 * q + 1][1]);
+      }
 #pragma unroll
-            for (int r = 0; r < kRP; ++r) xv[r] = xc[pos_off[r] + i * p.iw_t + j];
+      for (int mt = 0; mt < MT; ++mt) {
+        const int pos = apos[mt] + toff;
+        const uint32_t addr = hs_s + pos * 64 + ((achunk ^ (pos >> 1)) & 3) * 16;
+        uint32_t ah[4], al[4];
+        ldmatrix_x4(ah, addr);
+        ldmatrix_x4(al, addr ^ 32);
 #pragma unroll
-            for (int a = 0; a < kRP; ++a)
+        for (int jn = 0; jn < NT; ++jn) mma_split(acc[mt][jn], ah, al, bh[jn], bl[jn]);
+      }
+    };
+    if (p.kh == 3 && p.kw == 3 && p.tc == 9) {
+      // VGG's 3x3 unrolled: the next tap's fragments load under this one's MMAs
 #pragma unroll
-              for (int q = 0; q < kRO; ++q) acc[a][q] = fmaf(xv[a], wv[q], acc[a][q]);
-          }
-        }
+      for (int tt = 0; tt < 9; ++tt) tap_step(tt, (tt / 3) * p.iw_t + tt % 3);
+    } else {
+      for (int tt = 0; tt < nt; ++tt) {
+        const int tap = t0 + tt;
+        const int i = tap / p.kw, j = tap - i * p.kw;
+        tap_step(tt, i * p.iw_t + j);
       }
     }
+    __syncthreads();  // this unit's buffers may be refilled
   }
 
+  // fragment row g (+ 8) of m16 tile mt is position wm*TM/2 + mt*16 + g (+ 8);
+  // of pair q, c[2r] of tiles 2q and 2q+1 and c[2r+1] of both are output
+  // channels cb + 16q + 0, 1, 2, 3
+  const int cb = wn * (TN / 4) + 4 * t;
   if (!kPool) {
+    const bool vec = (p.o & 3) == 0;
 #pragma unroll
-    for (int a = 0; a < kRP; ++a) {
-      const int sp = sg + kSpGroups * a;
-      if (sp >= tile_p) continue;
-      const int oy = ty0 + sp / p.tw, ox = tx0 + sp % p.tw;
-      if (oy >= p.oh || ox >= p.ow) continue;
-      float* orow = out + (((size_t)b * p.oh + oy) * p.ow + ox) * p.o;
+    for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
-      for (int q = 0; q < kRO; ++q) {
-        const int oc = o0 + og + kOcGroups * q;
-        if (oc < p.o) orow[oc] = acc[a][q];
+      for (int r = 0; r < 2; ++r) {
+        const int m = wm * (TM / 2) + mt * 16 + g + 8 * r;
+        if (m >= tile_p) continue;
+        const int oy = ty0 + m / p.tw, ox = tx0 + m % p.tw;
+        if (oy >= p.oh || ox >= p.ow) continue;
+        float* orow = out + (((size_t)b * p.oh + oy) * p.ow + ox) * p.o;
+#pragma unroll
+        for (int q = 0; q < NT / 2; ++q) {
+          const int oc = o0 + cb + 16 * q;
+          const float v[4] = {acc[mt][2 * q][2 * r], acc[mt][2 * q + 1][2 * r],
+                              acc[mt][2 * q][2 * r + 1], acc[mt][2 * q + 1][2 * r + 1]};
+          if (vec && oc + 3 < p.o) {
+            *reinterpret_cast<float4*>(orow + oc) = make_float4(v[0], v[1], v[2], v[3]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if (oc + e < p.o) orow[oc + e] = v[e];
+          }
+        }
       }
     }
     return;
   }
 
-  // PECR epilogue: ReLU'd conv tile -> shared memory -> p x p max -> global
+  // PECR epilogue: ReLU'd accumulators -> shared memory [TM][kRow] -> p x p
+  // max -> global
+  cp_async_wait<0>();
   __syncthreads();
-  float* cs = reinterpret_cast<float*>(smem_raw);  // [tile_p][kTileO]
+  float* cs = smem;
 #pragma unroll
-  for (int a = 0; a < kRP; ++a) {
-    const int sp = sg + kSpGroups * a;
-    if (sp >= tile_p) continue;
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int q = 0; q < kRO; ++q) cs[sp * kTileO + og + kOcGroups * q] = fmaxf(acc[a][q], 0.f);
-  }
+    for (int r = 0; r < 2; ++r) {
+      const int m = wm * (TM / 2) + mt * 16 + g + 8 * r;
+#pragma unroll
+      for (int q = 0; q < NT / 2; ++q)
+        *reinterpret_cast<float4*>(cs + m * kRow + cb + 16 * q) = make_float4(
+            fmaxf(acc[mt][2 * q][2 * r], 0.f), fmaxf(acc[mt][2 * q + 1][2 * r], 0.f),
+            fmaxf(acc[mt][2 * q][2 * r + 1], 0.f), fmaxf(acc[mt][2 * q + 1][2 * r + 1], 0.f));
+    }
   __syncthreads();
   const int pp = p.pool;
   const int pth = p.th / pp, ptw = p.tw / pp;
   const int poh = p.oh / pp, pow_ = p.ow / pp;
-  for (int l = tid; l < pth * ptw * kTileO; l += kThreads) {
-    const int oo = l % kTileO;
-    const int qp = l / kTileO;
-    const int qy = qp / ptw, qx = qp % ptw;
+  for (int l = tid; l < pth * ptw * TN; l += kThreads) {
+    const int oo = l % TN;
+    const int qp = l / TN;
+    const int qy = qp / ptw, qx = qp - qy * ptw;
     const int gy = ty0 / pp + qy, gx = tx0 / pp + qx, oc = o0 + oo;
     if (gy >= poh || gx >= pow_ || oc >= p.o) continue;
-    float m = 0.f;  // every value is ReLU'd, so 0 is the identity of the max
+    float mx = 0.f;  // every value is ReLU'd, so 0 is the identity of the max
     for (int dy = 0; dy < pp; ++dy)
       for (int dx = 0; dx < pp; ++dx)
-        m = fmaxf(m, cs[((qy * pp + dy) * p.tw + qx * pp + dx) * kTileO + oo]);
-    out[(((size_t)b * poh + gy) * pow_ + gx) * p.o + oc] = m;
+        mx = fmaxf(mx, cs[((qy * pp + dy) * p.tw + qx * pp + dx) * kRow + oo]);
+    out[(((size_t)b * poh + gy) * pow_ + gx) * p.o + oc] = mx;
   }
 }
 
-// Largest channel chunk (<= bc, at most kMaxChunk) whose staged input tile
-// and weight slab fit kSmemBudget; 0 when even one channel does not fit.
-int pick_chunk(int bc, int ih_t, int iw_t, int taps) {
-  for (int cc = kMaxChunk; cc >= 1; cc /= 2) {
-    const size_t bytes = (size_t)cc * (ih_t * iw_t + taps * kTileO) * sizeof(float);
-    if (cc <= bc && bytes <= kSmemBudget) return cc;
+// Spatial tile of at most tm positions (th and tw multiples of the pool
+// window) whose double-buffered halo and one tap of the slab fit: the fewest
+// tiles, then a width that is a multiple of 8 (the 8 rows of a fragment in
+// one tile row), then the smallest halo. Then the taps per staged chunk: all
+// of them if two blocks still fit an SM, else as many as fit that, else as
+// many as fit one block. Returns the dynamic shared memory, 0 if none fits.
+size_t pick_tile(Params& p, int tm, int tn) {
+  const int pp = p.pool ? p.pool : 1;
+  const int cov_h = p.oh / pp * pp, cov_w = p.ow / pp * pp;  // rows/cols the floor keeps
+  if (cov_h < 1 || cov_w < 1) return 0;
+  const long long tap_floats = (long long)kK * (tn + kPad);
+  long long best = -1;
+  for (int tw = pp; tw <= std::min(cov_w, tm); tw += pp) {
+    const int th = std::min(tm / tw, cov_h) / pp * pp;
+    if (th < 1) continue;
+    const int ih = (th - 1) * p.stride + p.kh, iw = (tw - 1) * p.stride + p.kw;
+    const long long halo = (long long)ih * iw * kK;
+    if ((4 * halo + 2 * tap_floats) * (long long)sizeof(float) > kMaxSmem) continue;
+    const long long tiles = (long long)((cov_h + th - 1) / th) * ((cov_w + tw - 1) / tw);
+    const long long key = (tiles * 2 + (tw % 8 != 0)) * kMaxSmem + halo;
+    if (best < 0 || key < best) {
+      best = key;
+      p.th = th;
+      p.tw = tw;
+      p.ih_t = ih;
+      p.iw_t = iw;
+      p.halo_floats = (int)halo;
+    }
   }
-  return 0;
+  if (best < 0) return 0;
+  p.tiles_w = (cov_w + p.tw - 1) / p.tw;
+  p.tiles = ((cov_h + p.th - 1) / p.th) * p.tiles_w;
+  const long long halo_bytes = 4LL * p.halo_floats * sizeof(float);
+  const long long tap_bytes = 2 * tap_floats * (long long)sizeof(float);
+  const long long left2 = (kTwoPerSm - halo_bytes) / tap_bytes;
+  const long long left1 = (kMaxSmem - halo_bytes) / tap_bytes;
+  p.tc = (int)std::min<long long>(p.taps, left2 >= 1 ? left2 : left1);
+  p.n_chunks = (p.taps + p.tc - 1) / p.tc;
+  p.slab_floats = (int)(p.tc * tap_floats);
+  const size_t stage = (4 * (size_t)p.halo_floats + 2 * (size_t)p.slab_floats) * sizeof(float);
+  const size_t epi = p.pool ? (size_t)tm * (tn + kPad) * sizeof(float) : 0;
+  return std::max(stage, epi);
+}
+
+template <int MT, int NT, bool kPool>
+int run(const Params& p, size_t smem, const float* x, const float* w, const int32_t* ids,
+        const int32_t* cnt, float* out, cudaStream_t stream) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      ecr_conv_kernel<MT, NT, kPool>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(p.tiles, (p.o + 32 * NT - 1) / (32 * NT), p.n);
+  ecr_conv_kernel<MT, NT, kPool><<<grid, kThreads, smem, stream>>>(x, w, ids, cnt, out, p);
+  return (int)cudaGetLastError();
+}
+
+template <bool kPool>
+int dispatch(int mt, int nt, const Params& p, size_t smem, const float* x, const float* w,
+             const int32_t* ids, const int32_t* cnt, float* out, cudaStream_t stream) {
+  if (mt == 4 && nt == 4) return run<4, 4, kPool>(p, smem, x, w, ids, cnt, out, stream);
+  if (mt == 2 && nt == 4) return run<2, 4, kPool>(p, smem, x, w, ids, cnt, out, stream);
+  if (mt == 4 && nt == 2) return run<4, 2, kPool>(p, smem, x, w, ids, cnt, out, stream);
+  return run<2, 2, kPool>(p, smem, x, w, ids, cnt, out, stream);
 }
 
 int launch(const float* x, const float* w, const int32_t* ids, const int32_t* cnt,
            float* out, int n, int h, int wd, int c, int o, int kh, int kw, int stride,
            int bc, int pool, cudaStream_t stream) {
-  if (n < 1 || bc < 1 || c % bc || stride < 1 || h < kh || wd < kw || pool < 0 ||
-      pool > 8 || n > 65535)
+  if (n < 1 || o < 1 || bc < 1 || c < bc || c % bc || stride < 1 || kh < 1 || kw < 1 ||
+      h < kh || wd < kw || pool < 0 || pool > 8 || n > 65535)
     return (int)cudaErrorInvalidValue;
-  ConvParams p;
-  p.n = n; p.h = h; p.w = wd; p.c = c; p.o = o;
-  p.kh = kh; p.kw = kw; p.stride = stride;
-  p.bc = bc; p.n_cb = c / bc;
-  p.oh = (h - kh) / stride + 1;
-  p.ow = (wd - kw) / stride + 1;
-  p.pool = pool;
-  // spatial tile: 8 x 8, or the largest multiple of the pool window <= 8
-  p.th = p.tw = pool ? pool * (pool <= 8 ? 8 / pool : 1) : 8;
-  if (p.th * p.tw > kMaxTileP) return (int)cudaErrorInvalidValue;
-  p.ih_t = (p.th - 1) * stride + kh;
-  p.iw_t = (p.tw - 1) * stride + kw;
-  p.cc = pick_chunk(bc, p.ih_t, p.iw_t, kh * kw);
-  if (p.cc == 0) return (int)cudaErrorInvalidValue;
-  // the pooled launch tiles only the rows/cols the floor keeps
-  const int cov_h = pool ? (p.oh / pool) * pool : p.oh;
-  const int cov_w = pool ? (p.ow / pool) * pool : p.ow;
-  if (cov_h < 1 || cov_w < 1) return (int)cudaErrorInvalidValue;
-  p.tiles_w = (cov_w + p.tw - 1) / p.tw;
-  const int tiles_h = (cov_h + p.th - 1) / p.th;
-  const size_t stage = (size_t)p.cc * (p.ih_t * p.iw_t + kh * kw * kTileO) * sizeof(float);
-  const size_t epi = pool ? (size_t)p.th * p.tw * kTileO * sizeof(float) : 0;
-  const size_t smem = stage > epi ? stage : epi;
-  dim3 grid(tiles_h * p.tiles_w, (o + kTileO - 1) / kTileO, n);
-  if (pool) {
-    ecr_conv_kernel<true><<<grid, kThreads, smem, stream>>>(x, w, ids, cnt, out, p);
-    return (int)cudaGetLastError();
+  Params base;
+  base.n = n; base.h = h; base.w = wd; base.c = c; base.o = o;
+  base.kh = kh; base.kw = kw; base.stride = stride;
+  base.bc = bc; base.n_cb = c / bc;
+  base.oh = (h - kh) / stride + 1;
+  base.ow = (wd - kw) / stride + 1;
+  base.pool = pool;
+  base.taps = kh * kw;
+  base.fast_x = bc % 4 == 0 && ((uintptr_t)x & 15) == 0;  // c is a multiple of bc
+  base.fast_w = o % 4 == 0 && ((uintptr_t)w & 15) == 0;
+  // (TM, TN): of the tiles whose grid covers the SMs, the one with the least
+  // padded work (M tiles x TM x N tiles x TN; ties go to the larger tile),
+  // else the one with the most blocks
+  const int choices[4][2] = {{4, 4}, {2, 4}, {4, 2}, {2, 2}};
+  const long long sms = sm_count();
+  Params p;
+  size_t smem = 0;
+  int mt = 0, nt = 0;
+  long long best_short = 0, best_cost = 0;  // (grid short of the SMs, cost): least wins
+  for (const auto& ch : choices) {
+    Params q = base;
+    const size_t s = pick_tile(q, 32 * ch[0], 32 * ch[1]);
+    const long long o_tiles = (o + 32 * ch[1] - 1) / (32 * ch[1]);
+    if (s == 0 || o_tiles > 65535) continue;
+    const long long blocks = (long long)q.tiles * o_tiles * n;
+    const long long short_ = blocks < sms;
+    const long long cost = short_ ? -blocks : (long long)q.tiles * 32 * ch[0] * o_tiles * 32 * ch[1];
+    if (mt == 0 || short_ < best_short || (short_ == best_short && cost < best_cost)) {
+      best_short = short_;
+      best_cost = cost;
+      p = q;
+      smem = s;
+      mt = ch[0];
+      nt = ch[1];
+    }
   }
-  ecr_conv_kernel<false><<<grid, kThreads, smem, stream>>>(x, w, ids, cnt, out, p);
-  return (int)cudaGetLastError();
+  if (mt == 0) return (int)cudaErrorInvalidValue;
+  if (pool) return dispatch<true>(mt, nt, p, smem, x, w, ids, cnt, out, stream);
+  return dispatch<false>(mt, nt, p, smem, x, w, ids, cnt, out, stream);
 }
 
 }  // namespace

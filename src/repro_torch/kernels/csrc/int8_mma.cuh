@@ -1,44 +1,24 @@
 // Device helpers shared by the int8 tensor-core kernels (ecr_conv_int8.cu,
-// bsr_matmul_int8.cu): asynchronous global->shared copies, ldmatrix, the
-// m16n8k32 int8 MMA, and a 4x4 byte transpose that turns four rows of an
-// N-contiguous tile into four K-contiguous MMA fragments.
+// bsr_matmul_int8.cu): the m16n8k32 int8 MMA, and a 4x4 byte transpose that
+// turns four rows of an N-contiguous tile into four K-contiguous MMA
+// fragments; asynchronous copies, ldmatrix and the SM count come from
+// smem_io.cuh.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "smem_io.cuh"
+
 namespace int8mma {
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// cp.async of 16 or 8 bytes from global to shared; when `ok` is false
-// nothing is read and the destination is zero-filled.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src),
-               "r"(ok ? 8 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-// Wait until at most N of this thread's committed groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Four 8x8 b16 matrices (here: 8 rows x 16 int8) from shared memory; lane l
-// gives the address of row l % 8 of matrix l / 8.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
+using smemio::cp_async16;
+using smemio::cp_async8;
+using smemio::cp_async_commit;
+using smemio::cp_async_wait;
+using smemio::ldmatrix_x4;
+using smemio::sm_count;
+using smemio::smem_addr;
 
 // c += a (16x32, row) * b (32x8, col), int8 in, exact int32 sums.
 __device__ __forceinline__ void mma_s8(int32_t (&c)[4], const uint32_t (&a)[4],
@@ -61,15 +41,6 @@ __device__ __forceinline__ void transpose4x4(uint32_t w0, uint32_t w1, uint32_t 
   o[1] = __byte_perm(lo01, lo23, 0x7632);
   o[2] = __byte_perm(hi01, hi23, 0x5410);
   o[3] = __byte_perm(hi01, hi23, 0x7632);
-}
-
-// The number of SMs of the current device.
-inline int sm_count() {
-  int dev = 0, n = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || n < 1)
-    return 132;  // an H100's; a launch on a broken device fails on its own
-  return n;
 }
 
 }  // namespace int8mma

@@ -8,8 +8,8 @@ headers, so a build takes seconds). The library lands in
 named by a hash of the sources and flags, so an edited source rebuilds and a
 stale library is never loaded. A missing `nvcc` or a failed build raises.
 
-`launch_conv` (the ECR / PECR conv kernels, fp32, and the int8 tensor-core
-ECR conv), `launch_bsr` (the block-sparse matmul, fp32, and its int8
+`launch_conv` (the ECR / PECR conv kernels, fp32 on the split-TF32 tensor
+cores, and the int8 tensor-core ECR conv), `launch_bsr` (the block-sparse matmul, fp32, and its int8
 tensor-core form), `launch_flash` (the flash
 attention forward over fp32 or int8 K/V) and `launch_flash_bwd` (its two
 backward passes) are the launch sites: they check
@@ -33,7 +33,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("ecr_conv.cu", "ecr_conv_int8.cu", "bsr_matmul.cu", "bsr_matmul_int8.cu",
            "flash_attention.cu", "flash_attention_bwd.cu")
-HEADERS = ("int8_mma.cuh",)  # included by sources; part of the build's hash
+HEADERS = ("smem_io.cuh", "int8_mma.cuh", "tf32_mma.cuh")  # included; hashed
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 _CHECKOUT = Path(__file__).resolve().parents[3]

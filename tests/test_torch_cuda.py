@@ -6,7 +6,8 @@ inside the fixture, never at import). Run them on the card with
 
 Tolerances: fp32 kernels max|kernel - plain| <= 1e-4 * max|plain|
 + 1e-5 * min(1, max|plain|) (the floor shrinks with small outputs) —
-fp32 sums in another order (the conv kernel per channel then per tap, its
+fp32 sums in another order (the conv kernel per 8-channel step then per tap,
+in split-TF32 on the tensor cores, three TF32 products per multiply-add; its
 plain version one matmul per tap over every scheduled channel; the BSR kernel
 block by block, its plain version one matmul; the flash kernels tile by
 tile with an online softmax, their plain versions in one pass, for out, m
@@ -98,6 +99,116 @@ def test_pecr_kernel_matches_plain(dev, n, c, hw, o, k, stride):
     assert conv_pool_batch.launches == before + 1
     _close(got, conv_pool_plain(x, w, ids, cnt, stride=stride, pool=2, block_c=bc))
     assert torch.all(got[-1] == 0)
+
+
+def _run_conv(dev, x, w, ids, cnt, bc, pool):
+    """Kernel vs plain within the fp32 limit, one launch counted, and every
+    cnt = 0 sample all zeros."""
+    wrapper = conv_pool_batch if pool else ecr_conv_batch
+    before = wrapper.launches
+    if pool:
+        got = conv_pool_batch(x, w, ids, cnt, stride=1, pool=pool, block_c=bc)
+        want = conv_pool_plain(x, w, ids, cnt, stride=1, pool=pool, block_c=bc)
+    else:
+        got = ecr_conv_batch(x, w, ids, cnt, stride=1, block_c=bc)
+        want = ecr_conv_plain(x, w, ids, cnt, stride=1, block_c=bc)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    _close(got, want)
+    for b in (cnt == 0).nonzero().flatten().tolist():
+        assert torch.all(got[b] == 0)
+    assert float(want.abs().max()) > 0
+
+
+def _f32_operands(dev, rng, n, h, w_, c, o):
+    x = torch.from_numpy(rng.random((n, h, w_, c), dtype=np.float32)).to(dev)
+    w = (rng.standard_normal((3, 3, c, o)) / np.sqrt(9 * c)).astype(np.float32)
+    return x, torch.from_numpy(w).to(dev)
+
+
+# The split-TF32 kernel's k-steps are 8 channels: block_c 4 packs two
+# scheduled blocks per step (an odd cnt leaves half a step, zero-filled),
+# block_c 16 takes two steps per block; O = 70 is not a multiple of 4 (plain
+# weight loads) nor of the tile.
+@pytest.mark.parametrize("bc,o,pool", [(8, 96, 0), (8, 70, 2), (16, 128, 0), (4, 64, 2),
+                                       (4, 70, 0), (16, 64, 2)])
+def test_ecr_kernel_schedule_tails(dev, bc, o, pool):
+    """cnt 1, 2, 3 and n_cb, cnt = 0, ids out of order."""
+    rng = np.random.default_rng(bc + o + pool)
+    cnts = [1, 2, 3, 8, 0, 5]
+    x, w = _f32_operands(dev, rng, len(cnts), 13, 19, 8 * bc, o)
+    ids = torch.from_numpy(np.stack([rng.permutation(8) for _ in cnts]).astype(np.int32))
+    cnt = torch.tensor(cnts, dtype=torch.int32)
+    _run_conv(dev, x, w, ids.to(dev), cnt.to(dev), bc, pool)
+
+
+def test_ecr_kernel_single_image(dev):
+    """N=1 at a VGG-19 conv13 shape (1x16x16x512 -> 512), 36 of 64 blocks
+    live as an identity prefix (the single-image schedule): the kernel's
+    smallest served grid."""
+    rng = np.random.default_rng(13)
+    x, w = _f32_operands(dev, rng, 1, 16, 16, 512, 512)
+    x[..., 36 * 8:] = 0.0
+    ids = torch.arange(64, dtype=torch.int32, device=dev)[None].contiguous()
+    cnt = torch.tensor([36], dtype=torch.int32, device=dev)
+    _run_conv(dev, x, w, ids, cnt, 8, 0)
+
+
+@pytest.mark.parametrize("pool", [0, 2])
+def test_ecr_kernel_at_served_batch(dev, pool):
+    """The served conv10 (pool 0) and conv12 (pool 2) shapes at batch 8:
+    28x28 maps padded to 30, 512 -> 512 channels, 42 of 64 blocks per
+    sample in permuted order, the last sample a pad (cnt = 0)."""
+    rng = np.random.default_rng(10 + pool)
+    x, w = _f32_operands(dev, rng, 8, 30, 30, 512, 512)
+    x[-1] = 0.0
+    ids = torch.from_numpy(np.stack([rng.permutation(64) for _ in range(8)]).astype(np.int32))
+    cnt = torch.tensor([42] * 7 + [0], dtype=torch.int32)
+    _run_conv(dev, x, w, ids.to(dev), cnt.to(dev), 8, pool)
+
+
+def _tf32_probe_operands(kind: str, seed: int = 0):
+    """The operands of tests/test_torch_kernels.py::tf32_probe_operands (the
+    same generator and seed; that file imports JAX and cannot be imported
+    here), on which one TF32 product per multiply-add errs by more than
+    twice the fp32 limit and split-TF32 stays within 5% of it."""
+    rng = np.random.default_rng(seed)
+    x = rng.random((1, 18, 18, 512), dtype=np.float32)
+    w = (rng.standard_normal((3, 3, 512, 64)) / np.sqrt(4608)).astype(np.float32)
+    if kind == "wide":
+        x = (x * np.exp2(rng.integers(-12, 13, x.shape))).astype(np.float32)
+        w = (w * np.exp2(rng.integers(-12, 13, w.shape))).astype(np.float32)
+    return torch.from_numpy(x), torch.from_numpy(w)
+
+
+@pytest.mark.parametrize("kind", ["uniform", "wide"])
+def test_ecr_kernel_holds_the_fp32_limit_where_tf32_fails(dev, kind):
+    """K = 4608 with x and w uniform/normal, or spread over 2^+-12: a kernel
+    that dropped the split (one TF32 product) would err by 2-4x the limit."""
+    x, w = (t.to(dev) for t in _tf32_probe_operands(kind))
+    ids = torch.arange(64, dtype=torch.int32, device=dev)[None].contiguous()
+    cnt = torch.tensor([64], dtype=torch.int32, device=dev)
+    _run_conv(dev, x, w, ids, cnt, 8, 0)
+
+
+@pytest.mark.parametrize("pool", [0, 2])
+def test_ecr_kernel_off_alignment(dev, pool):
+    """x and w 4 bytes past a 16-byte boundary: staged with plain loads
+    instead of cp.async, the same results."""
+    rng = np.random.default_rng(5 + pool)
+    x, w = _f32_operands(dev, rng, 3, 12, 12, 32, 64)
+
+    def misaligned(t):
+        buf = torch.empty(t.numel() + 4, device=dev)
+        v = buf[1:1 + t.numel()].view(t.shape)
+        v.copy_(t)
+        return v
+
+    xo, wo = misaligned(x), misaligned(w)
+    assert xo.data_ptr() % 16 and wo.data_ptr() % 16
+    ids = torch.from_numpy(np.stack([rng.permutation(4) for _ in range(3)]).astype(np.int32))
+    cnt = torch.tensor([4, 0, 2], dtype=torch.int32)
+    _run_conv(dev, xo, wo, ids.to(dev), cnt.to(dev), 8, pool)
 
 
 def _bsr_operands(dev, t, f, d, bf, density, seed, dtype=np.float32):

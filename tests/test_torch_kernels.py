@@ -18,7 +18,11 @@ from repro.kernels.ecr_conv.ops import ecr_conv as j_ecr_conv  # noqa: E402
 from repro_torch.kernels.conv_pool.kernel import conv_pool_batch, conv_pool_plain  # noqa: E402
 from repro_torch.kernels.conv_pool.ops import fused_conv_pool  # noqa: E402
 from repro_torch.kernels.conv_pool.ref import conv_pool_ref  # noqa: E402
-from repro_torch.kernels.ecr_conv.kernel import ecr_conv_batch, ecr_conv_plain  # noqa: E402
+from repro_torch.kernels.ecr_conv.kernel import (  # noqa: E402
+    ecr_conv_batch,
+    ecr_conv_plain,
+    scheduled_conv_sum,
+)
 from repro_torch.kernels.ecr_conv.ops import ecr_conv  # noqa: E402
 from repro_torch.kernels.ecr_conv.ref import ecr_conv_ref  # noqa: E402
 
@@ -150,3 +154,101 @@ def test_wrapper_rejects_bad_operands():
         ecr_conv_batch(x, w, ids[:, :2], cnt, stride=1, block_c=4)
     with pytest.raises(ValueError, match="pool window"):
         conv_pool_batch(x, w, ids, cnt, stride=1, pool=0, block_c=4)
+
+
+# The split-TF32 kernel's k-steps are 8 channels: block_c 4 packs two
+# scheduled blocks into a step (an odd cnt leaves half a step, zero-filled),
+# block_c 16 takes two steps per block, block_c 8 one; (bc, n_cb, cnt, map
+# (h, w), pool).
+SCHEDULE_TAILS = [
+    (4, 6, [1, 2, 3, 6, 0, 5], (7, 6), 0),
+    (8, 4, [1, 2, 3, 4, 0], (9, 9), 2),
+    (16, 2, [1, 2, 0], (8, 7), 0),
+    (4, 4, [3, 0, 1, 4], (9, 11), 2),
+    (16, 2, [2, 1, 0], (10, 9), 2),
+]
+
+
+@pytest.mark.parametrize("bc,n_cb,cnts,hw,pool", SCHEDULE_TAILS)
+def test_plain_matches_pallas_at_schedule_tails(bc, n_cb, cnts, hw, pool):
+    """Plain version vs the Pallas kernel (interpret mode) on the same packed
+    operands: schedule tails, permuted ids, cnt = 0, block_c 4/8/16, odd maps
+    with a floor pool."""
+    rng = np.random.default_rng(bc * 100 + sum(cnts))
+    n, (h, w_), c, o = len(cnts), hw, n_cb * bc, 8
+    x = rng.random((n, h, w_, c), dtype=np.float32)
+    w = rng.standard_normal((3, 3, c, o)).astype(np.float32)
+    ids = np.stack([rng.permutation(n_cb) for _ in cnts]).astype(np.int32)
+    cnt = np.asarray(cnts, np.int32)
+    jargs = tuple(map(jnp.asarray, (x, w, ids, cnt)))
+    targs = tuple(map(torch.from_numpy, (x, w, ids, cnt)))
+    if pool:
+        want = conv_pool_pallas_batch(*jargs, stride=1, pool=pool, block_c=bc, block_o=o)
+        got = conv_pool_plain(*targs, stride=1, pool=pool, block_c=bc)
+        assert got.shape == (n, (h - 2) // pool, (w_ - 2) // pool, o)
+    else:
+        want = ecr_conv_pallas_batch(*jargs, stride=1, block_c=bc, block_o=o)
+        got = ecr_conv_plain(*targs, stride=1, block_c=bc)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert float(np.abs(np.asarray(want)).max()) > 0.0
+    assert float(got[cnts.index(0)].abs().max()) == 0.0
+
+
+def _tf32(t: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32 on the host: keep 10 mantissa bits, rounding to
+    nearest with ties away from zero (add half an ulp of TF32 to the
+    magnitude bits, then clear the 13 low bits)."""
+    return ((t.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_probe_operands(kind: str, seed: int = 0):
+    """A conv with VGG-19 conv10's reduction (3x3x512 = 4,608 terms) over
+    16x16 = 256 positions and 64 output channels: x uniform on [0, 1) and
+    w normal over sqrt(K) ("uniform"), or both scaled elementwise by 2^e,
+    e uniform over -12..12 ("wide"). Returns NHWC x and (kh,kw,C,O) w."""
+    rng = np.random.default_rng(seed)
+    x = rng.random((1, 18, 18, 512), dtype=np.float32)
+    w = (rng.standard_normal((3, 3, 512, 64)) / np.sqrt(4608)).astype(np.float32)
+    if kind == "wide":
+        x = (x * np.exp2(rng.integers(-12, 13, x.shape))).astype(np.float32)
+        w = (w * np.exp2(rng.integers(-12, 13, w.shape))).astype(np.float32)
+    return torch.from_numpy(x), torch.from_numpy(w)
+
+
+def test_tf32_rounding_matches_its_definition():
+    vals = torch.tensor([1.0, 1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -12, -(1.0 + 2.0 ** -11),
+                         1.0 + 2.0 ** -11 - 2.0 ** -23, 2.0 - 2.0 ** -12, 3.5e-20])
+    want = torch.tensor([1.0, 1.0 + 2.0 ** -10, 1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10),
+                         1.0, 2.0, 0.0])
+    got = _tf32(vals)
+    assert torch.equal(got[:6], want[:6])
+    assert float(abs(got[6] - vals[6]) / vals[6]) <= 2.0 ** -11
+    assert torch.all(got.view(torch.int32) & 0x1FFF == 0)
+
+
+@pytest.mark.parametrize("kind", ["uniform", "wide"])
+def test_split_tf32_holds_the_fp32_limit_where_one_product_fails(kind):
+    """The premise of the CUDA kernel's arithmetic, emulated on the host: with
+    a = hi + lo, hi = tf32(a), lo = tf32(a - hi), the three TF32 products
+    lo*hi + hi*lo + hi*hi (each exact in fp32, summed here in float64) stay
+    within the fp32 limit of the plain fp32 conv, while one TF32 product per
+    multiply-add errs by more than twice the limit. The card test with the
+    same operands (test_torch_cuda.py) then fails a kernel that drops the
+    split."""
+    x, w = tf32_probe_operands(kind)
+    ids = torch.arange(64, dtype=torch.int32)[None]
+    cnt = torch.tensor([64], dtype=torch.int32)
+    plain = ecr_conv_plain(x, w, ids, cnt, stride=1, block_c=8)
+    scale = float(plain.abs().max())
+    limit = 1e-4 * scale + 1e-5 * min(1.0, scale)
+
+    def emulated(*pairs):
+        return sum(scheduled_conv_sum(a, b, ids, cnt, stride=1, block_c=8,
+                                      dtype=torch.float64) for a, b in pairs).float()
+
+    xh, wh = _tf32(x), _tf32(w)
+    xl, wl = _tf32(x - xh), _tf32(w - wh)
+    one = float((emulated((xh, wh)) - plain).abs().max())
+    three = float((emulated((xl, wh), (xh, wl), (xh, wh)) - plain).abs().max())
+    assert one > 2 * limit, (one, limit)
+    assert three < 0.05 * limit, (three, limit)
