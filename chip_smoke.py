@@ -8,8 +8,9 @@
    limit as nvidia-smi reports them.
 2. Builds the CUDA kernels from the checkout's sources with nvcc (one nvcc
    per source, in parallel) and times the build; counts HMMA, LDGSTS, LDS
-   and FFMA in the SASS (cuobjdump) of each instantiation of the fp32 ECR /
-   PECR kernel and fails unless every one has HMMA and LDGSTS.
+   and FFMA in the SASS (cuobjdump) of each instantiation of the split-TF32
+   kernels (the fp32 ECR / PECR kernel, the fp32 BSR kernel and the fp32
+   flash forward) and fails unless every one has HMMA and LDGSTS.
 3. Serves the published VGG-19 (3x224x224, 1000 classes, random weights from
    a fixed generator seed with the dead-filter shift) through the port's
    Engine (block_c=8, occ_threshold=0.75, max_batch=8, SimClock): 16 requests
@@ -42,7 +43,12 @@
    ids out of order, block_c 4 and 16, and N=1 at conv13's shape (a grid
    of 8 blocks); BSR at every block width 8-128 with F = 25 and 27, T not
    a multiple of 8, ragged P, and density 0.3 with schedules that differ
-   per row-block. The split-TF32 ECR / PECR kernel meets its own paths
+   per row-block. The split-TF32 BSR kernel meets its own paths
+   (`edge_cases_bsr_tf32`): every block width 8-128 at density 0.3 with
+   schedules that differ per row-block and a cnt = 0 row-block, F = 25 and
+   27 with T = 70 and ragged P, the conv probe lowered as BSR at K = 4608
+   (uniform, and x and w spread over 2^+-12), operands off 16-byte
+   alignment. The split-TF32 ECR / PECR kernel meets its own paths
    (`edge_cases_tf32`): schedules that leave half an 8-channel k-step
    (block_c 4) or take two per block (block_c 16), cnt = n_cb, cnt = 0, ids
    out of order, ragged O, with and without the pool; N=1 at conv13's shape;
@@ -54,10 +60,9 @@
    layers' outputs far below 1e-5; int8 kernels: bitwise equal. The ops
    are also held against cuDNN (fp32) or their int8 oracle.
    Times kernel, plain version and the library call with CUDA events after
-   warm-up, in turns (eager calls; for the fp32 conv kernels, the int8
-   kernels and their library calls also as CUDA-graph replays, which leave
-   out the host's per-call overhead), and computes each call's bound from
-   its data. The
+   warm-up, in turns (eager calls; kernel and library call also as
+   CUDA-graph replays, which leave out the host's per-call overhead), and
+   computes each call's bound from its data. The
    library call is F.conv2d (+ relu + max_pool2d for PECR) for the fp32 conv
    kernels, F.conv2d on the dequantized operands for the int8 conv,
    torch.matmul on the padded dense operands for BSR, and torch._int_mm plus
@@ -86,7 +91,10 @@
    the teacher-forced card run), at a long prefill (Sq = Sk = 2048, causal)
    and a long decode (kv_len 4096 in a 4160-slot cache) at batch 4, and at
    edge shapes (ragged Sq/Sk, kv_len < Sk, q_offset > 0, Sq = 1, a fully
-   masked block, G = 3). Kernel, plain version and the library call
+   masked block, G = 3; decode at G = 1, 2, 4, 8 with kv_len 1, 63 and 65,
+   the fp32 kernel's tile edges; q and k spread over 2^+-3 at D = 128).
+   The training phase adds the trained forward shape (layer 0 of a batch-8
+   step: out, m and l, timed). Kernel, plain version and the library call
    (F.scaled_dot_product_attention in fp32 with K/V expanded to the query
    heads and the same boolean mask; dequantize + SDPA for the int8 kernel)
    are timed in turns at layer 0 of the served shapes and at the long ones,
@@ -129,15 +137,17 @@
    the flash rows they are sums of one prefill launch and one decode launch
    at the served shapes (layer 0), with every timed shape listed under
    "shapes", and launches count the served qwen3-0.6b run. The flash bound is
-   max(4*B*H*(visible q.k pairs)*D / 67 TFLOP/s, bytes / 3.35 TB/s), the
+   max(4*B*H*(visible q.k pairs)*D / 165 TFLOP/s (split-TF32), bytes /
+   3.35 TB/s), the
    bytes being the K/V of the keys read (4 bytes, or 1 byte plus the fp32
    scales), Q, O, and m, l for fp32, once. The backward rows time one
    launch of each pass at layer 0 of the trained batch-8 step, with every
    timed shape under "shapes", and launches count the 6-step training run.
    The rows whose kernels were redesigned for the tensor cores, the fp32
    ECR / PECR rows (ecr_conv_batch, conv_pool_batch and both at N=1;
-   split-TF32, "redesigned_in": 16) and the int8 rows (ecr_conv_int8_batch,
-   at N=1, bsr_matmul_int8; 15), time kernel and library as device time
+   split-TF32, "redesigned_in": 16), bsr_matmul (split-TF32, 17) and the
+   int8 rows (ecr_conv_int8_batch, at N=1, bsr_matmul_int8; 15), time
+   kernel and library as device time
    (CUDA-graph replay, as the flash rows do; the eager times ride along as
    eager_ms and eager_library_ms, the plain version is timed eager) and
    carry the achieved GB/s on the bytes of the bound and "bound_share" =
@@ -146,7 +156,9 @@
    is at 495 / 3 = 165 TFLOP/s, the rate of three TF32 products per
    multiply-add, and "fp32_core_bound_ms" beside it at the CUDA cores' 67
    TFLOP/s; the N=1 rows say "split_reduction": false (the kernel does not
-   split its reduction across blocks).
+   split its reduction across blocks). flash_fwd carries "redesigned_in":
+   17 (its rows were always timed by graph replay; flash_fwd_q8 runs on
+   its body).
    `--layers-out PATH` also writes the per-layer numbers there as JSON.
 """
 from __future__ import annotations
@@ -169,6 +181,10 @@ PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3
 KERNEL_TOL = ("fp32: max|kernel - plain| <= 1e-4*max|plain| + 1e-5*min(1, max|plain|); "
               "int8: bitwise")
 PRUNE_DENSITY = 0.3
+# the split-TF32 kernels and their instantiations: ECR / PECR (4 tiles x
+# pool), BSR (16- or 4-byte copies x 8, 4 or 2 row-blocks per block), the
+# fp32 flash forward (6 head dims)
+SPLIT_TF32_KERNELS = {"ecr_conv_kernel": 8, "bsr_matmul_kernel": 6, "flash_fwd_kernel": 6}
 
 
 def fail(msg: str) -> int:
@@ -578,15 +594,82 @@ def check_bsr_layer(book, unit, xp, w, *, int8: bool, timed: bool):
         def library():
             return torch.matmul(hp, atp)
 
-    t = (device_times if int8 else time_turns)(
-        {"kernel": kernel, "plain": plain, "library": library})
+    t = device_times({"kernel": kernel, "plain": plain, "library": library})
+    # the fp32 bound at the rate of the kernel's arithmetic (split-TF32), and
+    # at the CUDA cores' fp32 rate beside it
     ft, bt = bsr_bound(h, at.shape[1], ids, cnt, blk, elem_bytes=1 if int8 else 4,
-                       peak=PEAK_INT8_OPS if int8 else PEAK_FP32_FLOPS)
+                       peak=PEAK_INT8_OPS if int8 else PEAK_TF32_SPLIT_FLOPS)
     meta = {"block": list(blk), "live_blocks": int(cnt.clamp(min=0).sum()),
             "blocks": launch.nt * launch.nf, "t_f_d": [launch.t, launch.f, launch.d],
-            **t.get("eager", {})}
+            "cnt": cnt.tolist(), **t["eager"]}
+    if not int8:
+        meta["fp32_core_bound_ms"] = max(ft * PEAK_TF32_SPLIT_FLOPS / PEAK_FP32_FLOPS, bt)
     book.rows.append(_row(name, unit, xp, w, t, ft, bt, meta))
     _print_times(f"live {meta['live_blocks']}/{meta['blocks']} blocks", t, ft, bt)
+
+
+def edge_cases_bsr_tf32(book, dev):
+    """The split-TF32 BSR kernel's own paths against the plain version (fp32
+    limit), each launch counted and every cnt = 0 row-block all zeros: every
+    block width 8-128 at density 0.3 with schedules that differ per
+    row-block (row-block 0 fully pruned), in grids of 8 and 2 row-blocks per
+    block; F = 25 and 27 with T = 70 and ragged P; the conv probe lowered as
+    BSR (K = 4608, every block scheduled), uniform and with x and w spread
+    over 2^+-12, where one TF32 product per multiply-add fails the limit;
+    operands off 16-byte alignment (4-byte copies); 525 row-blocks (a large
+    T: the most counts any launch here ranks)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.sparsity import patches_t
+    from repro_torch.kernels.bsr_matmul.kernel import bsr_matmul, bsr_matmul_plain
+    from repro_torch.kernels.bsr_matmul.ops import block_schedule
+
+    rng = np.random.default_rng(17)
+
+    def run(label, h, w, ids, cnt, bf):
+        before = bsr_matmul.launches
+        got = bsr_matmul(h, w, ids, cnt, block=(8, bf))
+        torch.cuda.synchronize()
+        if bsr_matmul.launches != before + 1:
+            raise AssertionError(f"{label}: the launch was not counted once")
+        book.check("bsr_matmul", label, got, bsr_matmul_plain(h, w, ids, cnt, block=(8, bf)))
+        for i in (cnt == 0).nonzero().flatten().tolist():
+            if bool(torch.any(got[8 * i:8 * i + 8] != 0)):
+                raise AssertionError(f"{label}: the cnt = 0 row-block {i} is not all zeros")
+
+    def pruned(t, f, d, bf, density):
+        nt, nf = -(-t // 8), -(-f // bf)
+        keep = rng.random((nt, nf)) < density
+        keep[0] = False
+        mask = np.repeat(np.repeat(keep, 8, 0), bf, 1)[:t, :f]
+        h = torch.from_numpy((rng.standard_normal((t, f)) * mask).astype(np.float32)).to(dev)
+        w = torch.from_numpy(rng.random((f, d), dtype=np.float32)).to(dev)
+        ids, cnt = block_schedule(h, 8, bf)
+        return h, w, ids.contiguous(), cnt.contiguous()
+
+    for bf in (8, 16, 32, 64, 128):
+        for t, f, d in ((70, 25, 1001), (70, 27, 1002), (256, 1152, 2048),
+                        (256, 1152, 34816)):
+            run(f"T={t} F={f} P={d} bf={bf} density 0.3", *pruned(t, f, d, bf, 0.3), bf)
+    for kind in ("uniform", "wide"):
+        x, w = tf32_probe_operands(kind)
+        at, _, _ = patches_t(x.permute(0, 3, 1, 2), 3, 3)
+        h = w.permute(3, 2, 0, 1).reshape(64, -1).contiguous()
+        ids, cnt = block_schedule(h, 8, 128)
+        label = ("x and w over 2^+-12, K=4608" if kind == "wide"
+                 else "conv probe, K=4608")
+        run(label, h.to(dev), at.contiguous().to(dev), ids.to(dev), cnt.to(dev), 128)
+
+    def misaligned(t):  # the same values, 4 bytes past a 16-byte boundary
+        buf = torch.empty(t.numel() + 4, device=dev)
+        v = buf[1:1 + t.numel()].view(t.shape)
+        v.copy_(t)
+        return v
+
+    h, w, ids, cnt = pruned(40, 512, 1000, 128, 0.5)
+    run("h and w off 16-byte alignment", misaligned(h), misaligned(w), ids, cnt, 128)
+    run("T=4200 (525 row-blocks) F=128 P=300 bf=16", *pruned(4200, 128, 300, 16, 0.3), 16)
 
 
 def edge_cases_new(book, dev):
@@ -850,9 +933,10 @@ def kernel_category(name: str) -> str:
         return "flash bwd dq kernel"
     if "flash_bwd_dkv_kernel" in name:
         return "flash bwd dk/dv kernel"
+    if "flash_fwd_q8_kernel" in name:
+        return "flash q8 kernel"
     if "flash_fwd_kernel" in name:
-        q8 = "<signed char" in name or "IaLi" in name
-        return "flash q8 kernel" if q8 else "flash kernel"
+        return "flash kernel"
     if "bsr_matmul_i8_kernel" in name:
         return "bsr int8 kernel"
     if "ecr_conv_i8_kernel" in name:
@@ -1200,16 +1284,16 @@ def visible_pairs(sq, sk, causal, q_offset, kv_len):
 
 def flash_bound(q, k, kw, *, q8):
     """(op time, byte time) in ms: 4 * B * H * pairs * D fp32 operations
-    (q.k and p.v) over 67 TFLOP/s; K/V of the keys read (4 bytes, or 1 byte
-    plus the fp32 scales), Q and O once, and m and l (fp32 kernel) over
-    3.35 TB/s."""
+    (q.k and p.v) at the rate of the kernels' arithmetic (split-TF32, 165
+    TFLOP/s); K/V of the keys read (4 bytes, or 1 byte plus the fp32
+    scales), Q and O once, and m and l (fp32 kernel) over 3.35 TB/s."""
     b, sq, kvh, g, d = q.shape
     sk = k.shape[1]
     pairs, keys = visible_pairs(sq, sk, kw["causal"], kw["q_offset"], kw["kv_len"])
     ops = 4.0 * b * kvh * g * pairs * d
     kv_bytes = 2.0 * b * kvh * keys * (d * 1 + 4 if q8 else d * 4)
     nbytes = kv_bytes + 8.0 * b * kvh * g * sq * d + (0 if q8 else 8.0 * b * kvh * g * sq)
-    return ops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    return ops / PEAK_TF32_SPLIT_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
 
 
 def attention_mask(sq, sk, kw, device):
@@ -1441,7 +1525,9 @@ def lm_phase(book, dev, failures) -> dict:
         check_flash(book, label, (qq, kq, vq, ks, vs), kw, timed=True)
     del q, k, v, kd, vd
     # edge shapes: ragged Sq/Sk, kv_len < Sk, q_offset > 0, Sq = 1, a fully
-    # masked block, G = 3
+    # masked block, G = 3; decode at the fp32 kernel's tile edges (G of a
+    # 16-row tile live, kv_len at one key, one short of and one past a
+    # 64-key cache read at Sk = 80)
     edges = [  # (b, sq, kvh, g, sk, d, causal, q_offset, kv_len)
         (3, 37, 2, 2, 53, 128, False, 0, None),
         (3, 37, 2, 2, 53, 128, True, 16, None),
@@ -1449,6 +1535,8 @@ def lm_phase(book, dev, failures) -> dict:
         (2, 1, 8, 2, 130, 128, True, 99, 100),
         (2, 8, 2, 2, 32, 128, False, 0, 0),
     ]
+    edges += [(4, 1, 8, eg, 80, 128, True, kvl - 1, kvl)
+              for eg in (1, 2, 4, 8) for kvl in (1, 63, 65)]
     for eb, esq, ekv, eg, esk, ed, causal, qo, kvl in edges:
         qq = torch.randn((eb, esq, ekv, eg, ed), generator=gen, device=dev)
         kk = torch.randn((eb, esk, ekv, ed), generator=gen, device=dev)
@@ -1458,6 +1546,15 @@ def lm_phase(book, dev, failures) -> dict:
         kq, ks = _quantize_kv(kk)
         vq, vs = _quantize_kv(vv)
         check_flash(book, "edge", (qq, kq, vq, ks, vs), kw, timed=False)
+    # q and k spread over 2^+-3 at D = 128 (scores up to about 70), where one
+    # TF32 product per multiply-add misses the fp32 limit
+    qq = torch.randn((4, 32, kvh, g, d), generator=gen, device=dev)
+    kk = torch.randn((4, 64, kvh, d), generator=gen, device=dev)
+    vv = torch.randn((4, 64, kvh, d), generator=gen, device=dev)
+    qq = qq * torch.exp2(torch.randint(-3, 4, qq.shape, generator=gen, device=dev).float())
+    kk = kk * torch.exp2(torch.randint(-3, 4, kk.shape, generator=gen, device=dev).float())
+    check_flash(book, "q and k over 2^+-3", (qq, kk, vv),
+                dict(scale=d ** -0.5, causal=True, q_offset=0, kv_len=32), timed=False)
 
     # ---- where the time goes: one prefill and one decode step, warm --------
     summary["service"] = {}
@@ -1764,6 +1861,8 @@ def train_phase(book, dev, failures) -> dict:
             args, kw = cap.calls[idx]
             layer = n_layers - 1 - idx
             check_flash_bwd(book, f"trained layer {layer}", args, kw, timed=(layer == 0))
+            if layer == 0:  # the forward at the trained shape: out, m and l
+                check_flash(book, "trained layer 0", args[:3], kw, timed=True)
         del cap
         gen = torch.Generator(device=dev).manual_seed(6)
 
@@ -1859,16 +1958,19 @@ def main() -> int:
 
     book = KernelBook()
     failures = []
-    # the fp32 ECR / PECR body runs on the TF32 tensor cores (HMMA), staged
-    # by cp.async (LDGSTS), with no CUDA-core fp32 multiply-add body (FFMA)
-    sass = {k: v for k, v in sass_counts(lib_path).items() if "ecr_conv_kernel" in k}
-    for fn, ops in sorted(sass.items()):
-        print(f"sass {fn[:100]}: " + ", ".join(f"{op} {ops.get(op, 0)}" for op in
-                                              ("HMMA", "LDGSTS", "LDS", "FFMA")))
-        if not ops.get("HMMA") or not ops.get("LDGSTS"):
-            failures.append(f"{fn}: no HMMA or no LDGSTS in its SASS")
-    if len(sass) != 8:
-        failures.append(f"expected 8 ecr_conv_kernel instantiations, found {len(sass)}")
+    # the fp32 tensor-core bodies (ECR / PECR, BSR, the fp32 flash forward)
+    # run on the TF32 tensor cores (HMMA), staged by cp.async (LDGSTS); the
+    # conv body has no CUDA-core fp32 multiply-add (FFMA) left
+    all_sass = sass_counts(lib_path)
+    for stem, want in SPLIT_TF32_KERNELS.items():
+        sass = {k: v for k, v in all_sass.items() if stem in k}
+        for fn, ops in sorted(sass.items()):
+            print(f"sass {fn[:100]}: " + ", ".join(f"{op} {ops.get(op, 0)}" for op in
+                                                  ("HMMA", "LDGSTS", "LDS", "FFMA")))
+            if not ops.get("HMMA") or not ops.get("LDGSTS"):
+                failures.append(f"{fn}: no HMMA or no LDGSTS in its SASS")
+        if len(sass) != want:
+            failures.append(f"expected {want} {stem} instantiations, found {len(sass)}")
     wrappers = {"ecr_conv": ecr_conv_batch, "conv_pool": conv_pool_batch,
                 "bsr_matmul": bsr_matmul, "ecr_conv_int8": ecr_conv_int8_batch,
                 "bsr_matmul_int8": bsr_matmul_int8}
@@ -2007,6 +2109,11 @@ def main() -> int:
     except Exception:
         traceback.print_exc()
         failures.append("edge-case check of the int8 tensor-core kernels failed")
+    try:
+        edge_cases_bsr_tf32(book, dev)
+    except Exception:
+        traceback.print_exc()
+        failures.append("edge-case check of the split-TF32 BSR kernel failed")
 
     # ---- full-width qwen3-0.6b served through the flash kernels ------------
     lm = {}
@@ -2045,10 +2152,11 @@ def main() -> int:
          "src/repro/quant/kernels.py:252", "vgg19-pruned-int8"),
     )
     # rows whose kernels were redesigned for the tensor cores, and in which PR
-    # (16: fp32 on split-TF32; 15: int8)
+    # (16 and 17: fp32 on split-TF32; 15: int8)
     redesigned = {"ecr_conv_batch": 16, "conv_pool_batch": 16, "ecr_conv_batch at N=1": 16,
-                  "conv_pool_batch at N=1": 16, "ecr_conv_int8_batch": 15,
+                  "conv_pool_batch at N=1": 16, "bsr_matmul": 17, "ecr_conv_int8_batch": 15,
                   "ecr_conv_int8_batch at N=1": 15, "bsr_matmul_int8": 15}
+    int8_rows = ("ecr_conv_int8_batch", "ecr_conv_int8_batch at N=1", "bsr_matmul_int8")
     kernels = []
     for name, key, sfx, source, replaces, phase in table:
         rows = [r for r in book.rows if r["kernel"] == key and r["phase"] == phase]
@@ -2078,7 +2186,7 @@ def main() -> int:
                 "eager_library_ms": sum(r["eager_library_ms" + sfx] for r in rows),
                 "achieved_gbs": byte_ms / ms * PEAK_HBM_BYTES / 1e9,
                 "bound_share": bound / ms})
-            if redesigned[name] == 16:
+            if name not in int8_rows:
                 kernels[-1].update({
                     "achieved_tflops": flop_ms / ms * PEAK_TF32_SPLIT_FLOPS / 1e12,
                     "fp32_core_bound_ms": sum(r["fp32_core_bound_ms" + sfx] for r in rows)})
@@ -2100,6 +2208,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": csrc + "flash_attention.cu",
             "replaces": replaces,
+            **({"redesigned_in": 17, "timing": "CUDA-graph replay (plain_ms too)"}
+               if name == "flash_fwd" else {}),
             "launches": lm.get("runs", {}).get(kvd, {}).get("launches", {}).get(name, 0),
             "max_abs_err": book.max_err.get(name, 0.0),
             "ms": sum(r["ms"] for r in main_rows),

@@ -2,9 +2,10 @@
 
 `bsr_matmul` replaces `repro.kernels.bsr_matmul.kernel.bsr_matmul_pallas`.
 On a CUDA tensor it launches the hand-written kernel in
-`repro_torch/kernels/csrc/bsr_matmul.cu` and counts the launch in
-`bsr_matmul.launches`; on a CPU tensor it runs `bsr_matmul_plain`. There is
-no fallback from one to the other.
+`repro_torch/kernels/csrc/bsr_matmul.cu` (split-TF32 on the tensor cores,
+fp32 accuracy) and counts the launch in `bsr_matmul.launches`; on a CPU
+tensor it runs `bsr_matmul_plain`. There is no fallback from one to the
+other.
 
 Unlike the Pallas kernel, the operands need no padding to block multiples:
 the schedule counts ceil(T/bt) row-blocks of ceil(F/bf) reduction blocks and
@@ -20,7 +21,9 @@ from repro_torch.kernels.cuda import check_bsr_operands, launch_bsr
 def schedule_mask(ids: torch.Tensor, cnt: torch.Tensor, nf: int) -> torch.Tensor:
     """(nt, nf) bool: block (i, j) is scheduled iff j is among
     ids[i, :cnt[i]]. Padding lanes and out-of-range ids schedule nothing
-    (the kernel masks such a block's rows away too)."""
+    (the kernel masks such a block's rows away too); a block listed twice
+    counts once, as in the kernel (`guard_schedule` refuses such a
+    schedule: the Pallas kernel would add it twice)."""
     nt = ids.shape[0]
     lane = torch.arange(nf, device=ids.device)
     ids = ids.long()

@@ -4,9 +4,10 @@
 // Replaces the TPU kernels
 //   repro/kernels/flash_attention/kernel.py flash_fwd_pallas    -> repro_flash_fwd_f32
 //   repro/kernels/flash_attention/kernel.py flash_fwd_q8_pallas -> repro_flash_fwd_q8
-// with one device body instantiated for fp32 K/V and for int8 K/V with
-// per-position fp32 scales, dequantized in the kernel as (float)k_q8 *
-// k_scale[pos] (the product `_dequantize_kv` forms at fp32).
+// with one device body on the TF32 tensor cores in split-TF32, instantiated
+// as `flash_fwd_kernel<D>` for fp32 K/V and `flash_fwd_q8_kernel<D>` for int8
+// K/V with per-position fp32 scales, dequantized as they are staged,
+// (float)k_q8 * k_scale[pos] (the product `_dequantize_kv` forms at fp32).
 //
 // What it computes (the Pallas kernels' function): for every kv head bkv,
 // group g and query position s, with qpos = q_offset + s,
@@ -17,72 +18,89 @@
 // and m and l = max(l, 1e-30) (the fp32 entry point; the training slice's
 // backward reads them). A fully masked row gets the reference's answer (the
 // mean of v over all Sk keys, m = NEG), because the mask is -1e30, not -inf.
+// fp32 within the port's limit of a plain fp32 sum (1e-4 * max|plain| +
+// 1e-5 * min(1, max|plain|)) for out, m and l.
 //
-// Layout: the kernel reads q, k, v, the scales and writes out through element
+// Layout: the kernels read q, k, v, the scales and write out through element
 // strides, with the bkv axis split as bkv = b * nh + h. The wrapper passes
 // nh = 1 for the (BKV, G, Sq, D) / (BKV, Sk, D) layout of the Pallas kernels,
 // and nh = KV for the model's (B, Sq, KV, G, D) queries over the cache's
 // (B, S_max, KV, D) keys, so the decode path reads the cache in place with no
 // transpose. m and l are (BKV, G, Sq), contiguous.
 //
-// Design for this card, and what bounds it:
+// What bounds the kernel on this card: at the shapes it runs (served
+// prefill B4 Sq32 Sk64 and decode Sq1 kv_len <= 64 at KV 8, G 2, D 128; the
+// trained forward B8 Sq = Sk = 128) neither bytes (a few MB) nor operations
+// (a few hundred MFLOP) but latency and filling 132 SMs: the load of a K/V
+// tile, the chain of dependent MMAs and the softmax exchanges.
+//
+// Design:
 // - The Pallas grid (bkv, g, q-tile, kv-tile) runs its kv axis in order,
-//   carrying m, l and acc in VMEM scratch. Hopper blocks run in no order, so
-//   one CUDA block owns one (bkv, q-tile) pair with ALL G groups of that kv
-//   head inside (64 query rows = qt positions x G groups, qt = 64 / G), and
-//   the kv axis is a loop inside the block; m, l and the output accumulator
-//   live in registers. Each K/V tile is then read once per kv head and
-//   q-tile, as the Pallas GQA layout intends, not once per group.
-// - Skipping zero work is exact: the loop stops at the last tile holding a
-//   key visible to some row of the block (kv_len, and the causal diagonal).
-//   Once a row has seen one visible key its running max is a real score, so
-//   a fully masked tile would add exp(-1e30 - m) = 0 and rescale by 1. The
+//   carrying m, l and acc in VMEM scratch. Here one block owns 16 rows (one
+//   m16 tile) of the (position, group) rows of one kv head, flattened as
+//   row = s * G + g, so decode pads its G = 2 live rows to 16, not 64, and
+//   the served prefill (64 rows per kv head) runs 4 x 32 = 128 blocks, the
+//   trained forward 16 x 64 = 1024. All G groups of a kv head share its K/V
+//   reads, as the Pallas GQA layout intends.
+// - Its 4 warps split the keys, not the rows: warp w takes the 16-key chunks
+//   c = w, w + 4, ... and runs its own online softmax over them (m, l and its
+//   16 x D output accumulator in registers), with no barrier until the end;
+//   there the block combines the four partial softmaxes (m = max m_w,
+//   out = sum exp(m_w - m) O_w / sum exp(m_w - m) l_w) through shared memory.
+//   A warp staging its own chunks with cp.async needs only __syncwarp; the
+//   next chunk's K loads under this chunk's softmax and P.V, its V under the
+//   next Q.K^T.
+// - Q.K^T and P.V on mma.sync m16n8k8 TF32 in split-TF32 (tf32_mma.cuh's
+//   split: hi = x rounded to TF32, lo = x - hi truncated by the MMA;
+//   three products lo*hi + hi*lo + hi*hi per multiply-add). One TF32
+//   product per multiply-add misses the fp32 limit on the scores at D = 128
+//   (the host emulation in tests/test_torch_kernels.py); split it holds. Q
+//   is scaled, split and staged once per block (hi and lo); K and V are
+//   split as their fragments load, each value once.
+// - P needs no trip through shared memory: in a score tile a lane holds keys
+//   2t and 2t + 1 of rows g and g + 8, and feeding them to P.V as reduction
+//   indices t and t + 4 is only a renaming of the 8 keys of an MMA step,
+//   matched by reading V's rows 2t and 2t + 1 for B.
+// - Shared rows are padded to D + 4 floats, which makes the Q and K fragment
+//   loads (rows g, columns t) and the V fragment loads (rows 2t, 2t + 1,
+//   column g) conflict-free.
+// - The exact skip of the first design stays: the chunks stop after the last
+//   key some row of the block can see (kv_len, and the causal diagonal).
+//   Once a row has seen one visible key its running max is real, so a fully
+//   masked chunk or a warp's masked partial adds exp(-1e30 - m) = 0. The
 //   skip is taken only when every row of the block sees key 0 (kv_len >= 1
-//   and, under the causal mask, q_offset + first row >= 0); otherwise the
-//   loop runs over all Sk keys as the reference does.
-// - Ragged edges are masked here, for any Sq >= 1 and Sk >= 1: keys past Sk
-//   take no part at all (score -inf, p = 0), query rows past Sq compute on
-//   zeros and write nothing.
-// - Shared memory: Q tile 64 x (D+4), K tile 64 x (D+4), V tile 64 x D and
-//   the probability tile 64 x 80, fp32: 118 KB at D = 128, above the 48 KB
-//   static limit, so it is dynamic shared memory raised with
-//   cudaFuncSetAttribute. The +4 row padding makes the float4 reads of a
-//   quarter warp conflict-free; the +16 on the probability tile puts the two
-//   rows a warp writes in different banks.
-// - 256 threads as 16 x 16: thread (ty, tx) owns query rows ty + 16i and key
-//   columns tx + 16j (i, j < 4) of the score tile, and output columns
-//   tx + 16j of its 4 rows. Row max and row sum reduce over the 16 lanes of
-//   a half warp with xor shuffles, which leave every lane the same value.
-// - One block per SM fits the shared memory at D = 128 anyway, so the
-//   launch bounds ask for one resident block and leave ptxas all 255
-//   registers a thread may have (with the default bound the int8 body at
-//   D = 128 spilled).
-// - fp32 FMA on CUDA cores (no TF32: the port holds fp32 parity), expf (no
-//   fast math). At prefill the kernel is bound by the CUDA-core rate, far
-//   below the card's 67 TFLOP/s fp32 peak; at decode (Sq = 1) a block holds
-//   only G = 2 live rows of its 64 and the grid is B * KV blocks, so it is
-//   bound by latency and underfills the card's 132 SMs. Splitting the kv axis
-//   across blocks (flash-decoding) and wgmma/TMA tiles are later work.
+//   and, under the causal mask, q_offset + first position >= 0); otherwise
+//   the chunks cover all Sk keys, as the reference does.
+// - Ragged edges: keys past Sk take no part (score -inf, p = 0, K/V rows
+//   zero-filled); rows past Sq * G compute on zeros and write nothing. With
+//   16-byte aligned operands and strides, K/V rows are staged by 16-byte
+//   cp.async and Q read as float4; otherwise (a view off alignment) by
+//   4-byte cp.async and scalar loads, with the same results.
+// - int8 K/V: the same body; a warp stages its chunk by plain 4-byte loads,
+//   dequantized into the same fp32 [16][D+4] layout (no cp.async: the
+//   product is formed in registers).
 //
 // Launch hygiene: the entry points launch on the caller's stream, never
-// synchronise, allocate nothing, and return cudaGetLastError().
+// synchronise, allocate nothing, raise a kernel's dynamic shared-memory
+// limit once per device, and return cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "tf32_mma.cuh"
+
 namespace {
 
-constexpr int kRows = 64;     // query rows per block (qt positions x G groups)
-constexpr int kKeys = 64;     // keys per tile
-constexpr int kThreads = 256; // 16 x 16
-constexpr int kPP = kKeys + 16;
+using namespace tf32mma;
+
 constexpr float kNeg = -1e30f;
 
 struct FlashParams {
-  int nh, g, sq, sk, qt;
+  int nh, g, sq, sk;
   int causal, q_offset, kv_len;  // kv_len < 0: no kv_len mask
   float scale;
+  int vec;  // rows 16-byte (fp32 K/V) or 4-byte (int8 K/V) aligned, q and out 16
   long long q_sb, q_sh, q_sg, q_ss;
   long long k_sb, k_sh, k_ss;
   long long v_sb, v_sh, v_ss;
@@ -90,251 +108,389 @@ struct FlashParams {
   long long o_sb, o_sh, o_sg, o_ss;
 };
 
-__device__ __forceinline__ float load_kv(const float* p, long long i, const float*,
-                                         long long) {
-  return p[i];
-}
-__device__ __forceinline__ float load_kv(const int8_t* p, long long i, const float* sc,
-                                         long long si) {
-  return (float)p[i] * sc[si];
-}
-
-__device__ __forceinline__ float half_warp_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-__device__ __forceinline__ float half_warp_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
+// The key range [0, kend) a block of rows [s_first, s_last] must visit: the
+// exact skip, taken only when every row sees key 0.
+__device__ __forceinline__ int visit_end(const FlashParams& p, int s_first, int s_last) {
+  const int kv_lim = p.kv_len < 0 ? p.sk : min(p.kv_len, p.sk);
+  int kend = p.sk;
+  if (kv_lim > 0 && (!p.causal || p.q_offset + s_first >= 0)) {
+    kend = kv_lim;
+    if (p.causal) kend = min(kend, p.q_offset + s_last + 1);
+  }
+  return kend;
 }
 
-// KT: K/V element type (float, or int8_t with scales); D: head dim.
-template <typename KT, int D>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_fwd_kernel(const float* __restrict__ q, const KT* __restrict__ k,
-                 const KT* __restrict__ v, const float* __restrict__ ks,
-                 const float* __restrict__ vs, float* __restrict__ o,
-                 float* __restrict__ m_out, float* __restrict__ l_out, FlashParams p) {
+constexpr int kTileRows = 16;  // query rows per block (one m16 tile)
+constexpr int kChunk = 16;     // keys per warp step (two n8 tiles)
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+
+// Shared floats: Q hi and lo [16][D+4], per warp a K and a V chunk
+// [16][D+4], and the warps' m and l [2][kWarps][16]: 85 KB at D = 128.
+template <int D>
+constexpr int fwd_smem_floats() {
+  return 2 * kTileRows * (D + 4) + kWarps * 2 * kChunk * (D + 4) + 2 * kWarps * kTileRows;
+}
+
+// Stage keys pos0 .. pos0 + 15 of one K or V head into a [16][D+4] chunk
+// (rows past Sk zero-filled), by this warp's lanes: fp32 by cp.async.
+template <int D>
+__device__ __forceinline__ void stage_chunk(float* dst, const float* __restrict__ src,
+                                            const float*, long long base, long long ss,
+                                            long long, int pos0, const FlashParams& p,
+                                            int lane) {
   constexpr int DP = D + 4;
-  constexpr int NJ = (D + 15) / 16;
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);  // kRows x DP
-  float* Ks = Qs + kRows * DP;                  // kKeys x DP
-  float* Vs = Ks + kKeys * DP;                  // kKeys x D
-  float* Ps = Vs + kKeys * D;                   // kRows x kPP
+  if (p.vec) {
+    constexpr int kC = D / 4;
+#pragma unroll
+    for (int i = lane; i < kChunk * kC; i += 32) {
+      const int r = i / kC, c = i - r * kC, pos = pos0 + r;
+      const bool ok = pos < p.sk;
+      cp_async16(smem_addr(dst + r * DP + 4 * c), ok ? src + base + pos * ss + 4 * c : src, ok);
+    }
+  } else {
+    for (int i = lane; i < kChunk * D; i += 32) {
+      const int r = i / D, d = i - r * D, pos = pos0 + r;
+      const bool ok = pos < p.sk;
+      cp_async4(smem_addr(dst + r * DP + d), ok ? src + base + pos * ss + d : src, ok);
+    }
+  }
+}
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+// The same from int8 K or V with its per-position fp32 scales, dequantized
+// on the way as (float)x * scale[pos] (`_dequantize_kv`'s product): 4 values
+// per load where the rows keep 4-byte alignment.
+template <int D>
+__device__ __forceinline__ void stage_chunk(float* dst, const int8_t* __restrict__ src,
+                                            const float* __restrict__ sc, long long base,
+                                            long long ss, long long sbase, int pos0,
+                                            const FlashParams& p, int lane) {
+  constexpr int DP = D + 4;
+  constexpr int kC = D / 4;
+#pragma unroll
+  for (int j = 0; j < (kChunk * kC + 31) / 32; ++j) {  // a constant trip count, so
+    const int i = lane + 32 * j;                        // the loads go out together
+    if (i >= kChunk * kC) break;
+    const int r = i / kC, d = 4 * (i - r * kC), pos = pos0 + r;
+    float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (pos < p.sk) {
+      const int8_t* x = src + base + pos * ss + d;
+      const float s = sc[sbase + pos * p.s_ss];
+      if (p.vec) {
+        const char4 c4 = *reinterpret_cast<const char4*>(x);
+        f = make_float4((float)c4.x * s, (float)c4.y * s, (float)c4.z * s, (float)c4.w * s);
+      } else {
+        f = make_float4((float)x[0] * s, (float)x[1] * s, (float)x[2] * s, (float)x[3] * s);
+      }
+    }
+    *reinterpret_cast<float4*>(dst + r * DP + d) = f;
+  }
+}
+
+// KT: K/V element type (float, or int8_t with scales ks / vs); m_out and
+// l_out only for fp32.
+template <typename KT, int D>
+__device__ __forceinline__ void flash_fwd_body(const float* __restrict__ q,
+                                               const KT* __restrict__ k,
+                                               const KT* __restrict__ v,
+                                               const float* __restrict__ ks,
+                                               const float* __restrict__ vs,
+                                               float* __restrict__ o, float* __restrict__ m_out,
+                                               float* __restrict__ l_out, const FlashParams& p) {
+  constexpr int DP = D + 4;
+  constexpr int NT = D / 8;  // k8 steps of Q.K^T, n8 tiles of P.V
+  extern __shared__ __align__(16) float smem[];
+  uint32_t* const qhi = reinterpret_cast<uint32_t*>(smem);  // [16][DP]
+  uint32_t* const qlo = qhi + kTileRows * DP;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  float* const kc = smem + 2 * kTileRows * DP + warp * 2 * kChunk * DP;  // this warp's K
+  float* const vc = kc + kChunk * DP;                                   // and V chunk
+  float* const xm = smem + 2 * kTileRows * DP + kWarps * 2 * kChunk * DP;  // [warp][row]
+  float* const xl = xm + kWarps * kTileRows;
+
   const int bkv = blockIdx.y;
   const int b = bkv / p.nh, h = bkv % p.nh;
-  const int s0 = blockIdx.x * p.qt;
-  const int rows = p.qt * p.g;
+  const int rows = p.sq * p.g;  // (position, group) rows of this kv head
+  const int r0 = blockIdx.x * kTileRows;
   const long long qb = b * p.q_sb + h * p.q_sh;
   const long long kb = b * p.k_sb + h * p.k_sh;
   const long long vb = b * p.v_sb + h * p.v_sh;
   const long long sb = b * p.s_sb + h * p.s_sh;
+  const int kend = visit_end(p, r0 / p.g, (min(r0 + kTileRows, rows) - 1) / p.g);
+  const int n_chunks = (kend + kChunk - 1) / kChunk;
 
-  for (int i = tid; i < kRows * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    const int s = s0 + r / p.g, g = r % p.g;
-    float x = 0.f;
-    if (r < rows && s < p.sq) x = q[qb + g * p.q_sg + s * p.q_ss + d] * p.scale;
-    Qs[r * DP + d] = x;
-  }
+  // this warp's first chunk loads while Q is staged
+  int c = warp;
+  if (c < n_chunks) stage_chunk<D>(kc, k, ks, kb, p.k_ss, sb, c * kChunk, p, lane);
+  cp_async_commit();
+  if (c < n_chunks) stage_chunk<D>(vc, v, vs, vb, p.v_ss, sb, c * kChunk, p, lane);
+  cp_async_commit();
 
-  int qpos[4];
-  bool live[4];
+  // Q, scaled as the plain version scales it, split into hi and lo
+  for (int i = tid; i < kTileRows * (D / 4); i += kThreads) {
+    const int r = i / (D / 4), d = (i - r * (D / 4)) * 4, row = r0 + r;
+    float x[4] = {0.f, 0.f, 0.f, 0.f};
+    if (row < rows) {
+      const int s = row / p.g;
+      const float* src = q + qb + (row - s * p.g) * p.q_sg + s * p.q_ss + d;
+      if (p.vec) {
+        const float4 f = *reinterpret_cast<const float4*>(src);
+        x[0] = f.x; x[1] = f.y; x[2] = f.z; x[3] = f.w;
+      } else {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    const int s = s0 + r / p.g;
-    live[i] = r < rows && s < p.sq;
-    qpos[i] = p.q_offset + s;
-  }
-
-  // the exact skip: stop after the last key some row of the block can see
-  const int s_last = min(s0 + p.qt, p.sq) - 1;
-  const int kv_lim = p.kv_len < 0 ? p.sk : min(p.kv_len, p.sk);
-  int kend = p.sk;
-  if (kv_lim > 0 && (!p.causal || p.q_offset + s0 >= 0)) {
-    kend = kv_lim;
-    if (p.causal) kend = min(kend, p.q_offset + s_last + 1);
-  }
-  const int ntiles = (kend + kKeys - 1) / kKeys;
-
-  float mrow[4], lrow[4], acc[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    mrow[i] = kNeg;
-    lrow[i] = 0.f;
-#pragma unroll
-    for (int jj = 0; jj < NJ; ++jj) acc[i][jj] = 0.f;
-  }
-
-  for (int t = 0; t < ntiles; ++t) {
-    const int k0 = t * kKeys;
-    __syncthreads();  // the Q tile is written / the last tile's reads are done
-    for (int i = tid; i < kKeys * D; i += kThreads) {
-      const int c = i / D, d = i % D;
-      const int pos = k0 + c;
-      float kx = 0.f, vx = 0.f;
-      if (pos < p.sk) {
-        kx = load_kv(k, kb + pos * p.k_ss + d, ks, sb + pos * p.s_ss);
-        vx = load_kv(v, vb + pos * p.v_ss + d, vs, sb + pos * p.s_ss);
+        for (int e = 0; e < 4; ++e) x[e] = src[e];
       }
-      Ks[c * DP + d] = kx;
-      Vs[c * D + d] = vx;
     }
-    __syncthreads();
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      split(x[e] * p.scale, qhi[r * DP + d + e], qlo[r * DP + d + e]);
+  }
+  __syncthreads();
 
-    float sc[4][4];
+  int qpos[2];  // rows g and g + 8 of the tile
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int hf = 0; hf < 2; ++hf) qpos[hf] = p.q_offset + (r0 + g + 8 * hf) / p.g;
+
+  float mrow[2] = {kNeg, kNeg}, lrow[2] = {0.f, 0.f};
+  float acc[NT][4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 qa[4], kf[4];
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qa[i] = *reinterpret_cast<const float4*>(&Qs[(ty + 16 * i) * DP + d]);
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (; c < n_chunks; c += kWarps) {
+    const int key0 = c * kChunk;
+    const bool next = c + kWarps < n_chunks;
+    cp_async_wait<1>();  // K(c) landed (V(c) may still be in flight)
+    __syncwarp();
+
+    // S = Q K^T over two n8 tiles of keys, two accumulator chains per tile
+    float sacc[2][2][4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kf[j] = *reinterpret_cast<const float4*>(&Ks[(tx + 16 * j) * DP + d]);
+    for (int a = 0; a < 2; ++a)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < 2; ++j)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float a = sc[i][j];
-          a = fmaf(qa[i].x, kf[j].x, a);
-          a = fmaf(qa[i].y, kf[j].y, a);
-          a = fmaf(qa[i].z, kf[j].z, a);
-          a = fmaf(qa[i].w, kf[j].w, a);
-          sc[i][j] = a;
-        }
+        for (int e = 0; e < 4; ++e) sacc[a][j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < NT; ++ks) {
+      const int qo = g * DP + 8 * ks + t;
+      const uint32_t ah[4] = {qhi[qo], qhi[qo + 8 * DP], qhi[qo + 4], qhi[qo + 8 * DP + 4]};
+      const uint32_t al[4] = {qlo[qo], qlo[qo + 8 * DP], qlo[qo + 4], qlo[qo + 8 * DP + 4]};
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float* kr = kc + (8 * j + g) * DP + 8 * ks + t;
+        uint32_t bh[2], bl[2];
+        split(kr[0], bh[0], bl[0]);
+        split(kr[4], bh[1], bl[1]);
+        mma_split(sacc[ks & 1][j], ah, al, bh, bl);
+      }
     }
+    __syncwarp();  // every lane is done with K(c)
+    if (next) stage_chunk<D>(kc, k, ks, kb, p.k_ss, sb, (c + kWarps) * kChunk, p, lane);
+    cp_async_commit();
 
+    // masks and the online softmax: a lane holds keys 8j + 2t + e of rows
+    // g (hf = 0) and g + 8 (hf = 1)
+    float pr[2][2][2];  // [hf][j][e]
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int hf = 0; hf < 2; ++hf) {
       float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        float x = sc[i][j];
-        if (kpos >= p.sk)
-          x = -INFINITY;  // past the keys: no part in the softmax
-        else if ((p.causal && qpos[i] < kpos) || (p.kv_len >= 0 && kpos >= p.kv_len))
-          x = kNeg;
-        sc[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-      mx = half_warp_max(mx);
-      const float mnew = fmaxf(mrow[i], mx);
-      const float alpha = expf(mrow[i] - mnew);
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kpos = key0 + 8 * j + 2 * t + e;
+          float x = sacc[0][j][2 * hf + e] + sacc[1][j][2 * hf + e];
+          if (kpos >= p.sk)
+            x = -INFINITY;  // past the keys: no part in the softmax
+          else if ((p.causal && qpos[hf] < kpos) || (p.kv_len >= 0 && kpos >= p.kv_len))
+            x = kNeg;
+          pr[hf][j][e] = x;
+          mx = fmaxf(mx, x);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float mnew = fmaxf(mrow[hf], mx);
+      const float alpha = expf(mrow[hf] - mnew);
       float ps = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float e = expf(sc[i][j] - mnew);
-        Ps[(ty + 16 * i) * kPP + tx + 16 * j] = e;
-        ps += e;
-      }
-      ps = half_warp_sum(ps);
-      lrow[i] = lrow[i] * alpha + ps;
-      mrow[i] = mnew;
+      for (int j = 0; j < 2; ++j)
 #pragma unroll
-      for (int jj = 0; jj < NJ; ++jj) acc[i][jj] *= alpha;
+        for (int e = 0; e < 2; ++e) {
+          pr[hf][j][e] = expf(pr[hf][j][e] - mnew);
+          ps += pr[hf][j][e];
+        }
+      lrow[hf] = lrow[hf] * alpha + ps;  // this lane's keys; the quad sums at the end
+      mrow[hf] = mnew;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        acc[n][2 * hf] *= alpha;
+        acc[n][2 * hf + 1] *= alpha;
+      }
     }
-    __syncthreads();
 
-    const int nk = min(kKeys, p.sk - k0);
-    for (int c = 0; c < nk; ++c) {
-      float vv[NJ];
+    cp_async_wait<1>();  // V(c) landed (K(c + 4) may still be in flight)
+    __syncwarp();
+    // O += P V: step j's reduction index t is key 8j + 2t, t + 4 key 8j + 2t + 1
 #pragma unroll
-      for (int jj = 0; jj < NJ; ++jj) {
-        const int col = tx + 16 * jj;
-        vv[jj] = col < D ? Vs[c * D + col] : 0.f;
+    for (int j = 0; j < 2; ++j) {
+      uint32_t ph[4], pl[4];
+      split(pr[0][j][0], ph[0], pl[0]);
+      split(pr[1][j][0], ph[1], pl[1]);
+      split(pr[0][j][1], ph[2], pl[2]);
+      split(pr[1][j][1], ph[3], pl[3]);
+      const float* vr = vc + (8 * j + 2 * t) * DP + g;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        uint32_t bh[2], bl[2];
+        split(vr[8 * n], bh[0], bl[0]);
+        split(vr[8 * n + DP], bh[1], bl[1]);
+        mma_split(acc[n], ph, pl, bh, bl);
       }
+    }
+    __syncwarp();  // every lane is done with V(c)
+    if (next) stage_chunk<D>(vc, v, vs, vb, p.v_ss, sb, (c + kWarps) * kChunk, p, lane);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+
+  // combine the warps' partial softmaxes: m = max m_w, each warp's output
+  // scaled by exp(m_w - m) into its K chunk's space, then summed
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float pv = Ps[(ty + 16 * i) * kPP + c];
-#pragma unroll
-        for (int jj = 0; jj < NJ; ++jj) acc[i][jj] = fmaf(pv, vv[jj], acc[i][jj]);
-      }
+  for (int hf = 0; hf < 2; ++hf) {
+    lrow[hf] += __shfl_xor_sync(0xffffffffu, lrow[hf], 1);
+    lrow[hf] += __shfl_xor_sync(0xffffffffu, lrow[hf], 2);
+    if (t == 0) {
+      xm[warp * kTileRows + g + 8 * hf] = mrow[hf];
+      xl[warp * kTileRows + g + 8 * hf] = lrow[hf];
     }
   }
-
+  __syncthreads();
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if (!live[i]) continue;
-    const int r = ty + 16 * i;
-    const int s = s0 + r / p.g, g = r % p.g;
-    const float l = fmaxf(lrow[i], 1e-30f);
-    const long long ob = b * p.o_sb + h * p.o_sh + g * p.o_sg + s * p.o_ss;
+  for (int hf = 0; hf < 2; ++hf) {
+    float mall = xm[g + 8 * hf];
 #pragma unroll
-    for (int jj = 0; jj < NJ; ++jj) {
-      const int col = tx + 16 * jj;
-      if (col < D) o[ob + col] = acc[i][jj] / l;
+    for (int w = 1; w < kWarps; ++w) mall = fmaxf(mall, xm[w * kTileRows + g + 8 * hf]);
+    const float f = expf(mrow[hf] - mall);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      *reinterpret_cast<float2*>(kc + (g + 8 * hf) * DP + 8 * n + 2 * t) =
+          make_float2(acc[n][2 * hf] * f, acc[n][2 * hf + 1] * f);
+  }
+  __syncthreads();
+  const float* part = smem + 2 * kTileRows * DP;  // warp w's output at w * 2 * kChunk * DP
+  for (int i = tid; i < kTileRows * (D / 4); i += kThreads) {
+    const int r = i / (D / 4), d = (i - r * (D / 4)) * 4, row = r0 + r;
+    if (row >= rows) continue;
+    float mall = xm[r];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) mall = fmaxf(mall, xm[w * kTileRows + r]);
+    float lsum = 0.f;
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      lsum += expf(xm[w * kTileRows + r] - mall) * xl[w * kTileRows + r];
+      const float4 x = *reinterpret_cast<const float4*>(part + w * 2 * kChunk * DP + r * DP + d);
+      sum.x += x.x; sum.y += x.y; sum.z += x.z; sum.w += x.w;
     }
-    if (tx == 0 && m_out != nullptr) {
-      const long long idx = ((long long)bkv * p.g + g) * p.sq + s;
-      m_out[idx] = mrow[i];
+    const float l = fmaxf(lsum, 1e-30f);
+    const int s = row / p.g, gg = row - s * p.g;
+    float* dst = o + b * p.o_sb + h * p.o_sh + gg * p.o_sg + s * p.o_ss + d;
+    const float4 y = make_float4(sum.x / l, sum.y / l, sum.z / l, sum.w / l);
+    if (p.vec) {
+      *reinterpret_cast<float4*>(dst) = y;
+    } else {
+      dst[0] = y.x; dst[1] = y.y; dst[2] = y.z; dst[3] = y.w;
+    }
+    if (m_out != nullptr && d == 0) {
+      const long long idx = ((long long)bkv * p.g + gg) * p.sq + s;
+      m_out[idx] = mall;
       l_out[idx] = l;
     }
   }
 }
 
-template <typename KT, int D>
-int launch_d(const float* q, const KT* k, const KT* v, const float* ks,
-             const float* vs, float* o, float* m, float* l, const FlashParams& p,
-             int nbkv, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (size_t)(kRows * (D + 4) + kKeys * (D + 4) + kKeys * D + kRows * kPP);
-  // set on every launch: the attribute belongs to the current device
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_kernel<KT, D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
+                 float* __restrict__ m_out, float* __restrict__ l_out, FlashParams p) {
+  flash_fwd_body<float, D>(q, k, v, nullptr, nullptr, o, m_out, l_out, p);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_q8_kernel(const float* __restrict__ q, const int8_t* __restrict__ k,
+                    const int8_t* __restrict__ v, const float* __restrict__ ks,
+                    const float* __restrict__ vs, float* __restrict__ o, FlashParams p) {
+  flash_fwd_body<int8_t, D>(q, k, v, ks, vs, o, nullptr, nullptr, p);
+}
+
+template <int D>
+int launch_f32(const float* q, const float* k, const float* v, float* o, float* m, float* l,
+               const FlashParams& p, int nbkv, cudaStream_t stream) {
+  static std::atomic<int> allowed[kMaxDevices];
+  const int smem = fwd_smem_floats<D>() * (int)sizeof(float);
+  const cudaError_t e = allow_smem((const void*)flash_fwd_kernel<D>, smem, allowed);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((p.sq + p.qt - 1) / p.qt, nbkv);
-  flash_fwd_kernel<KT, D><<<grid, kThreads, smem, stream>>>(q, k, v, ks, vs, o, m, l, p);
+  const long long tiles = ((long long)p.sq * p.g + kTileRows - 1) / kTileRows;
+  if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  dim3 grid((unsigned)tiles, nbkv);
+  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(q, k, v, o, m, l, p);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_q8(const float* q, const int8_t* k, const int8_t* v, const float* ks,
+              const float* vs, float* o, const FlashParams& p, int nbkv, cudaStream_t stream) {
+  static std::atomic<int> allowed[kMaxDevices];
+  const int smem = fwd_smem_floats<D>() * (int)sizeof(float);
+  const cudaError_t e = allow_smem((const void*)flash_fwd_q8_kernel<D>, smem, allowed);
+  if (e != cudaSuccess) return (int)e;
+  const long long tiles = ((long long)p.sq * p.g + kTileRows - 1) / kTileRows;
+  if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  dim3 grid((unsigned)tiles, nbkv);
+  flash_fwd_q8_kernel<D><<<grid, kThreads, smem, stream>>>(q, k, v, ks, vs, o, p);
   return (int)cudaGetLastError();
 }
 
 // dims: nbkv, nh, g, sq, sk, d, causal, q_offset, kv_len (< 0: none)
 // strides (elements): q b,h,g,s; k b,h,s; v b,h,s; scales b,h,s; out b,h,g,s
-template <typename KT>
-int launch(const float* q, const KT* k, const KT* v, const float* ks, const float* vs,
-           float* o, float* m, float* l, const int* dims, const long long* st,
-           float scale, cudaStream_t stream) {
-  FlashParams p;
-  const int nbkv = dims[0];
+int read_params(FlashParams& p, int& nbkv, int& d, const int* dims, const long long* st,
+                float scale) {
+  nbkv = dims[0];
   p.nh = dims[1];
   p.g = dims[2];
   p.sq = dims[3];
   p.sk = dims[4];
-  const int d = dims[5];
+  d = dims[5];
   p.causal = dims[6];
   p.q_offset = dims[7];
   p.kv_len = dims[8];
   p.scale = scale;
-  if (nbkv < 1 || nbkv > 65535 || p.nh < 1 || p.g < 1 || p.g > kRows || p.sq < 1 ||
+  p.vec = 0;
+  if (nbkv < 1 || nbkv > 65535 || p.nh < 1 || p.g < 1 || p.sq < 1 ||
       p.sk < 1)
     return (int)cudaErrorInvalidValue;
-  p.qt = kRows / p.g;
   p.q_sb = st[0]; p.q_sh = st[1]; p.q_sg = st[2]; p.q_ss = st[3];
   p.k_sb = st[4]; p.k_sh = st[5]; p.k_ss = st[6];
   p.v_sb = st[7]; p.v_sh = st[8]; p.v_ss = st[9];
   p.s_sb = st[10]; p.s_sh = st[11]; p.s_ss = st[12];
   p.o_sb = st[13]; p.o_sh = st[14]; p.o_sg = st[15]; p.o_ss = st[16];
-  switch (d) {
-    case 8: return launch_d<KT, 8>(q, k, v, ks, vs, o, m, l, p, nbkv, stream);
-    case 16: return launch_d<KT, 16>(q, k, v, ks, vs, o, m, l, p, nbkv, stream);
-    case 32: return launch_d<KT, 32>(q, k, v, ks, vs, o, m, l, p, nbkv, stream);
-    case 64: return launch_d<KT, 64>(q, k, v, ks, vs, o, m, l, p, nbkv, stream);
-    case 128: return launch_d<KT, 128>(q, k, v, ks, vs, o, m, l, p, nbkv, stream);
-    case 256: return launch_d<KT, 256>(q, k, v, ks, vs, o, m, l, p, nbkv, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return 0;
+}
+
+// Whether float4 loads of q and stores of out, and kv_bytes-wide loads of
+// K/V rows, keep their alignment: every base pointer, and every row stride
+// (elements; the scales' strides aside) a multiple of 4.
+bool aligned(const void* q, const void* k, const void* v, const void* out,
+             const long long* st, unsigned kv_bytes) {
+  bool ok = ((uintptr_t)q | (uintptr_t)out) % 16 == 0 &&
+            ((uintptr_t)k | (uintptr_t)v) % kv_bytes == 0;
+  for (int i = 0; i < 17; ++i) ok = ok && ((i >= 10 && i <= 12) || st[i] % 4 == 0);
+  return ok;
 }
 
 }  // namespace
@@ -345,8 +501,20 @@ extern "C" {
 int repro_flash_fwd_f32(const float* q, const float* k, const float* v, float* out,
                         float* m, float* l, const int* dims, const long long* strides,
                         float scale, void* stream) {
-  return launch<float>(q, k, v, nullptr, nullptr, out, m, l, dims, strides, scale,
-                       (cudaStream_t)stream);
+  FlashParams p;
+  int nbkv = 0, d = 0;
+  if (const int e = read_params(p, nbkv, d, dims, strides, scale)) return e;
+  p.vec = aligned(q, k, v, out, strides, 16);
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (d) {
+    case 8: return launch_f32<8>(q, k, v, out, m, l, p, nbkv, s);
+    case 16: return launch_f32<16>(q, k, v, out, m, l, p, nbkv, s);
+    case 32: return launch_f32<32>(q, k, v, out, m, l, p, nbkv, s);
+    case 64: return launch_f32<64>(q, k, v, out, m, l, p, nbkv, s);
+    case 128: return launch_f32<128>(q, k, v, out, m, l, p, nbkv, s);
+    case 256: return launch_f32<256>(q, k, v, out, m, l, p, nbkv, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // int8 K/V with fp32 per-position scales -> out (q's layout).
@@ -354,8 +522,20 @@ int repro_flash_fwd_q8(const float* q, const int8_t* k, const int8_t* v,
                        const float* k_scale, const float* v_scale, float* out,
                        const int* dims, const long long* strides, float scale,
                        void* stream) {
-  return launch<int8_t>(q, k, v, k_scale, v_scale, out, nullptr, nullptr, dims, strides,
-                        scale, (cudaStream_t)stream);
+  FlashParams p;
+  int nbkv = 0, d = 0;
+  if (const int e = read_params(p, nbkv, d, dims, strides, scale)) return e;
+  p.vec = aligned(q, k, v, out, strides, 4);
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (d) {
+    case 8: return launch_q8<8>(q, k, v, k_scale, v_scale, out, p, nbkv, s);
+    case 16: return launch_q8<16>(q, k, v, k_scale, v_scale, out, p, nbkv, s);
+    case 32: return launch_q8<32>(q, k, v, k_scale, v_scale, out, p, nbkv, s);
+    case 64: return launch_q8<64>(q, k, v, k_scale, v_scale, out, p, nbkv, s);
+    case 128: return launch_q8<128>(q, k, v, k_scale, v_scale, out, p, nbkv, s);
+    case 256: return launch_q8<256>(q, k, v, k_scale, v_scale, out, p, nbkv, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

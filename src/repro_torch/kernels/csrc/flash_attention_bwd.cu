@@ -30,7 +30,7 @@
 // - The Pallas dq grid (bkv, g, q-tile, kv-tile) runs its kv axis in order
 //   with dq accumulated in VMEM. Here one block owns one (bkv, 64 query rows)
 //   pair with ALL G groups of the kv head inside (rows = qt positions x G
-//   groups, qt = 64 / G, as in the forward), the kv loop runs inside the
+//   groups, qt = 64 / G), the kv loop runs inside the
 //   block, and dq accumulates in registers; it is scaled once at the end.
 // - The Pallas dk/dv grid (bkv, kv-tile, g, q-tile) accumulates over its last
 //   two axes in order. Here one block owns one (bkv, key tile) pair and loops

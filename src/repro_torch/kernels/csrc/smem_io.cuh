@@ -1,10 +1,13 @@
 // Device and host helpers shared by the tensor-core kernels (int8_mma.cuh,
 // tf32_mma.cuh): shared-memory addresses, asynchronous global->shared copies
-// (cp.async), ldmatrix, and the device's SM count.
+// (cp.async), ldmatrix, the device's SM count, and the once-per-device
+// dynamic shared-memory allowance.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace smemio {
 
@@ -21,6 +24,10 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool o
 __device__ __forceinline__ void cp_async8(uint32_t dst, const void* src, bool ok) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src),
                "r"(ok ? 8 : 0));
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(ok ? 4 : 0));
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -39,6 +46,30 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
+}
+
+constexpr int kMaxDevices = 64;
+
+// Allow `kernel` `bytes` of dynamic shared memory on the current device,
+// calling cudaFuncSetAttribute only when that device has not yet allowed as
+// much: the attribute belongs to the device that is current when it is set,
+// so `allowed` (one array per kernel instantiation) keeps the largest
+// allowance per device ordinal. Racing threads may both set it, which is
+// harmless.
+inline cudaError_t allow_smem(const void* kernel, int bytes,
+                              std::atomic<int> (&allowed)[kMaxDevices]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const bool tracked = dev >= 0 && dev < kMaxDevices;
+  if (tracked && allowed[dev].load(std::memory_order_acquire) >= bytes) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess && tracked) {
+    int seen = allowed[dev].load(std::memory_order_relaxed);
+    while (seen < bytes && !allowed[dev].compare_exchange_weak(seen, bytes)) {
+    }
+  }
+  return e;
 }
 
 // The number of SMs of the current device.

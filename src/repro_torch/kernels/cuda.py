@@ -9,9 +9,11 @@ named by a hash of the sources and flags, so an edited source rebuilds and a
 stale library is never loaded. A missing `nvcc` or a failed build raises.
 
 `launch_conv` (the ECR / PECR conv kernels, fp32 on the split-TF32 tensor
-cores, and the int8 tensor-core ECR conv), `launch_bsr` (the block-sparse matmul, fp32, and its int8
-tensor-core form), `launch_flash` (the flash
-attention forward over fp32 or int8 K/V) and `launch_flash_bwd` (its two
+cores, and the int8 tensor-core ECR conv), `launch_bsr` (the block-sparse
+matmul, fp32 on the split-TF32 tensor cores, and its int8 tensor-core form),
+`launch_flash` (the flash attention forward on the split-TF32 tensor cores;
+int8 K/V is dequantized as it is staged into the same body) and
+`launch_flash_bwd` (its two
 backward passes) are the launch sites: they check
 device, dtype, layout and shapes, allocate the outputs with `torch.empty`,
 launch on PyTorch's current stream without synchronising, and raise on a
@@ -306,7 +308,7 @@ def launch_bsr(h, w, ids, cnt, *, block: tuple, sh=None, sw=None):
 
 
 FLASH_HEAD_DIMS = (8, 16, 32, 64, 128, 256)
-FLASH_MAX_GROUPS = 64  # query rows per block of the flash kernel
+FLASH_MAX_GROUPS = 64  # query rows per block of the flash backward kernels
 
 
 def check_flash_operands(q, k, v, k_scale=None, v_scale=None) -> tuple:
@@ -377,7 +379,8 @@ def flash_bwd_strides(q, k, v, do, dq, dk, dv) -> tuple:
 
 def _check_flash_kernel(nbkv: int, g: int, d: int, tensors) -> None:
     """What every CUDA flash kernel refuses: a contiguous head dim, the head
-    dims it is built for, the groups a 64-row block holds, the grid."""
+    dims they are built for, more groups than a 64-row block of the backward
+    kernels holds, the grid."""
     if any(t.stride(-1) != 1 for t in tensors):
         raise ValueError("the CUDA flash kernel needs a contiguous head dim")
     if d not in FLASH_HEAD_DIMS:

@@ -9,9 +9,10 @@ Tolerances: fp32 kernels max|kernel - plain| <= 1e-4 * max|plain|
 fp32 sums in another order (the conv kernel per 8-channel step then per tap,
 in split-TF32 on the tensor cores, three TF32 products per multiply-add; its
 plain version one matmul per tap over every scheduled channel; the BSR kernel
-block by block, its plain version one matmul; the flash kernels tile by
-tile with an online softmax, their plain versions in one pass, for out, m
-and l). int8 kernels: bitwise equal —
+block by block, in split-TF32 too, its plain version one matmul; the flash
+kernels tile by tile with an online softmax (the fp32 one in split-TF32, four
+warps' partial softmaxes combined), their plain versions in one pass, for
+out, m and l). int8 kernels: bitwise equal —
 both sum the same integers exactly (int32 in the kernel, float64 in the plain
 version) and rescale in the same order."""
 import numpy as np
@@ -231,33 +232,82 @@ def _bsr_operands(dev, t, f, d, bf, density, seed, dtype=np.float32):
     return ht, wt, ids.contiguous(), cnt.contiguous()
 
 
-@pytest.mark.parametrize("t,f,d,bf", [
-    (6, 25, 300, 8),       # LeNet-5 conv1: O=6, K=25
-    (64, 27, 1000, 8),     # VGG-19 conv1_1: K=27, ragged P
-    (64, 576, 4099, 128),  # VGG-19 conv1_2 width, ragged P
-    (70, 200, 129, 32),    # ragged everything
-])
-def test_bsr_kernel_matches_plain(dev, t, f, d, bf):
-    h, w, ids, cnt = _bsr_operands(dev, t, f, d, bf, 0.4, seed=t + f)
-    before = bsr_matmul.launches
-    got = bsr_matmul(h, w, ids, cnt, block=(8, bf))
-    torch.cuda.synchronize()
-    assert bsr_matmul.launches == before + 1
-    _close(got, bsr_matmul_plain(h, w, ids, cnt, block=(8, bf)))
-    assert torch.all(got[:8] == 0)  # the all-pruned row-block writes zeros
-
-
-# The tensor-core kernel's paths: every block width the pruner makes
-# (bf < 32 gathers 32 / bf blocks per k-step) with F = 25 and 27 (the ragged
-# last block), T not a multiple of 8, ragged P (16-byte copies of the patch
-# matrix, or byte loads), 8 row-blocks per block (grids that fill the card: the
-# served conv10 shape, P = 40000) and 2 (smaller grids: conv13's shape).
-@pytest.mark.parametrize("t,f,d,bf", [
+# The tensor-core kernels' paths (fp32 and int8): every block width the
+# pruner makes with F = 25 and 27 (the ragged last block; bf below the
+# staged step goes row by row through the union table), T not a multiple of
+# 8, ragged P (16-byte copies of the patch matrix, or narrower ones), 8
+# row-blocks per block (grids that fill the card: the served conv10 shape,
+# P = 40000) and 2 (smaller grids: conv13's shape).
+BSR_SHAPES = [
     (6, 25, 300, 8), (64, 576, 4099, 128), (512, 4608, 300, 128),
     (64, 27, 1000, 8), (70, 25, 333, 16), (24, 27, 257, 32), (16, 25, 130, 64),
     (40, 27, 64, 128), (13, 200, 4096, 16), (512, 4608, 6272, 128),
     (512, 4608, 1568, 128), (64, 27, 40000, 8), (70, 200, 40001, 16),
-])
+    (70, 200, 129, 32),
+]
+
+
+def _run_bsr(h, w, ids, cnt, bf):
+    """fp32 kernel vs plain within the fp32 limit, one launch counted, every
+    cnt = 0 row-block all zeros."""
+    before = bsr_matmul.launches
+    got = bsr_matmul(h, w, ids, cnt, block=(8, bf))
+    torch.cuda.synchronize()
+    assert bsr_matmul.launches == before + 1
+    want = bsr_matmul_plain(h, w, ids, cnt, block=(8, bf))
+    _close(got, want)
+    for i in (cnt == 0).nonzero().flatten().tolist():
+        assert torch.all(got[8 * i:8 * i + 8] == 0)
+
+
+@pytest.mark.parametrize("t,f,d,bf", BSR_SHAPES)
+def test_bsr_kernel_matches_plain(dev, t, f, d, bf):
+    _run_bsr(*_bsr_operands(dev, t, f, d, bf, 0.4, seed=t + f), bf)
+
+
+@pytest.mark.parametrize("bf", [8, 16, 32, 64, 128])
+def test_bsr_kernel_at_served_density(dev, bf):
+    """Density 0.3, where every row-block keeps its own blocks (schedules
+    differ from row-block to row-block), row-block 0 keeps none."""
+    h, w, ids, cnt = _bsr_operands(dev, 256, 1152, 40960, bf, 0.3, seed=bf)
+    assert len({tuple(r) for r in ids[cnt > 0].tolist()}) > 1
+    _run_bsr(h, w, ids, cnt, bf)
+
+
+@pytest.mark.parametrize("t,d", [(512, 6272), (512, 1568), (4200, 300)])
+def test_bsr_kernel_skewed_row_blocks(dev, t, d):
+    """Row-blocks that keep none, all or a few of their blocks, as pruned
+    VGG-19 layers do: the kernel deals them to its groups by count (8 or 2
+    row-blocks per group), also at a large T (4200: 525 row-blocks)."""
+    rng = np.random.default_rng(t + d)
+    nt, nf, bf = -(-t // 8), 36 if t == 512 else 8, 128 if t == 512 else 16
+    f = nf * bf
+    kind = rng.integers(0, 3, nt)  # none, all, a third
+    keep = np.where(kind[:, None] == 1, True,
+                    np.where(kind[:, None] == 0, False, rng.random((nt, nf)) < 0.3))
+    mask = np.repeat(np.repeat(keep, 8, 0), bf, 1)[:t, :f]
+    h = torch.from_numpy((rng.standard_normal((t, f)) * mask).astype(np.float32)).to(dev)
+    w = torch.from_numpy(rng.random((f, d), dtype=np.float32)).to(dev)
+    ids, cnt = block_schedule(h, 8, bf)
+    _run_bsr(h, w, ids.contiguous(), cnt.contiguous(), bf)
+
+
+@pytest.mark.parametrize("kind", ["uniform", "wide"])
+def test_bsr_kernel_holds_the_fp32_limit_where_tf32_fails(dev, kind):
+    """The conv probe lowered as BSR: W (64, 4608) against the patch matrix
+    (4608, 256), every block scheduled, x and w uniform/normal or spread over
+    2^+-12; one TF32 product per multiply-add errs by more than twice the
+    limit there (the host emulation in test_torch_kernels.py)."""
+    from repro_torch.core.sparsity import patches_t
+
+    x, w = _tf32_probe_operands(kind)
+    at, _, _ = patches_t(x.permute(0, 3, 1, 2), 3, 3)
+    h = w.permute(3, 2, 0, 1).reshape(64, -1).contiguous()
+    ids, cnt = block_schedule(h, 8, 128)
+    _run_bsr(h.to(dev), at.contiguous().to(dev), ids.to(dev), cnt.to(dev), 128)
+
+
+@pytest.mark.parametrize("t,f,d,bf", BSR_SHAPES)
 def test_bsr_int8_kernel_is_bitwise_plain(dev, t, f, d, bf):
     h, w, ids, cnt = _bsr_operands(dev, t, f, d, bf, 0.4, seed=t, dtype=np.int8)
     rng = np.random.default_rng(t)
@@ -395,11 +445,12 @@ def test_ecr_int8_extremes_stay_exact(dev):
 
 # (layout, b, kv, g, sq, sk, d, causal, q_offset, kv_len): the served
 # qwen3-0.6b prefill and decode shapes (read from a layer slice of a stacked
-# cache), ragged Sq/Sk, q_offset > 0, kv_len < Sk, Sq = 1, a fully masked
-# block (kv_len = 0), G = 3 and 4, head dims 8 to 256.
+# cache) and its trained forward, ragged Sq/Sk, q_offset > 0, kv_len < Sk,
+# Sq = 1, a fully masked block (kv_len = 0), G = 3 and 4, head dims 8 to 256.
 FLASH_CASES = [
     ("model", 4, 8, 2, 32, 64, 128, True, 0, 32),
     ("model", 4, 8, 2, 1, 64, 128, True, 40, 41),
+    ("model", 8, 8, 2, 128, 128, 128, True, 0, None),
     ("kernel", 3, 1, 3, 37, 53, 64, False, 0, None),
     ("kernel", 3, 1, 3, 37, 53, 64, True, 16, None),
     ("kernel", 2, 1, 1, 100, 300, 32, True, 200, 290),
@@ -453,6 +504,61 @@ def test_flash_q8_kernel_matches_plain(dev, case):
     torch.cuda.synchronize()
     assert flash_fwd_q8.launches == before + 1
     _close(out, flash_fwd_q8_plain(q, kq, vq, ks, vs, **kw))
+
+
+def _run_flash(q, k, v, kw):
+    """fp32 flash kernel vs plain within the fp32 limit on out, m and l, one
+    launch counted."""
+    before = flash_fwd.launches
+    got = flash_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_fwd.launches == before + 1
+    for g_, w_ in zip(got, flash_fwd_plain(q, k, v, **kw)):
+        assert g_.shape == w_.shape
+        _close(g_, w_)
+    return got
+
+
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("kv_len", [1, 63, 65])
+def test_flash_kernel_decode_tile_edges(dev, g, kv_len):
+    """Decode (Sq = 1) at the tensor-core kernel's edges: G of a 16-row tile
+    live, kv_len at one key, one short of and one past a 64-key cache read in
+    place (Sk = 80), q_offset = kv_len - 1."""
+    q, k, v = _flash_operands(dev, "model", 4, 8, g, 1, 80, 128, seed=g * 100 + kv_len)
+    _run_flash(q, k, v, dict(scale=128 ** -0.5, causal=True, q_offset=kv_len - 1,
+                             kv_len=kv_len))
+
+
+def test_flash_kernel_wide_magnitudes(dev):
+    """q and k spread over 2^+-3 at D = 128 (scores up to about 70), the
+    served prefill shape: split-TF32 holds the limit where one TF32 product
+    per multiply-add misses it (test_torch_kernels.py's host emulation)."""
+    rng = np.random.default_rng(7)
+    q, k, v = _flash_operands(dev, "model", 4, 8, 2, 32, 64, 128, seed=8)
+    q = q * torch.from_numpy(np.exp2(rng.integers(-3, 4, tuple(q.shape))).astype(np.float32)).to(dev)
+    k = k * torch.from_numpy(np.exp2(rng.integers(-3, 4, tuple(k.shape))).astype(np.float32)).to(dev)
+    _run_flash(q, k, v, dict(scale=128 ** -0.5, causal=True, q_offset=0, kv_len=32))
+
+
+def test_flash_kernels_launch_twice_on_one_device(dev):
+    """The dynamic shared-memory limit is raised once per device and kernel:
+    a second launch of each forward on the same device runs and repeats the
+    first bitwise."""
+    q, k, v = _flash_operands(dev, "model", 2, 2, 2, 9, 40, 128, seed=11)
+    kw = dict(scale=128 ** -0.5, causal=True, q_offset=3, kv_len=None)
+    first = _run_flash(q, k, v, kw)
+    second = _run_flash(q, k, v, kw)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    kq, ks = _quantize_kv(k)
+    vq, vs = _quantize_kv(v)
+    before = flash_fwd_q8.launches
+    o1 = flash_fwd_q8(q, kq, vq, ks, vs, **kw)
+    o2 = flash_fwd_q8(q, kq, vq, ks, vs, **kw)
+    torch.cuda.synchronize()
+    assert flash_fwd_q8.launches == before + 2
+    assert torch.equal(o1, o2)
 
 
 # the flash backward: (layout, b, kv, g, sq, sk, d, causal, q_offset, kv_len)

@@ -76,6 +76,19 @@ def test_fwd_decode_mode_matches_pallas():
     _check_fwd(q, k, v, causal=True, q_offset=99, kv_len=100, qc=1, kc=32)
 
 
+# Decode at the fp32 tensor-core kernel's tile edges: G = 1, 2, 4, 8 rows of
+# a 16-row tile, kv_len at 1, inside, just short of and just past a 16-key
+# chunk and the 64-key cache, q_offset > 0; (bkv, g, sk, kv_len).
+DECODE_EDGES = [(4, 2, 64, 1), (4, 2, 64, 17), (4, 2, 64, 63), (2, 8, 80, 65),
+                (3, 1, 64, 33), (2, 4, 80, 41)]
+
+
+@pytest.mark.parametrize("bkv,g,sk,kv_len", DECODE_EDGES)
+def test_fwd_decode_tile_edges_match_pallas(bkv, g, sk, kv_len):
+    q, k, v = _inputs(bkv, g, 1, sk, 128, seed=kv_len + g)
+    _check_fwd(q, k, v, causal=True, q_offset=kv_len - 1, kv_len=kv_len, qc=1, kc=16)
+
+
 def test_fwd_matches_the_oracle_and_ref_matches_jax():
     q, k, v = _inputs(2, 3, 40, 72, 32, seed=2)
     kw = dict(scale=32 ** -0.5, causal=True, q_offset=5, kv_len=60)

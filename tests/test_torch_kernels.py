@@ -1,20 +1,30 @@
 """Parity of the port's ECR and PECR ops, and of the kernels' plain PyTorch
-versions, with the JAX package's Pallas kernels (run in interpret mode, as
-the JAX package's own tests run them).
+versions (ECR, PECR, BSR), with the JAX package's Pallas kernels (run in
+interpret mode, as the JAX package's own tests run them), and the host
+emulation of split-TF32, the arithmetic of the fp32 tensor-core kernels.
 
 Tolerance rtol=1e-5, atol=1e-5: both sides accumulate in fp32, in another
 order (the Pallas kernel sums per channel block then per tap; the plain
-version gathers every scheduled block and sums per tap)."""
+version gathers every scheduled block and sums per tap); BSR atol
+1e-5 * max|Pallas| (the Pallas kernel sums block by block, the plain
+version in one matmul)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro.kernels.bsr_matmul.kernel import bsr_matmul_pallas  # noqa: E402
 from repro.kernels.conv_pool.kernel import conv_pool_pallas_batch  # noqa: E402
 from repro.kernels.conv_pool.ops import fused_conv_pool as j_fused_conv_pool  # noqa: E402
 from repro.kernels.ecr_conv.kernel import ecr_conv_pallas_batch  # noqa: E402
 from repro.kernels.ecr_conv.ops import ecr_conv as j_ecr_conv  # noqa: E402
+from repro_torch.core.sparsity import patches_t  # noqa: E402
+from repro_torch.kernels.bsr_matmul.kernel import (  # noqa: E402
+    bsr_matmul_plain,
+    scheduled_operand,
+)
+from repro_torch.kernels.bsr_matmul.ops import block_schedule  # noqa: E402
 from repro_torch.kernels.conv_pool.kernel import conv_pool_batch, conv_pool_plain  # noqa: E402
 from repro_torch.kernels.conv_pool.ops import fused_conv_pool  # noqa: E402
 from repro_torch.kernels.conv_pool.ref import conv_pool_ref  # noqa: E402
@@ -24,6 +34,7 @@ from repro_torch.kernels.ecr_conv.kernel import (  # noqa: E402
     scheduled_conv_sum,
 )
 from repro_torch.kernels.ecr_conv.ops import ecr_conv  # noqa: E402
+from repro_torch.kernels.flash_attention.kernel import flash_fwd_plain  # noqa: E402
 from repro_torch.kernels.ecr_conv.ref import ecr_conv_ref  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -201,6 +212,14 @@ def _tf32(t: torch.Tensor) -> torch.Tensor:
     return ((t.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
+def _split(t: torch.Tensor):
+    """`split` of tf32_mma.cuh on the host, as the tensor cores see it:
+    hi = a rounded to TF32 (to nearest, ties away from zero: `_tf32`), lo =
+    a - hi with its 13 low bits dropped (the MMA truncates a raw operand)."""
+    hi = _tf32(t)
+    return hi, ((t - hi).view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
 def tf32_probe_operands(kind: str, seed: int = 0):
     """A conv with VGG-19 conv10's reduction (3x3x512 = 4,608 terms) over
     16x16 = 256 positions and 64 output channels: x uniform on [0, 1) and
@@ -229,7 +248,7 @@ def test_tf32_rounding_matches_its_definition():
 @pytest.mark.parametrize("kind", ["uniform", "wide"])
 def test_split_tf32_holds_the_fp32_limit_where_one_product_fails(kind):
     """The premise of the CUDA kernel's arithmetic, emulated on the host: with
-    a = hi + lo, hi = tf32(a), lo = tf32(a - hi), the three TF32 products
+    a = hi + lo as `split` forms them (`_split`), the three TF32 products
     lo*hi + hi*lo + hi*hi (each exact in fp32, summed here in float64) stay
     within the fp32 limit of the plain fp32 conv, while one TF32 product per
     multiply-add errs by more than twice the limit. The card test with the
@@ -246,9 +265,163 @@ def test_split_tf32_holds_the_fp32_limit_where_one_product_fails(kind):
         return sum(scheduled_conv_sum(a, b, ids, cnt, stride=1, block_c=8,
                                       dtype=torch.float64) for a, b in pairs).float()
 
-    xh, wh = _tf32(x), _tf32(w)
-    xl, wl = _tf32(x - xh), _tf32(w - wh)
+    (xh, xl), (wh, wl) = _split(x), _split(w)
     one = float((emulated((xh, wh)) - plain).abs().max())
     three = float((emulated((xl, wh), (xh, wl), (xh, wh)) - plain).abs().max())
     assert one > 2 * limit, (one, limit)
     assert three < 0.05 * limit, (three, limit)
+
+
+def _bsr_probe_operands(kind: str):
+    """The conv probe as the BSR conv lowering sees it: W (64, 4608) and the
+    patch matrix A^T (4608, 256), every (8, 128) block scheduled."""
+    x, w = tf32_probe_operands(kind)
+    at, _, _ = patches_t(x.permute(0, 3, 1, 2), 3, 3)
+    h = w.permute(3, 2, 0, 1).reshape(64, -1).contiguous()  # (O, C*kh*kw)
+    ids, cnt = block_schedule(h, 8, 128)
+    return h, at.contiguous(), ids, cnt
+
+
+@pytest.mark.parametrize("kind", ["uniform", "wide"])
+def test_split_tf32_holds_the_fp32_limit_for_the_bsr_product(kind):
+    """The BSR kernel's arithmetic (bsr_matmul.cu: `split`, lo
+    truncated) emulated on the host at K = 4608: three TF32 products per
+    multiply-add (exact products, summed in float64) stay within the fp32
+    limit of the plain version, one TF32 product errs by more than twice the
+    limit. The card tests with the same
+    data (test_torch_cuda.py) then fail a kernel that drops the split."""
+    h, at, ids, cnt = _bsr_probe_operands(kind)
+    assert int(cnt.min()) == 36
+    plain = bsr_matmul_plain(h, at, ids, cnt, block=(8, 128))
+    scale = float(plain.abs().max())
+    limit = 1e-4 * scale + 1e-5 * min(1.0, scale)
+    hs = scheduled_operand(h, ids, cnt, (8, 128))
+
+    def emulated(*pairs):
+        return sum(a.double() @ b.double() for a, b in pairs).float()
+
+    (hh, hl), (ah, al) = _split(hs), _split(at)
+    one = float((emulated((hh, ah)) - plain).abs().max())
+    three = float((emulated((hl, ah), (hh, al), (hh, ah)) - plain).abs().max())
+    assert one > 2 * limit, (one, limit)
+    assert three < 0.05 * limit, (three, limit)
+
+
+def _pallas_bsr(h, w, ids, cnt, bf):
+    """bsr_matmul_pallas (interpret mode) on h and w zero-padded to its block
+    multiples, cut back to (T, D)."""
+    t, f = h.shape
+    d = w.shape[1]
+    hp = np.pad(h, ((0, (-t) % 8), (0, (-f) % bf)))
+    wp = np.pad(w, ((0, (-f) % bf), (0, (-d) % 8)))
+    out = bsr_matmul_pallas(jnp.asarray(hp), jnp.asarray(wp), jnp.asarray(ids),
+                            jnp.asarray(cnt), block=(8, bf, wp.shape[1]))
+    return np.asarray(out)[:t, :d]
+
+
+# The paths of the tensor-core BSR kernel: union schedules of 8 row-blocks
+# whose ids differ (a block one row-block keeps and its neighbour leaves out,
+# ids in any order), a row-block with cnt = 0, bf = 8 with F = 27 (VGG-19
+# conv1_1: the last block 3 rows deep), T not a multiple of 8, a second row
+# group; (t, f, d, bf).
+BSR_UNION_EDGES = [(64, 27, 40, 8), (70, 200, 24, 16), (128, 1152, 16, 128),
+                   (24, 25, 9, 8)]
+
+
+@pytest.mark.parametrize("t,f,d,bf", BSR_UNION_EDGES)
+def test_bsr_plain_matches_pallas_at_union_schedules(t, f, d, bf):
+    """Plain version vs the Pallas kernel on the same operands and a
+    hand-made schedule: each row-block keeps its own random subset of the
+    (all live) blocks, in permuted order, row-block 1 none."""
+    rng = np.random.default_rng(t + f + bf)
+    nt, nf = -(-t // 8), -(-f // bf)
+    h = rng.standard_normal((t, f)).astype(np.float32)
+    w = rng.standard_normal((f, d)).astype(np.float32)
+    ids = np.zeros((nt, nf), np.int32)
+    cnt = np.zeros((nt,), np.int32)
+    for i in range(nt):
+        keep = rng.permutation(nf)[:0 if i == 1 else rng.integers(1, nf + 1)]
+        ids[i, :len(keep)] = keep
+        ids[i, len(keep):] = keep[-1] if len(keep) else 0
+        cnt[i] = len(keep)
+    assert len({tuple(sorted(r[:c])) for r, c in zip(ids, cnt) if c}) > 1
+    want = _pallas_bsr(h, w, ids, cnt, bf)
+    got = bsr_matmul_plain(*map(torch.from_numpy, (h, w, ids, cnt)), block=(8, bf))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                               atol=1e-5 * float(np.abs(want).max()))
+    assert np.all(got.numpy()[8:16] == 0.0)
+    assert float(np.abs(want).max()) > 0.0
+
+
+def test_a_repeated_block_is_refused_where_the_reference_adds_it_twice(monkeypatch):
+    """h (8, 16), w (16, 8), block (8, 8), ids [[1, 1]], cnt [2]: the Pallas
+    kernel adds block 1 once per listing (twice), the port's BSR kernel and
+    plain version once, so the port's schedule guard refuses the schedule."""
+    from repro_torch.kernels.schedule_guard import guard_schedule
+
+    rng = np.random.default_rng(6)
+    h = rng.standard_normal((8, 16)).astype(np.float32)
+    w = rng.standard_normal((16, 8)).astype(np.float32)
+    ids, cnt = np.array([[1, 1]], np.int32), np.array([2], np.int32)
+    once = h[:, 8:] @ w[8:]
+    np.testing.assert_allclose(_pallas_bsr(h, w, ids, cnt, 8), 2 * once, rtol=1e-5, atol=1e-5)
+    got = bsr_matmul_plain(*map(torch.from_numpy, (h, w, ids, cnt)), block=(8, 8))
+    np.testing.assert_allclose(got.numpy(), once, rtol=1e-5, atol=1e-5)
+    monkeypatch.setenv("REPRO_CHECK_SCHEDULES", "1")
+    with pytest.raises(ValueError, match="more than once"):
+        guard_schedule(torch.from_numpy(ids), torch.from_numpy(cnt), 2)
+
+
+def flash_probe_operands(kind: str, seed: int = 0):
+    """The served qwen3-0.6b prefill shape in the kernel layout, q (32, 2, 32,
+    128) over k, v (32, 64, 128): normal q, k and v ("normal"), or q and k
+    scaled elementwise by 2^e, e uniform over -3..3 ("wide": scores up to
+    about 70, where the plain version's own fp32 rounding of a score moves
+    its exp by a few hundredths of the limit)."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal(s).astype(np.float32)
+               for s in ((32, 2, 32, 128), (32, 64, 128), (32, 64, 128)))
+    if kind == "wide":
+        q = (q * np.exp2(rng.integers(-3, 4, q.shape))).astype(np.float32)
+        k = (k * np.exp2(rng.integers(-3, 4, k.shape))).astype(np.float32)
+    return torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v)
+
+
+@pytest.mark.parametrize("kind", ["normal", "wide"])
+def test_flash_needs_split_tf32_at_head_dim_128(kind):
+    """The fp32 flash kernel's arithmetic (flash_attention.cu) emulated on the
+    host at D = 128, causal with kv_len 32 over a 64-slot cache: Q.K^T and
+    P.V with one TF32 product per multiply-add miss the fp32 limit on the
+    scores' max m (and so on l and out), while three (split-TF32) hold it on
+    out, m and l, which is why the kernel splits both products."""
+    q, k, v = flash_probe_operands(kind)
+    kw = dict(scale=128 ** -0.5, causal=True, q_offset=0, kv_len=32)
+    want = flash_fwd_plain(q, k, v, **kw)
+    qs = q * kw["scale"]
+    keep = torch.arange(64)[None, :] <= torch.arange(32)[:, None]
+
+    def emulated(prod):
+        s = prod(qs, k.transpose(1, 2)[:, None])
+        s = torch.where(keep, s, torch.full((), -1e30, dtype=s.dtype))
+        m = s.amax(-1)
+        p = torch.exp(s - m[..., None]).float()
+        l = p.double().sum(-1)
+        return (prod(p, v[:, None]) / l[..., None]).float(), m.float(), l.float()
+
+    def one(a, b):
+        return _tf32(a).double() @ _tf32(b).double()
+
+    def three(a, b):
+        (ah, al), (bh, bl) = _split(a), _split(b)
+        return ah.double() @ bh.double() + ah.double() @ bl.double() + al.double() @ bh.double()
+
+    def excess(got):  # err / limit per output (out, m, l)
+        out = []
+        for g, w in zip(got, want):
+            scale = float(w.abs().max())
+            out.append(float((g - w).abs().max()) / (1e-4 * scale + 1e-5 * min(1.0, scale)))
+        return out
+
+    e1, e3 = excess(emulated(one)), excess(emulated(three))
+    assert e1[1] > 2.0, e1  # m: the scores with one product miss the limit
+    assert max(e3) < 0.1, e3

@@ -181,3 +181,47 @@ def test_schedule_guard_clamps_only_when_enabled(monkeypatch):
     gi, gc = guard_schedule(ids, cnt, 3)
     assert gi.tolist() == [[0, 2, 0]] and gc.tolist() == [3]
     assert gi.dtype == torch.int32 and gc.dtype == torch.int32
+
+
+@pytest.mark.parametrize("ids,cnt,refused", [
+    ([[1, 1]], [2], [True]),  # block 1 listed twice among the live lanes
+    ([[1, 1]], [1], [False]),  # the repeat is a padding lane
+    ([[0, 7, -1]], [5], [False]),  # out-of-range ids are clamped, not repeats
+    ([[2, 0, 1], [1, 2, 1]], [3, 3], [False, True]),
+    ([0, 1, 2], 3, [False]),  # the single-image ECR form: (n_cb,) with a scalar cnt
+])
+def test_schedule_guard_refuses_a_repeated_block(monkeypatch, ids, cnt, refused):
+    from repro_torch.kernels.schedule_guard import guard_schedule, repeated_blocks
+
+    ids = torch.tensor(ids, dtype=torch.int32)
+    cnt = torch.tensor(cnt, dtype=torch.int32)
+    assert repeated_blocks(ids, cnt, 3).tolist() == refused
+    monkeypatch.delenv("REPRO_CHECK_SCHEDULES", raising=False)
+    assert guard_schedule(ids, cnt, 3) == (ids, cnt)
+    monkeypatch.setenv("REPRO_CHECK_SCHEDULES", "1")
+    if any(refused):
+        with pytest.raises(ValueError, match="more than once"):
+            guard_schedule(ids, cnt, 3)
+    else:
+        guard_schedule(ids, cnt, 3)
+
+
+def test_schedule_guard_passes_the_schedules_the_port_makes(monkeypatch):
+    """The guard refuses no schedule the port builds: BSR's block schedule
+    of a pruned weight matrix and ECR's per-sample channel-block schedules."""
+    from repro_torch.kernels.bsr_matmul.ops import block_schedule
+    from repro_torch.kernels.schedule_guard import guard_schedule
+
+    monkeypatch.setenv("REPRO_CHECK_SCHEDULES", "1")
+    rng = np.random.default_rng(3)
+    keep = np.repeat(np.repeat(rng.random((5, 6)) < 0.5, 8, 0), 16, 1)
+    h = torch.from_numpy((rng.standard_normal((40, 96)) * keep).astype(np.float32))
+    ids, cnt = block_schedule(h, 8, 16)
+    assert int(cnt.max()) > 0
+    gi, gc = guard_schedule(ids, cnt, 6)
+    assert torch.equal(gi, ids) and torch.equal(gc, cnt)
+    x = torch.from_numpy(rng.standard_normal((2, 6, 6, 32)).astype(np.float32))
+    x[0, :, :, 8:24] = 0.0
+    ids, cnt = batch_block_schedule(x, 6, 6, 8)
+    gi, gc = guard_schedule(ids, cnt, 4)
+    assert torch.equal(gi, ids) and torch.equal(gc, cnt)
