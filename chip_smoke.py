@@ -9,8 +9,11 @@
 2. Builds the CUDA kernels from the checkout's sources with nvcc (one nvcc
    per source, in parallel) and times the build; counts HMMA, LDGSTS, LDS
    and FFMA in the SASS (cuobjdump) of each instantiation of the split-TF32
-   kernels (the fp32 ECR / PECR kernel, the fp32 BSR kernel and the fp32
-   flash forward) and fails unless every one has HMMA and LDGSTS.
+   kernels (the fp32 ECR / PECR kernel, the fp32 BSR kernel, the fp32
+   flash forward and both flash backward passes) and fails unless every
+   one has HMMA and LDGSTS and the expected number of instantiations
+   exists; prints each one's registers, stack frame and spill bytes
+   (nvcc -Xptxas -v, from the build's output).
 3. Serves the published VGG-19 (3x224x224, 1000 classes, random weights from
    a fixed generator seed with the dead-filter shift) through the port's
    Engine (block_c=8, occ_threshold=0.75, max_batch=8, SimClock): 16 requests
@@ -119,11 +122,16 @@
    the real operands of layers 0 and 27 of a batch-8 step, at a long causal
    shape (batch 4, Sq = Sk = 2048) and at edge shapes (every head dim,
    ragged Sq/Sk, G = 1, 2, 8, q_offset/kv_len, non-causal, rows that see
-   no key); kernel, plain version and the library call (the backward of
-   fp32 F.scaled_dot_product_attention with K/V expanded, all three
-   gradients in one call) timed in turns at layer 0 and at the long shape,
-   eager, with CUDA events; the bound per pass is max(6 (dq) or 8 (dk/dv)
-   * B*H*pairs*D / 67 TFLOP/s, bytes / 3.35 TB/s). Last, at the reduced
+   no key; q and k over 2^+-3 at Sk = 512); kernel, plain version and the
+   library call (the backward of fp32 F.scaled_dot_product_attention with
+   K/V expanded and the same mask, all three gradients in one call: the
+   memory-efficient attention backward op, SDPA's fused backend for fp32
+   inputs with a mask) timed in turns at layer 0 and at the long shape as CUDA-graph
+   replays (device time), the eager calls beside them (the library's eager
+   time is the autograd SDPA backward, as earlier runs timed it); the bound
+   per pass is max(6 (dq) or 8 (dk/dv) * B*H*pairs*D / 165 TFLOP/s
+   (split-TF32), bytes / 3.35 TB/s), with the same operations at the CUDA
+   cores' 67 TFLOP/s beside it. Last, at the reduced
    config, a 10-step run against one with a failure at step 7 (checkpoints
    every 3): losses within 1e-6.
 8. Prints the kernel table as one JSON line (the twelve TPU kernel sites of
@@ -141,8 +149,11 @@
    3.35 TB/s), the
    bytes being the K/V of the keys read (4 bytes, or 1 byte plus the fp32
    scales), Q, O, and m, l for fp32, once. The backward rows time one
-   launch of each pass at layer 0 of the trained batch-8 step, with every
-   timed shape under "shapes", and launches count the 6-step training run.
+   launch of each pass at layer 0 of the trained batch-8 step by graph
+   replay, with every timed shape under "shapes", and launches count the
+   6-step training run; they carry "redesigned_in": 18 (split-TF32),
+   eager_ms, eager_library_ms, achieved_tflops, bound_share and
+   fp32_core_bound_ms.
    The rows whose kernels were redesigned for the tensor cores, the fp32
    ECR / PECR rows (ecr_conv_batch, conv_pool_batch and both at N=1;
    split-TF32, "redesigned_in": 16), bsr_matmul (split-TF32, 17) and the
@@ -164,6 +175,8 @@
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import subprocess
 import sys
@@ -183,8 +196,9 @@ KERNEL_TOL = ("fp32: max|kernel - plain| <= 1e-4*max|plain| + 1e-5*min(1, max|pl
 PRUNE_DENSITY = 0.3
 # the split-TF32 kernels and their instantiations: ECR / PECR (4 tiles x
 # pool), BSR (16- or 4-byte copies x 8, 4 or 2 row-blocks per block), the
-# fp32 flash forward (6 head dims)
-SPLIT_TF32_KERNELS = {"ecr_conv_kernel": 8, "bsr_matmul_kernel": 6, "flash_fwd_kernel": 6}
+# fp32 flash forward and both backward passes (6 head dims each)
+SPLIT_TF32_KERNELS = {"ecr_conv_kernel": 8, "bsr_matmul_kernel": 6, "flash_fwd_kernel": 6,
+                      "flash_bwd_dq_kernel": 6, "flash_bwd_dkv_kernel": 6}
 
 
 def fail(msg: str) -> int:
@@ -927,6 +941,32 @@ def sass_counts(lib_path) -> dict:
     return counts
 
 
+def ptxas_usage(text: str) -> dict:
+    """{kernel symbol: {"registers", "stack", "spill_stores", "spill_loads"}}
+    from nvcc's `-Xptxas -v` report in the build's output: registers per
+    thread, stack frame bytes, and the bytes of registers spilled to it."""
+    import re
+
+    usage, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+            usage[fn] = {}
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes "
+                      r"spill loads", line)
+        if m and fn:
+            usage[fn].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            usage[fn]["registers"] = int(m.group(1))
+            fn = None
+    return usage
+
+
 def kernel_category(name: str) -> str:
     """Coarse class of a CUDA kernel by its symbol name."""
     if "flash_bwd_dq_kernel" in name:
@@ -1619,12 +1659,13 @@ class capture_backward:
         self.O.flash_bwd = self.orig
 
 
-def flash_bwd_bound(q, k, kw, *, part):
+def flash_bwd_bound(q, k, kw, *, part, peak=PEAK_TF32_SPLIT_FLOPS):
     """(op time, byte time) in ms of one backward pass for these inputs:
     per visible (q, k) pair and head-dim element 6 fp32 operations for dq
-    (scores, dp, ds.k) and 8 for dk/dv (scores, dp, p^T.do, ds^T.q), over
-    67 TFLOP/s; q, do, k, v of the keys read, m, l, delta read, and dq, or
-    dk and dv, written once, over 3.35 TB/s."""
+    (scores, dp, ds.k) and 8 for dk/dv (scores, dp, p^T.do, ds^T.q), at
+    `peak` (the kernels' split-TF32 rate, 165 TFLOP/s; 67 for the CUDA
+    cores); q, do, k, v of the keys read, m, l, delta read, and dq, or dk
+    and dv, written once, over 3.35 TB/s."""
     b, sq, kvh, g, d = q.shape
     sk = k.shape[1]
     pairs, keys = visible_pairs(sq, sk, kw["causal"], kw["q_offset"], kw["kv_len"])
@@ -1634,24 +1675,37 @@ def flash_bwd_bound(q, k, kw, *, part):
     qbytes = 4.0 * rows * d
     kbytes = 4.0 * b * kvh * keys * d
     nbytes = 2 * qbytes + 2 * kbytes + 12.0 * rows + (qbytes if part == "dq" else 2 * kbytes)
-    return ops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    return ops / peak * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
 
 
 def sdpa_backward(q, k, v, do, kw):
     """The backward of fp32 F.scaled_dot_product_attention on the same
-    inputs (K/V expanded to the query heads, the same boolean mask): a
-    closure that computes its three gradients."""
+    inputs (K/V expanded to the query heads, the same mask): two closures
+    that compute its three gradients, the autograd backward of the SDPA call
+    (eager only: it runs on the forward's stream) and the memory-efficient
+    attention backward op, SDPA's fused backend for fp32 inputs with a mask,
+    fed by that op's own forward (capturable in a CUDA graph; the caller
+    prints how far its dq lies from the autograd call's)."""
     import torch
     import torch.nn.functional as F
 
     b, sq, kvh, g, d = q.shape
+    sk = k.shape[1]
     qh = q.reshape(b, sq, kvh * g, d).transpose(1, 2).detach().requires_grad_(True)
     kh = k.repeat_interleave(g, dim=2).transpose(1, 2).detach().requires_grad_(True)
     vh = v.repeat_interleave(g, dim=2).transpose(1, 2).detach().requires_grad_(True)
-    mask = attention_mask(sq, k.shape[1], kw, q.device)
+    mask = attention_mask(sq, sk, kw, q.device)
     out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, scale=kw["scale"])
     doh = do.reshape(b, sq, kvh * g, d).transpose(1, 2)
-    return lambda: torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True)
+    bias = torch.zeros((sq, sk), device=q.device).masked_fill(~mask, float("-inf"))
+    bias = bias.expand(b, kvh * g, sq, sk)
+    aten = torch.ops.aten
+    o, lse, seed, offset = aten._scaled_dot_product_efficient_attention(
+        qh.detach(), kh.detach(), vh.detach(), bias, True, 0.0, False, scale=kw["scale"])
+    return (lambda: torch.autograd.grad(out, (qh, kh, vh), doh, retain_graph=True),
+            lambda: aten._scaled_dot_product_efficient_attention_backward(
+                doh, qh.detach(), kh.detach(), vh.detach(), bias, o, lse, seed, offset, 0.0,
+                [True, True, True, False], False, scale=kw["scale"])[:3])
 
 
 def check_flash_bwd(book, label, args, kw, *, timed):
@@ -1683,29 +1737,39 @@ def check_flash_bwd(book, label, args, kw, *, timed):
     book.check("flash_bwd_dkv", f"{tag} dv", dv, pdv)
     if not timed:
         return []
-    lib = sdpa_backward(q, k, v, do, kw)
-    gq, gk, gv = lib()
-    b, sq, kvh, g, d = q.shape
+    lib_autograd, lib = sdpa_backward(q, k, v, do, kw)
+    gq = lib()[0]
     lib_err = float((gq.transpose(1, 2).reshape(q.shape) - dq).abs().max())
-    t = time_turns({
-        "dq": lambda: flash_bwd_dq(*ops, **kw), "dkv": lambda: flash_bwd_dkv(*ops, **kw),
-        "dq_plain": lambda: flash_bwd_dq_plain(*ops, **kw),
-        "dkv_plain": lambda: flash_bwd_dkv_plain(*ops, **kw), "library": lib})
+    lib_gap = float((lib_autograd()[0] - gq).abs().max())
+    del gq
+    fns = {"dq": lambda: flash_bwd_dq(*ops, **kw), "dkv": lambda: flash_bwd_dkv(*ops, **kw),
+           "dq_plain": lambda: flash_bwd_dq_plain(*ops, **kw),
+           "dkv_plain": lambda: flash_bwd_dkv_plain(*ops, **kw), "library": lib}
+    t = time_graph_turns(fns)
+    te = time_turns({**fns, "library": lib_autograd})
     rows = []
     for part, name in (("dq", "flash_bwd_dq"), ("dkv", "flash_bwd_dkv")):
         ft, bt = flash_bwd_bound(q, k, kw, part=part)
+        fc, _ = flash_bwd_bound(q, k, kw, part=part, peak=PEAK_FP32_FLOPS)
         row = {"kernel": name, "shape": label, "q": list(q.shape), "k": list(k.shape),
                "q_offset": kw["q_offset"], "kv_len": kw["kv_len"], "ms": t[part],
                "plain_ms": t[part + "_plain"], "library_ms": t["library"],
+               "eager_ms": te[part], "eager_plain_ms": te[part + "_plain"],
+               "eager_library_ms": te["library"],
                "flop_ms": ft, "byte_ms": bt, "bound_ms": max(ft, bt),
                "bound_by": "operations" if ft >= bt else "bytes",
+               "fp32_core_bound_ms": max(fc, bt),
                "library_max_abs_diff_dq": lib_err, "phase": LM_ARCH + "-train"}
         book.rows.append(row)
         rows.append(row)
         print(f"    {name} {label}: ms={t[part]:.4f} plain_ms={t[part + '_plain']:.4f} "
               f"library_ms={t['library']:.4f} (SDPA backward, all three gradients) "
-              f"bound_ms={max(ft, bt):.4f} ({row['bound_by']}) [eager, CUDA events]")
-    print(f"    |dq - SDPA dq| {lib_err:.2e}")
+              f"bound_ms={max(ft, bt):.4f} ({row['bound_by']}; CUDA cores "
+              f"{max(fc, bt):.4f}) [CUDA-graph replay]; eager calls: {te[part]:.4f} / "
+              f"{te[part + '_plain']:.4f} / {te['library']:.4f} ms (library: autograd SDPA)")
+    print(f"    dq + dk/dv {t['dq'] + t['dkv']:.4f} ms against SDPA's backward "
+          f"{t['library']:.4f} ms [CUDA-graph replay]; |dq - SDPA dq| {lib_err:.2e}; "
+          f"efficient-attention op vs autograd SDPA dq {lib_gap:.2e}")
     return rows
 
 
@@ -1866,10 +1930,14 @@ def train_phase(book, dev, failures) -> dict:
         del cap
         gen = torch.Generator(device=dev).manual_seed(6)
 
-        def operands(b, sq, kvh, g, sk, d, kw):
+        def operands(b, sq, kvh, g, sk, d, kw, wide=False):
             q = torch.randn((b, sq, kvh, g, d), generator=gen, device=dev)
             k = torch.randn((b, sk, kvh, d), generator=gen, device=dev)
             v = torch.randn((b, sk, kvh, d), generator=gen, device=dev)
+            if wide:  # q and k elementwise times 2^e, e uniform over -3..3
+                for t in (q, k):
+                    t.mul_(torch.exp2(torch.randint(-3, 4, t.shape, generator=gen,
+                                                    device=dev).float()))
             with torch.no_grad():
                 out, m, l = flash_fwd(q, k, v, **kw)
             do = torch.randn(q.shape, generator=gen, device=dev)
@@ -1881,17 +1949,19 @@ def train_phase(book, dev, failures) -> dict:
         check_flash_bwd(book, "long 2048x2048 causal", operands(lb, ls, kvh, g, ls, d, kw),
                         kw, timed=True)
         torch.cuda.empty_cache()
-        # every head dim; ragged Sq / Sk; G = 1, 2, 8; q_offset / kv_len; non-causal
+        # every head dim; ragged Sq / Sk; G = 1, 2, 8; q_offset / kv_len; non-causal;
+        # q and k over 2^+-3 at Sk = 512 (where one TF32 product would miss)
         edges = [(2, 37, 2, 2, 53, hd, hd % 16 == 0, 0, None) for hd in FLASH_HEAD_DIMS]
         edges += [(3, 37, 1, 1, 53, 128, True, 16, None),
                   (2, 70, 1, 8, 130, 64, True, 200, 250),
                   (2, 65, 2, 8, 97, 256, False, 0, 80),
                   (2, 1, 8, 2, 130, 128, True, 99, 100),
                   (2, 40, 2, 2, 40, 128, True, -8, None)]
-        for eb, esq, ekv, eg, esk, ed, causal, qo, kvl in edges:
+        edges = [e + (False,) for e in edges] + [(2, 384, 4, 2, 512, 128, True, 128, None, True)]
+        for eb, esq, ekv, eg, esk, ed, causal, qo, kvl, wide in edges:
             ekw = dict(scale=ed ** -0.5, causal=causal, q_offset=qo, kv_len=kvl)
-            check_flash_bwd(book, "edge", operands(eb, esq, ekv, eg, esk, ed, ekw), ekw,
-                            timed=False)
+            check_flash_bwd(book, "edge, q and k over 2^+-3" if wide else "edge",
+                            operands(eb, esq, ekv, eg, esk, ed, ekw, wide), ekw, timed=False)
 
         # ---- restart on the card at the reduced config ---------------------
         losses = {}
@@ -1952,7 +2022,10 @@ def main() -> int:
     print(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    lib_path = kcuda.build(verbose=True)
+    build_out = io.StringIO()
+    with contextlib.redirect_stdout(build_out):
+        lib_path = kcuda.build(verbose=True)
+    print(build_out.getvalue(), end="")
     kcuda.library()
     print(f"build: {lib_path.name} in {time.perf_counter() - t0:.2f} s")
 
@@ -1962,11 +2035,18 @@ def main() -> int:
     # run on the TF32 tensor cores (HMMA), staged by cp.async (LDGSTS); the
     # conv body has no CUDA-core fp32 multiply-add (FFMA) left
     all_sass = sass_counts(lib_path)
+    usage = ptxas_usage(build_out.getvalue())  # empty if the library was built before
     for stem, want in SPLIT_TF32_KERNELS.items():
         sass = {k: v for k, v in all_sass.items() if stem in k}
         for fn, ops in sorted(sass.items()):
+            res = usage.get(fn)
+            regs = (f"registers {res.get('registers')}, stack frame {res.get('stack')} B, "
+                    f"spill stores {res.get('spill_stores')} B, spill loads "
+                    f"{res.get('spill_loads')} B" if res else
+                    "registers and spills not reported (library built before this run)")
             print(f"sass {fn[:100]}: " + ", ".join(f"{op} {ops.get(op, 0)}" for op in
-                                                  ("HMMA", "LDGSTS", "LDS", "FFMA")))
+                                                  ("HMMA", "LDGSTS", "LDS", "FFMA"))
+                  + f"; {regs}")
             if not ops.get("HMMA") or not ops.get("LDGSTS"):
                 failures.append(f"{fn}: no HMMA or no LDGSTS in its SASS")
         if len(sass) != want:
@@ -2229,19 +2309,29 @@ def main() -> int:
     for name, site in (("flash_bwd_dq", ":265"), ("flash_bwd_dkv", ":284")):
         rows = [r for r in book.rows if r["kernel"] == name]
         main_rows = [r for r in rows if r["shape"] == "trained layer 0"]
+        ms = sum(r["ms"] for r in main_rows)
+        bound = sum(r["bound_ms"] for r in main_rows)
+        flop_ms = sum(r["flop_ms"] for r in main_rows)
         kernels.append({
             "name": name, "route": "cuda", "source": csrc + "flash_attention_bwd.cu",
             "replaces": flash_src + site,
+            "redesigned_in": 18, "timing": "CUDA-graph replay (plain_ms too)",
             "launches": train_summary.get("main", {}).get("launches", {}).get(name, 0),
             "max_abs_err": book.max_err.get(name, 0.0),
-            "ms": sum(r["ms"] for r in main_rows),
+            "ms": ms,
             "plain_ms": sum(r["plain_ms"] for r in main_rows),
-            "bound_ms": sum(r["bound_ms"] for r in main_rows),
+            "bound_ms": bound,
             "bound_by": main_rows[0]["bound_by"] if main_rows else "operations",
             "library_ms": sum(r["library_ms"] for r in main_rows),
+            "eager_ms": sum(r["eager_ms"] for r in main_rows),
+            "eager_library_ms": sum(r["eager_library_ms"] for r in main_rows),
+            "achieved_tflops": flop_ms / ms * PEAK_TF32_SPLIT_FLOPS / 1e12 if ms else 0.0,
+            "bound_share": bound / ms if ms else 0.0,
+            "fp32_core_bound_ms": sum(r["fp32_core_bound_ms"] for r in main_rows),
             "phase": LM_ARCH + "-train",
             "shapes": [{k: r[k] for k in ("shape", "q", "k", "ms", "plain_ms",
-                                          "library_ms", "bound_ms", "bound_by")}
+                                          "library_ms", "eager_ms", "eager_library_ms",
+                                          "bound_ms", "bound_by", "fp32_core_bound_ms")}
                        for r in rows]})
         if len(main_rows) != 1:
             failures.append(f"{name}: the trained shape was not timed")

@@ -1,10 +1,11 @@
 // GQA flash-attention backward for Hopper (sm_90a): the two passes of the
-// reference's two-pass flash backward.
+// reference's two-pass flash backward, on the TF32 tensor cores in
+// split-TF32.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention/kernel.py
 // flash_bwd_pallas, one entry point per pallas_call site:
-//   :265 (_dq_kernel)  -> repro_flash_bwd_dq_f32
-//   :284 (_dkv_kernel) -> repro_flash_bwd_dkv_f32
+//   :265 (_dq_kernel)  -> repro_flash_bwd_dq_f32,  flash_bwd_dq_kernel<D>
+//   :284 (_dkv_kernel) -> repro_flash_bwd_dkv_f32, flash_bwd_dkv_kernel<D>
 //
 // What it computes (the Pallas kernels' function): with the forward's m and
 // l (l already max(l, 1e-30)), delta = rowsum(do * out) (formed outside, as
@@ -18,7 +19,8 @@
 //   dk[bkv,k,:]   = sum_{g,s} ds[k] (scale * q[bkv,g,s,:])   (no second scale)
 //   dv[bkv,k,:]   = sum_{g,s} p[k] do[bkv,g,s,:]
 // A fully masked row (m = NEG) spreads p = 1/l over all Sk keys, as in the
-// reference, because the mask is -1e30 and not -inf.
+// reference, because the mask is -1e30 and not -inf. fp32 within the port's
+// limit of the plain version (1e-4 * max|plain| + 1e-5 * min(1, max|plain|)).
 //
 // Layout: q, do and dq are read / written through (b, h, g, s) element
 // strides, k, v, dk and dv through (b, h, s) strides, with bkv = b * nh + h
@@ -26,61 +28,111 @@
 // nh = KV for the model's (B, Sq, KV, G, D) / (B, Sk, KV, D)); the head dim is
 // contiguous. m, l and delta are (BKV, G, Sq), contiguous.
 //
-// Design for this card, and what bounds it:
-// - The Pallas dq grid (bkv, g, q-tile, kv-tile) runs its kv axis in order
-//   with dq accumulated in VMEM. Here one block owns one (bkv, 64 query rows)
-//   pair with ALL G groups of the kv head inside (rows = qt positions x G
-//   groups, qt = 64 / G), the kv loop runs inside the
-//   block, and dq accumulates in registers; it is scaled once at the end.
-// - The Pallas dk/dv grid (bkv, kv-tile, g, q-tile) accumulates over its last
-//   two axes in order. Here one block owns one (bkv, key tile) pair and loops
-//   over every query tile of all G groups itself, so its dk/dv tile has one
-//   owner: no atomics, no second pass, and a deterministic sum order.
-// - Exact skipping only. Once a row has seen one visible key its m is a real
-//   score, so a masked key gives p = exp(-1e30 - m) = 0 and adds nothing to
-//   any of dq, dk, dv. Tiles are skipped only when every row of the call sees
-//   key 0 (kv_len >= 1 and, under the causal mask, the first row's qpos >= 0):
-//   the dq pass stops after the last key its rows can see (kv_len, causal
-//   diagonal), the dk/dv pass starts at the first query tile that can see
-//   its key tile (causal) and writes zeros for a key tile wholly past kv_len.
-//   Otherwise every tile is visited, as the reference does.
-// - Ragged edges are masked here for any Sq >= 1 and Sk >= 1: keys past Sk
-//   have p = 0, query rows past Sq compute on zeros and write nothing.
-// - Shared memory (fp32, rows padded by 4 floats so that the float4 reads of
-//   a quarter warp are conflict-free; p / ds tiles padded by 16 so the two
-//   rows a warp writes fall in different banks): dq pass Q, dO (64 x D+4),
-//   K, V (KK x D+4) and ds (64 x KK+16): 152 KB at D = 128; dk/dv pass K, V,
-//   Q, dO, p and ds and the rows' m, l, delta: 172 KB at D = 128. At D = 256
-//   both take a 32-key tile (KK = 32, a template parameter): 207 / 220 KB,
-//   under the 227 KB a block may have. Dynamic shared memory, raised with
-//   cudaFuncSetAttribute on every launch.
-// - 256 threads as 16 x 16. Score-shaped tiles (64 rows x KK keys): thread
-//   (ty, tx) owns rows ty + 16i and keys tx + 16j. dq: rows ty + 16i and
-//   columns tx + 16j of D. dk/dv: keys ty + 16i and columns tx + 16j, summed
-//   over the 64 rows of each query tile in turn.
-// - fp32 FMA on CUDA cores (no TF32: the port holds fp32 parity), expf and a
-//   true division (no fast math). Work is 6 (dq) and 8 (dk/dv) flops per
-//   visible (q, k) pair and head-dim element, against a bound of 10 for the
-//   whole backward; each inner step issues 8 shared 16-byte loads per 32
-//   FMAs, so the kernels are bound by shared-memory bandwidth well below the
-//   card's 67 TFLOP/s fp32 peak. wgmma / TMA tiles are later work.
+// What bounds the passes on this card (H100 SXM: 3.35 TB/s, 495 TFLOP/s of
+// TF32, so 165 TFLOP/s at three products per multiply-add): dq does 6 and
+// dk/dv 8 fp32 operations per visible (q, k) pair and head-dim element. At
+// the trained shape (qwen3-0.6b, B8, S128, KV 8, G 2, D 128, causal) that is
+// 0.0049 / 0.0066 ms of split-TF32 work against 0.0100 ms for the 33.5 MB
+// each pass must move: bytes, by a little. At the long shape (B4, S 2048
+// causal) the work is 0.63 / 0.83 ms against 0.08 ms of bytes: operations.
+// In practice neither: a warp's 16 x 16 step is a chain of dependent
+// products and exp with two warps per SM sub-partition to hide it, each
+// step reads about 3.5x its new operands' bytes from shared memory (the A
+// fragments of S and dP are read again for every step), and the split
+// costs three ALU instructions per operand element, so tensor cores,
+// shared-memory bandwidth and instruction issue share the time, none of
+// them saturated; at the trained shape a warp takes at most 4 steps, and
+// the prologue (staging) and epilogue (the fixed-order sums) weigh a large
+// share of a block's time.
+//
+// Design:
+// - Every product runs on mma.sync m16n8k8 TF32 in split-TF32
+//   (tf32_mma.cuh: a = hi + lo, three products lo*hi + hi*lo + hi*hi per
+//   multiply-add): S = Q.K^T, dP = dO.V^T, dQ = dS.K, dK = dS^T.Q and
+//   dV = P^T.dO. One TF32 product misses the fp32 limit on every gradient
+//   the product feeds, the scores above all, since p = exp(s - m) / l reads
+//   the forward's split-TF32 m and l (host emulation in
+//   tests/test_torch_kernels.py). p is formed as exp2((s - m) log2 e) times
+//   the row's 1 / l (a subtraction, two multiplies and exp2), within a few
+//   ulp of the quotient: expf and a true division sat on every step's
+//   critical path.
+// - dq pass, the forward's body: a block owns 16 (position, group) rows of
+//   one kv head, flattened as row = s * G + g (16 x 64 = 1024 blocks at the
+//   trained shape; a 64-row tile would read K and V a quarter as often but
+//   leave 256 blocks, under two per SM). Q (scaled) and dO are split and
+//   staged once per block. Its 4 warps split the keys in 16-key chunks
+//   (c = w, w + 4, ...): a warp forms dP and S, then p and ds in registers,
+//   and adds ds.K into its own 16 x D dq. ds feeds the MMA from registers by
+//   a renaming: in a C fragment a lane holds keys 2t, 2t + 1 of rows g,
+//   g + 8, read as reduction indices t, t + 4 and matched by K's rows 2t,
+//   2t + 1 for B. p is exact from the forward's m and l, so the 4 partial
+//   dq tiles need no rescale: they are summed in one fixed order through
+//   shared memory and scaled once.
+// - dk/dv pass, transposed: a block owns 16 keys of one kv head (16 x 8 x 8
+//   = 512 blocks at the trained shape), K and V split and staged once while
+//   the warps' first chunks load. Its 4 warps split the flattened query
+//   rows in 16-row chunks; a warp forms S^T = K.Q^T and dP^T = V.dO^T with
+//   each column's m, l and delta, and adds P^T.dO into dV and dS^T.Q into
+//   dK (scaled once at the end, as dq is), P^T and dS^T fed from registers
+//   by the same renaming (B = dO's and Q's rows 2t, 2t + 1). Each key tile
+//   has one owner: the 4 warps' partial dK and dV are summed in one fixed
+//   order through shared memory, with no atomics, so two launches on the
+//   same inputs agree bitwise.
+// - Rows: the lane holding row r of a tile or chunk divides it into
+//   (position, group) once and loads its m, l and delta (in dk/dv a chunk
+//   ahead); the other lanes take offsets and stats by shuffles.
+// - Registers: dK and dV for 16 keys x D are D accumulators a lane (128 at
+//   D = 128). At D = 256 the pass runs twice over the head dim, 128 output
+//   columns at a time, recomputing S^T and dP^T (a third more work at
+//   D = 256 only), so no instantiation holds more than 128 accumulators.
+// - Staging: per warp, the next chunk's K/V (dq) or Q/dO (dk/dv) rows are
+//   copied by cp.async as soon as the warp is done with the buffer, the
+//   forward's staggered scheme: in dq the next V loads under S, ds and ds.K,
+//   the next K under the next dP; in dk/dv the next Q under dV += P^T.dO,
+//   the next dO under the next S^T. A two-stage ring of both operands per
+//   warp would take 169 KB at D = 128, one block of 4 warps per SM; this
+//   takes 101 KB (192 x (D + 4) floats: 195 KB at D = 256, under the 227 KB
+//   a block may have), two blocks per SM. With 16-byte aligned operands and
+//   strides the copies are 16 bytes, else 4 (a view off alignment), with the
+//   same results. Shared rows are padded to D + 4 floats, which keeps the
+//   fragment loads (rows g, columns t; rows 2t, 2t + 1, column g)
+//   conflict-free.
+// - The exact skip: when every row of the call sees key 0 (kv_len >= 1 and,
+//   under the causal mask, q_offset >= 0), the dq pass stops after the last
+//   key its rows can see (kv_len, causal diagonal) and the dk/dv pass starts
+//   at the first row chunk that can see its keys and visits none for a key
+//   tile wholly past kv_len (writing zeros). Once a row has seen one visible
+//   key its m is a real score, so a masked key gives p = exp(-1e30 - m) = 0
+//   and adds nothing. Otherwise every tile is visited, as the reference does.
+// - Ragged edges for any Sq >= 1 and Sk >= 1: keys past Sk and rows past
+//   Sq * G are zero-filled, take p = 0, and write nothing.
 //
 // Launch hygiene: the entry points launch on the caller's stream, never
-// synchronise, allocate nothing, and return cudaGetLastError().
+// synchronise, allocate nothing, raise a kernel's dynamic shared-memory limit
+// once per device, and return cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "tf32_mma.cuh"
 
 namespace {
 
-constexpr int kRows = 64;      // query rows per tile (qt positions x G groups)
-constexpr int kThreads = 256;  // 16 x 16
+using namespace tf32mma;
+
+constexpr int kTile = 16;   // rows (dq) or keys (dk/dv) a block owns: one m16 tile
+constexpr int kChunk = 16;  // keys (dq) or rows (dk/dv) per warp step: two n8 tiles
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
 constexpr float kNeg = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct BwdParams {
-  int nh, g, sq, sk, qt;
+  int nh, g, sq, sk, rows;       // rows = sq * g, the flattened (s, g) rows
   int causal, q_offset, kv_len;  // kv_len < 0: no kv_len mask
   float scale;
+  int vec;  // every operand and row stride 16-byte aligned: 16-byte copies
   long long q_sb, q_sh, q_sg, q_ss;
   long long k_sb, k_sh, k_ss;
   long long v_sb, v_sh, v_ss;
@@ -90,340 +142,477 @@ struct BwdParams {
   long long dv_sb, dv_sh, dv_ss;
 };
 
-// Key tile per head dim: 64 keys, 32 at D = 256 to fit shared memory.
+// Shared floats of either pass: 4 split tiles [16][D+4] (Q, dO hi/lo; or K,
+// V hi/lo) and per warp two fp32 chunk buffers [16][D+4].
 template <int D>
-struct KeyTile {
-  static constexpr int value = D == 256 ? 32 : 64;
-};
+constexpr int bwd_smem_floats() {
+  return (4 * kTile + kWarps * 2 * kChunk) * (D + 4);
+}
 
-// rows [0, 64) of query tile s0 -> shared memory (pitch D + 4), times mul;
-// rows past the tile's G * qt or past Sq are zero.
+// The keys all rows can see, when every row of the call sees key 0: the
+// tile skips are then exact. Returns kv_lim, or -1 when nothing may be
+// skipped.
+__device__ __forceinline__ int exact_kv_lim(const BwdParams& p) {
+  const int kv_lim = p.kv_len < 0 ? p.sk : min(p.kv_len, p.sk);
+  return kv_lim > 0 && (!p.causal || p.q_offset >= 0) ? kv_lim : -1;
+}
+
+// Stage the 16 rows of a warp's chunk of one fp32 operand into its [16][D+4]
+// buffer by cp.async, by this warp's lanes: lanes r and r + 16 hold the
+// element offset `off` of row r in `src` (< 0: past the operand's rows,
+// zero-filled), which the others read by shuffles, so no lane divides a
+// flattened row into its position and group more than once.
 template <int D>
-__device__ __forceinline__ void load_rows(float* dst, const float* src, long long base,
-                                          long long sg, long long ss, int s0,
-                                          const BwdParams& p, float mul) {
+__device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__ src,
+                                           long long off, bool vec, int lane) {
   constexpr int DP = D + 4;
-  const int rows = p.qt * p.g;
-  for (int i = threadIdx.x; i < kRows * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    const int s = s0 + r / p.g, g = r % p.g;
-    float x = 0.f;
-    if (r < rows && s < p.sq) x = src[base + g * sg + s * ss + d] * mul;
-    dst[r * DP + d] = x;
+  if (vec) {
+    constexpr int kC = D / 4;
+#pragma unroll
+    for (int i = lane; i < kChunk * kC; i += 32) {
+      const int r = i / kC, c = i - r * kC;
+      const long long o = __shfl_sync(0xffffffffu, off, r);
+      cp_async16(smem_addr(dst + r * DP + 4 * c), o >= 0 ? src + o + 4 * c : src, o >= 0);
+    }
+  } else {
+    for (int i = lane; i < kChunk * D; i += 32) {
+      const int r = i / D, d = i - r * D;
+      const long long o = __shfl_sync(0xffffffffu, off, r);
+      cp_async4(smem_addr(dst + r * DP + d), o >= 0 ? src + o + d : src, o >= 0);
+    }
   }
 }
 
-// keys [k0, k0 + KK) -> shared memory (pitch D + 4); keys past Sk are zero.
-template <int D, int KK>
-__device__ __forceinline__ void load_keys(float* dst, const float* src, long long base,
-                                          long long ss, int k0, int sk) {
+// Stage the 16 rows of a block's tile of one operand, times `mul`, split into
+// hi and lo [16][D+4] tiles, by the whole block; as in stage_rows, lanes r
+// and r + 16 of every warp hold row r's offset `off` (< 0: zero-filled).
+template <int D>
+__device__ __forceinline__ void stage_split(uint32_t* hi, uint32_t* lo,
+                                            const float* __restrict__ src, long long off,
+                                            float mul, bool vec) {
   constexpr int DP = D + 4;
-  for (int i = threadIdx.x; i < KK * D; i += kThreads) {
-    const int c = i / D, d = i % D;
-    const int pos = k0 + c;
-    dst[c * DP + d] = pos < sk ? src[base + pos * ss + d] : 0.f;
-  }
-}
-
-// acc[i][j] = A[ty + 16i, :] . B[tx + 16j, :] over D (both pitch D + 4).
-template <int D, int NC>
-__device__ __forceinline__ void tile_dot(const float* A, const float* B, int ty, int tx,
-                                         float (&acc)[4][NC]) {
-  constexpr int DP = D + 4;
+  for (int i = threadIdx.x; i < kTile * (D / 4); i += kThreads) {  // 4D: whole warps
+    const int r = i / (D / 4), d = (i - r * (D / 4)) * 4;
+    const long long o = __shfl_sync(0xffffffffu, off, r);
+    float x[4] = {0.f, 0.f, 0.f, 0.f};
+    if (o >= 0) {
+      const float* s = src + o + d;
+      if (vec) {
+        const float4 f = *reinterpret_cast<const float4*>(s);
+        x[0] = f.x; x[1] = f.y; x[2] = f.z; x[3] = f.w;
+      } else {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NC; ++j) acc[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; d += 4) {
-    float4 a[4], b[NC];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      a[i] = *reinterpret_cast<const float4*>(&A[(ty + 16 * i) * DP + d]);
-#pragma unroll
-    for (int j = 0; j < NC; ++j)
-      b[j] = *reinterpret_cast<const float4*>(&B[(tx + 16 * j) * DP + d]);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < NC; ++j) {
-        float x = acc[i][j];
-        x = fmaf(a[i].x, b[j].x, x);
-        x = fmaf(a[i].y, b[j].y, x);
-        x = fmaf(a[i].z, b[j].z, x);
-        x = fmaf(a[i].w, b[j].w, x);
-        acc[i][j] = x;
+        for (int e = 0; e < 4; ++e) x[e] = s[e];
       }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split(x[e] * mul, hi[r * DP + d + e], lo[r * DP + d + e]);
   }
 }
 
-// p for one (row, key): 0 past Sk or on a dead row, else exp(masked s - m) / l.
-__device__ __forceinline__ float prob(float s, int qpos, int kpos, float m, float l,
+// acc[j] = A (16 x D, split tiles in shared memory, rows g / g + 8) .
+// B^T, where B's rows 8j + g (j = 0, 1) are a [16][D+4] fp32 chunk, times
+// `mul`, split as their fragments load: the S / dP shape of either pass.
+// Two accumulator chains per n8 tile (k-steps alternate), summed at the end.
+template <int D>
+__device__ __forceinline__ void tile_product(float (&acc)[2][4], const uint32_t* ahi,
+                                             const uint32_t* alo, const float* bc, float mul,
+                                             int g, int t) {
+  constexpr int DP = D + 4;
+  float part[2][2][4];
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[a][j][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < D / 8; ++ks) {
+    const int ao = g * DP + 8 * ks + t;
+    const uint32_t ah[4] = {ahi[ao], ahi[ao + 8 * DP], ahi[ao + 4], ahi[ao + 8 * DP + 4]};
+    const uint32_t al[4] = {alo[ao], alo[ao + 8 * DP], alo[ao + 4], alo[ao + 8 * DP + 4]};
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const float* br = bc + (8 * j + g) * DP + 8 * ks + t;
+      uint32_t bh[2], bl[2];
+      split(br[0] * mul, bh[0], bl[0]);
+      split(br[4] * mul, bh[1], bl[1]);
+      mma_split(part[ks & 1][j], ah, al, bh, bl);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = part[0][j][e] + part[1][j][e];
+}
+
+// acc[n] += X (16 x 16, C fragments x[j] of two n8 tiles) . B[:, c0 + 8n ..]
+// for n < NH, where B's 16 rows are a [16][D+4] fp32 chunk: the renaming
+// feeds X from registers (step j's reduction index t is column 8j + 2t,
+// t + 4 column 8j + 2t + 1, matched by B's rows 8j + 2t, 8j + 2t + 1).
+template <int D, int NH>
+__device__ __forceinline__ void reg_product(float (&acc)[NH][4], const float (&x)[2][4],
+                                            const float* bc, int c0, int g, int t) {
+  constexpr int DP = D + 4;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    uint32_t xh[4], xl[4];
+    split(x[j][0], xh[0], xl[0]);
+    split(x[j][2], xh[1], xl[1]);
+    split(x[j][1], xh[2], xl[2]);
+    split(x[j][3], xh[3], xl[3]);
+    const float* br = bc + (8 * j + 2 * t) * DP + c0 + g;
+#pragma unroll
+    for (int n = 0; n < NH; ++n) {
+      uint32_t bh[2], bl[2];
+      split(br[8 * n], bh[0], bl[0]);
+      split(br[8 * n + DP], bh[1], bl[1]);
+      mma_split(acc[n], xh, xl, bh, bl);
+    }
+  }
+}
+
+// p for one (row, key): 0 past Sk or on a dead row, else exp(masked s - m) / l,
+// formed as exp2((s - m) log2 e) times the row's 1 / l (within a few ulp of
+// the quotient, and off the critical path of two long-latency calls).
+__device__ __forceinline__ float prob(float s, int qpos, int kpos, float m, float linv,
                                       bool live, const BwdParams& p) {
   if (!live || kpos >= p.sk) return 0.f;
   if ((p.causal && qpos < kpos) || (p.kv_len >= 0 && kpos >= p.kv_len)) s = kNeg;
-  return expf(s - m) / l;
+  return exp2f((s - m) * kLog2e) * linv;
 }
 
-// true when every row of the call sees key 0: the tile skips are then exact
-__device__ __forceinline__ bool skip_is_exact(const BwdParams& p, int first_s) {
-  const int kv_lim = p.kv_len < 0 ? p.sk : min(p.kv_len, p.sk);
-  return kv_lim > 0 && (!p.causal || p.q_offset + first_s >= 0);
+// One flattened (position, group) row of kv head bkv, for the lanes of a
+// warp together: the lane of row r (r = lane & 15) divides it once into its
+// position s and group gg and holds its offsets in q and do, its m, l and
+// delta; the lanes that need them read them by shuffles. A row past Sq * G
+// gets offsets -1 and reads nothing.
+struct RowInfo {
+  long long qo, doo;
+  float m, linv, dl;  // m, 1 / max(l, 1e-30), delta
+  int s, gg, qpos;
+};
+
+__device__ __forceinline__ RowInfo row_info(int row, int bkv, const BwdParams& p,
+                                            long long qb, long long dob,
+                                            const float* __restrict__ m_in,
+                                            const float* __restrict__ l_in,
+                                            const float* __restrict__ delta) {
+  RowInfo r{-1, -1, 0.f, 1.f, 0.f, 0, 0, 0};
+  if (row < p.rows) {
+    r.s = row / p.g;
+    r.gg = row - r.s * p.g;
+    r.qo = qb + r.gg * p.q_sg + r.s * p.q_ss;
+    r.doo = dob + r.gg * p.do_sg + r.s * p.do_ss;
+    const long long idx = ((long long)bkv * p.g + r.gg) * p.sq + r.s;
+    r.m = m_in[idx];
+    r.linv = 1.f / fmaxf(l_in[idx], 1e-30f);
+    r.dl = delta[idx];
+    r.qpos = p.q_offset + r.s;
+  }
+  return r;
 }
 
 // ---------------------------------------------------------------------------
-// dq pass: one block per (bkv, 64 query rows), the kv loop inside
+// dq pass: a block per (bkv, 16 rows); its 4 warps split the keys
 // ---------------------------------------------------------------------------
 
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ m_in, const float* __restrict__ l_in,
-                    const float* __restrict__ delta, float* __restrict__ dq,
-                    BwdParams p) {
-  constexpr int KK = KeyTile<D>::value;
+                    const float* __restrict__ delta, float* __restrict__ dq, BwdParams p) {
   constexpr int DP = D + 4;
-  constexpr int NC = KK / 16;
-  constexpr int NJ = (D + 15) / 16;
-  constexpr int PP = KK + 16;
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);  // kRows x DP, pre-scaled q
-  float* Ds = Qs + kRows * DP;                  // kRows x DP, do
-  float* Ks = Ds + kRows * DP;                  // KK x DP
-  float* Vs = Ks + KK * DP;                     // KK x DP
-  float* Ss = Vs + KK * DP;                     // kRows x PP, ds
+  constexpr int NT = D / 8;
+  extern __shared__ __align__(16) float smem[];
+  uint32_t* const qhi = reinterpret_cast<uint32_t*>(smem);  // [16][DP], scale * q
+  uint32_t* const qlo = qhi + kTile * DP;
+  uint32_t* const dhi = qlo + kTile * DP;  // do
+  uint32_t* const dlo = dhi + kTile * DP;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  float* const kc = smem + 4 * kTile * DP + warp * 2 * kChunk * DP;  // this warp's K
+  float* const vc = kc + kChunk * DP;                               // and V chunk
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int bkv = blockIdx.y;
   const int b = bkv / p.nh, h = bkv % p.nh;
-  const int s0 = blockIdx.x * p.qt;
-  const int rows = p.qt * p.g;
+  const int r0 = blockIdx.x * kTile;
   const long long kb = b * p.k_sb + h * p.k_sh;
   const long long vb = b * p.v_sb + h * p.v_sh;
 
-  load_rows<D>(Qs, q, b * p.q_sb + h * p.q_sh, p.q_sg, p.q_ss, s0, p, p.scale);
-  load_rows<D>(Ds, dout, b * p.do_sb + h * p.do_sh, p.do_sg, p.do_ss, s0, p, 1.f);
-
-  int qpos[4];
-  bool live[4];
-  float mrow[4], lrow[4], drow[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    const int s = s0 + r / p.g, g = r % p.g;
-    live[i] = r < rows && s < p.sq;
-    qpos[i] = p.q_offset + s;
-    const long long idx = ((long long)bkv * p.g + g) * p.sq + s;
-    mrow[i] = live[i] ? m_in[idx] : 0.f;
-    lrow[i] = live[i] ? fmaxf(l_in[idx], 1e-30f) : 1.f;
-    drow[i] = live[i] ? delta[idx] : 0.f;
-  }
-
-  // the exact skip: stop after the last key some row of the block can see
+  // the exact skip: stop after the last key a row of the block can see
   int kend = p.sk;
-  if (skip_is_exact(p, 0)) {
-    const int s_last = min(s0 + p.qt, p.sq) - 1;
-    kend = p.kv_len < 0 ? p.sk : min(p.kv_len, p.sk);
-    if (p.causal) kend = max(0, min(kend, p.q_offset + s_last + 1));
+  const int kv_lim = exact_kv_lim(p);
+  if (kv_lim > 0) {
+    kend = kv_lim;
+    if (p.causal) kend = max(0, min(kend, p.q_offset + (min(r0 + kTile, p.rows) - 1) / p.g + 1));
   }
-  const int ntiles = (kend + KK - 1) / KK;
+  const int n_chunks = (kend + kChunk - 1) / kChunk;
 
-  float acc[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int jj = 0; jj < NJ; ++jj) acc[i][jj] = 0.f;
+  // key (lane & 15) of chunk cc: its offset in K or V, < 0 past Sk
+  const auto key_off = [&](int cc, long long base, long long ss) -> long long {
+    const int key = cc * kChunk + (lane & 15);
+    return key < p.sk ? base + key * ss : -1;
+  };
+  // this warp's first chunk loads while Q and dO are staged: V first, since
+  // dP comes first
+  int c = warp;
+  if (c < n_chunks) stage_rows<D>(vc, v, key_off(c, vb, p.v_ss), p.vec, lane);
+  cp_async_commit();
+  if (c < n_chunks) stage_rows<D>(kc, k, key_off(c, kb, p.k_ss), p.vec, lane);
+  cp_async_commit();
 
-  for (int t = 0; t < ntiles; ++t) {
-    const int k0 = t * KK;
-    __syncthreads();  // the Q / dO tiles are written; the last tile's reads are done
-    load_keys<D, KK>(Ks, k, kb, p.k_ss, k0, p.sk);
-    load_keys<D, KK>(Vs, v, vb, p.v_ss, k0, p.sk);
-    __syncthreads();
+  const RowInfo ri = row_info(r0 + (lane & 15), bkv, p, b * p.q_sb + h * p.q_sh,
+                              b * p.do_sb + h * p.do_sh, m_in, l_in, delta);
+  stage_split<D>(qhi, qlo, q, ri.qo, p.scale, p.vec);
+  stage_split<D>(dhi, dlo, dout, ri.doo, 1.f, p.vec);
 
-    float sc[4][NC], dp[4][NC];
-    tile_dot<D, NC>(Qs, Ks, ty, tx, sc);
-    tile_dot<D, NC>(Ds, Vs, ty, tx, dp);
+  // rows g and g + 8 of the tile
+  int qpos[2];
+  bool live[2];
+  float mrow[2], linv_row[2], drow[2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = g + 8 * hf;
+    live[hf] = r0 + r < p.rows;
+    qpos[hf] = __shfl_sync(0xffffffffu, ri.qpos, r);
+    mrow[hf] = __shfl_sync(0xffffffffu, ri.m, r);
+    linv_row[hf] = __shfl_sync(0xffffffffu, ri.linv, r);
+    drow[hf] = __shfl_sync(0xffffffffu, ri.dl, r);
+  }
+  __syncthreads();
+
+  float acc[NT][4];
 #pragma unroll
-      for (int j = 0; j < NC; ++j) {
-        const float pr =
-            prob(sc[i][j], qpos[i], k0 + tx + 16 * j, mrow[i], lrow[i], live[i], p);
-        Ss[(ty + 16 * i) * PP + tx + 16 * j] = pr * (dp[i][j] - drow[i]);
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (; c < n_chunks; c += kWarps) {
+    const int key0 = c * kChunk;
+    const bool next = c + kWarps < n_chunks;
+    cp_async_wait<1>();  // V(c) landed (K(c) may still be in flight)
+    __syncwarp();
+    float dp[2][4];
+    tile_product<D>(dp, dhi, dlo, vc, 1.f, g, t);
+    __syncwarp();  // every lane is done with V(c)
+    if (next) stage_rows<D>(vc, v, key_off(c + kWarps, vb, p.v_ss), p.vec, lane);
+    cp_async_commit();
+
+    cp_async_wait<1>();  // K(c) landed (V(c + 4) may still be in flight)
+    __syncwarp();
+    float sc[2][4];
+    tile_product<D>(sc, qhi, qlo, kc, 1.f, g, t);
+
+    // p and ds: a lane holds keys 8j + 2t + (e & 1) of rows g (e < 2), g + 8
+    float ds[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hf = e >> 1;
+        const float pr = prob(sc[j][e], qpos[hf], key0 + 8 * j + 2 * t + (e & 1), mrow[hf],
+                              linv_row[hf], live[hf], p);
+        ds[j][e] = pr * (dp[j][e] - drow[hf]);
       }
-    __syncthreads();
+    reg_product<D, NT>(acc, ds, kc, 0, g, t);  // dq_w += ds K
+    __syncwarp();  // every lane is done with K(c)
+    if (next) stage_rows<D>(kc, k, key_off(c + kWarps, kb, p.k_ss), p.vec, lane);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+  __syncwarp();
 
-    const int nk = min(KK, p.sk - k0);
-    for (int c = 0; c < nk; ++c) {
-      float kv[NJ];
+  // the warps' partial dq tiles, each into its own K chunk's space, summed in
+  // warp order and scaled once
 #pragma unroll
-      for (int jj = 0; jj < NJ; ++jj) {
-        const int col = tx + 16 * jj;
-        kv[jj] = col < D ? Ks[c * DP + col] : 0.f;
-      }
+  for (int hf = 0; hf < 2; ++hf)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float ds = Ss[(ty + 16 * i) * PP + c];
+    for (int n = 0; n < NT; ++n)
+      *reinterpret_cast<float2*>(kc + (g + 8 * hf) * DP + 8 * n + 2 * t) =
+          make_float2(acc[n][2 * hf], acc[n][2 * hf + 1]);
+  __syncthreads();
+  const float* part = smem + 4 * kTile * DP;  // warp w's tile at w * 2 * kChunk * DP
+  const long long dqo = ri.qo < 0 ? -1 : b * p.dq_sb + h * p.dq_sh + ri.gg * p.dq_sg +
+                                         ri.s * p.dq_ss;
+  for (int i = tid; i < kTile * (D / 4); i += kThreads) {  // 4D: whole warps
+    const int r = i / (D / 4), d = (i - r * (D / 4)) * 4;
+    const long long o = __shfl_sync(0xffffffffu, dqo, r);
+    if (o < 0) continue;
+    float4 sum = *reinterpret_cast<const float4*>(part + r * DP + d);
 #pragma unroll
-        for (int jj = 0; jj < NJ; ++jj) acc[i][jj] = fmaf(ds, kv[jj], acc[i][jj]);
-      }
+    for (int w = 1; w < kWarps; ++w) {
+      const float4 x = *reinterpret_cast<const float4*>(part + w * 2 * kChunk * DP + r * DP + d);
+      sum.x += x.x; sum.y += x.y; sum.z += x.z; sum.w += x.w;
     }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if (!live[i]) continue;
-    const int r = ty + 16 * i;
-    const int s = s0 + r / p.g, g = r % p.g;
-    const long long ob = b * p.dq_sb + h * p.dq_sh + g * p.dq_sg + s * p.dq_ss;
-#pragma unroll
-    for (int jj = 0; jj < NJ; ++jj) {
-      const int col = tx + 16 * jj;
-      if (col < D) dq[ob + col] = acc[i][jj] * p.scale;
+    const float4 y = make_float4(sum.x * p.scale, sum.y * p.scale, sum.z * p.scale,
+                                 sum.w * p.scale);
+    float* dst = dq + o + d;
+    if (p.vec) {
+      *reinterpret_cast<float4*>(dst) = y;
+    } else {
+      dst[0] = y.x; dst[1] = y.y; dst[2] = y.z; dst[3] = y.w;
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// dk/dv pass: one block per (bkv, key tile), every group and query tile inside
+// dk/dv pass: a block per (bkv, 16 keys); its 4 warps split the rows
 // ---------------------------------------------------------------------------
 
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ dout,
                      const float* __restrict__ m_in, const float* __restrict__ l_in,
                      const float* __restrict__ delta, float* __restrict__ dk,
                      float* __restrict__ dv, BwdParams p) {
-  constexpr int KK = KeyTile<D>::value;
   constexpr int DP = D + 4;
-  constexpr int NC = KK / 16;  // keys per thread: score tiles, and dk/dv rows
-  constexpr int NJ = (D + 15) / 16;
-  constexpr int PP = KK + 16;
-  extern __shared__ float4 smem4[];
-  float* Ks = reinterpret_cast<float*>(smem4);  // KK x DP
-  float* Vs = Ks + KK * DP;                     // KK x DP
-  float* Qs = Vs + KK * DP;                     // kRows x DP, pre-scaled q
-  float* Ds = Qs + kRows * DP;                  // kRows x DP, do
-  float* Ps = Ds + kRows * DP;                  // kRows x PP, p
-  float* Ss = Ps + kRows * PP;                  // kRows x PP, ds
-  float* Ms = Ss + kRows * PP;                  // kRows: m, l, delta of the rows
-  float* Ls = Ms + kRows;
-  float* Dl = Ls + kRows;
+  constexpr int DH = D > 128 ? 128 : D;  // output columns per sweep over the rows
+  constexpr int NH = DH / 8;
+  extern __shared__ __align__(16) float smem[];
+  uint32_t* const khi = reinterpret_cast<uint32_t*>(smem);  // [16][DP]
+  uint32_t* const klo = khi + kTile * DP;
+  uint32_t* const vhi = klo + kTile * DP;
+  uint32_t* const vlo = vhi + kTile * DP;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  float* const qc = smem + 4 * kTile * DP + warp * 2 * kChunk * DP;  // this warp's Q
+  float* const dc = qc + kChunk * DP;                               // and dO chunk
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int bkv = blockIdx.y;
   const int b = bkv / p.nh, h = bkv % p.nh;
-  const int k0 = blockIdx.x * KK;
-  const int rows = p.qt * p.g;
+  const int k0 = blockIdx.x * kTile;
   const long long qb = b * p.q_sb + h * p.q_sh;
   const long long dob = b * p.do_sb + h * p.do_sh;
 
-  load_keys<D, KK>(Ks, k, b * p.k_sb + h * p.k_sh, p.k_ss, k0, p.sk);
-  load_keys<D, KK>(Vs, v, b * p.v_sb + h * p.v_sh, p.v_ss, k0, p.sk);
-
-  // the exact skip: from the first query tile that can see this key tile
+  // the exact skip: from the first row chunk that can see this key tile
   // (causal), none when the tile lies wholly past kv_len
-  const int nqt = (p.sq + p.qt - 1) / p.qt;
-  int t_begin = 0, t_end = nqt;
-  if (skip_is_exact(p, 0)) {
-    const int kv_lim = p.kv_len < 0 ? p.sk : min(p.kv_len, p.sk);
+  const int n_rc = (p.rows + kChunk - 1) / kChunk;
+  int c_begin = 0, c_end = n_rc;
+  const int kv_lim = exact_kv_lim(p);
+  if (kv_lim > 0) {
     if (k0 >= kv_lim)
-      t_end = 0;
+      c_end = 0;
     else if (p.causal)
-      t_begin = min(nqt, max(0, k0 - p.q_offset) / p.qt);
+      c_begin = (int)min((long long)n_rc,
+                         (long long)max(0, k0 - p.q_offset) * p.g / kChunk);
   }
 
-  float dk_acc[NC][NJ], dv_acc[NC][NJ];
+  const int key = k0 + (lane & 15);
+  // keys g and g + 8 of the tile
+  int kpos[2];
 #pragma unroll
-  for (int i = 0; i < NC; ++i)
-#pragma unroll
-    for (int jj = 0; jj < NJ; ++jj) dk_acc[i][jj] = dv_acc[i][jj] = 0.f;
+  for (int hf = 0; hf < 2; ++hf) kpos[hf] = k0 + g + 8 * hf;
 
-  for (int t = t_begin; t < t_end; ++t) {
-    const int s0 = t * p.qt;
-    __syncthreads();  // K / V are written; the last query tile's reads are done
-    load_rows<D>(Qs, q, qb, p.q_sg, p.q_ss, s0, p, p.scale);
-    load_rows<D>(Ds, dout, dob, p.do_sg, p.do_ss, s0, p, 1.f);
-    if (tid < kRows) {
-      const int s = s0 + tid / p.g, g = tid % p.g;
-      const bool lv = tid < rows && s < p.sq;
-      const long long idx = ((long long)bkv * p.g + g) * p.sq + s;
-      Ms[tid] = lv ? m_in[idx] : 0.f;
-      Ls[tid] = lv ? fmaxf(l_in[idx], 1e-30f) : 1.f;
-      Dl[tid] = lv ? delta[idx] : 0.f;
+  for (int c0 = 0; c0 < D; c0 += DH) {
+    // this warp's first chunk: Q first, since S^T comes first
+    int c = c_begin + warp;
+    RowInfo nxt = row_info(c * kChunk + (lane & 15), bkv, p, qb, dob, m_in, l_in, delta);
+    if (c < c_end) stage_rows<D>(qc, q, nxt.qo, p.vec, lane);
+    cp_async_commit();
+    if (c < c_end) stage_rows<D>(dc, dout, nxt.doo, p.vec, lane);
+    cp_async_commit();
+    if (c0 == 0) {  // K and V, split, while the first chunks load
+      stage_split<D>(khi, klo, k, key < p.sk ? b * p.k_sb + h * p.k_sh + key * p.k_ss : -1,
+                     1.f, p.vec);
+      stage_split<D>(vhi, vlo, v, key < p.sk ? b * p.v_sb + h * p.v_sh + key * p.v_ss : -1,
+                     1.f, p.vec);
     }
-    __syncthreads();
+    __syncthreads();  // K and V are split and staged
 
-    float sc[4][NC], dp[4][NC];
-    tile_dot<D, NC>(Qs, Ks, ty, tx, sc);
-    tile_dot<D, NC>(Ds, Vs, ty, tx, dp);
+    float acc_k[NH][4], acc_v[NH][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-      const int s = s0 + r / p.g;
-      const bool lv = r < rows && s < p.sq;
+    for (int n = 0; n < NH; ++n)
 #pragma unroll
-      for (int j = 0; j < NC; ++j) {
-        const float pr = prob(sc[i][j], p.q_offset + s, k0 + tx + 16 * j, Ms[r], Ls[r],
-                              lv, p);
-        Ps[r * PP + tx + 16 * j] = pr;
-        Ss[r * PP + tx + 16 * j] = pr * (dp[i][j] - Dl[r]);
-      }
-    }
-    __syncthreads();
+      for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
 
-    for (int r = 0; r < rows; ++r) {
-      float qv[NJ], dov[NJ];
+    for (; c < c_end; c += kWarps) {
+      const int row0 = c * kChunk;
+      const bool next = c + kWarps < c_end;
+      const RowInfo cur = nxt;
+      if (next)  // its stats load under this chunk
+        nxt = row_info((c + kWarps) * kChunk + (lane & 15), bkv, p, qb, dob, m_in, l_in, delta);
+
+      cp_async_wait<1>();  // Q(c) landed (dO(c) may still be in flight)
+      __syncwarp();
+      float sc[2][4];
+      tile_product<D>(sc, khi, klo, qc, p.scale, g, t);  // S^T = K (scale Q)^T
+      cp_async_wait<0>();  // dO(c) landed
+      __syncwarp();
+      float dp[2][4];
+      tile_product<D>(dp, vhi, vlo, dc, 1.f, g, t);  // dP^T = V dO^T
+
+      // P^T and dS^T: a lane holds rows 8j + 2t + (e & 1) of keys g (e < 2),
+      // g + 8; the stats of row r come from lane r
+      float pt[2][4], dst_t[2][4];
 #pragma unroll
-      for (int jj = 0; jj < NJ; ++jj) {
-        const int col = tx + 16 * jj;
-        qv[jj] = col < D ? Qs[r * DP + col] : 0.f;
-        dov[jj] = col < D ? Ds[r * DP + col] : 0.f;
-      }
+      for (int j = 0; j < 2; ++j)
 #pragma unroll
-      for (int i = 0; i < NC; ++i) {
-        const float pv = Ps[r * PP + ty + 16 * i];
-        const float sv = Ss[r * PP + ty + 16 * i];
+        for (int e1 = 0; e1 < 2; ++e1) {
+          const int r = 8 * j + 2 * t + e1;
+          const float m = __shfl_sync(0xffffffffu, cur.m, r);
+          const float linv = __shfl_sync(0xffffffffu, cur.linv, r);
+          const float dl = __shfl_sync(0xffffffffu, cur.dl, r);
+          const int qpos = __shfl_sync(0xffffffffu, cur.qpos, r);
+          const bool live = row0 + r < p.rows;
 #pragma unroll
-        for (int jj = 0; jj < NJ; ++jj) {
-          dv_acc[i][jj] = fmaf(pv, dov[jj], dv_acc[i][jj]);
-          dk_acc[i][jj] = fmaf(sv, qv[jj], dk_acc[i][jj]);
+          for (int hf = 0; hf < 2; ++hf) {
+            const int e = 2 * hf + e1;
+            pt[j][e] = prob(sc[j][e], qpos, kpos[hf], m, linv, live, p);
+            dst_t[j][e] = pt[j][e] * (dp[j][e] - dl);
+          }
         }
+      reg_product<D, NH>(acc_k, dst_t, qc, c0, g, t);  // dK += dS^T Q (scaled at the end)
+      __syncwarp();  // every lane is done with Q(c)
+      if (next) stage_rows<D>(qc, q, nxt.qo, p.vec, lane);
+      cp_async_commit();
+      reg_product<D, NH>(acc_v, pt, dc, c0, g, t);  // dV += P^T dO
+      __syncwarp();  // every lane is done with dO(c)
+      if (next) stage_rows<D>(dc, dout, nxt.doo, p.vec, lane);
+      cp_async_commit();
+    }
+    cp_async_wait<0>();
+    __syncwarp();
+
+    // the warps' partial dK and dV, each into its own Q and dO chunks'
+    // space, summed in warp order
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int n = 0; n < NH; ++n) {
+        const int o = (g + 8 * hf) * DP + 8 * n + 2 * t;
+        *reinterpret_cast<float2*>(qc + o) = make_float2(acc_k[n][2 * hf], acc_k[n][2 * hf + 1]);
+        *reinterpret_cast<float2*>(dc + o) = make_float2(acc_v[n][2 * hf], acc_v[n][2 * hf + 1]);
+      }
+    __syncthreads();
+    const float* part = smem + 4 * kTile * DP;  // warp w's dK at w * 2 * kChunk * DP, dV after
+    for (int i = tid; i < 2 * kTile * (DH / 4); i += kThreads) {
+      const int which = i / (kTile * (DH / 4));  // 0: dk, 1: dv
+      const int ii = i - which * kTile * (DH / 4);
+      const int r = ii / (DH / 4), d = (ii - r * (DH / 4)) * 4, pos = k0 + r;
+      if (pos >= p.sk) continue;
+      const float* src = part + which * kChunk * DP + r * DP + d;
+      float4 sum = *reinterpret_cast<const float4*>(src);
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w) {
+        const float4 x = *reinterpret_cast<const float4*>(src + w * 2 * kChunk * DP);
+        sum.x += x.x; sum.y += x.y; sum.z += x.z; sum.w += x.w;
+      }
+      float* out = which == 0 ? dk + b * p.dk_sb + h * p.dk_sh + (long long)pos * p.dk_ss
+                              : dv + b * p.dv_sb + h * p.dv_sh + (long long)pos * p.dv_ss;
+      out += c0 + d;
+      if (which == 0) sum = make_float4(sum.x * p.scale, sum.y * p.scale, sum.z * p.scale,
+                                        sum.w * p.scale);
+      if (p.vec) {
+        *reinterpret_cast<float4*>(out) = sum;
+      } else {
+        out[0] = sum.x; out[1] = sum.y; out[2] = sum.z; out[3] = sum.w;
       }
     }
+    __syncthreads();  // every partial is read: the next sweep may stage over them
   }
-
-#pragma unroll
-  for (int i = 0; i < NC; ++i) {
-    const int pos = k0 + ty + 16 * i;
-    if (pos >= p.sk) continue;
-    const long long kob = b * p.dk_sb + h * p.dk_sh + pos * p.dk_ss;
-    const long long vob = b * p.dv_sb + h * p.dv_sh + pos * p.dv_ss;
-#pragma unroll
-    for (int jj = 0; jj < NJ; ++jj) {
-      const int col = tx + 16 * jj;
-      if (col < D) {
-        dk[kob + col] = dk_acc[i][jj];
-        dv[vob + col] = dv_acc[i][jj];
-      }
-    }
-  }
-}
-
-template <int D>
-size_t dq_smem() {
-  constexpr int KK = KeyTile<D>::value;
-  return sizeof(float) * (size_t)(2 * kRows * (D + 4) + 2 * KK * (D + 4) + kRows * (KK + 16));
-}
-
-template <int D>
-size_t dkv_smem() {
-  constexpr int KK = KeyTile<D>::value;
-  return sizeof(float) *
-         (size_t)(2 * KK * (D + 4) + 2 * kRows * (D + 4) + 2 * kRows * (KK + 16) + 3 * kRows);
 }
 
 struct Operands {
@@ -434,28 +623,32 @@ struct Operands {
 template <int D>
 int launch_d(const Operands& o, const BwdParams& p, int nbkv, bool dkv_pass,
              cudaStream_t stream) {
-  constexpr int KK = KeyTile<D>::value;
+  static std::atomic<int> allowed_dq[kMaxDevices], allowed_dkv[kMaxDevices];
+  const int smem = bwd_smem_floats<D>() * (int)sizeof(float);
   if (dkv_pass) {
-    const size_t smem = dkv_smem<D>();
-    // set on every launch: the attribute belongs to the current device
-    cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+    const cudaError_t e = allow_smem((const void*)flash_bwd_dkv_kernel<D>, smem, allowed_dkv);
     if (e != cudaSuccess) return (int)e;
-    dim3 grid((p.sk + KK - 1) / KK, nbkv);
+    dim3 grid((p.sk + kTile - 1) / kTile, nbkv);
     flash_bwd_dkv_kernel<D><<<grid, kThreads, smem, stream>>>(
         o.q, o.k, o.v, o.dout, o.m, o.l, o.delta, o.dk, o.dv, p);
   } else {
-    const size_t smem = dq_smem<D>();
-    cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+    const cudaError_t e = allow_smem((const void*)flash_bwd_dq_kernel<D>, smem, allowed_dq);
     if (e != cudaSuccess) return (int)e;
-    dim3 grid((p.sq + p.qt - 1) / p.qt, nbkv);
+    dim3 grid((p.rows + kTile - 1) / kTile, nbkv);
     flash_bwd_dq_kernel<D><<<grid, kThreads, smem, stream>>>(
         o.q, o.k, o.v, o.dout, o.m, o.l, o.delta, o.dq, p);
   }
   return (int)cudaGetLastError();
+}
+
+// Whether 16-byte copies and float4 accesses keep their alignment: every
+// operand's base pointer, and every stride (elements) a multiple of 4.
+bool aligned(const Operands& o, const long long* st) {
+  uintptr_t bits = (uintptr_t)o.q | (uintptr_t)o.k | (uintptr_t)o.v | (uintptr_t)o.dout;
+  bits |= o.dq != nullptr ? (uintptr_t)o.dq : (uintptr_t)o.dk | (uintptr_t)o.dv;
+  bool ok = bits % 16 == 0;
+  for (int i = 0; i < 24; ++i) ok = ok && st[i] % 4 == 0;
+  return ok;
 }
 
 // dims: nbkv, nh, g, sq, sk, d, causal, q_offset, kv_len (< 0: none)
@@ -474,10 +667,10 @@ int launch(const Operands& o, const int* dims, const long long* st, float scale,
   p.q_offset = dims[7];
   p.kv_len = dims[8];
   p.scale = scale;
-  if (nbkv < 1 || nbkv > 65535 || p.nh < 1 || p.g < 1 || p.g > kRows || p.sq < 1 ||
-      p.sk < 1)
+  if (nbkv < 1 || nbkv > 65535 || p.nh < 1 || p.g < 1 || p.sq < 1 || p.sk < 1 ||
+      (long long)p.sq * p.g > 0x7fffffffLL - kTile)
     return (int)cudaErrorInvalidValue;
-  p.qt = kRows / p.g;
+  p.rows = p.sq * p.g;
   p.q_sb = st[0]; p.q_sh = st[1]; p.q_sg = st[2]; p.q_ss = st[3];
   p.k_sb = st[4]; p.k_sh = st[5]; p.k_ss = st[6];
   p.v_sb = st[7]; p.v_sh = st[8]; p.v_ss = st[9];
@@ -485,6 +678,7 @@ int launch(const Operands& o, const int* dims, const long long* st, float scale,
   p.dq_sb = st[14]; p.dq_sh = st[15]; p.dq_sg = st[16]; p.dq_ss = st[17];
   p.dk_sb = st[18]; p.dk_sh = st[19]; p.dk_ss = st[20];
   p.dv_sb = st[21]; p.dv_sh = st[22]; p.dv_ss = st[23];
+  p.vec = aligned(o, st);
   switch (d) {
     case 8: return launch_d<8>(o, p, nbkv, dkv_pass, stream);
     case 16: return launch_d<16>(o, p, nbkv, dkv_pass, stream);

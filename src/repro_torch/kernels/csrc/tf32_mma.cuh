@@ -1,9 +1,9 @@
 // Device helpers for fp32-accurate products on Hopper's TF32 tensor cores
 // (split-TF32, "3xTF32"), shared by the fp32 tensor-core kernels
-// (ecr_conv.cu, bsr_matmul.cu, flash_attention.cu): the split of an fp32
-// value into two TF32 values, the m16n8k8 TF32 MMA, and the three-product
-// step. Asynchronous copies, ldmatrix, the SM count and the
-// shared-memory allowance come from smem_io.cuh.
+// (ecr_conv.cu, bsr_matmul.cu, flash_attention.cu, flash_attention_bwd.cu):
+// the split of an fp32 value into two TF32 values, the m16n8k8 TF32 MMA,
+// and the three-product step. Asynchronous copies, ldmatrix, the SM count
+// and the shared-memory allowance come from smem_io.cuh.
 //
 // Why three products: one TF32 product per multiply-add keeps 10 mantissa
 // bits of each operand, and over a 4,608-term reduction (VGG-19's 3x3x512)

@@ -13,8 +13,8 @@ cores, and the int8 tensor-core ECR conv), `launch_bsr` (the block-sparse
 matmul, fp32 on the split-TF32 tensor cores, and its int8 tensor-core form),
 `launch_flash` (the flash attention forward on the split-TF32 tensor cores;
 int8 K/V is dequantized as it is staged into the same body) and
-`launch_flash_bwd` (its two
-backward passes) are the launch sites: they check
+`launch_flash_bwd` (its two backward passes, on the split-TF32 tensor cores
+too) are the launch sites: they check
 device, dtype, layout and shapes, allocate the outputs with `torch.empty`,
 launch on PyTorch's current stream without synchronising, and raise on a
 nonzero `cudaGetLastError()`. The conv and BSR kernels take contiguous
@@ -308,7 +308,9 @@ def launch_bsr(h, w, ids, cnt, *, block: tuple, sh=None, sw=None):
 
 
 FLASH_HEAD_DIMS = (8, 16, 32, 64, 128, 256)
-FLASH_MAX_GROUPS = 64  # query rows per block of the flash backward kernels
+# the most query groups per kv head the flash kernels take: their tiles
+# flatten (position, group) rows, and the tests cover G up to 64
+FLASH_MAX_GROUPS = 64
 
 
 def check_flash_operands(q, k, v, k_scale=None, v_scale=None) -> tuple:
@@ -378,9 +380,9 @@ def flash_bwd_strides(q, k, v, do, dq, dk, dv) -> tuple:
 
 
 def _check_flash_kernel(nbkv: int, g: int, d: int, tensors) -> None:
-    """What every CUDA flash kernel refuses: a contiguous head dim, the head
-    dims they are built for, more groups than a 64-row block of the backward
-    kernels holds, the grid."""
+    """What every CUDA flash kernel refuses: a head dim that is not
+    contiguous or not one they are built for, more than FLASH_MAX_GROUPS
+    groups, a grid past 65535 kv heads."""
     if any(t.stride(-1) != 1 for t in tensors):
         raise ValueError("the CUDA flash kernel needs a contiguous head dim")
     if d not in FLASH_HEAD_DIMS:

@@ -564,7 +564,9 @@ def test_flash_kernels_launch_twice_on_one_device(dev):
 # the flash backward: (layout, b, kv, g, sq, sk, d, causal, q_offset, kv_len)
 # — every head dim the kernels take, ragged Sq / Sk, G = 1, 2, 3, 8,
 # q_offset / kv_len, non-causal, a partly masked first tile (q_offset < 0
-# rows see nothing: the exact-skip guard), and the trained qwen3 layer shape.
+# rows see nothing: the exact-skip guard), and the trained qwen3 layer shape;
+# then D = 256 in the kernel layout (the dk/dv pass's two sweeps over the
+# head dim) and G = 64 in both layouts.
 FLASH_BWD_CASES = [
     ("model", 2, 8, 2, 128, 128, 128, True, 0, None),
     ("kernel", 3, 1, 1, 37, 53, 8, True, 0, None),
@@ -575,6 +577,9 @@ FLASH_BWD_CASES = [
     ("model", 1, 2, 8, 33, 33, 256, False, 0, 20),
     ("kernel", 2, 1, 2, 8, 32, 128, False, 0, 0),
     ("kernel", 2, 1, 2, 40, 40, 128, True, -8, None),
+    ("kernel", 2, 1, 2, 45, 77, 256, True, 0, None),
+    ("kernel", 1, 1, 64, 5, 40, 64, True, 35, None),
+    ("model", 1, 2, 64, 9, 50, 128, False, 0, 30),
 ]
 
 
@@ -602,6 +607,61 @@ def test_flash_bwd_kernels_match_plain(dev, case):
     for gt, wt, ref in zip(got, want, (q, k, v)):
         assert gt.shape == ref.shape
         _close(gt, wt)
+
+
+def _run_flash_bwd(q, k, v, kw, seed):
+    """Both backward kernels against the plain version within the fp32 limit
+    on dq, dk and dv (one launch of each counted) -> (dq, dk, dv)."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_bwd_dkv,
+        flash_bwd_dkv_plain,
+        flash_bwd_dq,
+        flash_bwd_dq_plain,
+        flash_delta,
+    )
+
+    out, m, l = flash_fwd(q, k, v, **kw)
+    do = torch.from_numpy(np.random.default_rng(seed).standard_normal(tuple(q.shape))
+                          .astype(np.float32)).to(q.device)
+    ops = (q, k, v, do, m, l, flash_delta(do, out))
+    before = (flash_bwd_dq.launches, flash_bwd_dkv.launches)
+    dq = flash_bwd_dq(*ops, **kw)
+    dk, dv = flash_bwd_dkv(*ops, **kw)
+    torch.cuda.synchronize()
+    assert (flash_bwd_dq.launches, flash_bwd_dkv.launches) == tuple(n + 1 for n in before)
+    _close(dq, flash_bwd_dq_plain(*ops, **kw))
+    for got, want in zip((dk, dv), flash_bwd_dkv_plain(*ops, **kw)):
+        _close(got, want)
+    return dq, dk, dv, ops
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_kernels_wide_magnitudes(dev, causal):
+    """q and k spread over 2^+-3 at D = 128 over 512 keys (scores up to about
+    70): split-TF32 holds the limit on dq, dk and dv where one TF32 product
+    in any of the five products misses it (test_torch_kernels.py's host
+    emulation)."""
+    rng = np.random.default_rng(12)
+    q, k, v = _flash_operands(dev, "model", 2, 4, 2, 384, 512, 128, seed=13)
+    q = q * torch.from_numpy(np.exp2(rng.integers(-3, 4, tuple(q.shape))).astype(np.float32)).to(dev)
+    k = k * torch.from_numpy(np.exp2(rng.integers(-3, 4, tuple(k.shape))).astype(np.float32)).to(dev)
+    _run_flash_bwd(q, k, v, dict(scale=128 ** -0.5, causal=causal, q_offset=128, kv_len=None),
+                   seed=14)
+
+
+def test_flash_bwd_kernels_repeat_bitwise(dev):
+    """Each key tile of dk/dv has one owner and every partial sum a fixed
+    order (no atomics), so a second launch of each pass on the same inputs
+    repeats the first bitwise; it also runs on the shared-memory limit raised
+    once per device."""
+    from repro_torch.kernels.flash_attention.kernel import flash_bwd_dkv, flash_bwd_dq
+
+    q, k, v = _flash_operands(dev, "model", 2, 8, 2, 128, 128, 128, seed=15)
+    kw = dict(scale=128 ** -0.5, causal=True, q_offset=0, kv_len=None)
+    dq, dk, dv, ops = _run_flash_bwd(q, k, v, kw, seed=16)
+    dk2, dv2 = flash_bwd_dkv(*ops, **kw)
+    assert torch.equal(flash_bwd_dq(*ops, **kw), dq)
+    assert torch.equal(dk2, dk) and torch.equal(dv2, dv)
 
 
 def test_flash_function_grads_on_the_card(dev):

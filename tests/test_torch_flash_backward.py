@@ -48,11 +48,16 @@ def _t(*xs):
 
 # (bkv, g, sq, sk, d, q_offset, kv_len, qc, kc): the reference's gradient
 # test shape (tests/test_flash_attention.py:43-54) and GQA with G = 4 under
-# q_offset / kv_len.
+# q_offset / kv_len; then the CUDA kernels' edges (16-row tiles of the
+# flattened (position, group) rows, 16-key chunks): Sq * G not a multiple of
+# 16 with G = 3 and Sk ending mid-chunk, G = 8, and q_offset < 0 with kv_len.
 BWD_CASES = [
     (2, 3, 64, 128, 32, 0, None, 32, 64),
     (2, 4, 32, 64, 16, 16, 40, 16, 32),
     (3, 4, 48, 48, 8, 0, None, 16, 16),
+    (2, 3, 13, 40, 16, 0, None, 13, 8),
+    (2, 8, 11, 57, 32, 5, None, 11, 19),
+    (3, 2, 21, 30, 8, -4, 17, 7, 10),
 ]
 
 

@@ -34,7 +34,11 @@ from repro_torch.kernels.ecr_conv.kernel import (  # noqa: E402
     scheduled_conv_sum,
 )
 from repro_torch.kernels.ecr_conv.ops import ecr_conv  # noqa: E402
-from repro_torch.kernels.flash_attention.kernel import flash_fwd_plain  # noqa: E402
+from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
+    flash_bwd_plain,
+    flash_delta,
+    flash_fwd_plain,
+)
 from repro_torch.kernels.ecr_conv.ref import ecr_conv_ref  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -425,3 +429,74 @@ def test_flash_needs_split_tf32_at_head_dim_128(kind):
     e1, e3 = excess(emulated(one)), excess(emulated(three))
     assert e1[1] > 2.0, e1  # m: the scores with one product miss the limit
     assert max(e3) < 0.1, e3
+
+
+def flash_bwd_probe_operands(kind: str, seed: int = 0):
+    """The backward kernels' layout at qwen3-0.6b's head dim: q and do (8, 2,
+    S, 128) over k, v (8, S, 128), normal ("normal", S = 128, the trained
+    sequence), or with q and k scaled elementwise by 2^e, e uniform over
+    -3..3 ("wide", S = 512)."""
+    s = 128 if kind == "normal" else 512
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (rng.standard_normal(sh).astype(np.float32) for sh in
+                   ((8, 2, s, 128), (8, s, 128), (8, s, 128), (8, 2, s, 128)))
+    if kind == "wide":
+        q = (q * np.exp2(rng.integers(-3, 4, q.shape))).astype(np.float32)
+        k = (k * np.exp2(rng.integers(-3, 4, k.shape))).astype(np.float32)
+    return tuple(torch.from_numpy(x) for x in (q, k, v, do))
+
+
+BWD_PRODUCTS = ("S", "dP", "dQ", "dK", "dV")
+# the gradients each product feeds: S and dP through p and ds, the rest directly
+BWD_FEEDS = {"S": (0, 1, 2), "dP": (0, 1), "dQ": (0,), "dK": (1,), "dV": (2,)}
+
+
+@pytest.mark.parametrize("kind", ["normal", "wide"])
+def test_flash_backward_needs_split_tf32_in_every_product(kind):
+    """The fp32 flash backward kernels' arithmetic (flash_attention_bwd.cu)
+    emulated on the host at D = 128, causal, against the plain version from
+    the same forward m, l and delta: with three TF32 products per
+    multiply-add (split-TF32) in all five products S = Q.K^T, dP = dO.V^T,
+    dQ = dS.K, dK = dS^T.Q, dV = P^T.dO, dq, dk and dv stay under a third of
+    the fp32 limit; with one TF32 product in any single product (the other
+    four split) every gradient that product feeds misses the limit by more
+    than 2x. So the kernels split all five."""
+    q, k, v, do = flash_bwd_probe_operands(kind)
+    s = q.shape[2]
+    kw = dict(scale=128 ** -0.5, causal=True, q_offset=0, kv_len=None)
+    out, m, l = flash_fwd_plain(q, k, v, **kw)
+    want = flash_bwd_plain(q, k, v, out, m, l, do, **kw)
+    delta = flash_delta(do, out)
+    qs = q * kw["scale"]
+    keep = torch.arange(s)[None, :] <= torch.arange(s)[:, None]
+
+    def one(a, b):
+        return (_tf32(a).double() @ _tf32(b).double()).float()
+
+    def three(a, b):
+        (ah, al), (bh, bl) = _split(a), _split(b)
+        return (ah.double() @ bh.double() + ah.double() @ bl.double()
+                + al.double() @ bh.double()).float()
+
+    def emulated(single=None):
+        prod = {name: one if name == single else three for name in BWD_PRODUCTS}
+        sc = torch.where(keep, prod["S"](qs, k.transpose(1, 2)[:, None]),
+                         torch.full((), -1e30))
+        p = torch.exp(sc - m[..., None]) / l[..., None]
+        ds = p * (prod["dP"](do, v.transpose(1, 2)[:, None]) - delta[..., None])
+        return (prod["dQ"](ds, k[:, None]) * kw["scale"],
+                prod["dK"](ds.transpose(2, 3), qs).sum(1),
+                prod["dV"](p.transpose(2, 3), do).sum(1))
+
+    def excess(got):  # err / limit per gradient (dq, dk, dv)
+        res = []
+        for g, w in zip(got, want):
+            scale = float(w.abs().max())
+            res.append(float((g - w).abs().max()) / (1e-4 * scale + 1e-5 * min(1.0, scale)))
+        return res
+
+    split = excess(emulated())
+    assert max(split) < 1 / 3, split
+    for name in BWD_PRODUCTS:
+        e1 = excess(emulated(single=name))
+        assert all(e1[i] > 2.0 for i in BWD_FEEDS[name]), (name, e1)
