@@ -70,7 +70,26 @@
    kernels, F.conv2d on the dequantized operands for the int8 conv,
    torch.matmul on the padded dense operands for BSR, and torch._int_mm plus
    the rescale for int8 BSR; none of these is on the port's path.
-6. Serves full-width qwen3-0.6b (28 layers, d_model 1024, 16 query / 8 KV
+6. The obs phase: measure -> calibrate -> search -> plan on the published
+   VGG-19 and on it pruned to 0.3, at batch 8 (eight calibration images):
+   - profile_plan times every layer under dense (cuDNN), ECR, PECR (on the
+     fusable layers), BSR, int8 ECR and int8 BSR (host wall around each
+     layer call and a synchronize, median of 3) and prints one line per
+     layer: occupancy, weight density, ms per impl;
+   - CalibrationDB.from_report fits one scale per (kind, impl), printed
+     with the plan at the datasheet constants beside the calibrated one;
+   - tile_search searches the occupancy-rule plan's kernel layers on the
+     card's grid (fp32 ECR / PECR block_c x block_o, BSR bf) and prints
+     each layer's default and winner with their times and whether the
+     floor holds (it must); every timed geometry's kernel is held against
+     its plain version (fp32 limit; int8 bitwise);
+   - an Engine planned with the DB's constants and tile winners, traced,
+     serves 16 requests: its logits within the tolerance of the dense path
+     on cuDNN, every kernel of its plan launched, and the plan must reach
+     at least one kernel. Every kernel must also have launched in the
+     profile and the search. With --layers-out, the trace and the DB are
+     written beside that file (obs_trace_*.json, obs_calibration_*.json).
+7. Serves full-width qwen3-0.6b (28 layers, d_model 1024, 16 query / 8 KV
    heads, head_dim 128, vocab 151,936; random weights from generator seed
    0) through `repro_torch.launch.serve.serve` at batch 4, prompt 32, 32
    generated tokens, once with the fp32 KV cache and once with the int8
@@ -105,7 +124,7 @@
    exceeds the kernel at the served shapes) and as eager calls.
    A torch.profiler trace of one warm prefill and one warm decode step per
    cache type gives wall, device time and idle share.
-7. Trains full-width qwen3-0.6b (the same config, fp32 weights from
+8. Trains full-width qwen3-0.6b (the same config, fp32 weights from
    generator seed 0) through `repro_torch.launch.train.train` at the
    reference launcher's defaults: global batch 8, sequence 128, remat
    "full", 6 steps, checkpoints into a temporary directory the phase
@@ -134,7 +153,7 @@
    cores' 67 TFLOP/s beside it. Last, at the reduced
    config, a 10-step run against one with a failure at step 7 (checkpoints
    every 3): losses within 1e-6.
-8. Prints the kernel table as one JSON line (the twelve TPU kernel sites of
+9. Prints the kernel table as one JSON line (the twelve TPU kernel sites of
    the repo; the single-image rows are the batched kernels at N=1), the card
    line, and last {"ok": true, "device": {...}}. Any failure exits non-zero
    without it. In the CNN rows, ms / plain_ms / library_ms /
@@ -1213,6 +1232,209 @@ def variant_kernel_checks(book, plan, params, batch, failures, name):
         row["phase"] = name
 
 
+OBS_BATCH = 8  # the obs phase profiles, searches and plans on 8 images
+
+
+def check_geometry(book, unit, kind, impl, xp, w, tile):
+    """The kernel of (kind, impl) at one searched geometry `tile` against
+    its plain version on the layer's real input: fp32 within the limit,
+    int8 bitwise."""
+    import torch
+
+    from repro_torch.graph.registry import unit_launch
+    from repro_torch.kernels.bsr_matmul.kernel import bsr_matmul, bsr_matmul_plain
+    from repro_torch.kernels.conv_pool.kernel import conv_pool_batch, conv_pool_plain
+    from repro_torch.kernels.ecr_conv.kernel import ecr_conv_batch, ecr_conv_plain
+    from repro_torch.kernels.ecr_conv.ops import pack_operands
+    from repro_torch.kernels.tiles import resolve_block_o
+    from repro_torch.quant.kernels import (
+        bsr_matmul_int8,
+        bsr_matmul_int8_plain,
+        ecr_conv_int8_batch,
+        ecr_conv_int8_plain,
+    )
+    from repro_torch.quant.ops import pack_bsr_int8_operands, pack_int8_operands
+    from repro_torch.sparse_weights.conv import pack_bsr_operands
+
+    stride = unit.conv.stride
+    label = f"conv{unit.index + 1} tile {tuple(tile.key()) if tile else 'default'}"
+    if impl in ("bsr", "bsr_int8"):
+        if impl == "bsr_int8":
+            h, at, sh, sa, ids, cnt, launch, _, _ = pack_bsr_int8_operands(xp, w, stride, tile)
+            blk = (launch.bt, launch.bf)
+            got = bsr_matmul_int8(h, at, sh, sa, ids, cnt, block=blk)
+            torch.cuda.synchronize()
+            book.exact("bsr_matmul_int8", label + f" bf={blk[1]}", got,
+                       bsr_matmul_int8_plain(h, at, sh, sa, ids, cnt, block=blk))
+        else:
+            h, at, ids, cnt, launch, _, _ = pack_bsr_operands(xp, w, stride, tile)
+            blk = (launch.bt, launch.bf)
+            got = bsr_matmul(h, at, ids, cnt, block=blk)
+            torch.cuda.synchronize()
+            book.check("bsr_matmul", label + f" bf={blk[1]}", got,
+                       bsr_matmul_plain(h, at, ids, cnt, block=blk))
+        return
+    # block_c 0 as the search runs it: the default geometry is the auto block
+    launch = unit_launch(kind, impl, unit, tile=tile, block_c=0, batch=xp.shape[0])
+    bc, bo = launch.block_c, resolve_block_o(unit.conv.c_out, tile.block_o)
+    if impl == "ecr_int8":
+        packed = pack_int8_operands(xp, w, launch)
+        got = ecr_conv_int8_batch(*packed, stride=stride, block_c=bc)
+        torch.cuda.synchronize()
+        book.exact("ecr_conv_int8", label + f" bc={bc}", got,
+                   ecr_conv_int8_plain(*packed, stride=stride, block_c=bc))
+        return
+    packed = pack_operands(xp, w, launch)
+    if kind == "conv_pool":
+        pool = unit.pool.p
+        got = conv_pool_batch(*packed, stride=stride, pool=pool, block_c=bc, block_o=bo)
+        torch.cuda.synchronize()
+        book.check("conv_pool", label + f" bc={bc} bo={bo}", got,
+                   conv_pool_plain(*packed, stride=stride, pool=pool, block_c=bc))
+    else:
+        got = ecr_conv_batch(*packed, stride=stride, block_c=bc, block_o=bo)
+        torch.cuda.synchronize()
+        book.check("ecr_conv", label + f" bc={bc} bo={bo}", got,
+                   ecr_conv_plain(*packed, stride=stride, block_c=bc))
+
+
+def obs_variant(name, graph, dev, wrappers, book, failures, outdir, *, prune_density):
+    """The measure -> calibrate -> search -> plan loop on one VGG-19 variant
+    at batch 8: profile every layer per impl, fit a CalibrationDB, search
+    the tile geometry of the occupancy-rule plan's kernel layers (every
+    timed geometry's kernel held against its plain version), and serve 16
+    requests through an Engine planned with the DB's constants and tiles,
+    traced. The counters are set to 0 before the profile and read after the
+    search (every kernel must have run there), then set to 0 again just
+    before serving and read just after (every kernel of the served plan
+    must have run, and the plan must hold one)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.graph import pad2d, run_graph, run_unit
+    from repro_torch.graph.registry import get_op
+    from repro_torch.launch.serve_cnn import synth_requests
+    from repro_torch.obs import PROFILE_IMPLS, CalibrationDB, Tracer, profile_plan, tile_search
+    from repro_torch.pipeline import plan_network
+    from repro_torch.serving import Engine, SimClock, replay_stream
+
+    t_phase = time.perf_counter()
+    params, _, _ = make_params(graph, seed=0, dev=dev, prune_density=prune_density)
+    calib = torch.stack(synth_requests(graph, OBS_BATCH, seed=1, device=dev))
+    tracer = Tracer()
+    base = plan_network(params, calib, graph, occ_threshold=0.75, block_c=8)
+    impls = PROFILE_IMPLS + ("ecr_int8", "bsr_int8")
+    reset_counts(wrappers)
+    report = profile_plan(base, params, calib, impls=impls, iters=3, warmup=1,
+                          tracer=tracer)
+    cols = (("dense", "dense"), ("ECR", "ecr_pallas"), ("PECR", "pecr_pallas"),
+            ("BSR", "bsr"), ("ECR int8", "ecr_int8"), ("BSR int8", "bsr_int8"))
+    print(f"{name} obs profile (batch {report.batch}, block_c 8, {report.device_kind}; "
+          f"host wall per layer call with a synchronize, median of 3, ms):")
+    layers = {}
+    for idx, rows in sorted(report.layers().items()):
+        by = {t.impl: t for t in rows}
+        t0 = rows[0]
+        cells = " ".join(f"{lab} {by[impl].measured_us / 1e3:8.3f}" if impl in by
+                         else f"{lab} {'-':>8s}" for lab, impl in cols)
+        print(f"  conv{idx + 1:<2d} occ {t0.occupancy:.2f} wd {t0.weight_density:.2f}: {cells}")
+        layers[f"conv{idx + 1}"] = {
+            "occupancy": t0.occupancy, "weight_density": t0.weight_density,
+            **{impl: {"ms": t.measured_us / 1e3, "predicted_ms": t.predicted_us / 1e3,
+                      "spread": t.spread} for impl, t in by.items()}}
+    db = CalibrationDB.from_report(report)
+    scales = {f"{k}/{i}": e.scale for (_, k, i, _), e in sorted(db.entries.items())}
+    print(f"{name} calibration (scale = median predicted/measured per (kind, impl); "
+          f"agreement {report.agreement()} -> {report.recalibrated(db).agreement()}):")
+    for key, sc in scales.items():
+        e = next(e for (_, k, i, _), e in db.entries.items() if f"{k}/{i}" == key)
+        print(f"  {key:24s} scale {sc:.4e} ({e.n_samples} layers, residual spread "
+              f"{e.resid_spread:.3f})")
+    calibrated = plan_network(params, calib, graph, occ_threshold=0.75, block_c=8,
+                              calibration=db)
+    print(f"{name} plan, datasheet constants: {plan_line(base)}")
+    print(f"{name} plan, calibrated:          {plan_line(calibrated)}")
+    ts, db = tile_search(base, params, calib, db=db, calibration=db, tracer=tracer)
+    measured = read_counts(wrappers)
+    print(f"{name} launches in the profile and the tile search: {measured}")
+    for k, n in measured.items():
+        if n < 1:
+            failures.append(f"{name}: {k} never launched in the profile or the tile search")
+    print(f"{name} tile search: {len(ts.improved_layers())}/{len(ts.layers)} layers "
+          f"improved, floor holds: {ts.floor_holds()}")
+    if not ts.floor_holds():
+        failures.append(f"{name}: the tile search's floor does not hold")
+    x = calib
+    searched = []
+    for lp, unit, w in zip(base.layers, graph.units(), params["conv"]):
+        r = ts.layers[unit.index]
+        if get_op(lp.kind, lp.impl).pallas:
+            print(f"  conv{unit.index + 1:<2d} {lp.impl:12s} default {r.default.key} "
+                  f"{r.default.measured_us / 1e3:.3f} ms -> winner {r.best.key} "
+                  f"{r.best.measured_us / 1e3:.3f} ms ({sum(c.timed for c in r.candidates)} "
+                  f"of {len(r.candidates)} timed)")
+            searched.append(r.row())
+            from repro_torch.kernels.tiles import TileConfig
+
+            xp = pad2d(x, unit.conv.pad)
+            for cd in r.candidates:
+                if cd.timed:
+                    check_geometry(book, unit, lp.kind, lp.impl, xp, w,
+                                   TileConfig.from_key(cd.key))
+        x = run_unit(x, w, unit, "conv", "dense")
+    imgs = synth_requests(graph, 16, seed=2, device=dev)
+    clock = SimClock()
+    eng = Engine(params, graph=graph, calib=calib, occ_threshold=0.75, block_c=8,
+                 max_batch=8, clock=clock, tracer=tracer, calibration=db, tiles=db,
+                 device=dev)
+    plan = eng.plan
+    print(f"{name} served plan (calibration + tiles): {plan_line(plan)}")
+    moved = [f"conv{a.index + 1}: {a.impl} -> {b.impl}"
+             + (f" tile {b.tile.key()}" if b.tile else "")
+             for a, b in zip(base.layers, plan.layers)
+             if (a.kind, a.impl) != (b.kind, b.impl) or b.tile]
+    print(f"{name} moved by calibration or tile search: {moved or 'none'}")
+    eng.warmup()
+    reset_counts(wrappers)
+    results = replay_stream(eng, imgs, rate_rps=1000.0)
+    launches = read_counts(wrappers)
+    print(f"{name} served {len(results)} requests through the searched plan: "
+          f"launches {launches}")
+    kernel_impls = {lp.impl for lp in plan.layers if get_op(lp.kind, lp.impl).pallas}
+    want = {"ecr_pallas": "ecr_conv", "pecr_pallas": "conv_pool", "bsr": "bsr_matmul",
+            "ecr_int8": "ecr_conv_int8", "bsr_int8": "bsr_matmul_int8"}
+    if not kernel_impls:
+        failures.append(f"{name}: the searched plan never reaches a CUDA kernel")
+    for impl in kernel_impls:
+        if launches[want[impl]] < 1:
+            failures.append(f"{name}: {want[impl]} never launched on the searched plan")
+    served = np.stack([r.logits for r in sorted(results, key=lambda r: r.id)])
+    dense = run_graph(graph, params, torch.stack(imgs), "dense").cpu().numpy()
+    scale = float(np.abs(dense).max())
+    err = float(np.abs(served - dense).max())
+    ok = bool(np.allclose(served, dense, rtol=1e-3, atol=1e-3 * scale)
+              and np.all(np.isfinite(served)) and served.shape == (16, graph.n_classes()))
+    print(f"{name} searched-plan engine vs dense cuDNN: max_abs_err={err:.3e} "
+          f"(max|dense|={scale:.3e}, rtol=1e-3, atol=1e-3*max|dense|): "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"{name}: searched-plan engine logits disagree with the dense path")
+    spans = sorted({e["name"] for e in tracer.events})
+    if outdir is not None:
+        db.save(str(outdir / f"obs_calibration_{name}.json"))
+        tracer.save(str(outdir / f"obs_trace_{name}.json"))
+    secs = time.perf_counter() - t_phase
+    print(f"{name} obs phase: {len(tracer.events)} trace events ({', '.join(spans)}), "
+          f"{secs:.1f} s")
+    return {"layers": layers, "scales": scales, "agreement": report.agreement(),
+            "agreement_calibrated": report.recalibrated(db).agreement(),
+            "plan": plan_line(base), "plan_calibrated": plan_line(calibrated),
+            "plan_served": plan_line(plan), "moved": moved, "tile_search": searched,
+            "floor_holds": ts.floor_holds(), "launches_measured": measured,
+            "launches": launches,
+            "max_abs_vs_dense": err, "max_abs_dense": scale, "seconds": secs}
+
+
 LM_ARCH = "qwen3-0.6b"
 LM_SERVE = dict(batch=4, prompt_len=32, gen_len=32, seed=0)
 LM_TF_STEPS = 4  # teacher-forced decode steps held against the CPU
@@ -2195,6 +2417,20 @@ def main() -> int:
         traceback.print_exc()
         failures.append("edge-case check of the split-TF32 BSR kernel failed")
 
+    # ---- obs: measure -> calibrate -> search -> plan on VGG-19 --------------
+    obs = {}
+    outdir = args.layers_out.parent if args.layers_out is not None else None
+    if outdir is not None:
+        outdir.mkdir(parents=True, exist_ok=True)
+    for name, prune in (("vgg19", 1.0), ("vgg19-pruned", PRUNE_DENSITY)):
+        try:
+            obs[name] = obs_variant(name, graph, dev, wrappers, book, failures, outdir,
+                                    prune_density=prune)
+        except Exception:
+            traceback.print_exc()
+            failures.append(f"{name} obs phase failed")
+        torch.cuda.empty_cache()
+
     # ---- full-width qwen3-0.6b served through the flash kernels ------------
     lm = {}
     try:
@@ -2339,7 +2575,7 @@ def main() -> int:
         args.layers_out.parent.mkdir(parents=True, exist_ok=True)
         args.layers_out.write_text(json.dumps(
             {"card": card, "rows": book.rows, "kernels": kernels,
-             "service": services, "variants": variants, "lm": lm,
+             "service": services, "variants": variants, "obs": obs, "lm": lm,
              "train": train_summary}, indent=1, default=str))
     if failures:
         for f in failures:

@@ -36,16 +36,18 @@ def maxpool2d(x: torch.Tensor, pool: PoolSpec) -> torch.Tensor:
     return y
 
 
-def run_unit(x, w, unit: ConvUnit, kind: str, impl: str, block_c: int = 0):
+def run_unit(x, w, unit: ConvUnit, kind: str, impl: str, block_c: int = 0,
+             tile=None):
     """Execute one conv unit as (kind, impl): the fused op consumes the whole
     conv+ReLU+pool triple; a plain conv gets the unit's ReLU / unfused pool
-    applied around it."""
+    applied around it. `tile` is the layer's searched `TileConfig` (None =
+    the impl's default geometry); impls without a kernel ignore it."""
     op = get_op(kind, impl)
     xp = pad2d(x, unit.conv.pad)
     if kind == "conv_pool":
         return op.forward(xp, w, stride=unit.conv.stride, pool=unit.pool,
-                          block_c=block_c)
-    x = op.forward(xp, w, stride=unit.conv.stride, block_c=block_c)
+                          block_c=block_c, tile=tile)
+    x = op.forward(xp, w, stride=unit.conv.stride, block_c=block_c, tile=tile)
     if unit.relu:
         x = torch.relu(x)
     if unit.pool is not None:
@@ -53,10 +55,12 @@ def run_unit(x, w, unit: ConvUnit, kind: str, impl: str, block_c: int = 0):
     return x
 
 
-def run_units(x, conv_ws, units, impls, block_c: int = 0):
-    """Run the conv body: `impls` is one (kind, impl) pair per unit."""
-    for unit, (kind, impl), w in zip(units, impls, conv_ws):
-        x = run_unit(x, w, unit, kind, impl, block_c)
+def run_units(x, conv_ws, units, impls, block_c: int = 0, tiles=None):
+    """Run the conv body: `impls` is one (kind, impl) pair per unit; `tiles`
+    (optional) one TileConfig-or-None per unit."""
+    for i, (unit, (kind, impl), w) in enumerate(zip(units, impls, conv_ws)):
+        tile = tiles[i] if tiles is not None else None
+        x = run_unit(x, w, unit, kind, impl, block_c, tile=tile)
     return x
 
 

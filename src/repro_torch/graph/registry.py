@@ -15,7 +15,9 @@ reference's, so plan signatures of the two packages compare one to one:
 The "_pallas" suffix names the reference's op family, not the kernel
 language. The fusion rule (`fusion_eligible`), the fused <-> plain impl
 mapping and the modeled cost of a unit (`unit_cost`, `unit_model_us`, which
-the planner's BSR and int8 arms compare) live here too.
+the planner's arms compare, at the datasheet constants or at a
+`CalibrationDB`'s measured ones) live here too. Every forward takes the
+layer's searched `tile=` (a `TileConfig`; None = the impl's defaults).
 """
 from __future__ import annotations
 
@@ -30,8 +32,8 @@ from repro_torch.obs import constants
 class OpImpl:
     """One registered (kind, impl) implementation.
 
-    forward: kind "conv"      -> f(x_padded, w, *, stride, block_c) -> y
-             kind "conv_pool" -> f(x_padded, w, *, stride, pool, block_c) -> y
+    forward: kind "conv"      -> f(x_padded, w, *, stride, block_c, tile) -> y
+             kind "conv_pool" -> f(x_padded, w, *, stride, pool, block_c, tile) -> y
     cost:    f(c, h, w, o, kh, kw, *, stride, occupancy, batch, [pool]) -> dict
              with "flops"/"bytes"/"out_elems".
     sparse:  occupancy-dependent (skips dead channel blocks); on the card
@@ -42,8 +44,9 @@ class OpImpl:
     fused_with: for kind "conv_pool", the kind-"conv" impl of the same family
              (used on units whose pool is not fusion-eligible); for kind
              "conv", the kind-"conv_pool" impl it upgrades to.
-    launch:  f(unit, *, block_c, batch) -> the `ConvLaunch` this impl would
-             resolve on `unit` (None for impls with no schedule).
+    launch:  f(unit, *, tile, block_c, batch) -> the `ConvLaunch` /
+             `BsrLaunch` this impl would resolve on `unit` (None for impls
+             with no schedule).
     """
 
     kind: str
@@ -55,6 +58,13 @@ class OpImpl:
     launch: Callable | None = None
     weight_sparse: bool = False
     quantized: bool = False
+
+    @property
+    def pallas(self) -> bool:
+        """Runs one of the port's hand-written kernels, so it has a tile
+        geometry to search: every activation- or weight-sparse impl does
+        (the reference's flag name, read by tile search and the planner)."""
+        return self.sparse or self.weight_sparse
 
 
 _OPS: dict = {}
@@ -158,10 +168,16 @@ def unit_cost(kind: str, impl: str, *, c, h, w, o, k, stride=1, pool=None,
 
 def unit_model_us(kind: str, impl: str, unit: ConvUnit, *,
                   occupancy: float = 1.0, weight_density: float = 1.0,
-                  batch: int = 1) -> float:
-    """Roofline-modeled time (us) of executing `unit` as (kind, impl) at
-    `constants.DEFAULT_ROOFLINE` (read at call time). The reference's
-    `calibration=` (measured constants) comes in a later slice."""
+                  batch: int = 1, block_c: int = 0, tile=None,
+                  calibration=None) -> float:
+    """Roofline-modeled time (us) of executing `unit` as (kind, impl).
+
+    `calibration` (a `repro_torch.obs.calibrate.CalibrationDB`, or None)
+    supplies measured effective constants per (device kind, kind, impl, tile
+    geometry); a key the DB does not cover, and calibration=None, divide by
+    `constants.DEFAULT_ROOFLINE` (read at call time). `block_c` is the
+    plan's channel-block size and `tile` the searched `TileConfig`: the
+    geometry the calibration is keyed on."""
     conv = unit.conv
     c, h, w = unit.in_shape
     cost = unit_cost(kind, impl, c=c, h=h + 2 * conv.pad, w=w + 2 * conv.pad,
@@ -169,7 +185,9 @@ def unit_model_us(kind: str, impl: str, unit: ConvUnit, *,
                      pool=unit.pool.p if unit.pool is not None else None,
                      occupancy=occupancy, weight_density=weight_density,
                      batch=batch)
-    return constants.DEFAULT_ROOFLINE.time_us(cost["flops"], cost["bytes"])
+    consts = constants.DEFAULT_ROOFLINE if calibration is None else \
+        calibration.constants_for(kind, impl, block_c, tile=tile)
+    return consts.time_us(cost["flops"], cost["bytes"])
 
 
 # ---------------------------------------------------------------------------
@@ -184,13 +202,14 @@ def _padded_unit_dims(unit):
     return c, h + 2 * conv.pad, w + 2 * conv.pad, conv.c_out, conv.k, conv.stride
 
 
-def unit_launch(kind: str, impl: str, unit: ConvUnit, *, block_c: int = 0,
-                batch: int = 1):
-    """The `ConvLaunch` of running `unit` as (kind, impl), None without one."""
+def unit_launch(kind: str, impl: str, unit: ConvUnit, *, tile=None,
+                block_c: int = 0, batch: int = 1):
+    """The launch record of running `unit` as (kind, impl) at `tile` (None =
+    defaults), None for an impl without one."""
     op = get_op(kind, impl)
     if op.launch is None:
         return None
-    return op.launch(unit, block_c=block_c, batch=batch)
+    return op.launch(unit, tile=tile, block_c=block_c, batch=batch)
 
 
 # ---------------------------------------------------------------------------
@@ -198,22 +217,27 @@ def unit_launch(kind: str, impl: str, unit: ConvUnit, *, block_c: int = 0,
 # ---------------------------------------------------------------------------
 
 
-def _conv_dense(xp, w, *, stride, block_c=0):
+def _conv_dense(xp, w, *, stride, block_c=0, tile=None):
     from repro_torch.core.ecr import conv2d_dense
 
     return conv2d_dense(xp, w, stride)
 
 
-def _conv_ecr(xp, w, *, stride, block_c=0):
+def _conv_ecr(xp, w, *, stride, block_c=0, tile=None):
     from repro_torch.kernels.ecr_conv.ops import ecr_conv
+    from repro_torch.kernels.tiles import as_tile
 
-    return ecr_conv(xp, w, stride, block_c=block_c)
+    t = as_tile(tile, block_c)
+    return ecr_conv(xp, w, stride, block_c=t.block_c, block_o=t.block_o)
 
 
-def _conv_pool_pecr(xp, w, *, stride, pool, block_c=0):
+def _conv_pool_pecr(xp, w, *, stride, pool, block_c=0, tile=None):
     from repro_torch.kernels.conv_pool.ops import fused_conv_pool
+    from repro_torch.kernels.tiles import as_tile
 
-    return fused_conv_pool(xp, w, stride, pool.p, p_s=pool.s, block_c=block_c)
+    t = as_tile(tile, block_c)
+    return fused_conv_pool(xp, w, stride, pool.p, p_s=pool.s, block_c=t.block_c,
+                           block_o=t.block_o)
 
 
 def _conv_cost(c, h, w, o, kh, kw, **kw_args):
@@ -228,18 +252,19 @@ def _conv_pool_cost(c, h, w, o, kh, kw, **kw_args):
     return conv_pool_cost(c, h, w, o, kh, kw, **kw_args)
 
 
-def _launch_ecr(unit, *, block_c=0, batch=1):
+def _launch_ecr(unit, *, tile=None, block_c=0, batch=1):
     from repro_torch.kernels.ecr_conv.ops import ecr_conv_launch
+    from repro_torch.kernels.tiles import as_tile
 
     c, h, w, o, k, stride = _padded_unit_dims(unit)
-    return ecr_conv_launch(c, h, w, o, k, k, stride=stride, block_c=block_c,
-                           batch=batch)
+    return ecr_conv_launch(c, h, w, o, k, k, stride=stride,
+                           tile=as_tile(tile, block_c), batch=batch)
 
 
-def _conv_bsr(xp, w, *, stride, block_c=0):
+def _conv_bsr(xp, w, *, stride, block_c=0, tile=None):
     from repro_torch.sparse_weights.conv import conv2d_bsr
 
-    return conv2d_bsr(xp, w, stride)
+    return conv2d_bsr(xp, w, stride, tile=tile if tile else None)
 
 
 def _bsr_cost(c, h, w, o, kh, kw, **kw_args):
@@ -248,16 +273,17 @@ def _bsr_cost(c, h, w, o, kh, kw, **kw_args):
     return bsr_conv_cost(c, h, w, o, kh, kw, **kw_args)
 
 
-def _conv_ecr_int8(xp, w, *, stride, block_c=0):
+def _conv_ecr_int8(xp, w, *, stride, block_c=0, tile=None):
+    from repro_torch.kernels.tiles import as_tile
     from repro_torch.quant.ops import ecr_conv_int8
 
-    return ecr_conv_int8(xp, w, stride, block_c=block_c)
+    return ecr_conv_int8(xp, w, stride, block_c=as_tile(tile, block_c).block_c)
 
 
-def _conv_bsr_int8(xp, w, *, stride, block_c=0):
+def _conv_bsr_int8(xp, w, *, stride, block_c=0, tile=None):
     from repro_torch.quant.ops import conv2d_bsr_int8
 
-    return conv2d_bsr_int8(xp, w, stride)
+    return conv2d_bsr_int8(xp, w, stride, tile=tile if tile else None)
 
 
 def _ecr_int8_cost(c, h, w, o, kh, kw, **kw_args):
@@ -272,13 +298,14 @@ def _bsr_int8_cost(c, h, w, o, kh, kw, **kw_args):
     return bsr_conv_int8_cost(c, h, w, o, kh, kw, **kw_args)
 
 
-def _launch_pecr(unit, *, block_c=0, batch=1):
+def _launch_pecr(unit, *, tile=None, block_c=0, batch=1):
     from repro_torch.kernels.conv_pool.ops import conv_pool_launch
+    from repro_torch.kernels.tiles import as_tile
 
     c, h, w, o, k, stride = _padded_unit_dims(unit)
     return conv_pool_launch(c, h, w, o, k, k, stride=stride,
                             pool=unit.pool.p if unit.pool is not None else 0,
-                            block_c=block_c, batch=batch)
+                            tile=as_tile(tile, block_c), batch=batch)
 
 
 def _bsr_unit_dims(unit, batch):
@@ -288,24 +315,26 @@ def _bsr_unit_dims(unit, batch):
     return o, c * k * k, batch * oh * ow
 
 
-def _launch_bsr(unit, *, block_c=0, batch=1):
+def _launch_bsr(unit, *, tile=None, block_c=0, batch=1):
     from repro_torch.sparse_weights.conv import bsr_conv_launch
 
-    return bsr_conv_launch(*_bsr_unit_dims(unit, batch))
+    return bsr_conv_launch(*_bsr_unit_dims(unit, batch), tile=tile if tile else None)
 
 
-def _launch_ecr_int8(unit, *, block_c=0, batch=1):
+def _launch_ecr_int8(unit, *, tile=None, block_c=0, batch=1):
+    from repro_torch.kernels.tiles import as_tile
     from repro_torch.quant.ops import ecr_conv_int8_launch
 
     c, h, w, o, k, stride = _padded_unit_dims(unit)
     return ecr_conv_int8_launch(c, h, w, o, k, k, stride=stride,
-                                block_c=block_c, batch=batch)
+                                tile=as_tile(tile, block_c), batch=batch)
 
 
-def _launch_bsr_int8(unit, *, block_c=0, batch=1):
+def _launch_bsr_int8(unit, *, tile=None, block_c=0, batch=1):
     from repro_torch.quant.ops import bsr_conv_int8_launch
 
-    return bsr_conv_int8_launch(*_bsr_unit_dims(unit, batch))
+    return bsr_conv_int8_launch(*_bsr_unit_dims(unit, batch),
+                                tile=tile if tile else None)
 
 
 register_op(OpImpl("conv", "dense", _conv_dense, cost=_conv_cost))
@@ -318,7 +347,8 @@ register_op(OpImpl("conv_pool", "pecr_pallas", _conv_pool_pecr,
 register_op(OpImpl("conv", "bsr", _conv_bsr, cost=_bsr_cost,
                    weight_sparse=True, launch=_launch_bsr))
 register_op(OpImpl("conv", "ecr_int8", _conv_ecr_int8, cost=_ecr_int8_cost,
-                   sparse=True, quantized=True, launch=_launch_ecr_int8))
+                   sparse=True, quantized=True,
+                   launch=_launch_ecr_int8))
 register_op(OpImpl("conv", "bsr_int8", _conv_bsr_int8, cost=_bsr_int8_cost,
                    weight_sparse=True, quantized=True,
                    launch=_launch_bsr_int8))

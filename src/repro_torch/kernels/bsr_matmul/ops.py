@@ -24,12 +24,16 @@ def block_schedule(h: torch.Tensor, bt: int, bf: int):
     return compact_block_ids(block_occupancy(_pad_to_blocks(h, bt, bf), (bt, bf)))
 
 
-def sparse_matmul(h: torch.Tensor, w: torch.Tensor, block: tuple = (8, 128)):
-    """y = h @ w skipping all-zero block = (bt, bf) blocks of h. The
-    reference's column block has no counterpart (the CUDA kernel tiles the
-    columns on its own); its `tile=` override comes with tile search, in a
-    later slice."""
+def sparse_matmul(h: torch.Tensor, w: torch.Tensor, block: tuple = (8, 128),
+                  tile=None):
+    """y = h @ w skipping all-zero block = (bt, bf) blocks of h. `tile` (a
+    `TileConfig`) overrides bf by the reference's rule (honoured iff
+    0 < bf <= max(8, F)); the CUDA kernel's row block is fixed, so the
+    tile's bt is not taken, and the reference's column block has no
+    counterpart (the kernel tiles the columns on its own)."""
     bt, bf = block
+    if tile is not None and 0 < tile.bf <= max(8, h.shape[1]):
+        bf = tile.bf
     ids, cnt = block_schedule(h, bt, bf)
     ids, cnt = guard_schedule(ids, cnt, -(-h.shape[1] // bf))
     return bsr_matmul(h, w, ids, cnt, block=(bt, bf))

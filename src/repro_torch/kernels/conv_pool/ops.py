@@ -17,23 +17,26 @@ from repro_torch.kernels.ecr_conv.ops import (
     pack_operands,
     pack_operands_single,
 )
-from repro_torch.kernels.tiles import ConvLaunch
+from repro_torch.kernels.tiles import ConvLaunch, TileConfig, resolve_block_o
 
 
 def conv_pool_launch(c: int, h: int, w: int, o: int, kh: int = 3, kw: int = 3,
                      *, stride: int = 1, pool: int = 2, block_c: int = 0,
-                     batch: int = 1, dtype_bytes: int = 4) -> ConvLaunch:
+                     tile: TileConfig | None = None, batch: int = 1,
+                     dtype_bytes: int = 4) -> ConvLaunch:
     """`ConvLaunch` of one fused PECR call: the ECR builder with the pool
     window recorded."""
     return ecr_conv_launch(c, h, w, o, kh, kw, stride=stride, block_c=block_c,
-                           batch=batch, dtype_bytes=dtype_bytes, pool=pool,
-                           kernel="conv_pool")
+                           tile=tile, batch=batch, dtype_bytes=dtype_bytes,
+                           pool=pool, kernel="conv_pool")
 
 
 def fused_conv_pool(x_chw: torch.Tensor, kernels_oihw: torch.Tensor,
-                    stride: int = 1, pool: int = 2, p_s=None, block_c: int = 0):
+                    stride: int = 1, pool: int = 2, p_s=None, block_c: int = 0,
+                    block_o: int = 0):
     """(C,H,W) x (O,C,kh,kw) -> (O, oh//p, ow//p); batched (N,C,H,W) ->
-    (N, O, oh//p, ow//p). p_s (the pool stride) must equal pool."""
+    (N, O, oh//p, ow//p). p_s (the pool stride) must equal pool. `block_o`
+    asks the kernel for its output-channel tile, as in `ecr_conv`."""
     if p_s is not None and p_s != pool:
         raise ValueError(f"fused conv+pool needs pooling stride == pool, got "
                          f"stride {p_s} for a {pool}x{pool} pool")
@@ -53,7 +56,8 @@ def fused_conv_pool(x_chw: torch.Tensor, kernels_oihw: torch.Tensor,
     pack = pack_operands if batched else pack_operands_single
     x, wk, ids, cnt = pack(x_chw, kernels_oihw, launch)
     out = conv_pool_batch(x, wk, ids, cnt, stride=stride, pool=pool,
-                          block_c=launch.block_c)
+                          block_c=launch.block_c,
+                          block_o=resolve_block_o(o, block_o))
     out = out.permute(0, 3, 1, 2)
     return out if batched else out[0]
 

@@ -454,9 +454,10 @@ int dispatch(int mt, int nt, const Params& p, size_t smem, const float* x, const
 
 int launch(const float* x, const float* w, const int32_t* ids, const int32_t* cnt,
            float* out, int n, int h, int wd, int c, int o, int kh, int kw, int stride,
-           int bc, int pool, cudaStream_t stream) {
+           int bc, int pool, int tn, cudaStream_t stream) {
   if (n < 1 || o < 1 || bc < 1 || c < bc || c % bc || stride < 1 || kh < 1 || kw < 1 ||
-      h < kh || wd < kw || pool < 0 || pool > 8 || n > 65535)
+      h < kh || wd < kw || pool < 0 || pool > 8 || n > 65535 ||
+      (tn != 0 && tn != 64 && tn != 128))
     return (int)cudaErrorInvalidValue;
   Params base;
   base.n = n; base.h = h; base.w = wd; base.c = c; base.o = o;
@@ -470,7 +471,8 @@ int launch(const float* x, const float* w, const int32_t* ids, const int32_t* cn
   base.fast_w = o % 4 == 0 && ((uintptr_t)w & 15) == 0;
   // (TM, TN): of the tiles whose grid covers the SMs, the one with the least
   // padded work (M tiles x TM x N tiles x TN; ties go to the larger tile),
-  // else the one with the most blocks
+  // else the one with the most blocks. tn = 64 or 128 (a searched output
+  // tile) keeps only the choices with 32 * NT == tn; 0 keeps all four.
   const int choices[4][2] = {{4, 4}, {2, 4}, {4, 2}, {2, 2}};
   const long long sms = sm_count();
   Params p;
@@ -478,6 +480,7 @@ int launch(const float* x, const float* w, const int32_t* ids, const int32_t* cn
   int mt = 0, nt = 0;
   long long best_short = 0, best_cost = 0;  // (grid short of the SMs, cost): least wins
   for (const auto& ch : choices) {
+    if (tn != 0 && 32 * ch[1] != tn) continue;
     Params q = base;
     const size_t s = pick_tile(q, 32 * ch[0], 32 * ch[1]);
     const long long o_tiles = (o + 32 * ch[1] - 1) / (32 * ch[1]);
@@ -503,12 +506,13 @@ int launch(const float* x, const float* w, const int32_t* ids, const int32_t* cn
 
 extern "C" {
 
-// Conv only: out (N, OH, OW, O).
+// Conv only: out (N, OH, OW, O). tn: the output-channel tile, 64 or 128
+// columns per block, or 0 for the launch's own choice.
 int repro_ecr_conv_f32(const float* x, const float* w, const int32_t* ids,
                        const int32_t* cnt, float* out, int n, int h, int wd,
                        int c, int o, int kh, int kw, int stride, int bc,
-                       void* stream) {
-  return launch(x, w, ids, cnt, out, n, h, wd, c, o, kh, kw, stride, bc, 0,
+                       void* stream, int tn) {
+  return launch(x, w, ids, cnt, out, n, h, wd, c, o, kh, kw, stride, bc, 0, tn,
                 (cudaStream_t)stream);
 }
 
@@ -516,9 +520,9 @@ int repro_ecr_conv_f32(const float* x, const float* w, const int32_t* ids,
 int repro_conv_pool_f32(const float* x, const float* w, const int32_t* ids,
                         const int32_t* cnt, float* out, int n, int h, int wd,
                         int c, int o, int kh, int kw, int stride, int bc,
-                        int pool, void* stream) {
+                        int pool, void* stream, int tn) {
   if (pool < 1) return (int)cudaErrorInvalidValue;
-  return launch(x, w, ids, cnt, out, n, h, wd, c, o, kh, kw, stride, bc, pool,
+  return launch(x, w, ids, cnt, out, n, h, wd, c, o, kh, kw, stride, bc, pool, tn,
                 (cudaStream_t)stream);
 }
 

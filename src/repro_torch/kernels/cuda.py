@@ -130,9 +130,10 @@ def library() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             ptrs = [ctypes.c_void_p] * 5
             ints = [ctypes.c_int] * 9
-            lib.repro_ecr_conv_f32.argtypes = ptrs + ints + [ctypes.c_void_p]
+            lib.repro_ecr_conv_f32.argtypes = ptrs + ints + [ctypes.c_void_p, ctypes.c_int]
             lib.repro_ecr_conv_f32.restype = ctypes.c_int
-            lib.repro_conv_pool_f32.argtypes = ptrs + ints + [ctypes.c_int, ctypes.c_void_p]
+            lib.repro_conv_pool_f32.argtypes = ptrs + ints + [ctypes.c_int, ctypes.c_void_p,
+                                                              ctypes.c_int]
             lib.repro_conv_pool_f32.restype = ctypes.c_int
             lib.repro_ecr_conv_i8.argtypes = [ctypes.c_void_p] * 7 + ints + [ctypes.c_void_p]
             lib.repro_ecr_conv_i8.restype = ctypes.c_int
@@ -200,17 +201,29 @@ def check_scales(sa, sb, want_a: int, want_b: int, what: str) -> None:
                          f"values, want {want_a}/{want_b}")
 
 
+def check_block_o(block_o: int) -> None:
+    """The fp32 conv kernel's output tiles: 64 or 128 columns, or 0 for the
+    launch's own choice."""
+    if block_o not in (0, 64, 128):
+        raise ValueError(f"the CUDA conv kernel takes block_o 0, 64 or 128, got {block_o}")
+
+
 def launch_conv(x, w, ids, cnt, *, stride: int, block_c: int, pool: int = 0,
-                sx=None, sw=None):
+                sx=None, sw=None, block_o: int = 0):
     """Launch the ECR conv kernel (pool=0) or the PECR conv+ReLU+pool kernel
     (pool=p) on CUDA tensors: x (N,H,W,C), w (kh,kw,C,O), ids (N,n_cb) int32,
     cnt (N,) int32 -> fp32 (N,OH,OW,O) or (N,OH/p,OW/p,O). x and w are both
     float32, or both int8 with per-sample scales sx (N values) and
     per-output-channel scales sw (O values), float32 (the int8 form has no
-    pooled epilogue)."""
+    pooled epilogue). block_o = 64 or 128 pins the fp32 kernel's
+    output-channel tile; 0 keeps its own choice; the int8 kernel has a
+    fixed tile and takes 0 only."""
     n, h, wd, c, o, kh, kw, oh, ow = check_conv_operands(x, w, ids, cnt,
                                                           block_c, stride)
+    check_block_o(block_o)
     int8 = x.dtype == torch.int8
+    if int8 and block_o:
+        raise ValueError("the int8 conv kernel has a fixed output tile: block_o must be 0")
     tensors = (x, w, ids, cnt) + ((sx, sw) if int8 else ())
     if int8:
         check_scales(sx, sw, n, o, "conv")
@@ -240,13 +253,14 @@ def launch_conv(x, w, ids, cnt, *, stride: int, block_c: int, pool: int = 0,
             ptrs = (x.data_ptr(), w.data_ptr(), ids.data_ptr(), cnt.data_ptr(),
                     out.data_ptr())
             if pool:
-                err = lib.repro_conv_pool_f32(*ptrs, *dims, pool, stream)
+                err = lib.repro_conv_pool_f32(*ptrs, *dims, pool, stream, block_o)
             else:
-                err = lib.repro_ecr_conv_f32(*ptrs, *dims, stream)
+                err = lib.repro_ecr_conv_f32(*ptrs, *dims, stream, block_o)
     if err != 0:
         raise RuntimeError(f"CUDA conv kernel launch failed: cudaError {err} "
                            f"(x {tuple(x.shape)} {x.dtype}, w {tuple(w.shape)}, "
-                           f"stride {stride}, block_c {block_c}, pool {pool})")
+                           f"stride {stride}, block_c {block_c}, pool {pool}, "
+                           f"block_o {block_o})")
     return out
 
 

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.cuda import check_conv_operands, launch_conv
+from repro_torch.kernels.cuda import check_block_o, check_conv_operands, launch_conv
 
 
 def scheduled_conv_sum(x: torch.Tensor, w: torch.Tensor, ids: torch.Tensor,
@@ -62,16 +62,18 @@ def ecr_conv_plain(x: torch.Tensor, w: torch.Tensor, ids: torch.Tensor,
 
 
 def ecr_conv_batch(x: torch.Tensor, w: torch.Tensor, ids: torch.Tensor,
-                   cnt: torch.Tensor, *, stride: int = 1,
-                   block_c: int) -> torch.Tensor:
+                   cnt: torch.Tensor, *, stride: int = 1, block_c: int,
+                   block_o: int = 0) -> torch.Tensor:
     """Batched ECR conv: x (N,H,W,C), w (kh,kw,C,O), per-sample schedules
-    ids (N,n_cb) / cnt (N,) -> (N,OH,OW,O). CUDA tensor: the CUDA kernel;
-    CPU tensor: the plain version."""
+    ids (N,n_cb) / cnt (N,) -> (N,OH,OW,O). CUDA tensor: the CUDA kernel,
+    at the output-channel tile `block_o` (64 or 128; 0 = its own choice);
+    CPU tensor: the plain version (the tile changes no value)."""
+    check_block_o(block_o)
     if x.device.type == "cpu":
         return ecr_conv_plain(x, w, ids, cnt, stride=stride, block_c=block_c)
     if x.device.type != "cuda":
         raise ValueError(f"ecr_conv_batch runs on cuda or cpu, got {x.device}")
-    out = launch_conv(x, w, ids, cnt, stride=stride, block_c=block_c)
+    out = launch_conv(x, w, ids, cnt, stride=stride, block_c=block_c, block_o=block_o)
     ecr_conv_batch.launches += 1
     return out
 

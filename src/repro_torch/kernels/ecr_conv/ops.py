@@ -15,18 +15,20 @@ from repro_torch.core.ecr import compact_live_channels, compact_live_channels_ba
 from repro_torch.core.sparsity import block_occupancy, compact_block_ids
 from repro_torch.kernels.ecr_conv.kernel import ecr_conv_batch
 from repro_torch.kernels.schedule_guard import guard_schedule
-from repro_torch.kernels.tiles import ConvLaunch, TileConfig, resolve_block_c
+from repro_torch.kernels.tiles import ConvLaunch, TileConfig, resolve_block_c, resolve_block_o
 
 
 def ecr_conv_launch(c: int, h: int, w: int, o: int, kh: int = 3, kw: int = 3,
-                    *, stride: int = 1, block_c: int = 0, batch: int = 1,
+                    *, stride: int = 1, block_c: int = 0,
+                    tile: TileConfig | None = None, batch: int = 1,
                     dtype_bytes: int = 4, pool: int = 0,
                     kernel: str = "ecr_conv") -> ConvLaunch:
     """The resolved `ConvLaunch` of one ECR conv call: the schedule's block
     size through `resolve_block_c` (exactly the resolution `ecr_conv` runs
     with, at the operands' `dtype_bytes`), the channel padding and schedule
-    length derived once."""
-    bc = resolve_block_c(h, w, c, TileConfig(block_c=block_c), dtype_bytes)
+    length derived once. `tile` wins over the `block_c` scalar."""
+    t = tile if tile is not None else TileConfig(block_c=block_c)
+    bc = resolve_block_c(h, w, c, t, dtype_bytes)
     cp = (-c) % bc
     return ConvLaunch(
         kernel=kernel, batch=batch, c=c, h=h, w=w, o=o, kh=kh, kw=kw,
@@ -73,12 +75,14 @@ def pack_operands_single(x_chw: torch.Tensor, kernels_oihw: torch.Tensor,
 
 
 def ecr_conv(x_chw: torch.Tensor, kernels_oihw: torch.Tensor, stride: int = 1,
-             block_c: int = 0):
+             block_c: int = 0, block_o: int = 0):
     """(C,H,W) x (O,C,kh,kw) -> (O,oh,ow), skipping dead input channel blocks.
     Batched: (N,C,H,W) -> (N,O,oh,ow) with per-sample schedules over one
-    shared-union compaction (kernels stay shared across the batch). The
-    reference's `compact=False` and `block_o` options are not ported: every
-    caller compacts, and the CUDA kernel picks its own output tile."""
+    shared-union compaction (kernels stay shared across the batch).
+    `block_o` asks the CUDA kernel for its output-channel tile
+    (`resolve_block_o`: 64 or 128 where the layer has the channels, else its
+    own choice); the values do not depend on it. The reference's
+    `compact=False` is not ported: every caller compacts."""
     if x_chw.ndim == 2:
         x_chw = x_chw[None]
     if kernels_oihw.ndim == 3:
@@ -94,7 +98,8 @@ def ecr_conv(x_chw: torch.Tensor, kernels_oihw: torch.Tensor, stride: int = 1,
                              dtype_bytes=x_chw.element_size())
     pack = pack_operands if batched else pack_operands_single
     x, wk, ids, cnt = pack(x_chw, kernels_oihw, launch)
-    out = ecr_conv_batch(x, wk, ids, cnt, stride=stride, block_c=launch.block_c)
+    out = ecr_conv_batch(x, wk, ids, cnt, stride=stride, block_c=launch.block_c,
+                         block_o=resolve_block_o(o, block_o))
     out = out.permute(0, 3, 1, 2)  # (N, O, oh, ow)
     return out if batched else out[0]
 

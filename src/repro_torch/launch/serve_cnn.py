@@ -7,6 +7,11 @@ carries real measured execution times (counterpart of
 `--prune-density D` block-prunes the weights to D (the planner may then put
 layers on the BSR kernel); `--int8` lets the planner upgrade sparse and BSR
 layers to the int8 kernels under the `--int8-budget` top-1 agreement.
+`--calibrate` profiles the base plan per layer and impl and fits measured
+cost constants; `--tile-search` searches each layer's kernel geometry and
+serves the winners; `--calib-out` saves that CalibrationDB as JSON (the
+reference's `calibration-v2` schema); `--autotune` searches
+(occ_threshold, block_c); `--trace-out` writes a Chrome trace of the run.
 
 Run on the card (default device "cuda"):
     PYTHONPATH=src python -m repro_torch.launch.serve_cnn --rate 50 --n-requests 24
@@ -15,6 +20,7 @@ Run on the card (default device "cuda"):
 On the host, through the kernels' plain PyTorch versions:
     PYTHONPATH=src python -m repro_torch.launch.serve_cnn --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve_cnn --device cpu --prune-density 0.3 --int8 --n-requests 8
+    PYTHONPATH=src python -m repro_torch.launch.serve_cnn --device cpu --calibrate --tile-search --autotune --trace-out t.json --calib-out cal.json --n-requests 8
 """
 from __future__ import annotations
 
@@ -74,10 +80,14 @@ def serve_cnn(*, model: str = "vgg19", full: bool = False,
               occ_threshold: float = 0.75, block_c: int = 8,
               replan_band: float = 0.15, prune_density: float = 1.0,
               int8: bool = False, int8_budget: float = 0.98, seed: int = 0,
-              device=None) -> dict:
+              do_autotune: bool = False, trace_out: str | None = None,
+              calibrate: bool = False, calib_out: str | None = None,
+              tile_search: bool = False, device=None) -> dict:
     """Serve `n_requests` steady-rate requests of `model` and return the
     serving summary (plan, throughput and latency on the SimClock, cache
-    counters)."""
+    counters). `calibrate`, `tile_search`, `do_autotune`, `calib_out` and
+    `trace_out` run the measure -> calibrate -> search -> plan loop before
+    serving (see the module docstring)."""
     dev = resolve_device(device)
     graph = serving_graph(model, full)
     params = shift_dead_channels(init_graph(torch.Generator().manual_seed(seed),
@@ -95,10 +105,70 @@ def serve_cnn(*, model: str = "vgg19", full: bool = False,
                  report.density, prune_density, report.max_logit_drift,
                  report.top1_agreement)
     clock = SimClock()
-    engine = Engine(params, graph=graph, calib=calib,
+    tracer = None
+    if trace_out:
+        from repro_torch.obs import Tracer
+
+        # the tracer shares the engine's SimClock, so two identical runs
+        # export the same trace (the measured spans are wall time)
+        tracer = Tracer(clock=clock)
+    calibration = None
+    if calibrate:
+        from repro_torch.obs import CalibrationDB, profile_plan
+        from repro_torch.pipeline import plan_network
+
+        # time the default-constants plan, fit effective constants from the
+        # measured/modeled ratios, then plan everything after with them
+        base = plan_network(params, calib, graph, occ_threshold=occ_threshold,
+                            block_c=block_c)
+        report = profile_plan(base, params, calib, tracer=tracer)
+        calibration = CalibrationDB.from_report(report)
+        log.info("calibrated %d (kind, impl) keys on %s: %s",
+                 len(calibration.entries), calibration.device,
+                 calibration.summary())
+    tiles = None
+    if tile_search:
+        from repro_torch.obs import tile_search as run_tile_search
+        from repro_torch.pipeline import plan_network
+
+        # search every layer the occupancy rule sends to a kernel, at its
+        # planned impl (the calibrated planner then weighs each kernel at its
+        # searched geometry against the dense path); winners land in the
+        # calibration DB's tiles table, shared with --calibrate
+        base = plan_network(params, calib, graph, occ_threshold=occ_threshold,
+                            block_c=block_c)
+        ts_report, tiles = run_tile_search(base, params, calib, db=calibration,
+                                           calibration=calibration,
+                                           tracer=tracer)
+        if calibration is None:
+            calibration = tiles  # the per-tile fits double as constants
+        log.info("tile search: %d/%d layers improved on defaults "
+                 "(modeled speedup %.3fx, floor holds: %s)",
+                 len(ts_report.improved_layers()), len(ts_report.layers),
+                 ts_report.summary()["model_speedup"],
+                 ts_report.floor_holds())
+    if calib_out and calibration is not None:
+        calibration.save(calib_out)
+        log.info("calibration DB written to %s", calib_out)
+    plan = None
+    if do_autotune:
+        from repro_torch.serving import autotune
+
+        from repro_torch.obs import NULL_TRACER
+
+        with (tracer or NULL_TRACER).span("plan", graph=graph.name, autotune=True):
+            result = autotune(params, calib, graph, thresholds=(0.5, 0.75, 0.9),
+                              block_cs=(0, 8), calibration=calibration,
+                              tiles=tiles, int8=int8, int8_budget=int8_budget)
+        plan = result.plan
+        log.info("autotune picked occ_threshold=%.2f block_c=%d (model "
+                 "fallback: %s)", result.best.occ_threshold,
+                 result.best.block_c, result.used_model)
+    engine = Engine(params, graph=graph, plan=plan, calib=calib,
                     occ_threshold=occ_threshold, block_c=block_c,
                     max_batch=max_batch, deadline_s=deadline_ms * 1e-3,
-                    clock=clock, replan_band=replan_band, int8=int8,
+                    clock=clock, replan_band=replan_band, tracer=tracer,
+                    calibration=calibration, tiles=tiles, int8=int8,
                     int8_budget=int8_budget, device=dev)
     rep8 = engine.plan.int8_report
     if rep8 is not None:
@@ -125,6 +195,7 @@ def serve_cnn(*, model: str = "vgg19", full: bool = False,
         "prune_density": achieved_density,
         "plan_bsr": stats["plan_bsr"],
         "plan_int8": stats["plan_int8"],
+        "plan_tiled": stats["plan_tiled"],
         "requests": len(results),
         "rate_rps": rate,
         "throughput_rps": len(results) / max(makespan, 1e-9),
@@ -132,7 +203,12 @@ def serve_cnn(*, model: str = "vgg19", full: bool = False,
         "p95_ms": float(np.percentile(lat_ms, 95)),
         "mean_fill": stats["mean_fill"],
         **{k: stats[k] for k in ("batches", "compiles", "hits", "replans")},
+        "calibrated": 0 if calibration is None else len(calibration.entries),
     }
+    if tracer is not None:
+        tracer.save(trace_out)
+        log.info("wrote %d trace events to %s (chrome://tracing / Perfetto)",
+                 len(tracer.events), trace_out)
     log.info("served %d requests at %.0f req/s offered: %.1f req/s, "
              "p50=%.1fms p95=%.1fms, %d batches (fill %.2f), %d builds / %d "
              "cache hits, %d replans", summary["requests"], rate,
@@ -161,6 +237,22 @@ def main():
                     help="let the planner upgrade sparse/BSR layers to int8")
     ap.add_argument("--int8-budget", type=float, default=0.98,
                     help="top-1 agreement the int8 probe must keep")
+    ap.add_argument("--autotune", action="store_true",
+                    help="search (occ_threshold, block_c) on the calibration "
+                         "batch and serve the fastest plan")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="write a Chrome trace_event JSON of the run (plan, "
+                         "compile, execute, profile and tile-search spans)")
+    ap.add_argument("--calibrate", action="store_true",
+                    help="profile the base plan per layer and impl, fit a "
+                         "CalibrationDB of measured roofline constants, and "
+                         "plan the served engine with it")
+    ap.add_argument("--calib-out", default=None, metavar="PATH",
+                    help="with --calibrate / --tile-search: save the "
+                         "CalibrationDB (constants and tile winners) as JSON")
+    ap.add_argument("--tile-search", action="store_true",
+                    help="search each planned layer's kernel tile geometry "
+                         "and serve with the measured-best winners")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs the kernels' "
@@ -171,7 +263,9 @@ def main():
               deadline_ms=args.deadline_ms, occ_threshold=args.occ_threshold,
               block_c=args.block_c, prune_density=args.prune_density,
               int8=args.int8, int8_budget=args.int8_budget, seed=args.seed,
-              device=args.device)
+              do_autotune=args.autotune, trace_out=args.trace_out,
+              calibrate=args.calibrate, calib_out=args.calib_out,
+              tile_search=args.tile_search, device=args.device)
 
 
 if __name__ == "__main__":

@@ -2,15 +2,15 @@
 (counterpart of `repro.obs.constants`).
 
 Every modeled time in the port (`repro_torch.graph.registry.unit_model_us`,
-which the planner's BSR and int8 arms compare) divides FLOPs and HBM bytes
-by `DEFAULT_ROOFLINE`. Its defaults are the NVIDIA H100 SXM's datasheet
-figures: 67 TFLOP/s of fp32 on CUDA cores, the precision the port's fp32
-kernels run in (no TF32, no tensor cores), and 3.35 TB/s of HBM3. They are
-peaks, not what the kernels achieve; fitting effective constants from
-measured kernel times (the reference's `CalibrationDB`) is a later slice.
-The reference's defaults describe another device and are not carried over;
-tests that compare plans of the two packages patch this module's
-`DEFAULT_ROOFLINE` with the reference's values, read at test time.
+which the planner's arms compare) divides FLOPs and HBM bytes by
+`DEFAULT_ROOFLINE` wherever no calibration covers the key. Its defaults are
+the NVIDIA H100 SXM's datasheet figures: 67 TFLOP/s of fp32 outside the
+tensor cores and 3.35 TB/s of HBM3. They are peaks, not what the kernels
+achieve: `repro_torch.obs.calibrate.CalibrationDB` fits effective
+constants per impl from measured kernel times. The reference's defaults
+describe another device and are not carried over; tests that compare plans
+of the two packages patch this module's `DEFAULT_ROOFLINE` with the
+reference's values (every reader looks it up at call time).
 
 Stays dependency-free (stdlib only): it sits below the op registry.
 """

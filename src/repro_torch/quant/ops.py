@@ -16,8 +16,9 @@ oracle-vs-fp32 comparison the planner's accuracy budget governs.
 The cost hooks are the reference's, unchanged: int8 arithmetic priced at
 half the fp32 FLOPs and operand traffic at 1 byte per element. On the H100
 that "2x the fp32 peak" is not the card's ratio (the int8 tensor cores are
-far faster than fp32 on CUDA cores); it is kept for plan parity, and the
-calibration slice revisits it.
+far faster than fp32 on CUDA cores); it is kept for plan parity, and a
+`CalibrationDB` fitted on the card (`repro_torch.obs.calibrate`) prices each
+int8 impl at its measured rate instead.
 """
 from __future__ import annotations
 
@@ -50,21 +51,23 @@ class Int8Report:
 
 def ecr_conv_int8_launch(c: int, h: int, w: int, o: int, kh: int = 3,
                          kw: int = 3, *, stride: int = 1, block_c: int = 0,
-                         batch: int = 1) -> ConvLaunch:
+                         tile=None, batch: int = 1) -> ConvLaunch:
     """`ConvLaunch` of one int8 ECR conv call: the fp32 builder at
-    dtype_bytes=1."""
+    dtype_bytes=1 (the int8 kernel's output tile is fixed: only the tile's
+    block_c counts)."""
     from repro_torch.kernels.ecr_conv.ops import ecr_conv_launch
 
     return ecr_conv_launch(c, h, w, o, kh, kw, stride=stride, block_c=block_c,
-                           batch=batch, dtype_bytes=1, kernel="ecr_conv_int8")
+                           tile=tile, batch=batch, dtype_bytes=1,
+                           kernel="ecr_conv_int8")
 
 
-def bsr_conv_int8_launch(o: int, k_taps: int, p: int) -> BsrLaunch:
+def bsr_conv_int8_launch(o: int, k_taps: int, p: int, *, tile=None) -> BsrLaunch:
     """`BsrLaunch` of one int8 BSR conv call: the fp32 builder at
     dtype_bytes=1."""
     from repro_torch.sparse_weights.conv import bsr_conv_launch
 
-    return bsr_conv_launch(o, k_taps, p, dtype_bytes=1)
+    return bsr_conv_launch(o, k_taps, p, tile=tile, dtype_bytes=1)
 
 
 def pack_int8_operands(x_chw: torch.Tensor, kernels_oihw: torch.Tensor,
@@ -149,11 +152,12 @@ def ecr_conv_int8_ref(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torc
     return y * sx * sw[:, None, None]
 
 
-def pack_bsr_int8_operands(x: torch.Tensor, w: torch.Tensor, stride: int = 1):
+def pack_bsr_int8_operands(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
+                           tile=None):
     """The int8 BSR kernel's operands for an (N,C,H,W) batch: the quantized
     weight matrix (O,K) with per-row scales sw (O,1), the quantized patch
     matrix A^T (K,P) with one scale sa (1,1), the schedule of the quantized
-    weight blocks, and the launch record. Returns
+    weight blocks at `tile`'s geometry, and the launch record. Returns
     (wm_q, at_q, sw, sa, ids, cnt, launch, oh, ow)."""
     from repro_torch.core.sparsity import patches_t
     from repro_torch.kernels.bsr_matmul.ops import block_schedule
@@ -162,7 +166,7 @@ def pack_bsr_int8_operands(x: torch.Tensor, w: torch.Tensor, stride: int = 1):
     o, _, kh, kw = w.shape
     at, oh, ow = patches_t(x.float(), kh, kw, stride)  # (K, P)
     wm = conv_weight_matrix(w).float()  # (O, K)
-    launch = bsr_conv_int8_launch(o, at.shape[0], at.shape[1])
+    launch = bsr_conv_int8_launch(o, at.shape[0], at.shape[1], tile=tile)
     sw = absmax_scale(wm, axis=1)  # (O,) per-row = per-output-channel
     wm_q = quantize_int8(wm, sw[:, None]).contiguous()
     sa = absmax_scale(at)  # scalar, per-tensor patches
@@ -172,17 +176,20 @@ def pack_bsr_int8_operands(x: torch.Tensor, w: torch.Tensor, stride: int = 1):
     return wm_q, at_q, sw[:, None], sa.reshape(1, 1), ids, cnt, launch, oh, ow
 
 
-def conv2d_bsr_int8(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Tensor:
+def conv2d_bsr_int8(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
+                    tile=None) -> torch.Tensor:
     """int8 weight-block-sparse conv: the `conv2d_bsr` lowering with the
     quantized weight matrix as the sparse left operand. Weights carry one
     scale per output channel (= per row of W (O,K)), the patches one
     per-tensor scale (over the whole batch); the schedule is computed on the
     quantized weight blocks, so pruned and quantized-to-zero blocks both cost
-    nothing. Returns fp32 (O,oh,ow) / (N,O,oh,ow)."""
+    nothing. `tile` sets the reduction block as in `conv2d_bsr`. Returns
+    fp32 (O,oh,ow) / (N,O,oh,ow)."""
     single = x.ndim == 3
     if single:
         x = x[None]
-    wm_q, at_q, sw, sa, ids, cnt, launch, oh, ow = pack_bsr_int8_operands(x, w, stride)
+    wm_q, at_q, sw, sa, ids, cnt, launch, oh, ow = pack_bsr_int8_operands(x, w, stride,
+                                                                          tile)
     yt = bsr_matmul_int8(wm_q, at_q, sw, sa, ids, cnt, block=(launch.bt, launch.bf))
     y = yt.reshape(w.shape[0], x.shape[0], oh, ow).transpose(0, 1)
     return y[0] if single else y

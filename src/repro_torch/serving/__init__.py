@@ -1,6 +1,8 @@
 """Sparsity-aware serving engine over the pipeline planner (counterpart of
 `repro.serving`): `MicroBatcher` buckets, `PlanCache` runners, the `Engine`
-with its occupancy-drift re-planner, and the SimClock replay driver."""
+with its occupancy-drift re-planner, the SimClock replay driver, and the
+offline (occ_threshold, block_c) `autotune`."""
+from repro_torch.serving.autotune import AutotuneResult, Candidate, autotune, plan_model_us
 from repro_torch.serving.batcher import (
     MicroBatch,
     MicroBatcher,
@@ -19,6 +21,8 @@ from repro_torch.serving.scenarios import (
 )
 
 __all__ = [
+    "AutotuneResult",
+    "Candidate",
     "Engine",
     "LatencyReservoir",
     "ListScenario",
@@ -32,8 +36,10 @@ __all__ = [
     "ScenarioRequest",
     "ServedResult",
     "SimClock",
+    "autotune",
     "bucket_sizes",
     "plan_key",
+    "plan_model_us",
     "replay_scenario",
     "replay_stream",
 ]

@@ -21,10 +21,14 @@ size; the all-zero pad samples never perturb the union.
 
 `int8=True` lets the first plan and every re-plan upgrade layers to the
 int8 kernels under the probe's top-1 agreement budget `int8_budget`
-(`plan_network(int8=...)`).
+(`plan_network(int8=...)`). `calibration=` and `tiles=` (`CalibrationDB`s)
+price every plan the engine builds at measured constants and stamp the
+searched tile winners on it; `tracer=` records plan / compile /
+execute_batch / replan spans; `profile()` times the current plan per layer
+and impl into `stats()["telemetry"]["profile"]`.
 
-Not ported in this slice: the data-parallel mesh, `profile()`, calibration,
-tile search, the static-verifier hooks, `hot_swap` and the span tracer.
+Not ported: the data-parallel mesh (ROADMAP queue 1, item 13), the
+static-verifier hooks (item 11) and `hot_swap` (item 6).
 """
 from __future__ import annotations
 
@@ -38,6 +42,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.graph import as_graph
 from repro_torch.graph.ir import graph_weights
+from repro_torch.obs.trace import NULL_TRACER
 from repro_torch.pipeline.planner import PipelinePlan, plan_network, run_plan
 from repro_torch.serving.batcher import MicroBatch, MicroBatcher, SimClock
 from repro_torch.serving.metrics import MetricsTracker
@@ -88,8 +93,17 @@ class Engine:
                  replan_cooldown: int = 2, replan_async: bool = False,
                  cache_entries: int = 32, cache: PlanCache | None = None,
                  metrics: MetricsTracker | None = None,
-                 sim_service_s=None, int8: bool = False,
+                 sim_service_s=None, tracer=None, calibration=None,
+                 tiles=None, int8: bool = False,
                  int8_budget: float = 0.98, device=None):
+        # tracer: an obs.trace.Tracer for the plan / compile / execute /
+        # re-plan spans; the NULL_TRACER default records nothing.
+        # calibration / tiles: CalibrationDBs every plan this engine builds
+        # (initial and drift re-plans) is priced and tiled with; None or an
+        # empty DB keeps the datasheet defaults and default geometry.
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.calibration = calibration
+        self.tiles = tiles
         self.device = resolve_device(device)
         self.int8 = bool(int8)
         self.int8_budget = float(int8_budget)
@@ -104,9 +118,12 @@ class Engine:
             if calib is None:
                 raise ValueError("Engine needs either a prebuilt plan= or "
                                  "calib= images to plan on")
-            plan = plan_network(params, self._to_device(calib), graph,
-                                occ_threshold=occ_threshold, block_c=block_c,
-                                int8=self.int8, int8_budget=self.int8_budget)
+            with self.tracer.span("plan", graph=graph.name,
+                                  occ_threshold=occ_threshold):
+                plan = plan_network(params, self._to_device(calib), graph,
+                                    occ_threshold=occ_threshold, block_c=block_c,
+                                    calibration=calibration, tiles=tiles,
+                                    int8=self.int8, int8_budget=self.int8_budget)
         self.params = params
         self.graph = graph
         self.plan = plan
@@ -136,6 +153,7 @@ class Engine:
         self.n_requests = 0
         self.n_pad_samples = 0
         self._fill_sum = 0.0
+        self._profile_summary = None  # last Engine.profile() digest
 
     def _to_device(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.float32).to(self.device)
@@ -213,12 +231,36 @@ class Engine:
             "plan_dense": c["dense"],
             "plan_bsr": c["bsr"],
             "plan_int8": c["int8"],
+            "plan_tiled": sum(1 for lp in self.plan.layers if lp.tile),
             "occ_ema": [float(v) for v in np.round(self._occ_ema, 4)],
             **{k: v for k, v in self.metrics.latency.percentiles_ms().items()
                if k != "count"},
             "lat_count": self.metrics.latency.count,
-            "telemetry": self.metrics.snapshot(),
+            "telemetry": {**self.metrics.snapshot(),
+                          "profile": self._profile_summary},
         }
+
+    def profile(self, imgs=None, *, impls=None, iters: int = 3,
+                warmup: int = 1):
+        """Per-layer measured-vs-modeled timing of the current plan
+        (`obs.profile.profile_plan` at the engine's real shapes): every layer
+        timed under each requested impl family beside its `unit_model_us`.
+        The digest lands in ``stats()["telemetry"]["profile"]``; the full
+        report is returned (`CalibrationDB.from_report` fits it).
+
+        `imgs` defaults to the most recent real executed batch, the input
+        the drift re-planner uses."""
+        from repro_torch.obs.profile import PROFILE_IMPLS, profile_plan
+
+        calib = self._calib_recent if imgs is None else self._to_device(imgs)
+        if calib is None:
+            raise ValueError("profile() needs imgs= before the engine has "
+                             "executed its first batch")
+        report = profile_plan(self.plan, self.params, calib,
+                              impls=PROFILE_IMPLS if impls is None else impls,
+                              iters=iters, warmup=warmup, tracer=self.tracer)
+        self._profile_summary = report.summary()
+        return report
 
     # ------------------------------------------------------------------
     # execution
@@ -227,9 +269,21 @@ class Engine:
     def _executable(self, bucket: int):
         key = plan_key(bucket, self.plan)
         plan = self.plan
-        return self.cache.get_or_compile(key, plan, lambda: _make_runner(plan))
+
+        def build():
+            with self.tracer.span("compile", bucket=bucket):
+                return _make_runner(plan)
+
+        return self.cache.get_or_compile(key, plan, build)
 
     def _run_batch(self, batch: MicroBatch) -> list:
+        # spans on the engine's own clock: under a SimClock the charged
+        # service time is exactly the span's duration
+        with self.tracer.span("execute_batch", bucket=batch.bucket,
+                              n_real=batch.n_real):
+            return self._run_batch_traced(batch)
+
+    def _run_batch_traced(self, batch: MicroBatch) -> list:
         imgs = torch.stack([r.img for r in batch.requests])
         if batch.bucket > batch.n_real:  # ragged tail: all-zero pad samples
             pad = imgs.new_zeros((batch.bucket - batch.n_real,) + imgs.shape[1:])
@@ -291,10 +345,13 @@ class Engine:
 
         def work():
             try:
-                new = plan_network(self.params, calib, self.graph,
-                                   occ_threshold=plan.occ_threshold,
-                                   block_c=plan.block_c, int8=self.int8,
-                                   int8_budget=self.int8_budget)
+                with self.tracer.span("replan", trigger="occupancy_drift"):
+                    new = plan_network(self.params, calib, self.graph,
+                                       occ_threshold=plan.occ_threshold,
+                                       block_c=plan.block_c,
+                                       calibration=self.calibration,
+                                       tiles=self.tiles, int8=self.int8,
+                                       int8_budget=self.int8_budget)
             except Exception:
                 # a failed re-plan must not take down the serving loop: keep
                 # the current plan, count the failure, retry on next drift

@@ -26,12 +26,13 @@ from repro_torch.kernels.tiles import BsrLaunch, resolve_bsr_tile
 from repro_torch.sparse_weights.format import conv_weight_matrix
 
 
-def bsr_conv_launch(o: int, k_taps: int, p: int, *,
+def bsr_conv_launch(o: int, k_taps: int, p: int, *, tile=None,
                     dtype_bytes: int = 4) -> BsrLaunch:
     """The resolved `BsrLaunch` of one conv2d_bsr call: the (O, K) weight
-    against (K, P) patches at `resolve_bsr_tile`'s geometry (the op reads its
-    block sizes back out of this record)."""
-    bt, bf = resolve_bsr_tile(o, k_taps)
+    against (K, P) patches at `resolve_bsr_tile`'s geometry for `tile` (a
+    `TileConfig` or None; the op reads its block sizes back out of this
+    record)."""
+    bt, bf = resolve_bsr_tile(o, k_taps, p, tile)
     return BsrLaunch(t=o, f=k_taps, d=p, bt=bt, bf=bf, nt=-(-o // bt),
                      nf=-(-k_taps // bf), dtype_bytes=dtype_bytes)
 
@@ -44,32 +45,36 @@ def conv2d_bsr_ref(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.T
     return conv2d_dense(x, w, stride)
 
 
-def pack_bsr_operands(x: torch.Tensor, w: torch.Tensor, stride: int = 1):
+def pack_bsr_operands(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
+                      tile=None):
     """The BSR kernel's operands for an (N,C,H,W) batch: the weight matrix
-    W (O,K), the patch matrix A^T (K, N*oh*ow), W's (ids, cnt) schedule and
-    the launch record. Returns (wm, at, ids, cnt, launch, oh, ow)."""
+    W (O,K), the patch matrix A^T (K, N*oh*ow), W's (ids, cnt) schedule at
+    `tile`'s block geometry and the launch record. Returns
+    (wm, at, ids, cnt, launch, oh, ow)."""
     o, _, kh, kw = w.shape
     at, oh, ow = patches_t(x.float(), kh, kw, stride)  # (K, P)
     wm = conv_weight_matrix(w).float().contiguous()  # (O, K)
-    launch = bsr_conv_launch(o, at.shape[0], at.shape[1])
+    launch = bsr_conv_launch(o, at.shape[0], at.shape[1], tile=tile)
     ids, cnt = block_schedule(wm, launch.bt, launch.bf)
     ids, cnt = guard_schedule(ids, cnt, launch.nf)
     return wm, at.contiguous(), ids, cnt, launch, oh, ow
 
 
-def conv2d_bsr(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Tensor:
+def conv2d_bsr(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
+               tile=None) -> torch.Tensor:
     """Weight-block-sparse conv. x: (C,H,W) or (N,C,H,W), already padded
     (VALID semantics, like every registry conv forward); w: (O,C,kh,kw).
     Returns fp32 (O,oh,ow) / (N,O,oh,ow).
 
     Activation sparsity is not exploited: every patch is read. The planner
     trades the two (BSR wins when the weight density undercuts the measured
-    activation occupancy). The reference's `tile=` override comes with tile
-    search, in a later slice."""
+    activation occupancy). `tile` (a `TileConfig`) sets the reduction block
+    bf by `resolve_bsr_tile`'s rule; the schedule is computed on the weight
+    values at that block, so every geometry gives the same product."""
     single = x.ndim == 3
     if single:
         x = x[None]
-    wm, at, ids, cnt, launch, oh, ow = pack_bsr_operands(x, w, stride)
+    wm, at, ids, cnt, launch, oh, ow = pack_bsr_operands(x, w, stride, tile)
     yt = bsr_matmul(wm, at, ids, cnt, block=(launch.bt, launch.bf))
     y = yt.reshape(w.shape[0], x.shape[0], oh, ow).transpose(0, 1)  # y^T -> y
     return y[0] if single else y

@@ -168,6 +168,98 @@ def test_ecr_kernel_at_served_batch(dev, pool):
     _run_conv(dev, x, w, ids.to(dev), cnt.to(dev), 8, pool)
 
 
+# The searched output tile (block_o -> the C entry point's tn): 64 or 128
+# columns pin the kernel's NT; 0 keeps the kernel's own choice. Any tile
+# sums each output in the same order, so the values are the same function;
+# the limit is the fp32 one all the same.
+@pytest.mark.parametrize("pool", [0, 2])
+@pytest.mark.parametrize("o", [64, 70, 512])
+def test_conv_kernel_block_o_matches_the_default(dev, pool, o):
+    from repro_torch.kernels.cuda import launch_conv
+
+    rng = np.random.default_rng(o + pool)
+    x, w = _f32_operands(dev, rng, 8, 30, 30, 256, o)
+    x[-1] = 0.0
+    ids = torch.from_numpy(np.stack([rng.permutation(32) for _ in range(8)]).astype(np.int32))
+    cnt = torch.tensor([20, 32, 1, 7, 16, 31, 12, 0], dtype=torch.int32)
+    ids, cnt = ids.to(dev), cnt.to(dev)
+    kw = dict(stride=1, block_c=8, pool=pool)
+    default = launch_conv(x, w, ids, cnt, **kw)
+    again = launch_conv(x, w, ids, cnt, block_o=0, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(default, again)  # block_o=0 is the call without it
+    plain = (conv_pool_plain(x, w, ids, cnt, stride=1, pool=pool, block_c=8) if pool
+             else ecr_conv_plain(x, w, ids, cnt, stride=1, block_c=8))
+    _close(default, plain)
+    for bo in (64, 128):
+        got = launch_conv(x, w, ids, cnt, block_o=bo, **kw)
+        torch.cuda.synchronize()
+        _close(got, default)
+        _close(got, plain)
+        assert torch.equal(got, launch_conv(x, w, ids, cnt, block_o=bo, **kw))
+
+
+@pytest.mark.parametrize("bad", [32, 96, 256, -64])
+def test_conv_kernel_refuses_another_block_o(dev, bad):
+    from repro_torch.kernels.cuda import launch_conv
+
+    x = torch.zeros(1, 5, 5, 8, device=dev)
+    w = torch.zeros(3, 3, 8, 64, device=dev)
+    ids = torch.zeros(1, 1, dtype=torch.int32, device=dev)
+    cnt = torch.ones(1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="block_o"):
+        launch_conv(x, w, ids, cnt, stride=1, block_c=8, block_o=bad)
+    with pytest.raises(ValueError, match="block_o"):
+        ecr_conv_batch(x, w, ids, cnt, stride=1, block_c=8, block_o=bad)
+
+
+def test_int8_conv_kernel_refuses_a_block_o(dev):
+    from repro_torch.kernels.cuda import launch_conv
+
+    x = torch.zeros(1, 5, 5, 32, dtype=torch.int8, device=dev)
+    w = torch.zeros(3, 3, 32, 64, dtype=torch.int8, device=dev)
+    ids = torch.zeros(1, 1, dtype=torch.int32, device=dev)
+    cnt = torch.ones(1, dtype=torch.int32, device=dev)
+    sx = torch.ones(1, device=dev)
+    sw = torch.ones(64, device=dev)
+    with pytest.raises(ValueError, match="fixed output tile"):
+        launch_conv(x, w, ids, cnt, stride=1, block_c=32, sx=sx, sw=sw, block_o=64)
+
+
+@pytest.mark.parametrize("impl", ["ecr_pallas", "pecr_pallas", "bsr", "ecr_int8", "bsr_int8"])
+def test_searched_geometries_on_the_card(dev, impl):
+    """Every card-grid geometry of a served-shape layer (28x28, 256 -> 256,
+    batch 8, half the channels dead), through run_unit, against the default
+    geometry: fp32 within the limit, int8 ECR bitwise (the same integers)."""
+    from repro_torch.graph.executor import run_unit
+    from repro_torch.graph.ir import ConvSpec, ConvUnit, PoolSpec
+    from repro_torch.graph.registry import unit_impl
+    from repro_torch.obs.tilesearch import layer_tile_candidates
+
+    rng = np.random.default_rng(3)
+    x = rng.random((8, 256, 28, 28), dtype=np.float32)
+    x *= rng.random((8, 256, 1, 1)) > 0.5
+    w = (rng.standard_normal((256, 256, 3, 3)) / 48.0).astype(np.float32)
+    if impl.startswith("bsr"):
+        w *= np.repeat(rng.random((32, 18)) > 0.7, 8, 0).repeat(128, 1)[:, :2304].reshape(
+            256, 256, 3, 3)
+    unit = ConvUnit(index=0, stage=0, slot=0, conv=ConvSpec(256, k=3, stride=1, pad=1),
+                    relu=True, pool=PoolSpec(2), in_shape=(256, 28, 28),
+                    out_shape=(256, 14, 14))
+    kind, impl = unit_impl(unit, impl)
+    xt, wt = torch.from_numpy(x).to(dev), torch.from_numpy(w).to(dev)
+    base = run_unit(xt, wt, unit, kind, impl, 8)
+    cands = layer_tile_candidates(unit, kind, impl, 8)
+    assert len(cands) > 1
+    for t in cands[1:]:
+        got = run_unit(xt, wt, unit, kind, impl, 8, tile=t)
+        torch.cuda.synchronize()
+        if impl == "ecr_int8":
+            assert torch.equal(got, base), t
+        else:
+            _close(got, base)
+
+
 def _tf32_probe_operands(kind: str, seed: int = 0):
     """The operands of tests/test_torch_kernels.py::tf32_probe_operands (the
     same generator and seed; that file imports JAX and cannot be imported

@@ -46,6 +46,9 @@ def test_package_imports_with_jax_unavailable():
         import repro_torch.kernels.conv_pool.ops
         import repro_torch.kernels.flash_attention.ops
         import repro_torch.convert
+        import repro_torch.obs
+        import repro_torch.obs.tilesearch
+        import repro_torch.serving.autotune
         print("ok")
     """)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -65,6 +68,9 @@ def test_entry_points_raise_without_a_card():
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve_cnn(model="lenet", n_requests=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_cnn(model="lenet", n_requests=2, calibrate=True, tile_search=True,
+                  do_autotune=True)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve("qwen3-0.6b", batch=1, prompt_len=2, gen_len=1)
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -126,7 +126,7 @@ def test_default_roofline_is_the_h100s():
 def test_weight_block_and_bsr_tile_match_reference(o, k_taps):
     assert weight_block(o, k_taps) == j_weight_block(o, k_taps)
     for p in (1, 100, 128, 401408):
-        assert resolve_bsr_tile(o, k_taps) == j_resolve_bsr_tile(o, k_taps, p)[:2]
+        assert resolve_bsr_tile(o, k_taps, p) == j_resolve_bsr_tile(o, k_taps, p)[:2]
         got, want = bsr_conv_launch(o, k_taps, p), j_bsr_conv_launch(o, k_taps, p)
         assert vars(got) == {f: getattr(want, f) for f in vars(got)}
 
