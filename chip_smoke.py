@@ -89,7 +89,39 @@
      at least one kernel. Every kernel must also have launched in the
      profile and the search. With --layers-out, the trace and the DB are
      written beside that file (obs_trace_*.json, obs_calibration_*.json).
-7. Serves full-width qwen3-0.6b (28 layers, d_model 1024, 16 query / 8 KV
+7. The paper's methods as plain oracles, and the static verifier:
+   - full-width VGG-19 (3x224x224, 1000 classes; init_cnn at generator
+     seed 0 plus shift_dead_channels) through cnn_forward at batch 1 (one
+     image) and 2 under dense, im2col, ecr, pecr (the oracles) and
+     ecr_pallas, pecr_pallas (the kernels): each impl's logits within
+     1e-4*max|dense|, printed with the forward's wall, its peak
+     torch.cuda.max_memory_allocated and its kernel launches; the window
+     statistics (sparsity, theta, mul and add reduction; paper Fig. 2 /
+     Fig. 6) of the 16 conv inputs; each conv layer timed at batch 1 by
+     CUDA events under conv2d dense / im2col / ecr / ecr_pallas and each
+     stage-final layer under conv_pool unfused / pecr / pecr_pallas, with
+     fused_traffic_bytes beside it; the oracle plan
+     (plan_network(use_pallas=False)) verified and run against dense;
+   - verify_plan on every plan the script builds (the served VGG-19,
+     LeNet-5 and AlexNet plans, the pruned / int8 / pruned+int8 plans and
+     their probes, the obs phase's base, calibrated and tile-stamped
+     plans, the oracle plan): none may have an error;
+   - a copy of the served VGG-19 plan with an ECR layer claimed as BSR at
+     density 0.3 on unpruned params must give RPA205 and be refused by
+     run_plan; one with a tile the kernels cannot honour gives the RPA204
+     warn (the kernel falls back, logits bitwise unchanged); a launch
+     record one spatial tile short gives RPA101; verify_plan's host wall
+     per run_plan call is printed beside the batch-8 wall, for the served
+     VGG-19 plan and for each pruned / int8 variant's;
+   - the Python mirror of the conv kernels' tile choice
+     (kernels/tiles.py) against the kernels' own host code on every
+     full-width VGG-19 / LeNet-5 / AlexNet conv geometry at batch 1, 2
+     and 8 (each output tile, with and without the pool, fp32 and int8),
+     each accepted geometry launched once at batch 2, and kMaxSmem against
+     the device's opt-in shared memory per block where torch exposes it;
+   - python -m repro_torch.analysis.cli --json over the reduced zoo must
+     exit 0 with no error.
+8. Serves full-width qwen3-0.6b (28 layers, d_model 1024, 16 query / 8 KV
    heads, head_dim 128, vocab 151,936; random weights from generator seed
    0) through `repro_torch.launch.serve.serve` at batch 4, prompt 32, 32
    generated tokens, once with the fp32 KV cache and once with the int8
@@ -124,7 +156,7 @@
    exceeds the kernel at the served shapes) and as eager calls.
    A torch.profiler trace of one warm prefill and one warm decode step per
    cache type gives wall, device time and idle share.
-8. Trains full-width qwen3-0.6b (the same config, fp32 weights from
+9. Trains full-width qwen3-0.6b (the same config, fp32 weights from
    generator seed 0) through `repro_torch.launch.train.train` at the
    reference launcher's defaults: global batch 8, sequence 128, remat
    "full", 6 steps, checkpoints into a temporary directory the phase
@@ -153,7 +185,7 @@
    cores' 67 TFLOP/s beside it. Last, at the reduced
    config, a 10-step run against one with a failure at step 7 (checkpoints
    every 3): losses within 1e-6.
-9. Prints the kernel table as one JSON line (the twelve TPU kernel sites of
+10. Prints the kernel table as one JSON line (the twelve TPU kernel sites of
    the repo; the single-image rows are the batched kernels at N=1), the card
    line, and last {"ok": true, "device": {...}}. Any failure exits non-zero
    without it. In the CNN rows, ms / plain_ms / library_ms /
@@ -1145,6 +1177,7 @@ def variant_phase(name, graph, dev, wrappers, failures, *, prune_density,
               f"{len(rep.layers)} layers kept {list(rep.layers)}, {len(rep.demoted)} "
               f"demoted {list(rep.demoted)}, top-1 agreement {rep.top1_agreement:.3f}, "
               f"max logit drift {rep.max_logit_drift:.3e}; plan {plan_line(probed)}")
+        verify_built(f"{name} probed at int8_budget=0.98", probed, p0, 2, failures)
         del p0, calib0, probed
         budget = 0.0
     eng, params, imgs, plan_s, clock, prep = serve(
@@ -1158,6 +1191,7 @@ def variant_phase(name, graph, dev, wrappers, failures, *, prune_density,
     served_at = f" (served at int8_budget={budget})" if int8 else ""
     print(f"{name} plan ({plan_s:.2f} s){served_at}: {plan_line(plan)}")
     print(f"{name} plan counts: {plan.counts()}")
+    verify_built(name, plan, params, 8, failures)
     reset_counts(wrappers)
     t_start = clock()
     wall0 = time.perf_counter()
@@ -1196,7 +1230,9 @@ def variant_phase(name, graph, dev, wrappers, failures, *, prune_density,
               f"{'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"{name}: engine logits disagree with the dense path")
+    cost = verify_cost(name, plan, params, batch[:8])
     summary = {"plan": plan_line(plan), "counts": plan.counts(), "launches": launches,
+               "verify": cost,
                "p50_ms": stats["p50_ms"], "p95_ms": stats["p95_ms"],
                "throughput_rps": len(results) / makespan, "max_abs_vs_dense": err,
                "max_abs_dense": scale,
@@ -1354,6 +1390,8 @@ def obs_variant(name, graph, dev, wrappers, book, failures, outdir, *, prune_den
                               calibration=db)
     print(f"{name} plan, datasheet constants: {plan_line(base)}")
     print(f"{name} plan, calibrated:          {plan_line(calibrated)}")
+    verify_built(f"{name} obs plan", base, params, OBS_BATCH, failures)
+    verify_built(f"{name} obs plan, calibrated", calibrated, params, OBS_BATCH, failures)
     ts, db = tile_search(base, params, calib, db=db, calibration=db, tracer=tracer)
     measured = read_counts(wrappers)
     print(f"{name} launches in the profile and the tile search: {measured}")
@@ -1389,6 +1427,7 @@ def obs_variant(name, graph, dev, wrappers, book, failures, outdir, *, prune_den
                  device=dev)
     plan = eng.plan
     print(f"{name} served plan (calibration + tiles): {plan_line(plan)}")
+    verify_built(f"{name} obs plan, calibrated and tile-stamped", plan, params, 8, failures)
     moved = [f"conv{a.index + 1}: {a.impl} -> {b.impl}"
              + (f" tile {b.tile.key()}" if b.tile else "")
              for a, b in zip(base.layers, plan.layers)
@@ -2210,6 +2249,317 @@ def train_phase(book, dev, failures) -> dict:
     return summary
 
 
+# ---- the paper's methods as plain oracles, and the static verifier --------
+
+PAPER_IMPLS = ("dense", "im2col", "ecr", "pecr", "ecr_pallas", "pecr_pallas")
+VERIFIED = []  # one entry per plan this script builds
+
+
+def verify_built(name, plan, params, batch, failures) -> None:
+    """verify_plan on a plan this script built: it must show no error."""
+    from repro_torch.analysis import errors, verify_plan
+
+    diags = verify_plan(plan, params, batch=batch)
+    errs = sorted({d.code for d in errors(diags)})
+    VERIFIED.append({"plan": name, "layers": len(plan.layers), "batch": batch,
+                     "errors": errs, "notes": sorted({d.code for d in diags} - set(errs))})
+    if errs:
+        failures.append(f"{name}: verify_plan finds errors {errs}")
+
+
+def verifier_checks(plan, params, imgs, failures) -> dict:
+    """The verifier on the card: a copy of the served VGG-19 plan corrupted
+    two ways (a BSR layer at a weight density its params do not have, and a
+    searched tile the kernels cannot honour), the launch record of a served
+    layer corrupted, and the host wall of verify_plan per run_plan call
+    beside the batch's wall."""
+    import torch
+
+    from dataclasses import replace
+
+    from repro_torch.analysis import PlanVerificationError, check_launch_descriptor, verify_plan
+    from repro_torch.graph.registry import unit_launch
+    from repro_torch.kernels.tiles import TileConfig
+    from repro_torch.pipeline import run_plan
+
+    batch = int(imgs.shape[0])
+    i = next(i for i, lp in enumerate(plan.layers) if lp.impl == "ecr_pallas")
+    layers = list(plan.layers)
+    layers[i] = replace(layers[i], kind="conv", impl="bsr", weight_density=0.3)
+    dense_copy = replace(plan, layers=tuple(layers))
+    codes = sorted({d.code for d in verify_plan(dense_copy, params, batch=batch)})
+    try:
+        run_plan(dense_copy, params, imgs)
+        refused = False
+    except PlanVerificationError as e:
+        refused = "RPA205" in str(e)
+    print(f"verifier: conv{i + 1} claimed as BSR at density 0.3 on unpruned params: "
+          f"codes {codes}, run_plan refused: {refused}")
+    if "RPA205" not in codes or not refused:
+        failures.append("verifier: a BSR plan on params of another density was not refused")
+    layers = list(plan.layers)
+    layers[i] = replace(layers[i], tile=TileConfig(block_c=1000, block_o=32))
+    tiled = replace(plan, layers=tuple(layers))
+    diags = verify_plan(tiled, params, batch=batch)
+    warned = sorted({d.code for d in diags})
+    same = bool(torch.equal(run_plan(tiled, params, imgs), run_plan(plan, params, imgs)))
+    L = unit_launch(plan.layers[i].kind, plan.layers[i].impl, plan.layers[i].to_unit(),
+                    block_c=plan.block_c, batch=batch)
+    bad = replace(L, tiles=L.tiles - 1)
+    bad_codes = sorted({d.code for d in check_launch_descriptor(bad)})
+    print(f"verifier: conv{i + 1} with tile block_c=1000 block_o=32: codes {warned} "
+          f"(warn: the kernel falls back, logits bitwise unchanged: {same}); its launch "
+          f"record one spatial tile short ({bad.tiles} of {L.tiles}): codes {bad_codes}")
+    if warned != ["RPA204"] or not same or "RPA101" not in bad_codes:
+        failures.append("verifier: a bad tile was not reported as the reference reports it")
+    cost = verify_cost("vgg19", plan, params, imgs)
+    return {"rpa205_codes": codes, "tile_codes": warned, "launch_codes": bad_codes,
+            **cost}
+
+
+def verify_cost(name, plan, params, imgs) -> dict:
+    """verify_plan runs on every run_plan: its host wall (median of 5)
+    against the wall of the whole run_plan call, verification included."""
+    import torch
+
+    from repro_torch.analysis import verify_plan
+    from repro_torch.pipeline import run_plan
+
+    batch = int(imgs.shape[0])
+    verify_ms, run_ms = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        verify_plan(plan, params, batch=batch)
+        verify_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_plan(plan, params, imgs)
+        torch.cuda.synchronize()
+        run_ms.append((time.perf_counter() - t0) * 1e3)
+    v, r = sorted(verify_ms)[2], sorted(run_ms)[2]
+    print(f"{name} verify_plan host wall {v:.3f} ms per run_plan call (median of 5) "
+          f"beside the batch-{batch} run_plan wall {r:.3f} ms (verify included): "
+          f"{100 * v / r:.1f}%")
+    return {"verify_ms": v, "run_plan_ms": r, "verify_share": v / r}
+
+
+def geometry_checks(dev, failures) -> dict:
+    """Every full-width VGG-19 / LeNet-5 / AlexNet conv geometry: the Python
+    mirror of the conv kernels' tile choice (`kernels.tiles`) against the
+    kernels' own host code (`kernels.cuda.conv_tile`) at batch 1, 2 and 8,
+    every output tile (0, 64, 128), with and without the pool, fp32 and
+    int8; then each geometry the mirror accepts launched once at batch 2
+    (fp32 conv, fused pool where the unit fuses, int8)."""
+    import torch
+
+    from repro_torch.configs.alexnet import ALEXNET
+    from repro_torch.configs.lenet import LENET
+    from repro_torch.configs.vgg19_sparse import CNNConfig, vgg19_graph
+    from repro_torch.graph.registry import fusion_eligible
+    from repro_torch.kernels import cuda as kcuda
+    from repro_torch.kernels.conv_pool.kernel import conv_pool_batch
+    from repro_torch.kernels.ecr_conv.kernel import ecr_conv_batch
+    from repro_torch.kernels.tiles import CUDA_MAX_SMEM, f32_conv_tile, i8_conv_tile
+    from repro_torch.quant.kernels import ecr_conv_int8_batch
+
+    props = torch.cuda.get_device_properties(0)
+    sms = props.multi_processor_count
+    optin = getattr(props, "shared_memory_per_block_optin", None)
+    print(f"geometry: {sms} SMs; kMaxSmem {CUDA_MAX_SMEM} B against the device's opt-in "
+          f"shared memory per block {optin if optin is not None else 'not exposed by torch'}")
+    if optin is not None and CUDA_MAX_SMEM > optin:
+        failures.append(f"kMaxSmem {CUDA_MAX_SMEM} exceeds the device's opt-in {optin}")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    compared = differ = launched = 0
+    for gname, g in (("vgg19", vgg19_graph(CNNConfig())), ("lenet5", LENET),
+                     ("alexnet", ALEXNET)):
+        for unit in g.units():
+            c, h, w = unit.in_shape
+            conv, o = unit.conv, unit.conv.c_out
+            hp, wp, k, st = h + 2 * conv.pad, w + 2 * conv.pad, conv.k, conv.stride
+            oh, ow = (hp - k) // st + 1, (wp - k) // st + 1
+            cp = c + (-c) % 8
+            pools = (0, unit.pool.p) if fusion_eligible(unit) else (0,)
+            for batch in (1, 2, 8):
+                cases = [(pool, tn, False) for pool in pools for tn in (0, 64, 128)]
+                for pool, tn, int8 in cases + [(0, 0, True)]:
+                    mirror = (i8_conv_tile(oh, ow, o, k, k, st) if int8 else
+                              f32_conv_tile(batch, oh, ow, o, k, k, st, pool, tn, sms))
+                    try:
+                        card = kcuda.conv_tile(batch, hp, wp, cp, o, k, k, stride=st,
+                                               block_c=8, pool=pool, block_o=tn, int8=int8)
+                    except RuntimeError:
+                        card = (0,) * 7
+                    compared += 1
+                    if tuple(mirror) != tuple(card):
+                        differ += 1
+                        failures.append(f"{gname} conv{unit.index + 1} batch {batch} pool "
+                                        f"{pool} tn {tn} int8 {int8}: mirror {mirror} != "
+                                        f"kernel {card}")
+            # one launch of each accepted geometry at batch 2
+            n_cb = cp // 8
+            x = torch.rand((2, hp, wp, cp), generator=gen, device=dev)
+            wt = torch.randn((k, k, cp, o), generator=gen, device=dev)
+            ids = torch.arange(n_cb, dtype=torch.int32, device=dev).repeat(2, 1).contiguous()
+            cnt = torch.full((2,), n_cb, dtype=torch.int32, device=dev)
+            outs = []
+            if f32_conv_tile(2, oh, ow, o, k, k, st, 0, 0, sms)[0]:
+                outs.append(ecr_conv_batch(x, wt, ids, cnt, stride=st, block_c=8))
+            if len(pools) > 1 and f32_conv_tile(2, oh, ow, o, k, k, st, pools[1], 0, sms)[0]:
+                outs.append(conv_pool_batch(x, wt, ids, cnt, stride=st, pool=pools[1],
+                                            block_c=8))
+            if i8_conv_tile(oh, ow, o, k, k, st)[0]:
+                xq = torch.randint(-127, 128, x.shape, generator=gen, device=dev,
+                                   dtype=torch.int8)
+                wq = torch.randint(-127, 128, wt.shape, generator=gen, device=dev,
+                                   dtype=torch.int8)
+                sx = torch.full((2, 1), 1e-3, device=dev)
+                sw = torch.full((1, o), 1e-3, device=dev)
+                outs.append(ecr_conv_int8_batch(xq, wq, sx, sw, ids, cnt, stride=st,
+                                                block_c=8))
+            torch.cuda.synchronize()
+            for y in outs:
+                launched += 1
+                if not bool(torch.isfinite(y).all()):
+                    failures.append(f"{gname} conv{unit.index + 1}: a launch gave non-finite "
+                                    f"values")
+            del x, wt, outs
+    print(f"geometry: the Python tile mirror against the kernels' host code on "
+          f"{compared} (geometry, batch, pool, tn, dtype) cases: {compared - differ} equal, "
+          f"{differ} differ; {launched} launches of the accepted geometries at batch 2, "
+          f"all finite")
+    return {"compared": compared, "differ": differ, "launched": launched, "sms": sms,
+            "smem_optin": optin}
+
+
+def paper_phase(dev, wrappers, failures) -> dict:
+    """The paper's methods on full-width VGG-19 (3x224x224, 1000 classes;
+    weights from init_cnn at generator seed 0 plus shift_dead_channels):
+    cnn_forward at batch 1 (one image) and 2 under every impl against the
+    dense path, Fig. 2 / Fig. 6's window statistics of the 16 conv inputs,
+    each conv layer timed by CUDA events under every conv impl and, on the
+    stage-final layers, every conv+pool impl (batch 1), and the oracle plan
+    (use_pallas=False) planned, verified and run."""
+    import torch
+
+    from repro_torch.configs.vgg19_sparse import CNNConfig, vgg19_graph
+    from repro_torch.core import conv2d, conv_pool, window_stats
+    from repro_torch.core.pecr import fused_traffic_bytes
+    from repro_torch.graph import pad2d
+    from repro_torch.graph.ir import graph_weights
+    from repro_torch.graph.registry import fusion_eligible
+    from repro_torch.launch.serve_cnn import synth_requests
+    from repro_torch.models.cnn import (
+        cnn_feature_maps,
+        cnn_forward,
+        init_cnn,
+        shift_dead_channels,
+    )
+    from repro_torch.pipeline import plan_network, run_plan
+
+    t_phase = time.perf_counter()
+    ccfg = CNNConfig()
+    graph = vgg19_graph(ccfg)
+    params = shift_dead_channels(init_cnn(torch.Generator().manual_seed(0), ccfg,
+                                          device=dev))
+    imgs = torch.stack(synth_requests(graph, 2, seed=2, device=dev))
+    res = {"forward": [], "window_stats": [], "layers": []}
+    for batch, x in ((1, imgs[0]), (2, imgs)):
+        dense = cnn_forward(params, x, "dense", ccfg)
+        scale = float(dense.abs().max())
+        for impl in PAPER_IMPLS:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(wrappers)
+            t0 = time.perf_counter()
+            got = cnn_forward(params, x, impl, ccfg)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            peak = torch.cuda.max_memory_allocated() / 2 ** 20
+            launches = {k: v for k, v in read_counts(wrappers).items() if v}
+            err = float((got - dense).abs().max())
+            ok = (bool(torch.isfinite(got).all()) and got.shape == dense.shape
+                  and err <= 1e-4 * scale)
+            print(f"paper batch {batch} cnn_forward {impl:12s}: max_abs_err vs dense "
+                  f"{err:.3e} (limit 1e-4*max|dense| = {1e-4 * scale:.3e}): "
+                  f"{'ok' if ok else 'FAIL'}; wall {wall:.1f} ms, peak allocated "
+                  f"{peak:.0f} MiB, kernel launches {launches}")
+            if not ok:
+                failures.append(f"paper: cnn_forward {impl} at batch {batch} disagrees "
+                                f"with dense")
+            if impl.endswith("_pallas") and not launches:
+                failures.append(f"paper: cnn_forward {impl} launched no kernel")
+            res["forward"].append({"batch": batch, "impl": impl, "max_abs_err": err,
+                                   "max_abs_dense": scale, "wall_ms": wall,
+                                   "peak_mib": peak, "launches": launches})
+    maps = cnn_feature_maps(params, imgs[0], ccfg)
+    print("paper window statistics of the 16 conv inputs (image 0; paper Fig. 2 / "
+          "Fig. 6, 3x3 windows, stride 1, before padding):")
+    for unit, m in zip(graph.units(), maps):
+        ws = window_stats(m, 3, 3, 1)
+        print(f"  conv{unit.index + 1:<2d} {tuple(m.shape)}: sparsity {ws.sparsity:.4f}, "
+              f"theta {ws.theta:.4f}, mul reduction {ws.mul_reduction:.4f}, add "
+              f"reduction {ws.add_reduction:.4f}")
+        res["window_stats"].append({"layer": unit.index + 1, "shape": tuple(m.shape),
+                                    **vars(ws), "mul_reduction": ws.mul_reduction,
+                                    "add_reduction": ws.add_reduction})
+    conv_ws, _ = graph_weights(params)
+    print("paper per-layer ms (batch 1, CUDA events, median of 3; conv: dense / im2col "
+          "/ ecr / ecr_pallas; stage-final conv+pool: unfused / pecr / pecr_pallas):")
+    for unit, m, w in zip(graph.units(), maps, conv_ws):
+        xp = pad2d(m, unit.conv.pad)
+        t = time_turns({impl: (lambda impl=impl: conv2d(xp, w, 1, impl))
+                        for impl in ("dense", "im2col", "ecr", "ecr_pallas")},
+                       rounds=3, iters=1)
+        row = {"layer": unit.index + 1, "in": tuple(xp.shape), **t}
+        line = " ".join(f"{k} {v:8.3f}" for k, v in t.items())
+        if fusion_eligible(unit):
+            tp = time_turns({impl: (lambda impl=impl: conv_pool(xp, w, 1, 2, None, impl))
+                             for impl in ("unfused", "pecr", "pecr_pallas")},
+                            rounds=3, iters=1)
+            tb = fused_traffic_bytes(tuple(xp.shape), w.shape[0], 3, 3, 1, 2)
+            row.update({f"pool_{k}": v for k, v in tp.items()}, traffic=tb)
+            line += (" | " + " ".join(f"{k} {v:8.3f}" for k, v in tp.items())
+                     + f" | fused {tb['fused_bytes']} B, unfused {tb['unfused_bytes']} B,"
+                       f" saved {tb['saved_frac']:.3f}")
+        print(f"  conv{unit.index + 1:<2d} {tuple(xp.shape)}: {line}")
+        res["layers"].append(row)
+    oplan = plan_network(params, imgs, graph, occ_threshold=0.75, block_c=8,
+                         use_pallas=False)
+    verify_built("vgg19 oracle plan (use_pallas=False)", oplan, params, 2, failures)
+    got = run_plan(oplan, params, imgs)
+    dense = cnn_forward(params, imgs, "dense", ccfg)
+    err = float((got - dense).abs().max())
+    ok = bool(torch.isfinite(got).all()) and err <= 1e-4 * float(dense.abs().max())
+    print(f"paper oracle plan: {plan_line(oplan)}; run_plan vs dense max_abs_err "
+          f"{err:.3e}: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("paper: the oracle plan disagrees with dense")
+    res["oracle_plan"] = plan_line(oplan)
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"paper phase: {res['seconds']:.1f} s")
+    return res
+
+
+def lint_cli(failures) -> dict:
+    """python -m repro_torch.analysis.cli --json over the zoo, on the card."""
+    import os
+
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-m", "repro_torch.analysis.cli", "--json"],
+                       capture_output=True, text=True, env=env, cwd=ROOT, timeout=600)
+    doc = json.loads(r.stdout) if r.returncode == 0 else {}
+    models = [(rep["model"], " ".join(rep["plan"]["layers"])) for rep in doc.get("reports", [])]
+    print(f"analysis cli --json: exit {r.returncode}, n_errors {doc.get('n_errors')}, "
+          f"{models}, {time.perf_counter() - t0:.1f} s")
+    if r.returncode != 0 or doc.get("n_errors") != 0:
+        print(r.stderr[-2000:], file=sys.stderr)
+        failures.append("python -m repro_torch.analysis.cli --json did not exit clean")
+    return {"rc": r.returncode, "n_errors": doc.get("n_errors"), "models": models}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -2282,6 +2632,7 @@ def main() -> int:
     eng, params, imgs, plan_s, clock, _ = serve(graph, 16, seed=0, dev=dev)
     plan = eng.plan
     print(f"vgg19 plan ({plan_s:.2f} s): {plan_line(plan)}")
+    verify_built("vgg19", plan, params, 8, failures)
     impls = [lp.impl for lp in plan.layers]
     reset_counts(wrappers)
     t_start = clock()
@@ -2324,6 +2675,7 @@ def main() -> int:
     # ---- LeNet-5 and AlexNet through the same spine ------------------------
     for name, g in (("lenet5", LENET), ("alexnet", ALEXNET)):
         e2, p2, im2, _, _, _ = serve(g, 8, seed=0, dev=dev)
+        verify_built(name, e2.plan, p2, 8, failures)
         res2 = sorted(replay_stream(e2, im2, rate_rps=1000.0), key=lambda r: r.id)
         got2 = np.stack([r.logits for r in res2])
         ref2 = run_graph(g, p2, torch.stack(im2), "dense").cpu().numpy()
@@ -2341,6 +2693,12 @@ def main() -> int:
           f"device {svc['device_ms']:.2f} ms, idle share {svc['idle_share']}")
     for cat, ms in sorted(svc["by_class_ms"].items(), key=lambda kv: -kv[1]):
         print(f"  {ms:8.3f} ms  {cat}")
+    verifier = {}
+    try:
+        verifier = verifier_checks(plan, params, batch[:8], failures)
+    except Exception:
+        traceback.print_exc()
+        failures.append("verifier checks failed")
 
     # ---- kernels vs plain versions at the served VGG-19 layer shapes -------
     print(f"kernel checks ({KERNEL_TOL}):")
@@ -2430,6 +2788,32 @@ def main() -> int:
             traceback.print_exc()
             failures.append(f"{name} obs phase failed")
         torch.cuda.empty_cache()
+
+    # ---- the paper's methods as oracles; the verifier's geometry and CLI ---
+    paper, geometry, lint = {}, {}, {}
+    try:
+        paper = paper_phase(dev, wrappers, failures)
+    except Exception:
+        traceback.print_exc()
+        failures.append("paper phase failed")
+    torch.cuda.empty_cache()
+    try:
+        geometry = geometry_checks(dev, failures)
+    except Exception:
+        traceback.print_exc()
+        failures.append("geometry checks failed")
+    torch.cuda.empty_cache()
+    try:
+        lint = lint_cli(failures)
+    except Exception:
+        traceback.print_exc()
+        failures.append("analysis cli check failed")
+    print(f"verify_plan on the {len(VERIFIED)} plans this run built:")
+    for v in VERIFIED:
+        print(f"  {v['plan']}: {v['layers']} layers at batch {v['batch']}, errors "
+              f"{v['errors'] or 'none'}, notes {v['notes'] or 'none'}")
+    if len(VERIFIED) < 12:
+        failures.append(f"only {len(VERIFIED)} plans were verified")
 
     # ---- full-width qwen3-0.6b served through the flash kernels ------------
     lm = {}
@@ -2576,7 +2960,9 @@ def main() -> int:
         args.layers_out.write_text(json.dumps(
             {"card": card, "rows": book.rows, "kernels": kernels,
              "service": services, "variants": variants, "obs": obs, "lm": lm,
-             "train": train_summary}, indent=1, default=str))
+             "train": train_summary, "paper": paper, "verifier": verifier,
+             "geometry": geometry, "lint": lint, "verified": VERIFIED},
+            indent=1, default=str))
     if failures:
         for f in failures:
             print(f"FAILED: {f}", file=sys.stderr)

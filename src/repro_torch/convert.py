@@ -16,13 +16,17 @@ from repro_torch.device import resolve_device
 def params_from_jax(np_params: dict, device=None) -> dict:
     """{"conv": [(O,C,kh,kw)...], "dense": [(d_in,d_out)...]} of array-likes
     (numpy arrays, or anything `np.asarray` takes) -> the same layout of
-    float32 tensors on `device` (None = the card). Layouts are kept as they
-    are: conv weights stay OIHW, dense weights stay (d_in, d_out)."""
+    float32 tensors on `device` (None = the card). The legacy VGG layout
+    {"stages": [[w, ...], ...], "fc1", "fc2"} (`repro.models.cnn.init_cnn`)
+    stays legacy. Conv weights stay OIHW, dense weights (d_in, d_out)."""
     dev = resolve_device(device)
 
     def t(a):
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
 
+    if "stages" in np_params:
+        return {"stages": [[t(w) for w in convs] for convs in np_params["stages"]],
+                "fc1": t(np_params["fc1"]), "fc2": t(np_params["fc2"])}
     return {"conv": [t(w) for w in np_params["conv"]],
             "dense": [t(w) for w in np_params["dense"]]}
 

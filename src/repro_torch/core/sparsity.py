@@ -1,6 +1,8 @@
-"""Block-occupancy machinery of the ECR/PECR schedules and the im2col window
-matrix of the BSR conv (counterpart of the block-granularity half of
-`repro.core.sparsity`, plus its `extract_windows`).
+"""Sparsity machinery of the ECR / PECR paths (counterpart of
+`repro.core.sparsity`): the im2col window matrix (`extract_windows`), the
+paper's element-wise window statistics (`WindowStats`, `window_stats`: the
+MAC accounting of paper §IV-D / Fig. 6 and Θ of Fig. 11), synthetic
+feature maps, and the block-occupancy schedules the kernels run.
 
 `block_occupancy` marks the blocks holding any nonzero; `compact_block_ids`
 turns an occupancy row into the `(ids, cnt)` gather schedule the kernels loop
@@ -10,8 +12,12 @@ which the kernels sum.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 import torch.nn.functional as F
+
+from repro_torch.device import resolve_device
 
 
 def patches_t(x: torch.Tensor, kh: int, kw: int, stride: int = 1):
@@ -33,6 +39,52 @@ def extract_windows(x: torch.Tensor, kh: int, kw: int, stride: int = 1) -> torch
         x = x[None]
     at, oh, ow = patches_t(x[None], kh, kw, stride)
     return at.T.reshape(oh, ow, -1)
+
+
+@dataclass(frozen=True)
+class WindowStats:
+    """MAC accounting for one feature map, paper §IV-D / Fig. 6."""
+
+    n_windows: int
+    dense_muls: int
+    dense_adds: int
+    sparse_muls: int
+    sparse_adds: int
+    sparsity: float
+    theta: float  # paper Fig. 11: Θ = (sparsity*100) / feature-map width
+
+    @property
+    def mul_reduction(self) -> float:
+        return 1.0 - self.sparse_muls / max(self.dense_muls, 1)
+
+    @property
+    def add_reduction(self) -> float:
+        return 1.0 - self.sparse_adds / max(self.dense_adds, 1)
+
+
+def window_stats(x, kh: int, kw: int, stride: int = 1) -> WindowStats:
+    """Element-wise window statistics of one (C,H,W) map (a tensor or
+    anything `torch.as_tensor` takes), counted on `extract_windows`: each
+    window's nonzeros are the multiplies ECR keeps, nonzeros - 1 its adds.
+    Counts are integers and the sparsity is zeros / elements, so the result
+    does not depend on the device or the summation order."""
+    x = torch.as_tensor(x)
+    if x.ndim == 2:
+        x = x[None]
+    wins = extract_windows(x, kh, kw, stride)
+    nnz = (wins != 0).sum(-1).reshape(-1)
+    n_win = nnz.numel()
+    k = wins.shape[-1]
+    sparsity = int((x == 0).sum()) / x.numel()
+    return WindowStats(
+        n_windows=int(n_win),
+        dense_muls=int(n_win * k),
+        dense_adds=int(n_win * (k - 1)),
+        sparse_muls=int(nnz.sum()),
+        sparse_adds=int((nnz - 1).clamp(min=0).sum()),
+        sparsity=float(sparsity),
+        theta=float(sparsity * 100.0 / x.shape[-1]),
+    )
 
 
 def block_occupancy(x: torch.Tensor, block: tuple) -> torch.Tensor:
@@ -68,6 +120,11 @@ def compact_block_ids(occ: torch.Tensor):
     return ids.to(torch.int32), count
 
 
+def occupancy_fraction(occ: torch.Tensor) -> torch.Tensor:
+    """The live share of an occupancy map, as a 0-dim float32 tensor."""
+    return occ.float().mean()
+
+
 def dead_channel_band(x: torch.Tensor, frac: float) -> torch.Tensor:
     """Zero the TRAILING `int(C * frac)` channels of a (C,H,W) / (N,C,H,W)
     map — the shared dead-channel band the serving stack calibrates and
@@ -78,3 +135,27 @@ def dead_channel_band(x: torch.Tensor, frac: float) -> torch.Tensor:
         return x
     mask = (torch.arange(c, device=x.device) < c - n_dead).to(x.dtype)
     return x * mask[:, None, None]
+
+
+def synth_feature_map(generator: torch.Generator, shape, sparsity: float,
+                      dtype=torch.float32, channel_dead_frac: float | None = None,
+                      device=None) -> torch.Tensor:
+    """Random post-ReLU-like (non-negative) feature map at a target sparsity.
+
+    Part of the sparsity comes from whole dead channels, as in trained nets
+    (`channel_dead_frac`, default half the target), the rest from
+    unstructured zeros on the surviving channels. Drawn on the host from
+    `generator` (its bits differ from the reference's `jax.random` draw;
+    parity tests hand both packages the same map), then moved to `device`
+    (None = the card)."""
+    dev = resolve_device(device)
+    shape = tuple(shape)
+    vals = torch.rand(shape, generator=generator) * (1.0 - 1e-3) + 1e-3
+    if len(shape) == 3 and shape[0] > 1:
+        cdf = sparsity * 0.5 if channel_dead_frac is None else channel_dead_frac
+        ch_keep = torch.rand((shape[0], 1, 1), generator=generator) >= cdf
+        resid = min(max((sparsity - cdf) / max(1.0 - cdf, 1e-6), 0.0), 1.0)
+        keep = (torch.rand(shape, generator=generator) >= resid) & ch_keep
+    else:
+        keep = torch.rand(shape, generator=generator) >= sparsity
+    return torch.where(keep, vals, torch.zeros(())).to(dtype).to(dev)

@@ -27,6 +27,7 @@ from repro_torch.graph.registry import (
     fused_impl,
     fusion_eligible,
     get_op,
+    list_ops,
     register_op,
     unit_impl,
 )
@@ -63,6 +64,7 @@ __all__ = [
     "get_op",
     "graph_weights",
     "init_graph",
+    "list_ops",
     "maxpool2d",
     "pad2d",
     "register_op",

@@ -236,9 +236,13 @@ class LayerGraph:
 
 
 def graph_weights(params) -> tuple:
-    """A {"conv": [...], "dense": [...]} params dict as (conv_weights,
-    dense_weights) lists. (The reference also reads its legacy VGG
-    {"stages", "fc1", "fc2"} layout, which the port never makes.)"""
+    """A params dict as (conv_weights, dense_weights) lists: the
+    graph-native {"conv": [...], "dense": [...]} layout, or the legacy VGG
+    {"stages": [[w, ...], ...], "fc1": w, "fc2": w} that
+    `models.cnn.init_cnn` makes."""
+    if "stages" in params:
+        return ([w for convs in params["stages"] for w in convs],
+                [params["fc1"], params["fc2"]])
     return list(params["conv"]), list(params["dense"])
 
 

@@ -1,19 +1,25 @@
 """Op registry: the one impl-dispatch site from planner to serving
-(counterpart of `repro.graph.registry`, main-path ops only).
+(counterpart of `repro.graph.registry`).
 
 Every (node kind, impl) pair maps to one `OpImpl` carrying its forward, its
-cost hook and its fusion metadata. The (kind, impl) strings are the
+cost hook and its fusion metadata. The ten (kind, impl) strings are the
 reference's, so plan signatures of the two packages compare one to one:
 
   ("conv", "dense")             F.conv2d (cuDNN on the card, TF32 off)
+  ("conv", "im2col")            window matrix + one GEMM (the paper's baseline)
+  ("conv", "ecr")               ECR sparse conv, plain PyTorch oracle
   ("conv", "ecr_pallas")        ECR sparse conv, CUDA kernel on the card
-  ("conv_pool", "pecr_pallas")  PECR fused conv+ReLU+maxpool, CUDA kernel
   ("conv", "bsr")               weight-block-sparse conv, CUDA BSR kernel
   ("conv", "ecr_int8")          int8 ECR conv, CUDA kernel
   ("conv", "bsr_int8")          int8 weight-block-sparse conv, CUDA kernel
+  ("conv_pool", "unfused")      dense conv -> ReLU -> max-pool, separate ops
+  ("conv_pool", "pecr")         PECR fused conv+ReLU+maxpool, plain oracle
+  ("conv_pool", "pecr_pallas")  PECR fused conv+ReLU+maxpool, CUDA kernel
 
 The "_pallas" suffix names the reference's op family, not the kernel
-language. The fusion rule (`fusion_eligible`), the fused <-> plain impl
+language; `OpImpl.pallas` marks the impls that launch a hand-written
+kernel. The oracles ("im2col", "ecr", "unfused", "pecr") run the paper's
+methods in plain PyTorch, on the card when given card tensors. The fusion rule (`fusion_eligible`), the fused <-> plain impl
 mapping and the modeled cost of a unit (`unit_cost`, `unit_model_us`, which
 the planner's arms compare, at the datasheet constants or at a
 `CalibrationDB`'s measured ones) live here too. Every forward takes the
@@ -36,10 +42,13 @@ class OpImpl:
              kind "conv_pool" -> f(x_padded, w, *, stride, pool, block_c, tile) -> y
     cost:    f(c, h, w, o, kh, kw, *, stride, occupancy, batch, [pool]) -> dict
              with "flops"/"bytes"/"out_elems".
-    sparse:  occupancy-dependent (skips dead channel blocks); on the card
-             these run the hand-written CUDA kernels.
+    sparse:  occupancy-dependent (skips dead channel blocks, or, for the
+             oracles, masks zeros); its cost hook takes the occupancy.
     weight_sparse: weight-density-dependent (skips pruned weight blocks);
              its cost hook takes `weight_density`.
+    pallas:  launches one of the port's hand-written CUDA kernels on the
+             card, so it has a tile geometry to search (the reference's
+             flag name, read by tile search and the planner).
     quantized: runs int8 operands (int32 accumulation, fp32 in and out).
     fused_with: for kind "conv_pool", the kind-"conv" impl of the same family
              (used on units whose pool is not fusion-eligible); for kind
@@ -58,13 +67,7 @@ class OpImpl:
     launch: Callable | None = None
     weight_sparse: bool = False
     quantized: bool = False
-
-    @property
-    def pallas(self) -> bool:
-        """Runs one of the port's hand-written kernels, so it has a tile
-        geometry to search: every activation- or weight-sparse impl does
-        (the reference's flag name, read by tile search and the planner)."""
-        return self.sparse or self.weight_sparse
+    pallas: bool = False
 
 
 _OPS: dict = {}
@@ -85,6 +88,10 @@ def get_op(kind: str, impl: str) -> OpImpl:
         known = sorted(i for k, i in _OPS if k == kind)
         raise ValueError(
             f"unknown {kind} impl {impl!r} (registered: {known})") from None
+
+
+def list_ops(kind: str | None = None) -> tuple:
+    return tuple(op for op in _OPS.values() if kind is None or op.kind == kind)
 
 
 # ---------------------------------------------------------------------------
@@ -223,7 +230,19 @@ def _conv_dense(xp, w, *, stride, block_c=0, tile=None):
     return conv2d_dense(xp, w, stride)
 
 
+def _conv_im2col(xp, w, *, stride, block_c=0, tile=None):
+    from repro_torch.core.ecr import conv2d_im2col
+
+    return conv2d_im2col(xp, w, stride)
+
+
 def _conv_ecr(xp, w, *, stride, block_c=0, tile=None):
+    from repro_torch.core.ecr import conv2d_ecr
+
+    return conv2d_ecr(xp, w, stride)
+
+
+def _conv_ecr_pallas(xp, w, *, stride, block_c=0, tile=None):
     from repro_torch.kernels.ecr_conv.ops import ecr_conv
     from repro_torch.kernels.tiles import as_tile
 
@@ -231,7 +250,19 @@ def _conv_ecr(xp, w, *, stride, block_c=0, tile=None):
     return ecr_conv(xp, w, stride, block_c=t.block_c, block_o=t.block_o)
 
 
+def _conv_pool_unfused(xp, w, *, stride, pool, block_c=0, tile=None):
+    from repro_torch.core.pecr import conv_pool_unfused
+
+    return conv_pool_unfused(xp, w, stride, pool.p, pool.s)
+
+
 def _conv_pool_pecr(xp, w, *, stride, pool, block_c=0, tile=None):
+    from repro_torch.core.pecr import conv_pool_pecr
+
+    return conv_pool_pecr(xp, w, stride, pool.p, pool.s)
+
+
+def _conv_pool_pecr_pallas(xp, w, *, stride, pool, block_c=0, tile=None):
     from repro_torch.kernels.conv_pool.ops import fused_conv_pool
     from repro_torch.kernels.tiles import as_tile
 
@@ -244,6 +275,16 @@ def _conv_cost(c, h, w, o, kh, kw, **kw_args):
     from repro_torch.kernels.ecr_conv.ops import ecr_conv_cost
 
     return ecr_conv_cost(c, h, w, o, kh, kw, **kw_args)
+
+
+def _conv_pool_unfused_cost(c, h, w, o, kh, kw, *, pool=2, dtype_bytes=4, **kw_args):
+    """Unfused conv -> ReLU -> pool: the conv cost plus the round trip PECR
+    deletes (`_pool_round_trip` over the conv hook)."""
+    from repro_torch.kernels.ecr_conv.ops import ecr_conv_cost
+
+    return _pool_round_trip(
+        ecr_conv_cost(c, h, w, o, kh, kw, dtype_bytes=dtype_bytes, **kw_args),
+        pool, dtype_bytes)
 
 
 def _conv_pool_cost(c, h, w, o, kh, kw, **kw_args):
@@ -338,17 +379,24 @@ def _launch_bsr_int8(unit, *, tile=None, block_c=0, batch=1):
 
 
 register_op(OpImpl("conv", "dense", _conv_dense, cost=_conv_cost))
-register_op(OpImpl("conv", "ecr_pallas", _conv_ecr, cost=_conv_cost,
-                   sparse=True, fused_with="pecr_pallas",
+register_op(OpImpl("conv", "im2col", _conv_im2col, cost=_conv_cost))
+register_op(OpImpl("conv", "ecr", _conv_ecr, cost=_conv_cost, sparse=True,
+                   fused_with="pecr"))
+register_op(OpImpl("conv", "ecr_pallas", _conv_ecr_pallas, cost=_conv_cost,
+                   sparse=True, pallas=True, fused_with="pecr_pallas",
                    launch=_launch_ecr))
-register_op(OpImpl("conv_pool", "pecr_pallas", _conv_pool_pecr,
-                   cost=_conv_pool_cost, sparse=True,
-                   fused_with="ecr_pallas", launch=_launch_pecr))
 register_op(OpImpl("conv", "bsr", _conv_bsr, cost=_bsr_cost,
-                   weight_sparse=True, launch=_launch_bsr))
+                   weight_sparse=True, pallas=True, launch=_launch_bsr))
 register_op(OpImpl("conv", "ecr_int8", _conv_ecr_int8, cost=_ecr_int8_cost,
-                   sparse=True, quantized=True,
+                   sparse=True, pallas=True, quantized=True,
                    launch=_launch_ecr_int8))
 register_op(OpImpl("conv", "bsr_int8", _conv_bsr_int8, cost=_bsr_int8_cost,
-                   weight_sparse=True, quantized=True,
+                   weight_sparse=True, pallas=True, quantized=True,
                    launch=_launch_bsr_int8))
+register_op(OpImpl("conv_pool", "unfused", _conv_pool_unfused,
+                   cost=_conv_pool_unfused_cost))
+register_op(OpImpl("conv_pool", "pecr", _conv_pool_pecr, cost=_conv_pool_cost,
+                   sparse=True, fused_with="ecr"))
+register_op(OpImpl("conv_pool", "pecr_pallas", _conv_pool_pecr_pallas,
+                   cost=_conv_pool_cost, sparse=True, pallas=True,
+                   fused_with="ecr_pallas", launch=_launch_pecr))

@@ -17,18 +17,18 @@ from repro_torch.kernels.ecr_conv.ops import (
     pack_operands,
     pack_operands_single,
 )
-from repro_torch.kernels.tiles import ConvLaunch, TileConfig, resolve_block_o
+from repro_torch.kernels.tiles import ConvLaunch, TileConfig
 
 
 def conv_pool_launch(c: int, h: int, w: int, o: int, kh: int = 3, kw: int = 3,
                      *, stride: int = 1, pool: int = 2, block_c: int = 0,
-                     tile: TileConfig | None = None, batch: int = 1,
-                     dtype_bytes: int = 4) -> ConvLaunch:
+                     block_o: int = 0, tile: TileConfig | None = None,
+                     batch: int = 1, dtype_bytes: int = 4) -> ConvLaunch:
     """`ConvLaunch` of one fused PECR call: the ECR builder with the pool
     window recorded."""
     return ecr_conv_launch(c, h, w, o, kh, kw, stride=stride, block_c=block_c,
-                           tile=tile, batch=batch, dtype_bytes=dtype_bytes,
-                           pool=pool, kernel="conv_pool")
+                           block_o=block_o, tile=tile, batch=batch,
+                           dtype_bytes=dtype_bytes, pool=pool, kernel="conv_pool")
 
 
 def fused_conv_pool(x_chw: torch.Tensor, kernels_oihw: torch.Tensor,
@@ -50,14 +50,13 @@ def fused_conv_pool(x_chw: torch.Tensor, kernels_oihw: torch.Tensor,
     if batched and x_chw.shape[0] == 0:
         raise ValueError("empty batch: fused_conv_pool needs N >= 1")
     launch = conv_pool_launch(c, h, w, o, kh, kw, stride=stride, pool=pool,
-                              block_c=block_c,
+                              block_c=block_c, block_o=block_o,
                               batch=x_chw.shape[0] if batched else 1,
                               dtype_bytes=x_chw.element_size())
     pack = pack_operands if batched else pack_operands_single
     x, wk, ids, cnt = pack(x_chw, kernels_oihw, launch)
     out = conv_pool_batch(x, wk, ids, cnt, stride=stride, pool=pool,
-                          block_c=launch.block_c,
-                          block_o=resolve_block_o(o, block_o))
+                          block_c=launch.block_c, block_o=launch.tn_req)
     out = out.permute(0, 3, 1, 2)
     return out if batched else out[0]
 

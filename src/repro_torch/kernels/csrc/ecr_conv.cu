@@ -76,6 +76,13 @@
 //   16-column pair is n = g of n8 tile 2q, column 2g + 1 that of tile
 //   2q + 1; a half-warp hits 32 distinct banks. The accumulators then hold 4
 //   consecutive output channels per row, written as one float4.
+// - Accumulation. The MMA adds its products to its fp32 accumulator with a
+//   truncating alignment, so a long chain of MMAs into one accumulator
+//   drifts toward zero: over VGG-19's 3x3x512 reduction (576 k-steps x 3
+//   products) the drift reached 2e-5 of a layer's largest output, and over
+//   the 16 layers of a forward 1.7e-4 of the largest logit. Each tap's
+//   three products therefore go into a fresh zeroed fragment, which one
+//   FADD per element (round to nearest) adds into the block's accumulator.
 // - PECR epilogue: TH and TW are multiples of p, so no pool window straddles
 //   two tiles; the ReLU'd accumulators go to shared memory and only pooled
 //   outputs with py < OH/p, px < OW/p (floor) reach global memory.
@@ -304,7 +311,14 @@ ecr_conv_kernel(const float* __restrict__ x, const float* __restrict__ w,
         ldmatrix_x4(ah, addr);
         ldmatrix_x4(al, addr ^ 32);
 #pragma unroll
-        for (int jn = 0; jn < NT; ++jn) mma_split(acc[mt][jn], ah, al, bh[jn], bl[jn]);
+        for (int jn = 0; jn < NT; ++jn) {
+          // this tap's three products in a fresh fragment, then one rounded
+          // fp32 add (see "Accumulation" above)
+          float part[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_split(part, ah, al, bh[jn], bl[jn]);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc[mt][jn][r] += part[r];
+        }
       }
     };
     if (p.kh == 3 && p.kw == 3 && p.tc == 9) {
@@ -452,9 +466,12 @@ int dispatch(int mt, int nt, const Params& p, size_t smem, const float* x, const
   return run<2, 2, kPool>(p, smem, x, w, ids, cnt, out, stream);
 }
 
-int launch(const float* x, const float* w, const int32_t* ids, const int32_t* cnt,
-           float* out, int n, int h, int wd, int c, int o, int kh, int kw, int stride,
-           int bc, int pool, int tn, cudaStream_t stream) {
+// The launch's geometry: Params with the spatial tile filled in, the
+// dynamic shared memory and (MT, NT), or an error for a shape the kernel
+// cannot take. Also answers `repro_ecr_conv_f32_tile`, so the host-side
+// Python mirror (kernels/tiles.py) is checked against this very code.
+int choose(Params& p, size_t& smem, int& mt, int& nt, int n, int h, int wd, int c,
+           int o, int kh, int kw, int stride, int bc, int pool, int tn) {
   if (n < 1 || o < 1 || bc < 1 || c < bc || c % bc || stride < 1 || kh < 1 || kw < 1 ||
       h < kh || wd < kw || pool < 0 || pool > 8 || n > 65535 ||
       (tn != 0 && tn != 64 && tn != 128))
@@ -467,17 +484,14 @@ int launch(const float* x, const float* w, const int32_t* ids, const int32_t* cn
   base.ow = (wd - kw) / stride + 1;
   base.pool = pool;
   base.taps = kh * kw;
-  base.fast_x = bc % 4 == 0 && ((uintptr_t)x & 15) == 0;  // c is a multiple of bc
-  base.fast_w = o % 4 == 0 && ((uintptr_t)w & 15) == 0;
   // (TM, TN): of the tiles whose grid covers the SMs, the one with the least
   // padded work (M tiles x TM x N tiles x TN; ties go to the larger tile),
   // else the one with the most blocks. tn = 64 or 128 (a searched output
   // tile) keeps only the choices with 32 * NT == tn; 0 keeps all four.
   const int choices[4][2] = {{4, 4}, {2, 4}, {4, 2}, {2, 2}};
   const long long sms = sm_count();
-  Params p;
-  size_t smem = 0;
-  int mt = 0, nt = 0;
+  mt = nt = 0;
+  smem = 0;
   long long best_short = 0, best_cost = 0;  // (grid short of the SMs, cost): least wins
   for (const auto& ch : choices) {
     if (tn != 0 && 32 * ch[1] != tn) continue;
@@ -497,7 +511,19 @@ int launch(const float* x, const float* w, const int32_t* ids, const int32_t* cn
       nt = ch[1];
     }
   }
-  if (mt == 0) return (int)cudaErrorInvalidValue;
+  return mt == 0 ? (int)cudaErrorInvalidValue : 0;
+}
+
+int launch(const float* x, const float* w, const int32_t* ids, const int32_t* cnt,
+           float* out, int n, int h, int wd, int c, int o, int kh, int kw, int stride,
+           int bc, int pool, int tn, cudaStream_t stream) {
+  Params p;
+  size_t smem = 0;
+  int mt = 0, nt = 0;
+  const int e = choose(p, smem, mt, nt, n, h, wd, c, o, kh, kw, stride, bc, pool, tn);
+  if (e != 0) return e;
+  p.fast_x = bc % 4 == 0 && ((uintptr_t)x & 15) == 0;  // c is a multiple of bc
+  p.fast_w = o % 4 == 0 && ((uintptr_t)w & 15) == 0;
   if (pool) return dispatch<true>(mt, nt, p, smem, x, w, ids, cnt, out, stream);
   return dispatch<false>(mt, nt, p, smem, x, w, ids, cnt, out, stream);
 }
@@ -524,6 +550,22 @@ int repro_conv_pool_f32(const float* x, const float* w, const int32_t* ids,
   if (pool < 1) return (int)cudaErrorInvalidValue;
   return launch(x, w, ids, cnt, out, n, h, wd, c, o, kh, kw, stride, bc, pool, tn,
                 (cudaStream_t)stream);
+}
+
+// The geometry `launch` would pick, without launching: out[0..6] = TM, TN,
+// spatial tile rows, columns, spatial tiles, output-channel tiles, dynamic
+// shared memory in bytes. Returns 0, or the error `launch` would return.
+int repro_ecr_conv_f32_tile(int n, int h, int wd, int c, int o, int kh, int kw,
+                            int stride, int bc, int pool, int tn, int* out) {
+  Params p;
+  size_t smem = 0;
+  int mt = 0, nt = 0;
+  const int e = choose(p, smem, mt, nt, n, h, wd, c, o, kh, kw, stride, bc, pool, tn);
+  if (e != 0) return e;
+  const int vals[7] = {32 * mt, 32 * nt, p.th, p.tw, p.tiles,
+                       (o + 32 * nt - 1) / (32 * nt), (int)smem};
+  for (int i = 0; i < 7; ++i) out[i] = vals[i];
+  return 0;
 }
 
 }  // extern "C"

@@ -334,13 +334,14 @@ bool pick_tile(Params& p) {
   return true;
 }
 
-int launch(const int8_t* x, const int8_t* w, const int32_t* ids, const int32_t* cnt,
-           const float* sx, const float* sw, float* out, int n, int h, int wd, int c,
-           int o, int kh, int kw, int stride, int bc, cudaStream_t stream) {
+// The launch's geometry (Params with the spatial tile filled in), or an
+// error for a shape the kernel cannot take. Also answers
+// `repro_ecr_conv_i8_tile`, so the Python mirror is checked against it.
+int choose(Params& p, int n, int h, int wd, int c, int o, int kh, int kw, int stride,
+           int bc) {
   if (n < 1 || o < 1 || bc < 1 || c < bc || c % bc || stride < 1 || kh < 1 || kw < 1 ||
       h < kh || wd < kw || n > 65535)
     return (int)cudaErrorInvalidValue;
-  Params p;
   p.n = n; p.h = h; p.w = wd; p.c = c; p.o = o;
   p.kh = kh; p.kw = kw; p.stride = stride;
   p.bc = bc; p.n_cb = c / bc;
@@ -348,11 +349,20 @@ int launch(const int8_t* x, const int8_t* w, const int32_t* ids, const int32_t* 
   p.ow = (wd - kw) / stride + 1;
   p.taps = kh * kw;
   if (!pick_tile(p)) return (int)cudaErrorInvalidValue;
+  if ((o + kTileN - 1) / kTileN > 65535) return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
+int launch(const int8_t* x, const int8_t* w, const int32_t* ids, const int32_t* cnt,
+           const float* sx, const float* sw, float* out, int n, int h, int wd, int c,
+           int o, int kh, int kw, int stride, int bc, cudaStream_t stream) {
+  Params p;
+  const int err = choose(p, n, h, wd, c, o, kh, kw, stride, bc);
+  if (err != 0) return err;
   p.fast_x = bc % 8 == 0 && ((uintptr_t)x & 7) == 0;
   p.fast_w = o % 16 == 0 && ((uintptr_t)w & 15) == 0;
   const int tiles = ((p.oh + p.th - 1) / p.th) * p.tiles_w;
   const int o_tiles = (o + kTileN - 1) / kTileN;
-  if (o_tiles > 65535) return (int)cudaErrorInvalidValue;
   const size_t smem = 2 * (size_t)p.halo_bytes + 2 * (size_t)p.slab_bytes;
   const cudaError_t e = cudaFuncSetAttribute(
       ecr_conv_i8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -375,6 +385,22 @@ int repro_ecr_conv_i8(const int8_t* x, const int8_t* w, const int32_t* ids,
                       int kw, int stride, int bc, void* stream) {
   return launch(x, w, ids, cnt, sx, sw, out, n, h, wd, c, o, kh, kw, stride, bc,
                 (cudaStream_t)stream);
+}
+
+// The geometry `launch` would pick, without launching: out[0..6] = the
+// block's positions and output channels (128, 128), spatial tile rows,
+// columns, spatial tiles, output-channel tiles, dynamic shared memory in
+// bytes. Returns 0, or the error `launch` would return.
+int repro_ecr_conv_i8_tile(int n, int h, int wd, int c, int o, int kh, int kw, int stride,
+                           int bc, int* out) {
+  Params p;
+  const int e = choose(p, n, h, wd, c, o, kh, kw, stride, bc);
+  if (e != 0) return e;
+  const int vals[7] = {kTileM, kTileN, p.th, p.tw, ((p.oh + p.th - 1) / p.th) * p.tiles_w,
+                       (o + kTileN - 1) / kTileN,
+                       (int)(2 * (size_t)p.halo_bytes + 2 * (size_t)p.slab_bytes)};
+  for (int i = 0; i < 7; ++i) out[i] = vals[i];
+  return 0;
 }
 
 }  // extern "C"

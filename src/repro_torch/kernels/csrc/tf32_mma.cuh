@@ -11,10 +11,12 @@
 // a = a_hi + a_lo (`split`: a_hi = a rounded to TF32, a_lo = the rest in
 // TF32), and the same for b, a*b = a_hi*b_hi + a_hi*b_lo + a_lo*b_hi +
 // a_lo*b_lo, where the last term is below 2^-22 |a*b| and is dropped. Each
-// product of two TF32 values is exact in fp32, and the MMA accumulates in
-// fp32, so the sum holds about fp32 accuracy at a third of the TF32 rate:
-// 495 / 3 = 165 TFLOP/s on an H100 SXM, 2.5x its 67 TFLOP/s of fp32
-// outside the tensor cores.
+// product of two TF32 values is exact in fp32 and the MMA accumulates in
+// fp32, at a third of the TF32 rate: 495 / 3 = 165 TFLOP/s on an H100 SXM,
+// 2.5x its 67 TFLOP/s of fp32 outside the tensor cores. The MMA's
+// accumulation truncates, though, so a long chain of MMAs into one
+// accumulator drifts toward zero; ecr_conv.cu therefore adds each tap's
+// products into its accumulator with a rounded FADD.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -137,6 +137,11 @@ def library() -> ctypes.CDLL:
             lib.repro_conv_pool_f32.restype = ctypes.c_int
             lib.repro_ecr_conv_i8.argtypes = [ctypes.c_void_p] * 7 + ints + [ctypes.c_void_p]
             lib.repro_ecr_conv_i8.restype = ctypes.c_int
+            geom = ctypes.POINTER(ctypes.c_int)
+            lib.repro_ecr_conv_f32_tile.argtypes = [ctypes.c_int] * 11 + [geom]
+            lib.repro_ecr_conv_f32_tile.restype = ctypes.c_int
+            lib.repro_ecr_conv_i8_tile.argtypes = [ctypes.c_int] * 9 + [geom]
+            lib.repro_ecr_conv_i8_tile.restype = ctypes.c_int
             bsr_ints = [ctypes.c_int] * 6
             lib.repro_bsr_matmul_f32.argtypes = ptrs + bsr_ints + [ctypes.c_void_p]
             lib.repro_bsr_matmul_f32.restype = ctypes.c_int
@@ -206,6 +211,26 @@ def check_block_o(block_o: int) -> None:
     launch's own choice."""
     if block_o not in (0, 64, 128):
         raise ValueError(f"the CUDA conv kernel takes block_o 0, 64 or 128, got {block_o}")
+
+
+def conv_tile(n: int, h: int, w: int, c: int, o: int, kh: int, kw: int, *,
+              stride: int, block_c: int, pool: int = 0, block_o: int = 0,
+              int8: bool = False) -> tuple:
+    """The tile the conv kernel's host code picks for this call, without
+    launching: (TM, TN, tile rows, tile columns, spatial tiles, output-channel
+    tiles, dynamic shared memory in bytes), on the current device. The
+    Python mirror is `kernels.tiles.f32_conv_tile` / `i8_conv_tile`. Raises
+    for a shape the kernel refuses."""
+    out = (ctypes.c_int * 7)()
+    lib = library()
+    if int8:
+        err = lib.repro_ecr_conv_i8_tile(n, h, w, c, o, kh, kw, stride, block_c, out)
+    else:
+        err = lib.repro_ecr_conv_f32_tile(n, h, w, c, o, kh, kw, stride, block_c, pool,
+                                          block_o, out)
+    if err != 0:
+        raise RuntimeError(f"conv kernel refuses the shape (error {err})")
+    return tuple(out)
 
 
 def launch_conv(x, w, ids, cnt, *, stride: int, block_c: int, pool: int = 0,

@@ -15,26 +15,45 @@ from repro_torch.core.ecr import compact_live_channels, compact_live_channels_ba
 from repro_torch.core.sparsity import block_occupancy, compact_block_ids
 from repro_torch.kernels.ecr_conv.kernel import ecr_conv_batch
 from repro_torch.kernels.schedule_guard import guard_schedule
-from repro_torch.kernels.tiles import ConvLaunch, TileConfig, resolve_block_c, resolve_block_o
+from repro_torch.kernels.tiles import (
+    ConvLaunch,
+    TileConfig,
+    f32_conv_tile,
+    i8_conv_tile,
+    resolve_block_c,
+    resolve_block_o,
+)
 
 
 def ecr_conv_launch(c: int, h: int, w: int, o: int, kh: int = 3, kw: int = 3,
-                    *, stride: int = 1, block_c: int = 0,
+                    *, stride: int = 1, block_c: int = 0, block_o: int = 0,
                     tile: TileConfig | None = None, batch: int = 1,
                     dtype_bytes: int = 4, pool: int = 0,
                     kernel: str = "ecr_conv") -> ConvLaunch:
     """The resolved `ConvLaunch` of one ECR conv call: the schedule's block
     size through `resolve_block_c` (exactly the resolution `ecr_conv` runs
     with, at the operands' `dtype_bytes`), the channel padding and schedule
-    length derived once. `tile` wins over the `block_c` scalar."""
-    t = tile if tile is not None else TileConfig(block_c=block_c)
+    length derived once, and the CUDA kernel's tile and grid on an H100
+    (`f32_conv_tile`, at the output tile `resolve_block_o` asks for; the
+    int8 kernel's `i8_conv_tile`, whose output tile is fixed). `tile` wins
+    over the `block_c` / `block_o` scalars."""
+    t = tile if tile is not None else TileConfig(block_c=block_c, block_o=block_o)
     bc = resolve_block_c(h, w, c, t, dtype_bytes)
     cp = (-c) % bc
+    oh, ow = (h - kh) // stride + 1, (w - kw) // stride + 1
+    if dtype_bytes == 1:
+        tn_req, geom = 0, i8_conv_tile(oh, ow, o, kh, kw, stride)
+        contract = dict(acc_dtype="int32", weight_scales="per_output_channel")
+    else:
+        tn_req = resolve_block_o(o, t.block_o)
+        geom = f32_conv_tile(batch, oh, ow, o, kh, kw, stride, pool, tn_req)
+        contract = {}
+    tm, tn, th, tw, tiles, o_tiles, smem = geom
     return ConvLaunch(
         kernel=kernel, batch=batch, c=c, h=h, w=w, o=o, kh=kh, kw=kw,
         stride=stride, pool=pool, block_c=bc, c_pad=cp, n_cb=(c + cp) // bc,
-        oh=(h - kh) // stride + 1, ow=(w - kw) // stride + 1,
-        dtype_bytes=dtype_bytes)
+        oh=oh, ow=ow, dtype_bytes=dtype_bytes, tn_req=tn_req, tm=tm, tn=tn,
+        th=th, tw=tw, tiles=tiles, o_tiles=o_tiles, smem_bytes=smem, **contract)
 
 
 def batch_block_schedule(x_nhwc: torch.Tensor, h: int, w: int, bc: int):
@@ -93,13 +112,13 @@ def ecr_conv(x_chw: torch.Tensor, kernels_oihw: torch.Tensor, stride: int = 1,
     if batched and x_chw.shape[0] == 0:
         raise ValueError("empty batch: ecr_conv needs N >= 1")
     launch = ecr_conv_launch(c, h, w, o, kh, kw, stride=stride,
-                             block_c=block_c,
+                             block_c=block_c, block_o=block_o,
                              batch=x_chw.shape[0] if batched else 1,
                              dtype_bytes=x_chw.element_size())
     pack = pack_operands if batched else pack_operands_single
     x, wk, ids, cnt = pack(x_chw, kernels_oihw, launch)
     out = ecr_conv_batch(x, wk, ids, cnt, stride=stride, block_c=launch.block_c,
-                         block_o=resolve_block_o(o, block_o))
+                         block_o=launch.tn_req)
     out = out.permute(0, 3, 1, 2)  # (N, O, oh, ow)
     return out if batched else out[0]
 

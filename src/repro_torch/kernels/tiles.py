@@ -23,6 +23,7 @@ CUDA kernels honour what they can:
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import lru_cache
 
 # The JAX package's block-size rule (an activation tile of h*w*block_c bytes
 # within this budget), kept so that plans match. It no longer sizes any
@@ -35,6 +36,15 @@ SCHEDULE_BLOCK_BYTES = 8 * 1024 * 1024
 CUDA_BLOCK_O = (64, 128)
 # the row block of the CUDA BSR kernels (`bsr_matmul.cu`, `bsr_matmul_int8.cu`)
 CUDA_BSR_BT = 8
+
+# Shared memory a block may ask for on sm_90 (`kMaxSmem` of the conv
+# kernels; the BSR launches refuse more), and the most that still leaves
+# room for two blocks per SM (`kTwoPerSm`).
+CUDA_MAX_SMEM = 227 * 1024
+CUDA_TWO_PER_SM = 113 * 1024
+# Streaming multiprocessors of the H100 SXM: the grid-size rule of the fp32
+# conv kernel's (TM, TN) choice counts them (`ecr_conv.cu`, `launch`).
+H100_SMS = 132
 
 
 @dataclass(frozen=True)
@@ -120,16 +130,158 @@ def resolve_block_o(o: int, block_o: int = 0) -> int:
     return block_o if block_o in CUDA_BLOCK_O and block_o <= max(8, o) else 0
 
 
+# ---------------------------------------------------------------------------
+# The CUDA conv kernels' host-side tile choice, in Python
+# ---------------------------------------------------------------------------
+
+_F32_K, _F32_PAD = 8, 8  # channels per k-step, floats after a slab row
+_I8_K, _I8_TILE = 32, 128  # channels per k-step, positions / channels per block
+_F32_CHOICES = ((4, 4), (2, 4), (4, 2), (2, 2))  # (MT, NT): TM = 32*MT, TN = 32*NT
+
+
+def _div0(a: int, b: int) -> int:
+    """C++ integer division (truncates toward zero)."""
+    q = abs(a) // b
+    return q if a >= 0 else -q
+
+
+@lru_cache(maxsize=4096)
+def f32_pick_tile(oh: int, ow: int, kh: int, kw: int, stride: int, pool: int,
+                  tm: int, tn: int) -> tuple:
+    """`pick_tile` of `ecr_conv.cu` for one (TM, TN): the spatial tile
+    (th, tw) of at most tm positions (multiples of the pool window) whose
+    double-buffered split halo and one tap of the slab fit, needing the
+    fewest tiles, then a width that is a multiple of 8, then the smallest
+    halo. Returns (th, tw, spatial tiles, dynamic shared memory in bytes),
+    or (0, 0, 0, 0) when no tile fits `CUDA_MAX_SMEM`."""
+    pp = pool or 1
+    cov_h, cov_w = oh // pp * pp, ow // pp * pp  # rows / cols the floor keeps
+    if cov_h < 1 or cov_w < 1:
+        return (0, 0, 0, 0)
+    tap_floats = _F32_K * (tn + _F32_PAD)
+    best = None
+    for tw in range(pp, min(cov_w, tm) + 1, pp):
+        th = min(tm // tw, cov_h) // pp * pp
+        if th < 1:
+            continue
+        ih, iw = (th - 1) * stride + kh, (tw - 1) * stride + kw
+        halo = ih * iw * _F32_K
+        if (4 * halo + 2 * tap_floats) * 4 > CUDA_MAX_SMEM:
+            continue
+        tiles = -(-cov_h // th) * -(-cov_w // tw)
+        key = (tiles * 2 + (tw % 8 != 0)) * CUDA_MAX_SMEM + halo
+        if best is None or key < best[0]:
+            best = (key, th, tw, tiles, halo)
+    if best is None:
+        return (0, 0, 0, 0)
+    _, th, tw, tiles, _ = best
+    return (th, tw, tiles, f32_smem_bytes(th, tw, kh, kw, stride, pool, tm, tn))
+
+
+@lru_cache(maxsize=4096)
+def f32_conv_tile(batch: int, oh: int, ow: int, o: int, kh: int, kw: int,
+                  stride: int, pool: int, tn_req: int = 0,
+                  sms: int = H100_SMS) -> tuple:
+    """The (TM, TN) choice of `ecr_conv.cu`'s `launch`: of the tiles whose
+    grid (spatial tiles x ceil(O/TN) x N) covers the SMs, the one with the
+    least padded work, ties to the larger tile; else the grid with the most
+    blocks. `tn_req` 64 / 128 keeps only TN = tn_req. Returns (tm, tn, th,
+    tw, spatial tiles, O tiles, shared memory), all 0 when nothing fits."""
+    best = None
+    for mt, nt in _F32_CHOICES:
+        tm, tn = 32 * mt, 32 * nt
+        if tn_req and tn != tn_req:
+            continue
+        th, tw, tiles, smem = f32_pick_tile(oh, ow, kh, kw, stride, pool, tm, tn)
+        o_tiles = -(-o // tn)
+        if smem == 0 or o_tiles > 65535:
+            continue
+        blocks = tiles * o_tiles * batch
+        short = int(blocks < sms)
+        cost = -blocks if short else tiles * tm * o_tiles * tn
+        if best is None or (short, cost) < best[0]:
+            best = ((short, cost), (tm, tn, th, tw, tiles, o_tiles, smem))
+    return best[1] if best is not None else (0,) * 7
+
+
+@lru_cache(maxsize=4096)
+def i8_conv_tile(oh: int, ow: int, o: int, kh: int, kw: int, stride: int) -> tuple:
+    """`pick_tile` of `ecr_conv_int8.cu` (128 positions x 128 channels per
+    block): (tm, tn, th, tw, spatial tiles, O tiles, shared memory), all 0
+    when no spatial tile fits `CUDA_MAX_SMEM`."""
+    tap_bytes = _I8_K * _I8_TILE
+    best = None
+    for tw in range(1, min(ow, _I8_TILE) + 1):
+        th = min(_I8_TILE // tw, oh)
+        ih, iw = (th - 1) * stride + kh, (tw - 1) * stride + kw
+        halo = ih * iw * _I8_K
+        if 2 * halo + 2 * tap_bytes > CUDA_MAX_SMEM:
+            continue
+        tiles = -(-oh // th) * -(-ow // tw)
+        key = (tiles * 2 + (tw % 8 != 0)) * CUDA_MAX_SMEM + halo
+        if best is None or key < best[0]:
+            best = (key, th, tw, tiles, halo)
+    if best is None:
+        return (0,) * 7
+    _, th, tw, tiles, _ = best
+    return (_I8_TILE, _I8_TILE, th, tw, tiles, -(-o // _I8_TILE),
+            i8_smem_bytes(th, tw, kh, kw, stride))
+
+
+def f32_smem_bytes(th: int, tw: int, kh: int, kw: int, stride: int, pool: int,
+                   tm: int, tn: int) -> int:
+    """The shared memory `ecr_conv.cu` asks for at a given tile: the split
+    halo's four buffers, a double-buffered slab of the taps per staged chunk
+    (all of them if two blocks still fit an SM, else as many as fit that,
+    else as many as fit one block), and the pool epilogue's tile. More than
+    `CUDA_MAX_SMEM` when even one tap does not fit."""
+    ih, iw = (th - 1) * stride + kh, (tw - 1) * stride + kw
+    halo_bytes = 4 * ih * iw * _F32_K * 4
+    tap_bytes = 2 * _F32_K * (tn + _F32_PAD) * 4
+    left2 = _div0(CUDA_TWO_PER_SM - halo_bytes, tap_bytes)
+    left1 = _div0(CUDA_MAX_SMEM - halo_bytes, tap_bytes)
+    tc = max(1, min(kh * kw, left2 if left2 >= 1 else left1))
+    epi = tm * (tn + _F32_PAD) * 4 if pool else 0
+    return max(halo_bytes + tc * tap_bytes, epi)
+
+
+def i8_smem_bytes(th: int, tw: int, kh: int, kw: int, stride: int) -> int:
+    """The shared memory `ecr_conv_int8.cu` asks for at a given tile."""
+    ih, iw = (th - 1) * stride + kh, (tw - 1) * stride + kw
+    halo = ih * iw * _I8_K
+    tap_bytes = _I8_K * _I8_TILE
+    left2 = _div0(CUDA_TWO_PER_SM - 2 * halo, 2 * tap_bytes)
+    left1 = _div0(CUDA_MAX_SMEM - 2 * halo, 2 * tap_bytes)
+    tc = max(1, min(kh * kw, left2 if left2 >= 1 else left1))
+    return 2 * halo + 2 * tc * tap_bytes
+
+
+# the ConvLaunch fields that record the CUDA geometry (no reference
+# counterpart: the reference's grid is the Pallas one)
+CUDA_CONV_FIELDS = ("tn_req", "tm", "tn", "th", "tw", "tiles", "o_tiles",
+                    "smem_bytes")
+
+
 @dataclass(frozen=True)
 class ConvLaunch:
     """Resolved geometry of one ECR / PECR conv op call, built by
     `ecr_conv_launch` / `conv_pool_launch`; the ops read their block size,
-    channel padding and schedule length back out of it (the kernel's output
-    tile is `resolve_block_o`'s, outside the schedule).
+    channel padding, schedule length and the output tile they ask of the
+    kernel (`tn_req`) back out of it.
 
     c/h/w are the input extents as the op sees them (h/w carry the ConvSpec's
     spatial padding; c is pre-channel-pad); `pool` is the fused pool window
-    (0 = unfused)."""
+    (0 = unfused).
+
+    The CUDA geometry (`CUDA_CONV_FIELDS`) is what the kernel's host code
+    would pick for this call on an H100 (`f32_conv_tile` / `i8_conv_tile`):
+    `tn_req` the output tile asked for (64 / 128, 0 = the kernel's choice),
+    the block's TM positions x TN output channels, the spatial tile th x tw,
+    the grid (spatial tiles, O tiles, batch) and the dynamic shared memory,
+    0 everywhere when no tile fits. The fields are stored, not derived, so a
+    corrupted record is representable: `repro_torch.analysis.launch`
+    re-derives each expectation and flags what disagrees.
+    `acc_dtype` / `weight_scales` record the int8 kernel's contract."""
 
     kernel: str  # "ecr_conv" | "conv_pool"
     batch: int
@@ -147,6 +299,21 @@ class ConvLaunch:
     oh: int  # conv output spatial dims (pre-pool)
     ow: int
     dtype_bytes: int
+    tn_req: int = 0  # output tile asked of the fp32 kernel (0 = its choice)
+    tm: int = 0  # output positions per block
+    tn: int = 0  # output channels per block
+    th: int = 0  # spatial tile (rows x cols of output positions)
+    tw: int = 0
+    tiles: int = 0  # spatial tiles per sample (grid x)
+    o_tiles: int = 0  # ceil(o / tn) (grid y)
+    smem_bytes: int = 0  # dynamic shared memory per block
+    acc_dtype: str = "float32"
+    weight_scales: str = "none"  # "none" | "per_output_channel"
+
+    @property
+    def grid(self) -> tuple:
+        """(spatial tiles, O tiles, batch): the CUDA grid."""
+        return (self.tiles, self.o_tiles, self.batch)
 
 
 @dataclass(frozen=True)
@@ -169,6 +336,18 @@ class BsrLaunch:
     nt: int  # row blocks (per-row-block (ids, cnt) schedules)
     nf: int  # reduction blocks = schedule width
     dtype_bytes: int
+    acc_dtype: str = "float32"
+    weight_scales: str = "none"  # "none" | "per_output_channel"
+
+    @property
+    def smem_bytes(self) -> int:
+        """The most dynamic shared memory the kernel asks for (8 row-blocks
+        per block): the staged ring of A^T and W steps and the schedule
+        union (`bsr_matmul.cu` / `bsr_matmul_int8.cu`, `launch_vr`)."""
+        if self.dtype_bytes == 1:  # 4 stages of 64 x 256 + 64 x 80 bytes
+            return 4 * (64 * 256 + 8 * 8 * 80) + (2 * self.nf + 1) * 4
+        # 2 stages of 32 x 264 + 64 x 36 floats
+        return 2 * (32 * 264 + 8 * 8 * 36) * 4 + (2 * self.nf + 1 + 8 + self.nt) * 4
 
 
 def resolve_bsr_tile(o: int, k_taps: int, p: int,

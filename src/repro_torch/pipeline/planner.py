@@ -20,10 +20,14 @@ winners) stamps each layer's measured-best `TileConfig` onto
 `LayerPlan.tile`. An empty DB, or none, plans bit-identically.
 `run_plan` executes a plan over any batch of the calibrated shape, one
 whole-batch op per layer at its tile, every op resolved through the
-registry.
+registry. `use_pallas=False` plans the paper's methods as plain oracles
+instead: sparse layers on ("conv", "ecr") / ("conv_pool", "pecr"), with no
+BSR and no int8 arm, as in the reference.
 
-Not ported: `use_pallas=` (every sparse layer runs a CUDA kernel) and
-`run_plan_sharded` (ROADMAP queue 1, item 13).
+Every plan is verified before `plan_network` returns it and again by
+`validate_plan` before every `run_plan` (`repro_torch.analysis`).
+
+Not ported: `run_plan_sharded` (ROADMAP queue 1, item 13).
 """
 from __future__ import annotations
 
@@ -48,7 +52,7 @@ class LayerPlan:
     stage: int  # pooling stage (number of pools crossed before this conv)
     slot: int  # index within the stage
     kind: str  # "conv" | "conv_pool"
-    impl: str  # "dense" | "ecr_pallas" | "pecr_pallas" | "bsr" | "ecr_int8" | "bsr_int8"
+    impl: str  # "dense" | "ecr_pallas" | "pecr_pallas" | "ecr" | "pecr" | "bsr" | ...
     occupancy: float  # measured mean channel-block occupancy of the input
     in_shape: tuple  # (C, H, W) entering the layer (pre-padding)
     out_shape: tuple  # (C, H, W) leaving the layer (post-pool if any)
@@ -63,6 +67,11 @@ class LayerPlan:
         the graph, is what `run_plan` runs)."""
         from repro_torch.graph.ir import ConvUnit
 
+        if self.conv.c_out == 0:
+            raise ValueError(
+                f"conv_{self.index + 1} carries no ConvSpec (c_out=0), as a "
+                "plan that predates the LayerGraph IR; rebuild it with "
+                "plan_network")
         return ConvUnit(index=self.index, stage=self.stage, slot=self.slot,
                         conv=self.conv, relu=self.relu, pool=self.pool,
                         in_shape=self.in_shape, out_shape=self.out_shape)
@@ -132,14 +141,17 @@ def measure_occupancy(x: torch.Tensor, block_c: int = 0, tile=None,
 
 def plan_network(params, calib: torch.Tensor, graph=None, *,
                  occ_threshold: float = 0.75, block_c: int = 0,
-                 bsr_threshold: float = 0.5, calibration=None, tiles=None,
-                 int8: bool = False, int8_budget: float = 0.98) -> PipelinePlan:
+                 use_pallas: bool = True, bsr_threshold: float = 0.5,
+                 calibration=None, tiles=None, int8: bool = False,
+                 int8_budget: float = 0.98) -> PipelinePlan:
     """Walk the graph's conv units on a calibration batch, emit the schedule.
 
     A unit goes sparse when its measured occupancy is <= occ_threshold; a
     sparse unit that passes the registry's fusion rule runs the fused
     conv+ReLU+pool op. The dense oracle (F.conv2d) produces each next
-    calibration input.
+    calibration input. `use_pallas` picks the sparse family: the CUDA
+    kernels ("ecr_pallas" / "pecr_pallas"), or with False the plain
+    oracles ("ecr" / "pecr"), which also turns the BSR and int8 arms off.
 
     `calibration` (a `CalibrationDB`) prices every modeled-time comparison
     below at measured effective constants, and re-checks the occupancy rule:
@@ -164,7 +176,12 @@ def plan_network(params, calib: torch.Tensor, graph=None, *,
     and probes the result: int8 layers are demoted back to their fp32
     choice, least modeled saving first, until top-1 agreement with the
     dense fp32 logits on the calibration batch is >= `int8_budget`. The
-    probe lands on the plan as `plan.int8_report`."""
+    probe lands on the plan as `plan.int8_report`.
+
+    The plan is verified before it is returned (`analysis.assert_plan_ok`):
+    an error there is a planner fault, or params that do not fit the graph.
+    """
+    from repro_torch.analysis import assert_plan_ok
     from repro_torch.obs.calibrate import unit_shape_key
 
     graph = as_graph(graph)
@@ -172,6 +189,7 @@ def plan_network(params, calib: torch.Tensor, graph=None, *,
         calib = calib[None]
     if calibration is not None and not calibration:
         calibration = None  # empty DB == no calibration, one code path
+    sparse_conv = "ecr_pallas" if use_pallas else "ecr"
     conv_ws, _ = graph_weights(params)
     layers = []
     fp32_alt: dict = {}  # conv index -> the (kind, impl, tile, occ) int8 displaced
@@ -183,11 +201,11 @@ def plan_network(params, calib: torch.Tensor, graph=None, *,
         wd = weight_block_density(w)
         go_sparse = occ <= occ_threshold
         if go_sparse:
-            fused = get_op("conv", "ecr_pallas").fused_with
+            fused = get_op("conv", sparse_conv).fused_with
             if fused is not None and fusion_eligible(unit):
                 kind, impl = "conv_pool", fused
             else:
-                kind, impl = "conv", "ecr_pallas"
+                kind, impl = "conv", sparse_conv
         else:
             kind, impl = "conv", "dense"
         if go_sparse and calibration is not None and (
@@ -200,7 +218,7 @@ def plan_network(params, calib: torch.Tensor, graph=None, *,
                                      block_c=block_c, calibration=calibration)
             if dense_us < sparse_us:
                 kind, impl = "conv", "dense"
-        if wd <= bsr_threshold:
+        if use_pallas and wd <= bsr_threshold:
             base_us = unit_model_us(kind, impl, unit, occupancy=occ,
                                     batch=batch, block_c=block_c,
                                     calibration=calibration)
@@ -217,7 +235,7 @@ def plan_network(params, calib: torch.Tensor, graph=None, *,
                 if get_op(kind, impl).sparse:
                     # the statistic must describe the schedule the winner runs
                     occ = measure_occupancy(x, block_c, tile=tile)
-        if int8:
+        if int8 and use_pallas:
             op = get_op(kind, impl)
             q_impl = "bsr_int8" if op.weight_sparse else (
                 "ecr_int8" if op.sparse else None)
@@ -251,6 +269,7 @@ def plan_network(params, calib: torch.Tensor, graph=None, *,
                         block_c=block_c, graph=graph)
     if int8:
         plan = _probe_int8(plan, params, calib, fp32_alt, q_saving, int8_budget)
+    assert_plan_ok(plan, params, graph=graph, batch=batch)
     return plan
 
 
@@ -293,12 +312,13 @@ def _probe_int8(plan: PipelinePlan, params, calib: torch.Tensor,
 
 def validate_plan(plan: PipelinePlan, params, imgs) -> None:
     """Raise a clear ValueError on any plan/params/input mismatch: the input
-    rank and (C,H,W) against the plan's first layer, and the params' conv and
-    dense weights (count and shapes) against the plan's graph.
+    rank and (C,H,W) against the plan's first layer and the dense weights'
+    shapes against the plan's graph here; everything else (plan and graph
+    invariants, fusion legality, launch geometry, weight counts and conv
+    shapes, BSR density) is the static verifier's, which raises a
+    `PlanVerificationError` (a ValueError) listing every error."""
+    from repro_torch.analysis import assert_plan_ok
 
-    The reference also runs its static verifier here (plan invariants,
-    fusion legality, launch geometry, BSR density); that verifier is a later
-    slice of the port."""
     if imgs.ndim not in (3, 4):
         raise ValueError(f"run_plan expects (C,H,W) or (N,C,H,W) images, got "
                          f"shape {tuple(imgs.shape)}")
@@ -309,16 +329,11 @@ def validate_plan(plan: PipelinePlan, params, imgs) -> None:
         raise ValueError(
             f"plan was calibrated for input shape {tuple(plan.layers[0].in_shape)}, "
             f"got images of shape {in_shape}")
-    conv_ws, dense_ws = graph_weights(params)
-    want_conv, want_dense = weight_shapes(plan.graph)
-    if len(plan.layers) != len(want_conv):
-        raise ValueError(f"plan has {len(plan.layers)} layers, its graph "
-                         f"{len(want_conv)} conv units")
-    got_conv = tuple(tuple(w.shape) for w in conv_ws)
+    batch = int(imgs.shape[0]) if imgs.ndim == 4 else 1
+    assert_plan_ok(plan, params, graph=plan.graph, batch=batch)
+    _, dense_ws = graph_weights(params)
+    _, want_dense = weight_shapes(plan.graph)
     got_dense = tuple(tuple(w.shape) for w in dense_ws)
-    if got_conv != tuple(want_conv):
-        raise ValueError(f"params' conv weights {got_conv} do not match the "
-                         f"plan's graph {tuple(want_conv)}")
     if got_dense != tuple(want_dense):
         raise ValueError(f"params' dense weights {got_dense} do not match the "
                          f"plan's graph {tuple(want_dense)}")

@@ -97,7 +97,7 @@ def _time_us(f, *args, iters: int = 3, warmup: int = 1) -> tuple:
 def autotune(params, calib, graph=None, *,
              thresholds=(0.0, 0.5, 0.75, 0.9), block_cs=(0, 8),
              iters: int = 3, warmup: int = 1, noise_tol: float = 0.25,
-             mode: str = "auto", calibration=None, tiles=None,
+             use_pallas: bool = True, mode: str = "auto", calibration=None, tiles=None,
              int8: bool = False, int8_budget: float = 0.98) -> AutotuneResult:
     """Grid-search (occ_threshold, block_c); return the plan that serves the
     calibration batch fastest. `graph` is a LayerGraph or CNNConfig (None =
@@ -109,8 +109,8 @@ def autotune(params, calib, graph=None, *,
     then the ranking falls back to `plan_model_us`. mode="time" /
     mode="model" force one criterion.
 
-    `calibration`, `tiles`, `int8` and `int8_budget` pass through to
-    `plan_network`, so the search ranks the plans that would serve; the
+    `use_pallas`, `calibration`, `tiles`, `int8` and `int8_budget` pass
+    through to `plan_network`, so the search ranks the plans that would serve; the
     model fallback prices them through `calibration` too.
     """
     graph = as_graph(graph)
@@ -121,7 +121,8 @@ def autotune(params, calib, graph=None, *,
     for th in thresholds:
         for bc in block_cs:
             plan = plan_network(params, calib, graph, occ_threshold=th,
-                                block_c=bc, calibration=calibration, tiles=tiles,
+                                block_c=bc, use_pallas=use_pallas,
+                                calibration=calibration, tiles=tiles,
                                 int8=int8, int8_budget=int8_budget)
             sig = plan_key(calib.shape[0], plan)
             if sig in seen:  # same plan key == same runner: reuse the timing

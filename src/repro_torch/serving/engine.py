@@ -27,8 +27,13 @@ searched tile winners on it; `tracer=` records plan / compile /
 execute_batch / replan spans; `profile()` times the current plan per layer
 and impl into `stats()["telemetry"]["profile"]`.
 
-Not ported: the data-parallel mesh (ROADMAP queue 1, item 13), the
-static-verifier hooks (item 11) and `hot_swap` (item 6).
+`use_pallas=False` plans the paper's methods as plain oracles ("ecr" /
+"pecr"), as in the reference. Every plan the engine builds is verified by
+the planner, and again by the plan cache before it builds a runner
+(`repro_torch.analysis`).
+
+Not ported: the data-parallel mesh (ROADMAP queue 1, item 13) and
+`hot_swap`, with its verification of a candidate plan (item 6).
 """
 from __future__ import annotations
 
@@ -87,7 +92,7 @@ class Engine:
     def __init__(self, params, ccfg=None, *, graph=None,
                  plan: PipelinePlan | None = None, calib=None,
                  occ_threshold: float = 0.75, block_c: int = 0,
-                 max_batch: int = 8, min_bucket: int = 2,
+                 use_pallas: bool = True, max_batch: int = 8, min_bucket: int = 2,
                  deadline_s: float = 0.010, clock=time.monotonic,
                  ema_alpha: float = 0.25, replan_band: float = 0.15,
                  replan_cooldown: int = 2, replan_async: bool = False,
@@ -107,6 +112,7 @@ class Engine:
         self.device = resolve_device(device)
         self.int8 = bool(int8)
         self.int8_budget = float(int8_budget)
+        self.use_pallas = bool(use_pallas)
         conv_ws, dense_ws = graph_weights(params)
         for w in conv_ws + dense_ws:
             if w.device.type != self.device.type:
@@ -122,6 +128,7 @@ class Engine:
                                   occ_threshold=occ_threshold):
                 plan = plan_network(params, self._to_device(calib), graph,
                                     occ_threshold=occ_threshold, block_c=block_c,
+                                    use_pallas=self.use_pallas,
                                     calibration=calibration, tiles=tiles,
                                     int8=self.int8, int8_budget=self.int8_budget)
         self.params = params
@@ -349,6 +356,7 @@ class Engine:
                     new = plan_network(self.params, calib, self.graph,
                                        occ_threshold=plan.occ_threshold,
                                        block_c=plan.block_c,
+                                       use_pallas=self.use_pallas,
                                        calibration=self.calibration,
                                        tiles=self.tiles, int8=self.int8,
                                        int8_budget=self.int8_budget)

@@ -52,12 +52,22 @@ class PlanCache:
 
     def get_or_compile(self, key: PlanKey, plan, build):
         """Return the runner for `key`, building it via `build()` on a miss
-        (exactly once per distinct key while the entry is resident)."""
+        (exactly once per distinct key while the entry is resident).
+
+        A miss verifies the plan first (`analysis.assert_plan_ok`, no
+        params): a plan with an error-severity diagnostic raises
+        `PlanVerificationError` before `build()` runs. Hits skip the check,
+        since whatever is cached was verified; sentinel plans (None or no
+        layers) used to exercise the cache alone are left alone."""
         if key in self._entries:
             self.hits += 1
             self._entries.move_to_end(key)
             return self._entries[key][0]
         self.misses += 1
+        if plan is not None and getattr(plan, "layers", None):
+            from repro_torch.analysis import assert_plan_ok
+
+            assert_plan_ok(plan)
         exe = build()
         self.compiles += 1
         self._entries[key] = (exe, plan)

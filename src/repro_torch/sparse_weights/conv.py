@@ -33,8 +33,10 @@ def bsr_conv_launch(o: int, k_taps: int, p: int, *, tile=None,
     `TileConfig` or None; the op reads its block sizes back out of this
     record)."""
     bt, bf = resolve_bsr_tile(o, k_taps, p, tile)
+    contract = dict(acc_dtype="int32", weight_scales="per_output_channel") \
+        if dtype_bytes == 1 else {}
     return BsrLaunch(t=o, f=k_taps, d=p, bt=bt, bf=bf, nt=-(-o // bt),
-                     nf=-(-k_taps // bf), dtype_bytes=dtype_bytes)
+                     nf=-(-k_taps // bf), dtype_bytes=dtype_bytes, **contract)
 
 
 def conv2d_bsr_ref(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Tensor:

@@ -786,3 +786,47 @@ def test_flash_forward_kernel_refuses_to_drop_the_graph(dev):
         flash_fwd(q, k, v, scale=0.25, causal=True)
     with torch.no_grad():
         flash_fwd(q, k, v, scale=0.25, causal=True)
+
+
+@pytest.mark.parametrize("batch", [1, 2, 8])
+def test_conv_tile_mirror_matches_the_kernels_host_code(dev, batch):
+    """`kernels.tiles.f32_conv_tile` / `i8_conv_tile`, which the static
+    verifier's RPA101 / RPA103 read, pick exactly what the kernels' host
+    code picks on this card, at every full-width zoo geometry."""
+    from repro_torch.configs.alexnet import ALEXNET
+    from repro_torch.configs.lenet import LENET
+    from repro_torch.configs.vgg19_sparse import CNNConfig, vgg19_graph
+    from repro_torch.graph.registry import fusion_eligible
+    from repro_torch.kernels.cuda import conv_tile
+    from repro_torch.kernels.tiles import f32_conv_tile, i8_conv_tile
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for g in (vgg19_graph(CNNConfig()), LENET, ALEXNET):
+        for u in g.units():
+            c, h, w = u.in_shape
+            k, st, o = u.conv.k, u.conv.stride, u.conv.c_out
+            hp, wp = h + 2 * u.conv.pad, w + 2 * u.conv.pad
+            oh, ow = (hp - k) // st + 1, (wp - k) // st + 1
+            cp = c + (-c) % 8
+            for pool in (0, u.pool.p) if fusion_eligible(u) else (0,):
+                for tn in (0, 64, 128):
+                    assert conv_tile(batch, hp, wp, cp, o, k, k, stride=st, block_c=8,
+                                     pool=pool, block_o=tn) == \
+                        f32_conv_tile(batch, oh, ow, o, k, k, st, pool, tn, sms)
+            assert conv_tile(batch, hp, wp, cp, o, k, k, stride=st, block_c=8, int8=True) == \
+                i8_conv_tile(oh, ow, o, k, k, st)
+
+
+@pytest.mark.parametrize("impl", ["im2col", "ecr", "pecr", "ecr_pallas", "pecr_pallas"])
+def test_the_paper_oracles_run_on_the_card(dev, impl):
+    """`cnn_forward` at every impl on the card: the oracles run there (no
+    host fallback) and agree with the dense path."""
+    from repro_torch.configs.vgg19_sparse import CNNConfig
+    from repro_torch.models.cnn import cnn_forward, init_cnn, shift_dead_channels
+
+    ccfg = CNNConfig(name="vgg-small", img_size=32, plan=((16, 2), (32, 2)), n_classes=10)
+    params = shift_dead_channels(init_cnn(torch.Generator().manual_seed(0), ccfg, device=dev))
+    imgs = torch.rand((2, 3, 32, 32), generator=torch.Generator().manual_seed(1)).to(dev)
+    got = cnn_forward(params, imgs, impl, ccfg)
+    assert got.device.type == "cuda"
+    _close(got, cnn_forward(params, imgs, "dense", ccfg))

@@ -49,6 +49,9 @@ def test_package_imports_with_jax_unavailable():
         import repro_torch.obs
         import repro_torch.obs.tilesearch
         import repro_torch.serving.autotune
+        import repro_torch.analysis.cli
+        import repro_torch.core.pecr
+        import repro_torch.models.cnn
         print("ok")
     """)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -45,6 +45,7 @@ from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.graph.registry import get_op, unit_model_us  # noqa: E402
 from repro_torch.kernels.bsr_matmul.ops import block_schedule  # noqa: E402
 from repro_torch.kernels.ecr_conv.ops import batch_block_schedule  # noqa: E402
+from repro_torch.kernels.tiles import CUDA_CONV_FIELDS  # noqa: E402
 from repro_torch.obs import constants  # noqa: E402
 from repro_torch.pipeline import plan_network, run_plan  # noqa: E402
 from repro_torch.quant.ops import (  # noqa: E402
@@ -324,8 +325,11 @@ def test_int8_launch_builders_match_reference(c, h, o, k, stride):
     for block_c in (0, 8):
         got = ecr_conv_int8_launch(c, h, h, o, k, k, stride=stride, block_c=block_c, batch=8)
         want = j_ecr_conv_int8_launch(c, h, h, o, k, k, stride=stride, block_c=block_c, batch=8)
-        shared = {f: getattr(want, f) for f in vars(got)}
-        assert vars(got) == shared
+        # the CUDA tile and grid have no reference counterpart; every other
+        # field must equal the reference's
+        assert set(vars(got)) - set(vars(want)) == set(CUDA_CONV_FIELDS)
+        got_f = {f: v for f, v in vars(got).items() if f not in CUDA_CONV_FIELDS}
+        assert got_f == {f: getattr(want, f) for f in got_f}
     p = 8 * ((h - k) // stride + 1) ** 2
     got, want = bsr_conv_int8_launch(o, c * k * k, p), j_bsr_conv_int8_launch(o, c * k * k, p)
     assert vars(got) == {f: getattr(want, f) for f in vars(got)}
