@@ -185,7 +185,45 @@
    cores' 67 TFLOP/s beside it. Last, at the reduced
    config, a 10-step run against one with a failure at step 7 (checkpoints
    every 3): losses within 1e-6.
-10. Prints the kernel table as one JSON line (the twelve TPU kernel sites of
+10. The scenario phase, on the published VGG-19 (weights and calibration
+   images as in step 3; Engines at block_c=8, occ_threshold=0.75,
+   max_batch=8, on a SimClock charged with the measured service time):
+   - hotswap: 24 requests at 200 req/s; at the midpoint `hot_swap` to
+     prune_graph_params(params, 0.3) with a plan built on the card. The
+     launch counters are read at the swap: bsr_matmul must be 0 there and
+     grow after it, ecr_conv and conv_pool must have grown before it. Each
+     result is held against run_plan of the model that served it (rtol
+     1e-3 + 1e-3*max|logits|; bitwise only at the same bucket), and the two
+     models' logits must differ by more than 10x that tolerance; both
+     margins are printed. Then the swap back to the dense-weight model
+     (no runner built), a candidate with one BSR layer's density claimed
+     0.5 on the 0.3 params (`hot_swap` returns False, verify_rejects 1,
+     RPA205), and 8 more requests served by the dense-weight model. Then
+     the weight signature: the 0.3 variant and the first of 0.5, 0.4, 0.35,
+     0.25 with the same (kind, impl) decisions and other rounded BSR
+     densities must get two runners on one engine, each serving its own
+     model, or the script prints that no such pair exists;
+   - diurnal: 32 requests planned at dead_frac 0.5, replan_band 0.15, no
+     cooldown, stepping at the midpoint to 0.0 (VGG-19's 3 input channels
+     fill one 8-channel block either way, so no occupancy moves; the
+     largest EMA drift and the re-plans are printed) and to 1.0 (blank
+     frames), where at least one re-plan must land: the batches formed
+     before the step, the batch it landed after, the plan before and
+     after, and whether the new plan equals plan_network on the drifted
+     images (it must);
+   - burst: 32 Poisson requests at 50 req/s with 16x bursts: every id
+     served once, each formed within the deadline plus the service of the
+     batches that ran between its arrival and its formation; p50 / p95;
+   - multitenant: VGG-19 and LeNet-5 (published) on one PlanCache and
+     clock, 8 requests each: no build after warmup, each tenant within the
+     tolerance of its own model's run_plan;
+   - history: serve_cnn(full=True, history=...) steady and then
+     --scenario hotswap into a temporary BenchDB; every record stamped with
+     the card's name, the trend table, and `python -m
+     repro_torch.obs.history.cli check --json` must exit 0 or 1 with JSON
+     (1 is a regression verdict, printed, not a failure).
+   The phase's seconds are printed, per part and in all.
+11. Prints the kernel table as one JSON line (the twelve TPU kernel sites of
    the repo; the single-image rows are the batched kernels at N=1), the card
    line, and last {"ok": true, "device": {...}}. Any failure exits non-zero
    without it. In the CNN rows, ms / plain_ms / library_ms /
@@ -2542,6 +2580,392 @@ def paper_phase(dev, wrappers, failures) -> dict:
     return res
 
 
+SCN_RATE = 200.0  # req/s offered in the hot-swap and diurnal streams
+
+
+def scn_engine(graph, params, calib, dev, **kw):
+    """An Engine as the served phases build them (block_c=8,
+    occ_threshold=0.75, max_batch=8), on a SimClock charged with the
+    measured service time."""
+    from repro_torch.serving import Engine, SimClock
+
+    kw.setdefault("clock", SimClock())
+    return Engine(params, graph=graph, calib=calib, occ_threshold=0.75, block_c=8,
+                  max_batch=8, device=dev, **kw)
+
+
+def plan_logits(plan, params, imgs):
+    """run_plan over `imgs` in buckets of 8 (the engine's largest), numpy."""
+    import numpy as np
+
+    from repro_torch.pipeline import run_plan
+
+    return np.concatenate([run_plan(plan, params, imgs[i:i + 8]).cpu().numpy()
+                           for i in range(0, imgs.shape[0], 8)])
+
+
+def close(got, ref) -> tuple:
+    """rtol 1e-3 + 1e-3*max|ref|: on the card run_plan equals the engine
+    bitwise only at the same bucket. Returns (ok, max_abs_err)."""
+    import numpy as np
+
+    atol = 1e-3 * float(np.abs(ref).max())
+    ok = bool(np.all(np.isfinite(got)) and np.allclose(got, ref, rtol=1e-3, atol=atol))
+    return ok, float(np.abs(got - ref).max())
+
+
+def decisions(plan) -> list:
+    return [(lp.kind, lp.impl) for lp in plan.layers]
+
+
+def scenario_hotswap(graph, params, calib, dev, wrappers, failures) -> dict:
+    """24 requests with a hot swap to the 0.3-pruned variant (planned on the
+    card) at the midpoint, the swap back, a refused corrupt swap, and the
+    weight signature on two pruned variants."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from repro_torch.pipeline import plan_network
+    from repro_torch.serving import HotSwapScenario, plan_key, replay_scenario, replay_stream
+    from repro_torch.serving.scenarios import synth_image
+    from repro_torch.sparse_weights.prune import prune_graph_params
+
+    pruned, rep = prune_graph_params(params, 0.3, graph)
+    pplan = plan_network(pruned, calib, graph, occ_threshold=0.75, block_c=8)
+    verify_built("scenario hot-swap variant (pruned 0.3)", pplan, pruned, 8, failures)
+    eng = scn_engine(graph, params, calib, dev)
+    dplan = eng.plan
+    eng.warmup()
+    n = 24
+    at_swap = {}
+
+    def swap(engines):
+        at_swap.update(read_counts(wrappers))
+        at_swap["swapped"] = engines[""].hot_swap(pruned, plan=pplan)
+
+    scn = HotSwapScenario(in_shape=graph.in_shape, n_requests=n, rate_rps=SCN_RATE,
+                          t_swap=n / (2 * SCN_RATE), swap_fn=swap, seed=0)
+    reset_counts(wrappers)
+    results = replay_scenario(eng, scn)[""]
+    launches = read_counts(wrappers)
+    st = eng.stats()
+    print(f"scenario hotswap: pruned to {rep.density:.4f}; plan after the swap "
+          f"{plan_line(pplan)}; launches at the swap {dict((k, at_swap.get(k)) for k in wrappers)},"
+          f" after the stream {launches}; {st['batches']} batches, hot_swaps "
+          f"{st['hot_swaps']}, compiles {st['compiles']}")
+    if not at_swap.get("swapped") or sorted(r.id for r in results) != list(range(n)):
+        failures.append("scenario hotswap: the swap did not land or a request was lost")
+    if at_swap.get("bsr_matmul", 1) != 0 or launches["bsr_matmul"] < 1:
+        failures.append("scenario hotswap: bsr_matmul did not grow only after the swap")
+    if at_swap.get("ecr_conv", 0) < 1 or at_swap.get("conv_pool", 0) < 1:
+        failures.append("scenario hotswap: ECR / PECR did not launch before the swap")
+    swap_t = [e["t"] for e in st["telemetry"]["replan_events"] if e["kind"] == "hot_swap"][0]
+    imgs = torch.stack([r.img for r in scn.requests()]).to(dev)
+    ref_old, ref_new = plan_logits(dplan, params, imgs), plan_logits(pplan, pruned, imgs)
+    # the largest per-logit tolerance either check allows: rtol 1e-3 plus
+    # atol 1e-3*max|ref|, both at most 1e-3*max|logits|
+    tol = 2e-3 * max(float(np.abs(ref_old).max()), float(np.abs(ref_new).max()))
+    pre = [r for r in results if r.t_done <= swap_t]
+    post = [r for r in results if r.t_done > swap_t]
+    worst = 0.0
+    for part, ref in ((pre, ref_old), (post, ref_new)):
+        if part:
+            ok, err = close(np.stack([r.logits for r in part]),
+                               ref[[r.id for r in part]])
+            worst = max(worst, err)
+            if not ok:
+                failures.append("scenario hotswap: a request disagrees with the model "
+                                "that served it")
+    apart = float(min(np.abs(ref_old[i] - ref_new[i]).max() for i in range(n)))
+    print(f"scenario hotswap: {len(pre)} requests served before the swap, {len(post)} "
+          f"after; each against run_plan of its model: max err {worst:.3e} = "
+          f"{worst / tol:.4f} x the tolerance {tol:.3e} (2e-3*max|logits|); the two "
+          f"models' logits differ by at least {apart:.3e} = {apart / tol:.1f} x the "
+          f"tolerance per request")
+    if not pre or not post or apart <= 10 * tol:
+        failures.append("scenario hotswap: the swap did not land mid-stream, or the two "
+                        "models cannot be told apart")
+    # the swap back builds nothing; a corrupt candidate is refused
+    builds = eng.cache.compiles
+    back = eng.hot_swap(params, plan=dplan)
+    k = next(i for i, lp in enumerate(pplan.layers) if lp.impl == "bsr")
+    bad = replace(pplan, layers=tuple(replace(lp, weight_density=0.5) if i == k else lp
+                                      for i, lp in enumerate(pplan.layers)))
+    refused = eng.hot_swap(pruned, plan=bad)
+    codes = [e["codes"] for e in eng.stats()["telemetry"]["replan_events"]
+             if e["kind"] == "verify_reject"]
+    reset_counts(wrappers)
+    more = [synth_image(graph.in_shape, 1, i) for i in range(8)]
+    after = sorted(replay_stream(eng, more, rate_rps=1000.0), key=lambda r: r.id)
+    after_launches = read_counts(wrappers)
+    ok_after, err_after = close(np.stack([r.logits for r in after]),
+                                   plan_logits(dplan, params, torch.stack(more).to(dev)))
+    print(f"scenario hotswap: swap back {back}, compiles {builds} -> "
+          f"{eng.cache.compiles} after 8 more requests; conv{k + 1} density claimed 0.5 "
+          f"on the 0.3 params: hot_swap returned {refused}, verify_rejects "
+          f"{eng.verify_rejects}, codes {codes}; the next batches vs the dense-weight "
+          f"model's run_plan: max err {err_after:.3e} {'ok' if ok_after else 'FAIL'}, "
+          f"launches {after_launches}")
+    if not back or eng.cache.compiles != builds:
+        failures.append("scenario hotswap: the swap back built a runner")
+    if refused or eng.verify_rejects != 1 or not codes or "RPA205" not in codes[0]:
+        failures.append("scenario hotswap: the corrupt swap was not refused with RPA205")
+    if not ok_after or after_launches["bsr_matmul"] != 0:
+        failures.append("scenario hotswap: after the refused swap the engine did not "
+                        "serve the current model")
+    out = {"pruned_density": rep.density, "plan_after_swap": plan_line(pplan),
+           "launches_at_swap": {k: at_swap.get(k) for k in wrappers},
+           "launches": launches, "served_before_swap": len(pre), "max_err": worst,
+           "tolerance": tol, "models_apart": apart, "compiles": builds,
+           "compiles_after_swap_back": eng.cache.compiles, "refused_codes": codes}
+    del eng
+    # the weight signature at full width: two pruned variants with the same
+    # (kind, impl) decisions but other rounded BSR densities, on one engine;
+    # 0.5 first, then densities nearer 0.3 (at 224 px the 0.5 and 0.4
+    # variants move layers off BSR)
+    for d in (0.5, 0.4, 0.35, 0.25):
+        p5, rep5 = prune_graph_params(params, d, graph)
+        plan5 = plan_network(p5, calib, graph, occ_threshold=0.75, block_c=8)
+        verify_built(f"scenario weight_sig variant (pruned {d})", plan5, p5, 8, failures)
+        same = decisions(plan5) == decisions(pplan)
+        sigs_differ = plan_key(8, plan5).weight_sig != plan_key(8, pplan).weight_sig
+        print(f"scenario weight_sig: the {d} variant plans {plan_line(plan5)}: same "
+              f"(kind, impl) decisions as the 0.3 variant: {same}; rounded BSR "
+              f"densities differ: {sigs_differ}")
+        if same and sigs_differ:
+            break
+    else:
+        print("scenario weight_sig: no pair with equal decisions and other BSR "
+              "densities at full width; "
+              "tests/test_torch_engine_replan.py::"
+              "test_hot_swap_between_pruned_variants_builds_separate_runners is the "
+              "evidence")
+        out["weight_sig"] = "no pair with equal decisions"
+        return out
+    eng = scn_engine(graph, pruned, calib, dev, plan=pplan)
+    batch = torch.stack(more).to(dev)
+    got3 = eng.serve(list(batch))
+    b3 = eng.cache.compiles
+    eng.hot_swap(p5, plan=plan5)
+    got5 = eng.serve(list(batch))
+    keys_differ = plan_key(8, pplan) != plan_key(8, plan5)
+    ok3 = close(got3, plan_logits(pplan, pruned, batch))[0]
+    ok5 = close(got5, plan_logits(plan5, p5, batch))[0]
+    print(f"scenario weight_sig: 0.3 and {d} variants (density {rep5.density:.4f}) "
+          f"plan the same decisions; weight_sig {plan_key(8, pplan).weight_sig[:3]}... vs "
+          f"{plan_key(8, plan5).weight_sig[:3]}...: keys differ {keys_differ}; builds "
+          f"{b3} then {eng.cache.compiles}; each variant vs its own run_plan: {ok3} {ok5}")
+    if not keys_differ or b3 != 1 or eng.cache.compiles != 2 or not (ok3 and ok5):
+        failures.append("scenario weight_sig: the pruned variants shared a runner")
+    out["weight_sig"] = {"pair": [0.3, d], "keys_differ": keys_differ,
+                         "builds": eng.cache.compiles}
+    return out
+
+
+def scenario_diurnal(graph, params, calib, dev, failures) -> dict:
+    """32 requests planned at dead_frac 0.5, stepping at the midpoint, with
+    replan_band 0.15 and no cooldown: to 0.0 (a re-plan needs the occupancy
+    to move, and VGG-19's 3 input channels fill one 8-channel block either
+    way), then to 1.0 (blank frames: every layer's occupancy drops)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.pipeline import plan_network
+    from repro_torch.serving import DiurnalDriftScenario, replay_scenario
+
+    n = 32
+    out = {}
+    for dead_hi in (0.0, 1.0):
+        eng = scn_engine(graph, params, calib, dev, replan_band=0.15, replan_cooldown=0)
+        before = eng.plan
+        planned = np.array([lp.occupancy for lp in before.layers])
+        eng.warmup()
+        scn = DiurnalDriftScenario(in_shape=graph.in_shape, n_requests=n, rate_rps=SCN_RATE,
+                                   dead_lo=0.5, dead_hi=dead_hi, drift="step",
+                                   t_drift=n / (2 * SCN_RATE), seed=0)
+        results = replay_scenario(eng, scn)[""]
+        st = eng.stats()
+        tel = st["telemetry"]
+        drift = max(float(np.abs(np.array(v) - planned).max()) for _, v in tel["occ_timeline"])
+        swaps = [e for e in tel["replan_events"] if e["kind"] == "swap" and e["changed"]]
+        landed = [sum(1 for t, _ in tel["occ_timeline"] if t <= e["t"]) for e in swaps]
+        onset = len({r.t_formed for r in results if r.t_formed < scn.t_drift})
+        label = f"scenario diurnal 0.5 -> {dead_hi}"
+        print(f"{label}: {len(results)} served in {st['batches']} batches, "
+              f"{onset} formed before the step; replans {st['replans']}, largest "
+              f"|occupancy EMA - planned| {drift:.4f} (band 0.15)")
+        entry = {"replans": st["replans"], "max_drift": drift, "landed_at_batch": landed,
+                 "batches_before_step": onset}
+        if swaps:
+            drifted = torch.stack([r.img for r in scn.requests()[-8:]]).to(dev)
+            ref = plan_network(params, drifted, graph, occ_threshold=0.75, block_c=8)
+            same = decisions(ref) == decisions(eng.plan)
+            print(f"{label}: the re-plan landed after batch {landed[0]}; plan before "
+                  f"{plan_line(before)}; after {plan_line(eng.plan)}; equals plan_network "
+                  f"on the last 8 (drifted) images: {same}")
+            entry.update(plan_before=plan_line(before), plan_after=plan_line(eng.plan),
+                         equals_plan_network=same)
+            if not same:
+                failures.append(f"{label}: the re-plan is not plan_network's plan")
+        if not all(np.all(np.isfinite(r.logits)) for r in results) or len(results) != n:
+            failures.append(f"{label}: lost requests or non-finite logits")
+        out[str(dead_hi)] = entry
+        del eng
+    if out["1.0"]["replans"] < 1:
+        failures.append("scenario diurnal: no re-plan landed on the blank-frame step")
+    return out
+
+
+def scenario_burst(graph, params, calib, dev, failures) -> dict:
+    """32 Poisson requests at 50 req/s with 16x bursts: every id served once,
+    each formed within its deadline plus the service of the buckets that
+    ran between its arrival and its formation (the one executing when it
+    arrived included: the measured service exceeds the 10 ms deadline)."""
+    from repro_torch.serving import PoissonBurstScenario, replay_scenario
+
+    n, rate = 32, 50.0
+    t_mid = n / (2 * rate)
+    eng = scn_engine(graph, params, calib, dev)
+    eng.warmup()
+    scn = PoissonBurstScenario(in_shape=graph.in_shape, n_requests=n, base_rps=rate,
+                               burst_rps=16 * rate, burst_every_s=t_mid,
+                               burst_len_s=t_mid / 4, seed=0)
+    results = replay_scenario(eng, scn)[""]
+    batches = {r.t_formed: r.t_done for r in results}  # t_formed -> t_done
+    late = []
+    for r in results:
+        busy = sum(d - f for f, d in batches.items() if f < r.t_formed and d > r.t_arrival)
+        if r.t_formed - r.t_arrival > eng.batcher.deadline_s + busy + 1e-9:
+            late.append(r.id)
+    if late:
+        failures.append(f"scenario burst: requests {late} waited past their bound")
+    st = eng.stats()
+    print(f"scenario burst: {len(results)} served once each: "
+          f"{sorted(r.id for r in results) == list(range(n))}; {st['batches']} batches, "
+          f"buckets {st['telemetry']['bucket_counts']}; p50={st['p50_ms']:.2f} ms "
+          f"p95={st['p95_ms']:.2f} ms (SimClock, measured service); every request "
+          f"formed within its bound: {not late}")
+    if sorted(r.id for r in results) != list(range(n)):
+        failures.append("scenario burst: a request was lost or served twice")
+    return {"p50_ms": st["p50_ms"], "p95_ms": st["p95_ms"], "batches": st["batches"],
+            "bucket_counts": st["telemetry"]["bucket_counts"]}
+
+
+def scenario_multitenant(graph, params, calib, dev, failures) -> dict:
+    """VGG-19 and LeNet-5 (published sizes) on one PlanCache and clock, 8
+    requests each: no build after warmup, each tenant against its model."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.lenet import LENET
+    from repro_torch.serving import (
+        MultiTenantScenario,
+        PlanCache,
+        SimClock,
+        TenantSpec,
+        replay_scenario,
+    )
+
+    lparams, lcalib, _ = make_params(LENET, seed=1, dev=dev)
+    clock, cache = SimClock(), PlanCache()
+    engines = {"vgg19": scn_engine(graph, params, calib, dev, clock=clock, cache=cache),
+               "lenet5": scn_engine(LENET, lparams, lcalib, dev, clock=clock, cache=cache)}
+    warm = sum(e.warmup() for e in engines.values())
+    scn = MultiTenantScenario(tenants=(
+        ("vgg19", TenantSpec(in_shape=graph.in_shape, n_requests=8, rate_rps=100.0)),
+        ("lenet5", TenantSpec(in_shape=LENET.in_shape, n_requests=8, rate_rps=100.0))),
+        seed=0)
+    results = replay_scenario(engines, scn)
+    line = []
+    for stream, eng in engines.items():
+        imgs = torch.stack([r.img for r in scn.requests() if r.stream == stream]).to(dev)
+        got = sorted(results[stream], key=lambda r: r.id)
+        ok, err = close(np.stack([r.logits for r in got]),
+                           plan_logits(eng.plan, eng.params, imgs))
+        line.append(f"{stream} {len(got)} served, vs its run_plan max err {err:.3e} "
+                    f"{'ok' if ok else 'FAIL'}")
+        if not ok or len(got) != 8:
+            failures.append(f"scenario multitenant: {stream} disagrees with its model")
+    print(f"scenario multitenant: warmup built {warm} runners ({len(cache._entries)} keys), "
+          f"after the stream {cache.compiles}; " + "; ".join(line))
+    if cache.compiles != warm:
+        failures.append("scenario multitenant: the stream built a runner")
+    return {"warm_builds": warm, "builds_after": cache.compiles}
+
+
+def scenario_history(kind, failures, full=True, device=None) -> dict:
+    """serve_cnn(history=...) twice (steady at 96 px, then hotswap): every
+    record stamped with the card's name, the trend table, and the history
+    CLI's check."""
+    import os
+    import tempfile
+
+    from repro_torch.launch.serve_cnn import serve_cnn
+    from repro_torch.obs.history import BenchDB, trend_table
+
+    with tempfile.TemporaryDirectory() as tmp:
+        db_path = os.path.join(tmp, "benchdb.jsonl")
+        for scenario in ("steady", "hotswap"):
+            s = serve_cnn(model="vgg19", full=full, n_requests=16, scenario=scenario,
+                          history=db_path, device=device)
+            print(f"scenario history: serve_cnn --full --scenario {scenario}: "
+                  f"{s['requests']} served, p50={s['p50_ms']:.2f} ms "
+                  f"p95={s['p95_ms']:.2f} ms, hot_swaps {s['hot_swaps']}")
+        db = BenchDB(db_path)
+        kinds = sorted({r.device_kind for r in db.records})
+        print(f"scenario history: {len(db)} points, {len(db.series())} series, device "
+              f"kinds {kinds}")
+        print(trend_table(db))
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        r = subprocess.run([sys.executable, "-m", "repro_torch.obs.history.cli", "check",
+                            "--db", db_path, "--json"], capture_output=True, text=True,
+                           env=env, cwd=ROOT, timeout=300)
+        report = json.loads(r.stdout) if r.returncode in (0, 1) else {}
+    print(f"scenario history: check --json exit {r.returncode}, counts "
+          f"{report.get('counts')}, regressed {report.get('regressed')}")
+    if not len(db) or kinds != [kind]:
+        failures.append(f"scenario history: empty DB or records not stamped {kind!r}")
+    if r.returncode not in (0, 1) or "counts" not in report:
+        print(r.stderr[-2000:], file=sys.stderr)
+        failures.append("scenario history: the history CLI check failed")
+    return {"points": len(db), "series": len(db.series()), "device_kinds": kinds,
+            "check_rc": r.returncode, "check_counts": report.get("counts")}
+
+
+def scenario_phase(dev, wrappers, failures) -> dict:
+    """The scenario library on the published VGG-19 (3x224x224, 1000 classes,
+    make_params' weights and calibration images)."""
+    import torch
+
+    from repro_torch.configs.vgg19_sparse import CNNConfig, vgg19_graph
+
+    graph = vgg19_graph(CNNConfig())
+    params, calib, _ = make_params(graph, seed=0, dev=dev)
+    t_phase = time.perf_counter()
+    out = {}
+    for name, fn, args in (
+            ("hotswap", scenario_hotswap, (graph, params, calib, dev, wrappers, failures)),
+            ("diurnal", scenario_diurnal, (graph, params, calib, dev, failures)),
+            ("burst", scenario_burst, (graph, params, calib, dev, failures)),
+            ("multitenant", scenario_multitenant, (graph, params, calib, dev, failures)),
+            ("history", scenario_history, (torch.cuda.get_device_name(0), failures))):
+        t0 = time.perf_counter()
+        try:
+            out[name] = fn(*args)
+        except Exception:
+            traceback.print_exc()
+            failures.append(f"scenario {name} failed")
+        out.setdefault(name, {})
+        out[name]["seconds"] = time.perf_counter() - t0
+        print(f"scenario {name}: {out[name]['seconds']:.2f} s")
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"scenario phase: {out['seconds']:.2f} s")
+    return out
+
+
 def lint_cli(failures) -> dict:
     """python -m repro_torch.analysis.cli --json over the zoo, on the card."""
     import os
@@ -2808,6 +3232,13 @@ def main() -> int:
     except Exception:
         traceback.print_exc()
         failures.append("analysis cli check failed")
+    scenario = {}
+    try:
+        scenario = scenario_phase(dev, wrappers, failures)
+    except Exception:
+        traceback.print_exc()
+        failures.append("scenario phase failed")
+    torch.cuda.empty_cache()
     print(f"verify_plan on the {len(VERIFIED)} plans this run built:")
     for v in VERIFIED:
         print(f"  {v['plan']}: {v['layers']} layers at batch {v['batch']}, errors "
@@ -2961,7 +3392,8 @@ def main() -> int:
             {"card": card, "rows": book.rows, "kernels": kernels,
              "service": services, "variants": variants, "obs": obs, "lm": lm,
              "train": train_summary, "paper": paper, "verifier": verifier,
-             "geometry": geometry, "lint": lint, "verified": VERIFIED},
+             "geometry": geometry, "lint": lint, "scenario": scenario,
+             "verified": VERIFIED},
             indent=1, default=str))
     if failures:
         for f in failures:

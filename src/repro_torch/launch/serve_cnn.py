@@ -2,7 +2,7 @@
 sparsity-aware serving engine (dynamic batcher + plan cache + adaptive
 re-planning) over a deterministic simulated-clock request stream that
 carries real measured execution times (counterpart of
-`repro.launch.serve_cnn`, steady traffic only).
+`repro.launch.serve_cnn`).
 
 `--prune-density D` block-prunes the weights to D (the planner may then put
 layers on the BSR kernel); `--int8` lets the planner upgrade sparse and BSR
@@ -12,15 +12,24 @@ cost constants; `--tile-search` searches each layer's kernel geometry and
 serves the winners; `--calib-out` saves that CalibrationDB as JSON (the
 reference's `calibration-v2` schema); `--autotune` searches
 (occ_threshold, block_c); `--trace-out` writes a Chrome trace of the run.
+`--scenario` picks the traffic regime: a steady stream (default), Poisson
+bursts, a diurnal occupancy step (forces a re-plan), a hot swap to a
+0.3-density pruned variant at the stream's midpoint, or two models
+multi-tenant over one plan cache. `--history DB` ingests the serving summary
+and telemetry snapshot (and any fitted calibration) into the perf-history
+BenchDB, which `python -m repro_torch.obs.history.cli` reads.
 
 Run on the card (default device "cuda"):
     PYTHONPATH=src python -m repro_torch.launch.serve_cnn --rate 50 --n-requests 24
     PYTHONPATH=src python -m repro_torch.launch.serve_cnn --model lenet --full
     PYTHONPATH=src python -m repro_torch.launch.serve_cnn --full --prune-density 0.3 --int8
+    PYTHONPATH=src python -m repro_torch.launch.serve_cnn --full --scenario hotswap --history benchdb.jsonl
 On the host, through the kernels' plain PyTorch versions:
     PYTHONPATH=src python -m repro_torch.launch.serve_cnn --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve_cnn --device cpu --prune-density 0.3 --int8 --n-requests 8
     PYTHONPATH=src python -m repro_torch.launch.serve_cnn --device cpu --calibrate --tile-search --autotune --trace-out t.json --calib-out cal.json --n-requests 8
+    PYTHONPATH=src python -m repro_torch.launch.serve_cnn --device cpu --scenario diurnal --n-requests 16 --rate 100
+    PYTHONPATH=src python -m repro_torch.launch.serve_cnn --device cpu --scenario hotswap --n-requests 16 --rate 100 --history benchdb.jsonl
 """
 from __future__ import annotations
 
@@ -40,6 +49,7 @@ from repro_torch.serving import Engine, SimClock, replay_stream
 log = logging.getLogger("repro_torch.serve_cnn")
 
 MODELS = ("vgg19", "lenet", "alexnet")
+SCENARIOS = ("steady", "burst", "diurnal", "hotswap", "multitenant")
 
 
 def serving_graph(model: str = "vgg19", full: bool = False) -> LayerGraph:
@@ -74,6 +84,73 @@ def synth_requests(graph, n: int, seed: int = 0, dead_frac: float = 0.5,
         dead_frac).to(dev) for i in range(n)]
 
 
+def _scenario_setup(scenario, model, engine, *, full, n_requests, rate, seed):
+    """The non-steady traffic regimes: returns the scenario and the {stream:
+    Engine} map `replay_scenario` drives. Every regime is timed off the
+    stream's midpoint, so its event (burst cycle, drift onset, swap) lands
+    while requests still flow."""
+    from repro_torch.serving import (
+        DiurnalDriftScenario,
+        HotSwapScenario,
+        MultiTenantScenario,
+        PoissonBurstScenario,
+        TenantSpec,
+    )
+
+    shape = engine.graph.in_shape
+    t_mid = n_requests / (2.0 * rate)
+    if scenario == "burst":
+        return PoissonBurstScenario(
+            in_shape=shape, n_requests=n_requests, base_rps=rate,
+            burst_rps=rate * 16, burst_every_s=t_mid,
+            burst_len_s=t_mid / 4, seed=seed), {"": engine}
+    if scenario == "diurnal":
+        return DiurnalDriftScenario(
+            in_shape=shape, n_requests=n_requests, rate_rps=rate,
+            dead_lo=0.5, dead_hi=0.0, drift="step", t_drift=t_mid,
+            seed=seed), {"": engine}
+    if scenario == "hotswap":
+        from repro_torch.sparse_weights.prune import prune_graph_params
+
+        pruned, report = prune_graph_params(engine.params, 0.3, engine.graph)
+        log.info("hot-swap variant: pruned to %.2f achieved block density",
+                 report.density)
+
+        def swap(engines):
+            engines[""].hot_swap(pruned)
+
+        return HotSwapScenario(
+            in_shape=shape, n_requests=n_requests, rate_rps=rate,
+            t_swap=t_mid, swap_fn=swap, seed=seed), {"": engine}
+    if scenario == "multitenant":
+        other = "lenet" if model != "lenet" else "vgg19"
+        graph2 = serving_graph(other, full)
+        params2 = shift_dead_channels(init_graph(
+            torch.Generator().manual_seed(seed + 1), graph2, device=engine.device))
+        calib2 = torch.stack(synth_requests(graph2, 2, seed=seed + 3,
+                                            device=engine.device))
+        # the second tenant shares the first's clock and PlanCache: the
+        # PlanKey graph / weight signatures keep the runners apart
+        engine2 = Engine(params2, graph=graph2, calib=calib2,
+                         occ_threshold=engine.plan.occ_threshold,
+                         block_c=engine.plan.block_c,
+                         max_batch=engine.batcher.max_batch,
+                         deadline_s=engine.batcher.deadline_s,
+                         clock=engine.clock, cache=engine.cache,
+                         device=engine.device)
+        engine2.warmup()
+        tenants = ((model, TenantSpec(in_shape=shape,
+                                      n_requests=n_requests // 2,
+                                      rate_rps=rate)),
+                   (other, TenantSpec(in_shape=graph2.in_shape,
+                                      n_requests=n_requests // 2,
+                                      rate_rps=rate)))
+        return MultiTenantScenario(tenants=tenants, seed=seed), \
+            {model: engine, other: engine2}
+    raise ValueError(f"unknown --scenario {scenario!r} "
+                     f"(choose from {SCENARIOS})")
+
+
 def serve_cnn(*, model: str = "vgg19", full: bool = False,
               n_requests: int = 24, rate: float = 50.0,
               max_batch: int = 8, deadline_ms: float = 10.0,
@@ -82,12 +159,14 @@ def serve_cnn(*, model: str = "vgg19", full: bool = False,
               int8: bool = False, int8_budget: float = 0.98, seed: int = 0,
               do_autotune: bool = False, trace_out: str | None = None,
               calibrate: bool = False, calib_out: str | None = None,
-              tile_search: bool = False, device=None) -> dict:
-    """Serve `n_requests` steady-rate requests of `model` and return the
-    serving summary (plan, throughput and latency on the SimClock, cache
-    counters). `calibrate`, `tile_search`, `do_autotune`, `calib_out` and
-    `trace_out` run the measure -> calibrate -> search -> plan loop before
-    serving (see the module docstring)."""
+              tile_search: bool = False, scenario: str = "steady",
+              history: str | None = None, device=None) -> dict:
+    """Serve `n_requests` requests of `model` under the `scenario` traffic
+    regime and return the serving summary (plan, throughput and latency on
+    the SimClock, cache counters). `calibrate`, `tile_search`,
+    `do_autotune`, `calib_out` and `trace_out` run the measure -> calibrate
+    -> search -> plan loop before serving; `history` ingests the summary
+    into that BenchDB (see the module docstring)."""
     dev = resolve_device(device)
     graph = serving_graph(model, full)
     params = shift_dead_channels(init_graph(torch.Generator().manual_seed(seed),
@@ -182,14 +261,21 @@ def serve_cnn(*, model: str = "vgg19", full: bool = False,
     log.info("built %d bucket runners (buckets=%s)", built,
              engine.batcher.exec_buckets())
     t_start = clock()
-    results = replay_stream(engine, synth_requests(graph, n_requests, seed=seed + 2,
-                                                   device=dev), rate_rps=rate)
+    if scenario == "steady":
+        results = replay_stream(engine, synth_requests(graph, n_requests, seed=seed + 2,
+                                                       device=dev), rate_rps=rate)
+    else:
+        from repro_torch.serving import replay_scenario
+
+        scn, engines = _scenario_setup(scenario, model, engine, full=full,
+                                       n_requests=n_requests, rate=rate, seed=seed)
+        results = [r for out in replay_scenario(engines, scn).values() for r in out]
     makespan = clock() - t_start
     lat_ms = np.array(sorted(r.latency_s for r in results)) * 1e3
     stats = engine.stats()
     summary = {
         "model": graph.name,
-        "scenario": "steady",
+        "scenario": scenario,
         "device": str(dev),
         "plan": [f"{lp.impl}@{lp.occupancy:.2f}" for lp in engine.plan.layers],
         "prune_density": achieved_density,
@@ -202,19 +288,43 @@ def serve_cnn(*, model: str = "vgg19", full: bool = False,
         "p50_ms": float(np.percentile(lat_ms, 50)),
         "p95_ms": float(np.percentile(lat_ms, 95)),
         "mean_fill": stats["mean_fill"],
-        **{k: stats[k] for k in ("batches", "compiles", "hits", "replans")},
+        **{k: stats[k] for k in ("batches", "compiles", "hits", "replans",
+                                 "hot_swaps")},
         "calibrated": 0 if calibration is None else len(calibration.entries),
     }
     if tracer is not None:
         tracer.save(trace_out)
         log.info("wrote %d trace events to %s (chrome://tracing / Perfetto)",
                  len(tracer.events), trace_out)
-    log.info("served %d requests at %.0f req/s offered: %.1f req/s, "
-             "p50=%.1fms p95=%.1fms, %d batches (fill %.2f), %d builds / %d "
-             "cache hits, %d replans", summary["requests"], rate,
-             summary["throughput_rps"], summary["p50_ms"], summary["p95_ms"],
-             summary["batches"], summary["mean_fill"], summary["compiles"],
-             summary["hits"], summary["replans"])
+    if history:
+        from repro_torch.obs.history import (
+            BenchDB,
+            calibration_rows,
+            make_payload,
+            telemetry_rows,
+        )
+
+        db = BenchDB(history)
+        # the scalar serving summary, the engine's telemetry snapshot and
+        # the fitted calibration scales (when this run fitted one)
+        rows = [{"name": f"serve/{graph.name}/{scenario}",
+                 **{k: v for k, v in summary.items()
+                    if isinstance(v, (int, float)) and not isinstance(v, bool)}}]
+        rows += telemetry_rows(stats["telemetry"],
+                               prefix=f"telemetry/{graph.name}/{scenario}")
+        if calibration is not None:
+            rows += calibration_rows(calibration)
+        n_new = db.ingest_payload(make_payload("serve_cnn", rows, device=dev))
+        log.info("perf history: %d point(s) ingested into %s "
+                 "(%d total, %d series)", n_new, history, len(db),
+                 len(db.series()))
+    log.info("served %d requests (%s traffic) at %.0f req/s offered: "
+             "%.1f req/s, p50=%.1fms p95=%.1fms, %d batches (fill %.2f), "
+             "%d builds / %d cache hits, %d replans, %d hot swaps",
+             summary["requests"], scenario, rate, summary["throughput_rps"],
+             summary["p50_ms"], summary["p95_ms"], summary["batches"],
+             summary["mean_fill"], summary["compiles"], summary["hits"],
+             summary["replans"], summary["hot_swaps"])
     return summary
 
 
@@ -231,6 +341,9 @@ def main():
     ap.add_argument("--occ-threshold", type=float, default=0.75)
     ap.add_argument("--block-c", type=int, default=8,
                     help="channel-block size of the schedules (0 = auto)")
+    ap.add_argument("--replan-band", type=float, default=0.15,
+                    help="occupancy-EMA hysteresis band around the plan's "
+                         "calibrated occupancies; drift beyond it re-plans")
     ap.add_argument("--prune-density", type=float, default=1.0,
                     help="block-prune the weights to this density (1.0 = no pruning)")
     ap.add_argument("--int8", action="store_true",
@@ -253,6 +366,16 @@ def main():
     ap.add_argument("--tile-search", action="store_true",
                     help="search each planned layer's kernel tile geometry "
                          "and serve with the measured-best winners")
+    ap.add_argument("--scenario", choices=SCENARIOS, default="steady",
+                    help="traffic regime: steady open-loop stream (default), "
+                         "Poisson bursts, diurnal occupancy drift (forces a "
+                         "re-plan), hot swap to a 0.3-density pruned variant "
+                         "mid-stream, or two models multi-tenant over one "
+                         "shared plan cache")
+    ap.add_argument("--history", default=None, metavar="DB",
+                    help="perf-history BenchDB (JSONL): ingest this run's "
+                         "serving summary and telemetry snapshot as cross-run "
+                         "series for python -m repro_torch.obs.history.cli")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs the kernels' "
@@ -261,11 +384,13 @@ def main():
     serve_cnn(model=args.model, full=args.full, n_requests=args.n_requests,
               rate=args.rate, max_batch=args.max_batch,
               deadline_ms=args.deadline_ms, occ_threshold=args.occ_threshold,
-              block_c=args.block_c, prune_density=args.prune_density,
+              block_c=args.block_c, replan_band=args.replan_band,
+              prune_density=args.prune_density,
               int8=args.int8, int8_budget=args.int8_budget, seed=args.seed,
               do_autotune=args.autotune, trace_out=args.trace_out,
               calibrate=args.calibrate, calib_out=args.calib_out,
-              tile_search=args.tile_search, device=args.device)
+              tile_search=args.tile_search, scenario=args.scenario,
+              history=args.history, device=args.device)
 
 
 if __name__ == "__main__":

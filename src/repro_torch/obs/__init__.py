@@ -14,12 +14,22 @@ and tile-geometry search (counterpart of `repro.obs`).
                `constants` stay the fallback;
 - `constants`  the card's datasheet roofline pair;
 - `tilesearch` the per-layer kernel-geometry search (`tile_search`), whose
-               winners `plan_network(tiles=...)` stamps on the plan.
-
-The reference's `history` (the cross-run perf store) is ROADMAP queue 1,
-item 12.
+               winners `plan_network(tiles=...)` stamps on the plan;
+- `history`    the cross-run layer: `BenchDB`, an append-only JSONL
+               trajectory of serving, telemetry, profile and calibration
+               points keyed by device kind, rolling-baseline verdicts, and
+               the `python -m repro_torch.obs.history.cli` gate.
 """
 from repro_torch.obs.calibrate import CalibEntry, CalibrationDB, device_kind, unit_shape_key
+from repro_torch.obs.history import (
+    BenchDB,
+    Thresholds,
+    calibration_rows,
+    check_db,
+    make_payload,
+    profile_rows,
+    telemetry_rows,
+)
 from repro_torch.obs.constants import (
     DEFAULT_HBM_BW,
     DEFAULT_PEAK_FLOPS,
@@ -45,6 +55,7 @@ from repro_torch.obs.tilesearch import (
 from repro_torch.obs.trace import NULL_TRACER, NullTracer, Tracer
 
 __all__ = [
+    "BenchDB",
     "CalibEntry",
     "CalibrationDB",
     "DEFAULT_HBM_BW",
@@ -59,12 +70,18 @@ __all__ = [
     "RooflineConstants",
     "TileCandidate",
     "TileSearchReport",
+    "Thresholds",
     "TimingResult",
     "Tracer",
+    "calibration_rows",
+    "check_db",
     "device_kind",
     "layer_tile_candidates",
+    "make_payload",
     "profile_plan",
+    "profile_rows",
     "search_layer",
+    "telemetry_rows",
     "tile_search",
     "time_callable",
     "unit_shape_key",

@@ -254,6 +254,13 @@ class CalibrationDB:
                       tuple(row["shape"]))] = tuple(row["tile"])
         return db
 
+    def history_rows(self) -> list:
+        """The fitted entries as perf-history rows (scale and residual
+        spread per key): `obs.history.calibration_rows(self)`."""
+        from repro_torch.obs.history.records import calibration_rows
+
+        return calibration_rows(self)
+
     def summary(self) -> dict:
         """JSON-ready digest (scales per key, winners per shape)."""
         out = {f"{d}/{k}/{i}/{_fmt_tkey(tk)}": round(e.scale, 6)

@@ -187,6 +187,13 @@ class ProfileReport:
             rows.append(replace(t, predicted_us=pred))
         return replace(self, timings=tuple(rows))
 
+    def history_rows(self) -> list:
+        """This report as perf-history rows (per-impl ratio medians and the
+        ranking agreement): `obs.history.profile_rows(self)`."""
+        from repro_torch.obs.history.records import profile_rows
+
+        return profile_rows(self)
+
     def summary(self) -> dict:
         """JSON-ready digest for `Engine.stats()["telemetry"]["profile"]`."""
         per_impl = {}

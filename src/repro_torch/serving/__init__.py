@@ -1,7 +1,8 @@
 """Sparsity-aware serving engine over the pipeline planner (counterpart of
 `repro.serving`): `MicroBatcher` buckets, `PlanCache` runners, the `Engine`
-with its occupancy-drift re-planner, the SimClock replay driver, and the
-offline (occ_threshold, block_c) `autotune`."""
+with its occupancy-drift re-planner and `hot_swap`, the scenario library
+(burst, diurnal drift, multi-tenant, hot swap) with its SimClock replay
+driver, and the offline (occ_threshold, block_c) `autotune`."""
 from repro_torch.serving.autotune import AutotuneResult, Candidate, autotune, plan_model_us
 from repro_torch.serving.batcher import (
     MicroBatch,
@@ -14,32 +15,44 @@ from repro_torch.serving.engine import Engine, ServedResult, replay_stream
 from repro_torch.serving.metrics import LatencyReservoir, MetricsTracker
 from repro_torch.serving.plan_cache import PlanCache, PlanKey, plan_key
 from repro_torch.serving.scenarios import (
+    DiurnalDriftScenario,
+    HotSwapScenario,
     ListScenario,
+    MultiTenantScenario,
+    PoissonBurstScenario,
     Scenario,
     ScenarioRequest,
+    TenantSpec,
     replay_scenario,
+    synth_image,
 )
 
 __all__ = [
     "AutotuneResult",
     "Candidate",
+    "DiurnalDriftScenario",
     "Engine",
+    "HotSwapScenario",
     "LatencyReservoir",
     "ListScenario",
     "MetricsTracker",
     "MicroBatch",
     "MicroBatcher",
+    "MultiTenantScenario",
     "PlanCache",
     "PlanKey",
+    "PoissonBurstScenario",
     "Request",
     "Scenario",
     "ScenarioRequest",
     "ServedResult",
     "SimClock",
+    "TenantSpec",
     "autotune",
     "bucket_sizes",
     "plan_key",
     "plan_model_us",
     "replay_scenario",
     "replay_stream",
+    "synth_image",
 ]

@@ -12,6 +12,12 @@
   calibrated at, the engine re-plans on the most recent real batch
   (optionally in a background thread) and swaps the new plan in between
   batches.
+- `hot_swap` replaces the served model (canonically a differently-pruned
+  BSR variant) between batches; `PlanKey.weight_sig` keeps both variants'
+  runners resident, so swapping back builds nothing. Every candidate plan
+  (a hot swap's, an adopted re-plan's) is verified against the params it
+  will run with before anything changes; a refused one is counted in
+  `stats()["verify_rejects"]` and the current model keeps serving.
 
 Exactness contract: a request's logits are bit-identical to `run_plan` on
 the same images whenever the co-batched samples share a live-channel union
@@ -32,8 +38,7 @@ and impl into `stats()["telemetry"]["profile"]`.
 the planner, and again by the plan cache before it builds a runner
 (`repro_torch.analysis`).
 
-Not ported: the data-parallel mesh (ROADMAP queue 1, item 13) and
-`hot_swap`, with its verification of a candidate plan (item 6).
+Not ported: the data-parallel mesh (ROADMAP queue 1, item 13).
 """
 from __future__ import annotations
 
@@ -113,11 +118,7 @@ class Engine:
         self.int8 = bool(int8)
         self.int8_budget = float(int8_budget)
         self.use_pallas = bool(use_pallas)
-        conv_ws, dense_ws = graph_weights(params)
-        for w in conv_ws + dense_ws:
-            if w.device.type != self.device.type:
-                raise ValueError(f"params live on {w.device}, the engine "
-                                 f"serves on {self.device}")
+        self._check_params_device(params)
         graph = plan.graph if plan is not None \
             else as_graph(graph if graph is not None else ccfg)
         if plan is None:
@@ -151,11 +152,14 @@ class Engine:
         self._pending_plan: PipelinePlan | None = None
         self._replanning = False
         self._replan_thread: threading.Thread | None = None
+        self._plan_gen = 0  # bumped by hot_swap: a re-plan begun before drops
         self._cooldown = 0
         self._calib_recent = None  # last real (unpadded) executed batch
         self._occ_ema = np.array([lp.occupancy for lp in plan.layers])
         self.n_replans = 0
         self.replan_errors = 0
+        self.n_hot_swaps = 0
+        self.verify_rejects = 0  # plans the static verifier refused to adopt
         self.n_batches = 0
         self.n_requests = 0
         self.n_pad_samples = 0
@@ -164,6 +168,15 @@ class Engine:
 
     def _to_device(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.float32).to(self.device)
+
+    def _check_params_device(self, params) -> None:
+        """Params must already live where the engine serves: never moved
+        quietly (a host copy would run the kernels' plain versions)."""
+        conv_ws, dense_ws = graph_weights(params)
+        for w in conv_ws + dense_ws:
+            if w.device.type != self.device.type:
+                raise ValueError(f"params live on {w.device}, the engine "
+                                 f"serves on {self.device}")
 
     # ------------------------------------------------------------------
     # request loop
@@ -233,6 +246,8 @@ class Engine:
             "mean_fill": self._fill_sum / max(self.n_batches, 1),
             "replans": self.n_replans,
             "replan_errors": self.replan_errors,
+            "hot_swaps": self.n_hot_swaps,
+            "verify_rejects": self.verify_rejects,
             "plan_sparse": c["sparse"],
             "plan_fused": c["fused"],
             "plan_dense": c["dense"],
@@ -349,11 +364,13 @@ class Engine:
             return
         self._replanning = True
         plan = self.plan
+        params = self.params
+        gen = self._plan_gen
 
         def work():
             try:
                 with self.tracer.span("replan", trigger="occupancy_drift"):
-                    new = plan_network(self.params, calib, self.graph,
+                    new = plan_network(params, calib, self.graph,
                                        occ_threshold=plan.occ_threshold,
                                        block_c=plan.block_c,
                                        use_pallas=self.use_pallas,
@@ -369,7 +386,13 @@ class Engine:
                 self.metrics.on_replan_error(self.clock())
                 return
             with self._lock:
-                self._pending_plan = new
+                if gen == self._plan_gen:
+                    self._pending_plan = new
+                else:
+                    # a hot_swap landed while this re-plan was in flight: it
+                    # was planned against the swapped-out params, so drop it
+                    # and unblock the drift detector
+                    self._replanning = False
 
         if self.replan_async:
             self._replan_thread = threading.Thread(target=work, daemon=True)
@@ -379,12 +402,15 @@ class Engine:
 
     def _adopt_pending_plan(self) -> None:
         """Swap point: a finished re-plan replaces the live plan only BETWEEN
-        batches; the EMA re-centres on the new plan's occupancies."""
+        batches, once verified against the params; the EMA re-centres on the
+        new plan's occupancies."""
         with self._lock:
             if self._pending_plan is None:
                 return
             new, self._pending_plan = self._pending_plan, None
         self._replanning = False
+        if not self._verify_candidate(new, self.params):
+            return  # an erroring re-plan: keep serving the current plan
         changed = plan_key(0, new) != plan_key(0, self.plan)
         if changed:
             self.n_replans += 1
@@ -392,6 +418,66 @@ class Engine:
         self._occ_ema = np.array([lp.occupancy for lp in new.layers])
         self._cooldown = self.replan_cooldown
         self.metrics.on_replan_swap(self.clock(), changed)
+
+    def _verify_candidate(self, plan, params) -> bool:
+        """The static gate on every plan-adoption path: an error-severity
+        diagnostic rejects the candidate before the engine changes anything;
+        the reject is counted and lands in the telemetry events."""
+        from repro_torch.analysis import errors, verify_plan
+
+        bad = errors(verify_plan(plan, params, graph=self.graph))
+        if not bad:
+            return True
+        self.verify_rejects += 1
+        self.metrics.on_verify_reject(self.clock(), tuple(d.code for d in bad))
+        return False
+
+    def hot_swap(self, params, *, plan: PipelinePlan | None = None,
+                 calib=None) -> bool:
+        """Swap the served model between batches, canonically to a
+        differently-pruned BSR variant of the same graph (the weight
+        signature in `PlanKey` keeps both variants' runners resident, so
+        swapping back and forth builds nothing). Call it outside
+        `poll()` / `serve()`, e.g. from a scenario event.
+
+        `params` must already live on the engine's device. `plan` pins the
+        new schedule; otherwise the new params are planned on `calib`
+        (default: the most recent real batch) at the current plan's
+        occ_threshold and block_c. An in-flight background re-plan belongs
+        to the old params: the generation bump drops its result on arrival.
+
+        A given `plan` is verified against the new params first: an erroring
+        pair returns False, counts in `stats()["verify_rejects"]` and
+        changes nothing (a freshly planned candidate raises from
+        `plan_network` itself). Returns True on a completed swap."""
+        self._check_params_device(params)
+        if plan is None:
+            calib = self._calib_recent if calib is None else self._to_device(calib)
+            if calib is None:
+                raise ValueError("hot_swap needs plan= or calib= before the "
+                                 "engine has executed its first batch")
+            with self.tracer.span("plan", graph=self.graph.name,
+                                  trigger="hot_swap"):
+                plan = plan_network(params, calib, self.graph,
+                                    occ_threshold=self.plan.occ_threshold,
+                                    block_c=self.plan.block_c,
+                                    use_pallas=self.use_pallas,
+                                    calibration=self.calibration,
+                                    tiles=self.tiles, int8=self.int8,
+                                    int8_budget=self.int8_budget)
+        elif not self._verify_candidate(plan, params):
+            return False
+        with self._lock:
+            self._plan_gen += 1
+            self._pending_plan = None
+        self.params = params
+        self.plan = plan
+        self.graph = plan.graph
+        self._occ_ema = np.array([lp.occupancy for lp in plan.layers])
+        self._cooldown = self.replan_cooldown
+        self.n_hot_swaps += 1
+        self.metrics.on_hot_swap(self.clock())
+        return True
 
     def join_replan(self, timeout: float | None = 10.0) -> None:
         """Wait for an in-flight background re-plan."""

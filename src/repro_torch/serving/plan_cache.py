@@ -2,17 +2,22 @@
 `repro.serving.plan_cache`).
 
 The key is (batch bucket, block_c, per-layer (kind, impl) decisions, graph
-signature, tile signature): the measured occupancies only reach the executed
-program through which side of `occ_threshold` each layer fell, so two
-re-plans whose occupancies drifted but whose schedules agree share one
-entry. The tile signature lists each layer whose plan carries a searched
-`TileConfig`, so a plan that differs only in kernel geometry gets a runner
-of its own; a plan at the default geometry keeps the key it had before.
+signature, weight signature, tile signature): the measured occupancies only
+reach the executed program through which side of `occ_threshold` each layer
+fell, so two re-plans whose occupancies drifted but whose schedules agree
+share one entry. The weight signature lists each weight-sparse (BSR) layer
+with its block density rounded to 2 dp, so two pruned variants of one graph
+with the same decisions (the models `Engine.hot_swap` moves between) each
+get a runner built for their own plan; every dense, ECR or PECR plan keeps
+the key it had before. The tile signature lists each layer whose plan
+carries a searched `TileConfig`, so a plan that differs only in kernel
+geometry gets a runner of its own; a plan at the default geometry keeps the
+key it had before.
 
 The reference compiles each key ahead of time with XLA. PyTorch runs
 eagerly, so a build here makes the runner closure once per key, and
 `compiles` counts builds; capturing the runner as a CUDA graph is ROADMAP
-queue 1, item 18. The reference's `weight_sig` is item 6.
+queue 1, item 18. The reference's `mesh_shape` is item 13.
 """
 from __future__ import annotations
 
@@ -26,17 +31,25 @@ class PlanKey:
     block_c: int  # the plan's channel-block size (0 = per-layer auto)
     occ_sig: tuple  # per-layer (kind, impl) decisions — the occupancy bucket
     graph_sig: tuple  # LayerGraph.signature() — the network's structure
+    weight_sig: tuple = ()  # (layer index, rounded density) per BSR layer
     tile_sig: tuple = ()  # (layer index, TileConfig.key()) per tiled layer
 
 
 def plan_key(bucket: int, plan) -> PlanKey:
-    """The cache key of executing `plan` at batch size `bucket`. Only layers
-    with a non-default tile enter `tile_sig`."""
+    """The cache key of executing `plan` at batch size `bucket`. Only
+    weight-sparse layers enter `weight_sig` (density rounded to 2 dp, the
+    granularity pruning achieves), and only layers with a non-default tile
+    enter `tile_sig`."""
+    from repro_torch.graph.registry import get_op
+
+    weight_sig = tuple((lp.index, round(lp.weight_density, 2)) for lp in plan.layers
+                       if get_op(lp.kind, lp.impl).weight_sparse)
     tile_sig = tuple((lp.index, lp.tile.key()) for lp in plan.layers
                      if getattr(lp, "tile", None) is not None and lp.tile)
     return PlanKey(bucket=int(bucket), block_c=int(plan.block_c),
                    occ_sig=tuple((lp.kind, lp.impl) for lp in plan.layers),
-                   graph_sig=plan.graph.signature(), tile_sig=tile_sig)
+                   graph_sig=plan.graph.signature(), weight_sig=weight_sig,
+                   tile_sig=tile_sig)
 
 
 class PlanCache:

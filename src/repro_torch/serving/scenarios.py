@@ -1,17 +1,49 @@
-"""Replay driver for request streams on a `SimClock` (counterpart of the
-`ListScenario` / `replay_scenario` part of `repro.serving.scenarios`).
+"""Scenario library and replay driver: seeded traffic regimes for the
+engine on a `SimClock` (counterpart of `repro.serving.scenarios`).
 
 A scenario is a deterministic list of (arrival time, image) requests plus
-timed events; `replay_scenario` merges arrivals, events and every engine's
-batcher deadline into one event loop on a shared `SimClock`. The seeded
-traffic regimes of the reference (burst, diurnal drift, multi-tenant, hot
-swap) are a later slice.
+timed events. The regimes:
+
+- `PoissonBurstScenario` — Poisson arrivals whose rate switches between a
+  base and a burst level on a fixed cycle (several full buckets queue at
+  once);
+- `DiurnalDriftScenario` — steady arrivals whose dead-channel band moves
+  over simulated time (a step or a sine), which must push the occupancy EMA
+  out of the hysteresis band and re-plan;
+- `MultiTenantScenario` — interleaved streams for several models sharing
+  one `PlanCache`;
+- `HotSwapScenario` — a steady stream with a timed event that swaps the
+  engine to another model (`Engine.hot_swap`) under load;
+- `ListScenario` — explicit (arrival, image) lists, the steady stream
+  `replay_stream` wraps.
+
+Arrival times come from `random.Random(seed)` and plain arithmetic, so they
+equal the reference's exactly. The images come from `synth_image`, a
+`torch.Generator` per request: the same function of its arguments as the
+reference's, but not the same bits (`jax.random` is not reproduced).
+
+`replay_scenario` merges arrivals, events and every engine's batcher
+deadline into one event loop on a shared `SimClock`.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+import math
+import random
+from dataclasses import dataclass, field
 
+import torch
+
+from repro_torch.core.sparsity import dead_channel_band
 from repro_torch.serving.batcher import SimClock
+
+
+def synth_image(in_shape, seed: int, i: int, dead_frac: float = 0.5) -> torch.Tensor:
+    """The i-th request image of a seeded stream: uniform [0, 1) (C,H,W) on
+    the host from `torch.Generator().manual_seed(seed * 1000003 + i)`, with
+    the trailing `dead_frac` channel band zeroed. A pure function of its
+    arguments; the engine moves it to its device on submit."""
+    gen = torch.Generator().manual_seed(seed * 1000003 + i)
+    return dead_channel_band(torch.rand(tuple(in_shape), generator=gen), dead_frac)
 
 
 @dataclass(frozen=True)
@@ -35,6 +67,13 @@ class Scenario:
     def requests(self) -> list:
         raise NotImplementedError
 
+    def streams(self) -> tuple:
+        """The distinct stream keys, in first-appearance order."""
+        seen: dict = {}
+        for r in self.requests():
+            seen.setdefault(r.stream, None)
+        return tuple(seen)
+
 
 @dataclass(frozen=True)
 class ListScenario(Scenario):
@@ -56,6 +95,144 @@ class ListScenario(Scenario):
         return [ScenarioRequest(t=float(t), img=img, stream=self.stream)
                 for t, img in sorted(zip(self.arrivals, self.imgs),
                                      key=lambda p: p[0])]
+
+
+@dataclass(frozen=True)
+class PoissonBurstScenario(Scenario):
+    """Markov-modulated Poisson arrivals: exponential interarrivals at
+    `base_rps`, switching to `burst_rps` for the first `burst_len_s` of every
+    `burst_every_s` cycle. A burst queues several full max_batch buckets at
+    once, so it pins the no-stranding property: every request is formed
+    within its deadline plus the backlog of earlier due buckets."""
+
+    in_shape: tuple = (16, 12, 12)
+    n_requests: int = 32
+    base_rps: float = 50.0
+    burst_rps: float = 800.0
+    burst_every_s: float = 0.25
+    burst_len_s: float = 0.05
+    dead_frac: float = 0.5
+    seed: int = 0
+    name: str = "burst"
+
+    def rate_at(self, t: float) -> float:
+        return self.burst_rps if (t % self.burst_every_s) < self.burst_len_s \
+            else self.base_rps
+
+    def requests(self) -> list:
+        rng = random.Random(self.seed)
+        t, out = 0.0, []
+        for i in range(self.n_requests):
+            t += rng.expovariate(self.rate_at(t))
+            out.append(ScenarioRequest(
+                t=t, img=synth_image(self.in_shape, self.seed, i, self.dead_frac)))
+        return out
+
+
+@dataclass(frozen=True)
+class DiurnalDriftScenario(Scenario):
+    """Steady arrivals whose occupancy drifts: the dead-channel band moves
+    from `dead_lo` to `dead_hi` over simulated time. ``drift="step"`` flips
+    at `t_drift`; ``drift="sine"`` widens and narrows the band smoothly over
+    `period_s`. An engine planned at the `dead_lo` regime must re-plan to
+    the schedule `plan_network` picks at the drifted occupancy."""
+
+    in_shape: tuple = (16, 12, 12)
+    n_requests: int = 32
+    rate_rps: float = 200.0
+    dead_lo: float = 0.0
+    dead_hi: float = 0.5
+    drift: str = "step"  # "step" | "sine"
+    t_drift: float = 0.05  # step: time of the flip
+    period_s: float = 0.2  # sine: one widen+narrow cycle
+    seed: int = 0
+    name: str = "diurnal"
+
+    def dead_frac_at(self, t: float) -> float:
+        if self.drift == "step":
+            return self.dead_hi if t >= self.t_drift else self.dead_lo
+        if self.drift == "sine":
+            phase = 0.5 - 0.5 * math.cos(2.0 * math.pi * t / self.period_s)
+            return self.dead_lo + (self.dead_hi - self.dead_lo) * phase
+        raise ValueError(f"unknown drift mode {self.drift!r} "
+                         "(choose 'step' or 'sine')")
+
+    def requests(self) -> list:
+        out = []
+        for i in range(self.n_requests):
+            t = i / self.rate_rps
+            out.append(ScenarioRequest(
+                t=t, img=synth_image(self.in_shape, self.seed, i,
+                                     self.dead_frac_at(t))))
+        return out
+
+
+@dataclass(frozen=True)
+class TenantSpec:
+    """One tenant stream of a multi-tenant scenario."""
+
+    in_shape: tuple
+    n_requests: int = 16
+    rate_rps: float = 100.0
+    dead_frac: float = 0.5
+
+
+@dataclass(frozen=True)
+class MultiTenantScenario(Scenario):
+    """Interleaved per-tenant steady streams merged by arrival time. The
+    tenants' engines share one `PlanCache` (`Engine(cache=...)`): the graph
+    signature in `PlanKey` bounds the builds by the distinct keys, and no
+    tenant ever runs another tenant's runner."""
+
+    tenants: tuple = ()  # ((name, TenantSpec), ...)
+    seed: int = 0
+    name: str = "multi_tenant"
+
+    def requests(self) -> list:
+        out = []
+        for k, (stream, spec) in enumerate(self.tenants):
+            for i in range(spec.n_requests):
+                out.append(ScenarioRequest(
+                    t=i / spec.rate_rps,
+                    img=synth_image(spec.in_shape, self.seed + 7919 * (k + 1),
+                                    i, spec.dead_frac),
+                    stream=stream))
+        # stable sort: simultaneous arrivals keep tenant declaration order
+        return sorted(out, key=lambda r: r.t)
+
+    def streams(self) -> tuple:
+        return tuple(stream for stream, _ in self.tenants)
+
+
+@dataclass(frozen=True)
+class HotSwapScenario(Scenario):
+    """A steady stream that swaps the served model mid-flight: at `t_swap`
+    the driver calls `swap_fn(engines)`, canonically
+    ``engines[""].hot_swap(pruned_params)``. The swap is atomic between
+    batches: requests completed before it carry the old model's logits,
+    requests after it the new model's, and no bucket mixes the two."""
+
+    in_shape: tuple = (16, 12, 12)
+    n_requests: int = 32
+    rate_rps: float = 200.0
+    t_swap: float = 0.05
+    swap_fn: object = None  # callable(engines: dict) -> None
+    dead_frac: float = 0.5
+    seed: int = 0
+    name: str = "hot_swap"
+    events: tuple = field(init=False, default=())
+
+    def __post_init__(self):
+        if self.swap_fn is None:
+            raise ValueError("HotSwapScenario needs swap_fn= (the timed "
+                             "model-swap action, e.g. a hot_swap closure)")
+        object.__setattr__(self, "events", ((float(self.t_swap), self.swap_fn),))
+
+    def requests(self) -> list:
+        return [ScenarioRequest(
+            t=i / self.rate_rps,
+            img=synth_image(self.in_shape, self.seed, i, self.dead_frac))
+            for i in range(self.n_requests)]
 
 
 def replay_scenario(engines, scenario) -> dict:

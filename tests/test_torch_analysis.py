@@ -1,6 +1,5 @@
 """The port's static verifier (`repro_torch.analysis`) against the JAX
-package's, mirroring tests/test_analysis.py (its Engine.hot_swap test waits
-for the port's hot swap).
+package's, mirroring tests/test_analysis.py.
 
 Plan-level checks (RPA2xx, RPA301): the same corruption of the same plan
 (the JAX package's weights and calibration images carried across, each
@@ -470,6 +469,37 @@ def test_plan_cache_refuses_erroring_plan(lenet):
     assert built == []  # the runner was never built
     assert cache.get_or_compile(plan_key(2, plan), plan, lambda: "exe") == "exe"
     assert cache.get_or_compile(plan_key(4, plan), None, lambda: "exe2") == "exe2"
+
+
+def test_engine_hot_swap_rejects_corrupted_plan(lenet):
+    """A corrupted candidate plan is refused atomically by both packages'
+    `hot_swap` with the same codes: False, nothing changed, the reject
+    counted and in the telemetry events; serving goes on with the current
+    plan (logits bitwise equal to its run_plan) and a valid swap lands."""
+    from repro.serving import Engine as JEngine
+    from repro.serving import SimClock as JSimClock
+    from repro_torch.serving import Engine, SimClock, replay_stream
+
+    (jplan, jp), (plan, tp, calib) = lenet
+    eng = Engine(tp, graph=plan.graph, plan=plan, max_batch=2, deadline_s=0.005,
+                 clock=SimClock(), device="cpu")
+    jeng = JEngine(jp, graph=jplan.graph, plan=jplan, max_batch=2,
+                   deadline_s=0.005, clock=JSimClock())
+    for e, good in ((eng, plan), (jeng, jplan)):
+        assert e.hot_swap(e.params, plan=_first(good, impl="nope")) is False
+        assert e.plan is good  # rejected atomically, nothing mutated
+        assert e.verify_rejects == 1 and e.stats()["verify_rejects"] == 1
+    events = [[ev for ev in e.stats()["telemetry"]["replan_events"]
+               if ev["kind"] == "verify_reject"] for e in (eng, jeng)]
+    assert events[0] == events[1] and "RPA208" in events[0][0]["codes"]
+    imgs = [calib[0], calib[1], calib[0] * 0.5, calib[1] * 0.5]
+    results = sorted(replay_stream(eng, imgs, rate_rps=200.0), key=lambda r: r.id)
+    assert len(results) == 4
+    want = run_plan(plan, tp, torch.stack(imgs)).numpy()
+    for r in results:
+        np.testing.assert_array_equal(r.logits, want[r.id])
+    assert eng.hot_swap(tp, plan=plan) is True
+    assert eng.n_hot_swaps == 1 and eng.verify_rejects == 1
 
 
 # ---------------------------------------------------------------------------

@@ -60,6 +60,39 @@ def test_package_imports_with_jax_unavailable():
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
 
 
+def test_history_and_scenarios_import_with_jax_unavailable():
+    """The perf-history store and the scenario library import, and the
+    history CLI answers, with jax and the JAX package unavailable."""
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["jaxlib"] = None
+        sys.modules["repro"] = None
+        import repro_torch.obs.history
+        import repro_torch.obs.history.cli
+        import repro_torch.serving.scenarios
+        from repro_torch.serving import HotSwapScenario, synth_image
+        assert synth_image((2, 3, 3), 0, 0).shape == (2, 3, 3)
+        assert repro_torch.obs.history.cli.main(["check", "--db", "missing.jsonl"]) == 2
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, env=env, timeout=120, cwd=ROOT / "src")
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+
+
+def test_run_context_names_no_jax():
+    from repro_torch.obs.history import make_payload, run_context
+
+    ctx = run_context()
+    assert "jax" not in ctx["versions"] and "jaxlib" not in ctx["versions"]
+    assert ctx["versions"]["torch"] == torch.__version__
+    kind = torch.cuda.get_device_name(0) if torch.cuda.is_available() else "cpu"
+    assert ctx["device_kind"] == kind
+    assert "jax" not in make_payload("x", [])["versions"]
+
+
 def test_entry_points_raise_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the no-card rule is a host check")
