@@ -17,9 +17,16 @@
 3. Serves the published VGG-19 (3x224x224, 1000 classes, random weights from
    a fixed generator seed with the dead-filter shift) through the port's
    Engine (block_c=8, occ_threshold=0.75, max_batch=8, SimClock): 16 requests
-   through replay_stream. The kernels' launch counters are set to 0 just
-   before and read just after; the plan must hold ECR and PECR layers and
-   both counters must have grown. Engine logits are held against the dense
+   through replay_stream. The engine serves every batch by replaying the
+   CUDA graph its warmup captured per bucket, so the kernel wrappers'
+   Python counters do not tick while it serves: a launch on the served path
+   is counted as the launches each runner recorded per replay while
+   capturing, times its replays, plus any wrapper launch (`read_counts`).
+   Those counts are set to 0 just before and read just after; the plan
+   must hold ECR and PECR layers, both counts must have grown, and no
+   served batch may have built (captured) a runner. The warm batch-8
+   service is traced through the captured runner, with eager `run_plan`
+   beside it. Engine logits are held against the dense
    path on cuDNN (TF32 off) at rtol=1e-3 plus atol=1e-3*max|dense| — sixteen
    fp32 conv layers summed in another order. Then LeNet-5 and AlexNet serve
    8 requests each with the same check.
@@ -70,6 +77,19 @@
    kernels, F.conv2d on the dequantized operands for the int8 conv,
    torch.matmul on the padded dense operands for BSR, and torch._int_mm plus
    the rescale for int8 BSR; none of these is on the port's path.
+5b. The graphs phase: VGG-19 (dense-weight, pruned 0.3, int8, pruned
+   int8), LeNet-5 and AlexNet (published widths, seed-0 weights) through an
+   Engine's compiled runners at buckets 2, 4 and 8: each bucket's capture
+   seconds, torch.cuda.memory_reserved and graph pool bytes; its logits
+   bitwise equal to eager run_plan at the same bucket, and its occupancies
+   equal, at n_valid = 1 .. bucket on one runner; its launches per replay
+   equal to the plan's kernel layers; eager and graph host wall (median of
+   5); at bucket 8 the device time and idle share of a replayed batch and
+   of eager run_plan (torch.profiler), and each kernel of the plan found
+   in the replay's trace as often as the plan runs it (its C entry point
+   printed beside the kernel symbol). Then a hot swap to another params set
+   with the same zeros (so the same plan and key) and back: no build, no
+   capture, each batch bitwise equal to its own params' run_plan.
 6. The obs phase: measure -> calibrate -> search -> plan on the published
    VGG-19 and on it pruned to 0.3, at batch 8 (eight calibration images):
    - profile_plan times every layer under dense (cuDNN), ECR, PECR (on the
@@ -1115,24 +1135,45 @@ def trace_breakdown(fn, extra=None) -> dict:
         cats[kernel_category(name)] = cats.get(kernel_category(name), 0.0) + us / 1e3
     device_ms = sum(cats.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
+    names = {}
+    for name, (_, n) in kernels.items():
+        names.setdefault(kernel_category(name), {})[name[:160]] = n
     out = {"wall_ms": wall_ms, "walls_ms": walls, "device_ms": device_ms,
            "device_ops": sum(n for _, n in kernels.values()),
            "idle_share": max(0.0, 1.0 - device_ms / wall_ms) if device_ms else None,
-           "by_class_ms": cats,
+           "by_class_ms": cats, "kernels_by_class": names,
            "top_kernels": [{"name": k[:120], "ms": v[0] / 1e3, "count": v[1]}
                            for k, v in top]}
     out.update(extra or {})
     return out
 
 
-def service_breakdown(plan, params, imgs) -> dict:
-    """One warm batch through the engine's runner (`trace_breakdown`)."""
+def service_breakdown(eng, imgs) -> dict:
+    """One warm batch through the engine's captured runner for its bucket
+    (`trace_breakdown` of a replay: copy in, replay, clones out), with the
+    same batch through eager `run_plan` (which verifies the plan on every
+    call) beside it under "eager"."""
     from repro_torch.pipeline import run_plan
 
     n = imgs.shape[0]
-    return trace_breakdown(
-        lambda: run_plan(plan, params, imgs, collect_occupancy=True, n_valid=n),
+    runner = eng._executable(n)
+    eager = trace_breakdown(
+        lambda: run_plan(eng.plan, eng.params, imgs, collect_occupancy=True, n_valid=n),
         {"batch": n})
+    return trace_breakdown(lambda: runner(eng.params, imgs, n),
+                           {"batch": n, "route": "CUDA-graph replay", "eager": eager})
+
+
+def print_service(name, svc) -> None:
+    """The graph and eager breakdowns of `service_breakdown`, by class."""
+    ev = svc["eager"]
+    print(f"{name} warm batch-{svc['batch']} service, CUDA-graph replay: wall "
+          f"{svc['wall_ms']:.2f} ms (median of 5), device {svc['device_ms']:.2f} ms, "
+          f"idle share {svc['idle_share']}; eager run_plan: wall {ev['wall_ms']:.2f} ms, "
+          f"device {ev['device_ms']:.2f} ms, idle share {ev['idle_share']}")
+    for label, b in (("graph", svc), ("eager", ev)):
+        for cat, ms in sorted(b["by_class_ms"].items(), key=lambda kv: -kv[1]):
+            print(f"  {label} {ms:8.3f} ms  {cat}")
 
 
 def make_params(graph, *, seed, dev, prune_density=1.0):
@@ -1181,13 +1222,26 @@ def plan_line(plan) -> str:
                     for lp in plan.layers)
 
 
-def reset_counts(wrappers) -> None:
+def reset_counts(wrappers, *engines) -> None:
+    """Every count to 0: the wrappers' own and, for each engine, the
+    launches its runners' replays stand for."""
     for fn in wrappers.values():
         fn.launches = 0
+    for eng in engines:
+        eng.cache.graphs.replay_launches.clear()
 
 
-def read_counts(wrappers) -> dict:
-    return {k: fn.launches for k, fn in wrappers.items()}
+def read_counts(wrappers, *engines) -> dict:
+    """Launches per kernel since `reset_counts`: the wrappers' counts (eager
+    calls, and a runner's warm-up and capture) plus, for each engine, its
+    runners' launches per replay (recorded while capturing) times their
+    replays."""
+    out = {k: fn.launches for k, fn in wrappers.items()}
+    for eng in engines:
+        replayed = eng.cache.graphs.replay_launches
+        for k, fn in wrappers.items():
+            out[k] += replayed.get(fn.__name__, 0)
+    return out
 
 
 def variant_phase(name, graph, dev, wrappers, failures, *, prune_density,
@@ -1230,20 +1284,25 @@ def variant_phase(name, graph, dev, wrappers, failures, *, prune_density,
     print(f"{name} plan ({plan_s:.2f} s){served_at}: {plan_line(plan)}")
     print(f"{name} plan counts: {plan.counts()}")
     verify_built(name, plan, params, 8, failures)
-    reset_counts(wrappers)
+    captures = eng.stats()["captures"]
+    reset_counts(wrappers, eng)
     t_start = clock()
     wall0 = time.perf_counter()
     results = replay_stream(eng, imgs, rate_rps=1000.0)
     wall = time.perf_counter() - wall0
-    launches = read_counts(wrappers)
+    launches = read_counts(wrappers, eng)
     makespan = clock() - t_start
     stats = eng.stats()
-    print(f"{name} served {len(results)} requests: launches {launches}, "
-          f"{stats['batches']} batches, throughput {len(results) / makespan:.1f} req/s "
-          f"(SimClock, measured service), p50={stats['p50_ms']:.2f} ms "
-          f"p95={stats['p95_ms']:.2f} ms, host wall {wall:.2f} s")
+    print(f"{name} served {len(results)} requests: launches {launches} (all by "
+          f"CUDA-graph replay: eager {read_counts(wrappers)}), {stats['batches']} "
+          f"batches, {stats['captures'] - captures} captures while serving "
+          f"({stats['batch_builds']} by a batch), throughput "
+          f"{len(results) / makespan:.1f} req/s (SimClock, measured service), "
+          f"p50={stats['p50_ms']:.2f} ms p95={stats['p95_ms']:.2f} ms, host wall {wall:.2f} s")
     if launches[want] < 1:
         failures.append(f"{name}: {want} never launched on the served path: {launches}")
+    if stats["batch_builds"]:
+        failures.append(f"{name}: a served batch built (captured) its own runner")
     served = np.stack([r.logits for r in sorted(results, key=lambda r: r.id)])
     batch = torch.stack(imgs)
     dense = run_graph(graph, params, batch, "dense").cpu().numpy()
@@ -1275,7 +1334,8 @@ def variant_phase(name, graph, dev, wrappers, failures, *, prune_density,
                "throughput_rps": len(results) / makespan, "max_abs_vs_dense": err,
                "max_abs_dense": scale,
                "prune_density": None if prep is None else prep.density}
-    return plan, params, batch, launches, summary
+    svc = service_breakdown(eng, batch[:8])
+    return plan, params, batch, launches, summary, svc
 
 
 def variant_kernel_checks(book, plan, params, batch, failures, name):
@@ -1472,11 +1532,11 @@ def obs_variant(name, graph, dev, wrappers, book, failures, outdir, *, prune_den
              if (a.kind, a.impl) != (b.kind, b.impl) or b.tile]
     print(f"{name} moved by calibration or tile search: {moved or 'none'}")
     eng.warmup()
-    reset_counts(wrappers)
+    reset_counts(wrappers, eng)
     results = replay_stream(eng, imgs, rate_rps=1000.0)
-    launches = read_counts(wrappers)
+    launches = read_counts(wrappers, eng)
     print(f"{name} served {len(results)} requests through the searched plan: "
-          f"launches {launches}")
+          f"launches {launches} (CUDA-graph replays and any captures)")
     kernel_impls = {lp.impl for lp in plan.layers if get_op(lp.kind, lp.impl).pallas}
     want = {"ecr_pallas": "ecr_conv", "pecr_pallas": "conv_pool", "bsr": "bsr_matmul",
             "ecr_int8": "ecr_conv_int8", "bsr_int8": "bsr_matmul_int8"}
@@ -2580,6 +2640,184 @@ def paper_phase(dev, wrappers, failures) -> dict:
     return res
 
 
+GRAPH_BUCKETS = (2, 4, 8)
+# the kernel class (`kernel_category`) of each kernel impl, and its C entry
+# point and wrapper
+IMPL_KERNELS = {"ecr_pallas": ("ecr kernel", "repro_ecr_conv_f32", "ecr_conv_batch"),
+                "pecr_pallas": ("pecr kernel", "repro_conv_pool_f32", "conv_pool_batch"),
+                "bsr": ("bsr kernel", "repro_bsr_matmul_f32", "bsr_matmul"),
+                "ecr_int8": ("ecr int8 kernel", "repro_ecr_conv_i8", "ecr_conv_int8_batch"),
+                "bsr_int8": ("bsr int8 kernel", "repro_bsr_matmul_i8", "bsr_matmul_int8")}
+
+
+def median_wall_ms(fn, n: int = 5) -> float:
+    """Median host wall of `fn` with a synchronize, after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return sorted(walls)[n // 2]
+
+
+def perturbed(params, seed: int):
+    """Another model with `params`' zeros (so the same plan and key): every
+    weight times 1 + 0.05 * N(0, 1) from generator `seed`."""
+    import torch
+
+    w0 = params["conv"][0]
+    g = torch.Generator(device=w0.device).manual_seed(seed)
+
+    def move(w):
+        return w * (1.0 + 0.05 * torch.randn(w.shape, generator=g, device=w.device))
+
+    return {"conv": [move(w) for w in params["conv"]],
+            "dense": [move(w) for w in params["dense"]]}
+
+
+def graphs_model(name, graph, dev, failures, *, prune_density=1.0, int8=False) -> dict:
+    """One model through its Engine's compiled runners at buckets 2, 4 and 8:
+    each captured (seconds, memory_reserved, the graph pool), its logits
+    bitwise equal to eager run_plan at the same bucket and its occupancies
+    equal at n_valid = 1 .. bucket on one runner, the eager and graph host
+    wall (median of 5); at bucket 8 device time and idle share of both and
+    the kernel names in a torch.profiler trace of one replayed batch; then
+    a hot swap to a same-key params set and back, each batch equal to its
+    own params' run_plan."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.serve_cnn import synth_requests
+    from repro_torch.pipeline import run_plan
+    from repro_torch.serving import Engine
+
+    params, calib, _ = make_params(graph, seed=0, dev=dev, prune_density=prune_density)
+    # replan_band 10: no drift re-plan moves the plan under the checks (the
+    # scenario phase drives re-plans)
+    eng = Engine(params, graph=graph, calib=calib, occ_threshold=0.75, block_c=8,
+                 max_batch=8, int8=int8, int8_budget=0.0, replan_band=10.0, device=dev)
+    plan = eng.plan
+    verify_built(f"graphs {name}", plan, params, 8, failures)
+    kernel_impls = [lp.impl for lp in plan.layers if lp.impl in IMPL_KERNELS]
+    print(f"graphs {name} plan: {plan_line(plan)}")
+    out = {"plan": plan_line(plan), "buckets": {}}
+    for b in GRAPH_BUCKETS:
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        eng.warmup([b])
+        build_s = time.perf_counter() - t0
+        runner = eng._executable(b)
+        imgs = torch.stack(synth_requests(graph, b, seed=100 + b, device=dev))
+        imgs[-1] = 0.0  # the all-zero tail of a padded bucket
+        want = run_plan(plan, params, imgs)
+        bitwise, occ_equal = True, True
+        for nv in range(1, b + 1):
+            logits, occs = runner(params, imgs, nv)
+            ref, ref_occs = run_plan(plan, params, imgs, collect_occupancy=True, n_valid=nv)
+            bitwise &= bool(torch.equal(logits, want) and torch.equal(logits, ref))
+            occ_equal &= bool(torch.equal(occs, ref_occs))
+        per_replay = {IMPL_KERNELS[i][2]: kernel_impls.count(i) for i in set(kernel_impls)}
+        row = {"build_s": build_s, "capture_s": runner.capture_s,
+               "memory_reserved_mib": torch.cuda.memory_reserved() / 2**20,
+               "reserved_by_build_mib": (torch.cuda.memory_reserved() - mem0) / 2**20,
+               "graph_pool_mib": eng.cache.graphs.nbytes() / 2**20,
+               "launches_per_replay": runner.launches_per_replay,
+               "bitwise_vs_eager": bitwise, "occupancies_equal": occ_equal,
+               "eager_wall_ms": median_wall_ms(
+                   lambda x=imgs, n=b: run_plan(plan, params, x, collect_occupancy=True,
+                                                n_valid=n)),
+               "graph_wall_ms": median_wall_ms(lambda r=runner, x=imgs, n=b: r(params, x, n))}
+        print(f"graphs {name} bucket {b}: build {build_s:.3f} s (capture {runner.capture_s:.3f} "
+              f"s), memory_reserved {row['memory_reserved_mib']:.1f} MiB "
+              f"(+{row['reserved_by_build_mib']:.1f}), graph pool {row['graph_pool_mib']:.1f} "
+              f"MiB; launches per replay {runner.launches_per_replay}; logits bitwise equal to "
+              f"eager run_plan at n_valid 1..{b}: {bitwise}; occupancies equal: {occ_equal}; "
+              f"host wall eager {row['eager_wall_ms']:.3f} ms, graph {row['graph_wall_ms']:.3f} "
+              f"ms (median of 5)")
+        if not (bitwise and occ_equal):
+            failures.append(f"graphs {name} bucket {b}: the replay differs from eager run_plan")
+        if runner.launches_per_replay != per_replay:
+            failures.append(f"graphs {name} bucket {b}: launches per replay "
+                            f"{runner.launches_per_replay}, the plan runs {per_replay}")
+        if b == GRAPH_BUCKETS[-1]:
+            svc = service_breakdown(eng, imgs)
+            print_service(f"graphs {name}", svc)
+            row["service"] = svc
+            names = svc["kernels_by_class"]
+            for impl in sorted(set(kernel_impls)):
+                cls, entry, _ = IMPL_KERNELS[impl]
+                found = names.get(cls, {})
+                print(f"graphs {name} replayed batch trace: {entry} ({impl}) as "
+                      f"{sum(found.values())} launches of {sorted(found)[:2]}")
+                if sum(found.values()) != kernel_impls.count(impl):
+                    failures.append(f"graphs {name}: {entry} not in the trace of a replayed "
+                                    f"batch as often as the plan runs it")
+        out["buckets"][b] = row
+    # a hot swap to another params set of the same key, and back
+    imgs = torch.stack(synth_requests(graph, 8, seed=200, device=dev))
+    other = perturbed(params, seed=1)
+    builds, captures = eng.cache.compiles, eng.cache.graphs.captures
+    got = {}
+    for label, p in (("swapped", other), ("back", params)):
+        t0 = time.perf_counter()
+        ok = eng.hot_swap(p, plan=plan)
+        swap_ms = (time.perf_counter() - t0) * 1e3
+        served = eng.serve(list(imgs))
+        got[label] = bool(ok) and np.array_equal(served, run_plan(plan, p, imgs).cpu().numpy())
+        got[label + "_ms"] = swap_ms
+        got[label + "_logits"] = served
+    apart = float(np.abs(got["swapped_logits"] - got["back_logits"]).max())
+    same_key = eng.cache.compiles == builds and eng.cache.graphs.captures == captures
+    print(f"graphs {name} same-key hot swap: to another params set {got['swapped']} "
+          f"({got['swapped_ms']:.1f} ms), back {got['back']} ({got['back_ms']:.1f} ms), "
+          f"each batch bitwise equal to its own params' run_plan; the two models' logits "
+          f"differ by {apart:.3e}; builds {builds} -> {eng.cache.compiles}, captures "
+          f"{captures} -> {eng.cache.graphs.captures}")
+    if not (got["swapped"] and got["back"] and same_key and apart > 0):
+        failures.append(f"graphs {name}: a same-key hot swap did not serve each params "
+                        f"set's own logits without a build")
+    out["hot_swap"] = {"swapped": got["swapped"], "back": got["back"], "apart": apart,
+                       "swap_ms": got["swapped_ms"], "builds": eng.cache.compiles,
+                       "captures": eng.cache.graphs.captures}
+    out["stats"] = {k: eng.stats()[k] for k in ("compiles", "captures", "graph_pool_bytes",
+                                                  "batch_builds")}
+    return out
+
+
+def graphs_phase(dev, failures) -> dict:
+    """`graphs_model` over VGG-19 (dense-weight, pruned 0.3, int8, pruned
+    int8), LeNet-5 and AlexNet."""
+    import torch
+
+    from repro_torch.configs.alexnet import ALEXNET
+    from repro_torch.configs.lenet import LENET
+    from repro_torch.configs.vgg19_sparse import CNNConfig, vgg19_graph
+
+    t0 = time.perf_counter()
+    vgg = vgg19_graph(CNNConfig())
+    out = {}
+    for name, graph, prune, int8 in (
+            ("vgg19", vgg, 1.0, False), ("vgg19-pruned", vgg, PRUNE_DENSITY, False),
+            ("vgg19-int8", vgg, 1.0, True), ("vgg19-pruned-int8", vgg, PRUNE_DENSITY, True),
+            ("lenet5", LENET, 1.0, False), ("alexnet", ALEXNET, 1.0, False)):
+        try:
+            out[name] = graphs_model(name, graph, dev, failures, prune_density=prune,
+                                     int8=int8)
+        except Exception:
+            traceback.print_exc()
+            failures.append(f"graphs {name} failed")
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"graphs phase: {out['seconds']:.1f} s")
+    return out
+
+
 SCN_RATE = 200.0  # req/s offered in the hot-swap and diurnal streams
 
 
@@ -2642,14 +2880,14 @@ def scenario_hotswap(graph, params, calib, dev, wrappers, failures) -> dict:
     at_swap = {}
 
     def swap(engines):
-        at_swap.update(read_counts(wrappers))
+        at_swap.update(read_counts(wrappers, eng))
         at_swap["swapped"] = engines[""].hot_swap(pruned, plan=pplan)
 
     scn = HotSwapScenario(in_shape=graph.in_shape, n_requests=n, rate_rps=SCN_RATE,
                           t_swap=n / (2 * SCN_RATE), swap_fn=swap, seed=0)
-    reset_counts(wrappers)
+    reset_counts(wrappers, eng)
     results = replay_scenario(eng, scn)[""]
-    launches = read_counts(wrappers)
+    launches = read_counts(wrappers, eng)
     st = eng.stats()
     print(f"scenario hotswap: pruned to {rep.density:.4f}; plan after the swap "
           f"{plan_line(pplan)}; launches at the swap {dict((k, at_swap.get(k)) for k in wrappers)},"
@@ -2696,10 +2934,10 @@ def scenario_hotswap(graph, params, calib, dev, wrappers, failures) -> dict:
     refused = eng.hot_swap(pruned, plan=bad)
     codes = [e["codes"] for e in eng.stats()["telemetry"]["replan_events"]
              if e["kind"] == "verify_reject"]
-    reset_counts(wrappers)
+    reset_counts(wrappers, eng)
     more = [synth_image(graph.in_shape, 1, i) for i in range(8)]
     after = sorted(replay_stream(eng, more, rate_rps=1000.0), key=lambda r: r.id)
-    after_launches = read_counts(wrappers)
+    after_launches = read_counts(wrappers, eng)
     ok_after, err_after = close(np.stack([r.logits for r in after]),
                                    plan_logits(dplan, params, torch.stack(more).to(dev)))
     print(f"scenario hotswap: swap back {back}, compiles {builds} -> "
@@ -3058,23 +3296,29 @@ def main() -> int:
     print(f"vgg19 plan ({plan_s:.2f} s): {plan_line(plan)}")
     verify_built("vgg19", plan, params, 8, failures)
     impls = [lp.impl for lp in plan.layers]
-    reset_counts(wrappers)
+    captures = eng.stats()["captures"]
+    reset_counts(wrappers, eng)
     t_start = clock()
     wall0 = time.perf_counter()
     results = replay_stream(eng, imgs, rate_rps=1000.0)
     wall = time.perf_counter() - wall0
-    launches = read_counts(wrappers)
+    launches = read_counts(wrappers, eng)
     makespan = clock() - t_start
     stats = eng.stats()
-    print(f"vgg19 served {len(results)} requests: launches {launches}, "
-          f"{stats['batches']} batches, compiles={stats['compiles']} "
-          f"hits={stats['hits']}, throughput {len(results) / makespan:.1f} req/s "
-          f"(SimClock, measured service), p50={stats['p50_ms']:.2f} ms "
-          f"p95={stats['p95_ms']:.2f} ms, host wall {wall:.2f} s")
+    print(f"vgg19 served {len(results)} requests: launches {launches} (all by CUDA-graph "
+          f"replay: eager {read_counts(wrappers)}), {stats['batches']} batches, "
+          f"compiles={stats['compiles']} captures={stats['captures']} ("
+          f"{stats['captures'] - captures} while serving, {stats['batch_builds']} by a batch) "
+          f"hits={stats['hits']}, graph pool "
+          f"{stats['graph_pool_bytes'] / 2**20:.1f} MiB, throughput "
+          f"{len(results) / makespan:.1f} req/s (SimClock, measured service), "
+          f"p50={stats['p50_ms']:.2f} ms p95={stats['p95_ms']:.2f} ms, host wall {wall:.2f} s")
     if "ecr_pallas" not in impls or "pecr_pallas" not in impls:
         failures.append(f"vgg19 plan lacks an ECR or PECR layer: {impls}")
     if launches["ecr_conv"] < 1 or launches["conv_pool"] < 1:
         failures.append(f"a kernel of the main path never launched: {launches}")
+    if stats["batch_builds"]:
+        failures.append("vgg19: a served batch built (captured) its own runner")
     order = sorted(results, key=lambda r: r.id)
     served = np.stack([r.logits for r in order])
     batch = torch.stack(imgs)
@@ -3112,11 +3356,8 @@ def main() -> int:
             failures.append(f"{name} engine logits disagree with the dense path")
 
     # ---- where the time goes in one warm batch-8 service -------------------
-    svc = service_breakdown(plan, params, batch[:8])
-    print(f"vgg19 warm batch-8 service: wall {svc['wall_ms']:.2f} ms (median of 5), "
-          f"device {svc['device_ms']:.2f} ms, idle share {svc['idle_share']}")
-    for cat, ms in sorted(svc["by_class_ms"].items(), key=lambda kv: -kv[1]):
-        print(f"  {ms:8.3f} ms  {cat}")
+    svc = service_breakdown(eng, batch[:8])
+    print_service("vgg19", svc)
     verifier = {}
     try:
         verifier = verifier_checks(plan, params, batch[:8], failures)
@@ -3164,7 +3405,7 @@ def main() -> int:
             ("vgg19-int8", 1.0, True, "ecr_conv_int8"),
             ("vgg19-pruned-int8", PRUNE_DENSITY, True, "bsr_matmul_int8")):
         try:
-            vplan, vparams, vbatch, vl, summary = variant_phase(
+            vplan, vparams, vbatch, vl, summary, vs = variant_phase(
                 name, graph, dev, wrappers, failures, prune_density=prune,
                 int8=int8, want=want)
         except Exception:
@@ -3173,12 +3414,8 @@ def main() -> int:
             continue
         phase_launches[name] = vl
         variants[name] = summary
-        vs = service_breakdown(vplan, vparams, vbatch[:8])
         services[name] = vs
-        print(f"{name} warm batch-8 service: wall {vs['wall_ms']:.2f} ms (median of 5), "
-              f"device {vs['device_ms']:.2f} ms, idle share {vs['idle_share']}")
-        for cat, ms in sorted(vs["by_class_ms"].items(), key=lambda kv: -kv[1]):
-            print(f"  {ms:8.3f} ms  {cat}")
+        print_service(name, vs)
         print(f"{name} kernel checks ({KERNEL_TOL}):")
         variant_kernel_checks(book, vplan, vparams, vbatch, failures, name)
         del vplan, vparams, vbatch
@@ -3198,6 +3435,15 @@ def main() -> int:
     except Exception:
         traceback.print_exc()
         failures.append("edge-case check of the split-TF32 BSR kernel failed")
+
+    # ---- the compiled runners: one CUDA graph per (bucket, plan) key ------
+    graphs = {}
+    try:
+        graphs = graphs_phase(dev, failures)
+    except Exception:
+        traceback.print_exc()
+        failures.append("graphs phase failed")
+    torch.cuda.empty_cache()
 
     # ---- obs: measure -> calibrate -> search -> plan on VGG-19 --------------
     obs = {}
@@ -3393,7 +3639,7 @@ def main() -> int:
              "service": services, "variants": variants, "obs": obs, "lm": lm,
              "train": train_summary, "paper": paper, "verifier": verifier,
              "geometry": geometry, "lint": lint, "scenario": scenario,
-             "verified": VERIFIED},
+             "graphs": graphs, "verified": VERIFIED},
             indent=1, default=str))
     if failures:
         for f in failures:

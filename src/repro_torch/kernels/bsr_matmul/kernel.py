@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.cuda import check_bsr_operands, launch_bsr
+from repro_torch.kernels.cuda import check_bsr_operands, count_launch, launch_bsr
 
 
 def schedule_mask(ids: torch.Tensor, cnt: torch.Tensor, nf: int) -> torch.Tensor:
@@ -62,7 +62,7 @@ def bsr_matmul(h: torch.Tensor, w: torch.Tensor, ids: torch.Tensor,
     if h.device.type != "cuda":
         raise ValueError(f"bsr_matmul runs on cuda or cpu, got {h.device}")
     out = launch_bsr(h, w, ids, cnt, block=block)
-    bsr_matmul.launches += 1
+    count_launch(bsr_matmul)
     return out
 
 

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.cuda import check_block_o, launch_conv
+from repro_torch.kernels.cuda import check_block_o, count_launch, launch_conv
 from repro_torch.kernels.ecr_conv.kernel import ecr_conv_plain
 
 
@@ -43,7 +43,7 @@ def conv_pool_batch(x: torch.Tensor, w: torch.Tensor, ids: torch.Tensor,
         raise ValueError(f"conv_pool_batch runs on cuda or cpu, got {x.device}")
     out = launch_conv(x, w, ids, cnt, stride=stride, block_c=block_c, pool=pool,
                       block_o=block_o)
-    conv_pool_batch.launches += 1
+    count_launch(conv_pool_batch)
     return out
 
 

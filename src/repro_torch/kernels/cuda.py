@@ -19,9 +19,15 @@ device, dtype, layout and shapes, allocate the outputs with `torch.empty`,
 launch on PyTorch's current stream without synchronising, and raise on a
 nonzero `cudaGetLastError()`. The conv and BSR kernels take contiguous
 operands; the flash kernel reads its operands through element strides.
+
+`count_launch` is how a CNN kernel's wrapper counts a launch: one more in
+its `.launches`, and one more in the calling thread's open
+`recording_launches` record, which is how a CUDA-graph runner learns which
+kernels one replay of its graph launches.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -42,6 +48,29 @@ _CHECKOUT = Path(__file__).resolve().parents[3]
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+_recording = threading.local()
+
+
+def count_launch(wrapper) -> None:
+    """Count one launch of `wrapper`'s kernel: in `wrapper.launches`, and in
+    the calling thread's open `recording_launches` record (other threads'
+    launches never reach it)."""
+    wrapper.launches += 1
+    counts = getattr(_recording, "counts", None)
+    if counts is not None:
+        counts[wrapper.__name__] = counts.get(wrapper.__name__, 0) + 1
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Yield a dict that counts, by wrapper name, the kernel launches this
+    thread makes inside the block."""
+    outer = getattr(_recording, "counts", None)
+    _recording.counts = counts = {}
+    try:
+        yield counts
+    finally:
+        _recording.counts = outer
 
 
 def build_dir() -> Path:

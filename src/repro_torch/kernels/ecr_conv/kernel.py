@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.cuda import check_block_o, check_conv_operands, launch_conv
+from repro_torch.kernels.cuda import check_block_o, check_conv_operands, count_launch, launch_conv
 
 
 def scheduled_conv_sum(x: torch.Tensor, w: torch.Tensor, ids: torch.Tensor,
@@ -74,7 +74,7 @@ def ecr_conv_batch(x: torch.Tensor, w: torch.Tensor, ids: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"ecr_conv_batch runs on cuda or cpu, got {x.device}")
     out = launch_conv(x, w, ids, cnt, stride=stride, block_c=block_c, block_o=block_o)
-    ecr_conv_batch.launches += 1
+    count_launch(ecr_conv_batch)
     return out
 
 

@@ -289,7 +289,7 @@ def serve_cnn(*, model: str = "vgg19", full: bool = False,
         "p95_ms": float(np.percentile(lat_ms, 95)),
         "mean_fill": stats["mean_fill"],
         **{k: stats[k] for k in ("batches", "compiles", "hits", "replans",
-                                 "hot_swaps")},
+                                 "hot_swaps", "captures", "graph_pool_bytes")},
         "calibrated": 0 if calibration is None else len(calibration.entries),
     }
     if tracer is not None:
@@ -320,10 +320,12 @@ def serve_cnn(*, model: str = "vgg19", full: bool = False,
                  len(db.series()))
     log.info("served %d requests (%s traffic) at %.0f req/s offered: "
              "%.1f req/s, p50=%.1fms p95=%.1fms, %d batches (fill %.2f), "
-             "%d builds / %d cache hits, %d replans, %d hot swaps",
+             "%d builds / %d cache hits (%d CUDA-graph captures, graph pool "
+             "%d bytes), %d replans, %d hot swaps",
              summary["requests"], scenario, rate, summary["throughput_rps"],
              summary["p50_ms"], summary["p95_ms"], summary["batches"],
              summary["mean_fill"], summary["compiles"], summary["hits"],
+             summary["captures"], summary["graph_pool_bytes"],
              summary["replans"], summary["hot_swaps"])
     return summary
 

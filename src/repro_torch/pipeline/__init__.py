@@ -7,6 +7,7 @@ from repro_torch.pipeline.planner import (
     occupancy_stat,
     plan_network,
     run_plan,
+    run_plan_unchecked,
     validate_plan,
 )
 
@@ -17,5 +18,6 @@ __all__ = [
     "occupancy_stat",
     "plan_network",
     "run_plan",
+    "run_plan_unchecked",
     "validate_plan",
 ]

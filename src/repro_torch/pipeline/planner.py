@@ -25,7 +25,9 @@ instead: sparse layers on ("conv", "ecr") / ("conv_pool", "pecr"), with no
 BSR and no int8 arm, as in the reference.
 
 Every plan is verified before `plan_network` returns it and again by
-`validate_plan` before every `run_plan` (`repro_torch.analysis`).
+`validate_plan` before every `run_plan` (`repro_torch.analysis`); the
+serving engine's compiled runners verify once, when they are built, and
+then run `run_plan_unchecked`.
 
 Not ported: `run_plan_sharded` (ROADMAP queue 1, item 13).
 """
@@ -111,9 +113,11 @@ def occupancy_stat(x: torch.Tensor, block_c: int = 0,
 
     x: (N,C,H,W) or (C,H,W). `n_valid` restricts the statistic to the first
     n_valid samples (the real requests of a padded serving bucket), clamped
-    to [0, N]; 0 reports 0.0. `tile` (a TileConfig) takes precedence over
-    `block_c`. `dtype_bytes` is the operand width the block size is resolved
-    at (1 for the int8 kernel). Returns a 0-dim float32 tensor."""
+    to [0, N]; 0 reports 0.0. It is an int or a 0-dim integer tensor on x's
+    device, which is read on the device, never on the host, so a captured
+    runner replays with any count. `tile` (a TileConfig) takes precedence
+    over `block_c`. `dtype_bytes` is the operand width the block size is
+    resolved at (1 for the int8 kernel). Returns a 0-dim float32 tensor."""
     if x.ndim == 3:
         x = x[None]
     n, c, h, w = x.shape
@@ -122,15 +126,21 @@ def occupancy_stat(x: torch.Tensor, block_c: int = 0,
     n_cb = -(-c // bc)
     live = (x != 0).flatten(2).any(dim=2)  # (N, C) per-sample live channels
     if n_valid is not None:
-        nv = max(0, min(int(n_valid), n))
-        live = live & (torch.arange(n, device=x.device) < nv)[:, None]
+        # one device-side path for both forms: on the card, a division by a
+        # Python number multiplies by its reciprocal, which can differ from
+        # the division by a tensor in the last bit
+        if not isinstance(n_valid, torch.Tensor):
+            n_valid = torch.full((), int(n_valid), dtype=torch.int32, device=x.device)
+        nv = n_valid.to(device=x.device, dtype=torch.int32).clamp(0, n)
+        valid = torch.arange(n, device=x.device) < nv
+        live = live & valid[:, None]
     union_order = torch.argsort((~live.any(dim=0)).to(torch.int8), stable=True)
     packed = F.pad(live[:, union_order], (0, n_cb * bc - c))
     blk_live = packed.reshape(n, n_cb, bc).any(dim=2).float()  # (N, n_cb)
     if n_valid is None:
         return blk_live.mean()
     per_sample = blk_live.mean(dim=1)
-    return per_sample[:nv].sum() / max(nv, 1)
+    return torch.where(valid, per_sample, 0.0).sum() / nv.clamp(min=1)
 
 
 def measure_occupancy(x: torch.Tensor, block_c: int = 0, tile=None,
@@ -347,10 +357,24 @@ def run_plan(plan: PipelinePlan, params, imgs: torch.Tensor, *,
     collect_occupancy=True also returns the per-layer observed channel-block
     occupancy of each layer's input (an (n_layers,) tensor) — the signal the
     serving engine's drift detector consumes; `n_valid` masks it to the first
-    n_valid samples of a padded bucket."""
+    n_valid samples of a padded bucket (an int, or a 0-dim tensor on the
+    device).
+
+    Every call verifies the plan first (`validate_plan`), as the
+    reference's does when it traces; `run_plan_unchecked` is the body
+    alone."""
     if imgs.ndim == 3:
         imgs = imgs[None]
     validate_plan(plan, params, imgs)
+    return run_plan_unchecked(plan, params, imgs,
+                              collect_occupancy=collect_occupancy, n_valid=n_valid)
+
+
+def run_plan_unchecked(plan: PipelinePlan, params, imgs: torch.Tensor, *,
+                       collect_occupancy: bool = False, n_valid=None):
+    """`run_plan` on an (N,C,H,W) batch without `validate_plan`: the body a
+    `serving.graph_runner.CompiledRunner` verifies once when it is built
+    and then captures. It reads nothing back to the host."""
     conv_ws, dense_ws = graph_weights(params)
     x = imgs
     occs = []

@@ -25,6 +25,7 @@ from repro_torch.kernels.cuda import (
     check_bsr_operands,
     check_conv_operands,
     check_scales,
+    count_launch,
     launch_bsr,
     launch_conv,
 )
@@ -58,7 +59,7 @@ def ecr_conv_int8_batch(x, w, sx, sw, ids, cnt, *, stride: int = 1,
         raise ValueError(f"ecr_conv_int8_batch runs on cuda or cpu, got {x.device}")
     out = launch_conv(x, w, ids, cnt, stride=stride, block_c=block_c,
                       sx=_flat(sx), sw=_flat(sw))
-    ecr_conv_int8_batch.launches += 1
+    count_launch(ecr_conv_int8_batch)
     return out
 
 
@@ -82,7 +83,7 @@ def bsr_matmul_int8(h, w, sh, sw, ids, cnt, *, block: tuple) -> torch.Tensor:
     if h.device.type != "cuda":
         raise ValueError(f"bsr_matmul_int8 runs on cuda or cpu, got {h.device}")
     out = launch_bsr(h, w, ids, cnt, block=block, sh=_flat(sh), sw=_flat(sw))
-    bsr_matmul_int8.launches += 1
+    count_launch(bsr_matmul_int8)
     return out
 
 

@@ -6,8 +6,10 @@ The planner's two knobs interact: a bigger `block_c` amortizes schedule
 overhead but rounds the live blocks up harder (fewer skippable blocks), and
 the profitable `occ_threshold` moves with both. The autotuner builds one
 `PipelinePlan` per grid point (points that collapse to the same plan key
-share one timing), times each distinct plan's whole-batch `run_plan`
-through `obs.profile.time_callable`, and picks the fastest.
+share one timing), times each distinct plan's compiled whole-batch runner
+(`graph_runner.CompiledRunner`: one CUDA graph on the card, as the
+reference times its jitted executor; the eager body on the CPU) through
+`obs.profile.time_callable`, and picks the fastest.
 
 The noisy-clock fallback ranks by `plan_model_us`, the registry's roofline
 per layer, for every plan. The reference ranks all-dense plans by XLA's
@@ -23,7 +25,8 @@ from dataclasses import dataclass, field
 from repro_torch.graph import as_graph
 from repro_torch.graph.registry import unit_model_us
 from repro_torch.obs import constants
-from repro_torch.pipeline.planner import PipelinePlan, plan_network, run_plan
+from repro_torch.pipeline.planner import PipelinePlan, plan_network
+from repro_torch.serving.graph_runner import CompiledRunner
 from repro_torch.serving.plan_cache import plan_key
 
 
@@ -131,8 +134,13 @@ def autotune(params, calib, graph=None, *,
             if mode == "model":  # ranking by model only: skip the timing runs
                 wall, spread, ts = float("inf"), 0.0, []
             else:
-                wall, spread, ts = _time_us(_runner_for(plan), params, calib,
-                                            iters=iters, warmup=warmup)
+                runner = CompiledRunner(plan, params, calib.shape[0], calib.device)
+                try:
+                    wall, spread, ts = _time_us(
+                        lambda p, x, r=runner: r(p, x, x.shape[0]), params, calib,
+                        iters=iters, warmup=warmup)
+                finally:
+                    runner.release()
             seen[sig] = (wall, spread, float("inf"), ts)
             cands.append(Candidate(th, bc, plan, wall, spread, float("inf"), ts))
     by_time = sorted(cands, key=lambda c: c.wall_us)
@@ -160,10 +168,3 @@ def autotune(params, calib, graph=None, *,
             c.model_us = model_by_sig[sig]
     best = min(cands, key=lambda c: c.model_us) if used_model else by_time[0]
     return AutotuneResult(best=best, candidates=cands, used_model=used_model)
-
-
-def _runner_for(plan: PipelinePlan):
-    def run(params, imgs):
-        return run_plan(plan, params, imgs)
-
-    return run

@@ -4,8 +4,16 @@
 - Requests enter through the `MicroBatcher` (deadline-bounded power-of-two
   buckets); the ragged tail is padded with all-zero images, which the
   per-sample (ids, cnt) schedules skip at zero MAC cost.
-- Each (bucket, plan) pair runs through ONE runner from the `PlanCache`,
-  built once per key.
+- Each (bucket, plan) pair runs through ONE compiled runner from the
+  `PlanCache` (`graph_runner.CompiledRunner`), built once per key: the plan
+  is verified against the params when the runner is built and, on the
+  card, the whole-batch executor is captured as one CUDA graph that every
+  batch of that bucket replays. Runners are built at `warmup`, at a hot
+  swap and at a re-plan's adoption, for every bucket the engine has served
+  or warmed, so steady-state serving never captures; a bucket's first batch
+  builds its runner only when no warmup covered it. A runner reads static
+  copies of the weights: the swap points load the new params into them
+  before they return.
 - Every executed batch also measures the per-layer observed channel-block
   occupancy of its REAL samples and folds it into an EMA; when the EMA
   drifts out of the hysteresis band around the occupancies the plan was
@@ -19,11 +27,15 @@
   will run with before anything changes; a refused one is counted in
   `stats()["verify_rejects"]` and the current model keeps serving.
 
-Exactness contract: a request's logits are bit-identical to `run_plan` on
-the same images whenever the co-batched samples share a live-channel union
-(the compaction permutation is then batch-composition-invariant) and the
-dense layers and the head give per-sample results independent of the batch
-size; the all-zero pad samples never perturb the union.
+Exactness contract, per bucket: a request's logits are bit-identical to
+`run_plan` on the same bucket (the same images, padded with all-zero
+samples to the bucket's size) whenever the co-batched samples share a
+live-channel union (the compaction permutation is then
+batch-composition-invariant); the all-zero pad samples never perturb the
+union. Across buckets they can differ in the last bits on the card: cuDNN
+picks its algorithm per batch size (up to 8.1e-10 between N=1 or 2 and N=8
+on VGG-19 logits on an H100). On the host the dense layers are
+batch-invariant too, as in the reference.
 
 `int8=True` lets the first plan and every re-plan upgrade layers to the
 int8 kernels under the probe's top-1 agreement budget `int8_budget`
@@ -53,8 +65,9 @@ from repro_torch.device import resolve_device
 from repro_torch.graph import as_graph
 from repro_torch.graph.ir import graph_weights
 from repro_torch.obs.trace import NULL_TRACER
-from repro_torch.pipeline.planner import PipelinePlan, plan_network, run_plan
+from repro_torch.pipeline.planner import PipelinePlan, plan_network
 from repro_torch.serving.batcher import MicroBatch, MicroBatcher, SimClock
+from repro_torch.serving.graph_runner import CompiledRunner
 from repro_torch.serving.metrics import MetricsTracker
 from repro_torch.serving.plan_cache import PlanCache, plan_key
 
@@ -73,17 +86,6 @@ class ServedResult:
     @property
     def latency_s(self) -> float:
         return self.t_done - self.t_arrival
-
-
-def _make_runner(plan: PipelinePlan):
-    """The whole-batch executor the cache builds: logits + per-layer observed
-    occupancy over the first n_valid (real) samples."""
-
-    def run(params, imgs, n_valid):
-        return run_plan(plan, params, imgs, collect_occupancy=True,
-                        n_valid=n_valid)
-
-    return run
 
 
 class Engine:
@@ -153,12 +155,14 @@ class Engine:
         self._replanning = False
         self._replan_thread: threading.Thread | None = None
         self._plan_gen = 0  # bumped by hot_swap: a re-plan begun before drops
+        self._warm: set = set()  # buckets with a runner: the swap points rebuild these
         self._cooldown = 0
         self._calib_recent = None  # last real (unpadded) executed batch
         self._occ_ema = np.array([lp.occupancy for lp in plan.layers])
         self.n_replans = 0
         self.replan_errors = 0
         self.n_hot_swaps = 0
+        self.batch_builds = 0  # runners a served batch had to build itself
         self.verify_rejects = 0  # plans the static verifier refused to adopt
         self.n_batches = 0
         self.n_requests = 0
@@ -239,6 +243,8 @@ class Engine:
         c = self.plan.counts()
         return {
             **self.cache.stats(),
+            "captures": self.cache.graphs.captures,
+            "graph_pool_bytes": self.cache.graphs.nbytes(),
             "device": str(self.device),
             "requests": self.n_requests,
             "batches": self.n_batches,
@@ -247,6 +253,7 @@ class Engine:
             "replans": self.n_replans,
             "replan_errors": self.replan_errors,
             "hot_swaps": self.n_hot_swaps,
+            "batch_builds": self.batch_builds,
             "verify_rejects": self.verify_rejects,
             "plan_sparse": c["sparse"],
             "plan_fused": c["fused"],
@@ -288,15 +295,30 @@ class Engine:
     # execution
     # ------------------------------------------------------------------
 
-    def _executable(self, bucket: int):
-        key = plan_key(bucket, self.plan)
-        plan = self.plan
+    def _executable(self, bucket: int, plan: PipelinePlan | None = None,
+                    params=None) -> CompiledRunner:
+        """The runner of `plan` at `bucket` (default: the served plan and
+        params), built on a cache miss: verified, and captured on the card."""
+        plan = self.plan if plan is None else plan
+        params = self.params if params is None else params
 
         def build():
             with self.tracer.span("compile", bucket=bucket):
-                return _make_runner(plan)
+                return CompiledRunner(plan, params, bucket, self.device,
+                                      pool=self.cache.graphs)
 
-        return self.cache.get_or_compile(key, plan, build)
+        exe = self.cache.get_or_compile(plan_key(bucket, plan), plan, build)
+        self._warm.add(int(bucket))
+        return exe
+
+    def _prepare(self, plan: PipelinePlan, params) -> None:
+        """Build `plan`'s runner at every bucket this engine has a runner for,
+        and load `params` into their weight slots. The swap points call it
+        before they change anything, so no served batch captures a graph or
+        copies weights, and a failed capture leaves the served model as it
+        was."""
+        for b in sorted(self._warm):
+            self._executable(b, plan, params).slots.bind(params)
 
     def _run_batch(self, batch: MicroBatch) -> list:
         # spans on the engine's own clock: under a SimClock the charged
@@ -310,7 +332,9 @@ class Engine:
         if batch.bucket > batch.n_real:  # ragged tail: all-zero pad samples
             pad = imgs.new_zeros((batch.bucket - batch.n_real,) + imgs.shape[1:])
             imgs = torch.cat([imgs, pad])
+        builds = self.cache.compiles
         exe = self._executable(batch.bucket)
+        self.batch_builds += self.cache.compiles - builds  # no warmup built it
         t0 = time.perf_counter()
         logits, occs = exe(self.params, imgs, batch.n_real)
         if self.device.type == "cuda":
@@ -402,8 +426,8 @@ class Engine:
 
     def _adopt_pending_plan(self) -> None:
         """Swap point: a finished re-plan replaces the live plan only BETWEEN
-        batches, once verified against the params; the EMA re-centres on the
-        new plan's occupancies."""
+        batches, once verified against the params and with its runners
+        built; the EMA re-centres on the new plan's occupancies."""
         with self._lock:
             if self._pending_plan is None:
                 return
@@ -411,6 +435,7 @@ class Engine:
         self._replanning = False
         if not self._verify_candidate(new, self.params):
             return  # an erroring re-plan: keep serving the current plan
+        self._prepare(new, self.params)
         changed = plan_key(0, new) != plan_key(0, self.plan)
         if changed:
             self.n_replans += 1
@@ -449,7 +474,10 @@ class Engine:
         A given `plan` is verified against the new params first: an erroring
         pair returns False, counts in `stats()["verify_rejects"]` and
         changes nothing (a freshly planned candidate raises from
-        `plan_network` itself). Returns True on a completed swap."""
+        `plan_network` itself). Before the swap lands, the new plan's runner
+        is built (captured) at every bucket the engine has a runner for and
+        the new params are loaded into the runners' weight slots (one copy),
+        so the next batch replays. Returns True on a completed swap."""
         self._check_params_device(params)
         if plan is None:
             calib = self._calib_recent if calib is None else self._to_device(calib)
@@ -467,6 +495,7 @@ class Engine:
                                     int8_budget=self.int8_budget)
         elif not self._verify_candidate(plan, params):
             return False
+        self._prepare(plan, params)
         with self._lock:
             self._plan_gen += 1
             self._pending_plan = None

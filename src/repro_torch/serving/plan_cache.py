@@ -14,15 +14,21 @@ carries a searched `TileConfig`, so a plan that differs only in kernel
 geometry gets a runner of its own; a plan at the default geometry keeps the
 key it had before.
 
-The reference compiles each key ahead of time with XLA. PyTorch runs
-eagerly, so a build here makes the runner closure once per key, and
-`compiles` counts builds; capturing the runner as a CUDA graph is ROADMAP
-queue 1, item 18. The reference's `mesh_shape` is item 13.
+The reference compiles each key ahead of time with XLA. Here the engine's
+build is a `graph_runner.CompiledRunner`: the plan verified against the
+params once and, on the card, the whole-batch executor captured as one CUDA
+graph. `compiles` counts builds, one per distinct key as in the reference.
+The cache's runners share one `GraphPool` (`graphs`): one CUDA graph memory
+pool, the weight slots, and the capture and replay counters. Evicting an
+entry releases its graph. The reference's `mesh_shape` is ROADMAP queue 1,
+item 13.
 """
 from __future__ import annotations
 
 from collections import OrderedDict
 from dataclasses import dataclass
+
+from repro_torch.serving.graph_runner import GraphPool
 
 
 @dataclass(frozen=True)
@@ -58,6 +64,7 @@ class PlanCache:
     def __init__(self, max_entries: int = 32):
         self.max_entries = max_entries
         self._entries: OrderedDict = OrderedDict()  # PlanKey -> (runner, plan)
+        self.graphs = GraphPool()  # what this cache's CompiledRunners share
         self.compiles = 0
         self.hits = 0
         self.misses = 0
@@ -85,7 +92,10 @@ class PlanCache:
         self.compiles += 1
         self._entries[key] = (exe, plan)
         if len(self._entries) > self.max_entries:
-            self._entries.popitem(last=False)
+            _, (old, _) = self._entries.popitem(last=False)
+            release = getattr(old, "release", None)
+            if release is not None:
+                release()  # a CompiledRunner frees its graph
             self.evictions += 1
         return exe
 

@@ -830,3 +830,142 @@ def test_the_paper_oracles_run_on_the_card(dev, impl):
     got = cnn_forward(params, imgs, impl, ccfg)
     assert got.device.type == "cuda"
     _close(got, cnn_forward(params, imgs, "dense", ccfg))
+
+
+# the compiled CNN runners: one CUDA graph per (bucket, plan) key.
+# variant -> (prune density, int8, occ_threshold) on the tiny serving VGG
+CNN_VARIANTS = {"ecr-pecr": (1.0, False, 1.0), "ecr-dense": (1.0, False, 0.75),
+                "pruned": (0.3, False, 1.0), "int8": (1.0, True, 1.0),
+                "pruned-int8": (0.3, True, 1.0)}
+
+
+def _served_variant(dev, name):
+    """(graph, params, calib, plan) of one tiny-VGG variant on the card."""
+    from repro_torch.graph import init_graph
+    from repro_torch.launch.serve_cnn import serving_graph, synth_requests
+    from repro_torch.models.cnn import shift_dead_channels
+    from repro_torch.pipeline import plan_network
+    from repro_torch.sparse_weights.prune import prune_graph_params
+
+    density, int8, th = CNN_VARIANTS[name]
+    graph = serving_graph("vgg19")
+    params = shift_dead_channels(init_graph(torch.Generator().manual_seed(0), graph,
+                                            device=dev))
+    calib = torch.stack(synth_requests(graph, 2, seed=1, device=dev))
+    if density < 1.0:
+        params, _ = prune_graph_params(params, density, graph, probe=calib)
+    plan = plan_network(params, calib, graph, occ_threshold=th, block_c=8,
+                        int8=int8, int8_budget=0.0)
+    return graph, params, calib, plan
+
+
+def _requests(graph, n, seed, dev):
+    from repro_torch.launch.serve_cnn import synth_requests
+
+    imgs = synth_requests(graph, n, seed=seed, device=dev)
+    imgs[-1] = torch.zeros_like(imgs[-1])  # a padded bucket's all-zero tail
+    return torch.stack(imgs)
+
+
+@pytest.mark.parametrize("bucket", [2, 4, 8])
+@pytest.mark.parametrize("name", sorted(CNN_VARIANTS))
+def test_captured_runner_equals_eager_run_plan_bitwise(dev, name, bucket):
+    """The replayed graph's logits equal eager run_plan's at the same bucket
+    bit for bit, and its occupancies at every n_valid on one runner."""
+    from repro_torch.pipeline import run_plan
+    from repro_torch.serving.graph_runner import CompiledRunner
+
+    graph, params, _, plan = _served_variant(dev, name)
+    runner = CompiledRunner(plan, params, bucket, dev)
+    assert runner.launches_per_replay and runner.pool.captures == 1
+    imgs = _requests(graph, bucket, 20 + bucket, dev)
+    want = run_plan(plan, params, imgs)
+    for nv in [bucket] + list(range(1, bucket)):
+        logits, occs = runner(params, imgs, nv)
+        ref, ref_occs = run_plan(plan, params, imgs, collect_occupancy=True, n_valid=nv)
+        assert torch.equal(logits, want) and torch.equal(logits, ref)
+        assert torch.equal(occs, ref_occs)
+    assert runner.replays == bucket
+    assert runner.pool.nbytes() > 0
+
+
+def test_capture_refuses_a_host_read(dev, monkeypatch):
+    """REPRO_CHECK_SCHEDULES=1 reads each schedule back to the host
+    (`guard_schedule`): the capture refuses it, the error names the plan
+    key, and a runner captured after it serves."""
+    from repro_torch.pipeline import run_plan
+    from repro_torch.serving.graph_runner import CompiledRunner
+
+    graph, params, _, plan = _served_variant(dev, "ecr-pecr")
+    monkeypatch.setenv("REPRO_CHECK_SCHEDULES", "1")
+    with pytest.raises(RuntimeError) as err:
+        CompiledRunner(plan, params, 2, dev)
+    assert any("while capturing the runner of PlanKey(bucket=2" in n
+               for n in getattr(err.value, "__notes__", ()))
+    monkeypatch.delenv("REPRO_CHECK_SCHEDULES")
+    imgs = _requests(graph, 2, 5, dev)
+    logits, _ = CompiledRunner(plan, params, 2, dev)(params, imgs, 2)
+    assert torch.equal(logits, run_plan(plan, params, imgs))
+
+
+def test_capture_while_a_background_replan_runs(dev):
+    """The engine re-plans in a thread with CUDA work and host reads of its
+    own; captures on the serving thread (thread-local capture mode) succeed
+    meanwhile and replay the eager logits."""
+    import threading
+
+    from repro_torch.pipeline import plan_network, run_plan
+    from repro_torch.serving.graph_runner import CompiledRunner
+
+    graph, params, calib, plan = _served_variant(dev, "pruned")
+    started, stop, errors, rounds = threading.Event(), threading.Event(), [], [0]
+
+    def replan():
+        try:
+            while not stop.is_set():
+                started.set()
+                plan_network(params, calib, graph, occ_threshold=1.0, block_c=8)
+                rounds[0] += 1
+        except Exception as e:  # reported below
+            errors.append(e)
+            started.set()
+
+    t = threading.Thread(target=replan, daemon=True)
+    t.start()
+    try:
+        assert started.wait(60)
+        runners = [CompiledRunner(plan, params, b, dev) for b in (2, 4, 8)]
+    finally:
+        stop.set()
+        t.join(60)
+    assert not t.is_alive() and not errors and rounds[0] >= 1
+    for r in runners:
+        imgs = _requests(graph, r.bucket, r.bucket, dev)
+        assert torch.equal(r(params, imgs, r.bucket)[0], run_plan(plan, params, imgs))
+
+
+@pytest.mark.parametrize("name", ["ecr-pecr", "pruned-int8"])
+def test_engine_logits_equal_run_plan_per_bucket(dev, name):
+    """The engine's exactness contract on the card, per bucket: every
+    request's logits equal run_plan on its own padded bucket bit for bit,
+    every batch replays a runner captured at warmup, and no served batch
+    captures."""
+    import numpy as np
+
+    from repro_torch.pipeline import run_plan
+    from repro_torch.serving import Engine, SimClock
+
+    graph, params, calib, plan = _served_variant(dev, name)
+    eng = Engine(params, graph=graph, plan=plan, max_batch=8, deadline_s=0.005,
+                 clock=SimClock(), replan_band=10.0, device=dev)
+    assert eng.warmup() == 3 and eng.stats()["captures"] == 3
+    for n, seed in ((1, 1), (2, 2), (3, 3), (8, 4), (5, 5)):
+        imgs = _requests(graph, n, 40 + seed, dev)
+        imgs[-1] += 0.5  # every request live
+        bucket = max(2, 1 << (n - 1).bit_length())
+        padded = torch.cat([imgs, imgs.new_zeros((bucket - n,) + imgs.shape[1:])])
+        got = eng.serve(list(imgs))
+        want = run_plan(eng.plan, params, padded)[:n].cpu().numpy()
+        assert np.array_equal(got, want), (name, n)
+    st = eng.stats()
+    assert st["captures"] == 3 and st["compiles"] == 3 and st["graph_pool_bytes"] > 0
