@@ -176,35 +176,52 @@
    exceeds the kernel at the served shapes) and as eager calls.
    A torch.profiler trace of one warm prefill and one warm decode step per
    cache type gives wall, device time and idle share.
-9. Trains full-width qwen3-0.6b (the same config, fp32 weights from
-   generator seed 0) through `repro_torch.launch.train.train` at the
-   reference launcher's defaults: global batch 8, sequence 128, remat
-   "full", 6 steps, checkpoints into a temporary directory the phase
-   removes. Prints each step's loss, grad norm, synchronised step time and
-   tok/s. The flash counters are set to 0 just before and read just after:
-   per step flash_fwd must launch 56 times (28 layers, and again under
-   remat), flash_bwd_dq and flash_bwd_dkv 28 times each. Then: the save time
-   of a checkpoint of the trained params and both moments; a torch.profiler
-   trace of one warm step; one step's loss and gradients on the card against
-   the host's plain path at batch 2 (loss within 1e-4 relative, grad norm
-   1e-3 relative, every leaf within 1e-3*max|host leaf|, and every layer of
-   every leaf with a nonzero gradient on the card); both backward kernels
-   against their plain versions (dq; dk and dv; the fp32 limit above) at
-   the real operands of layers 0 and 27 of a batch-8 step, at a long causal
-   shape (batch 4, Sq = Sk = 2048) and at edge shapes (every head dim,
-   ragged Sq/Sk, G = 1, 2, 8, q_offset/kv_len, non-causal, rows that see
-   no key; q and k over 2^+-3 at Sk = 512); kernel, plain version and the
-   library call (the backward of fp32 F.scaled_dot_product_attention with
-   K/V expanded and the same mask, all three gradients in one call: the
-   memory-efficient attention backward op, SDPA's fused backend for fp32
-   inputs with a mask) timed in turns at layer 0 and at the long shape as CUDA-graph
-   replays (device time), the eager calls beside them (the library's eager
-   time is the autograd SDPA backward, as earlier runs timed it); the bound
-   per pass is max(6 (dq) or 8 (dk/dv) * B*H*pairs*D / 165 TFLOP/s
-   (split-TF32), bytes / 3.35 TB/s), with the same operations at the CUDA
-   cores' 67 TFLOP/s beside it. Last, at the reduced
-   config, a 10-step run against one with a failure at step 7 (checkpoints
-   every 3): losses within 1e-6.
+9. Trains full-width qwen3-0.6b (the same config, weights from generator
+   seed 0) through `repro_torch.launch.train.train` at the reference
+   launcher's defaults: bf16 parameters, fp32 moments, global batch 8,
+   sequence 128, remat "full", 6 steps, checkpoints into a temporary
+   directory the phase removes. Prints each step's loss, grad norm,
+   synchronised step time, tok/s and model TFLOP/s (6 * n_params * tokens
+   per step, n_params from `ModelConfig.n_params`). The flash counters and
+   the per-entry-point counts (`kernels.cuda.FLASH_ENTRY_LAUNCHES`) are set
+   to 0 just before and read just after: per step flash_fwd must launch 56
+   times (28 layers, and again under remat), flash_bwd_dq and flash_bwd_dkv
+   28 times each, all on the bf16 entry points and none on an fp32 one.
+   Then: the save time of a checkpoint of the trained params and both
+   moments; a torch.profiler trace of one warm bf16 step; one step's loss
+   and gradients on the card against the host's plain path at bf16 and
+   batch 2 (loss within 1e-2 relative, grad norm 3e-2, every leaf within
+   5e-2*max|host leaf|, every layer of every leaf nonzero on the card); the
+   bf16 kernels against their plain versions (out, dq, dk, dv within
+   2^-7*max|plain|, m and l within 1e-5*max|plain|; with q and k over
+   2^+-3, where scores reach about 70 and one fp32 ulp of a score moves l
+   by about 1e-5 of itself, m and l within the fp32 limit above, as the
+   fp32 kernels' m and l) at the real operands of
+   layers 0 and 27 of a batch-8 step, at a long causal shape (batch 4,
+   Sq = Sk = 2048) and at edge shapes (every head dim, ragged Sq/Sk, G = 1,
+   2, 8, q_offset/kv_len, non-causal, rows that see no key; q and k over
+   2^+-3 at Sk = 512), all in the model layout read through strides;
+   remat none / dots / full from the same weights (one loss and gradient
+   computation: its peak memory above the state, full <= dots <= none, and
+   loss and leaves of dots and full within 1e-6 relative of none; then two
+   steps: the second step's peak, time, device time and forward launches,
+   28 / 56 / 56); `compress_grads` -> `decompress_grads` on
+   one step's gradients, int8 and topk, two rounds (g + err_old =
+   decompressed + err_new within 1e-6*max|g|). Then the fp32 trainer
+   (`init_train_state` / `make_train_step` at param_dtype float32, the
+   reference's `build_trainer` route), 3 steps, on the fp32 entry points
+   only, with its own warm-step trace, gradients against the host at
+   batch 2 (loss 1e-4 relative, grad norm 1e-3, leaves 1e-3*max) and the
+   fp32 backward kernels at the same shapes (the fp32 limit above). Kernel,
+   plain version and the library call (F.scaled_dot_product_attention in
+   the operands' type, forward, and the backward with K/V expanded and the
+   same mask, all three gradients in one call: the memory-efficient
+   attention backward op) timed in turns at layer 0 and at the long shape
+   as CUDA-graph replays (device time), the eager calls beside them; the
+   bound per pass is max(6 (dq) or 8 (dk/dv) * B*H*pairs*D / the rate of
+   the type (split-TF32 165 TFLOP/s, bf16 989), bytes / 3.35 TB/s). Last,
+   at the reduced config and bf16, a 10-step run against one with a failure
+   at step 7 (checkpoints every 3): losses bitwise equal.
 10. The scenario phase, on the published VGG-19 (weights and calibration
    images as in step 3; Engines at block_c=8, occ_threshold=0.75,
    max_batch=8, on a SimClock charged with the measured service time):
@@ -260,9 +277,12 @@
    scales), Q, O, and m, l for fp32, once. The backward rows time one
    launch of each pass at layer 0 of the trained batch-8 step by graph
    replay, with every timed shape under "shapes", and launches count the
-   6-step training run; they carry "redesigned_in": 18 (split-TF32),
+   fp32 trainer's 3-step run; they carry "redesigned_in": 18 (split-TF32),
    eager_ms, eager_library_ms, achieved_tflops, bound_share and
-   fp32_core_bound_ms.
+   fp32_core_bound_ms. The bf16 rows (flash_fwd_bf16, flash_bwd_dq_bf16,
+   flash_bwd_dkv_bf16) time one launch at layer 0 of the
+   trained bf16 step the same way, their launches count the 6-step bf16
+   training run, and their bound and achieved TFLOP/s are at 989 TFLOP/s.
    The rows whose kernels were redesigned for the tensor cores, the fp32
    ECR / PECR rows (ecr_conv_batch, conv_pool_batch and both at N=1;
    split-TF32, "redesigned_in": 16), bsr_matmul (split-TF32, 17) and the
@@ -299,15 +319,20 @@ PEAK_FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores
 # fp32-accurate multiply-add (split-TF32): the fp32 ECR / PECR kernels' rate
 PEAK_TF32_SPLIT_FLOPS = 495e12 / 3
 PEAK_INT8_OPS = 1979e12  # H100 SXM, int8 tensor cores, dense
+PEAK_BF16_FLOPS = 989e12  # H100 SXM, bf16 tensor cores, dense
 PEAK_HBM_BYTES = 3.35e12  # H100 SXM HBM3
 KERNEL_TOL = ("fp32: max|kernel - plain| <= 1e-4*max|plain| + 1e-5*min(1, max|plain|); "
-              "int8: bitwise")
+              "int8: bitwise; bf16 flash: out, dq, dk, dv 2^-7*max|plain|, m and l "
+              "1e-5*max|plain| (the fp32 limit with q and k over 2^+-3)")
 PRUNE_DENSITY = 0.3
 # the split-TF32 kernels and their instantiations: ECR / PECR (4 tiles x
 # pool), BSR (16- or 4-byte copies x 8, 4 or 2 row-blocks per block), the
 # fp32 flash forward and both backward passes (6 head dims each)
 SPLIT_TF32_KERNELS = {"ecr_conv_kernel": 8, "bsr_matmul_kernel": 6, "flash_fwd_kernel": 6,
                       "flash_bwd_dq_kernel": 6, "flash_bwd_dkv_kernel": 6}
+# the bf16 tensor-core kernels (the training step at bf16): 6 head dims each
+BF16_KERNELS = {"flash_fwd_bf16_kernel": 6, "flash_bwd_dq_bf16_kernel": 6,
+                "flash_bwd_dkv_bf16_kernel": 6}
 
 
 def fail(msg: str) -> int:
@@ -454,6 +479,27 @@ class KernelBook:
               f"max|plain|={scale:.3e})")
         if not err <= lim:
             raise AssertionError(f"{kernel} {label}: {err} > {lim} ({KERNEL_TOL})")
+
+    def check_bf16(self, kernel, label, got, want, *, stat=False, wide=False):
+        """bf16 flash kernels: out, dq, dk, dv (bf16) within 2^-7 * max|plain|
+        (one bf16 ulp at the largest value); m and l (fp32, `stat`) within
+        1e-5 * max|plain|, or, with q and k spread over 2^+-3 (`wide`:
+        scores near 70, where one fp32 ulp of a score moves l by about 1e-5
+        of itself and two summation orders of the same exact products
+        differ by that), within the port's fp32 limit, as the fp32 kernels'
+        m and l."""
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        if stat and wide:
+            lim = 1e-4 * scale + 1e-5 * min(1.0, scale)
+        else:
+            lim = (1e-5 if stat else 2.0 ** -7) * scale
+        self.max_err[kernel] = max(self.max_err.get(kernel, 0.0), err)
+        print(f"  {kernel:15s} {label:46s} max_abs_err={err:.3e} (limit {lim:.3e}, "
+              f"max|plain|={scale:.3e})")
+        if got.dtype != want.dtype or not err <= lim:
+            raise AssertionError(f"{kernel} {label}: {err} > {lim} or {got.dtype} is not "
+                                 f"{want.dtype} ({KERNEL_TOL})")
 
     def exact(self, kernel, label, got, want):
         """int8 kernels: bitwise equal to the plain version."""
@@ -1078,6 +1124,11 @@ def ptxas_usage(text: str) -> dict:
 
 def kernel_category(name: str) -> str:
     """Coarse class of a CUDA kernel by its symbol name."""
+    for stem, cat in (("flash_bwd_dq_bf16_kernel", "flash bwd dq bf16 kernel"),
+                      ("flash_bwd_dkv_bf16_kernel", "flash bwd dk/dv bf16 kernel"),
+                      ("flash_fwd_bf16_kernel", "flash bf16 kernel")):
+        if stem in name:
+            return cat
     if "flash_bwd_dq_kernel" in name:
         return "flash bwd dq kernel"
     if "flash_bwd_dkv_kernel" in name:
@@ -1095,7 +1146,7 @@ def kernel_category(name: str) -> str:
     if "ecr_conv_kernel" in name:
         return "pecr kernel" if "Lb1E" in name or "true>" in name else "ecr kernel"
     low = name.lower()
-    if any(t in low for t in ("cudnn", "xmma", "conv", "gemm", "cutlass")):
+    if any(t in low for t in ("cudnn", "xmma", "conv", "gemm", "cutlass", "nvjet")):
         return "cuDNN/cuBLAS (dense convs, head, LM matmuls)"
     if "sort" in low or "radix" in low:
         return "argsort (compaction)"
@@ -1682,17 +1733,20 @@ def visible_pairs(sq, sk, causal, q_offset, kv_len):
 
 
 def flash_bound(q, k, kw, *, q8):
-    """(op time, byte time) in ms: 4 * B * H * pairs * D fp32 operations
-    (q.k and p.v) at the rate of the kernels' arithmetic (split-TF32, 165
-    TFLOP/s); K/V of the keys read (4 bytes, or 1 byte plus the fp32
-    scales), Q and O once, and m and l (fp32 kernel) over 3.35 TB/s."""
+    """(op time, byte time) in ms: 4 * B * H * pairs * D operations (q.k and
+    p.v) at the rate of the operands' type (fp32: the kernels' split-TF32,
+    165 TFLOP/s; bf16: the bf16 tensor cores, 989 TFLOP/s); K/V of the keys
+    read (4 or 2 bytes, or 1 byte plus the fp32 scales), Q and O once, and m
+    and l (fp32 and bf16 kernels) over 3.35 TB/s."""
     b, sq, kvh, g, d = q.shape
     sk = k.shape[1]
+    eb = q.element_size()
     pairs, keys = visible_pairs(sq, sk, kw["causal"], kw["q_offset"], kw["kv_len"])
     ops = 4.0 * b * kvh * g * pairs * d
-    kv_bytes = 2.0 * b * kvh * keys * (d * 1 + 4 if q8 else d * 4)
-    nbytes = kv_bytes + 8.0 * b * kvh * g * sq * d + (0 if q8 else 8.0 * b * kvh * g * sq)
-    return ops / PEAK_TF32_SPLIT_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    kv_bytes = 2.0 * b * kvh * keys * (d * 1 + 4 if q8 else d * eb)
+    nbytes = kv_bytes + 2.0 * eb * b * kvh * g * sq * d + (0 if q8 else 8.0 * b * kvh * g * sq)
+    peak = PEAK_BF16_FLOPS if eb == 2 else PEAK_TF32_SPLIT_FLOPS
+    return ops / peak * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
 
 
 def attention_mask(sq, sk, kw, device):
@@ -1731,10 +1785,11 @@ def flash_library(q, k, v, kw, ks=None, vs=None):
         attn_mask=mask, scale=kw["scale"])
 
 
-def check_flash(book, label, args, kw, *, timed):
-    """A flash kernel against its plain version (out, and m, l for fp32) on
-    model-layout operands; when `timed`, kernel / plain / library times and
-    the bound. Returns the timing row or None."""
+def check_flash(book, label, args, kw, *, timed, wide=False):
+    """A flash kernel against its plain version (out, and m, l for fp32 and
+    bf16) on model-layout operands (`wide`: q and k spread over 2^+-3);
+    when `timed`, kernel / plain / library times and the bound. Returns the
+    timing row or None."""
     import torch
 
     from repro_torch.kernels.flash_attention.kernel import (
@@ -1745,7 +1800,8 @@ def check_flash(book, label, args, kw, *, timed):
     )
 
     q8 = len(args) == 5
-    name = "flash_fwd_q8" if q8 else "flash_fwd"
+    bf16 = args[0].dtype == torch.bfloat16
+    name = "flash_fwd_q8" if q8 else ("flash_fwd_bf16" if bf16 else "flash_fwd")
     kernel = (lambda: flash_fwd_q8(*args, **kw)) if q8 else (lambda: flash_fwd(*args, **kw))
     plain = (lambda: flash_fwd_q8_plain(*args, **kw)) if q8 else \
         (lambda: flash_fwd_plain(*args, **kw))
@@ -1756,6 +1812,9 @@ def check_flash(book, label, args, kw, *, timed):
            f"q_offset={kw['q_offset']} kv_len={kw['kv_len']}")
     if q8:
         book.check(name, tag, got, want)
+    elif bf16:
+        for part, g_, w_ in zip(("out", "m", "l"), got, want):
+            book.check_bf16(name, f"{tag} {part}", g_, w_, stat=part != "out", wide=wide)
     else:
         for part, g_, w_ in zip(("out", "m", "l"), got, want):
             book.check(name, f"{tag} {part}", g_, w_)
@@ -1765,7 +1824,8 @@ def check_flash(book, label, args, kw, *, timed):
     lib_out = lib()
     got_out = got if q8 else got[0]
     b, sq, kvh, g, d = args[0].shape
-    lib_err = float((lib_out.transpose(1, 2).reshape(got_out.shape) - got_out).abs().max())
+    lib_err = float((lib_out.transpose(1, 2).reshape(got_out.shape).float()
+                     - got_out.float()).abs().max())
     fns = {"kernel": kernel, "plain": plain, "library": lib}
     t = time_graph_turns(fns)
     te = time_turns(fns)
@@ -1987,6 +2047,7 @@ def lm_phase(book, dev, failures) -> dict:
 
 LM_TRAIN = dict(steps=6, global_batch=8, seq_len=128, seed=0)
 LM_TRAIN_HOST_BATCH = 2  # the host's gradient check, batch cut for its sake
+LM_TRAIN_FP32_STEPS = 3  # the fp32 trainer's run
 LM_RESTART = dict(steps=10, global_batch=2, seq_len=32, checkpoint_every=3, fail_at=(7,))
 
 
@@ -2018,28 +2079,33 @@ class capture_backward:
         self.O.flash_bwd = self.orig
 
 
-def flash_bwd_bound(q, k, kw, *, part, peak=PEAK_TF32_SPLIT_FLOPS):
+def flash_bwd_bound(q, k, kw, *, part, peak=None):
     """(op time, byte time) in ms of one backward pass for these inputs:
-    per visible (q, k) pair and head-dim element 6 fp32 operations for dq
+    per visible (q, k) pair and head-dim element 6 operations for dq
     (scores, dp, ds.k) and 8 for dk/dv (scores, dp, p^T.do, ds^T.q), at
-    `peak` (the kernels' split-TF32 rate, 165 TFLOP/s; 67 for the CUDA
-    cores); q, do, k, v of the keys read, m, l, delta read, and dq, or dk
-    and dv, written once, over 3.35 TB/s."""
+    `peak` (default: the rate of the operands' type, the fp32 kernels'
+    split-TF32 165 TFLOP/s or the bf16 tensor cores' 989; 67 for fp32 on
+    the CUDA cores); q, do, k, v of the keys read (4 or 2 bytes), m, l,
+    delta read, and dq, or dk and dv, written once, over 3.35 TB/s."""
     b, sq, kvh, g, d = q.shape
     sk = k.shape[1]
+    eb = q.element_size()
+    if peak is None:
+        peak = PEAK_BF16_FLOPS if eb == 2 else PEAK_TF32_SPLIT_FLOPS
     pairs, keys = visible_pairs(sq, sk, kw["causal"], kw["q_offset"], kw["kv_len"])
     per = 6.0 if part == "dq" else 8.0
     ops = per * b * kvh * g * pairs * d
     rows = b * kvh * g * sq
-    qbytes = 4.0 * rows * d
-    kbytes = 4.0 * b * kvh * keys * d
+    qbytes = 1.0 * eb * rows * d
+    kbytes = 1.0 * eb * b * kvh * keys * d
     nbytes = 2 * qbytes + 2 * kbytes + 12.0 * rows + (qbytes if part == "dq" else 2 * kbytes)
     return ops / peak * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
 
 
 def sdpa_backward(q, k, v, do, kw):
-    """The backward of fp32 F.scaled_dot_product_attention on the same
-    inputs (K/V expanded to the query heads, the same mask): two closures
+    """The backward of F.scaled_dot_product_attention (in the operands' type)
+    on the same inputs (K/V expanded to the query heads, the same mask): two
+    closures
     that compute its three gradients, the autograd backward of the SDPA call
     (eager only: it runs on the forward's stream) and the memory-efficient
     attention backward op, SDPA's fused backend for fp32 inputs with a mask,
@@ -2056,7 +2122,8 @@ def sdpa_backward(q, k, v, do, kw):
     mask = attention_mask(sq, sk, kw, q.device)
     out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, scale=kw["scale"])
     doh = do.reshape(b, sq, kvh * g, d).transpose(1, 2)
-    bias = torch.zeros((sq, sk), device=q.device).masked_fill(~mask, float("-inf"))
+    bias = torch.zeros((sq, sk), device=q.device, dtype=q.dtype).masked_fill(
+        ~mask, float("-inf"))
     bias = bias.expand(b, kvh * g, sq, sk)
     aten = torch.ops.aten
     o, lse, seed, offset = aten._scaled_dot_product_efficient_attention(
@@ -2091,15 +2158,18 @@ def check_flash_bwd(book, label, args, kw, *, timed):
     pdk, pdv = flash_bwd_dkv_plain(*ops, **kw)
     tag = (f"{label} q{tuple(q.shape)} k{tuple(k.shape)} q_offset={kw['q_offset']} "
            f"kv_len={kw['kv_len']} causal={kw['causal']}")
-    book.check("flash_bwd_dq", f"{tag} dq", dq, pdq)
-    book.check("flash_bwd_dkv", f"{tag} dk", dk, pdk)
-    book.check("flash_bwd_dkv", f"{tag} dv", dv, pdv)
+    bf16 = q.dtype == torch.bfloat16
+    sfx = "_bf16" if bf16 else ""
+    check = book.check_bf16 if bf16 else book.check
+    check("flash_bwd_dq" + sfx, f"{tag} dq", dq, pdq)
+    check("flash_bwd_dkv" + sfx, f"{tag} dk", dk, pdk)
+    check("flash_bwd_dkv" + sfx, f"{tag} dv", dv, pdv)
     if not timed:
         return []
     lib_autograd, lib = sdpa_backward(q, k, v, do, kw)
     gq = lib()[0]
-    lib_err = float((gq.transpose(1, 2).reshape(q.shape) - dq).abs().max())
-    lib_gap = float((lib_autograd()[0] - gq).abs().max())
+    lib_err = float((gq.transpose(1, 2).reshape(q.shape).float() - dq.float()).abs().max())
+    lib_gap = float((lib_autograd()[0].float() - gq.float()).abs().max())
     del gq
     fns = {"dq": lambda: flash_bwd_dq(*ops, **kw), "dkv": lambda: flash_bwd_dkv(*ops, **kw),
            "dq_plain": lambda: flash_bwd_dq_plain(*ops, **kw),
@@ -2107,7 +2177,7 @@ def check_flash_bwd(book, label, args, kw, *, timed):
     t = time_graph_turns(fns)
     te = time_turns({**fns, "library": lib_autograd})
     rows = []
-    for part, name in (("dq", "flash_bwd_dq"), ("dkv", "flash_bwd_dkv")):
+    for part, name in (("dq", "flash_bwd_dq" + sfx), ("dkv", "flash_bwd_dkv" + sfx)):
         ft, bt = flash_bwd_bound(q, k, kw, part=part)
         fc, _ = flash_bwd_bound(q, k, kw, part=part, peak=PEAK_FP32_FLOPS)
         row = {"kernel": name, "shape": label, "q": list(q.shape), "k": list(k.shape),
@@ -2132,12 +2202,260 @@ def check_flash_bwd(book, label, args, kw, *, timed):
     return rows
 
 
+def grads_vs_host(cfg, run, batch0, dev, failures, *, limits, tag) -> tuple:
+    """One step's loss, grad norm and gradient leaves on the card against the
+    host's plain path at `run`'s types (fresh weights from the train seed,
+    the first LM_TRAIN_HOST_BATCH rows of `batch0`); before that, the
+    attention backward calls of layers 0 and n_layers - 1 of the full batch
+    are captured for the kernel checks. limits = (loss, grad norm, leaf),
+    each relative. Returns (summary, captured calls)."""
+    import torch
+
+    from repro_torch.launch.steps import DTYPES, loss_and_grads, to_device
+    from repro_torch.models import model as M
+    from repro_torch.optim import global_norm
+    from repro_torch.tree import tree_leaves, tree_paths
+
+    n_layers, sl = cfg.n_layers, LM_TRAIN["seq_len"]
+    params = M.init_params(cfg, torch.Generator().manual_seed(LM_TRAIN["seed"]), device=dev,
+                           dtype=DTYPES[run.param_dtype])
+    keep = (0, n_layers - 1)  # backward order: the last layer, then layer 0
+    with capture_backward(keep) as cap:
+        loss_and_grads(cfg, run, params, to_device(batch0, dev))
+    hb = {k: v[:LM_TRAIN_HOST_BATCH] for k, v in batch0.items()}
+    loss_c, grads_c = loss_and_grads(cfg, run, params, to_device(hb, dev))
+    params_cpu = tree_to(params, "cpu")
+    del params
+    grads_c = tree_to(grads_c, "cpu")
+    t0 = time.perf_counter()
+    loss_h, grads_h = loss_and_grads(cfg, run.replace(remat="none"), params_cpu,
+                                     to_device(hb, "cpu"))
+    host_s = time.perf_counter() - t0
+    lc, lh = float(loss_c), float(loss_h)
+    nc, nh = float(global_norm(grads_c)), float(global_norm(grads_h))
+    lim_loss, lim_norm, lim_leaf = limits
+    worst, zero_layers, ok_leaves = 0.0, [], True
+    for (path_c, gc), gh in zip(tree_paths(grads_c), tree_leaves(grads_h)):
+        gc, gh = gc.float(), gh.float()
+        scale = float(gh.abs().max())
+        err = float((gc - gh).abs().max())
+        worst = max(worst, err / scale if scale else err)
+        ok_leaves &= err <= lim_leaf * scale
+        per_layer = gc.reshape(gc.shape[0], -1) if path_c.startswith("groups") else \
+            gc.reshape(1, -1)
+        zero_layers += [f"{path_c}[{i}]" for i in range(per_layer.shape[0])
+                        if not bool(per_layer[i].abs().max() > 0)]
+    ok_loss = abs(lc - lh) <= lim_loss * abs(lh)
+    ok_norm = abs(nc - nh) <= lim_norm * nh
+    print(f"{LM_ARCH} {tag} one step's gradients, card vs host plain path (batch "
+          f"{LM_TRAIN_HOST_BATCH} x {sl}; host {host_s:.1f} s): loss {lc:.6f} vs "
+          f"{lh:.6f} ({'ok' if ok_loss else 'FAIL'}, {lim_loss:g} rel), grad norm {nc:.6f} "
+          f"vs {nh:.6f} ({'ok' if ok_norm else 'FAIL'}, {lim_norm:g} rel), worst leaf "
+          f"max|card - host| / max|host| = {worst:.2e} ({'ok' if ok_leaves else 'FAIL'},"
+          f" {lim_leaf:g}); leaves (per layer) with a zero gradient on the card: "
+          f"{zero_layers or 'none'}")
+    if not (ok_loss and ok_norm and ok_leaves):
+        failures.append(f"{LM_ARCH} {tag}: card gradients disagree with the host")
+    if zero_layers:
+        failures.append(f"{LM_ARCH} {tag}: zero gradients on the card: {zero_layers}")
+    summary = {"loss": [lc, lh], "grad_norm": [nc, nh], "worst_leaf_rel": worst,
+               "zero": zero_layers, "host_s": host_s, "limits": list(limits)}
+    return summary, cap.calls
+
+
+def flash_shape_checks(book, cfg, calls, dev, dtype, failures):
+    """The flash kernels of one type against their plain versions: both
+    backward passes at the captured trained layers (layer 0 timed, with the
+    forward), then forward and backward at the long shape (timed) and at the
+    edges (every head dim; ragged Sq / Sk; G = 1, 2, 8; q_offset / kv_len;
+    non-causal; q and k over 2^+-3), all in the model layout read through
+    strides."""
+    import torch
+
+    from repro_torch.kernels.cuda import FLASH_HEAD_DIMS
+    from repro_torch.kernels.flash_attention.kernel import flash_fwd
+
+    n_layers = cfg.n_layers
+    for idx in (0, n_layers - 1):
+        if idx not in calls:
+            failures.append(f"{LM_ARCH} train {dtype}: backward call {idx} not captured")
+            continue
+        args, kw = calls[idx]
+        layer = n_layers - 1 - idx
+        check_flash_bwd(book, f"trained layer {layer}", args, kw, timed=(layer == 0))
+        if layer == 0:  # the forward at the trained shape: out, m and l
+            check_flash(book, "trained layer 0", args[:3], kw, timed=True)
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def operands(b, sq, kvh, g, sk, d, kw, wide=False):
+        q = torch.randn((b, sq, kvh, g, d), generator=gen, device=dev)
+        k = torch.randn((b, sk, kvh, d), generator=gen, device=dev)
+        v = torch.randn((b, sk, kvh, d), generator=gen, device=dev)
+        if wide:  # q and k elementwise times 2^e, e uniform over -3..3
+            for t in (q, k):
+                t.mul_(torch.exp2(torch.randint(-3, 4, t.shape, generator=gen,
+                                                device=dev).float()))
+        q, k, v = (t.to(dtype) for t in (q, k, v))
+        with torch.no_grad():
+            out, m, l = flash_fwd(q, k, v, **kw)
+        do = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
+        return q, k, v, out, m, l, do
+
+    kvh, g, d = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.resolved_head_dim
+    lb, ls = LM_LONG["b"], LM_LONG["sq"]
+    kw = dict(scale=d ** -0.5, causal=True, q_offset=0, kv_len=None)
+    args = operands(lb, ls, kvh, g, ls, d, kw)
+    if dtype == torch.bfloat16:  # the fp32 forward's long shape is the LM phase's
+        check_flash(book, "long 2048x2048 causal", args[:3], kw, timed=True)
+    check_flash_bwd(book, "long 2048x2048 causal", args, kw, timed=True)
+    del args
+    torch.cuda.empty_cache()
+    edges = [(2, 37, 2, 2, 53, hd, hd % 16 == 0, 0, None) for hd in FLASH_HEAD_DIMS]
+    edges += [(3, 37, 1, 1, 53, 128, True, 16, None),
+              (2, 70, 1, 8, 130, 64, True, 200, 250),
+              (2, 65, 2, 8, 97, 256, False, 0, 80),
+              (2, 1, 8, 2, 130, 128, True, 99, 100),
+              (2, 40, 2, 2, 40, 128, True, -8, None)]
+    edges = [e + (False,) for e in edges] + [(2, 384, 4, 2, 512, 128, True, 128, None, True)]
+    for eb, esq, ekv, eg, esk, ed, causal, qo, kvl, wide in edges:
+        ekw = dict(scale=ed ** -0.5, causal=causal, q_offset=qo, kv_len=kvl)
+        label = "edge, q and k over 2^+-3" if wide else "edge"
+        args = operands(eb, esq, ekv, eg, esk, ed, ekw, wide)
+        if dtype == torch.bfloat16:
+            check_flash(book, label, args[:3], ekw, timed=False, wide=wide)
+        check_flash_bwd(book, label, args, ekw, timed=False)
+
+
+def remat_checks(cfg, batches, dev, failures) -> dict:
+    """remat none / dots / full at full width and bf16, from the same
+    weights: one loss and gradient computation (its peak device memory,
+    max_memory_allocated, where the saved activations live; loss and leaves
+    of "dots" and "full" against "none" within 1e-6 relative), then two
+    train steps (the second step's peak, which AdamW's fp32 passes may set,
+    its CUDA-event time, the device time of a traced warm step and the bf16
+    forward launches)."""
+    import torch
+
+    from repro_torch.configs.base import DEFAULT_RUN
+    from repro_torch.kernels.cuda import FLASH_ENTRY_LAUNCHES
+    from repro_torch.launch.steps import (
+        init_train_state,
+        loss_and_grads,
+        make_train_step,
+        to_device,
+    )
+    from repro_torch.tree import tree_leaves
+
+    out, ref = {}, None
+    b0, b1 = (to_device(b, dev) for b in batches)
+    for remat in ("none", "dots", "full"):
+        run = DEFAULT_RUN.replace(remat=remat)
+        state = init_train_state(cfg, run, torch.Generator().manual_seed(LM_TRAIN["seed"]),
+                                 device=dev)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        loss, grads = loss_and_grads(cfg, run, state.params, b0)
+        torch.cuda.synchronize()
+        grad_peak = torch.cuda.max_memory_allocated() - base
+        loss, grads = float(loss), [g.float().cpu() for g in tree_leaves(grads)]
+        if ref is None:
+            ref = (loss, grads)
+        step = make_train_step(cfg, run, 10, device=dev)
+        step(state, b0)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fwd0 = FLASH_ENTRY_LAUNCHES["repro_flash_fwd_bf16"]
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(state, b1)
+        end.record()
+        torch.cuda.synchronize()
+        fwd = FLASH_ENTRY_LAUNCHES["repro_flash_fwd_bf16"] - fwd0
+        peak = torch.cuda.max_memory_allocated()
+        br = trace_breakdown(lambda: step(state, b1))
+        loss_rel = abs(loss - ref[0]) / abs(ref[0])
+        leaf_rel = max(float((g - r).abs().max()) / max(float(r.abs().max()), 1e-30)
+                       for g, r in zip(grads, ref[1]))
+        out[remat] = {"grad_peak_above_state_gb": grad_peak / 1e9,
+                      "peak_gb": peak / 1e9, "state_gb": base / 1e9,
+                      "above_state_gb": (peak - base) / 1e9, "step_ms": start.elapsed_time(end),
+                      "device_ms": br["device_ms"], "wall_ms": br["wall_ms"],
+                      "idle_share": br["idle_share"], "fwd_launches": fwd,
+                      "loss": loss, "loss_rel_vs_none": loss_rel, "leaf_rel_vs_none": leaf_rel}
+        want_fwd = cfg.n_layers * (1 if remat == "none" else 2)
+        print(f"{LM_ARCH} remat {remat}: loss and gradients peak {grad_peak / 1e9:.3f} GB above "
+              f"the state; second step peak {peak / 1e9:.3f} GB ({(peak - base) / 1e9:.3f}"
+              f" GB above the {base / 1e9:.3f} GB of params, moments and batch), step "
+              f"{start.elapsed_time(end):.2f} ms (CUDA events), warm step device "
+              f"{br['device_ms']:.2f} ms of {br['wall_ms']:.2f} ms wall (idle share "
+              f"{br['idle_share']}), bf16 forward launches {fwd} (expected {want_fwd}); "
+              f"loss {loss:.6f}, vs none: loss {loss_rel:.2e}, worst leaf {leaf_rel:.2e} "
+              f"(limit 1e-6 relative)")
+        if fwd != want_fwd:
+            failures.append(f"remat {remat}: {fwd} forward launches, expected {want_fwd}")
+        if not (loss_rel <= 1e-6 and leaf_rel <= 1e-6):
+            failures.append(f"remat {remat}: loss or gradients differ from remat none")
+        del state, step, grads
+        torch.cuda.empty_cache()
+    peaks = {k: v["grad_peak_above_state_gb"] for k, v in out.items()}
+    ordered = peaks["full"] <= peaks["dots"] <= peaks["none"]
+    print(f"{LM_ARCH} remat loss-and-gradients peak above the state, full <= dots <= none: "
+          f"{ordered} ({peaks} GB)")
+    if not ordered:
+        failures.append(f"remat peak memory out of order: {peaks}")
+    return out
+
+
+def compression_checks(grads, dev, failures) -> dict:
+    """`compress_grads` -> `decompress_grads` on one step's card gradients,
+    int8 and topk (1%), two rounds so the second carries an error buffer:
+    g + err_old = decompressed + err_new within 1e-6 * max|g| per leaf."""
+    import torch
+
+    from repro_torch.optim import compress_grads, decompress_grads, init_error_feedback
+    from repro_torch.tree import tree_leaves
+
+    out = {}
+    for scheme in ("int8", "topk"):
+        err = init_error_feedback(grads)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        worst, ms = 0.0, []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            comp, new_err = compress_grads(grads, err, scheme=scheme, generator=gen)
+            dec = decompress_grads(comp, scheme=scheme)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            for g, e0, d_, e1 in zip(*(tree_leaves(t) for t in (grads, err, dec, new_err))):
+                g = g.float()
+                lim = float(g.abs().max())
+                gap = float((g + e0 - d_ - e1).abs().max())
+                worst = max(worst, gap / lim if lim else gap)
+            err = new_err
+        ok = worst <= 1e-6
+        print(f"{LM_ARCH} gradient compression {scheme}: g + err_old = decompressed + "
+              f"err_new to {worst:.2e} of max|g| (limit 1e-6): {'ok' if ok else 'FAIL'}; "
+              f"compress + decompress of {len(tree_leaves(grads))} leaves {ms[-1]:.1f} ms "
+              f"(host wall)")
+        if not ok:
+            failures.append(f"gradient compression {scheme}: identity off by {worst}")
+        out[scheme] = {"worst_rel": worst, "ms": ms}
+    return out
+
+
 def train_phase(book, dev, failures) -> dict:
-    """Full-width qwen3-0.6b trained through `repro_torch.launch.train.train`:
-    launch counters per step, one step's gradients against the host's plain
-    path, the backward kernels at the trained, long and edge shapes, a trace
-    of one warm step, the final checkpoint's save time, and restart equality
-    at the reduced config."""
+    """Full-width qwen3-0.6b trained through `repro_torch.launch.train.train`
+    at the reference launcher's types (bf16 params, fp32 moments, remat
+    full): launch counters per step and per entry point, the model FLOPs per
+    step, the final checkpoint's save time, a trace of one warm step, one
+    step's gradients against the host's plain path, the bf16 flash kernels
+    at the trained, long and edge shapes, remat none / dots / full, gradient
+    compression; then an fp32 run through `init_train_state` /
+    `make_train_step` with the same checks for the fp32 kernels; and restart
+    equality at the reduced config."""
     import shutil
     import tempfile
 
@@ -2147,31 +2465,51 @@ def train_phase(book, dev, failures) -> dict:
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.configs.base import DEFAULT_RUN, get_config
     from repro_torch.data import make_pipeline
-    from repro_torch.kernels.cuda import FLASH_HEAD_DIMS
+    from repro_torch.kernels.cuda import FLASH_ENTRY_LAUNCHES
     from repro_torch.kernels.flash_attention.kernel import (
         flash_bwd,
         flash_bwd_dkv,
         flash_bwd_dq,
         flash_fwd,
     )
-    from repro_torch.launch.steps import loss_and_grads, make_train_step, to_device
+    from repro_torch.launch.steps import (
+        init_train_state,
+        loss_and_grads,
+        make_train_step,
+        to_device,
+    )
     from repro_torch.launch.train import train
     from repro_torch.models import model as M
-    from repro_torch.optim import global_norm
-    from repro_torch.tree import tree_leaves, tree_paths
+    from repro_torch.tree import tree_leaves
 
     cfg = get_config(LM_ARCH)
     n_layers, steps = cfg.n_layers, LM_TRAIN["steps"]
     gb, sl = LM_TRAIN["global_batch"], LM_TRAIN["seq_len"]
+    n_params = cfg.n_params()
+    flops_step = 6.0 * n_params * gb * sl
     wrappers = {"flash_fwd": flash_fwd, "flash_bwd": flash_bwd,
                 "flash_bwd_dq": flash_bwd_dq, "flash_bwd_dkv": flash_bwd_dkv}
-    expect = {"flash_fwd": 2 * n_layers * steps, "flash_bwd": n_layers * steps,
-              "flash_bwd_dq": n_layers * steps, "flash_bwd_dkv": n_layers * steps}
-    summary = {}
+
+    def expect(n):
+        return {"flash_fwd": 2 * n_layers * n, "flash_bwd": n_layers * n,
+                "flash_bwd_dq": n_layers * n, "flash_bwd_dkv": n_layers * n}
+
+    def expect_entries(n, t):
+        return {f"repro_flash_fwd_{t}": 2 * n_layers * n,
+                f"repro_flash_bwd_dq_{t}": n_layers * n,
+                f"repro_flash_bwd_dkv_{t}": n_layers * n}
+
+    def entries_since(before):
+        return {k: n - before[k] for k, n in FLASH_ENTRY_LAUNCHES.items() if n != before[k]}
+
+    summary = {"n_params": n_params, "model_flops_per_step": flops_step}
     tmp = Path(tempfile.mkdtemp(prefix="repro_torch_train_"))
+    batch0 = make_pipeline(cfg, sl, gb, seed=LM_TRAIN["seed"]).batch_at(0)
+    batch1 = make_pipeline(cfg, sl, gb, seed=LM_TRAIN["seed"]).batch_at(1)
     try:
         # ---- the main run: train() at the reference launcher's defaults ----
         reset_counts(wrappers)
+        before = dict(FLASH_ENTRY_LAUNCHES)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         state, hist = train(LM_ARCH, reduced=False, steps=steps, global_batch=gb,
@@ -2180,26 +2518,37 @@ def train_phase(book, dev, failures) -> dict:
                             seed=LM_TRAIN["seed"], device=dev)
         wall = time.perf_counter() - t0
         launches = read_counts(wrappers)
+        entries = entries_since(before)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         for h in hist:
             print(f"{LM_ARCH} train step {h['step']}: loss {h['loss']:.5f} grad_norm "
                   f"{h['grad_norm']:.5f} lr {h['lr']:.3e} step {h['step_ms']:.1f} ms "
-                  f"(synchronised) {gb * sl / h['step_ms'] * 1e3:.0f} tok/s")
-        per_step = {k: v / max(len(hist), 1) for k, v in launches.items()}
-        print(f"{LM_ARCH} trained {len(hist)} steps (batch {gb} x {sl}, remat full, "
-              f"fp32) in {wall:.2f} s with set-up and the final checkpoint; launches "
-              f"{launches} = {per_step} per step (expected {expect}); peak device "
-              f"memory {peak_gb:.2f} GB")
-        if launches != expect:
-            failures.append(f"{LM_ARCH} train: launches {launches}, expected {expect}")
+                  f"(synchronised) {gb * sl / h['step_ms'] * 1e3:.0f} tok/s, "
+                  f"{flops_step / h['step_ms'] / 1e9:.1f} model TFLOP/s (6 N tokens)")
+        per_step = {k: v / max(len(hist), 1) for k, v in entries.items()}
+        dtypes = sorted({str(t.dtype) for t in tree_leaves(state.params)})
+        mdtypes = sorted({str(t.dtype) for t in tree_leaves(state.opt.m)})
+        print(f"{LM_ARCH} trained {len(hist)} steps (batch {gb} x {sl}, remat full, params "
+              f"{dtypes}, moments {mdtypes}) in {wall:.2f} s with set-up and the final "
+              f"checkpoint; n_params {n_params:,}, 6 N tokens = {flops_step:.4e} FLOP per "
+              f"step; launches {launches} (expected {expect(steps)}); per entry point "
+              f"{entries} = {per_step} per step (expected {expect_entries(steps, 'bf16')}); "
+              f"peak device memory {peak_gb:.2f} GB")
+        if launches != expect(steps) or entries != expect_entries(steps, "bf16"):
+            failures.append(f"{LM_ARCH} train: launches {launches} / {entries}, expected "
+                            f"{expect(steps)} / {expect_entries(steps, 'bf16')}")
+        if dtypes != ["torch.bfloat16"] or mdtypes != ["torch.float32"]:
+            failures.append(f"{LM_ARCH} train: params {dtypes}, moments {mdtypes}")
         if len(hist) != steps or not all(np.isfinite(h["loss"]) and np.isfinite(
                 h["grad_norm"]) for h in hist):
             failures.append(f"{LM_ARCH} train: history malformed or not finite")
         warm = hist[1:]
+        med = sorted(h["step_ms"] for h in warm)[len(warm) // 2]
         summary["main"] = {
-            "history": hist, "launches": launches, "wall_s": wall, "peak_gb": peak_gb,
-            "step_ms_warm_median": sorted(h["step_ms"] for h in warm)[len(warm) // 2],
-            "tok_s_warm": gb * sl * len(warm) / sum(h["step_ms"] for h in warm) * 1e3}
+            "history": hist, "launches": launches, "entries": entries, "wall_s": wall,
+            "peak_gb": peak_gb, "step_ms_warm_median": med,
+            "tok_s_warm": gb * sl * len(warm) / sum(h["step_ms"] for h in warm) * 1e3,
+            "model_tflops_warm_median": flops_step / med / 1e9}
 
         # ---- the final checkpoint's size and save time ----------------------
         ck = CheckpointManager(tmp / "save", keep=1)
@@ -2215,114 +2564,87 @@ def train_phase(book, dev, failures) -> dict:
         summary["save"] = {"bytes": nbytes, "save_s": save_s}
         shutil.rmtree(tmp / "save", ignore_errors=True)
 
-        # ---- where the time goes: one warm train step ----------------------
-        run = DEFAULT_RUN.replace(remat="full", param_dtype="float32")
+        # ---- where the time goes: one warm bf16 train step -----------------
+        run = DEFAULT_RUN.replace(remat="full")
         step_fn = make_train_step(cfg, run, steps, device=dev)
-        batch0 = make_pipeline(cfg, sl, gb, seed=LM_TRAIN["seed"]).batch_at(0)
         br = trace_breakdown(lambda: step_fn(state, batch0), {"batch": gb, "seq": sl})
         summary["service"] = br
-        print(f"{LM_ARCH} warm train step: wall {br['wall_ms']:.3f} ms (median of 5), "
+        print(f"{LM_ARCH} warm bf16 train step: wall {br['wall_ms']:.3f} ms (median of 5), "
               f"device {br['device_ms']:.3f} ms in {br['device_ops']} device ops, "
               f"idle share {br['idle_share']}")
         for cat, ms in sorted(br["by_class_ms"].items(), key=lambda kv: -kv[1]):
             print(f"  {ms:8.3f} ms  {cat}")
+        for k in br["top_kernels"]:
+            print(f"  top {k['ms']:8.3f} ms x{k['count']}  {k['name']}")
         del state, step_fn
         torch.cuda.empty_cache()
 
-        # ---- one step's gradients, card against the host's plain path ------
+        # ---- one step's gradients at bf16, card against the host -----------
+        summary["grads_vs_host"], calls = grads_vs_host(
+            cfg, run, batch0, dev, failures, limits=(1e-2, 3e-2, 5e-2), tag="bf16")
+        torch.cuda.empty_cache()
+        print(f"{LM_ARCH} bf16 flash kernel checks ({KERNEL_TOL.split('; ')[-1]}):")
+        flash_shape_checks(book, cfg, calls, dev, torch.bfloat16, failures)
+        del calls
+        torch.cuda.empty_cache()
+
+        # ---- remat none / dots / full; gradient compression ----------------
+        summary["remat"] = remat_checks(cfg, (batch0, batch1), dev, failures)
         params = M.init_params(cfg, torch.Generator().manual_seed(LM_TRAIN["seed"]),
-                               device=dev)
-        keep = (0, n_layers - 1)  # backward order: layer 27, then layer 0
-        with capture_backward(keep) as cap:
-            loss_and_grads(cfg, run, params, to_device(batch0, dev))
-        hb = {k: v[:LM_TRAIN_HOST_BATCH] for k, v in batch0.items()}
-        loss_c, grads_c = loss_and_grads(cfg, run, params, to_device(hb, dev))
-        params_cpu = tree_to(params, "cpu")
+                               device=dev, dtype=torch.bfloat16)
+        _, grads = loss_and_grads(cfg, run, params, to_device(batch0, dev))
         del params
-        grads_c = tree_to(grads_c, "cpu")
-        t0 = time.perf_counter()
-        loss_h, grads_h = loss_and_grads(cfg, run.replace(remat="none"), params_cpu,
-                                         to_device(hb, "cpu"))
-        host_s = time.perf_counter() - t0
-        lc, lh = float(loss_c), float(loss_h)
-        nc, nh = float(global_norm(grads_c)), float(global_norm(grads_h))
-        worst, zero_layers, ok_leaves = 0.0, [], True
-        for (path_c, gc), gh in zip(tree_paths(grads_c), tree_leaves(grads_h)):
-            scale = float(gh.abs().max())
-            err = float((gc - gh).abs().max())
-            worst = max(worst, err / scale if scale else err)
-            ok_leaves &= err <= 1e-3 * scale
-            per_layer = gc.reshape(gc.shape[0], -1) if path_c.startswith("groups") else \
-                gc.reshape(1, -1)
-            zero_layers += [f"{path_c}[{i}]" for i in range(per_layer.shape[0])
-                            if not bool(per_layer[i].abs().max() > 0)]
-        ok_loss = abs(lc - lh) <= 1e-4 * abs(lh)
-        ok_norm = abs(nc - nh) <= 1e-3 * nh
-        print(f"{LM_ARCH} one step's gradients, card vs host plain path (batch "
-              f"{LM_TRAIN_HOST_BATCH} x {sl}; host {host_s:.1f} s): loss {lc:.6f} vs "
-              f"{lh:.6f} ({'ok' if ok_loss else 'FAIL'}, 1e-4 rel), grad norm {nc:.6f} "
-              f"vs {nh:.6f} ({'ok' if ok_norm else 'FAIL'}, 1e-3 rel), worst leaf "
-              f"max|card - host| / max|host| = {worst:.2e} ({'ok' if ok_leaves else 'FAIL'},"
-              f" 1e-3); leaves (per layer) with a zero gradient on the card: "
-              f"{zero_layers or 'none'}")
-        if not (ok_loss and ok_norm and ok_leaves):
-            failures.append(f"{LM_ARCH} train: card gradients disagree with the host")
-        if zero_layers:
-            failures.append(f"{LM_ARCH} train: zero gradients on the card: {zero_layers}")
-        summary["grads_vs_host"] = {"loss": [lc, lh], "grad_norm": [nc, nh],
-                                    "worst_leaf_rel": worst, "zero": zero_layers,
-                                    "host_s": host_s}
-        del params_cpu, grads_c, grads_h
+        summary["compression"] = compression_checks(grads, dev, failures)
+        del grads
         torch.cuda.empty_cache()
 
-        # ---- the backward kernels: trained, long and edge shapes -----------
-        print(f"{LM_ARCH} flash backward kernel checks ({KERNEL_TOL.split(';')[0]}):")
-        for idx in keep:
-            if idx not in cap.calls:
-                failures.append(f"{LM_ARCH} train: backward call {idx} not captured")
-                continue
-            args, kw = cap.calls[idx]
-            layer = n_layers - 1 - idx
-            check_flash_bwd(book, f"trained layer {layer}", args, kw, timed=(layer == 0))
-            if layer == 0:  # the forward at the trained shape: out, m and l
-                check_flash(book, "trained layer 0", args[:3], kw, timed=True)
-        del cap
-        gen = torch.Generator(device=dev).manual_seed(6)
-
-        def operands(b, sq, kvh, g, sk, d, kw, wide=False):
-            q = torch.randn((b, sq, kvh, g, d), generator=gen, device=dev)
-            k = torch.randn((b, sk, kvh, d), generator=gen, device=dev)
-            v = torch.randn((b, sk, kvh, d), generator=gen, device=dev)
-            if wide:  # q and k elementwise times 2^e, e uniform over -3..3
-                for t in (q, k):
-                    t.mul_(torch.exp2(torch.randint(-3, 4, t.shape, generator=gen,
-                                                    device=dev).float()))
-            with torch.no_grad():
-                out, m, l = flash_fwd(q, k, v, **kw)
-            do = torch.randn(q.shape, generator=gen, device=dev)
-            return q, k, v, out, m, l, do
-
-        kvh, g, d = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.resolved_head_dim
-        lb, ls = LM_LONG["b"], LM_LONG["sq"]
-        kw = dict(scale=d ** -0.5, causal=True, q_offset=0, kv_len=None)
-        check_flash_bwd(book, "long 2048x2048 causal", operands(lb, ls, kvh, g, ls, d, kw),
-                        kw, timed=True)
+        # ---- the fp32 trainer: init_train_state / make_train_step ----------
+        run32 = DEFAULT_RUN.replace(remat="full", param_dtype="float32")
+        n32 = LM_TRAIN_FP32_STEPS
+        state = init_train_state(cfg, run32, torch.Generator().manual_seed(LM_TRAIN["seed"]),
+                                 device=dev)
+        step_fn = make_train_step(cfg, run32, steps, device=dev)
+        pipe = make_pipeline(cfg, sl, gb, seed=LM_TRAIN["seed"])
+        reset_counts(wrappers)
+        before = dict(FLASH_ENTRY_LAUNCHES)
+        hist32 = []
+        for i in range(n32):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step_fn(state, pipe.batch_at(i))
+            loss = float(m["loss"])
+            hist32.append({"step": i, "loss": loss, "grad_norm": float(m["grad_norm"]),
+                           "step_ms": (time.perf_counter() - t0) * 1e3})
+        launches = read_counts(wrappers)
+        entries = entries_since(before)
+        print(f"{LM_ARCH} fp32 trainer (init_train_state / make_train_step, param_dtype "
+              f"float32): {n32} steps, losses {[round(h['loss'], 5) for h in hist32]}, step "
+              f"ms {[round(h['step_ms'], 1) for h in hist32]}; launches {launches} "
+              f"(expected {expect(n32)}); per entry point {entries} (expected "
+              f"{expect_entries(n32, 'f32')})")
+        if launches != expect(n32) or entries != expect_entries(n32, "f32"):
+            failures.append(f"{LM_ARCH} fp32 train: launches {launches} / {entries}")
+        if not all(np.isfinite(h["loss"]) for h in hist32):
+            failures.append(f"{LM_ARCH} fp32 train: loss not finite")
+        br32 = trace_breakdown(lambda: step_fn(state, batch0), {"batch": gb, "seq": sl})
+        summary["fp32"] = {"history": hist32, "launches": launches, "entries": entries,
+                           "service": br32}
+        print(f"{LM_ARCH} warm fp32 train step: wall {br32['wall_ms']:.3f} ms (median of "
+              f"5), device {br32['device_ms']:.3f} ms in {br32['device_ops']} device ops, "
+              f"idle share {br32['idle_share']}")
+        for cat, ms in sorted(br32["by_class_ms"].items(), key=lambda kv: -kv[1]):
+            print(f"  {ms:8.3f} ms  {cat}")
+        del state, step_fn
         torch.cuda.empty_cache()
-        # every head dim; ragged Sq / Sk; G = 1, 2, 8; q_offset / kv_len; non-causal;
-        # q and k over 2^+-3 at Sk = 512 (where one TF32 product would miss)
-        edges = [(2, 37, 2, 2, 53, hd, hd % 16 == 0, 0, None) for hd in FLASH_HEAD_DIMS]
-        edges += [(3, 37, 1, 1, 53, 128, True, 16, None),
-                  (2, 70, 1, 8, 130, 64, True, 200, 250),
-                  (2, 65, 2, 8, 97, 256, False, 0, 80),
-                  (2, 1, 8, 2, 130, 128, True, 99, 100),
-                  (2, 40, 2, 2, 40, 128, True, -8, None)]
-        edges = [e + (False,) for e in edges] + [(2, 384, 4, 2, 512, 128, True, 128, None, True)]
-        for eb, esq, ekv, eg, esk, ed, causal, qo, kvl, wide in edges:
-            ekw = dict(scale=ed ** -0.5, causal=causal, q_offset=qo, kv_len=kvl)
-            check_flash_bwd(book, "edge, q and k over 2^+-3" if wide else "edge",
-                            operands(eb, esq, ekv, eg, esk, ed, ekw, wide), ekw, timed=False)
+        summary["fp32"]["grads_vs_host"], calls = grads_vs_host(
+            cfg, run32, batch0, dev, failures, limits=(1e-4, 1e-3, 1e-3), tag="fp32")
+        torch.cuda.empty_cache()
+        print(f"{LM_ARCH} fp32 flash backward kernel checks ({KERNEL_TOL.split(';')[0]}):")
+        flash_shape_checks(book, cfg, calls, dev, torch.float32, failures)
+        del calls
+        torch.cuda.empty_cache()
 
-        # ---- restart on the card at the reduced config ---------------------
+        # ---- restart on the card at the reduced config (bf16) --------------
         losses = {}
         for tag, fail_at in (("uninterrupted", ()), ("failed", LM_RESTART["fail_at"])):
             _, h = train(LM_ARCH, reduced=True, steps=LM_RESTART["steps"],
@@ -2332,13 +2654,13 @@ def train_phase(book, dev, failures) -> dict:
                          fail_at=fail_at, resume=False, seed=7, device=dev)
             losses[tag] = {x["step"]: x["loss"] for x in h}
         a, b = losses["uninterrupted"], losses["failed"]
+        same = sorted(a) == sorted(b) and all(a[s_] == b[s_] for s_ in a)
         diff = max(abs(a[s_] - b[s_]) for s_ in a) if sorted(a) == sorted(b) else float("inf")
-        ok = diff < 1e-6
-        print(f"{LM_ARCH} reduced restart on the card ({LM_RESTART['steps']} steps, "
+        print(f"{LM_ARCH} reduced restart on the card at bf16 ({LM_RESTART['steps']} steps, "
               f"failure at {LM_RESTART['fail_at']}, checkpoints every "
-              f"{LM_RESTART['checkpoint_every']}): max |loss difference| {diff:.3e} "
-              f"(limit 1e-6): {'ok' if ok else 'FAIL'}")
-        if not ok:
+              f"{LM_RESTART['checkpoint_every']}): losses bitwise equal {same} (max |loss "
+              f"difference| {diff:.3e}): {'ok' if same else 'FAIL'}")
+        if not same:
             failures.append(f"{LM_ARCH} train: restart changed the losses by {diff}")
         summary["restart_max_loss_diff"] = diff
     finally:
@@ -3267,10 +3589,11 @@ def main() -> int:
     failures = []
     # the fp32 tensor-core bodies (ECR / PECR, BSR, the fp32 flash forward)
     # run on the TF32 tensor cores (HMMA), staged by cp.async (LDGSTS); the
-    # conv body has no CUDA-core fp32 multiply-add (FFMA) left
+    # conv body has no CUDA-core fp32 multiply-add (FFMA) left; the bf16
+    # flash kernels run on the bf16 tensor cores (HMMA), staged by cp.async
     all_sass = sass_counts(lib_path)
     usage = ptxas_usage(build_out.getvalue())  # empty if the library was built before
-    for stem, want in SPLIT_TF32_KERNELS.items():
+    for stem, want in {**SPLIT_TF32_KERNELS, **BF16_KERNELS}.items():
         sass = {k: v for k, v in all_sass.items() if stem in k}
         for fn, ops in sorted(sass.items()):
             res = usage.get(fn)
@@ -3595,25 +3918,43 @@ def main() -> int:
             "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
             "library_ms": sum(r["library_ms"] for r in main_rows),
             "phase": LM_ARCH,
-            "train_launches": train_summary.get("main", {}).get("launches", {}).get(name, 0),
+            # the fp32 trainer's run (the main training run is bf16)
+            "train_launches": (train_summary.get("fp32", {}).get("entries", {})
+                               .get("repro_flash_fwd_f32", 0) if name == "flash_fwd" else 0),
             "shapes": [{k: r[k] for k in ("shape", "q", "k", "ms", "plain_ms",
                                           "library_ms", "bound_ms", "bound_by")}
                        for r in rows]})
         if len(main_rows) != 2:
             failures.append(f"{name}: the served shapes were not timed")
     # the backward rows: one launch of each pass at the trained shape (layer
-    # 0 of a batch-8 step), with every timed shape listed under "shapes"
-    for name, site in (("flash_bwd_dq", ":265"), ("flash_bwd_dkv", ":284")):
+    # 0 of a batch-8 step), with every timed shape listed under "shapes"; the
+    # fp32 passes' launches are the fp32 trainer's run, the bf16 ones' (and
+    # the bf16 forward's) the main training run's
+    train_entries = train_summary.get("main", {}).get("entries", {})
+    fp32_entries = train_summary.get("fp32", {}).get("entries", {})
+    for name, src, site, launched, peak in (
+            ("flash_bwd_dq", "flash_attention_bwd.cu", ":265",
+             fp32_entries.get("repro_flash_bwd_dq_f32", 0), PEAK_TF32_SPLIT_FLOPS),
+            ("flash_bwd_dkv", "flash_attention_bwd.cu", ":284",
+             fp32_entries.get("repro_flash_bwd_dkv_f32", 0), PEAK_TF32_SPLIT_FLOPS),
+            ("flash_fwd_bf16", "flash_attention.cu", ":94",
+             train_entries.get("repro_flash_fwd_bf16", 0), PEAK_BF16_FLOPS),
+            ("flash_bwd_dq_bf16", "flash_attention_bwd.cu", ":265",
+             train_entries.get("repro_flash_bwd_dq_bf16", 0), PEAK_BF16_FLOPS),
+            ("flash_bwd_dkv_bf16", "flash_attention_bwd.cu", ":284",
+             train_entries.get("repro_flash_bwd_dkv_bf16", 0), PEAK_BF16_FLOPS)):
         rows = [r for r in book.rows if r["kernel"] == name]
         main_rows = [r for r in rows if r["shape"] == "trained layer 0"]
         ms = sum(r["ms"] for r in main_rows)
         bound = sum(r["bound_ms"] for r in main_rows)
         flop_ms = sum(r["flop_ms"] for r in main_rows)
+        bf16 = name.endswith("_bf16")
         kernels.append({
-            "name": name, "route": "cuda", "source": csrc + "flash_attention_bwd.cu",
+            "name": name, "route": "cuda", "source": csrc + src,
             "replaces": flash_src + site,
-            "redesigned_in": 18, "timing": "CUDA-graph replay (plain_ms too)",
-            "launches": train_summary.get("main", {}).get("launches", {}).get(name, 0),
+            **({} if bf16 else {"redesigned_in": 18}),
+            "timing": "CUDA-graph replay (plain_ms too)",
+            "launches": launched,
             "max_abs_err": book.max_err.get(name, 0.0),
             "ms": ms,
             "plain_ms": sum(r["plain_ms"] for r in main_rows),
@@ -3622,13 +3963,14 @@ def main() -> int:
             "library_ms": sum(r["library_ms"] for r in main_rows),
             "eager_ms": sum(r["eager_ms"] for r in main_rows),
             "eager_library_ms": sum(r["eager_library_ms"] for r in main_rows),
-            "achieved_tflops": flop_ms / ms * PEAK_TF32_SPLIT_FLOPS / 1e12 if ms else 0.0,
+            "achieved_tflops": flop_ms / ms * peak / 1e12 if ms else 0.0,
             "bound_share": bound / ms if ms else 0.0,
-            "fp32_core_bound_ms": sum(r["fp32_core_bound_ms"] for r in main_rows),
+            **({} if bf16 else {"fp32_core_bound_ms": sum(r["fp32_core_bound_ms"]
+                                                          for r in main_rows)}),
             "phase": LM_ARCH + "-train",
             "shapes": [{k: r[k] for k in ("shape", "q", "k", "ms", "plain_ms",
                                           "library_ms", "eager_ms", "eager_library_ms",
-                                          "bound_ms", "bound_by", "fp32_core_bound_ms")}
+                                          "bound_ms", "bound_by") if k in r}
                        for r in rows]})
         if len(main_rows) != 1:
             failures.append(f"{name}: the trained shape was not timed")

@@ -1,11 +1,12 @@
-"""Config system of the port's LMs: `ModelConfig`, `RunConfig` and the
-architecture registry (counterpart of `repro.configs.base`).
+"""Config system of the port's LMs: `ModelConfig`, `ShapeConfig`,
+`RunConfig`, the shape table and the architecture registry (counterpart of
+`repro.configs.base`).
 
 The dataclasses carry every field of the reference's, so a config file
 copies over verbatim. The registry loads only the architectures the port
 serves (`_ARCH_MODULES`); the others join with their families (ROADMAP).
-The reference's shape table and `n_params` (an abstract trace) are not
-ported.
+`ModelConfig.n_params` counts from the parameter shapes without allocating
+them (`models.model.count_params_analytic`).
 """
 from __future__ import annotations
 
@@ -92,6 +93,45 @@ class ModelConfig:
     def supports_long_context(self) -> bool:
         """Sub-quadratic decode: recurrent/SSM state or hybrid w/ few attn layers."""
         return self.family in ("ssm", "hybrid")
+
+    def n_params(self) -> int:
+        """Analytic parameter count (matches init_params; used for 6ND roofline)."""
+        from repro_torch.models.model import count_params_analytic
+
+        return count_params_analytic(self)
+
+    def n_active_params(self) -> int:
+        from repro_torch.models.model import count_params_analytic
+
+        return count_params_analytic(self, active_only=True)
+
+
+# ---------------------------------------------------------------------------
+# Shape config
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4_096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32_768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524_288, 1, "decode")
+
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
+
+
+def shape_applicable(model: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """Whether a (arch, shape) cell runs; reason recorded in the dry-run table."""
+    if shape.name == "long_500k" and not model.supports_long_context:
+        return False, "full-attention arch: 500k dense KV/O(L^2) attn — needs sub-quadratic attention (DESIGN.md §5)"
+    return True, ""
 
 
 # ---------------------------------------------------------------------------

@@ -3,7 +3,9 @@ port.
 
 `torch.Generator` cannot reproduce `jax.random` bits, so a comparison of the
 two packages makes its weights once (on the JAX side, as numpy arrays) and
-hands the same values to both.
+hands the same values to both. numpy has no bfloat16: a bf16 leaf crosses
+widened to float32 (exact) and the LM converters narrow it back with
+`dtype=torch.bfloat16` (exact again).
 """
 from __future__ import annotations
 
@@ -31,14 +33,15 @@ def params_from_jax(np_params: dict, device=None) -> dict:
             "dense": [t(w) for w in np_params["dense"]]}
 
 
-def lm_params_from_jax(np_params: dict, cfg, device=None) -> dict:
+def lm_params_from_jax(np_params: dict, cfg, device=None, dtype=torch.float32) -> dict:
     """The JAX LM's parameter values tree (`repro.models.model.init_params`'s
     first result, leaves as array-likes) -> the port's tree on `device`
     (None = the card): `embed`, `final_norm`, [`unembed`] and
     `groups.sub0.{ln1, mix.{wq, wk, wv, wo[, q_norm, k_norm]}, ln2,
     ffn.{w1[, w3], w2}}`, each group leaf with its leading layer axis. The two
     trees have the same keys and layouts; a missing or misshapen leaf raises.
-    Dense LMs only (the families the port serves)."""
+    Leaves in `dtype` (float32, or bfloat16 for the reference's default
+    training type). Dense LMs only (the families the port serves)."""
     from repro_torch.models.transformer import group_layout, n_groups
 
     dev = resolve_device(device)
@@ -50,7 +53,7 @@ def lm_params_from_jax(np_params: dict, cfg, device=None) -> dict:
         if where.startswith("groups") and (x.ndim == 0 or x.shape[0] != n):
             raise ValueError(f"{where}: leading axis {x.shape[:1]} is not the "
                              f"{n} layers of {cfg.name}")
-        return torch.from_numpy(x).to(dev)
+        return torch.from_numpy(x).to(dev, dtype)
 
     sub = np_params["groups"]["sub0"]
     mix = ("wq", "wk", "wv", "wo") + (("q_norm", "k_norm") if cfg.qk_norm else ())
@@ -73,11 +76,12 @@ def lm_params_from_jax(np_params: dict, cfg, device=None) -> dict:
     return out
 
 
-def train_state_from_jax(np_state, cfg, device=None):
+def train_state_from_jax(np_state, cfg, device=None, dtype=torch.float32):
     """The JAX package's `TrainState` (`repro.launch.steps`), leaves as
     array-likes -> the port's `TrainState` on `device` (None = the card):
-    params, and the AdamW moments m and v, through `lm_params_from_jax`
-    (float32), and the step count as an int32 scalar."""
+    params in `dtype` and the AdamW moments m and v in float32 (the
+    reference's `moment_dtype`), through `lm_params_from_jax`, and the step
+    count as an int32 scalar."""
     from repro_torch.launch.steps import TrainState
     from repro_torch.optim.adamw import OptState
 
@@ -85,6 +89,6 @@ def train_state_from_jax(np_state, cfg, device=None):
     opt = np_state.opt
     step = torch.tensor(int(np.asarray(opt.step)), dtype=torch.int32, device=dev)
     return TrainState(
-        params=lm_params_from_jax(np_state.params, cfg, device=dev),
+        params=lm_params_from_jax(np_state.params, cfg, device=dev, dtype=dtype),
         opt=OptState(step=step, m=lm_params_from_jax(opt.m, cfg, device=dev),
                      v=lm_params_from_jax(opt.v, cfg, device=dev)))

@@ -1,13 +1,22 @@
 // GQA flash-attention forward for Hopper (sm_90a), over an fp32 or an int8
-// K/V cache.
+// K/V cache, or on bf16 operands.
 //
 // Replaces the TPU kernels
 //   repro/kernels/flash_attention/kernel.py flash_fwd_pallas    -> repro_flash_fwd_f32
+//                                                                  repro_flash_fwd_bf16
 //   repro/kernels/flash_attention/kernel.py flash_fwd_q8_pallas -> repro_flash_fwd_q8
 // with one device body on the TF32 tensor cores in split-TF32, instantiated
 // as `flash_fwd_kernel<D>` for fp32 K/V and `flash_fwd_q8_kernel<D>` for int8
 // K/V with per-position fp32 scales, dequantized as they are staged,
 // (float)k_q8 * k_scale[pos] (the product `_dequantize_kv` forms at fp32).
+//
+// The bf16 entry point (the training step at the reference's default
+// bfloat16) is `flash_fwd_bf16_kernel<D>` further down: the same blocks,
+// warps and online softmax on the bf16 tensor cores (mma.sync m16n8k16, fp32
+// accumulation), rounding where the reference does (p before P.V, out), the
+// scores scaled by the scale rounded to bf16, m and l fp32; within 2^-7 *
+// max|plain| of out and 1e-5 * max|plain| of m and l. At the trained shape
+// it is bound, like the fp32 body, by latency and filling the SMs.
 //
 // What it computes (the Pallas kernels' function): for every kv head bkv,
 // group g and query position s, with qpos = q_offset + s,
@@ -88,11 +97,16 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "bf16_mma.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
 
 using namespace tf32mma;
+using bf16mma::Bf16Rows;
+using bf16mma::mma_bf16;
+using bf16mma::pack_bf16;
+using bf16mma::pack_raw;
 
 constexpr float kNeg = -1e30f;
 
@@ -428,6 +442,284 @@ flash_fwd_q8_kernel(const float* __restrict__ q, const int8_t* __restrict__ k,
   flash_fwd_body<int8_t, D>(q, k, v, ks, vs, o, nullptr, nullptr, p);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 operands on the bf16 tensor cores (repro_flash_fwd_bf16)
+// ---------------------------------------------------------------------------
+
+// Stage keys pos0 .. pos0 + 15 of one bf16 K or V head into a [16][DP]
+// chunk (rows past Sk zero-filled), by this warp's lanes: 16-byte cp.async
+// where the operands keep 16-byte alignment, else element by element
+// through registers (the same values).
+template <int D>
+__device__ __forceinline__ void stage_chunk_bf16(uint16_t* dst, const uint16_t* __restrict__ src,
+                                                 long long base, long long ss, int pos0,
+                                                 const FlashParams& p, int lane) {
+  constexpr int DP = Bf16Rows<D>::DP;
+  if (p.vec) {
+    constexpr int kC = D / 8;  // 16-byte copies per row
+    for (int i = lane; i < kChunk * kC; i += 32) {
+      const int r = i / kC, c = i - r * kC, pos = pos0 + r;
+      const bool ok = pos < p.sk;
+      cp_async16(smem_addr(dst + r * DP + 8 * c), ok ? src + base + pos * ss + 8 * c : src, ok);
+    }
+  } else {
+    for (int i = lane; i < kChunk * D; i += 32) {
+      const int r = i / D, d = i - r * D, pos = pos0 + r;
+      dst[r * DP + d] = pos < p.sk ? src[base + pos * ss + d] : (uint16_t)0;
+    }
+  }
+}
+
+// The bf16 forward: the fp32 body's blocks, warps and online softmax, on
+// m16n8k16 bf16 MMAs. S = Q K^T from the raw bf16 Q tile and K chunk (one
+// k16 step per 16 head-dim columns, each into a fresh fragment), times the
+// scale rounded to bf16 (p.scale) in fp32; p rounded to bf16 as it packs
+// into P.V's A fragment (a lane's score pairs are already A's layout), V's
+// B fragment read as two bf16 of rows 2t, 2t + 1; out rounded to bf16.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
+                      const uint16_t* __restrict__ v, uint16_t* __restrict__ o,
+                      float* __restrict__ m_out, float* __restrict__ l_out, FlashParams p) {
+  constexpr int DK = Bf16Rows<D>::DK, DP = Bf16Rows<D>::DP, W = Bf16Rows<D>::W;
+  constexpr int NS = DK / 16;  // k16 steps of Q.K^T
+  constexpr int NT = D / 8;    // n8 tiles of P.V
+  constexpr int PD = D + 4;    // fp32 partial rows of the warps' combine
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  uint16_t* const qs = reinterpret_cast<uint16_t*>(smem_bytes);  // [16][DP]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  uint16_t* const kc = qs + kTileRows * DP + warp * 2 * kChunk * DP;  // this warp's K
+  uint16_t* const vc = kc + kChunk * DP;                              // and V chunk
+  float* const xm = reinterpret_cast<float*>(qs + kTileRows * DP + kWarps * 2 * kChunk * DP);
+  float* const xl = xm + kWarps * kTileRows;
+
+  if (D < 16) {  // the zero columns D .. 15 of every row the MMAs contract
+    for (int i = tid; i < (kTileRows + kWarps * 2 * kChunk) * DP / 8; i += kThreads)
+      reinterpret_cast<uint4*>(qs)[i] = make_uint4(0u, 0u, 0u, 0u);
+    __syncthreads();
+  }
+
+  const int bkv = blockIdx.y;
+  const int b = bkv / p.nh, h = bkv % p.nh;
+  const int rows = p.sq * p.g;
+  const int r0 = blockIdx.x * kTileRows;
+  const long long qb = b * p.q_sb + h * p.q_sh;
+  const long long kb = b * p.k_sb + h * p.k_sh;
+  const long long vb = b * p.v_sb + h * p.v_sh;
+  const int kend = visit_end(p, r0 / p.g, (min(r0 + kTileRows, rows) - 1) / p.g);
+  const int n_chunks = (kend + kChunk - 1) / kChunk;
+
+  int c = warp;
+  if (c < n_chunks) stage_chunk_bf16<D>(kc, k, kb, p.k_ss, c * kChunk, p, lane);
+  cp_async_commit();
+  if (c < n_chunks) stage_chunk_bf16<D>(vc, v, vb, p.v_ss, c * kChunk, p, lane);
+  cp_async_commit();
+
+  // Q, raw bf16 (rows past Sq * G zero)
+  if (p.vec) {
+    for (int i = tid; i < kTileRows * (D / 8); i += kThreads) {
+      const int r = i / (D / 8), d = (i - r * (D / 8)) * 8, row = r0 + r;
+      uint4 x = make_uint4(0u, 0u, 0u, 0u);
+      if (row < rows) {
+        const int s = row / p.g;
+        x = *reinterpret_cast<const uint4*>(q + qb + (row - s * p.g) * p.q_sg + s * p.q_ss + d);
+      }
+      *reinterpret_cast<uint4*>(qs + r * DP + d) = x;
+    }
+  } else {
+    for (int i = tid; i < kTileRows * D; i += kThreads) {
+      const int r = i / D, d = i - r * D, row = r0 + r;
+      uint16_t x = 0;
+      if (row < rows) {
+        const int s = row / p.g;
+        x = q[qb + (row - s * p.g) * p.q_sg + s * p.q_ss + d];
+      }
+      qs[r * DP + d] = x;
+    }
+  }
+  __syncthreads();
+
+  int qpos[2];  // rows g and g + 8 of the tile
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) qpos[hf] = p.q_offset + (r0 + g + 8 * hf) / p.g;
+
+  float mrow[2] = {kNeg, kNeg}, lrow[2] = {0.f, 0.f};
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  const uint32_t* const qw = reinterpret_cast<const uint32_t*>(qs);
+
+  for (; c < n_chunks; c += kWarps) {
+    const int key0 = c * kChunk;
+    const bool next = c + kWarps < n_chunks;
+    cp_async_wait<1>();  // K(c) landed (V(c) may still be in flight)
+    __syncwarp();
+
+    // S = Q K^T over two n8 tiles of keys: each k16 step's MMA into a fresh
+    // fragment, added with a rounded FADD (a chain of MMAs into one
+    // accumulator truncates at every step and drifts: m and l hold 1e-5)
+    float sacc[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sacc[j][e] = 0.f;
+    const uint32_t* const kw = reinterpret_cast<const uint32_t*>(kc);
+#pragma unroll
+    for (int ks = 0; ks < NS; ++ks) {
+      const int qo = g * W + 8 * ks + t;
+      const uint32_t a[4] = {qw[qo], qw[qo + 8 * W], qw[qo + 4], qw[qo + 8 * W + 4]};
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int ko = (8 * j + g) * W + 8 * ks + t;
+        float step[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_bf16(step, a, kw[ko], kw[ko + 4]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sacc[j][e] += step[e];
+      }
+    }
+    __syncwarp();  // every lane is done with K(c)
+    if (next) stage_chunk_bf16<D>(kc, k, kb, p.k_ss, (c + kWarps) * kChunk, p, lane);
+    cp_async_commit();
+
+    // masks and the online softmax, as the fp32 body
+    float pr[2][2][2];  // [hf][j][e]
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kpos = key0 + 8 * j + 2 * t + e;
+          float x = sacc[j][2 * hf + e] * p.scale;
+          if (kpos >= p.sk)
+            x = -INFINITY;
+          else if ((p.causal && qpos[hf] < kpos) || (p.kv_len >= 0 && kpos >= p.kv_len))
+            x = kNeg;
+          pr[hf][j][e] = x;
+          mx = fmaxf(mx, x);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float mnew = fmaxf(mrow[hf], mx);
+      const float alpha = expf(mrow[hf] - mnew);
+      float ps = 0.f;
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          pr[hf][j][e] = expf(pr[hf][j][e] - mnew);
+          ps += pr[hf][j][e];  // l sums p unrounded, as the reference does
+        }
+      lrow[hf] = lrow[hf] * alpha + ps;
+      mrow[hf] = mnew;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        acc[n][2 * hf] *= alpha;
+        acc[n][2 * hf + 1] *= alpha;
+      }
+    }
+
+    cp_async_wait<1>();  // V(c) landed (K(c + 4) may still be in flight)
+    __syncwarp();
+    // O += bf16(P) V: one k16 step over the chunk's 16 keys
+    const uint32_t a[4] = {pack_bf16(pr[0][0][0], pr[0][0][1]), pack_bf16(pr[1][0][0], pr[1][0][1]),
+                           pack_bf16(pr[0][1][0], pr[0][1][1]), pack_bf16(pr[1][1][0], pr[1][1][1])};
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const uint16_t* vr = vc + 8 * n + g;
+      mma_bf16(acc[n], a, pack_raw(vr[2 * t * DP], vr[(2 * t + 1) * DP]),
+               pack_raw(vr[(2 * t + 8) * DP], vr[(2 * t + 9) * DP]));
+    }
+    __syncwarp();  // every lane is done with V(c)
+    if (next) stage_chunk_bf16<D>(vc, v, vb, p.v_ss, (c + kWarps) * kChunk, p, lane);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+
+  // combine the warps' partial softmaxes as the fp32 body does, each warp's
+  // output (fp32, [16][D+4]) over its own K and V chunks
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    lrow[hf] += __shfl_xor_sync(0xffffffffu, lrow[hf], 1);
+    lrow[hf] += __shfl_xor_sync(0xffffffffu, lrow[hf], 2);
+    if (t == 0) {
+      xm[warp * kTileRows + g + 8 * hf] = mrow[hf];
+      xl[warp * kTileRows + g + 8 * hf] = lrow[hf];
+    }
+  }
+  __syncthreads();
+  float* const mine = reinterpret_cast<float*>(kc);
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    float mall = xm[g + 8 * hf];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) mall = fmaxf(mall, xm[w * kTileRows + g + 8 * hf]);
+    const float f = expf(mrow[hf] - mall);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      *reinterpret_cast<float2*>(mine + (g + 8 * hf) * PD + 8 * n + 2 * t) =
+          make_float2(acc[n][2 * hf] * f, acc[n][2 * hf + 1] * f);
+  }
+  __syncthreads();
+  const float* part = reinterpret_cast<const float*>(qs + kTileRows * DP);
+  constexpr int kPartStride = kChunk * DP;  // floats between two warps' partials
+  for (int i = tid; i < kTileRows * (D / 4); i += kThreads) {
+    const int r = i / (D / 4), d = (i - r * (D / 4)) * 4, row = r0 + r;
+    if (row >= rows) continue;
+    float mall = xm[r];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) mall = fmaxf(mall, xm[w * kTileRows + r]);
+    float lsum = 0.f;
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      lsum += expf(xm[w * kTileRows + r] - mall) * xl[w * kTileRows + r];
+      const float4 x = *reinterpret_cast<const float4*>(part + w * kPartStride + r * PD + d);
+      sum.x += x.x; sum.y += x.y; sum.z += x.z; sum.w += x.w;
+    }
+    const float l = fmaxf(lsum, 1e-30f);
+    const int s = row / p.g, gg = row - s * p.g;
+    uint16_t* dst = o + b * p.o_sb + h * p.o_sh + gg * p.o_sg + s * p.o_ss + d;
+    const uint32_t y01 = pack_bf16(sum.x / l, sum.y / l), y23 = pack_bf16(sum.z / l, sum.w / l);
+    if (p.vec) {
+      *reinterpret_cast<uint2*>(dst) = make_uint2(y01, y23);
+    } else {
+      dst[0] = (uint16_t)y01; dst[1] = (uint16_t)(y01 >> 16);
+      dst[2] = (uint16_t)y23; dst[3] = (uint16_t)(y23 >> 16);
+    }
+    if (d == 0) {
+      const long long idx = ((long long)bkv * p.g + gg) * p.sq + s;
+      m_out[idx] = mall;
+      l_out[idx] = l;
+    }
+  }
+}
+
+// Shared bytes of the bf16 forward: the Q tile, per warp a K and a V chunk
+// (bf16 [16][DP]), the warps' m and l: 40 KB at D = 128.
+template <int D>
+constexpr int fwd_bf16_smem_bytes() {
+  return (kTileRows + kWarps * 2 * kChunk) * Bf16Rows<D>::DP * 2 + 2 * kWarps * kTileRows * 4;
+}
+
+template <int D>
+int launch_bf16(const uint16_t* q, const uint16_t* k, const uint16_t* v, uint16_t* o, float* m,
+                float* l, const FlashParams& p, int nbkv, cudaStream_t stream) {
+  static std::atomic<int> allowed[kMaxDevices];
+  const int smem = fwd_bf16_smem_bytes<D>();
+  const cudaError_t e = allow_smem((const void*)flash_fwd_bf16_kernel<D>, smem, allowed);
+  if (e != cudaSuccess) return (int)e;
+  const long long tiles = ((long long)p.sq * p.g + kTileRows - 1) / kTileRows;
+  if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  dim3 grid((unsigned)tiles, nbkv);
+  flash_fwd_bf16_kernel<D><<<grid, kThreads, smem, stream>>>(q, k, v, o, m, l, p);
+  return (int)cudaGetLastError();
+}
+
 template <int D>
 int launch_f32(const float* q, const float* k, const float* v, float* o, float* m, float* l,
                const FlashParams& p, int nbkv, cudaStream_t stream) {
@@ -482,14 +774,16 @@ int read_params(FlashParams& p, int& nbkv, int& d, const int* dims, const long l
   return 0;
 }
 
-// Whether float4 loads of q and stores of out, and kv_bytes-wide loads of
-// K/V rows, keep their alignment: every base pointer, and every row stride
-// (elements; the scales' strides aside) a multiple of 4.
+// Whether 16-byte loads of q rows and stores of out (4 fp32 or 8 bf16
+// elements; bf16 out stores 8 bytes), and kv_bytes-wide loads of K/V rows,
+// keep their alignment: every base pointer, and every row stride (elements;
+// the scales' strides aside) a multiple of `per16`, the elements in 16
+// bytes of q (4 fp32, 8 bf16).
 bool aligned(const void* q, const void* k, const void* v, const void* out,
-             const long long* st, unsigned kv_bytes) {
+             const long long* st, unsigned kv_bytes, int per16 = 4) {
   bool ok = ((uintptr_t)q | (uintptr_t)out) % 16 == 0 &&
             ((uintptr_t)k | (uintptr_t)v) % kv_bytes == 0;
-  for (int i = 0; i < 17; ++i) ok = ok && ((i >= 10 && i <= 12) || st[i] % 4 == 0);
+  for (int i = 0; i < 17; ++i) ok = ok && ((i >= 10 && i <= 12) || st[i] % per16 == 0);
   return ok;
 }
 
@@ -513,6 +807,28 @@ int repro_flash_fwd_f32(const float* q, const float* k, const float* v, float* o
     case 64: return launch_f32<64>(q, k, v, out, m, l, p, nbkv, s);
     case 128: return launch_f32<128>(q, k, v, out, m, l, p, nbkv, s);
     case 256: return launch_f32<256>(q, k, v, out, m, l, p, nbkv, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// bf16 q, k, v -> bf16 out (q's layout), fp32 m and l (BKV, G, Sq); the
+// scores are scaled by `scale` rounded to bf16, as the reference scales a
+// bf16 q.
+int repro_flash_fwd_bf16(const uint16_t* q, const uint16_t* k, const uint16_t* v, uint16_t* out,
+                         float* m, float* l, const int* dims, const long long* strides,
+                         float scale, void* stream) {
+  FlashParams p;
+  int nbkv = 0, d = 0;
+  if (const int e = read_params(p, nbkv, d, dims, strides, bf16mma::round_bf16(scale))) return e;
+  p.vec = aligned(q, k, v, out, strides, 16, 8);
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (d) {
+    case 8: return launch_bf16<8>(q, k, v, out, m, l, p, nbkv, s);
+    case 16: return launch_bf16<16>(q, k, v, out, m, l, p, nbkv, s);
+    case 32: return launch_bf16<32>(q, k, v, out, m, l, p, nbkv, s);
+    case 64: return launch_bf16<64>(q, k, v, out, m, l, p, nbkv, s);
+    case 128: return launch_bf16<128>(q, k, v, out, m, l, p, nbkv, s);
+    case 256: return launch_bf16<256>(q, k, v, out, m, l, p, nbkv, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -3,9 +3,16 @@
 // split-TF32.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention/kernel.py
-// flash_bwd_pallas, one entry point per pallas_call site:
+// flash_bwd_pallas, one entry point per pallas_call site and operand type:
 //   :265 (_dq_kernel)  -> repro_flash_bwd_dq_f32,  flash_bwd_dq_kernel<D>
+//                         repro_flash_bwd_dq_bf16, flash_bwd_dq_bf16_kernel<D>
 //   :284 (_dkv_kernel) -> repro_flash_bwd_dkv_f32, flash_bwd_dkv_kernel<D>
+//                         repro_flash_bwd_dkv_bf16, flash_bwd_dkv_bf16_kernel<D>
+// The fp32 passes run on the TF32 tensor cores in split-TF32 (below); the
+// bf16 passes (the training step at the reference's default bfloat16) on
+// the bf16 tensor cores, with the reference's rounding points (the bf16
+// section further down says where; the dv product keeps p in fp32 through a
+// bf16 hi + lo split).
 //
 // What it computes (the Pallas kernels' function): with the forward's m and
 // l (l already max(l, 1e-30)), delta = rowsum(do * out) (formed outside, as
@@ -20,7 +27,9 @@
 //   dv[bkv,k,:]   = sum_{g,s} p[k] do[bkv,g,s,:]
 // A fully masked row (m = NEG) spreads p = 1/l over all Sk keys, as in the
 // reference, because the mask is -1e30 and not -inf. fp32 within the port's
-// limit of the plain version (1e-4 * max|plain| + 1e-5 * min(1, max|plain|)).
+// limit of the plain version (1e-4 * max|plain| + 1e-5 * min(1, max|plain|));
+// bf16 within 2^-7 * max|plain| (one bf16 ulp at the largest value) of
+// dq, dk and dv.
 //
 // Layout: q, do and dq are read / written through (b, h, g, s) element
 // strides, k, v, dk and dv through (b, h, s) strides, with bkv = b * nh + h
@@ -115,11 +124,17 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "bf16_mma.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
 
 using namespace tf32mma;
+using bf16mma::Bf16Rows;
+using bf16mma::mma_bf16;
+using bf16mma::pack_bf16;
+using bf16mma::pack_raw;
+using bf16mma::split_pair;
 
 constexpr int kTile = 16;   // rows (dq) or keys (dk/dv) a block owns: one m16 tile
 constexpr int kChunk = 16;  // keys (dq) or rows (dk/dv) per warp step: two n8 tiles
@@ -132,6 +147,7 @@ struct BwdParams {
   int nh, g, sq, sk, rows;       // rows = sq * g, the flattened (s, g) rows
   int causal, q_offset, kv_len;  // kv_len < 0: no kv_len mask
   float scale;
+  float qscale;  // bf16 passes: scale rounded to bf16, the factor of q in the scores
   int vec;  // every operand and row stride 16-byte aligned: 16-byte copies
   long long q_sb, q_sh, q_sg, q_ss;
   long long k_sb, k_sh, k_ss;
@@ -615,6 +631,508 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 operands on the bf16 tensor cores: both passes
+// ---------------------------------------------------------------------------
+//
+// The fp32 passes' blocks, warps, chunks, staging order and exact skips, on
+// m16n8k16 bf16 MMAs with fp32 accumulators. Operands stay raw bf16 in
+// shared memory ([16][DP] rows, Bf16Rows): S = Q K^T times the scale
+// rounded to bf16 (qscale), dP = dO V^T; ds rounds to bf16 as it packs into
+// the A fragment of ds.K (dq) and dS^T.Q (dk), exactly where the reference
+// rounds it; dq is scaled by the fp32 scale at the end, dk by qscale (the
+// reference's dk = bf16(ds)^T (q * bf16(scale)), with the product of two
+// bf16 kept exact). dv = P^T dO keeps p in fp32, as the reference does: p is
+// split into bf16 hi + lo (split_pair) and each multiply-add takes two MMAs,
+// lo then hi, within about 2^-16 of p^T do, where one bf16 product would
+// err by 2^-9. The plain version computes dv from fp32 p exactly.
+
+// Stage the 16 rows of a warp's chunk of one bf16 operand into its
+// [16][DP] buffer, by this warp's lanes: lanes r and r + 16 hold the element
+// offset `off` of row r (< 0: zero-filled), which the others read by
+// shuffles that every lane executes.
+template <int D>
+__device__ __forceinline__ void stage_rows_bf16(uint16_t* dst, const uint16_t* __restrict__ src,
+                                                long long off, bool vec, int lane) {
+  constexpr int DP = Bf16Rows<D>::DP;
+  if (vec) {
+    constexpr int kC = D / 8;  // 16-byte copies per row
+    constexpr int kN = kChunk * kC;
+#pragma unroll
+    for (int i0 = 0; i0 < kN; i0 += 32) {
+      const int i = i0 + lane;
+      const int r = min(i / kC, kChunk - 1), c = i - r * kC;
+      const long long o = __shfl_sync(0xffffffffu, off, r);
+      if (i < kN)
+        cp_async16(smem_addr(dst + r * DP + 8 * c), o >= 0 ? src + o + 8 * c : src, o >= 0);
+    }
+  } else {
+    for (int i = lane; i < kChunk * D; i += 32) {  // 16 D: whole warps
+      const int r = i / D, d = i - r * D;
+      const long long o = __shfl_sync(0xffffffffu, off, r);
+      dst[r * DP + d] = o >= 0 ? src[o + d] : (uint16_t)0;
+    }
+  }
+}
+
+// Stage keys key0 .. key0 + 15 of one bf16 K or V head into a [16][DP]
+// chunk (keys past Sk zero-filled), by this warp's lanes.
+template <int D>
+__device__ __forceinline__ void stage_keys_bf16(uint16_t* dst, const uint16_t* __restrict__ src,
+                                                long long base, long long ss, int key0,
+                                                const BwdParams& p, int lane) {
+  constexpr int DP = Bf16Rows<D>::DP;
+  if (p.vec) {
+    constexpr int kC = D / 8;
+    for (int i = lane; i < kChunk * kC; i += 32) {
+      const int r = i / kC, c = i - r * kC, key = key0 + r;
+      const bool ok = key < p.sk;
+      cp_async16(smem_addr(dst + r * DP + 8 * c), ok ? src + base + key * ss + 8 * c : src, ok);
+    }
+  } else {
+    for (int i = lane; i < kChunk * D; i += 32) {
+      const int r = i / D, d = i - r * D, key = key0 + r;
+      dst[r * DP + d] = key < p.sk ? src[base + key * ss + d] : (uint16_t)0;
+    }
+  }
+}
+
+// Stage a block's 16-row tile of one bf16 operand by the whole block, with
+// plain loads: row r at element offset row_off(r) (< 0: zero-filled).
+template <int D, typename RowOff>
+__device__ __forceinline__ void stage_tile_bf16(uint16_t* dst, const uint16_t* __restrict__ src,
+                                                RowOff row_off, bool vec) {
+  constexpr int DP = Bf16Rows<D>::DP;
+  if (vec) {
+    for (int i = threadIdx.x; i < kTile * (D / 8); i += kThreads) {
+      const int r = i / (D / 8), d = (i - r * (D / 8)) * 8;
+      const long long o = row_off(r);
+      *reinterpret_cast<uint4*>(dst + r * DP + d) =
+          o >= 0 ? *reinterpret_cast<const uint4*>(src + o + d) : make_uint4(0u, 0u, 0u, 0u);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
+      const int r = i / D, d = i - r * D;
+      const long long o = row_off(r);
+      dst[r * DP + d] = o >= 0 ? src[o + d] : (uint16_t)0;
+    }
+  }
+}
+
+// Zero the shared rows' columns D .. 15 that the k16 MMAs contract when the
+// head dim is 8 (a no-op otherwise); the caller synchronises.
+template <int D>
+__device__ __forceinline__ void zero_pad_bf16(unsigned char* smem, int bytes) {
+  if (D < 16)
+    for (int i = threadIdx.x; i < bytes / 16; i += kThreads)
+      reinterpret_cast<uint4*>(smem)[i] = make_uint4(0u, 0u, 0u, 0u);
+}
+
+// acc[j] = A (16 x DK bf16 tile, rows g / g + 8) . B^T, where B's rows 8j + g
+// (j = 0, 1) are a bf16 [16][DP] chunk: the S / dP shape of either pass,
+// each k16 step's MMA into a fresh fragment added with a rounded FADD, as
+// the forward forms its scores.
+template <int D>
+__device__ __forceinline__ void tile_product_bf16(float (&acc)[2][4], const uint16_t* at,
+                                                  const uint16_t* bc, int g, int t) {
+  constexpr int NS = Bf16Rows<D>::DK / 16, W = Bf16Rows<D>::W;
+  const uint32_t* aw = reinterpret_cast<const uint32_t*>(at);
+  const uint32_t* bw = reinterpret_cast<const uint32_t*>(bc);
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < NS; ++ks) {
+    const int ao = g * W + 8 * ks + t;
+    const uint32_t a[4] = {aw[ao], aw[ao + 8 * W], aw[ao + 4], aw[ao + 8 * W + 4]};
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int bo = (8 * j + g) * W + 8 * ks + t;
+      float step[4] = {0.f, 0.f, 0.f, 0.f};
+      mma_bf16(step, a, bw[bo], bw[bo + 4]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] += step[e];
+    }
+  }
+}
+
+// The A fragment of a 16 x 16 product from the C fragments x[j] of two n8
+// tiles (a lane holds columns 8j + 2t, 8j + 2t + 1 of rows g (e < 2) and
+// g + 8), rounded to bf16: A's own layout, no renaming needed.
+__device__ __forceinline__ void a_from_c(uint32_t (&a)[4], const float (&x)[2][4]) {
+  a[0] = pack_bf16(x[0][0], x[0][1]);
+  a[1] = pack_bf16(x[0][2], x[0][3]);
+  a[2] = pack_bf16(x[1][0], x[1][1]);
+  a[3] = pack_bf16(x[1][2], x[1][3]);
+}
+
+// acc[n] += A . B[:, c0 + 8n ..] for n < NH, where B's 16 rows are a bf16
+// [16][DP] chunk (B fragment: rows 2t, 2t + 1 and 2t + 8, 2t + 9 of
+// column g).
+template <int D, int NH>
+__device__ __forceinline__ void reg_product_bf16(float (&acc)[NH][4], const uint32_t (&a)[4],
+                                                 const uint16_t* bc, int c0, int g, int t) {
+  constexpr int DP = Bf16Rows<D>::DP;
+  const uint16_t* br = bc + c0 + g;
+#pragma unroll
+  for (int n = 0; n < NH; ++n)
+    mma_bf16(acc[n], a, pack_raw(br[8 * n + 2 * t * DP], br[8 * n + (2 * t + 1) * DP]),
+             pack_raw(br[8 * n + (2 * t + 8) * DP], br[8 * n + (2 * t + 9) * DP]));
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dq_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
+                         const uint16_t* __restrict__ v, const uint16_t* __restrict__ dout,
+                         const float* __restrict__ m_in, const float* __restrict__ l_in,
+                         const float* __restrict__ delta, uint16_t* __restrict__ dq,
+                         BwdParams p) {
+  constexpr int DP = Bf16Rows<D>::DP;
+  constexpr int NT = D / 8;
+  constexpr int PD = D + 4;  // fp32 partial rows
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  uint16_t* const qs = reinterpret_cast<uint16_t*>(smem_bytes);  // [16][DP]
+  uint16_t* const dos = qs + kTile * DP;                          // dO [16][DP]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  uint16_t* const kc = dos + kTile * DP + warp * 2 * kChunk * DP;  // this warp's K
+  uint16_t* const vc = kc + kChunk * DP;                           // and V chunk
+  zero_pad_bf16<D>(smem_bytes, (2 * kTile + kWarps * 2 * kChunk) * DP * 2);
+  __syncthreads();
+
+  const int bkv = blockIdx.y;
+  const int b = bkv / p.nh, h = bkv % p.nh;
+  const int r0 = blockIdx.x * kTile;
+  const long long kb = b * p.k_sb + h * p.k_sh;
+  const long long vb = b * p.v_sb + h * p.v_sh;
+
+  int kend = p.sk;
+  const int kv_lim = exact_kv_lim(p);
+  if (kv_lim > 0) {
+    kend = kv_lim;
+    if (p.causal) kend = max(0, min(kend, p.q_offset + (min(r0 + kTile, p.rows) - 1) / p.g + 1));
+  }
+  const int n_chunks = (kend + kChunk - 1) / kChunk;
+
+  int c = warp;
+  if (c < n_chunks) stage_keys_bf16<D>(vc, v, vb, p.v_ss, c * kChunk, p, lane);
+  cp_async_commit();
+  if (c < n_chunks) stage_keys_bf16<D>(kc, k, kb, p.k_ss, c * kChunk, p, lane);
+  cp_async_commit();
+
+  const long long qb = b * p.q_sb + h * p.q_sh, dob = b * p.do_sb + h * p.do_sh;
+  const RowInfo ri = row_info(r0 + (lane & 15), bkv, p, qb, dob, m_in, l_in, delta);
+  const auto q_off = [&](int r) -> long long {
+    const int row = r0 + r;
+    if (row >= p.rows) return -1;
+    const int s = row / p.g;
+    return qb + (row - s * p.g) * p.q_sg + (long long)s * p.q_ss;
+  };
+  const auto do_off = [&](int r) -> long long {
+    const int row = r0 + r;
+    if (row >= p.rows) return -1;
+    const int s = row / p.g;
+    return dob + (row - s * p.g) * p.do_sg + (long long)s * p.do_ss;
+  };
+  stage_tile_bf16<D>(qs, q, q_off, p.vec);
+  stage_tile_bf16<D>(dos, dout, do_off, p.vec);
+
+  int qpos[2];
+  bool live[2];
+  float mrow[2], linv_row[2], drow[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int r = g + 8 * hf;
+    live[hf] = r0 + r < p.rows;
+    qpos[hf] = __shfl_sync(0xffffffffu, ri.qpos, r);
+    mrow[hf] = __shfl_sync(0xffffffffu, ri.m, r);
+    linv_row[hf] = __shfl_sync(0xffffffffu, ri.linv, r);
+    drow[hf] = __shfl_sync(0xffffffffu, ri.dl, r);
+  }
+  __syncthreads();
+
+  float acc[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (; c < n_chunks; c += kWarps) {
+    const int key0 = c * kChunk;
+    const bool next = c + kWarps < n_chunks;
+    cp_async_wait<1>();  // V(c) landed (K(c) may still be in flight)
+    __syncwarp();
+    float dp[2][4];
+    tile_product_bf16<D>(dp, dos, vc, g, t);
+    __syncwarp();  // every lane is done with V(c)
+    if (next) stage_keys_bf16<D>(vc, v, vb, p.v_ss, (c + kWarps) * kChunk, p, lane);
+    cp_async_commit();
+
+    cp_async_wait<1>();  // K(c) landed (V(c + 4) may still be in flight)
+    __syncwarp();
+    float sc[2][4];
+    tile_product_bf16<D>(sc, qs, kc, g, t);
+    float ds[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hf = e >> 1;
+        const float pr = prob(sc[j][e] * p.qscale, qpos[hf], key0 + 8 * j + 2 * t + (e & 1),
+                              mrow[hf], linv_row[hf], live[hf], p);
+        ds[j][e] = pr * (dp[j][e] - drow[hf]);
+      }
+    uint32_t a[4];
+    a_from_c(a, ds);  // bf16(ds)
+    reg_product_bf16<D, NT>(acc, a, kc, 0, g, t);  // dq_w += bf16(ds) K
+    __syncwarp();  // every lane is done with K(c)
+    if (next) stage_keys_bf16<D>(kc, k, kb, p.k_ss, (c + kWarps) * kChunk, p, lane);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+  __syncwarp();
+
+  // the warps' partial dq tiles (fp32 [16][D+4] over each warp's own K and V
+  // chunks), summed in warp order, scaled once and rounded to bf16
+  float* const mine = reinterpret_cast<float*>(kc);
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+      *reinterpret_cast<float2*>(mine + (g + 8 * hf) * PD + 8 * n + 2 * t) =
+          make_float2(acc[n][2 * hf], acc[n][2 * hf + 1]);
+  __syncthreads();
+  const float* part = reinterpret_cast<const float*>(dos + kTile * DP);
+  constexpr int kPartStride = kChunk * DP;  // floats between two warps' partials
+  const long long dqo = ri.qo < 0 ? -1 : b * p.dq_sb + h * p.dq_sh + ri.gg * p.dq_sg +
+                                         ri.s * p.dq_ss;
+  for (int i = tid; i < kTile * (D / 4); i += kThreads) {  // 4D: whole warps
+    const int r = i / (D / 4), d = (i - r * (D / 4)) * 4;
+    const long long o = __shfl_sync(0xffffffffu, dqo, r);
+    if (o < 0) continue;
+    float4 sum = *reinterpret_cast<const float4*>(part + r * PD + d);
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) {
+      const float4 x = *reinterpret_cast<const float4*>(part + w * kPartStride + r * PD + d);
+      sum.x += x.x; sum.y += x.y; sum.z += x.z; sum.w += x.w;
+    }
+    const uint32_t y01 = pack_bf16(sum.x * p.scale, sum.y * p.scale);
+    const uint32_t y23 = pack_bf16(sum.z * p.scale, sum.w * p.scale);
+    uint16_t* dst = dq + o + d;
+    if (p.vec) {
+      *reinterpret_cast<uint2*>(dst) = make_uint2(y01, y23);
+    } else {
+      dst[0] = (uint16_t)y01; dst[1] = (uint16_t)(y01 >> 16);
+      dst[2] = (uint16_t)y23; dst[3] = (uint16_t)(y23 >> 16);
+    }
+  }
+}
+
+// One accumulator of the dk/dv pass out: each warp's partial (fp32 [16][DH+4]
+// over its own Q and dO chunks), summed in warp order, times `mul`, rounded
+// to bf16 and stored at columns c0 .. c0 + DH - 1 of keys k0 .. k0 + 15.
+template <int D, int DH>
+__device__ __forceinline__ void flush_dkv_bf16(const float (&acc)[DH / 8][4], uint16_t* chunk0,
+                                               uint16_t* out, long long base, long long ss,
+                                               int k0, int c0, float mul, const BwdParams& p) {
+  constexpr int DP = Bf16Rows<D>::DP;
+  constexpr int PD = DH + 4;
+  constexpr int kPartStride = kChunk * DP;  // floats between two warps' partials
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  float* const part = reinterpret_cast<float*>(chunk0);
+  float* const mine = part + warp * kPartStride;
+  __syncthreads();  // every warp is done with the chunks (and the last flush)
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+    for (int n = 0; n < DH / 8; ++n)
+      *reinterpret_cast<float2*>(mine + (g + 8 * hf) * PD + 8 * n + 2 * t) =
+          make_float2(acc[n][2 * hf], acc[n][2 * hf + 1]);
+  __syncthreads();
+  for (int i = tid; i < kTile * (DH / 4); i += kThreads) {
+    const int r = i / (DH / 4), d = (i - r * (DH / 4)) * 4, pos = k0 + r;
+    if (pos >= p.sk) continue;
+    float4 sum = *reinterpret_cast<const float4*>(part + r * PD + d);
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) {
+      const float4 x = *reinterpret_cast<const float4*>(part + w * kPartStride + r * PD + d);
+      sum.x += x.x; sum.y += x.y; sum.z += x.z; sum.w += x.w;
+    }
+    const uint32_t y01 = pack_bf16(sum.x * mul, sum.y * mul);
+    const uint32_t y23 = pack_bf16(sum.z * mul, sum.w * mul);
+    uint16_t* dst = out + base + (long long)pos * ss + c0 + d;
+    if (p.vec) {
+      *reinterpret_cast<uint2*>(dst) = make_uint2(y01, y23);
+    } else {
+      dst[0] = (uint16_t)y01; dst[1] = (uint16_t)(y01 >> 16);
+      dst[2] = (uint16_t)y23; dst[3] = (uint16_t)(y23 >> 16);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_dkv_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
+                          const uint16_t* __restrict__ v, const uint16_t* __restrict__ dout,
+                          const float* __restrict__ m_in, const float* __restrict__ l_in,
+                          const float* __restrict__ delta, uint16_t* __restrict__ dk,
+                          uint16_t* __restrict__ dv, BwdParams p) {
+  constexpr int DP = Bf16Rows<D>::DP;
+  constexpr int DH = D > 128 ? 128 : D;  // output columns per sweep over the rows
+  constexpr int NH = DH / 8;
+  extern __shared__ __align__(16) unsigned char smem_bytes[];
+  uint16_t* const ks = reinterpret_cast<uint16_t*>(smem_bytes);  // K [16][DP]
+  uint16_t* const vs = ks + kTile * DP;                           // V [16][DP]
+  uint16_t* const chunk0 = vs + kTile * DP;                       // warp 0's chunks
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  uint16_t* const qc = chunk0 + warp * 2 * kChunk * DP;  // this warp's Q
+  uint16_t* const dc = qc + kChunk * DP;                 // and dO chunk
+  zero_pad_bf16<D>(smem_bytes, (2 * kTile + kWarps * 2 * kChunk) * DP * 2);
+  __syncthreads();
+
+  const int bkv = blockIdx.y;
+  const int b = bkv / p.nh, h = bkv % p.nh;
+  const int k0 = blockIdx.x * kTile;
+  const long long qb = b * p.q_sb + h * p.q_sh;
+  const long long dob = b * p.do_sb + h * p.do_sh;
+
+  const int n_rc = (p.rows + kChunk - 1) / kChunk;
+  int c_begin = 0, c_end = n_rc;
+  const int kv_lim = exact_kv_lim(p);
+  if (kv_lim > 0) {
+    if (k0 >= kv_lim)
+      c_end = 0;
+    else if (p.causal)
+      c_begin = (int)min((long long)n_rc,
+                         (long long)max(0, k0 - p.q_offset) * p.g / kChunk);
+  }
+
+  int kpos[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) kpos[hf] = k0 + g + 8 * hf;
+  const long long kb = b * p.k_sb + h * p.k_sh, vb = b * p.v_sb + h * p.v_sh;
+
+  for (int c0 = 0; c0 < D; c0 += DH) {
+    int c = c_begin + warp;
+    RowInfo nxt = row_info(c * kChunk + (lane & 15), bkv, p, qb, dob, m_in, l_in, delta);
+    if (c < c_end) stage_rows_bf16<D>(qc, q, nxt.qo, p.vec, lane);
+    cp_async_commit();
+    if (c < c_end) stage_rows_bf16<D>(dc, dout, nxt.doo, p.vec, lane);
+    cp_async_commit();
+    if (c0 == 0) {  // K and V, while the first chunks load
+      stage_tile_bf16<D>(ks, k, [&](int r) -> long long {
+        return k0 + r < p.sk ? kb + (long long)(k0 + r) * p.k_ss : -1;
+      }, p.vec);
+      stage_tile_bf16<D>(vs, v, [&](int r) -> long long {
+        return k0 + r < p.sk ? vb + (long long)(k0 + r) * p.v_ss : -1;
+      }, p.vec);
+    }
+    __syncthreads();  // K and V are staged
+
+    float acc_k[NH][4], acc_v[NH][4];
+#pragma unroll
+    for (int n = 0; n < NH; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+
+    for (; c < c_end; c += kWarps) {
+      const int row0 = c * kChunk;
+      const bool next = c + kWarps < c_end;
+      const RowInfo cur = nxt;
+      if (next)
+        nxt = row_info((c + kWarps) * kChunk + (lane & 15), bkv, p, qb, dob, m_in, l_in, delta);
+
+      cp_async_wait<1>();  // Q(c) landed (dO(c) may still be in flight)
+      __syncwarp();
+      float sc[2][4];
+      tile_product_bf16<D>(sc, ks, qc, g, t);  // S^T = K Q^T (times qscale below)
+      cp_async_wait<0>();  // dO(c) landed
+      __syncwarp();
+      float dp[2][4];
+      tile_product_bf16<D>(dp, vs, dc, g, t);  // dP^T = V dO^T
+
+      float pt[2][4], dst_t[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e1 = 0; e1 < 2; ++e1) {
+          const int r = 8 * j + 2 * t + e1;
+          const float m = __shfl_sync(0xffffffffu, cur.m, r);
+          const float linv = __shfl_sync(0xffffffffu, cur.linv, r);
+          const float dl = __shfl_sync(0xffffffffu, cur.dl, r);
+          const int qpos = __shfl_sync(0xffffffffu, cur.qpos, r);
+          const bool live = row0 + r < p.rows;
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int e = 2 * hf + e1;
+            pt[j][e] = prob(sc[j][e] * p.qscale, qpos, kpos[hf], m, linv, live, p);
+            dst_t[j][e] = pt[j][e] * (dp[j][e] - dl);
+          }
+        }
+      uint32_t a[4];
+      a_from_c(a, dst_t);  // bf16(dS^T)
+      reg_product_bf16<D, NH>(acc_k, a, qc, c0, g, t);  // dK += bf16(dS^T) Q
+      __syncwarp();  // every lane is done with Q(c)
+      if (next) stage_rows_bf16<D>(qc, q, nxt.qo, p.vec, lane);
+      cp_async_commit();
+      uint32_t ahi[4], alo[4];  // P^T in fp32: hi + lo
+      split_pair(pt[0][0], pt[0][1], ahi[0], alo[0]);
+      split_pair(pt[0][2], pt[0][3], ahi[1], alo[1]);
+      split_pair(pt[1][0], pt[1][1], ahi[2], alo[2]);
+      split_pair(pt[1][2], pt[1][3], ahi[3], alo[3]);
+      reg_product_bf16<D, NH>(acc_v, alo, dc, c0, g, t);  // dV += P^T dO: lo,
+      reg_product_bf16<D, NH>(acc_v, ahi, dc, c0, g, t);  // then hi
+      __syncwarp();  // every lane is done with dO(c)
+      if (next) stage_rows_bf16<D>(dc, dout, nxt.doo, p.vec, lane);
+      cp_async_commit();
+    }
+    cp_async_wait<0>();
+    flush_dkv_bf16<D, DH>(acc_k, chunk0, dk, b * p.dk_sb + h * p.dk_sh, p.dk_ss, k0, c0,
+                          p.qscale, p);
+    flush_dkv_bf16<D, DH>(acc_v, chunk0, dv, b * p.dv_sb + h * p.dv_sh, p.dv_ss, k0, c0, 1.f,
+                          p);
+    __syncthreads();  // every partial is read: the next sweep may stage over them
+  }
+}
+
+// Shared bytes of either bf16 pass: two bf16 tiles [16][DP] and per warp two
+// bf16 chunks: 43 KB at D = 128, 84 KB at D = 256.
+template <int D>
+constexpr int bwd_bf16_smem_bytes() {
+  return (2 * kTile + kWarps * 2 * kChunk) * Bf16Rows<D>::DP * 2;
+}
+
+struct OperandsBf16 {
+  const uint16_t *q, *k, *v, *dout;
+  const float *m, *l, *delta;
+  uint16_t *dq, *dk, *dv;
+};
+
+template <int D>
+int launch_bf16_d(const OperandsBf16& o, const BwdParams& p, int nbkv, bool dkv_pass,
+                  cudaStream_t stream) {
+  static std::atomic<int> allowed_dq[kMaxDevices], allowed_dkv[kMaxDevices];
+  const int smem = bwd_bf16_smem_bytes<D>();
+  if (dkv_pass) {
+    const cudaError_t e =
+        allow_smem((const void*)flash_bwd_dkv_bf16_kernel<D>, smem, allowed_dkv);
+    if (e != cudaSuccess) return (int)e;
+    dim3 grid((p.sk + kTile - 1) / kTile, nbkv);
+    flash_bwd_dkv_bf16_kernel<D><<<grid, kThreads, smem, stream>>>(
+        o.q, o.k, o.v, o.dout, o.m, o.l, o.delta, o.dk, o.dv, p);
+  } else {
+    const cudaError_t e = allow_smem((const void*)flash_bwd_dq_bf16_kernel<D>, smem, allowed_dq);
+    if (e != cudaSuccess) return (int)e;
+    dim3 grid((p.rows + kTile - 1) / kTile, nbkv);
+    flash_bwd_dq_bf16_kernel<D><<<grid, kThreads, smem, stream>>>(
+        o.q, o.k, o.v, o.dout, o.m, o.l, o.delta, o.dq, p);
+  }
+  return (int)cudaGetLastError();
+}
+
 struct Operands {
   const float *q, *k, *v, *dout, *m, *l, *delta;
   float *dq, *dk, *dv;
@@ -641,32 +1159,35 @@ int launch_d(const Operands& o, const BwdParams& p, int nbkv, bool dkv_pass,
   return (int)cudaGetLastError();
 }
 
-// Whether 16-byte copies and float4 accesses keep their alignment: every
-// operand's base pointer, and every stride (elements) a multiple of 4.
-bool aligned(const Operands& o, const long long* st) {
-  uintptr_t bits = (uintptr_t)o.q | (uintptr_t)o.k | (uintptr_t)o.v | (uintptr_t)o.dout;
-  bits |= o.dq != nullptr ? (uintptr_t)o.dq : (uintptr_t)o.dk | (uintptr_t)o.dv;
+// Whether 16-byte copies and 16-byte (fp32) or 8-byte (bf16) accesses keep
+// their alignment: every operand's base pointer 16-byte aligned, and every
+// stride (elements) a multiple of `per16`, the elements in 16 bytes (4 fp32,
+// 8 bf16).
+bool aligned(const void* q, const void* k, const void* v, const void* dout, const void* dq,
+             const void* dk, const void* dv, const long long* st, int per16) {
+  uintptr_t bits = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout;
+  bits |= dq != nullptr ? (uintptr_t)dq : (uintptr_t)dk | (uintptr_t)dv;
   bool ok = bits % 16 == 0;
-  for (int i = 0; i < 24; ++i) ok = ok && st[i] % 4 == 0;
+  for (int i = 0; i < 24; ++i) ok = ok && st[i] % per16 == 0;
   return ok;
 }
 
 // dims: nbkv, nh, g, sq, sk, d, causal, q_offset, kv_len (< 0: none)
 // strides (elements): q b,h,g,s; k b,h,s; v b,h,s; do b,h,g,s; dq b,h,g,s;
-// dk b,h,s; dv b,h,s
-int launch(const Operands& o, const int* dims, const long long* st, float scale,
-           bool dkv_pass, cudaStream_t stream) {
-  BwdParams p;
-  const int nbkv = dims[0];
+// dk b,h,s; dv b,h,s. Returns 0, or the error for dims the passes refuse.
+int read_params(BwdParams& p, int& nbkv, int& d, const int* dims, const long long* st,
+                float scale) {
+  nbkv = dims[0];
   p.nh = dims[1];
   p.g = dims[2];
   p.sq = dims[3];
   p.sk = dims[4];
-  const int d = dims[5];
+  d = dims[5];
   p.causal = dims[6];
   p.q_offset = dims[7];
   p.kv_len = dims[8];
   p.scale = scale;
+  p.qscale = bf16mma::round_bf16(scale);
   if (nbkv < 1 || nbkv > 65535 || p.nh < 1 || p.g < 1 || p.sq < 1 || p.sk < 1 ||
       (long long)p.sq * p.g > 0x7fffffffLL - kTile)
     return (int)cudaErrorInvalidValue;
@@ -678,7 +1199,15 @@ int launch(const Operands& o, const int* dims, const long long* st, float scale,
   p.dq_sb = st[14]; p.dq_sh = st[15]; p.dq_sg = st[16]; p.dq_ss = st[17];
   p.dk_sb = st[18]; p.dk_sh = st[19]; p.dk_ss = st[20];
   p.dv_sb = st[21]; p.dv_sh = st[22]; p.dv_ss = st[23];
-  p.vec = aligned(o, st);
+  return 0;
+}
+
+int launch(const Operands& o, const int* dims, const long long* st, float scale,
+           bool dkv_pass, cudaStream_t stream) {
+  BwdParams p;
+  int nbkv = 0, d = 0;
+  if (const int e = read_params(p, nbkv, d, dims, st, scale)) return e;
+  p.vec = aligned(o.q, o.k, o.v, o.dout, o.dq, o.dk, o.dv, st, 4);
   switch (d) {
     case 8: return launch_d<8>(o, p, nbkv, dkv_pass, stream);
     case 16: return launch_d<16>(o, p, nbkv, dkv_pass, stream);
@@ -686,6 +1215,23 @@ int launch(const Operands& o, const int* dims, const long long* st, float scale,
     case 64: return launch_d<64>(o, p, nbkv, dkv_pass, stream);
     case 128: return launch_d<128>(o, p, nbkv, dkv_pass, stream);
     case 256: return launch_d<256>(o, p, nbkv, dkv_pass, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+int launch_bf16(const OperandsBf16& o, const int* dims, const long long* st, float scale,
+                bool dkv_pass, cudaStream_t stream) {
+  BwdParams p;
+  int nbkv = 0, d = 0;
+  if (const int e = read_params(p, nbkv, d, dims, st, scale)) return e;
+  p.vec = aligned(o.q, o.k, o.v, o.dout, o.dq, o.dk, o.dv, st, 8);
+  switch (d) {
+    case 8: return launch_bf16_d<8>(o, p, nbkv, dkv_pass, stream);
+    case 16: return launch_bf16_d<16>(o, p, nbkv, dkv_pass, stream);
+    case 32: return launch_bf16_d<32>(o, p, nbkv, dkv_pass, stream);
+    case 64: return launch_bf16_d<64>(o, p, nbkv, dkv_pass, stream);
+    case 128: return launch_bf16_d<128>(o, p, nbkv, dkv_pass, stream);
+    case 256: return launch_bf16_d<256>(o, p, nbkv, dkv_pass, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -710,6 +1256,25 @@ int repro_flash_bwd_dkv_f32(const float* q, const float* k, const float* v,
                             const long long* strides, float scale, void* stream) {
   Operands o{q, k, v, dout, m, l, delta, nullptr, dk, dv};
   return launch(o, dims, strides, scale, true, (cudaStream_t)stream);
+}
+
+// The bf16 passes: bf16 q, k, v, do, fp32 m, l and delta -> bf16 dq, or bf16
+// dk and dv; the scores are scaled by `scale` rounded to bf16, dq by
+// `scale` itself.
+int repro_flash_bwd_dq_bf16(const uint16_t* q, const uint16_t* k, const uint16_t* v,
+                            const uint16_t* dout, const float* m, const float* l,
+                            const float* delta, uint16_t* dq, const int* dims,
+                            const long long* strides, float scale, void* stream) {
+  OperandsBf16 o{q, k, v, dout, m, l, delta, dq, nullptr, nullptr};
+  return launch_bf16(o, dims, strides, scale, false, (cudaStream_t)stream);
+}
+
+int repro_flash_bwd_dkv_bf16(const uint16_t* q, const uint16_t* k, const uint16_t* v,
+                             const uint16_t* dout, const float* m, const float* l,
+                             const float* delta, uint16_t* dk, uint16_t* dv, const int* dims,
+                             const long long* strides, float scale, void* stream) {
+  OperandsBf16 o{q, k, v, dout, m, l, delta, nullptr, dk, dv};
+  return launch_bf16(o, dims, strides, scale, true, (cudaStream_t)stream);
 }
 
 }  // extern "C"

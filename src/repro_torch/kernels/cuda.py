@@ -11,10 +11,11 @@ stale library is never loaded. A missing `nvcc` or a failed build raises.
 `launch_conv` (the ECR / PECR conv kernels, fp32 on the split-TF32 tensor
 cores, and the int8 tensor-core ECR conv), `launch_bsr` (the block-sparse
 matmul, fp32 on the split-TF32 tensor cores, and its int8 tensor-core form),
-`launch_flash` (the flash attention forward on the split-TF32 tensor cores;
-int8 K/V is dequantized as it is staged into the same body) and
-`launch_flash_bwd` (its two backward passes, on the split-TF32 tensor cores
-too) are the launch sites: they check
+`launch_flash` (the flash attention forward: fp32 on the split-TF32 tensor
+cores, int8 K/V dequantized as it is staged into the same body, bf16 on the
+bf16 tensor cores) and `launch_flash_bwd` (its two backward passes, fp32 on
+the split-TF32 tensor cores, bf16 on the bf16 ones) are the launch sites:
+they check
 device, dtype, layout and shapes, allocate the outputs with `torch.empty`,
 launch on PyTorch's current stream without synchronising, and raise on a
 nonzero `cudaGetLastError()`. The conv and BSR kernels take contiguous
@@ -23,7 +24,9 @@ operands; the flash kernel reads its operands through element strides.
 `count_launch` is how a CNN kernel's wrapper counts a launch: one more in
 its `.launches`, and one more in the calling thread's open
 `recording_launches` record, which is how a CUDA-graph runner learns which
-kernels one replay of its graph launches.
+kernels one replay of its graph launches. `FLASH_ENTRY_LAUNCHES` counts the
+flash launches per C entry point, so that a report can tell the bf16
+launches from the fp32 ones.
 """
 from __future__ import annotations
 
@@ -41,7 +44,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("ecr_conv.cu", "ecr_conv_int8.cu", "bsr_matmul.cu", "bsr_matmul_int8.cu",
            "flash_attention.cu", "flash_attention_bwd.cu")
-HEADERS = ("smem_io.cuh", "int8_mma.cuh", "tf32_mma.cuh")  # included; hashed
+HEADERS = ("smem_io.cuh", "int8_mma.cuh", "tf32_mma.cuh", "bf16_mma.cuh")  # included; hashed
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 _CHECKOUT = Path(__file__).resolve().parents[3]
@@ -49,6 +52,12 @@ _CHECKOUT = Path(__file__).resolve().parents[3]
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 _recording = threading.local()
+
+# launches per flash entry point, counted where each is called
+FLASH_ENTRY_LAUNCHES = dict.fromkeys((
+    "repro_flash_fwd_f32", "repro_flash_fwd_bf16", "repro_flash_fwd_q8",
+    "repro_flash_bwd_dq_f32", "repro_flash_bwd_dq_bf16", "repro_flash_bwd_dkv_f32",
+    "repro_flash_bwd_dkv_bf16"), 0)
 
 
 def count_launch(wrapper) -> None:
@@ -178,18 +187,15 @@ def library() -> ctypes.CDLL:
             lib.repro_bsr_matmul_i8.restype = ctypes.c_int
             dims = ctypes.POINTER(ctypes.c_int)
             strides = ctypes.POINTER(ctypes.c_longlong)
-            lib.repro_flash_fwd_f32.argtypes = [ctypes.c_void_p] * 6 + [
-                dims, strides, ctypes.c_float, ctypes.c_void_p]
-            lib.repro_flash_fwd_f32.restype = ctypes.c_int
-            lib.repro_flash_fwd_q8.argtypes = [ctypes.c_void_p] * 6 + [
-                dims, strides, ctypes.c_float, ctypes.c_void_p]
-            lib.repro_flash_fwd_q8.restype = ctypes.c_int
-            lib.repro_flash_bwd_dq_f32.argtypes = [ctypes.c_void_p] * 8 + [
-                dims, strides, ctypes.c_float, ctypes.c_void_p]
-            lib.repro_flash_bwd_dq_f32.restype = ctypes.c_int
-            lib.repro_flash_bwd_dkv_f32.argtypes = [ctypes.c_void_p] * 9 + [
-                dims, strides, ctypes.c_float, ctypes.c_void_p]
-            lib.repro_flash_bwd_dkv_f32.restype = ctypes.c_int
+            for name, n_ptrs in (("repro_flash_fwd_f32", 6), ("repro_flash_fwd_bf16", 6),
+                                 ("repro_flash_fwd_q8", 6), ("repro_flash_bwd_dq_f32", 8),
+                                 ("repro_flash_bwd_dq_bf16", 8),
+                                 ("repro_flash_bwd_dkv_f32", 9),
+                                 ("repro_flash_bwd_dkv_bf16", 9)):
+                fn = getattr(lib, name)
+                fn.argtypes = [ctypes.c_void_p] * n_ptrs + [dims, strides, ctypes.c_float,
+                                                            ctypes.c_void_p]
+                fn.restype = ctypes.c_int
             _lib = lib
         return _lib
 
@@ -469,10 +475,11 @@ def _flash_dims(nbkv, nh, g, sq, sk, d, causal, q_offset, kv_len):
 def launch_flash(q, k, v, *, scale: float, causal: bool, q_offset: int = 0,
                  kv_len=None, k_scale=None, v_scale=None):
     """Launch the flash-attention forward on CUDA tensors, in either layout of
-    `check_flash_operands`. q float32; k, v float32 (-> out, m, l) or int8
-    with float32 per-position scales k_scale, v_scale (-> out). out has q's
-    shape and layout, m and l are (BKV, G, Sq). Operands may be strided
-    views (a cache read in place) as long as the head dim is contiguous."""
+    `check_flash_operands`. q, k, v all float32 (-> out, m, l), all bfloat16
+    (-> bf16 out, fp32 m, l), or float32 q over int8 k, v with float32
+    per-position scales k_scale, v_scale (-> out). out has q's shape and
+    layout, m and l are (BKV, G, Sq). Operands may be strided views (a cache
+    read in place) as long as the head dim is contiguous."""
     nbkv, nh, g, sq, sk, d = check_flash_operands(q, k, v, k_scale, v_scale)
     int8 = k.dtype == torch.int8
     if int8 != (k_scale is not None):
@@ -481,10 +488,12 @@ def launch_flash(q, k, v, *, scale: float, causal: bool, q_offset: int = 0,
     dev = q.device
     if dev.type != "cuda" or any(t.device != dev for t in tensors):
         raise ValueError("CUDA kernel needs every operand on one CUDA device")
-    if q.dtype != torch.float32 or v.dtype != k.dtype or k.dtype not in (
-            torch.float32, torch.int8):
-        raise TypeError(f"the CUDA flash kernel takes float32 q and float32 or "
-                        f"int8 k/v, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if v.dtype != k.dtype or (q.dtype, k.dtype) not in (
+            (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+            (torch.float32, torch.int8)):
+        raise TypeError(f"the CUDA flash kernel takes float32 or bfloat16 q, k, v of "
+                        f"one type, or float32 q over int8 k/v, got "
+                        f"{q.dtype}/{k.dtype}/{v.dtype}")
     if int8 and (k_scale.dtype != torch.float32 or v_scale.dtype != torch.float32
                  or k_scale.stride() != v_scale.stride()):
         raise TypeError(f"k_scale and v_scale must be float32 in one layout, got "
@@ -495,7 +504,7 @@ def launch_flash(q, k, v, *, scale: float, causal: bool, q_offset: int = 0,
                            "differentiate through FlashAttentionFn "
                            "(kernels/flash_attention/ops.py), or call it under "
                            "torch.no_grad()")
-    out = torch.empty(q.shape, device=dev, dtype=torch.float32)
+    out = torch.empty(q.shape, device=dev, dtype=q.dtype)
     dims = _flash_dims(nbkv, nh, g, sq, sk, d, causal, q_offset, kv_len)
     strides = (ctypes.c_longlong * 17)(*flash_strides(q, k, v, out, k_scale))
     lib = library()
@@ -503,6 +512,7 @@ def launch_flash(q, k, v, *, scale: float, causal: bool, q_offset: int = 0,
     with torch.cuda.device(dev):
         if int8:
             m = l = None
+            entry = "repro_flash_fwd_q8"
             err = lib.repro_flash_fwd_q8(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                          k_scale.data_ptr(), v_scale.data_ptr(),
                                          out.data_ptr(), dims, strides, float(scale),
@@ -510,31 +520,37 @@ def launch_flash(q, k, v, *, scale: float, causal: bool, q_offset: int = 0,
         else:
             m = torch.empty((nbkv, g, sq), device=dev, dtype=torch.float32)
             l = torch.empty((nbkv, g, sq), device=dev, dtype=torch.float32)
-            err = lib.repro_flash_fwd_f32(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                          out.data_ptr(), m.data_ptr(), l.data_ptr(),
-                                          dims, strides, float(scale), stream)
+            entry = ("repro_flash_fwd_bf16" if q.dtype == torch.bfloat16
+                     else "repro_flash_fwd_f32")
+            err = getattr(lib, entry)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                      out.data_ptr(), m.data_ptr(), l.data_ptr(),
+                                      dims, strides, float(scale), stream)
     if err != 0:
-        raise RuntimeError(f"CUDA flash kernel launch failed: cudaError {err} "
-                           f"(q {tuple(q.shape)}, k {tuple(k.shape)} {k.dtype}, "
+        raise RuntimeError(f"CUDA flash kernel launch failed ({entry}): cudaError {err} "
+                           f"(q {tuple(q.shape)} {q.dtype}, k {tuple(k.shape)} {k.dtype}, "
                            f"causal {causal}, q_offset {q_offset}, kv_len {kv_len})")
+    FLASH_ENTRY_LAUNCHES[entry] += 1
     return (out, m, l) if not int8 else out
 
 
 def launch_flash_bwd(q, k, v, do, m, l, delta, *, part: str, scale: float,
                      causal: bool, q_offset: int = 0, kv_len=None):
     """Launch one flash-attention backward pass on CUDA tensors, in either
-    layout of `check_flash_operands`: float32 q, k, v and do (do in q's
-    layout), the forward's m and l and delta = rowsum(do * out), each
-    (BKV, G, Sq) float32 contiguous. part "dq" -> dq in q's shape; part
-    "dkv" -> (dk, dv) in k's shape. Operands may be strided views with a
-    contiguous head dim."""
+    layout of `check_flash_operands`: q, k, v and do all float32 or all
+    bfloat16 (do in q's layout), the forward's m and l and delta =
+    rowsum(do * out), each (BKV, G, Sq) float32 contiguous. part "dq" -> dq
+    in q's shape; part "dkv" -> (dk, dv) in k's shape; in the operands' type.
+    Operands may be strided views with a contiguous head dim."""
     nbkv, nh, g, sq, sk, d = check_flash_operands(q, k, v)
     dev = q.device
     stats = (m, l, delta)
     if dev.type != "cuda" or any(t.device != dev for t in (k, v, do) + stats):
         raise ValueError("CUDA kernel needs every operand on one CUDA device")
-    if any(t.dtype != torch.float32 for t in (q, k, v, do) + stats):
-        raise TypeError("the CUDA flash backward takes float32 operands, got "
+    if (q.dtype not in (torch.float32, torch.bfloat16)
+            or any(t.dtype != q.dtype for t in (k, v, do))
+            or any(t.dtype != torch.float32 for t in stats)):
+        raise TypeError("the CUDA flash backward takes float32 or bfloat16 q, k, v, do "
+                        "of one type and float32 m, l, delta, got "
                         f"{[str(t.dtype) for t in (q, k, v, do) + stats]}")
     if tuple(do.shape) != tuple(q.shape):
         raise ValueError(f"do {tuple(do.shape)} does not match q {tuple(q.shape)}")
@@ -543,24 +559,23 @@ def launch_flash_bwd(q, k, v, do, m, l, delta, *, part: str, scale: float,
     if part not in ("dq", "dkv"):
         raise ValueError(f"part {part!r}: choose 'dq' or 'dkv'")
     _check_flash_kernel(nbkv, g, d, (q, k, v, do))
-    dq = torch.empty(q.shape, device=dev, dtype=torch.float32) if part == "dq" else q
-    dk, dv = (torch.empty(k.shape, device=dev, dtype=torch.float32),
-              torch.empty(v.shape, device=dev, dtype=torch.float32)) \
+    dq = torch.empty(q.shape, device=dev, dtype=q.dtype) if part == "dq" else q
+    dk, dv = (torch.empty(k.shape, device=dev, dtype=k.dtype),
+              torch.empty(v.shape, device=dev, dtype=v.dtype)) \
         if part == "dkv" else (k, v)
     dims = _flash_dims(nbkv, nh, g, sq, sk, d, causal, q_offset, kv_len)
     strides = (ctypes.c_longlong * 24)(*flash_bwd_strides(q, k, v, do, dq, dk, dv))
     ptrs = tuple(t.data_ptr() for t in (q, k, v, do, m, l, delta))
+    entry = (f"repro_flash_bwd_{part}_"
+             f"{'bf16' if q.dtype == torch.bfloat16 else 'f32'}")
     lib = library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        if part == "dq":
-            err = lib.repro_flash_bwd_dq_f32(*ptrs, dq.data_ptr(), dims, strides,
-                                             float(scale), stream)
-        else:
-            err = lib.repro_flash_bwd_dkv_f32(*ptrs, dk.data_ptr(), dv.data_ptr(), dims,
-                                              strides, float(scale), stream)
+        outs = (dq.data_ptr(),) if part == "dq" else (dk.data_ptr(), dv.data_ptr())
+        err = getattr(lib, entry)(*ptrs, *outs, dims, strides, float(scale), stream)
     if err != 0:
-        raise RuntimeError(f"CUDA flash backward ({part}) launch failed: cudaError "
-                           f"{err} (q {tuple(q.shape)}, k {tuple(k.shape)}, causal "
-                           f"{causal}, q_offset {q_offset}, kv_len {kv_len})")
+        raise RuntimeError(f"CUDA flash backward launch failed ({entry}): cudaError "
+                           f"{err} (q {tuple(q.shape)} {q.dtype}, k {tuple(k.shape)}, "
+                           f"causal {causal}, q_offset {q_offset}, kv_len {kv_len})")
+    FLASH_ENTRY_LAUNCHES[entry] += 1
     return dq if part == "dq" else (dk, dv)

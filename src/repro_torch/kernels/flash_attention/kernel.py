@@ -14,8 +14,27 @@ or the model's, q (B, Sq, KV, G, D) with k, v (B, Sk, KV, D) read in place
 (the KV cache needs no transpose), and return out in q's layout. m and l are
 (BKV, G, Sq) in both, with bkv = b * KV + h. Unlike the Pallas wrappers there
 are no `qc`/`kc` tile sizes: the kernel picks its own tiles and masks ragged
-edges itself, for any Sq and Sk. The plain versions compute in float32, or
-in float64 when given float64 (the gradient checks).
+edges itself, for any Sq and Sk.
+
+Operand types: q, k, v (and do) all float32, or all bfloat16 (the training
+path at the reference's default type; the bf16 kernels are
+`repro_flash_fwd_bf16`, `repro_flash_bwd_dq_bf16` and
+`repro_flash_bwd_dkv_bf16`), or float64 on the host (the gradient checks).
+The plain versions compute in float32 (float64 for float64) and, for bf16
+operands, round exactly where the Pallas kernels round:
+- q * scale: the Python scale is first rounded to bf16 (JAX converts a
+  weakly typed scalar to the array's type), and the product of two bf16
+  values (exact in fp32) enters the scores unrounded, as the Pallas kernels
+  compute it (interpret mode; rounding it to bf16 instead moves m and l by
+  about 1e-3 relative);
+- forward: p rounded to bf16 before P.V, out rounded to bf16; s, m and l
+  fp32;
+- dq pass: ds rounded to bf16 before ds.K, then times scale (fp32) and
+  rounded;
+- dk/dv pass: dk = bf16(ds)^T . (bf16(scale) q) and dv = p^T . do with p in
+  fp32 (the reference widens do first, so `p.astype(do.dtype)` keeps fp32),
+  each rounded to bf16 at the end.
+Every other product is a float32 sum of exact products of bf16 values.
 """
 from __future__ import annotations
 
@@ -54,10 +73,31 @@ def _wide(x):
     return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
+def _rounded(x, dtype):
+    """x (float32) rounded to bfloat16 and widened again when `dtype` is
+    bfloat16 (the Pallas kernels' `.astype(k.dtype)`); else x itself."""
+    return x.to(torch.bfloat16).to(x.dtype) if dtype == torch.bfloat16 else x
+
+
+def _bf16_scale(scale: float) -> float:
+    """The softmax scale as the Pallas kernels multiply a bf16 q by it: the
+    Python float rounded to bfloat16."""
+    return float(torch.tensor(float(scale), dtype=torch.float64).to(torch.bfloat16))
+
+
+def _prescaled(q, scale):
+    """q * scale as the Pallas kernels form it, widened: for bf16 q the exact
+    product of q and bf16(scale) (16 significant bits, kept in fp32: the
+    product feeds the fp32 dot unrounded), the plain product otherwise."""
+    if q.dtype == torch.bfloat16:
+        return q.float() * _bf16_scale(scale)
+    return _wide(q) * scale
+
+
 def _scores(q, k, *, scale, causal, q_offset, kv_len):
     """Scores from the pre-scaled q in the (BKV, ...) layout, masked at -1e30."""
     sq, sk = q.shape[2], k.shape[1]
-    s = torch.einsum("bgqd,bkd->bgqk", _wide(q) * scale, _wide(k))
+    s = torch.einsum("bgqd,bkd->bgqk", _prescaled(q, scale), _wide(k))
     qpos = q_offset + torch.arange(sq, device=q.device)
     kpos = torch.arange(sk, device=q.device)
     mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
@@ -70,17 +110,19 @@ def _scores(q, k, *, scale, causal, q_offset, kv_len):
 
 def _plain_softmax(q, k, v, *, scale, causal, q_offset, kv_len):
     """The kernels' function in the (BKV, ...) layout: scores from the
-    pre-scaled q, masked at -1e30, then (out, m, max(l, 1e-30))."""
+    pre-scaled q, masked at -1e30, then (out, m, max(l, 1e-30)); p enters
+    P.V in v's type (l sums it unrounded)."""
     s = _scores(q, k, scale=scale, causal=causal, q_offset=q_offset, kv_len=kv_len)
     m = s.amax(-1)
     p = torch.exp(s - m[..., None])
     l = torch.clamp_min(p.sum(-1), 1e-30)
-    out = torch.einsum("bgqk,bkd->bgqd", p, _wide(v)) / l[..., None]
+    out = torch.einsum("bgqk,bkd->bgqd", _rounded(p, v.dtype), _wide(v)) / l[..., None]
     return out, m, l
 
 
 def flash_fwd_plain(q, k, v, *, scale, causal, q_offset=0, kv_len=None):
-    """The fp32 kernel's function in plain PyTorch -> (out, m, l)."""
+    """The fp32 and bf16 kernels' function in plain PyTorch -> (out in q's
+    type, m, l fp32)."""
     check_flash_operands(q, k, v)
     qk, kk, vk, _, _ = _kernel_layout(q, k, v)
     out, m, l = _plain_softmax(qk, kk, vk, scale=scale, causal=causal,
@@ -89,8 +131,9 @@ def flash_fwd_plain(q, k, v, *, scale, causal, q_offset=0, kv_len=None):
 
 
 def flash_fwd(q, k, v, *, scale, causal, q_offset=0, kv_len=None):
-    """GQA flash attention forward -> (out, m, l): out in q's layout, m and l
-    (BKV, G, Sq) fp32. CUDA tensor: the CUDA kernel; CPU tensor: the plain
+    """GQA flash attention forward -> (out, m, l): out in q's layout and type,
+    m and l (BKV, G, Sq) fp32. CUDA tensor: the CUDA kernel
+    (`repro_flash_fwd_f32` or `repro_flash_fwd_bf16`); CPU tensor: the plain
     version."""
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, scale=scale, causal=causal,
@@ -164,7 +207,8 @@ def _plain_bwd(q, k, v, do, m, l, delta, *, scale, causal, q_offset, kv_len):
     """The backward kernels' function in plain PyTorch, any layout ->
     (dq, dk, dv) in the operands' layouts: p recomputed from the pre-scaled
     q and (m, l), ds = p * (dp - delta), dq = scale * ds k, dk = ds^T
-    (scale q), dv = p^T do."""
+    (scale q), dv = p^T do; for bf16, ds enters both products rounded to
+    bf16 and p enters dv in fp32."""
     check_flash_operands(q, k, v)
     qk, kk, vk, _, _ = _kernel_layout(q, k, v)
     dok = _kernel_layout(do, k, v)[0]
@@ -173,8 +217,8 @@ def _plain_bwd(q, k, v, do, m, l, delta, *, scale, causal, q_offset, kv_len):
     dok = _wide(dok)
     dp = torch.einsum("bgqd,bkd->bgqk", dok, _wide(vk))
     ds = p * (dp - delta[..., None])
-    dq = torch.einsum("bgqk,bkd->bgqd", ds, _wide(kk)) * scale
-    dk = torch.einsum("bgqk,bgqd->bkd", ds, _wide(qk) * scale)
+    dq = torch.einsum("bgqk,bkd->bgqd", _rounded(ds, k.dtype), _wide(kk)) * scale
+    dk = torch.einsum("bgqk,bgqd->bkd", _rounded(ds, q.dtype), _prescaled(qk, scale))
     dv = torch.einsum("bgqk,bgqd->bkd", p, dok)
     if q.ndim == 5:
         b, sk, kvh, d = k.shape
@@ -207,8 +251,9 @@ def _on_card(q, name: str) -> bool:
 
 def flash_bwd_dq(q, k, v, do, m, l, delta, *, scale, causal, q_offset=0,
                  kv_len=None):
-    """The dq pass (`flash_bwd_pallas`'s first call) -> dq in q's layout.
-    CUDA tensor: `repro_flash_bwd_dq_f32`; CPU tensor: the plain version."""
+    """The dq pass (`flash_bwd_pallas`'s first call) -> dq in q's layout and
+    type. CUDA tensor: `repro_flash_bwd_dq_f32` or `repro_flash_bwd_dq_bf16`;
+    CPU tensor: the plain version."""
     kw = dict(scale=scale, causal=causal, q_offset=q_offset, kv_len=kv_len)
     if not _on_card(q, "flash_bwd_dq"):
         return flash_bwd_dq_plain(q, k, v, do, m, l, delta, **kw)
@@ -223,8 +268,8 @@ flash_bwd_dq.launches = 0
 def flash_bwd_dkv(q, k, v, do, m, l, delta, *, scale, causal, q_offset=0,
                   kv_len=None):
     """The dk/dv pass (`flash_bwd_pallas`'s second call) -> (dk, dv) in k's
-    layout. CUDA tensor: `repro_flash_bwd_dkv_f32`; CPU tensor: the plain
-    version."""
+    layout and type. CUDA tensor: `repro_flash_bwd_dkv_f32` or
+    `repro_flash_bwd_dkv_bf16`; CPU tensor: the plain version."""
     kw = dict(scale=scale, causal=causal, q_offset=q_offset, kv_len=kv_len)
     if not _on_card(q, "flash_bwd_dkv"):
         return flash_bwd_dkv_plain(q, k, v, do, m, l, delta, **kw)

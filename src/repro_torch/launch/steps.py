@@ -2,7 +2,11 @@
 the serve steps (counterpart of `repro.launch.steps`). No `jit`: PyTorch runs
 eagerly. The serve steps run under `torch.no_grad()`; the train step takes
 its gradients with `torch.autograd.grad`, through the flash backward kernels
-on the card.
+on the card. Parameters (and so activations and gradients) are in
+`run.param_dtype`, bfloat16 by default as in the reference; the moments in
+`run.moment_dtype`; AdamW and the gradient-accumulation sums work in
+float32. Like the reference's, the train step does not read
+`run.grad_compression`: `optim.compression` is a library.
 """
 from __future__ import annotations
 

@@ -2,10 +2,13 @@
 async checkpoints and restart (counterpart of `repro.launch.train`, dense LMs;
 no mesh, so no `--model-axis`).
 
-Parameters and moments are float32. The reference trains in bfloat16 by
-default, but the port's CUDA flash kernels take float32 operands only
-(ROADMAP queue 1 item 17). Activations are recomputed per layer in the
-backward pass (remat "full"), as the reference launcher has it.
+It trains as the reference's launcher does, at `DEFAULT_RUN`'s types:
+bfloat16 parameters and activations (the flash kernels' bf16 entry points
+on the card), float32 AdamW moments and gradient sums, and activations
+recomputed per layer in the backward pass (remat "full"). The batch shape is
+a `ShapeConfig("custom_train", seq_len, global_batch, "train")`. For the
+float32 trainer, build the state with `init_train_state` and the step with
+`make_train_step` at `DEFAULT_RUN.replace(param_dtype="float32")`.
 
 Run on the card (default device "cuda"):
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b --full --steps 6
@@ -23,7 +26,7 @@ import time
 import torch
 
 from repro_torch.checkpoint import CheckpointManager
-from repro_torch.configs.base import DEFAULT_RUN, get_config
+from repro_torch.configs.base import DEFAULT_RUN, ShapeConfig, get_config
 from repro_torch.data import make_pipeline
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import init_train_state, make_train_step
@@ -45,11 +48,11 @@ def train(arch: str, *, steps: int = 100, reduced: bool = True, global_batch: in
     dev = resolve_device(device)
     cfg = get_config(arch, reduced=reduced)
     run = DEFAULT_RUN.replace(grad_accum=grad_accum, checkpoint_every=checkpoint_every,
-                              remat="full", param_dtype="float32",
-                              compute_dtype="float32")
+                              remat="full")
+    shape = ShapeConfig("custom_train", seq_len, global_batch, "train")
     step_fn = make_train_step(cfg, run, steps, device=dev)
     state = init_train_state(cfg, run, torch.Generator().manual_seed(seed), device=dev)
-    pipeline = make_pipeline(cfg, seq_len, global_batch, seed=seed)
+    pipeline = make_pipeline(cfg, shape.seq_len, shape.global_batch, seed=seed)
     ckpt = CheckpointManager(
         ckpt_dir or os.path.join(tempfile.gettempdir(), "repro_torch_ckpt"), keep=3)
 
@@ -75,7 +78,7 @@ def train(arch: str, *, steps: int = 100, reduced: bool = True, global_batch: in
         for h in history[:: max(1, len(history) // 10)]:
             log.info("step %4d loss %.4f grad_norm %.4f %.1f ms", h["step"], h["loss"],
                      h["grad_norm"], h["step_ms"])
-        tok_s = global_batch * seq_len * len(history) / max(dt, 1e-9)
+        tok_s = shape.global_batch * shape.seq_len * len(history) / max(dt, 1e-9)
         log.info("done: %d steps in %.1fs (%.0f tok/s, checkpoints included), final "
                  "loss %.4f, %s", len(history), dt, tok_s, history[-1]["loss"], dev)
     return state, history

@@ -3,7 +3,9 @@
 logical-axis annotations, since the port has no mesh).
 
 The initializers draw on the host from a `torch.Generator`, so one seed gives
-the same weights on every device; the caller moves them."""
+the same weights on every device; the caller moves them. Given no generator
+they return uninitialized tensors of the same shapes (the parameter count
+takes them on the meta device)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -15,11 +17,15 @@ def dense_init(generator: torch.Generator, shape, fan_in: Optional[int] = None,
                dtype=torch.float32) -> torch.Tensor:
     """Normal, scaled by fan_in ** -0.5; fan_in defaults to shape[-2] (the
     reference's rule, so wq (d, h, hd) takes fan_in = h)."""
+    if generator is None:
+        return torch.empty(tuple(shape), dtype=dtype)
     fi = fan_in or (shape[-2] if len(shape) >= 2 else shape[-1])
     return torch.randn(tuple(shape), generator=generator, dtype=dtype) * (fi ** -0.5)
 
 
 def embed_init(generator: torch.Generator, shape, dtype=torch.float32) -> torch.Tensor:
+    if generator is None:
+        return torch.empty(tuple(shape), dtype=dtype)
     return torch.randn(tuple(shape), generator=generator, dtype=dtype) * 0.02
 
 

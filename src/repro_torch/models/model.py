@@ -27,6 +27,7 @@ from repro_torch.models.transformer import (
     init_groups,
     stack_apply,
 )
+from repro_torch.tree import tree_leaves
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -53,6 +54,18 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *, device=None,
     if not cfg.tie_embeddings:
         p["unembed"] = embed_init(generator, (d, v))
     return _to(p, dev, dtype)
+
+
+def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:
+    """The number of parameters `init_params` makes for `cfg`, counted from
+    the shapes of its tree made on the meta device with no generator (no
+    memory, no random numbers). `active_only` counts what one token uses; the
+    reference scales the expert leaves by top_k / n_experts, and the port's
+    families have no experts yet (ROADMAP queue 1 item 16), so it equals the
+    full count."""
+    with torch.device("meta"):
+        params = init_params(cfg, None, device="meta")
+    return sum(leaf.numel() for leaf in tree_leaves(params))
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.float32,

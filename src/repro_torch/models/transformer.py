@@ -14,10 +14,12 @@ stacked (n_layers, ...) cache, written in place.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 import torch.utils.checkpoint
+from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sparse_ffn import activation_fn
@@ -84,6 +86,8 @@ def _stack(trees: list):
     """Stack a list of parameter trees along a new leading layers axis."""
     if isinstance(trees[0], dict):
         return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    if trees[0].is_meta:  # shapes only (the parameter count): no stack kernel
+        return trees[0].new_empty((len(trees),) + tuple(trees[0].shape))
     return torch.stack(trees)
 
 
@@ -146,7 +150,18 @@ def apply_sublayer(sub: Sub, p, x, *, cfg, positions, cache, write_pos, causal):
     return x, new_cache
 
 
-REMAT_DOTS_TODO = "ROADMAP queue 1 item 17 (remat=\"dots\")"
+def dots_policy(ctx, op, *args, **kwargs):
+    """remat "dots" (the reference's `dots_with_no_batch_dims_saveable`):
+    save the outputs of the matmuls that contract with no batch dimension,
+    the q/k/v/o projections and the FFN's three, and recompute everything
+    else, the attention region included. `torch.einsum` lowers a batch-free
+    contraction such as "bsd,dhk->bshk" to `aten.bmm` over a batch of one,
+    `x @ w` to `aten.mm`: the policy keys on the batch the op contracts
+    over, not on its name alone."""
+    aten = torch.ops.aten
+    if op is aten.mm.default or (op is aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def stack_apply(groups_params, x, *, cfg: ModelConfig, positions, caches=None,
@@ -156,11 +171,11 @@ def stack_apply(groups_params, x, *, cfg: ModelConfig, positions, caches=None,
 
     remat "full" recomputes each group's activations in the backward pass
     (`torch.utils.checkpoint`, non-reentrant: the reference's
-    `jax.checkpoint` around its scan body); "none" keeps them."""
-    if remat == "dots":
-        raise NotImplementedError(f"remat='dots' (save only the matmul outputs) is "
-                                  f"not ported yet; see {REMAT_DOTS_TODO}")
-    if remat not in ("none", "full"):
+    `jax.checkpoint` around its scan body); "dots" recomputes them too but
+    keeps the batch-free matmul outputs (`dots_policy`); "none" keeps
+    everything. The flash kernels are launches, not aten ops, so under
+    "full" and "dots" alike each group's attention forward runs twice."""
+    if remat not in ("none", "full", "dots"):
         raise ValueError(f"remat {remat!r}: choose from 'none', 'full', 'dots'")
     lay = group_layout(cfg)
     groups = unstack_groups(groups_params, n_groups(cfg))
@@ -176,6 +191,11 @@ def stack_apply(groups_params, x, *, cfg: ModelConfig, positions, caches=None,
     for gi in range(n_groups(cfg)):
         if remat == "full":
             x = torch.utils.checkpoint.checkpoint(group, gi, x, use_reentrant=False)
+        elif remat == "dots":
+            x = torch.utils.checkpoint.checkpoint(
+                group, gi, x, use_reentrant=False,
+                context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                             dots_policy))
         else:
             x = group(gi, x)
     return x, caches, torch.zeros((), dtype=torch.float32, device=x.device)

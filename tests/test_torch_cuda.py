@@ -14,7 +14,10 @@ kernels tile by tile with an online softmax (the fp32 one in split-TF32, four
 warps' partial softmaxes combined), their plain versions in one pass, for
 out, m and l). int8 kernels: bitwise equal —
 both sum the same integers exactly (int32 in the kernel, float64 in the plain
-version) and rescale in the same order."""
+version) and rescale in the same order. bf16 flash kernels: out, dq, dk and
+dv within 2^-7 * max|plain| (one bf16 ulp at the largest value: kernel and
+plain version round the same fp32 sums, taken in another order, at the same
+points), m and l within 1e-5 * max|plain| (fp32 sums of exact products)."""
 import numpy as np
 import pytest
 
@@ -26,6 +29,7 @@ from repro_torch.kernels.conv_pool.kernel import conv_pool_batch, conv_pool_plai
 from repro_torch.kernels.conv_pool.ops import conv_pool_launch  # noqa: E402
 from repro_torch.kernels.ecr_conv.kernel import ecr_conv_batch, ecr_conv_plain  # noqa: E402
 from repro_torch.kernels.ecr_conv.ops import ecr_conv_launch, pack_operands  # noqa: E402
+from repro_torch.kernels.cuda import FLASH_ENTRY_LAUNCHES  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
     flash_fwd,
     flash_fwd_plain,
@@ -553,15 +557,16 @@ FLASH_CASES = [
 ]
 
 
-def _flash_operands(dev, layout, b, kv, g, sq, sk, d, seed):
+def _flash_operands(dev, layout, b, kv, g, sq, sk, d, seed, dtype=torch.float32):
     rng = np.random.default_rng(seed)
     if layout == "kernel":
         q = rng.standard_normal((b * kv, g, sq, d)).astype(np.float32)
         k = rng.standard_normal((b * kv, sk, d)).astype(np.float32)
         v = rng.standard_normal((b * kv, sk, d)).astype(np.float32)
-        return tuple(torch.from_numpy(x).to(dev) for x in (q, k, v))
-    q = torch.from_numpy(rng.standard_normal((b, sq, kv, g, d)).astype(np.float32)).to(dev)
-    cache = torch.from_numpy(rng.standard_normal((2, 3, b, sk, kv, d)).astype(np.float32)).to(dev)
+        return tuple(torch.from_numpy(x).to(dev, dtype) for x in (q, k, v))
+    q = torch.from_numpy(rng.standard_normal((b, sq, kv, g, d)).astype(np.float32)).to(dev, dtype)
+    cache = torch.from_numpy(rng.standard_normal((2, 3, b, sk, kv, d)).astype(np.float32))
+    cache = cache.to(dev, dtype)
     return q, cache[0, 1], cache[1, 1]  # layer 1 of a stacked cache, in place
 
 
@@ -774,6 +779,120 @@ def test_flash_function_grads_on_the_card(dev):
     for gc, gh in zip(grads[1], grads[0]):
         assert bool(gc.abs().max() > 0)
         _close(gc, gh)
+
+
+def _bf16_close(got, want):
+    """bf16 kernel vs plain: 2^-7 * max|plain|, both rounded to bf16."""
+    assert got.dtype == want.dtype == torch.bfloat16
+    err = float((got.float() - want.float()).abs().max())
+    scale = float(want.float().abs().max())
+    assert err <= 2.0 ** -7 * scale, (err, scale)
+
+
+def _stat_close(got, want):
+    """m and l (fp32) of the bf16 forward: 1e-5 * max|plain|."""
+    assert got.dtype == want.dtype == torch.float32
+    err = float((got - want).abs().max())
+    assert err <= 1e-5 * float(want.abs().max()), err
+
+
+def _entries_since(before):
+    return {k: n - before[k] for k, n in FLASH_ENTRY_LAUNCHES.items() if n != before[k]}
+
+
+# the bf16 forward: the fp32 cases, plus head dim 8 and 16 in the model
+# layout (the k16 MMA's zero padding; 8-element rows read in place)
+FLASH_BF16_CASES = FLASH_CASES + [
+    ("model", 2, 2, 4, 33, 70, 8, True, 0, None),
+    ("model", 2, 2, 3, 21, 45, 16, False, 0, 40),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_BF16_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_flash_bf16_kernel_matches_plain(dev, case):
+    """bf16 q, k, v launch `repro_flash_fwd_bf16` once and no fp32 entry;
+    out (bf16), m and l against the plain version's bf16 rounding."""
+    layout, b, kv, g, sq, sk, d, causal, q_offset, kv_len = case
+    q, k, v = _flash_operands(dev, layout, b, kv, g, sq, sk, d, seed=sq + sk + d + 5,
+                              dtype=torch.bfloat16)
+    kw = dict(scale=d ** -0.5, causal=causal, q_offset=q_offset, kv_len=kv_len)
+    before = dict(FLASH_ENTRY_LAUNCHES)
+    out, m, l = flash_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert _entries_since(before) == {"repro_flash_fwd_bf16": 1}
+    po, pm, pl = flash_fwd_plain(q, k, v, **kw)
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    _bf16_close(out, po)
+    _stat_close(m, pm)
+    _stat_close(l, pl)
+
+
+def _bf16_do(q, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal(tuple(q.shape)).astype(np.float32)).to(
+        q.device, torch.bfloat16)
+
+
+@pytest.mark.parametrize("case", FLASH_BWD_CASES + [("model", 2, 2, 2, 40, 40, 8, True, 0,
+                                                     None)],
+                         ids=lambda c: "-".join(map(str, c)))
+def test_flash_bf16_bwd_kernels_match_plain(dev, case):
+    """bf16 operands launch `repro_flash_bwd_dq_bf16` and
+    `repro_flash_bwd_dkv_bf16` once each and no fp32 entry; dq, dk and dv
+    (bf16) against the plain version."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_bwd_dkv,
+        flash_bwd_dkv_plain,
+        flash_bwd_dq,
+        flash_bwd_dq_plain,
+        flash_delta,
+    )
+
+    layout, b, kv, g, sq, sk, d, causal, q_offset, kv_len = case
+    q, k, v = _flash_operands(dev, layout, b, kv, g, sq, sk, d, seed=sq + sk + d + 6,
+                              dtype=torch.bfloat16)
+    kw = dict(scale=d ** -0.5, causal=causal, q_offset=q_offset, kv_len=kv_len)
+    out, m, l = flash_fwd(q, k, v, **kw)
+    do = _bf16_do(q, d + 7)
+    ops = (q, k, v, do, m, l, flash_delta(do, out))
+    before = dict(FLASH_ENTRY_LAUNCHES)
+    dq = flash_bwd_dq(*ops, **kw)
+    dk, dv = flash_bwd_dkv(*ops, **kw)
+    torch.cuda.synchronize()
+    assert _entries_since(before) == {"repro_flash_bwd_dq_bf16": 1,
+                                      "repro_flash_bwd_dkv_bf16": 1}
+    assert dq.shape == q.shape and dk.shape == k.shape and dv.shape == v.shape
+    _bf16_close(dq, flash_bwd_dq_plain(*ops, **kw))
+    for got, want in zip((dk, dv), flash_bwd_dkv_plain(*ops, **kw)):
+        _bf16_close(got, want)
+
+
+def test_flash_bf16_function_grads_on_the_card(dev):
+    """`FlashAttentionFn` end to end at bf16: out and the gradients of q, k
+    and v on the card against the host's plain path on the same bf16
+    inputs, through the bf16 entry points only (one forward, one of each
+    backward pass)."""
+    from repro_torch.kernels.flash_attention.ops import flash_mha
+
+    rng = np.random.default_rng(4)
+    shapes = ((2, 48, 2, 4, 64), (2, 48, 2, 64), (2, 48, 2, 64))
+    host = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(torch.bfloat16)
+            for s in shapes]
+    w = torch.from_numpy(rng.standard_normal(shapes[0]).astype(np.float32)).to(torch.bfloat16)
+    results = []
+    for device in ("cpu", dev):
+        ts = [t.clone().to(device).requires_grad_(True) for t in host]
+        before = dict(FLASH_ENTRY_LAUNCHES)
+        out = flash_mha(*ts, causal=True)
+        (out.float() * w.to(device).float()).sum().backward()
+        results.append(([out.detach().cpu()] + [t.grad.cpu() for t in ts],
+                        _entries_since(before)))
+    assert results[0][1] == {}
+    assert results[1][1] == {"repro_flash_fwd_bf16": 1, "repro_flash_bwd_dq_bf16": 1,
+                             "repro_flash_bwd_dkv_bf16": 1}
+    for gc, gh in zip(results[1][0], results[0][0]):
+        assert bool(gc.float().abs().max() > 0)
+        _bf16_close(gc, gh)
 
 
 def test_flash_forward_kernel_refuses_to_drop_the_graph(dev):

@@ -9,7 +9,16 @@ Tolerances:
 - quantized K/V: int8 values identical, scales at 1e-7 relative (one fp32
   max and one division on both sides);
 - the model layout against the kernel layout on the port: identical (the
-  same plain arithmetic on permuted views)."""
+  same plain arithmetic on permuted views);
+- bf16 q, k, v against `flash_fwd_pallas` at bf16: out within 2^-7 *
+  max|Pallas| (one bf16 ulp at the largest value: both round p to bf16
+  before P.V and round out, the Pallas kernel p against each tile's running
+  max, the plain version against the row's max; observed up to 0.90 of the
+  limit, at (2, 4, 64, 128, 32) non-causal), m and l within 1e-5 *
+  max|Pallas| (fp32 sums of exact products; observed up to 4.6e-7 of
+  max|m| and 3.1e-7 of max|l|). The Pallas kernel's q * scale is the exact
+  product of q and bf16(scale), unrounded, and so is the plain version's:
+  rounding it to bf16 would move m and l by about 1e-3 of their maxima."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -68,6 +77,43 @@ def _check_fwd(q, k, v, *, causal, q_offset=0, kv_len=None, qc, kc):
 def test_fwd_sweep_matches_pallas(bkv, g, sq, sk, d, causal):
     q, k, v = _inputs(bkv, g, sq, sk, d, seed=sq + sk)
     _check_fwd(q, k, v, causal=causal, qc=16, kc=32)
+
+
+def _check_fwd_bf16(q, k, v, *, causal, q_offset=0, kv_len=None, qc, kc):
+    """bf16 plain forward vs `flash_fwd_pallas` at bf16 (interpret mode) on
+    the same bf16 values."""
+    d = q.shape[-1]
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    jo, jm, jl = flash_fwd_pallas(jq, jk, jv, scale=d ** -0.5, causal=causal,
+                                  q_offset=q_offset, kv_len=kv_len, qc=qc, kc=kc)
+    tq, tk, tv = (torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)
+                  for x in (jq, jk, jv))
+    out, m, l = flash_fwd(tq, tk, tv, scale=d ** -0.5, causal=causal, q_offset=q_offset,
+                          kv_len=kv_len)
+    assert out.dtype == torch.bfloat16 and m.dtype == l.dtype == torch.float32
+    jo = np.asarray(jo, np.float32)
+    assert np.abs(out.float().numpy() - jo).max() <= 2.0 ** -7 * np.abs(jo).max()
+    for got, want in ((m, jm), (l, jl)):
+        want = np.asarray(want)
+        assert np.abs(got.numpy() - want).max() <= 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("bkv,g,sq,sk,d", [(1, 1, 32, 32, 16), (2, 4, 64, 128, 32),
+                                           (3, 2, 48, 96, 64)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_fwd_sweep_bf16_matches_pallas(bkv, g, sq, sk, d, causal):
+    """The reference's bf16 cases of `test_fwd_sweep`."""
+    q, k, v = _inputs(bkv, g, sq, sk, d, seed=sq + sk)
+    _check_fwd_bf16(q, k, v, causal=causal, qc=16, kc=32)
+
+
+@pytest.mark.parametrize("d,q_offset,kv_len", [(8, 0, None), (8, 5, 30), (128, 5, 30),
+                                               (128, 99, 100)])
+def test_fwd_bf16_head_dim_8_and_offsets_match_pallas(d, q_offset, kv_len):
+    """Head dim 8 (the CUDA kernel pads it to the k16 of its MMA) and
+    q_offset / kv_len, with a ragged Sq."""
+    q, k, v = _inputs(2, 2, 24, 40, d, seed=d + q_offset)
+    _check_fwd_bf16(q, k, v, causal=True, q_offset=q_offset, kv_len=kv_len, qc=24, kc=8)
 
 
 def test_fwd_decode_mode_matches_pallas():

@@ -10,7 +10,12 @@ Tolerances:
   plain version in one pass);
 - `flash_mha` gradients against `jax.grad`: rtol = atol = 1e-5 (both sides
   recompute p from their own forward's m and l, fp32);
-- gradcheck: its float64 defaults (eps 1e-6, atol 1e-5, rtol 1e-3)."""
+- gradcheck: its float64 defaults (eps 1e-6, atol 1e-5, rtol 1e-3);
+- bf16 q, k, v, do against `flash_bwd_pallas` at bf16 on the same bf16
+  values and the Pallas forward's out, m and l: dq, dk and dv within
+  2^-7 * max|Pallas| (one bf16 ulp at the largest value: both round ds to
+  bf16 before ds.K and ds^T.q and round the outputs; observed up to 0.30 of
+  the limit)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -85,6 +90,31 @@ def test_bwd_plain_matches_pallas(case, causal):
     assert torch.equal(flash_bwd_dq(tq, tk, tv, tdo, tm, tl, delta, **kw), got[0])
     dk, dv = flash_bwd_dkv(tq, tk, tv, tdo, tm, tl, delta, **kw)
     assert torch.equal(dk, got[1]) and torch.equal(dv, got[2])
+
+
+@pytest.mark.parametrize("case", BWD_CASES[:4] + BWD_CASES[5:],
+                         ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("causal", [True, False])
+def test_bwd_bf16_plain_matches_pallas(case, causal):
+    """The bf16 backward: GQA, head dims 8 to 32, q_offset / kv_len (also
+    q_offset < 0), ragged tiles."""
+    bkv, g, sq, sk, d, q_offset, kv_len, qc, kc = case
+    q, k, v, do = _arrays(sq + sk + d + 1, (bkv, g, sq, d), (bkv, sk, d), (bkv, sk, d),
+                          (bkv, g, sq, d))
+    kw = dict(scale=d ** -0.5, causal=causal, q_offset=q_offset, kv_len=kv_len)
+    jq, jk, jv, jdo = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, do))
+    out, m, l = flash_fwd_pallas(jq, jk, jv, qc=qc, kc=kc, **kw)
+    want = flash_bwd_pallas(jq, jk, jv, out, m, l, jdo, qc=qc, kc=kc, **kw)
+
+    def bf(x):
+        return torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)
+
+    got = flash_bwd(bf(jq), bf(jk), bf(jv), bf(out), *_t(np.asarray(m), np.asarray(l)),
+                    bf(jdo), **kw)
+    for gt, wt in zip(got, want):
+        assert gt.dtype == torch.bfloat16
+        wt = np.asarray(wt, np.float32)
+        assert np.abs(gt.float().numpy() - wt).max() <= 2.0 ** -7 * np.abs(wt).max()
 
 
 def test_delta_matches_the_reference_rowsum():

@@ -14,9 +14,16 @@ Tolerances (fp32 sums in another order on the two sides):
   relative, final params at 1e-5 * max|jax| + 1e-6 per leaf (the AdamW
   update divides by sqrt(v), which amplifies gradient noise where the
   gradient is near 0);
-- remat "full" against "none" on the port: 1e-6 relative (the same ops,
-  recomputed);
-- restart: losses within 1e-6, as `tests/test_checkpoint_runtime.py`.
+- remat "full" and "dots" against "none" on the port: 1e-6 relative (the
+  same ops, recomputed);
+- restart: losses within 1e-6, as `tests/test_checkpoint_runtime.py`;
+- bf16, the reference's default (`DEFAULT_RUN.replace(remat="none")` on
+  both sides, bf16 weights carried over exactly): loss per step within 1e-2
+  relative (observed 7.5e-5), grad norm within 3e-2 relative (observed
+  3.9e-4), step-0 gradient leaves within 5e-2 * max|leaf| (observed 1.4e-2):
+  the two sides round bf16 activations at the same points but sum their
+  fp32 products in other orders, and a bf16 rounding that flips moves a
+  value by 2^-8 of itself.
 """
 import dataclasses
 
@@ -55,7 +62,7 @@ from repro_torch.runtime import (  # noqa: E402
     StragglerMonitor,
     Supervisor,
 )
-from repro_torch.tree import tree_leaves, tree_map  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten  # noqa: E402
 
 ARCH = "qwen3-0.6b"
 KEY = jax.random.PRNGKey(0)
@@ -242,10 +249,69 @@ def test_remat_full_equals_none(setup):
     l1, g1 = loss_and_grads(cfg, RUN.replace(remat="full"), params, batch)
     _close(float(l1), float(l0), rel=1e-6, floor=0)
     _assert_trees_close(g1, g0, rel=1e-6, floor=1e-9)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.lm_loss(cfg, params, batch, remat="dots")
+    l2, g2 = loss_and_grads(cfg, RUN.replace(remat="dots"), params, batch)
+    _close(float(l2), float(l0), rel=1e-6, floor=0)
+    _assert_trees_close(g2, g0, rel=1e-6, floor=1e-9)
     with pytest.raises(ValueError, match="remat"):
         M.lm_loss(cfg, params, batch, remat="some")
+
+
+def test_remat_dots_saves_the_batch_free_matmuls(setup, monkeypatch):
+    """remat "dots" keeps exactly the outputs of the seven batch-free
+    matmuls of each layer (q, k, v, o projections: einsums lowered to a
+    batch-of-one bmm; the FFN's w1, w3, w2: mm) and recomputes the rest; the
+    attention region's batched products are recomputed. Through
+    `saved_tensors_hooks`: under "dots", as under "full", autograd saves
+    nothing from inside the layers (FlashAttentionFn's q among them), which
+    "none" does save."""
+    import repro_torch.models.transformer as T
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    cfg, _, _, np_state = setup
+    params = lm_params_from_jax(np_state.params, cfg, device="cpu")
+    b, s = 4, 16
+    batch = {k: torch.from_numpy(v) for k, v in _batch(cfg, b=b, s=s, seed=5).items()}
+    decisions = []
+    orig = T.dots_policy
+
+    aten = torch.ops.aten
+
+    def spy(ctx, op, *args, **kw):
+        out = orig(ctx, op, *args, **kw)
+        if not ctx.is_recompute and op in (aten.mm.default, aten.bmm.default):
+            decisions.append((op, tuple(args[0].shape), tuple(args[1].shape), out))
+        elif not ctx.is_recompute:
+            assert out == CheckpointPolicy.PREFER_RECOMPUTE, op
+        return out
+
+    monkeypatch.setattr(T, "dots_policy", spy)
+    saved_shapes = {}
+    for remat in ("none", "full", "dots"):
+        shapes = []
+
+        def pack(t):
+            shapes.append(tuple(t.shape))
+            return t
+
+        leaves = [x.detach().requires_grad_(True) for x in tree_leaves(params)]
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            loss = M.lm_loss(cfg, tree_unflatten(params, leaves), batch, remat=remat)
+        torch.autograd.grad(loss, leaves)
+        saved_shapes[remat] = shapes
+    kept = [(op, a, w) for op, a, w, d in decisions if d == CheckpointPolicy.MUST_SAVE]
+    hd, kv = cfg.resolved_head_dim, cfg.n_kv_heads
+    per_layer = sorted([cfg.n_heads * hd, kv * hd, kv * hd, cfg.d_model, cfg.d_ff, cfg.d_ff,
+                        cfg.d_model])
+    assert sorted(w[-1] for _, _, w in kept) == sorted(per_layer * cfg.n_layers)
+    assert all(a[-2] == b * s for _, a, _ in kept)  # rows: every token, no batch dim
+    assert {op for op, _, _ in kept} == {aten.mm.default, aten.bmm.default}
+    batched = [a for op, a, _, d in decisions if op is aten.bmm.default and a[0] > 1]
+    assert batched and all(d == CheckpointPolicy.PREFER_RECOMPUTE for op, a, _, d in decisions
+                           if op is aten.bmm.default and a[0] > 1)
+    q_shape = (b, s, kv, cfg.n_heads // kv, hd)  # FlashAttentionFn's saved q
+    assert q_shape in saved_shapes["none"]
+    assert q_shape not in saved_shapes["dots"]
+    assert sorted(saved_shapes["dots"]) == sorted(saved_shapes["full"])
 
 
 def test_forward_return_hidden(setup):
@@ -264,6 +330,62 @@ def test_forward_return_hidden(setup):
 # ---------------------------------------------------------------------------
 # whole train steps
 # ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def setup_bf16():
+    """The reduced config at the reference's default run (bf16 params, fp32
+    moments), remat "none"; the JAX state made once."""
+    cfg, jcfg = get_config(ARCH, reduced=True), j_get_config(ARCH, reduced=True)
+    jrun = J_DEFAULT_RUN.replace(remat="none", warmup_steps=2)
+    jstate = j_init_train_state(jcfg, jrun, KEY)
+    assert jax.tree_util.tree_leaves(jstate.params)[0].dtype == jnp.bfloat16
+    np_state = jax.tree_util.tree_map(lambda x: np.asarray(x, np.float32), jstate)
+    return cfg, jcfg, jrun, jstate, np_state
+
+
+def test_bf16_step0_gradients_match_jax(setup_bf16):
+    """One bf16 loss and every bf16 gradient leaf against `jax.grad` of the
+    reference's `lm_loss` at bf16."""
+    cfg, jcfg, _, jstate, np_state = setup_bf16
+    batch = make_pipeline(cfg, 16, 4, seed=8).batch_at(0)
+    jl, jg = jax.value_and_grad(lambda p: JM.lm_loss(
+        jcfg, p, {k: jnp.asarray(v) for k, v in batch.items()}, remat="none"))(jstate.params)
+    params = lm_params_from_jax(np_state.params, cfg, device="cpu", dtype=torch.bfloat16)
+    loss, grads = loss_and_grads(cfg, DEFAULT_RUN.replace(remat="none"), params,
+                                 {k: torch.from_numpy(v) for k, v in batch.items()})
+    assert abs(float(loss) - float(jl)) <= 1e-2 * abs(float(jl))
+    jleaves = dict(_leaves(jax.tree_util.tree_map(lambda x: np.asarray(x, np.float32), jg)))
+    for path, g in _leaves(tree_map(lambda t: t.float(), grads)):
+        assert grads is not None and g.shape == jleaves[path].shape, path
+        want = jleaves[path]
+        assert np.abs(g - want).max() <= 5e-2 * np.abs(want).max(), path
+    assert all(t.dtype == torch.bfloat16 for t in tree_leaves(grads))
+
+
+def test_three_bf16_train_steps_match_jax(setup_bf16):
+    """Three steps at the reference's default types: the port's state built
+    by `train_state_from_jax(dtype=torch.bfloat16)` (exact: the JAX bf16
+    leaves cross widened), loss and grad norm per step against the JAX
+    package's `make_train_step`."""
+    cfg, jcfg, jrun, jstate, np_state = setup_bf16
+    jstep = jax.jit(j_make_train_step(jcfg, jrun, 10))
+    step = make_train_step(cfg, DEFAULT_RUN.replace(remat="none", warmup_steps=2), 10,
+                           device="cpu")
+    state = train_state_from_jax(np_state, cfg, device="cpu", dtype=torch.bfloat16)
+    assert all(torch.equal(a.float(), torch.from_numpy(b)) for a, b in zip(
+        tree_leaves(state.params), jax.tree_util.tree_leaves(np_state.params)))
+    pipe = make_pipeline(cfg, 16, 4, seed=8)
+    for s in range(3):
+        batch = pipe.batch_at(s)
+        jstate, jm = jstep(jstate, {k: jnp.asarray(v) for k, v in batch.items()})
+        state, m = step(state, batch)
+        assert abs(float(m["loss"]) - float(jm["loss"])) <= 1e-2 * float(jm["loss"])
+        assert abs(float(m["grad_norm"]) - float(jm["grad_norm"])) <= \
+            3e-2 * float(jm["grad_norm"])
+    assert int(state.opt.step) == int(jstate.opt.step) == 3
+    assert all(t.dtype == torch.bfloat16 for t in tree_leaves(state.params))
+    assert all(t.dtype == torch.float32 for t in tree_leaves(state.opt.m))
 
 
 @pytest.mark.parametrize("grad_accum", [1, 2])
@@ -418,6 +540,10 @@ def test_train_runs_on_the_host_and_resumes(tmp_path):
     assert [h["step"] for h in hist] == [0, 1, 2]
     assert all(np.isfinite(h["loss"]) and h["step_ms"] > 0 for h in hist)
     assert int(state.opt.step) == 3
+    # the reference launcher's types: bf16 parameters, fp32 moments
+    assert all(t.dtype == torch.bfloat16 for t in tree_leaves(state.params))
+    assert all(t.dtype == torch.float32 for t in tree_leaves(state.opt.m)
+               + tree_leaves(state.opt.v))
     assert CheckpointManager(tmp_path).all_steps() == [2, 3]
     state2, hist2 = train(ARCH, steps=4, global_batch=2, seq_len=16, ckpt_dir=tmp_path,
                           checkpoint_every=2, device="cpu")
@@ -428,3 +554,36 @@ def test_configs_keep_the_reference_run_fields():
     import repro.configs.base as jbase
 
     assert dataclasses.asdict(DEFAULT_RUN) == dataclasses.asdict(jbase.RunConfig())
+
+
+def test_shape_table_matches_the_reference():
+    import repro.configs.base as jbase
+    from repro_torch.configs import base as pbase
+
+    assert {k: dataclasses.asdict(v) for k, v in pbase.SHAPES.items()} == \
+        {k: dataclasses.asdict(v) for k, v in jbase.SHAPES.items()}
+    assert dataclasses.asdict(pbase.ShapeConfig("custom_train", 128, 8, "train")) == \
+        dataclasses.asdict(jbase.ShapeConfig("custom_train", 128, 8, "train"))
+    for reduced in (False, True):
+        cfg, jcfg = get_config(ARCH, reduced=reduced), j_get_config(ARCH, reduced=reduced)
+        for name in jbase.SHAPES:
+            assert pbase.shape_applicable(cfg, pbase.SHAPES[name]) == \
+                jbase.shape_applicable(jcfg, jbase.SHAPES[name])
+        long_ctx = dataclasses.replace(cfg, family="hybrid")
+        assert pbase.shape_applicable(long_ctx, pbase.SHAPES["long_500k"]) == (True, "")
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+def test_n_params_match_the_reference(reduced):
+    """`n_params` / `n_active_params` from the shapes alone, equal to the
+    reference's for qwen3-0.6b full and reduced; the full count well under a
+    second, with nothing allocated."""
+    import time
+
+    cfg, jcfg = get_config(ARCH, reduced=reduced), j_get_config(ARCH, reduced=reduced)
+    t0 = time.perf_counter()
+    n = cfg.n_params()
+    assert time.perf_counter() - t0 < 0.5
+    assert n == jcfg.n_params() and cfg.n_active_params() == jcfg.n_active_params() == n
+    if not reduced:
+        assert n == 596_049_920
