@@ -10,10 +10,11 @@
    per source, in parallel) and times the build; counts HMMA, LDGSTS, LDS
    and FFMA in the SASS (cuobjdump) of each instantiation of the split-TF32
    kernels (the fp32 ECR / PECR kernel, the fp32 BSR kernel, the fp32
-   flash forward and both flash backward passes) and fails unless every
-   one has HMMA and LDGSTS and the expected number of instantiations
-   exists; prints each one's registers, stack frame and spill bytes
-   (nvcc -Xptxas -v, from the build's output).
+   flash forward and both flash backward passes) and of the bf16 flash
+   kernels (with LDSM), and fails unless every one has HMMA and LDGSTS,
+   every bf16 backward one LDSM (ldmatrix), and the expected number of
+   instantiations exists; prints each one's registers, stack frame and
+   spill bytes (nvcc -Xptxas -v, from the build's output).
 3. Serves the published VGG-19 (3x224x224, 1000 classes, random weights from
    a fixed generator seed with the dead-filter shift) through the port's
    Engine (block_c=8, occ_threshold=0.75, max_batch=8, SimClock): 16 requests
@@ -219,7 +220,11 @@
    attention backward op) timed in turns at layer 0 and at the long shape
    as CUDA-graph replays (device time), the eager calls beside them; the
    bound per pass is max(6 (dq) or 8 (dk/dv) * B*H*pairs*D / the rate of
-   the type (split-TF32 165 TFLOP/s, bf16 989), bytes / 3.35 TB/s). Last,
+   the type (split-TF32 165 TFLOP/s, bf16 989), bytes / 3.35 TB/s). At
+   head dim 128 the bf16 passes are also run, checked and timed at both
+   block tiles (32 and 64 rows a dq block owns, keys a dk/dv block owns,
+   through `repro_flash_bwd_*_bf16_tile`), printed on a `bf16 block
+   tiles` line per timed shape. Last,
    at the reduced config and bf16, a 10-step run against one with a failure
    at step 7 (checkpoints every 3): losses bitwise equal.
 10. The scenario phase, on the published VGG-19 (weights and calibration
@@ -282,7 +287,9 @@
    fp32_core_bound_ms. The bf16 rows (flash_fwd_bf16, flash_bwd_dq_bf16,
    flash_bwd_dkv_bf16) time one launch at layer 0 of the
    trained bf16 step the same way, their launches count the 6-step bf16
-   training run, and their bound and achieved TFLOP/s are at 989 TFLOP/s.
+   training run, and their bound and achieved TFLOP/s are at 989 TFLOP/s;
+   flash_bwd_dq_bf16 and flash_bwd_dkv_bf16 carry "redesigned_in": 25, and
+   their trained and long shapes the times of both block tiles ("tile_ms").
    The rows whose kernels were redesigned for the tensor cores, the fp32
    ECR / PECR rows (ecr_conv_batch, conv_pool_batch and both at N=1;
    split-TF32, "redesigned_in": 16), bsr_matmul (split-TF32, 17) and the
@@ -330,9 +337,16 @@ PRUNE_DENSITY = 0.3
 # fp32 flash forward and both backward passes (6 head dims each)
 SPLIT_TF32_KERNELS = {"ecr_conv_kernel": 8, "bsr_matmul_kernel": 6, "flash_fwd_kernel": 6,
                       "flash_bwd_dq_kernel": 6, "flash_bwd_dkv_kernel": 6}
-# the bf16 tensor-core kernels (the training step at bf16): 6 head dims each
-BF16_KERNELS = {"flash_fwd_bf16_kernel": 6, "flash_bwd_dq_bf16_kernel": 6,
-                "flash_bwd_dkv_bf16_kernel": 6}
+# the bf16 tensor-core kernels (the training step at bf16): 6 head dims each,
+# and the backward passes' other block tile at head dim 128
+BF16_KERNELS = {"flash_fwd_bf16_kernel": 6, "flash_bwd_dq_bf16_kernel": 7,
+                "flash_bwd_dkv_bf16_kernel": 7}
+# the bf16 backward passes' block tiles (rows a dq block owns, keys a dk/dv
+# block owns), both timed at head dim 128
+BF16_BWD_TILES = (32, 64)
+# the redesigned bf16 backward passes' kernels, whose SASS must show
+# ldmatrix (LDSM) beside HMMA and LDGSTS
+BF16_BWD_LDSM = ("flash_bwd_dq_bf16_kernel", "flash_bwd_dkv_bf16_kernel")
 
 
 def fail(msg: str) -> int:
@@ -2134,6 +2148,40 @@ def sdpa_backward(q, k, v, do, kw):
                 [True, True, True, False], False, scale=kw["scale"])[:3])
 
 
+def flash_bwd_bf16_tile(ops, kw, *, part, tile):
+    """One bf16 backward pass at a chosen block tile (`repro_flash_bwd_*_bf16_tile`:
+    the rows a dq block owns or the keys a dk/dv block owns, 32 or 64 at head
+    dim 128) on the wrappers' operands -> dq, or (dk, dv). For the tile
+    comparison only: it counts no launch, and the wrappers take the passes'
+    own tiles."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels import cuda as kcuda
+
+    q, k, v, do, m, l, delta = ops
+    nbkv, nh, g, sq, sk, d = kcuda.check_flash_operands(q, k, v)
+    dq = torch.empty_like(q) if part == "dq" else q
+    dk, dv = (torch.empty_like(k), torch.empty_like(v)) if part == "dkv" else (k, v)
+    dims = (ctypes.c_int * 9)(nbkv, nh, g, sq, sk, d, int(bool(kw["causal"])),
+                              int(kw["q_offset"]),
+                              -1 if kw["kv_len"] is None else max(0, int(kw["kv_len"])))
+    strides = (ctypes.c_longlong * 24)(*kcuda.flash_bwd_strides(q, k, v, do, dq, dk, dv))
+    fn = getattr(kcuda.library(), f"repro_flash_bwd_{part}_bf16_tile")
+    fn.argtypes = ([ctypes.c_void_p] * (8 if part == "dq" else 9)
+                   + [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_longlong),
+                      ctypes.c_float, ctypes.c_void_p, ctypes.c_int])
+    fn.restype = ctypes.c_int
+    outs = (dq,) if part == "dq" else (dk, dv)
+    err = fn(*(t.data_ptr() for t in ops + outs), dims, strides, float(kw["scale"]),
+             torch.cuda.current_stream().cuda_stream, int(tile))
+    if err != 0:
+        raise RuntimeError(f"repro_flash_bwd_{part}_bf16_tile (tile {tile}) failed: "
+                           f"cudaError {err}")
+    return dq if part == "dq" else (dk, dv)
+
+
 def check_flash_bwd(book, label, args, kw, *, timed):
     """Both backward kernels against their plain versions (dq; dk and dv) on
     model-layout operands (q, k, v, out, m, l, do); when `timed`, kernel /
@@ -2174,6 +2222,17 @@ def check_flash_bwd(book, label, args, kw, *, timed):
     fns = {"dq": lambda: flash_bwd_dq(*ops, **kw), "dkv": lambda: flash_bwd_dkv(*ops, **kw),
            "dq_plain": lambda: flash_bwd_dq_plain(*ops, **kw),
            "dkv_plain": lambda: flash_bwd_dkv_plain(*ops, **kw), "library": lib}
+    tiles = bf16 and q.shape[-1] == 128  # both block tiles of the bf16 passes, compared
+    if tiles:
+        for tile in BF16_BWD_TILES:
+            check(f"flash_bwd_dq{sfx}", f"{tag} dq (BM {tile})",
+                  flash_bwd_bf16_tile(ops, kw, part="dq", tile=tile), pdq)
+            tdk, tdv = flash_bwd_bf16_tile(ops, kw, part="dkv", tile=tile)
+            check(f"flash_bwd_dkv{sfx}", f"{tag} dk (BN {tile})", tdk, pdk)
+            check(f"flash_bwd_dkv{sfx}", f"{tag} dv (BN {tile})", tdv, pdv)
+            for part in ("dq", "dkv"):
+                fns[f"{part}_tile{tile}"] = (lambda part=part, tile=tile: flash_bwd_bf16_tile(
+                    ops, kw, part=part, tile=tile))
     t = time_graph_turns(fns)
     te = time_turns({**fns, "library": lib_autograd})
     rows = []
@@ -2189,6 +2248,8 @@ def check_flash_bwd(book, label, args, kw, *, timed):
                "bound_by": "operations" if ft >= bt else "bytes",
                "fp32_core_bound_ms": max(fc, bt),
                "library_max_abs_diff_dq": lib_err, "phase": LM_ARCH + "-train"}
+        if tiles:
+            row["tile_ms"] = {str(tile): t[f"{part}_tile{tile}"] for tile in BF16_BWD_TILES}
         book.rows.append(row)
         rows.append(row)
         print(f"    {name} {label}: ms={t[part]:.4f} plain_ms={t[part + '_plain']:.4f} "
@@ -2199,6 +2260,12 @@ def check_flash_bwd(book, label, args, kw, *, timed):
     print(f"    dq + dk/dv {t['dq'] + t['dkv']:.4f} ms against SDPA's backward "
           f"{t['library']:.4f} ms [CUDA-graph replay]; |dq - SDPA dq| {lib_err:.2e}; "
           f"efficient-attention op vs autograd SDPA dq {lib_gap:.2e}")
+    if tiles:
+        print(f"    bf16 block tiles {label}: dq BM " + " / ".join(
+                  f"{tile} {t[f'dq_tile{tile}']:.4f}" for tile in BF16_BWD_TILES)
+              + " ms, dk/dv BN " + " / ".join(
+                  f"{tile} {t[f'dkv_tile{tile}']:.4f}" for tile in BF16_BWD_TILES)
+              + " ms [CUDA-graph replay, same run]")
     return rows
 
 
@@ -3602,10 +3669,12 @@ def main() -> int:
                     f"{res.get('spill_loads')} B" if res else
                     "registers and spills not reported (library built before this run)")
             print(f"sass {fn[:100]}: " + ", ".join(f"{op} {ops.get(op, 0)}" for op in
-                                                  ("HMMA", "LDGSTS", "LDS", "FFMA"))
+                                                  ("HMMA", "LDGSTS", "LDSM", "LDS", "FFMA"))
                   + f"; {regs}")
             if not ops.get("HMMA") or not ops.get("LDGSTS"):
                 failures.append(f"{fn}: no HMMA or no LDGSTS in its SASS")
+            if stem in BF16_BWD_LDSM and not ops.get("LDSM"):
+                failures.append(f"{fn}: no LDSM (ldmatrix) in its SASS")
         if len(sass) != want:
             failures.append(f"expected {want} {stem} instantiations, found {len(sass)}")
     wrappers = {"ecr_conv": ecr_conv_batch, "conv_pool": conv_pool_batch,
@@ -3953,6 +4022,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": csrc + src,
             "replaces": flash_src + site,
             **({} if bf16 else {"redesigned_in": 18}),
+            **({"redesigned_in": 25} if name in ("flash_bwd_dq_bf16", "flash_bwd_dkv_bf16")
+               else {}),
             "timing": "CUDA-graph replay (plain_ms too)",
             "launches": launched,
             "max_abs_err": book.max_err.get(name, 0.0),
@@ -3970,7 +4041,7 @@ def main() -> int:
             "phase": LM_ARCH + "-train",
             "shapes": [{k: r[k] for k in ("shape", "q", "k", "ms", "plain_ms",
                                           "library_ms", "eager_ms", "eager_library_ms",
-                                          "bound_ms", "bound_by") if k in r}
+                                          "bound_ms", "bound_by", "tile_ms") if k in r}
                        for r in rows]})
         if len(main_rows) != 1:
             failures.append(f"{name}: the trained shape was not timed")

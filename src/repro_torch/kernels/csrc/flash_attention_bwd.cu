@@ -1,18 +1,49 @@
 // GQA flash-attention backward for Hopper (sm_90a): the two passes of the
-// reference's two-pass flash backward, on the TF32 tensor cores in
-// split-TF32.
+// reference's two-pass flash backward, fp32 on the TF32 tensor cores in
+// split-TF32, bf16 on the bf16 tensor cores.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention/kernel.py
 // flash_bwd_pallas, one entry point per pallas_call site and operand type:
 //   :265 (_dq_kernel)  -> repro_flash_bwd_dq_f32,  flash_bwd_dq_kernel<D>
-//                         repro_flash_bwd_dq_bf16, flash_bwd_dq_bf16_kernel<D>
+//                         repro_flash_bwd_dq_bf16, flash_bwd_dq_bf16_kernel<D, BM>
 //   :284 (_dkv_kernel) -> repro_flash_bwd_dkv_f32, flash_bwd_dkv_kernel<D>
-//                         repro_flash_bwd_dkv_bf16, flash_bwd_dkv_bf16_kernel<D>
-// The fp32 passes run on the TF32 tensor cores in split-TF32 (below); the
-// bf16 passes (the training step at the reference's default bfloat16) on
-// the bf16 tensor cores, with the reference's rounding points (the bf16
-// section further down says where; the dv product keeps p in fp32 through a
-// bf16 hi + lo split).
+//                         repro_flash_bwd_dkv_bf16, flash_bwd_dkv_bf16_kernel<D, BN>
+// The fp32 passes run on the TF32 tensor cores in split-TF32 (the design
+// below); the bf16 passes (the training step at the reference's default
+// bfloat16) on the bf16 tensor cores in FlashAttention-2's layout, with the
+// reference's rounding points (the bf16 section further down; the dv
+// product keeps p in fp32 through a bf16 hi + lo split).
+//
+// What bounds the bf16 passes (989 TFLOP/s of bf16, 3.35 TB/s): at the
+// trained shape (qwen3-0.6b layer 0, B8, S128, KV 8, G 2, D 128, causal)
+// each moves about 17 MB (0.0051 ms) against 0.001 ms of operations, so
+// bytes bound it on paper, and in practice latency: 128-512 blocks, a
+// prologue that waits for the first tiles of every block at once (about
+// the bytes bound), then a serial chain of tiles per warp (8 row tiles for
+// the first keys in dk/dv) in which each step waits on dependent MMAs,
+// exp2 and a barrier. At the long shape (B4, 2048^2 causal) the work is
+// 0.104 (dq) and 0.139 ms (dk/dv) against 0.04 ms of bytes: operations. The
+// first bf16 passes reused the fp32 passes' geometry and lost 2x to
+// SDPA's backward at the trained shape; the redesign answers each cause:
+//  1. Every warp staged its own K/V (dq) or Q/dO (dk/dv) chunks, so a block
+//     shared nothing, and the block's own tile loaded synchronously: now
+//     one two-stage cp.async ring per block feeds all its warps, and the
+//     own tile is copied by cp.async ahead of the first ring stage.
+//  2. B fragments were gathered one bf16 at a time (two scalar shared loads
+//     and a pack per register): now ldmatrix.x4 for S, dP, S^T, dP^T and
+//     ldmatrix.x4.trans for ds.K, dS^T.Q and P^T.dO, conflict-free on rows
+//     of D + 8 elements.
+//  3. A fragments were re-read from shared memory at every step: dq keeps Q
+//     and dO, dk/dv K and V, in registers across steps at D <= 128.
+//  4. Four warps split the keys (dq) or rows (dk/dv) and summed their
+//     partials through shared memory: now every output element has one
+//     owning warp (16 rows of dq; half the columns of 16 keys' dK and dV),
+//     which writes it from its registers.
+//  5. A warp did at most two chunk steps at the trained shape and most
+//     warps of the first row tiles idled under the causal mask: now every
+//     warp walks the block's whole visible range, blocks launch heaviest
+//     first, and dk/dv gives each 16 keys two warps, so its longest chain
+//     (the first keys, which every row sees) runs at twice the warps.
 //
 // What it computes (the Pallas kernels' function): with the forward's m and
 // l (l already max(l, 1e-30)), delta = rowsum(do * out) (formed outside, as
@@ -37,8 +68,8 @@
 // nh = KV for the model's (B, Sq, KV, G, D) / (B, Sk, KV, D)); the head dim is
 // contiguous. m, l and delta are (BKV, G, Sq), contiguous.
 //
-// What bounds the passes on this card (H100 SXM: 3.35 TB/s, 495 TFLOP/s of
-// TF32, so 165 TFLOP/s at three products per multiply-add): dq does 6 and
+// What bounds the fp32 passes on this card (H100 SXM: 3.35 TB/s, 495 TFLOP/s
+// of TF32, so 165 TFLOP/s at three products per multiply-add): dq does 6 and
 // dk/dv 8 fp32 operations per visible (q, k) pair and head-dim element. At
 // the trained shape (qwen3-0.6b, B8, S128, KV 8, G 2, D 128, causal) that is
 // 0.0049 / 0.0066 ms of split-TF32 work against 0.0100 ms for the 33.5 MB
@@ -54,7 +85,7 @@
 // the prologue (staging) and epilogue (the fixed-order sums) weigh a large
 // share of a block's time.
 //
-// Design:
+// Design of the fp32 passes:
 // - Every product runs on mma.sync m16n8k8 TF32 in split-TF32
 //   (tf32_mma.cuh: a = hi + lo, three products lo*hi + hi*lo + hi*hi per
 //   multiply-add): S = Q.K^T, dP = dO.V^T, dQ = dS.K, dK = dS^T.Q and
@@ -124,6 +155,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "bf16_mma.cuh"
 #include "tf32_mma.cuh"
 
@@ -133,7 +166,6 @@ using namespace tf32mma;
 using bf16mma::Bf16Rows;
 using bf16mma::mma_bf16;
 using bf16mma::pack_bf16;
-using bf16mma::pack_raw;
 using bf16mma::split_pair;
 
 constexpr int kTile = 16;   // rows (dq) or keys (dk/dv) a block owns: one m16 tile
@@ -635,474 +667,743 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // bf16 operands on the bf16 tensor cores: both passes
 // ---------------------------------------------------------------------------
 //
-// The fp32 passes' blocks, warps, chunks, staging order and exact skips, on
-// m16n8k16 bf16 MMAs with fp32 accumulators. Operands stay raw bf16 in
-// shared memory ([16][DP] rows, Bf16Rows): S = Q K^T times the scale
-// rounded to bf16 (qscale), dP = dO V^T; ds rounds to bf16 as it packs into
-// the A fragment of ds.K (dq) and dS^T.Q (dk), exactly where the reference
-// rounds it; dq is scaled by the fp32 scale at the end, dk by qscale (the
-// reference's dk = bf16(ds)^T (q * bf16(scale)), with the product of two
-// bf16 kept exact). dv = P^T dO keeps p in fp32, as the reference does: p is
-// split into bf16 hi + lo (split_pair) and each multiply-add takes two MMAs,
-// lo then hi, within about 2^-16 of p^T do, where one bf16 product would
-// err by 2^-9. The plain version computes dv from fp32 p exactly.
+// The functions and rounding points are the reference's, on m16n8k16 bf16
+// MMAs with fp32 accumulators: S = Q K^T times the scale rounded to bf16
+// (qscale), dP = dO V^T; ds rounds to bf16 as it packs into the A fragment
+// of ds.K (dq) and dS^T.Q (dk), exactly where the reference rounds it; dq is
+// scaled by the fp32 scale at the end, dk by qscale (the reference's dk =
+// bf16(ds)^T (q * bf16(scale)), with the product of two bf16 kept exact).
+// dv = P^T dO keeps p in fp32, as the reference does: p is split into bf16
+// hi + lo (split_pair) and each multiply-add takes two MMAs, lo then hi,
+// within about 2^-16 of p^T do, where one bf16 product would err by 2^-9.
+// The plain version computes dv from fp32 p exactly.
+//
+// p is exp2((x - m) log2 e) times 1 / l as in the fp32 passes, with the
+// MUFU's ex2.approx and, in dk/dv, rcp.approx (both within 2^-22 of exact,
+// against the 2^-8 of the bf16 rounding that follows).
+//
+// Geometry: FlashAttention-2's layout on mma.sync; every output element has
+// one owning warp, which writes it from its registers, scaled once and
+// rounded to bf16: no partial sums cross warps, and each warp's fixed order
+// of steps repeats bitwise (no atomics).
+// - dq: a block owns BM (kDqRowsBf16) flattened (position, group) rows of
+//   one kv head, a warp 16 of them (16 x D of dq), and every warp walks the
+//   same KN-key tiles.
+// - dk/dv: a block owns BN (kDkvKeysBf16) keys, a pair of warps 16 of them
+//   (NWK; one warp at head dim 8), and every pair walks the same KN-row
+//   tiles of all G groups. The two warps of a pair split each tile's rows to
+//   form S^T, dP^T, P^T and dS^T, swap P^T and dS^T through shared memory
+//   (a named barrier per pair), and split the output columns: each owns
+//   16 x D/2 of dK and of dV. So dk/dv runs twice the warps of a one-warp
+//   owner, for the short sequences where a key tile's rows are a long
+//   serial chain, and needs no second sweep at D = 256.
+// - The tiles every warp reads (K and V in dq; Q, dO and the rows' m, l,
+//   delta and position in dk/dv) pass through a two-stage ring in shared
+//   memory, copied once per block by cp.async (16 bytes, 8 threads a row),
+//   the next tile in flight while the current one is used, one barrier per
+//   tile. The block's own tile (Q and dO, or K and V) is copied by cp.async
+//   too, ahead of the first ring tile. In dk/dv a tile's stats load into
+//   registers under the previous tile's products and are stored beside its
+//   rows after them; 1 / l is taken where it is used.
+// - Fragments by ldmatrix: .x4 for the products whose B rows are the
+//   contraction's n dimension (S, dP, S^T, dP^T: two n8 tiles of a k16 step
+//   per instruction), .x4.trans for those
+//   that contract over keys or rows (ds.K, dS^T.Q and both halves of
+//   P^T.dO). Shared rows are D + 8 elements (272 bytes at D = 128), so every
+//   ldmatrix row address is 16-byte aligned and the 8 rows of a phase fall
+//   on 8 distinct bank quads.
+// - A fragments of the warp's own rows (dq's Q and dO, dk/dv's K and V) stay
+//   in registers across steps at D <= 128 (64 registers at D = 128); at
+//   D = 256 they would not fit beside the accumulators and are read by
+//   ldmatrix at each step (Bf16Bwd::kRegs).
+// - Causal: a dq block stops after its last visible key tile and the blocks
+//   with the last rows (the most keys) launch first; a dk/dv block starts at
+//   the first row tile that sees its keys, and the first keys (the most
+//   rows) launch first. A tile whose rows and keys are all live and visible
+//   skips the masks. Exact skip and fully masked rows as the fp32 passes.
+// - A view whose strides are not multiples of 8 elements is staged by
+//   element copies (plain loads and stores) into the same rows.
 
-// Stage the 16 rows of a warp's chunk of one bf16 operand into its
-// [16][DP] buffer, by this warp's lanes: lanes r and r + 16 hold the element
-// offset `off` of row r (< 0: zero-filled), which the others read by
-// shuffles that every lane executes.
+// The bf16 passes' geometry at head dim D.
 template <int D>
-__device__ __forceinline__ void stage_rows_bf16(uint16_t* dst, const uint16_t* __restrict__ src,
-                                                long long off, bool vec, int lane) {
+struct Bf16Bwd {
+  static constexpr int DP = Bf16Rows<D>::DP;       // elements per shared row
+  static constexpr int KS = Bf16Rows<D>::DK / 16;  // k16 steps over the head dim
+  static constexpr int NT = D / 8;                 // n8 tiles of a dq row
+  static constexpr int KN = D <= 32 ? 64 : 32;     // keys (dq) or rows (dk/dv) per ring tile
+  static constexpr int NS = 2;                     // ring stages
+  static constexpr int NWK = D >= 16 ? 2 : 1;      // dk/dv: warps per 16 keys
+  // A fragments kept in registers across steps: dq's Q and dO, dk/dv's K
+  // and V (at D = 256 they would not fit beside the accumulators)
+  static constexpr bool kRegs = D <= 128;
+};
+
+// Rows a dq block owns and keys a dk/dv block owns (a warp per 16): 64 and
+// 32 measured against 32 and 64 at the trained and long shapes (PERF.md §6).
+constexpr int kDqRowsBf16 = 64;
+constexpr int kDkvKeysBf16 = 32;
+
+// Q and dO [BM][DP] and NS K and V stages [KN][DP]
+template <int D, int BM>
+__host__ __device__ constexpr int dq_bf16_smem_bytes() {
+  return (2 * BM + 2 * Bf16Bwd<D>::NS * Bf16Bwd<D>::KN) * Bf16Bwd<D>::DP * 2;
+}
+// K and V [BN][DP], NS Q and dO stages and their stats, and per warp group
+// the P^T and dS^T it shares (16 x KN fp32 each)
+template <int D, int BN>
+__host__ __device__ constexpr int dkv_bf16_smem_bytes() {
+  return (2 * BN + 2 * Bf16Bwd<D>::NS * Bf16Bwd<D>::KN) * Bf16Bwd<D>::DP * 2 +
+         Bf16Bwd<D>::NS * 4 * Bf16Bwd<D>::KN * 4 + (BN / 16) * 2 * 16 * Bf16Bwd<D>::KN * 4;
+}
+
+// n / g for 0 <= n < 2^31 and 1 <= g < 2^31 by a multiply and a shift
+// (Granlund and Montgomery's round-up method: m = ceil(2^(31+l) / g) with
+// 2^l >= g, so n m / 2^(31+l) errs from n / g by less than 1 / g).
+struct DivG {
+  unsigned long long m;
+  int shift;
+  __device__ explicit DivG(int g) {
+    int l = 0;
+    while ((1ll << l) < g) ++l;
+    shift = 31 + l;
+    m = ((1ull << shift) + (unsigned long long)g - 1) / (unsigned long long)g;
+  }
+  __device__ __forceinline__ int operator()(int n) const {
+    return (int)(((unsigned long long)(unsigned)n * m) >> shift);
+  }
+};
+
+// Element offsets of one row in two operands (< 0: past their rows).
+struct RowPair {
+  long long a, b;
+};
+
+// Copy N rows of two bf16 operands into [N][DP] shared rows each, by the
+// block's kT threads: row r from element offsets offs(r) (< 0: zero-filled),
+// the same row of both (K and V, or Q and dO). TPR threads share a row (8
+// or more where the row allows: whole 128-byte lines per instruction), so a
+// thread forms one or two rows' offsets per call. 16-byte cp.async when `vec`, else
+// element copies by plain loads and stores in a rolled loop (the path of
+// misaligned views, kept out of the hot loops' code); the caller's cp.async
+// wait and barrier publish either.
+template <int D, int N, int kT, typename RowOffs>
+__device__ __forceinline__ void copy_rows_bf16(uint16_t* dst_a, const uint16_t* __restrict__ a,
+                                               uint16_t* dst_b, const uint16_t* __restrict__ b,
+                                               RowOffs offs, bool vec) {
   constexpr int DP = Bf16Rows<D>::DP;
-  if (vec) {
-    constexpr int kC = D / 8;  // 16-byte copies per row
-    constexpr int kN = kChunk * kC;
+  constexpr int kC = D / 8;  // 16-byte chunks per row
+  constexpr int TPR0 = kT / N < 8 ? 8 : kT / N;
+  constexpr int TPR = TPR0 < kC ? TPR0 : kC;  // threads per row
+  constexpr int RP = kT / TPR;                // rows per pass of the block
+  static_assert(kT % N == 0, "whole rows per thread group");
+  const int r0 = threadIdx.x / TPR, part = threadIdx.x % TPR;
 #pragma unroll
-    for (int i0 = 0; i0 < kN; i0 += 32) {
-      const int i = i0 + lane;
-      const int r = min(i / kC, kChunk - 1), c = i - r * kC;
-      const long long o = __shfl_sync(0xffffffffu, off, r);
-      if (i < kN)
-        cp_async16(smem_addr(dst + r * DP + 8 * c), o >= 0 ? src + o + 8 * c : src, o >= 0);
-    }
-  } else {
-    for (int i = lane; i < kChunk * D; i += 32) {  // 16 D: whole warps
-      const int r = i / D, d = i - r * D;
-      const long long o = __shfl_sync(0xffffffffu, off, r);
-      dst[r * DP + d] = o >= 0 ? src[o + d] : (uint16_t)0;
+  for (int pass = 0; pass < (N + RP - 1) / RP; ++pass) {
+    const int r = r0 + pass * RP;
+    if (N % RP != 0 && r >= N) break;
+    const RowPair o = offs(r);
+    uint16_t* const ra = dst_a + r * DP;
+    uint16_t* const rb = dst_b + r * DP;
+    if (vec) {
+      const uint16_t* const fa = a + (o.a >= 0 ? o.a : 0);
+      const uint16_t* const fb = b + (o.b >= 0 ? o.b : 0);
+#pragma unroll
+      for (int j = 0; j < kC / TPR; ++j) {
+        const int c = 8 * (part + TPR * j);
+        cp_async16(smem_addr(ra + c), fa + c, o.a >= 0);
+        cp_async16(smem_addr(rb + c), fb + c, o.b >= 0);
+      }
+    } else {
+#pragma unroll 1
+      for (int d = part; d < D; d += TPR) {
+        ra[d] = o.a >= 0 ? a[o.a + d] : (uint16_t)0;
+        rb[d] = o.b >= 0 ? b[o.b + d] : (uint16_t)0;
+      }
     }
   }
 }
 
-// Stage keys key0 .. key0 + 15 of one bf16 K or V head into a [16][DP]
-// chunk (keys past Sk zero-filled), by this warp's lanes.
-template <int D>
-__device__ __forceinline__ void stage_keys_bf16(uint16_t* dst, const uint16_t* __restrict__ src,
-                                                long long base, long long ss, int key0,
-                                                const BwdParams& p, int lane) {
-  constexpr int DP = Bf16Rows<D>::DP;
-  if (p.vec) {
-    constexpr int kC = D / 8;
-    for (int i = lane; i < kChunk * kC; i += 32) {
-      const int r = i / kC, c = i - r * kC, key = key0 + r;
-      const bool ok = key < p.sk;
-      cp_async16(smem_addr(dst + r * DP + 8 * c), ok ? src + base + key * ss + 8 * c : src, ok);
+// Zero `bytes` of shared memory (the pad columns D .. 15 that the k16 MMAs
+// contract at head dim 8); the caller synchronises.
+template <int kT>
+__device__ __forceinline__ void zero_smem(unsigned char* smem, int bytes) {
+  for (int i = threadIdx.x; i < bytes / 16; i += kT)
+    reinterpret_cast<uint4*>(smem)[i] = make_uint4(0u, 0u, 0u, 0u);
+}
+
+// The element offsets, within a [16][DP] tile, of the row address lane l
+// gives ldmatrix.x4: for an A fragment or a .trans B fragment (matrices:
+// rows 0-7 / 8-15 of columns 0-7, then of columns 8-15), and for a
+// non-transposed B fragment of two n8 tiles (n rows 0-7 at columns 0-7 and
+// 8-15, then n rows 8-15).
+__device__ __forceinline__ int lane_a(int lane, int dp) {
+  return ((lane & 7) + ((lane >> 3) & 1) * 8) * dp + (lane >> 4) * 8;
+}
+__device__ __forceinline__ int lane_b(int lane, int dp) {
+  return ((lane & 7) + (lane >> 4) * 8) * dp + ((lane >> 3) & 1) * 8;
+}
+
+// 2^x by the MUFU's ex2.approx (subnormal results flushed to 0, 2^-22 of
+// relative error): exp2f's range scaling costs four instructions more on the
+// passes' critical path.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// 1 / x by the MUFU's rcp.approx (1 ulp; x normal).
+__device__ __forceinline__ float fast_rcp(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// prob()'s p for the bf16 passes, from the unscaled score sum `acc`: x =
+// acc * qscale, masked to NEG where `prob` masks it, exp2((x - m) log2e)
+// times the row's 1 / l. With `whole` (every row and key of the warp's tile
+// is live and visible) the masks are skipped: they would change nothing.
+template <bool whole>
+__device__ __forceinline__ float prob_bf16(float acc, int qpos, int kpos, float m, float linv,
+                                           bool live, const BwdParams& p) {
+  float x = acc * p.qscale;
+  if (!whole) {
+    if (!live || kpos >= p.sk) return 0.f;
+    if ((p.causal && qpos < kpos) || (p.kv_len >= 0 && kpos >= p.kv_len)) x = kNeg;
+  }
+  return fast_exp2((x - m) * kLog2e) * linv;
+}
+
+// The A fragment of a 16 x 16 product from the C fragments x0, x1 of two n8
+// tiles (a lane holds columns 2t, 2t + 1 of rows g (e < 2) and g + 8),
+// rounded to bf16: A's own layout, no renaming needed.
+__device__ __forceinline__ void a_from_c(uint32_t (&a)[4], const float (&x0)[4],
+                                         const float (&x1)[4]) {
+  a[0] = pack_bf16(x0[0], x0[1]);
+  a[1] = pack_bf16(x0[2], x0[3]);
+  a[2] = pack_bf16(x1[0], x1[1]);
+  a[3] = pack_bf16(x1[2], x1[3]);
+}
+
+// acc[j] += A (16 x DK) . B^T for the NJ n8 tiles of B^T's [NJ * 8][DP]
+// rows at shared address `b` (bytes; lane_b's offset added): S and dP in
+// dq, S^T and dP^T in dk/dv. A's fragments are `af` when it holds all KS k
+// steps (KR == KS), else read at each step by ldmatrix from `a` (bytes;
+// lane_a's offset added).
+template <int D, int NJ, int KR>
+__device__ __forceinline__ void rows_product(float (&acc)[NJ][4], const uint32_t (&af)[KR][4],
+                                             uint32_t a, uint32_t b) {
+  constexpr int DP = Bf16Rows<D>::DP, KS = Bf16Rows<D>::DK / 16;
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    uint32_t x[4];
+    if (KR == KS) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) x[i] = af[KR == KS ? ks : 0][i];
+    } else {
+      ldmatrix_x4(x, a + 32 * ks);
     }
-  } else {
-    for (int i = lane; i < kChunk * D; i += 32) {
-      const int r = i / D, d = i - r * D, key = key0 + r;
-      dst[r * DP + d] = key < p.sk ? src[base + key * ss + d] : (uint16_t)0;
+#pragma unroll
+    for (int np = 0; np < NJ / 2; ++np) {
+      uint32_t bf[4];
+      ldmatrix_x4(bf, b + 2 * (16 * np * DP + 16 * ks));
+      mma_bf16(acc[2 * np], x, bf[0], bf[1]);
+      mma_bf16(acc[2 * np + 1], x, bf[2], bf[3]);
     }
   }
 }
 
-// Stage a block's 16-row tile of one bf16 operand by the whole block, with
-// plain loads: row r at element offset row_off(r) (< 0: zero-filled).
-template <int D, typename RowOff>
-__device__ __forceinline__ void stage_tile_bf16(uint16_t* dst, const uint16_t* __restrict__ src,
-                                                RowOff row_off, bool vec) {
-  constexpr int DP = Bf16Rows<D>::DP;
-  if (vec) {
-    for (int i = threadIdx.x; i < kTile * (D / 8); i += kThreads) {
-      const int r = i / (D / 8), d = (i - r * (D / 8)) * 8;
-      const long long o = row_off(r);
-      *reinterpret_cast<uint4*>(dst + r * DP + d) =
-          o >= 0 ? *reinterpret_cast<const uint4*>(src + o + d) : make_uint4(0u, 0u, 0u, 0u);
-    }
-  } else {
-    for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
-      const int r = i / D, d = i - r * D;
-      const long long o = row_off(r);
-      dst[r * DP + d] = o >= 0 ? src[o + d] : (uint16_t)0;
+// acc[n] += A . B[:, 8n ..] for the n < NO n8 tiles of an output row, where
+// B's 16 k rows (keys or query rows) sit at shared address `b` (bytes;
+// lane_a's offset, the k step's rows and the first column added): dq += ds.K,
+// dK += dS^T.Q, and with `lo` also dV += lo.dO then hi.dO.
+template <int NO, int NA>
+__device__ __forceinline__ void cols_product(float (&acc)[NA][4], const uint32_t (&a)[4],
+                                             uint32_t b) {
+#pragma unroll
+  for (int np = 0; np < (NO + 1) / 2; ++np) {
+    uint32_t bf[4];
+    smemio::ldmatrix_x4_trans(bf, b + 32 * np);
+    mma_bf16(acc[2 * np], a, bf[0], bf[1]);
+    if (2 * np + 1 < NO) mma_bf16(acc[2 * np + 1], a, bf[2], bf[3]);
+  }
+}
+template <int NO, int NA>
+__device__ __forceinline__ void cols_product_split(float (&acc)[NA][4], const uint32_t (&lo)[4],
+                                                   const uint32_t (&hi)[4], uint32_t b) {
+#pragma unroll
+  for (int np = 0; np < (NO + 1) / 2; ++np) {
+    uint32_t bf[4];
+    smemio::ldmatrix_x4_trans(bf, b + 32 * np);
+    mma_bf16(acc[2 * np], lo, bf[0], bf[1]);
+    mma_bf16(acc[2 * np], hi, bf[0], bf[1]);
+    if (2 * np + 1 < NO) {
+      mma_bf16(acc[2 * np + 1], lo, bf[2], bf[3]);
+      mma_bf16(acc[2 * np + 1], hi, bf[2], bf[3]);
     }
   }
 }
 
-// Zero the shared rows' columns D .. 15 that the k16 MMAs contract when the
-// head dim is 8 (a no-op otherwise); the caller synchronises.
-template <int D>
-__device__ __forceinline__ void zero_pad_bf16(unsigned char* smem, int bytes) {
-  if (D < 16)
-    for (int i = threadIdx.x; i < bytes / 16; i += kThreads)
-      reinterpret_cast<uint4*>(smem)[i] = make_uint4(0u, 0u, 0u, 0u);
-}
-
-// acc[j] = A (16 x DK bf16 tile, rows g / g + 8) . B^T, where B's rows 8j + g
-// (j = 0, 1) are a bf16 [16][DP] chunk: the S / dP shape of either pass,
-// each k16 step's MMA into a fresh fragment added with a rounded FADD, as
-// the forward forms its scores.
-template <int D>
-__device__ __forceinline__ void tile_product_bf16(float (&acc)[2][4], const uint16_t* at,
-                                                  const uint16_t* bc, int g, int t) {
-  constexpr int NS = Bf16Rows<D>::DK / 16, W = Bf16Rows<D>::W;
-  const uint32_t* aw = reinterpret_cast<const uint32_t*>(at);
-  const uint32_t* bw = reinterpret_cast<const uint32_t*>(bc);
+// Store a warp's 16 output rows from its accumulators, times `mul`, rounded
+// to bf16: the lane's rows g and g + 8 at element offsets o[hf] (< 0: not
+// written), columns 8n + 2t, 2t + 1 for n < NO.
+template <int NO, int NA>
+__device__ __forceinline__ void store_rows_bf16(uint16_t* __restrict__ out,
+                                                const float (&acc)[NA][4],
+                                                const long long (&o)[2], float mul, int t,
+                                                bool vec) {
 #pragma unroll
-  for (int j = 0; j < 2; ++j)
+  for (int hf = 0; hf < 2; ++hf) {
+    if (o[hf] < 0) continue;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < NS; ++ks) {
-    const int ao = g * W + 8 * ks + t;
-    const uint32_t a[4] = {aw[ao], aw[ao + 8 * W], aw[ao + 4], aw[ao + 8 * W + 4]};
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int bo = (8 * j + g) * W + 8 * ks + t;
-      float step[4] = {0.f, 0.f, 0.f, 0.f};
-      mma_bf16(step, a, bw[bo], bw[bo + 4]);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] += step[e];
+    for (int n = 0; n < NO; ++n) {
+      const uint32_t y = pack_bf16(acc[n][2 * hf] * mul, acc[n][2 * hf + 1] * mul);
+      uint16_t* dst = out + o[hf] + 8 * n + 2 * t;
+      if (vec) {
+        *reinterpret_cast<uint32_t*>(dst) = y;
+      } else {
+        dst[0] = (uint16_t)y;
+        dst[1] = (uint16_t)(y >> 16);
+      }
     }
   }
 }
 
-// The A fragment of a 16 x 16 product from the C fragments x[j] of two n8
-// tiles (a lane holds columns 8j + 2t, 8j + 2t + 1 of rows g (e < 2) and
-// g + 8), rounded to bf16: A's own layout, no renaming needed.
-__device__ __forceinline__ void a_from_c(uint32_t (&a)[4], const float (&x)[2][4]) {
-  a[0] = pack_bf16(x[0][0], x[0][1]);
-  a[1] = pack_bf16(x[0][2], x[0][3]);
-  a[2] = pack_bf16(x[1][0], x[1][1]);
-  a[3] = pack_bf16(x[1][2], x[1][3]);
+// The grid of either pass: kv heads on x, the tile order on y (and z past
+// 65535 tiles), so the blocks launch tile-major, heaviest first.
+inline dim3 bf16_grid(int nbkv, int n_tiles) {
+  return dim3(nbkv, n_tiles < 65535 ? n_tiles : 65535, (n_tiles + 65534) / 65535);
 }
 
-// acc[n] += A . B[:, c0 + 8n ..] for n < NH, where B's 16 rows are a bf16
-// [16][DP] chunk (B fragment: rows 2t, 2t + 1 and 2t + 8, 2t + 9 of
-// column g).
-template <int D, int NH>
-__device__ __forceinline__ void reg_product_bf16(float (&acc)[NH][4], const uint32_t (&a)[4],
-                                                 const uint16_t* bc, int c0, int g, int t) {
-  constexpr int DP = Bf16Rows<D>::DP;
-  const uint16_t* br = bc + c0 + g;
-#pragma unroll
-  for (int n = 0; n < NH; ++n)
-    mma_bf16(acc[n], a, pack_raw(br[8 * n + 2 * t * DP], br[8 * n + (2 * t + 1) * DP]),
-             pack_raw(br[8 * n + (2 * t + 8) * DP], br[8 * n + (2 * t + 9) * DP]));
+__device__ __forceinline__ int tile_order() { return blockIdx.y + blockIdx.z * gridDim.y; }
+
+// Wait until the nthreads threads of a warp group arrive at named barrier
+// `id` (barrier 0 is __syncthreads).
+__device__ __forceinline__ void group_sync(int id, int nthreads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(nthreads) : "memory");
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
+
+// ---------------------------------------------------------------------------
+// bf16 dq pass: a block per (bkv, BM rows), a warp per 16 rows
+// ---------------------------------------------------------------------------
+
+template <int D, int BM>
+__global__ void __launch_bounds__(2 * BM)
 flash_bwd_dq_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
                          const uint16_t* __restrict__ v, const uint16_t* __restrict__ dout,
                          const float* __restrict__ m_in, const float* __restrict__ l_in,
                          const float* __restrict__ delta, uint16_t* __restrict__ dq,
                          BwdParams p) {
-  constexpr int DP = Bf16Rows<D>::DP;
-  constexpr int NT = D / 8;
-  constexpr int PD = D + 4;  // fp32 partial rows
+  using Gm = Bf16Bwd<D>;
+  constexpr int DP = Gm::DP, KS = Gm::KS, NT = Gm::NT, KN = Gm::KN, NS = Gm::NS;
+  constexpr int NA = NT < 2 ? 2 : NT;
+  constexpr int kT = 2 * BM;  // BM / 16 warps
   extern __shared__ __align__(16) unsigned char smem_bytes[];
-  uint16_t* const qs = reinterpret_cast<uint16_t*>(smem_bytes);  // [16][DP]
-  uint16_t* const dos = qs + kTile * DP;                          // dO [16][DP]
+  uint16_t* const qs = reinterpret_cast<uint16_t*>(smem_bytes);  // Q [BM][DP]
+  uint16_t* const dos = qs + BM * DP;                             // dO [BM][DP]
+  uint16_t* const ring = dos + BM * DP;  // stage s: K [KN][DP] at 2 s KN DP, V after it
+
+  const int n_tiles = (p.rows + BM - 1) / BM;
+  if (tile_order() >= n_tiles) return;
+  const int r0 = (n_tiles - 1 - tile_order()) * BM;  // the last rows (most keys) first
+  const int bkv = blockIdx.x;
+  const int b = bkv / p.nh, h = bkv % p.nh;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  uint16_t* const kc = dos + kTile * DP + warp * 2 * kChunk * DP;  // this warp's K
-  uint16_t* const vc = kc + kChunk * DP;                           // and V chunk
-  zero_pad_bf16<D>(smem_bytes, (2 * kTile + kWarps * 2 * kChunk) * DP * 2);
-  __syncthreads();
+  const DivG divg(p.g);
+  if (D < 16) {
+    zero_smem<kT>(smem_bytes, dq_bf16_smem_bytes<D, BM>());
+    __syncthreads();
+  }
 
-  const int bkv = blockIdx.y;
-  const int b = bkv / p.nh, h = bkv % p.nh;
-  const int r0 = blockIdx.x * kTile;
-  const long long kb = b * p.k_sb + h * p.k_sh;
-  const long long vb = b * p.v_sb + h * p.v_sh;
-
+  // the exact skip: stop after the last key a row of the block can see
   int kend = p.sk;
   const int kv_lim = exact_kv_lim(p);
   if (kv_lim > 0) {
     kend = kv_lim;
-    if (p.causal) kend = max(0, min(kend, p.q_offset + (min(r0 + kTile, p.rows) - 1) / p.g + 1));
+    if (p.causal) kend = max(0, min(kend, p.q_offset + (min(r0 + BM, p.rows) - 1) / p.g + 1));
   }
-  const int n_chunks = (kend + kChunk - 1) / kChunk;
+  const int n_kt = (kend + KN - 1) / KN;
 
-  int c = warp;
-  if (c < n_chunks) stage_keys_bf16<D>(vc, v, vb, p.v_ss, c * kChunk, p, lane);
-  cp_async_commit();
-  if (c < n_chunks) stage_keys_bf16<D>(kc, k, kb, p.k_ss, c * kChunk, p, lane);
-  cp_async_commit();
-
+  // Q and dO, then the first key tiles, all by cp.async
   const long long qb = b * p.q_sb + h * p.q_sh, dob = b * p.do_sb + h * p.do_sh;
-  const RowInfo ri = row_info(r0 + (lane & 15), bkv, p, qb, dob, m_in, l_in, delta);
-  const auto q_off = [&](int r) -> long long {
+  const long long kb = b * p.k_sb + h * p.k_sh, vb = b * p.v_sb + h * p.v_sh;
+  copy_rows_bf16<D, BM, kT>(qs, q, dos, dout, [&](int r) -> RowPair {
     const int row = r0 + r;
-    if (row >= p.rows) return -1;
-    const int s = row / p.g;
-    return qb + (row - s * p.g) * p.q_sg + (long long)s * p.q_ss;
+    if (row >= p.rows) return {-1, -1};
+    const int s = divg(row), gg = row - s * p.g;
+    return {qb + gg * p.q_sg + (long long)s * p.q_ss, dob + gg * p.do_sg + (long long)s * p.do_ss};
+  }, p.vec);
+  cp_async_commit();
+  const auto stage_keys = [&](int kt) {
+    uint16_t* const kd = ring + (kt % NS) * 2 * KN * DP;
+    const int key0 = kt * KN;
+    copy_rows_bf16<D, KN, kT>(kd, k, kd + KN * DP, v, [&](int r) -> RowPair {
+      const int key = key0 + r;
+      if (key >= p.sk) return {-1, -1};
+      return {kb + (long long)key * p.k_ss, vb + (long long)key * p.v_ss};
+    }, p.vec);
   };
-  const auto do_off = [&](int r) -> long long {
-    const int row = r0 + r;
-    if (row >= p.rows) return -1;
-    const int s = row / p.g;
-    return dob + (row - s * p.g) * p.do_sg + (long long)s * p.do_ss;
-  };
-  stage_tile_bf16<D>(qs, q, q_off, p.vec);
-  stage_tile_bf16<D>(dos, dout, do_off, p.vec);
+#pragma unroll
+  for (int kt = 0; kt < NS - 1; ++kt) {  // the first NS - 1 key tiles, a group each
+    if (kt < n_kt) stage_keys(kt);
+    cp_async_commit();
+  }
 
+  // this lane's rows g and g + 8 of the warp's 16: stats, position, dq offset
   int qpos[2];
   bool live[2];
   float mrow[2], linv_row[2], drow[2];
+  long long dqo[2];
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
-    const int r = g + 8 * hf;
-    live[hf] = r0 + r < p.rows;
-    qpos[hf] = __shfl_sync(0xffffffffu, ri.qpos, r);
-    mrow[hf] = __shfl_sync(0xffffffffu, ri.m, r);
-    linv_row[hf] = __shfl_sync(0xffffffffu, ri.linv, r);
-    drow[hf] = __shfl_sync(0xffffffffu, ri.dl, r);
+    const int row = r0 + 16 * warp + g + 8 * hf;
+    live[hf] = row < p.rows;
+    qpos[hf] = 0, mrow[hf] = 0.f, linv_row[hf] = 1.f, drow[hf] = 0.f, dqo[hf] = -1;
+    if (live[hf]) {
+      const int s = divg(row), gg = row - s * p.g;
+      const long long idx = ((long long)bkv * p.g + gg) * p.sq + s;
+      mrow[hf] = m_in[idx];
+      linv_row[hf] = 1.f / fmaxf(l_in[idx], 1e-30f);
+      drow[hf] = delta[idx];
+      qpos[hf] = p.q_offset + s;
+      dqo[hf] = b * p.dq_sb + h * p.dq_sh + gg * p.dq_sg + (long long)s * p.dq_ss;
+    }
   }
-  __syncthreads();
 
-  float acc[NT][4];
+  // the keys below warp_lim are live and visible to all 16 rows of the warp
+  // (0: some row is past Sq * G, or sees no key)
+  int warp_lim = 0;
+  if (r0 + 16 * warp + 16 <= p.rows) {
+    warp_lim = p.kv_len < 0 ? p.sk : min(p.kv_len, p.sk);
+    if (p.causal) warp_lim = min(warp_lim, p.q_offset + divg(r0 + 16 * warp) + 1);
+  }
+
+  float acc[NA][4];
 #pragma unroll
-  for (int n = 0; n < NT; ++n)
+  for (int n = 0; n < NA; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
 
-  for (; c < n_chunks; c += kWarps) {
-    const int key0 = c * kChunk;
-    const bool next = c + kWarps < n_chunks;
-    cp_async_wait<1>();  // V(c) landed (K(c) may still be in flight)
-    __syncwarp();
-    float dp[2][4];
-    tile_product_bf16<D>(dp, dos, vc, g, t);
-    __syncwarp();  // every lane is done with V(c)
-    if (next) stage_keys_bf16<D>(vc, v, vb, p.v_ss, (c + kWarps) * kChunk, p, lane);
+  const int la = lane_a(lane, DP), lb = lane_b(lane, DP);
+  const uint32_t qa = smem_addr(qs + 16 * warp * DP + la);
+  const uint32_t da = smem_addr(dos + 16 * warp * DP + la);
+  constexpr int KR = Gm::kRegs ? KS : 1;
+  uint32_t qf[KR][4], df[KR][4];  // the warp's Q and dO A fragments, if kept
+  cp_async_wait<NS - 1>();  // Q and dO landed (the first key tiles may be in flight)
+  __syncthreads();
+  if (Gm::kRegs) {
+#pragma unroll
+    for (int ks = 0; ks < KR; ++ks) {
+      ldmatrix_x4(qf[ks], qa + 32 * ks);
+      ldmatrix_x4(df[ks], da + 32 * ks);
+    }
+  }
+  for (int kt = 0; kt < n_kt; ++kt) {
+    cp_async_wait<NS - 2>();
+    __syncthreads();  // key tile kt landed; every warp is done with tile kt - 1's stage
+    if (kt + NS - 1 < n_kt) stage_keys(kt + NS - 1);
     cp_async_commit();
+    const uint16_t* const kst = ring + (kt % NS) * 2 * KN * DP;
+    const uint32_t kbase = smem_addr(kst), vbase = smem_addr(kst + KN * DP);
 
-    cp_async_wait<1>();  // K(c) landed (V(c + 4) may still be in flight)
-    __syncwarp();
-    float sc[2][4];
-    tile_product_bf16<D>(sc, qs, kc, g, t);
-    float ds[2][4];
+    float sc[KN / 8][4], dp[KN / 8][4];
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
+    for (int j = 0; j < KN / 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int hf = e >> 1;
-        const float pr = prob(sc[j][e] * p.qscale, qpos[hf], key0 + 8 * j + 2 * t + (e & 1),
-                              mrow[hf], linv_row[hf], live[hf], p);
-        ds[j][e] = pr * (dp[j][e] - drow[hf]);
-      }
-    uint32_t a[4];
-    a_from_c(a, ds);  // bf16(ds)
-    reg_product_bf16<D, NT>(acc, a, kc, 0, g, t);  // dq_w += bf16(ds) K
-    __syncwarp();  // every lane is done with K(c)
-    if (next) stage_keys_bf16<D>(kc, k, kb, p.k_ss, (c + kWarps) * kChunk, p, lane);
-    cp_async_commit();
+      for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
+    rows_product<D, KN / 8>(dp, df, da, vbase + 2 * lb);  // dP = dO V^T
+    rows_product<D, KN / 8>(sc, qf, qa, kbase + 2 * lb);  // S = Q K^T (times qscale)
+
+    // p and ds: a lane holds keys 8j + 2t + (e & 1) of rows g (e < 2), g + 8
+    const int key0 = kt * KN;
+    const auto probs = [&](auto whole) {
+#pragma unroll
+      for (int j = 0; j < KN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int hf = e >> 1;
+          const float pr = prob_bf16<decltype(whole)::value>(
+              sc[j][e], qpos[hf], key0 + 8 * j + 2 * t + (e & 1), mrow[hf], linv_row[hf],
+              live[hf], p);
+          sc[j][e] = pr * (dp[j][e] - drow[hf]);
+        }
+    };
+    if (key0 + KN <= warp_lim)
+      probs(std::true_type{});
+    else
+      probs(std::false_type{});
+    // dq += bf16(ds) K, 16 keys per k step
+#pragma unroll
+    for (int kk = 0; kk < KN / 16; ++kk) {
+      uint32_t a[4];
+      a_from_c(a, sc[2 * kk], sc[2 * kk + 1]);
+      cols_product<NT>(acc, a, kbase + 2 * (16 * kk * DP + la));
+    }
   }
   cp_async_wait<0>();
-  __syncwarp();
-
-  // the warps' partial dq tiles (fp32 [16][D+4] over each warp's own K and V
-  // chunks), summed in warp order, scaled once and rounded to bf16
-  float* const mine = reinterpret_cast<float*>(kc);
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf)
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-      *reinterpret_cast<float2*>(mine + (g + 8 * hf) * PD + 8 * n + 2 * t) =
-          make_float2(acc[n][2 * hf], acc[n][2 * hf + 1]);
-  __syncthreads();
-  const float* part = reinterpret_cast<const float*>(dos + kTile * DP);
-  constexpr int kPartStride = kChunk * DP;  // floats between two warps' partials
-  const long long dqo = ri.qo < 0 ? -1 : b * p.dq_sb + h * p.dq_sh + ri.gg * p.dq_sg +
-                                         ri.s * p.dq_ss;
-  for (int i = tid; i < kTile * (D / 4); i += kThreads) {  // 4D: whole warps
-    const int r = i / (D / 4), d = (i - r * (D / 4)) * 4;
-    const long long o = __shfl_sync(0xffffffffu, dqo, r);
-    if (o < 0) continue;
-    float4 sum = *reinterpret_cast<const float4*>(part + r * PD + d);
-#pragma unroll
-    for (int w = 1; w < kWarps; ++w) {
-      const float4 x = *reinterpret_cast<const float4*>(part + w * kPartStride + r * PD + d);
-      sum.x += x.x; sum.y += x.y; sum.z += x.z; sum.w += x.w;
-    }
-    const uint32_t y01 = pack_bf16(sum.x * p.scale, sum.y * p.scale);
-    const uint32_t y23 = pack_bf16(sum.z * p.scale, sum.w * p.scale);
-    uint16_t* dst = dq + o + d;
-    if (p.vec) {
-      *reinterpret_cast<uint2*>(dst) = make_uint2(y01, y23);
-    } else {
-      dst[0] = (uint16_t)y01; dst[1] = (uint16_t)(y01 >> 16);
-      dst[2] = (uint16_t)y23; dst[3] = (uint16_t)(y23 >> 16);
-    }
-  }
+  store_rows_bf16<NT>(dq, acc, dqo, p.scale, t, p.vec);
 }
 
-// One accumulator of the dk/dv pass out: each warp's partial (fp32 [16][DH+4]
-// over its own Q and dO chunks), summed in warp order, times `mul`, rounded
-// to bf16 and stored at columns c0 .. c0 + DH - 1 of keys k0 .. k0 + 15.
-template <int D, int DH>
-__device__ __forceinline__ void flush_dkv_bf16(const float (&acc)[DH / 8][4], uint16_t* chunk0,
-                                               uint16_t* out, long long base, long long ss,
-                                               int k0, int c0, float mul, const BwdParams& p) {
-  constexpr int DP = Bf16Rows<D>::DP;
-  constexpr int PD = DH + 4;
-  constexpr int kPartStride = kChunk * DP;  // floats between two warps' partials
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  float* const part = reinterpret_cast<float*>(chunk0);
-  float* const mine = part + warp * kPartStride;
-  __syncthreads();  // every warp is done with the chunks (and the last flush)
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf)
-#pragma unroll
-    for (int n = 0; n < DH / 8; ++n)
-      *reinterpret_cast<float2*>(mine + (g + 8 * hf) * PD + 8 * n + 2 * t) =
-          make_float2(acc[n][2 * hf], acc[n][2 * hf + 1]);
-  __syncthreads();
-  for (int i = tid; i < kTile * (DH / 4); i += kThreads) {
-    const int r = i / (DH / 4), d = (i - r * (DH / 4)) * 4, pos = k0 + r;
-    if (pos >= p.sk) continue;
-    float4 sum = *reinterpret_cast<const float4*>(part + r * PD + d);
-#pragma unroll
-    for (int w = 1; w < kWarps; ++w) {
-      const float4 x = *reinterpret_cast<const float4*>(part + w * kPartStride + r * PD + d);
-      sum.x += x.x; sum.y += x.y; sum.z += x.z; sum.w += x.w;
-    }
-    const uint32_t y01 = pack_bf16(sum.x * mul, sum.y * mul);
-    const uint32_t y23 = pack_bf16(sum.z * mul, sum.w * mul);
-    uint16_t* dst = out + base + (long long)pos * ss + c0 + d;
-    if (p.vec) {
-      *reinterpret_cast<uint2*>(dst) = make_uint2(y01, y23);
-    } else {
-      dst[0] = (uint16_t)y01; dst[1] = (uint16_t)(y01 >> 16);
-      dst[2] = (uint16_t)y23; dst[3] = (uint16_t)(y23 >> 16);
-    }
-  }
-}
+// ---------------------------------------------------------------------------
+// bf16 dk/dv pass: a block per (bkv, BN keys), a group of warps per 16 keys
+// ---------------------------------------------------------------------------
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
+template <int D, int BN>
+__global__ void __launch_bounds__(2 * Bf16Bwd<D>::NWK * BN)
 flash_bwd_dkv_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
                           const uint16_t* __restrict__ v, const uint16_t* __restrict__ dout,
                           const float* __restrict__ m_in, const float* __restrict__ l_in,
                           const float* __restrict__ delta, uint16_t* __restrict__ dk,
                           uint16_t* __restrict__ dv, BwdParams p) {
-  constexpr int DP = Bf16Rows<D>::DP;
-  constexpr int DH = D > 128 ? 128 : D;  // output columns per sweep over the rows
-  constexpr int NH = DH / 8;
+  using Gm = Bf16Bwd<D>;
+  constexpr int DP = Gm::DP, KS = Gm::KS, RM = Gm::KN, NS = Gm::NS;
+  constexpr int NWK = Gm::NWK;     // warps per 16 keys
+  constexpr int NJ = RM / 8;       // n8 row tiles of a ring tile
+  constexpr int NJW = NJ / NWK;    // of which a warp forms S^T, dP^T, P^T and dS^T
+  constexpr int CW = D / NWK;      // dK and dV columns a warp owns
+  constexpr int NW = CW / 8;
+  constexpr int NA = NW < 2 ? 2 : NW;
+  constexpr int kT = 2 * NWK * BN;
+  static_assert(kT >= RM, "a thread per row of a ring tile loads its stats");
   extern __shared__ __align__(16) unsigned char smem_bytes[];
-  uint16_t* const ks = reinterpret_cast<uint16_t*>(smem_bytes);  // K [16][DP]
-  uint16_t* const vs = ks + kTile * DP;                           // V [16][DP]
-  uint16_t* const chunk0 = vs + kTile * DP;                       // warp 0's chunks
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  uint16_t* const qc = chunk0 + warp * 2 * kChunk * DP;  // this warp's Q
-  uint16_t* const dc = qc + kChunk * DP;                 // and dO chunk
-  zero_pad_bf16<D>(smem_bytes, (2 * kTile + kWarps * 2 * kChunk) * DP * 2);
-  __syncthreads();
+  uint16_t* const ks = reinterpret_cast<uint16_t*>(smem_bytes);  // K [BN][DP]
+  uint16_t* const vs = ks + BN * DP;                              // V [BN][DP]
+  uint16_t* const ring = vs + BN * DP;  // stage s: Q [RM][DP] at 2 s RM DP, dO after it
+  // stage s: m, l, delta (float) and position (int) [RM] each, at 4 s RM
+  float* const stats = reinterpret_cast<float*>(ring + 2 * NS * RM * DP);
+  // per warp group: P^T and dS^T as C fragments, [NJ][32 lanes] float4 each
+  float4* const xbuf = reinterpret_cast<float4*>(stats + 4 * NS * RM);
 
-  const int bkv = blockIdx.y;
+  const int n_tiles = (p.sk + BN - 1) / BN;
+  if (tile_order() >= n_tiles) return;
+  const int k0 = tile_order() * BN;  // the first keys (seen by the most rows) first
+  const int bkv = blockIdx.x;
   const int b = bkv / p.nh, h = bkv % p.nh;
-  const int k0 = blockIdx.x * kTile;
-  const long long qb = b * p.q_sb + h * p.q_sh;
-  const long long dob = b * p.do_sb + h * p.do_sh;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int grp = warp / NWK, part = warp % NWK;  // 16-key group, and the warp in it
+  const int g = lane >> 2, t = lane & 3;
+  const DivG divg(p.g);
+  if (D < 16) {
+    zero_smem<kT>(smem_bytes, dkv_bf16_smem_bytes<D, BN>());
+    __syncthreads();
+  }
 
-  const int n_rc = (p.rows + kChunk - 1) / kChunk;
-  int c_begin = 0, c_end = n_rc;
+  // the exact skip: from the first row tile that can see this key tile
+  // (causal), none when the tile lies wholly past kv_len
+  const int n_rt = (p.rows + RM - 1) / RM;
+  int c_begin = 0, c_end = n_rt;
   const int kv_lim = exact_kv_lim(p);
   if (kv_lim > 0) {
     if (k0 >= kv_lim)
       c_end = 0;
     else if (p.causal)
-      c_begin = (int)min((long long)n_rc,
-                         (long long)max(0, k0 - p.q_offset) * p.g / kChunk);
+      c_begin = (int)min((long long)n_rt, (long long)max(0, k0 - p.q_offset) * p.g / RM);
   }
 
-  int kpos[2];
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) kpos[hf] = k0 + g + 8 * hf;
+  // K and V by cp.async; the first row tiles follow under them
   const long long kb = b * p.k_sb + h * p.k_sh, vb = b * p.v_sb + h * p.v_sh;
+  copy_rows_bf16<D, BN, kT>(ks, k, vs, v, [&](int r) -> RowPair {
+    const int key = k0 + r;
+    if (key >= p.sk) return {-1, -1};
+    return {kb + (long long)key * p.k_ss, vb + (long long)key * p.v_ss};
+  }, p.vec);
+  cp_async_commit();
 
-  for (int c0 = 0; c0 < D; c0 += DH) {
-    int c = c_begin + warp;
-    RowInfo nxt = row_info(c * kChunk + (lane & 15), bkv, p, qb, dob, m_in, l_in, delta);
-    if (c < c_end) stage_rows_bf16<D>(qc, q, nxt.qo, p.vec, lane);
-    cp_async_commit();
-    if (c < c_end) stage_rows_bf16<D>(dc, dout, nxt.doo, p.vec, lane);
-    cp_async_commit();
-    if (c0 == 0) {  // K and V, while the first chunks load
-      stage_tile_bf16<D>(ks, k, [&](int r) -> long long {
-        return k0 + r < p.sk ? kb + (long long)(k0 + r) * p.k_ss : -1;
-      }, p.vec);
-      stage_tile_bf16<D>(vs, v, [&](int r) -> long long {
-        return k0 + r < p.sk ? vb + (long long)(k0 + r) * p.v_ss : -1;
-      }, p.vec);
+  const long long qb = b * p.q_sb + h * p.q_sh, dob = b * p.do_sb + h * p.do_sh;
+  const auto stage_rows = [&](int c, int slot) {
+    uint16_t* const qd = ring + slot * 2 * RM * DP;
+    copy_rows_bf16<D, RM, kT>(qd, q, qd + RM * DP, dout, [&](int r) -> RowPair {
+      const int row = c * RM + r;
+      if (row >= p.rows) return {-1, -1};
+      const int s = divg(row), gg = row - s * p.g;
+      return {qb + gg * p.q_sg + (long long)s * p.q_ss,
+              dob + gg * p.do_sg + (long long)s * p.do_ss};
+    }, p.vec);
+  };
+  // row c * RM + tid's stats (threads tid < RM), as row_info gives them,
+  // loaded a tile ahead; l is stored as it is, and its reciprocal taken
+  // where it is used, so that nothing waits on the loads before the store
+  struct Stat {
+    float m, l, dl;
+    int qpos;
+  };
+  const auto load_stat = [&](int c) -> Stat {
+    Stat st{0.f, 1.f, 0.f, 0};
+    const int row = c * RM + tid;
+    if (tid < RM && row < p.rows) {
+      const int s = divg(row), gg = row - s * p.g;
+      const long long idx = ((long long)bkv * p.g + gg) * p.sq + s;
+      st.m = m_in[idx];
+      st.l = l_in[idx];
+      st.dl = delta[idx];
+      st.qpos = p.q_offset + s;
     }
-    __syncthreads();  // K and V are staged
+    return st;
+  };
+  const auto put_stat = [&](const Stat& st, int slot) {
+    if (tid < RM) {
+      float* const sl = stats + slot * 4 * RM;
+      sl[tid] = st.m;
+      sl[RM + tid] = st.l;
+      sl[2 * RM + tid] = st.dl;
+      reinterpret_cast<int*>(sl + 3 * RM)[tid] = st.qpos;
+    }
+  };
 
-    float acc_k[NH][4], acc_v[NH][4];
+  // keys g and g + 8 of the group's 16, and this warp's output columns
+  int kpos[2];
+  long long dko[2], dvo[2];
+  const int c0 = part * CW;
 #pragma unroll
-    for (int n = 0; n < NH; ++n)
+  for (int hf = 0; hf < 2; ++hf) {
+    kpos[hf] = k0 + 16 * grp + g + 8 * hf;
+    const bool in = kpos[hf] < p.sk;
+    dko[hf] = in ? b * p.dk_sb + h * p.dk_sh + (long long)kpos[hf] * p.dk_ss + c0 : -1;
+    dvo[hf] = in ? b * p.dv_sb + h * p.dv_sh + (long long)kpos[hf] * p.dv_ss + c0 : -1;
+  }
+  // the group's keys all live (below Sk and kv_len), and its last key
+  const int kw_last = k0 + 16 * grp + 15;
+  const bool warp_keys_live = kw_last < (p.kv_len < 0 ? p.sk : min(p.kv_len, p.sk));
+
+  // A operands: K (S^T) and V (dP^T) rows of the group's keys
+  const int la = lane_a(lane, DP), lb = lane_b(lane, DP);
+  const uint32_t ka = smem_addr(ks + 16 * grp * DP + la);
+  const uint32_t va = smem_addr(vs + 16 * grp * DP + la);
+  constexpr int KR = Gm::kRegs ? KS : 1;
+  uint32_t kf[KR][4], vf[KR][4];  // their fragments, if kept
+  float4* const xg = xbuf + grp * 2 * NJ * 32 + lane;  // P^T tile j at xg[32 j], dS^T after
+
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+  for (int i = 0; i < NS - 1; ++i) {  // the first NS - 1 row tiles, a group each
+    if (c_begin + i < c_end) {
+      stage_rows(c_begin + i, i);
+      put_stat(load_stat(c_begin + i), i);
+    }
+    cp_async_commit();
+  }
 
-    for (; c < c_end; c += kWarps) {
-      const int row0 = c * kChunk;
-      const bool next = c + kWarps < c_end;
-      const RowInfo cur = nxt;
-      if (next)
-        nxt = row_info((c + kWarps) * kChunk + (lane & 15), bkv, p, qb, dob, m_in, l_in, delta);
-
-      cp_async_wait<1>();  // Q(c) landed (dO(c) may still be in flight)
-      __syncwarp();
-      float sc[2][4];
-      tile_product_bf16<D>(sc, ks, qc, g, t);  // S^T = K Q^T (times qscale below)
-      cp_async_wait<0>();  // dO(c) landed
-      __syncwarp();
-      float dp[2][4];
-      tile_product_bf16<D>(dp, vs, dc, g, t);  // dP^T = V dO^T
-
-      float pt[2][4], dst_t[2][4];
+  float acc_k[NA][4], acc_v[NA][4];
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
+  for (int n = 0; n < NA; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+
+  for (int c = c_begin; c < c_end; ++c) {
+    const int slot = (c - c_begin) % NS, ahead = (c - c_begin + NS - 1) % NS;
+    cp_async_wait<NS - 2>();
+    __syncthreads();  // row tile c (first: and K, V) landed; tile c - 1's slot is free
+    if (Gm::kRegs && c == c_begin) {
+#pragma unroll
+      for (int kstep = 0; kstep < KR; ++kstep) {
+        ldmatrix_x4(kf[kstep], ka + 32 * kstep);
+        ldmatrix_x4(vf[kstep], va + 32 * kstep);
+      }
+    }
+    const bool next = c + NS - 1 < c_end;
+    Stat nst{0.f, 1.f, 0.f, 0};
+    if (next) {  // tile c + NS - 1's rows by cp.async, its stats under this tile's products
+      stage_rows(c + NS - 1, ahead);
+      nst = load_stat(c + NS - 1);
+    }
+    cp_async_commit();
+    const uint16_t* const qst = ring + slot * 2 * RM * DP;
+    const uint32_t qbase = smem_addr(qst), dbase = smem_addr(qst + RM * DP);
+    const float* const sl = stats + slot * 4 * RM;
+
+    // this warp's row tiles j0 .. j0 + NJW - 1: S^T = K Q^T (times qscale)
+    // and dP^T = V dO^T
+    const int j0 = part * NJW;
+    float st[NJW][4], dpt[NJW][4];
+#pragma unroll
+    for (int j = 0; j < NJW; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+    rows_product<D, NJW>(st, kf, ka, qbase + 2 * (8 * j0 * DP + lb));
+    rows_product<D, NJW>(dpt, vf, va, dbase + 2 * (8 * j0 * DP + lb));
+
+    // P^T and dS^T of those rows: a lane holds rows 8j + 2t + (e & 1) of
+    // keys g (e < 2), g + 8
+    const int row0 = c * RM;
+    // every row of the tile live and, causal, at or past the group's last key
+    const bool whole = row0 + RM <= p.rows && warp_keys_live &&
+                       (!p.causal || reinterpret_cast<const int*>(sl + 3 * RM)[0] >= kw_last);
+    const auto probs = [&](auto whole_t) {
+#pragma unroll
+      for (int j = 0; j < NJW; ++j) {
+        const int r = 8 * (j0 + j) + 2 * t;
+        const float2 m2 = *reinterpret_cast<const float2*>(sl + r);
+        const float2 l2 = *reinterpret_cast<const float2*>(sl + RM + r);
+        const float2 dl2 = *reinterpret_cast<const float2*>(sl + 2 * RM + r);
+        const int2 qp2 = *reinterpret_cast<const int2*>(sl + 3 * RM + r);
 #pragma unroll
         for (int e1 = 0; e1 < 2; ++e1) {
-          const int r = 8 * j + 2 * t + e1;
-          const float m = __shfl_sync(0xffffffffu, cur.m, r);
-          const float linv = __shfl_sync(0xffffffffu, cur.linv, r);
-          const float dl = __shfl_sync(0xffffffffu, cur.dl, r);
-          const int qpos = __shfl_sync(0xffffffffu, cur.qpos, r);
-          const bool live = row0 + r < p.rows;
+          const float m = e1 ? m2.y : m2.x, dl = e1 ? dl2.y : dl2.x;
+          const float linv = fast_rcp(fmaxf(e1 ? l2.y : l2.x, 1e-30f));
+          const int qpos = e1 ? qp2.y : qp2.x;
+          const bool live = row0 + r + e1 < p.rows;
 #pragma unroll
           for (int hf = 0; hf < 2; ++hf) {
             const int e = 2 * hf + e1;
-            pt[j][e] = prob(sc[j][e] * p.qscale, qpos, kpos[hf], m, linv, live, p);
-            dst_t[j][e] = pt[j][e] * (dp[j][e] - dl);
+            const float pt = prob_bf16<decltype(whole_t)::value>(st[j][e], qpos, kpos[hf], m,
+                                                                 linv, live, p);
+            dpt[j][e] = pt * (dpt[j][e] - dl);
+            st[j][e] = pt;
           }
         }
-      uint32_t a[4];
-      a_from_c(a, dst_t);  // bf16(dS^T)
-      reg_product_bf16<D, NH>(acc_k, a, qc, c0, g, t);  // dK += bf16(dS^T) Q
-      __syncwarp();  // every lane is done with Q(c)
-      if (next) stage_rows_bf16<D>(qc, q, nxt.qo, p.vec, lane);
-      cp_async_commit();
-      uint32_t ahi[4], alo[4];  // P^T in fp32: hi + lo
-      split_pair(pt[0][0], pt[0][1], ahi[0], alo[0]);
-      split_pair(pt[0][2], pt[0][3], ahi[1], alo[1]);
-      split_pair(pt[1][0], pt[1][1], ahi[2], alo[2]);
-      split_pair(pt[1][2], pt[1][3], ahi[3], alo[3]);
-      reg_product_bf16<D, NH>(acc_v, alo, dc, c0, g, t);  // dV += P^T dO: lo,
-      reg_product_bf16<D, NH>(acc_v, ahi, dc, c0, g, t);  // then hi
-      __syncwarp();  // every lane is done with dO(c)
-      if (next) stage_rows_bf16<D>(dc, dout, nxt.doo, p.vec, lane);
-      cp_async_commit();
-    }
-    cp_async_wait<0>();
-    flush_dkv_bf16<D, DH>(acc_k, chunk0, dk, b * p.dk_sb + h * p.dk_sh, p.dk_ss, k0, c0,
-                          p.qscale, p);
-    flush_dkv_bf16<D, DH>(acc_v, chunk0, dv, b * p.dv_sb + h * p.dv_sh, p.dv_ss, k0, c0, 1.f,
-                          p);
-    __syncthreads();  // every partial is read: the next sweep may stage over them
-  }
-}
+      }
+    };
+    if (whole)
+      probs(std::true_type{});
+    else
+      probs(std::false_type{});
 
-// Shared bytes of either bf16 pass: two bf16 tiles [16][DP] and per warp two
-// bf16 chunks: 43 KB at D = 128, 84 KB at D = 256.
-template <int D>
-constexpr int bwd_bf16_smem_bytes() {
-  return (2 * kTile + kWarps * 2 * kChunk) * Bf16Rows<D>::DP * 2;
+    // every row tile's P^T and dS^T, through shared memory from the group
+    float pa[NJ][4], da[NJ][4];
+    if (NWK == 1) {
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          pa[j][e] = st[NWK == 1 ? j : 0][e];
+          da[j][e] = dpt[NWK == 1 ? j : 0][e];
+        }
+    } else {
+#pragma unroll
+      for (int j = 0; j < NJW; ++j) {
+        xg[32 * (j0 + j)] = make_float4(st[j][0], st[j][1], st[j][2], st[j][3]);
+        xg[32 * (NJ + j0 + j)] = make_float4(dpt[j][0], dpt[j][1], dpt[j][2], dpt[j][3]);
+      }
+      group_sync(1 + grp, 32 * NWK);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        const float4 x = xg[32 * j], y = xg[32 * (NJ + j)];
+        pa[j][0] = x.x, pa[j][1] = x.y, pa[j][2] = x.z, pa[j][3] = x.w;
+        da[j][0] = y.x, da[j][1] = y.y, da[j][2] = y.z, da[j][3] = y.w;
+      }
+    }
+
+    // this warp's columns: dK += bf16(dS^T) Q and dV += P^T dO (hi + lo, lo
+    // first), 16 rows per k step
+#pragma unroll
+    for (int kk = 0; kk < RM / 16; ++kk) {
+      const int o = 2 * (16 * kk * DP + la + c0);
+      uint32_t a[4];
+      a_from_c(a, da[2 * kk], da[2 * kk + 1]);
+      cols_product<NW>(acc_k, a, qbase + o);
+      uint32_t hi[4], lo[4];
+      split_pair(pa[2 * kk][0], pa[2 * kk][1], hi[0], lo[0]);
+      split_pair(pa[2 * kk][2], pa[2 * kk][3], hi[1], lo[1]);
+      split_pair(pa[2 * kk + 1][0], pa[2 * kk + 1][1], hi[2], lo[2]);
+      split_pair(pa[2 * kk + 1][2], pa[2 * kk + 1][3], hi[3], lo[3]);
+      cols_product_split<NW>(acc_v, lo, hi, dbase + o);
+    }
+    if (next) put_stat(nst, ahead);
+  }
+  cp_async_wait<0>();
+  store_rows_bf16<NW>(dk, acc_k, dko, p.qscale, t, p.vec);
+  store_rows_bf16<NW>(dv, acc_v, dvo, 1.f, t, p.vec);
 }
 
 struct OperandsBf16 {
@@ -1111,26 +1412,50 @@ struct OperandsBf16 {
   uint16_t *dq, *dk, *dv;
 };
 
+// The bf16 dq pass with BM = T, or the dk/dv pass with BN = T.
+template <int D, int T>
+int launch_dq_bf16(const OperandsBf16& o, const BwdParams& p, int nbkv, cudaStream_t stream) {
+  static std::atomic<int> allowed[kMaxDevices];
+  const int smem = dq_bf16_smem_bytes<D, T>();
+  const cudaError_t e = allow_smem((const void*)flash_bwd_dq_bf16_kernel<D, T>, smem, allowed);
+  if (e != cudaSuccess) return (int)e;
+  flash_bwd_dq_bf16_kernel<D, T>
+      <<<bf16_grid(nbkv, (p.rows + T - 1) / T), 2 * T, smem, stream>>>(
+      o.q, o.k, o.v, o.dout, o.m, o.l, o.delta, o.dq, p);
+  return (int)cudaGetLastError();
+}
+template <int D, int T>
+int launch_dkv_bf16(const OperandsBf16& o, const BwdParams& p, int nbkv, cudaStream_t stream) {
+  static std::atomic<int> allowed[kMaxDevices];
+  const int smem = dkv_bf16_smem_bytes<D, T>();
+  const cudaError_t e = allow_smem((const void*)flash_bwd_dkv_bf16_kernel<D, T>, smem, allowed);
+  if (e != cudaSuccess) return (int)e;
+  flash_bwd_dkv_bf16_kernel<D, T>
+      <<<bf16_grid(nbkv, (p.sk + T - 1) / T), 2 * Bf16Bwd<D>::NWK * T, smem, stream>>>(
+      o.q, o.k, o.v, o.dout, o.m, o.l, o.delta, o.dk, o.dv, p);
+  return (int)cudaGetLastError();
+}
+
+// `tile` 0: the pass's own BM or BN; at D = 128 also the other of 32 and 64,
+// built for the comparison the smoke run prints.
 template <int D>
 int launch_bf16_d(const OperandsBf16& o, const BwdParams& p, int nbkv, bool dkv_pass,
-                  cudaStream_t stream) {
-  static std::atomic<int> allowed_dq[kMaxDevices], allowed_dkv[kMaxDevices];
-  const int smem = bwd_bf16_smem_bytes<D>();
+                  cudaStream_t stream, int tile) {
+  constexpr int kAltDq = 96 - kDqRowsBf16, kAltDkv = 96 - kDkvKeysBf16;
   if (dkv_pass) {
-    const cudaError_t e =
-        allow_smem((const void*)flash_bwd_dkv_bf16_kernel<D>, smem, allowed_dkv);
-    if (e != cudaSuccess) return (int)e;
-    dim3 grid((p.sk + kTile - 1) / kTile, nbkv);
-    flash_bwd_dkv_bf16_kernel<D><<<grid, kThreads, smem, stream>>>(
-        o.q, o.k, o.v, o.dout, o.m, o.l, o.delta, o.dk, o.dv, p);
+    if (tile == 0 || tile == kDkvKeysBf16)
+      return launch_dkv_bf16<D, kDkvKeysBf16>(o, p, nbkv, stream);
+    if constexpr (D == 128) {
+      if (tile == kAltDkv) return launch_dkv_bf16<D, kAltDkv>(o, p, nbkv, stream);
+    }
   } else {
-    const cudaError_t e = allow_smem((const void*)flash_bwd_dq_bf16_kernel<D>, smem, allowed_dq);
-    if (e != cudaSuccess) return (int)e;
-    dim3 grid((p.rows + kTile - 1) / kTile, nbkv);
-    flash_bwd_dq_bf16_kernel<D><<<grid, kThreads, smem, stream>>>(
-        o.q, o.k, o.v, o.dout, o.m, o.l, o.delta, o.dq, p);
+    if (tile == 0 || tile == kDqRowsBf16)
+      return launch_dq_bf16<D, kDqRowsBf16>(o, p, nbkv, stream);
+    if constexpr (D == 128) {
+      if (tile == kAltDq) return launch_dq_bf16<D, kAltDq>(o, p, nbkv, stream);
+    }
   }
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }
 
 struct Operands {
@@ -1220,18 +1545,18 @@ int launch(const Operands& o, const int* dims, const long long* st, float scale,
 }
 
 int launch_bf16(const OperandsBf16& o, const int* dims, const long long* st, float scale,
-                bool dkv_pass, cudaStream_t stream) {
+                bool dkv_pass, cudaStream_t stream, int tile) {
   BwdParams p;
   int nbkv = 0, d = 0;
   if (const int e = read_params(p, nbkv, d, dims, st, scale)) return e;
   p.vec = aligned(o.q, o.k, o.v, o.dout, o.dq, o.dk, o.dv, st, 8);
   switch (d) {
-    case 8: return launch_bf16_d<8>(o, p, nbkv, dkv_pass, stream);
-    case 16: return launch_bf16_d<16>(o, p, nbkv, dkv_pass, stream);
-    case 32: return launch_bf16_d<32>(o, p, nbkv, dkv_pass, stream);
-    case 64: return launch_bf16_d<64>(o, p, nbkv, dkv_pass, stream);
-    case 128: return launch_bf16_d<128>(o, p, nbkv, dkv_pass, stream);
-    case 256: return launch_bf16_d<256>(o, p, nbkv, dkv_pass, stream);
+    case 8: return launch_bf16_d<8>(o, p, nbkv, dkv_pass, stream, tile);
+    case 16: return launch_bf16_d<16>(o, p, nbkv, dkv_pass, stream, tile);
+    case 32: return launch_bf16_d<32>(o, p, nbkv, dkv_pass, stream, tile);
+    case 64: return launch_bf16_d<64>(o, p, nbkv, dkv_pass, stream, tile);
+    case 128: return launch_bf16_d<128>(o, p, nbkv, dkv_pass, stream, tile);
+    case 256: return launch_bf16_d<256>(o, p, nbkv, dkv_pass, stream, tile);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1266,7 +1591,7 @@ int repro_flash_bwd_dq_bf16(const uint16_t* q, const uint16_t* k, const uint16_t
                             const float* delta, uint16_t* dq, const int* dims,
                             const long long* strides, float scale, void* stream) {
   OperandsBf16 o{q, k, v, dout, m, l, delta, dq, nullptr, nullptr};
-  return launch_bf16(o, dims, strides, scale, false, (cudaStream_t)stream);
+  return launch_bf16(o, dims, strides, scale, false, (cudaStream_t)stream, 0);
 }
 
 int repro_flash_bwd_dkv_bf16(const uint16_t* q, const uint16_t* k, const uint16_t* v,
@@ -1274,7 +1599,30 @@ int repro_flash_bwd_dkv_bf16(const uint16_t* q, const uint16_t* k, const uint16_
                              const float* delta, uint16_t* dk, uint16_t* dv, const int* dims,
                              const long long* strides, float scale, void* stream) {
   OperandsBf16 o{q, k, v, dout, m, l, delta, nullptr, dk, dv};
-  return launch_bf16(o, dims, strides, scale, true, (cudaStream_t)stream);
+  return launch_bf16(o, dims, strides, scale, true, (cudaStream_t)stream, 0);
 }
+
+// The bf16 passes at a chosen block tile: the rows a dq block owns or the
+// keys a dk/dv block owns, 32 or 64 at head dim 128 (0 or the pass's own
+// at the others); any other tile returns cudaErrorInvalidValue. For
+// comparing the two tiles; the entries above take the pass's own.
+int repro_flash_bwd_dq_bf16_tile(const uint16_t* q, const uint16_t* k, const uint16_t* v,
+                                 const uint16_t* dout, const float* m, const float* l,
+                                 const float* delta, uint16_t* dq, const int* dims,
+                                 const long long* strides, float scale, void* stream,
+                                 int tile) {
+  OperandsBf16 o{q, k, v, dout, m, l, delta, dq, nullptr, nullptr};
+  return launch_bf16(o, dims, strides, scale, false, (cudaStream_t)stream, tile);
+}
+
+int repro_flash_bwd_dkv_bf16_tile(const uint16_t* q, const uint16_t* k, const uint16_t* v,
+                                  const uint16_t* dout, const float* m, const float* l,
+                                  const float* delta, uint16_t* dk, uint16_t* dv,
+                                  const int* dims, const long long* strides, float scale,
+                                  void* stream, int tile) {
+  OperandsBf16 o{q, k, v, dout, m, l, delta, nullptr, dk, dv};
+  return launch_bf16(o, dims, strides, scale, true, (cudaStream_t)stream, tile);
+}
+
 
 }  // extern "C"

@@ -48,6 +48,15 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
                : "r"(addr));
 }
 
+// The same four 8x8 b16 matrices, transposed as they load: lane l receives
+// rows 2 * (l % 4) and 2 * (l % 4) + 1 of column l / 4 of each matrix, the
+// layout of an mma.sync B fragment whose k rows are the matrix's rows.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
 constexpr int kMaxDevices = 64;
 
 // Allow `kernel` `bytes` of dynamic shared memory on the current device,

@@ -833,9 +833,18 @@ def _bf16_do(q, seed):
         q.device, torch.bfloat16)
 
 
-@pytest.mark.parametrize("case", FLASH_BWD_CASES + [("model", 2, 2, 2, 40, 40, 8, True, 0,
-                                                     None)],
-                         ids=lambda c: "-".join(map(str, c)))
+# the bf16 backward: the fp32 cases, head dim 8 in the model layout, and
+# Sq * G = 129 rows and Sk = 75 keys at D = 256: ragged against both passes'
+# block tiles (32 or 64 rows, 32 or 64 keys), with the dk/dv pass's two warps
+# per 16 keys splitting dK's and dV's columns and A fragments read by ldmatrix
+# at each step (none kept in registers at D = 256)
+FLASH_BF16_BWD_CASES = FLASH_BWD_CASES + [
+    ("model", 2, 2, 2, 40, 40, 8, True, 0, None),
+    ("model", 2, 2, 3, 43, 75, 256, True, 0, None),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_BF16_BWD_CASES, ids=lambda c: "-".join(map(str, c)))
 def test_flash_bf16_bwd_kernels_match_plain(dev, case):
     """bf16 operands launch `repro_flash_bwd_dq_bf16` and
     `repro_flash_bwd_dkv_bf16` once each and no fp32 entry; dq, dk and dv
@@ -865,6 +874,87 @@ def test_flash_bf16_bwd_kernels_match_plain(dev, case):
     _bf16_close(dq, flash_bwd_dq_plain(*ops, **kw))
     for got, want in zip((dk, dv), flash_bwd_dkv_plain(*ops, **kw)):
         _bf16_close(got, want)
+
+
+def _bf16_bwd_operands(dev, shape, seed, *, off=False):
+    """bf16 q, k, v and do in the model layout (b, sq, kv, g, sk, d =
+    `shape`), causal, with the forward's m, l and delta -> (ops, kw). `off`:
+    each tensor a view whose row stride is d + 3 elements, not a multiple of
+    8, so the passes stage by element copies."""
+    from repro_torch.kernels.flash_attention.kernel import flash_delta
+
+    b, sq, kv, g, sk, d = shape
+    rng = np.random.default_rng(seed)
+
+    def make(*dims):
+        x = torch.from_numpy(rng.standard_normal(dims).astype(np.float32)).to(
+            dev, torch.bfloat16)
+        if not off:
+            return x
+        wide = torch.zeros(dims[:-1] + (d + 3,), device=dev, dtype=torch.bfloat16)
+        wide[..., :d] = x
+        return wide[..., :d]
+
+    q, k, v, do = make(b, sq, kv, g, d), make(b, sk, kv, d), make(b, sk, kv, d), \
+        make(b, sq, kv, g, d)
+    kw = dict(scale=d ** -0.5, causal=True, q_offset=0, kv_len=None)
+    out, m, l = flash_fwd(q, k, v, **kw)
+    return (q, k, v, do, m, l, flash_delta(do, out)), kw
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_bf16_bwd_kernels_off_alignment(dev, d):
+    """q, k, v and do whose row strides are not multiples of 8 elements: both
+    bf16 passes stage by element copies and still meet the bf16 limit."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_bwd_dkv,
+        flash_bwd_dkv_plain,
+        flash_bwd_dq,
+        flash_bwd_dq_plain,
+    )
+
+    ops, kw = _bf16_bwd_operands(dev, (2, 45, 2, 2, 70, d), seed=d + 21, off=True)
+    assert all(t.stride(-2) % 8 for t in ops[:4])
+    before = dict(FLASH_ENTRY_LAUNCHES)
+    dq = flash_bwd_dq(*ops, **kw)
+    dk, dv = flash_bwd_dkv(*ops, **kw)
+    torch.cuda.synchronize()
+    assert _entries_since(before) == {"repro_flash_bwd_dq_bf16": 1,
+                                      "repro_flash_bwd_dkv_bf16": 1}
+    _bf16_close(dq, flash_bwd_dq_plain(*ops, **kw))
+    for got, want in zip((dk, dv), flash_bwd_dkv_plain(*ops, **kw)):
+        _bf16_close(got, want)
+
+
+@pytest.mark.parametrize("shape", [(8, 128, 8, 2, 128, 128), (2, 65, 2, 2, 97, 256),
+                                   (2, 70, 2, 3, 150, 8), (2, 70, 2, 3, 150, 16),
+                                   (2, 70, 2, 3, 150, 32)],
+                         ids=["trained", "d256", "d8", "d16", "d32"])
+def test_flash_bf16_bwd_kernels_repeat_bitwise(dev, shape):
+    """Each bf16 output row (dq) or key and column (dk, dv) has one owning
+    warp and a fixed order of steps (no atomics, no cross-warp sum), so later
+    launches of each pass on the same inputs repeat the first bitwise; at the
+    trained shape, at D = 256 (two warps per 16 keys split the columns, A
+    fragments by ldmatrix at each step), and at D = 8, 16 and 32 (64-row ring
+    tiles; one warp per 16 keys at D = 8, and the P^T / dS^T exchange between
+    a key group's two warps at 16 and 32), each ragged against the tiles."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_bwd_dkv,
+        flash_bwd_dkv_plain,
+        flash_bwd_dq,
+        flash_bwd_dq_plain,
+    )
+
+    ops, kw = _bf16_bwd_operands(dev, shape, seed=shape[-1] + 23)
+    dq = flash_bwd_dq(*ops, **kw)
+    dk, dv = flash_bwd_dkv(*ops, **kw)
+    _bf16_close(dq, flash_bwd_dq_plain(*ops, **kw))
+    for got, want in zip((dk, dv), flash_bwd_dkv_plain(*ops, **kw)):
+        _bf16_close(got, want)
+    for _ in range(3):
+        dk2, dv2 = flash_bwd_dkv(*ops, **kw)
+        assert torch.equal(flash_bwd_dq(*ops, **kw), dq)
+        assert torch.equal(dk2, dk) and torch.equal(dv2, dv)
 
 
 def test_flash_bf16_function_grads_on_the_card(dev):
