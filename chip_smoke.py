@@ -12,7 +12,7 @@
    kernels (the fp32 ECR / PECR kernel, the fp32 BSR kernel, the fp32
    flash forward and both flash backward passes) and of the bf16 flash
    kernels (with LDSM), and fails unless every one has HMMA and LDGSTS,
-   every bf16 backward one LDSM (ldmatrix), and the expected number of
+   every bf16 one LDSM (ldmatrix), and the expected number of
    instantiations exists; prints each one's registers, stack frame and
    spill bytes (nvcc -Xptxas -v, from the build's output).
 3. Serves the published VGG-19 (3x224x224, 1000 classes, random weights from
@@ -289,7 +289,10 @@
    trained bf16 step the same way, their launches count the 6-step bf16
    training run, and their bound and achieved TFLOP/s are at 989 TFLOP/s;
    flash_bwd_dq_bf16 and flash_bwd_dkv_bf16 carry "redesigned_in": 25, and
-   their trained and long shapes the times of both block tiles ("tile_ms").
+   their trained and long shapes the times of both block tiles ("tile_ms");
+   flash_fwd_bf16 carries "redesigned_in": 26 (FlashAttention-2's layout:
+   a warp owns 16 rows, a block-shared cp.async ring of K/V tiles,
+   ldmatrix fragments). Every time in the line is measured in the run.
    The rows whose kernels were redesigned for the tensor cores, the fp32
    ECR / PECR rows (ecr_conv_batch, conv_pool_batch and both at N=1;
    split-TF32, "redesigned_in": 16), bsr_matmul (split-TF32, 17) and the
@@ -338,15 +341,13 @@ PRUNE_DENSITY = 0.3
 SPLIT_TF32_KERNELS = {"ecr_conv_kernel": 8, "bsr_matmul_kernel": 6, "flash_fwd_kernel": 6,
                       "flash_bwd_dq_kernel": 6, "flash_bwd_dkv_kernel": 6}
 # the bf16 tensor-core kernels (the training step at bf16): 6 head dims each,
-# and the backward passes' other block tile at head dim 128
+# and the backward passes' other block tile at head dim 128; the SASS of
+# each must show ldmatrix (LDSM) beside HMMA and LDGSTS
 BF16_KERNELS = {"flash_fwd_bf16_kernel": 6, "flash_bwd_dq_bf16_kernel": 7,
                 "flash_bwd_dkv_bf16_kernel": 7}
 # the bf16 backward passes' block tiles (rows a dq block owns, keys a dk/dv
 # block owns), both timed at head dim 128
 BF16_BWD_TILES = (32, 64)
-# the redesigned bf16 backward passes' kernels, whose SASS must show
-# ldmatrix (LDSM) beside HMMA and LDGSTS
-BF16_BWD_LDSM = ("flash_bwd_dq_bf16_kernel", "flash_bwd_dkv_bf16_kernel")
 
 
 def fail(msg: str) -> int:
@@ -3673,7 +3674,7 @@ def main() -> int:
                   + f"; {regs}")
             if not ops.get("HMMA") or not ops.get("LDGSTS"):
                 failures.append(f"{fn}: no HMMA or no LDGSTS in its SASS")
-            if stem in BF16_BWD_LDSM and not ops.get("LDSM"):
+            if stem in BF16_KERNELS and not ops.get("LDSM"):
                 failures.append(f"{fn}: no LDSM (ldmatrix) in its SASS")
         if len(sass) != want:
             failures.append(f"expected {want} {stem} instantiations, found {len(sass)}")
@@ -4021,9 +4022,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": csrc + src,
             "replaces": flash_src + site,
-            **({} if bf16 else {"redesigned_in": 18}),
-            **({"redesigned_in": 25} if name in ("flash_bwd_dq_bf16", "flash_bwd_dkv_bf16")
-               else {}),
+            "redesigned_in": {"flash_fwd_bf16": 26, "flash_bwd_dq_bf16": 25,
+                              "flash_bwd_dkv_bf16": 25}.get(name, 18),
             "timing": "CUDA-graph replay (plain_ms too)",
             "launches": launched,
             "max_abs_err": book.max_err.get(name, 0.0),

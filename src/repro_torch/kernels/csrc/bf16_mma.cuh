@@ -58,11 +58,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return r;
 }
 
-// Two bf16 values (their bits) in one register, lo in the low half.
-__device__ __forceinline__ uint32_t pack_raw(uint16_t lo, uint16_t hi) {
-  return (uint32_t)lo | ((uint32_t)hi << 16);
-}
-
 // A bf16 value (its bits) as fp32, exactly.
 __device__ __forceinline__ float bf16_bits_to_float(uint16_t x) {
   return __uint_as_float((uint32_t)x << 16);

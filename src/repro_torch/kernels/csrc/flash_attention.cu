@@ -11,12 +11,13 @@
 // (float)k_q8 * k_scale[pos] (the product `_dequantize_kv` forms at fp32).
 //
 // The bf16 entry point (the training step at the reference's default
-// bfloat16) is `flash_fwd_bf16_kernel<D>` further down: the same blocks,
-// warps and online softmax on the bf16 tensor cores (mma.sync m16n8k16, fp32
-// accumulation), rounding where the reference does (p before P.V, out), the
-// scores scaled by the scale rounded to bf16, m and l fp32; within 2^-7 *
-// max|plain| of out and 1e-5 * max|plain| of m and l. At the trained shape
-// it is bound, like the fp32 body, by latency and filling the SMs.
+// bfloat16) is `flash_fwd_bf16_kernel<D>` further down, in FlashAttention-2's
+// layout on the bf16 tensor cores (mma.sync m16n8k16, fp32 accumulation):
+// a warp owns 16 rows for the whole walk over K/V tiles that a block-shared
+// cp.async ring stages, with ldmatrix fragments and no cross-warp merge. It
+// rounds where the reference does (p before P.V, out), scales the scores by
+// the scale rounded to bf16, and keeps m and l fp32; within 2^-7 *
+// max|plain| of out and 1e-5 * max|plain| of m and l.
 //
 // What it computes (the Pallas kernels' function): for every kv head bkv,
 // group g and query position s, with qpos = q_offset + s,
@@ -97,16 +98,16 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "bf16_mma.cuh"
+#include "flash_bf16.cuh"
 #include "tf32_mma.cuh"
 
 namespace {
 
+using namespace flashbf16;
 using namespace tf32mma;
-using bf16mma::Bf16Rows;
-using bf16mma::mma_bf16;
-using bf16mma::pack_bf16;
-using bf16mma::pack_raw;
 
 constexpr float kNeg = -1e30f;
 
@@ -445,176 +446,218 @@ flash_fwd_q8_kernel(const float* __restrict__ q, const int8_t* __restrict__ k,
 // ---------------------------------------------------------------------------
 // bf16 operands on the bf16 tensor cores (repro_flash_fwd_bf16)
 // ---------------------------------------------------------------------------
+//
+// The function and rounding points are the reference's, on m16n8k16 bf16
+// MMAs with fp32 accumulators: S = Q K^T from the raw bf16 operands, times
+// the scale rounded to bf16 (p.scale) in fp32; p = exp2((x - m) log2 e) by
+// the MUFU's ex2.approx (within 2^-22 of exact, against the 2^-8 of the bf16
+// rounding that follows), rounded to bf16 as it packs into P.V's A fragment;
+// l sums the unrounded p; out = O / max(l, 1e-30), rounded to bf16 once; m
+// and l fp32. Within 2^-7 * max|plain| of out and 1e-5 * max|plain| of m
+// and l. S adds each k16 step's MMA, made into a zeroed fragment, with a
+// rounded FADD (rows_product's kFresh): a chain of MMAs into one accumulator
+// truncates at every step and drifts past the limit of m and l.
+//
+// What bounds it on this card (989 TFLOP/s of bf16, 3.35 TB/s): at the
+// trained shape (qwen3-0.6b layer 0, B8, S128, KV 8, G 2, D 128, causal) it
+// moves about 12.7 MB (0.0038 ms) against 0.0005 ms of operations: bytes
+// on paper, and in practice latency, since each block walks one or two key
+// tiles. At the long shape (B4, 2048^2 causal) 0.070 ms of operations
+// against 0.030 ms of bytes: operations.
+//
+// Geometry: FlashAttention-2's layout on mma.sync, the bf16 dq pass's walk
+// (flash_attention_bwd.cu) with an online softmax in place of dP.
+// - A block owns BM flattened (position, group) rows of one kv head, a warp
+//   16 of them, and every warp walks the same KN-key tiles of the block's
+//   visible range. A warp keeps its rows' m, l and 16 x D fp32 O in
+//   registers for the whole walk and writes out (times 1 / l, rounded to
+//   bf16) and m and l from them: no partial crosses warps, and the fixed
+//   order of steps repeats bitwise.
+// - K and V pass through a two-stage ring in shared memory, copied once per
+//   block by cp.async (16 bytes, 8 threads a row), the next tile in flight
+//   while the current one is used, one barrier per tile. The block's Q is
+//   copied by cp.async ahead of the first ring tile. Keys past the last one
+//   a row of the block can see are zero-filled, not read.
+// - Fragments by ldmatrix: .x4 for K (two n8 key tiles of a k16 step per
+//   instruction), .x4.trans for V. Q's A fragments stay in registers across
+//   tiles at D <= 128; at D = 256 they are read at each step. Shared rows
+//   are D + 8 elements, so every ldmatrix row address is 16-byte aligned and
+//   the 8 rows of a phase fall on 8 distinct bank quads.
+// - Causal: a block stops after its last visible key tile, and the blocks
+//   with the last rows (the most keys) launch first. A tile whose rows and
+//   keys are all live and visible skips the masks. Exact skip and fully
+//   masked rows (the mean of V over all Sk keys) as the fp32 body.
+// - Head dims 8 and 16 contract over k16: the pad columns of D = 8 are
+//   zeroed once, before any copy. A view whose strides are not multiples of
+//   8 elements is staged by element copies in a rolled loop.
 
-// Stage keys pos0 .. pos0 + 15 of one bf16 K or V head into a [16][DP]
-// chunk (rows past Sk zero-filled), by this warp's lanes: 16-byte cp.async
-// where the operands keep 16-byte alignment, else element by element
-// through registers (the same values).
+// The bf16 forward's geometry at head dim D, measured against the others
+// by scripts/flash_fwd_bf16_tiles.py (PERF.md §6): 64 rows a block (128
+// lost at the trained shape), 64-key ring tiles (32 at D = 256, where S
+// unrolls 4 of its 16 k steps per trip so that no register spills), and
+// the registers held to 3 blocks per SM at D <= 64 (11% at D = 64; shared
+// memory allows 2 blocks at D = 128 and 256, 4 or more below).
 template <int D>
-__device__ __forceinline__ void stage_chunk_bf16(uint16_t* dst, const uint16_t* __restrict__ src,
-                                                 long long base, long long ss, int pos0,
-                                                 const FlashParams& p, int lane) {
-  constexpr int DP = Bf16Rows<D>::DP;
-  if (p.vec) {
-    constexpr int kC = D / 8;  // 16-byte copies per row
-    for (int i = lane; i < kChunk * kC; i += 32) {
-      const int r = i / kC, c = i - r * kC, pos = pos0 + r;
-      const bool ok = pos < p.sk;
-      cp_async16(smem_addr(dst + r * DP + 8 * c), ok ? src + base + pos * ss + 8 * c : src, ok);
-    }
-  } else {
-    for (int i = lane; i < kChunk * D; i += 32) {
-      const int r = i / D, d = i - r * D, pos = pos0 + r;
-      dst[r * DP + d] = pos < p.sk ? src[base + pos * ss + d] : (uint16_t)0;
-    }
-  }
-}
+struct Bf16Fwd {
+  static constexpr int DP = Bf16Rows<D>::DP;       // elements per shared row
+  static constexpr int KS = Bf16Rows<D>::DK / 16;  // k16 steps of S over the head dim
+  static constexpr int NT = D / 8;                 // n8 tiles of an out row
+  static constexpr int BM = 64;                    // rows a block owns, a warp per 16
+  static constexpr int KN = D == 256 ? 32 : 64;    // keys per ring tile
+  static constexpr int NS = 2;                     // ring stages
+  static constexpr bool kRegs = D <= 128;          // Q's A fragments kept in registers
+  static constexpr int SU = D == 256 ? 4 : KS;     // k16 steps of S per unrolled trip
+  static constexpr int kMinBlocks = D <= 64 ? 3 : 2;  // per SM the registers must allow
+  static constexpr int kThreads = 2 * BM;
+  static constexpr int kSmemBytes = (BM + 2 * NS * KN) * DP * 2;  // Q, then NS K and V stages
+};
 
-// The bf16 forward: the fp32 body's blocks, warps and online softmax, on
-// m16n8k16 bf16 MMAs. S = Q K^T from the raw bf16 Q tile and K chunk (one
-// k16 step per 16 head-dim columns, each into a fresh fragment), times the
-// scale rounded to bf16 (p.scale) in fp32; p rounded to bf16 as it packs
-// into P.V's A fragment (a lane's score pairs are already A's layout), V's
-// B fragment read as two bf16 of rows 2t, 2t + 1; out rounded to bf16.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(Bf16Fwd<D>::kThreads, Bf16Fwd<D>::kMinBlocks)
 flash_fwd_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
                       const uint16_t* __restrict__ v, uint16_t* __restrict__ o,
                       float* __restrict__ m_out, float* __restrict__ l_out, FlashParams p) {
-  constexpr int DK = Bf16Rows<D>::DK, DP = Bf16Rows<D>::DP, W = Bf16Rows<D>::W;
-  constexpr int NS = DK / 16;  // k16 steps of Q.K^T
-  constexpr int NT = D / 8;    // n8 tiles of P.V
-  constexpr int PD = D + 4;    // fp32 partial rows of the warps' combine
+  using Gm = Bf16Fwd<D>;
+  constexpr int DP = Gm::DP, KS = Gm::KS, NT = Gm::NT, BM = Gm::BM, KN = Gm::KN, NS = Gm::NS;
+  constexpr int NA = NT < 2 ? 2 : NT;
+  constexpr int kT = Gm::kThreads;
   extern __shared__ __align__(16) unsigned char smem_bytes[];
-  uint16_t* const qs = reinterpret_cast<uint16_t*>(smem_bytes);  // [16][DP]
+  uint16_t* const qs = reinterpret_cast<uint16_t*>(smem_bytes);  // Q [BM][DP]
+  uint16_t* const ring = qs + BM * DP;  // stage s: K [KN][DP] at 2 s KN DP, V after it
+
+  const int rows = p.sq * p.g;
+  const int n_tiles = (rows + BM - 1) / BM;
+  if (tile_order() >= n_tiles) return;
+  const int r0 = (n_tiles - 1 - tile_order()) * BM;  // the last rows (most keys) first
+  const int bkv = blockIdx.x;
+  const int b = bkv / p.nh, h = bkv % p.nh;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
-  uint16_t* const kc = qs + kTileRows * DP + warp * 2 * kChunk * DP;  // this warp's K
-  uint16_t* const vc = kc + kChunk * DP;                              // and V chunk
-  float* const xm = reinterpret_cast<float*>(qs + kTileRows * DP + kWarps * 2 * kChunk * DP);
-  float* const xl = xm + kWarps * kTileRows;
-
-  if (D < 16) {  // the zero columns D .. 15 of every row the MMAs contract
-    for (int i = tid; i < (kTileRows + kWarps * 2 * kChunk) * DP / 8; i += kThreads)
-      reinterpret_cast<uint4*>(qs)[i] = make_uint4(0u, 0u, 0u, 0u);
+  const DivG divg(p.g);
+  if (D < 16) {
+    zero_smem<kT>(smem_bytes, Gm::kSmemBytes);
     __syncthreads();
   }
+  const int kend = visit_end(p, divg(r0), divg(min(r0 + BM, rows) - 1));
+  const int n_kt = (kend + KN - 1) / KN;
 
-  const int bkv = blockIdx.y;
-  const int b = bkv / p.nh, h = bkv % p.nh;
-  const int rows = p.sq * p.g;
-  const int r0 = blockIdx.x * kTileRows;
+  // Q (its two halves as the row pair of one copy), then the first key
+  // tiles, all by cp.async
   const long long qb = b * p.q_sb + h * p.q_sh;
-  const long long kb = b * p.k_sb + h * p.k_sh;
-  const long long vb = b * p.v_sb + h * p.v_sh;
-  const int kend = visit_end(p, r0 / p.g, (min(r0 + kTileRows, rows) - 1) / p.g);
-  const int n_chunks = (kend + kChunk - 1) / kChunk;
-
-  int c = warp;
-  if (c < n_chunks) stage_chunk_bf16<D>(kc, k, kb, p.k_ss, c * kChunk, p, lane);
+  const long long kb = b * p.k_sb + h * p.k_sh, vb = b * p.v_sb + h * p.v_sh;
+  const auto q_row = [&](int row) -> long long {
+    if (row >= rows) return -1;
+    const int s = divg(row);
+    return qb + (row - s * p.g) * p.q_sg + (long long)s * p.q_ss;
+  };
+  copy_rows_bf16<D, BM / 2, kT>(qs, q, qs + BM / 2 * DP, q, [&](int r) -> RowPair {
+    return {q_row(r0 + r), q_row(r0 + BM / 2 + r)};
+  }, p.vec);
   cp_async_commit();
-  if (c < n_chunks) stage_chunk_bf16<D>(vc, v, vb, p.v_ss, c * kChunk, p, lane);
-  cp_async_commit();
-
-  // Q, raw bf16 (rows past Sq * G zero)
-  if (p.vec) {
-    for (int i = tid; i < kTileRows * (D / 8); i += kThreads) {
-      const int r = i / (D / 8), d = (i - r * (D / 8)) * 8, row = r0 + r;
-      uint4 x = make_uint4(0u, 0u, 0u, 0u);
-      if (row < rows) {
-        const int s = row / p.g;
-        x = *reinterpret_cast<const uint4*>(q + qb + (row - s * p.g) * p.q_sg + s * p.q_ss + d);
-      }
-      *reinterpret_cast<uint4*>(qs + r * DP + d) = x;
-    }
-  } else {
-    for (int i = tid; i < kTileRows * D; i += kThreads) {
-      const int r = i / D, d = i - r * D, row = r0 + r;
-      uint16_t x = 0;
-      if (row < rows) {
-        const int s = row / p.g;
-        x = q[qb + (row - s * p.g) * p.q_sg + s * p.q_ss + d];
-      }
-      qs[r * DP + d] = x;
-    }
-  }
-  __syncthreads();
-
-  int qpos[2];  // rows g and g + 8 of the tile
+  const auto stage_keys = [&](int kt) {
+    uint16_t* const kd = ring + (kt % NS) * 2 * KN * DP;
+    const int key0 = kt * KN;
+    copy_rows_bf16<D, KN, kT>(kd, k, kd + KN * DP, v, [&](int r) -> RowPair {
+      const int key = key0 + r;
+      if (key >= kend) return {-1, -1};  // past Sk, or seen by no row of the block
+      return {kb + (long long)key * p.k_ss, vb + (long long)key * p.v_ss};
+    }, p.vec);
+  };
 #pragma unroll
-  for (int hf = 0; hf < 2; ++hf) qpos[hf] = p.q_offset + (r0 + g + 8 * hf) / p.g;
+  for (int kt = 0; kt < NS - 1; ++kt) {  // the first NS - 1 key tiles, a group each
+    if (kt < n_kt) stage_keys(kt);
+    cp_async_commit();
+  }
+
+  // the positions of this lane's rows g and g + 8 of the warp's 16
+  int qpos[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) qpos[hf] = p.q_offset + divg(r0 + 16 * warp + g + 8 * hf);
+  // the keys below warp_lim are live and visible to all 16 rows of the warp
+  // (0: some row is past Sq * G, or sees no key)
+  int warp_lim = 0;
+  if (r0 + 16 * warp + 16 <= rows) {
+    warp_lim = p.kv_len < 0 ? p.sk : min(p.kv_len, p.sk);
+    if (p.causal) warp_lim = min(warp_lim, p.q_offset + divg(r0 + 16 * warp) + 1);
+  }
 
   float mrow[2] = {kNeg, kNeg}, lrow[2] = {0.f, 0.f};
-  float acc[NT][4];
+  float acc[NA][4];
 #pragma unroll
-  for (int n = 0; n < NT; ++n)
+  for (int n = 0; n < NA; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  const uint32_t* const qw = reinterpret_cast<const uint32_t*>(qs);
 
-  for (; c < n_chunks; c += kWarps) {
-    const int key0 = c * kChunk;
-    const bool next = c + kWarps < n_chunks;
-    cp_async_wait<1>();  // K(c) landed (V(c) may still be in flight)
-    __syncwarp();
-
-    // S = Q K^T over two n8 tiles of keys: each k16 step's MMA into a fresh
-    // fragment, added with a rounded FADD (a chain of MMAs into one
-    // accumulator truncates at every step and drifts: m and l hold 1e-5)
-    float sacc[2][4];
+  const int la = lane_a(lane, DP), lb = lane_b(lane, DP);
+  const uint32_t qa = smem_addr(qs + 16 * warp * DP + la);
+  constexpr int KR = Gm::kRegs ? KS : 1;
+  uint32_t qf[KR][4];  // the warp's Q A fragments, if kept
+  cp_async_wait<NS - 1>();  // Q landed (the first key tiles may be in flight)
+  __syncthreads();
+  if (Gm::kRegs) {
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sacc[j][e] = 0.f;
-    const uint32_t* const kw = reinterpret_cast<const uint32_t*>(kc);
-#pragma unroll
-    for (int ks = 0; ks < NS; ++ks) {
-      const int qo = g * W + 8 * ks + t;
-      const uint32_t a[4] = {qw[qo], qw[qo + 8 * W], qw[qo + 4], qw[qo + 8 * W + 4]};
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int ko = (8 * j + g) * W + 8 * ks + t;
-        float step[4] = {0.f, 0.f, 0.f, 0.f};
-        mma_bf16(step, a, kw[ko], kw[ko + 4]);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sacc[j][e] += step[e];
-      }
-    }
-    __syncwarp();  // every lane is done with K(c)
-    if (next) stage_chunk_bf16<D>(kc, k, kb, p.k_ss, (c + kWarps) * kChunk, p, lane);
+    for (int ks = 0; ks < KR; ++ks) ldmatrix_x4(qf[ks], qa + 32 * ks);
+  }
+  for (int kt = 0; kt < n_kt; ++kt) {
+    cp_async_wait<NS - 2>();
+    __syncthreads();  // key tile kt landed; every warp is done with tile kt - 1's stage
+    if (kt + NS - 1 < n_kt) stage_keys(kt + NS - 1);
     cp_async_commit();
+    const uint16_t* const kst = ring + (kt % NS) * 2 * KN * DP;
+    const uint32_t kbase = smem_addr(kst), vbase = smem_addr(kst + KN * DP);
 
-    // masks and the online softmax, as the fp32 body
-    float pr[2][2][2];  // [hf][j][e]
+    // S = Q K^T, each k16 step into a fresh fragment
+    float sc[KN / 8][4];
+#pragma unroll
+    for (int j = 0; j < KN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+    rows_product<D, KN / 8, KR, true, Gm::SU>(sc, qf, qa, kbase + 2 * lb);
+
+    // x = S * scale and the masks: a lane holds keys 8j + 2t + (e & 1) of
+    // rows g (e < 2) and g + 8
+    const int key0 = kt * KN;
+    const auto scores = [&](auto whole) {
+#pragma unroll
+      for (int j = 0; j < KN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = sc[j][e] * p.scale;
+          if (!decltype(whole)::value) {
+            const int kpos = key0 + 8 * j + 2 * t + (e & 1);
+            if (kpos >= p.sk)
+              x = -INFINITY;  // past the keys: no part in the softmax
+            else if ((p.causal && qpos[e >> 1] < kpos) || (p.kv_len >= 0 && kpos >= p.kv_len))
+              x = kNeg;
+          }
+          sc[j][e] = x;
+        }
+    };
+    if (key0 + KN <= warp_lim)
+      scores(std::true_type{});
+    else
+      scores(std::false_type{});
+
+    // the online softmax: p = exp2((x - m) log2 e) against the running max,
+    // O rescaled by alpha = exp2((m_old - m) log2 e)
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
       float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int kpos = key0 + 8 * j + 2 * t + e;
-          float x = sacc[j][2 * hf + e] * p.scale;
-          if (kpos >= p.sk)
-            x = -INFINITY;
-          else if ((p.causal && qpos[hf] < kpos) || (p.kv_len >= 0 && kpos >= p.kv_len))
-            x = kNeg;
-          pr[hf][j][e] = x;
-          mx = fmaxf(mx, x);
-        }
+      for (int j = 0; j < KN / 8; ++j) mx = fmaxf(mx, fmaxf(sc[j][2 * hf], sc[j][2 * hf + 1]));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
       const float mnew = fmaxf(mrow[hf], mx);
-      const float alpha = expf(mrow[hf] - mnew);
+      const float alpha = fast_exp2((mrow[hf] - mnew) * kLog2e);
       float ps = 0.f;
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
+      for (int j = 0; j < KN / 8; ++j)
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          pr[hf][j][e] = expf(pr[hf][j][e] - mnew);
-          ps += pr[hf][j][e];  // l sums p unrounded, as the reference does
+        for (int e = 2 * hf; e < 2 * hf + 2; ++e) {
+          sc[j][e] = fast_exp2((sc[j][e] - mnew) * kLog2e);
+          ps += sc[j][e];  // l sums p unrounded, as the reference does
         }
-      lrow[hf] = lrow[hf] * alpha + ps;
+      lrow[hf] = lrow[hf] * alpha + ps;  // this lane's keys; the quad sums at the end
       mrow[hf] = mnew;
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
@@ -623,100 +666,52 @@ flash_fwd_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict
       }
     }
 
-    cp_async_wait<1>();  // V(c) landed (K(c + 4) may still be in flight)
-    __syncwarp();
-    // O += bf16(P) V: one k16 step over the chunk's 16 keys
-    const uint32_t a[4] = {pack_bf16(pr[0][0][0], pr[0][0][1]), pack_bf16(pr[1][0][0], pr[1][0][1]),
-                           pack_bf16(pr[0][1][0], pr[0][1][1]), pack_bf16(pr[1][1][0], pr[1][1][1])};
+    // O += bf16(P) V, 16 keys per k step
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const uint16_t* vr = vc + 8 * n + g;
-      mma_bf16(acc[n], a, pack_raw(vr[2 * t * DP], vr[(2 * t + 1) * DP]),
-               pack_raw(vr[(2 * t + 8) * DP], vr[(2 * t + 9) * DP]));
+    for (int kk = 0; kk < KN / 16; ++kk) {
+      uint32_t a[4];
+      a_from_c(a, sc[2 * kk], sc[2 * kk + 1]);
+      cols_product<NT>(acc, a, vbase + 2 * (16 * kk * DP + la));
     }
-    __syncwarp();  // every lane is done with V(c)
-    if (next) stage_chunk_bf16<D>(vc, v, vb, p.v_ss, (c + kWarps) * kChunk, p, lane);
-    cp_async_commit();
   }
   cp_async_wait<0>();
 
-  // combine the warps' partial softmaxes as the fp32 body does, each warp's
-  // output (fp32, [16][D+4]) over its own K and V chunks
+  // out = O / l rounded to bf16 (element offsets oo; < 0: past Sq * G); m
+  // and l by the quad's first lane
+  long long oo[2];
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
     lrow[hf] += __shfl_xor_sync(0xffffffffu, lrow[hf], 1);
     lrow[hf] += __shfl_xor_sync(0xffffffffu, lrow[hf], 2);
-    if (t == 0) {
-      xm[warp * kTileRows + g + 8 * hf] = mrow[hf];
-      xl[warp * kTileRows + g + 8 * hf] = lrow[hf];
+    const float l = fmaxf(lrow[hf], 1e-30f), linv = 1.f / l;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      acc[n][2 * hf] *= linv;
+      acc[n][2 * hf + 1] *= linv;
+    }
+    const int row = r0 + 16 * warp + g + 8 * hf;
+    const int s = divg(row), gg = row - s * p.g;
+    oo[hf] = row < rows ? b * p.o_sb + h * p.o_sh + gg * p.o_sg + (long long)s * p.o_ss : -1;
+    if (t == 0 && row < rows) {
+      const long long mi = ((long long)bkv * p.g + gg) * p.sq + s;
+      m_out[mi] = mrow[hf];
+      l_out[mi] = l;
     }
   }
-  __syncthreads();
-  float* const mine = reinterpret_cast<float*>(kc);
-#pragma unroll
-  for (int hf = 0; hf < 2; ++hf) {
-    float mall = xm[g + 8 * hf];
-#pragma unroll
-    for (int w = 1; w < kWarps; ++w) mall = fmaxf(mall, xm[w * kTileRows + g + 8 * hf]);
-    const float f = expf(mrow[hf] - mall);
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-      *reinterpret_cast<float2*>(mine + (g + 8 * hf) * PD + 8 * n + 2 * t) =
-          make_float2(acc[n][2 * hf] * f, acc[n][2 * hf + 1] * f);
-  }
-  __syncthreads();
-  const float* part = reinterpret_cast<const float*>(qs + kTileRows * DP);
-  constexpr int kPartStride = kChunk * DP;  // floats between two warps' partials
-  for (int i = tid; i < kTileRows * (D / 4); i += kThreads) {
-    const int r = i / (D / 4), d = (i - r * (D / 4)) * 4, row = r0 + r;
-    if (row >= rows) continue;
-    float mall = xm[r];
-#pragma unroll
-    for (int w = 1; w < kWarps; ++w) mall = fmaxf(mall, xm[w * kTileRows + r]);
-    float lsum = 0.f;
-    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      lsum += expf(xm[w * kTileRows + r] - mall) * xl[w * kTileRows + r];
-      const float4 x = *reinterpret_cast<const float4*>(part + w * kPartStride + r * PD + d);
-      sum.x += x.x; sum.y += x.y; sum.z += x.z; sum.w += x.w;
-    }
-    const float l = fmaxf(lsum, 1e-30f);
-    const int s = row / p.g, gg = row - s * p.g;
-    uint16_t* dst = o + b * p.o_sb + h * p.o_sh + gg * p.o_sg + s * p.o_ss + d;
-    const uint32_t y01 = pack_bf16(sum.x / l, sum.y / l), y23 = pack_bf16(sum.z / l, sum.w / l);
-    if (p.vec) {
-      *reinterpret_cast<uint2*>(dst) = make_uint2(y01, y23);
-    } else {
-      dst[0] = (uint16_t)y01; dst[1] = (uint16_t)(y01 >> 16);
-      dst[2] = (uint16_t)y23; dst[3] = (uint16_t)(y23 >> 16);
-    }
-    if (d == 0) {
-      const long long idx = ((long long)bkv * p.g + gg) * p.sq + s;
-      m_out[idx] = mall;
-      l_out[idx] = l;
-    }
-  }
-}
-
-// Shared bytes of the bf16 forward: the Q tile, per warp a K and a V chunk
-// (bf16 [16][DP]), the warps' m and l: 40 KB at D = 128.
-template <int D>
-constexpr int fwd_bf16_smem_bytes() {
-  return (kTileRows + kWarps * 2 * kChunk) * Bf16Rows<D>::DP * 2 + 2 * kWarps * kTileRows * 4;
+  store_rows_bf16<NT>(o, acc, oo, 1.f, t, p.vec);
 }
 
 template <int D>
 int launch_bf16(const uint16_t* q, const uint16_t* k, const uint16_t* v, uint16_t* o, float* m,
                 float* l, const FlashParams& p, int nbkv, cudaStream_t stream) {
+  using Gm = Bf16Fwd<D>;
   static std::atomic<int> allowed[kMaxDevices];
-  const int smem = fwd_bf16_smem_bytes<D>();
-  const cudaError_t e = allow_smem((const void*)flash_fwd_bf16_kernel<D>, smem, allowed);
+  const cudaError_t e = allow_smem((const void*)flash_fwd_bf16_kernel<D>, Gm::kSmemBytes, allowed);
   if (e != cudaSuccess) return (int)e;
-  const long long tiles = ((long long)p.sq * p.g + kTileRows - 1) / kTileRows;
-  if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  dim3 grid((unsigned)tiles, nbkv);
-  flash_fwd_bf16_kernel<D><<<grid, kThreads, smem, stream>>>(q, k, v, o, m, l, p);
+  if ((long long)p.sq * p.g > 0x7fffffffLL - Gm::BM) return (int)cudaErrorInvalidValue;
+  const int n_tiles = (p.sq * p.g + Gm::BM - 1) / Gm::BM;
+  flash_fwd_bf16_kernel<D><<<bf16_grid(nbkv, n_tiles), Gm::kThreads, Gm::kSmemBytes, stream>>>(
+      q, k, v, o, m, l, p);
   return (int)cudaGetLastError();
 }
 

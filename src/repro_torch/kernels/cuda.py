@@ -44,7 +44,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("ecr_conv.cu", "ecr_conv_int8.cu", "bsr_matmul.cu", "bsr_matmul_int8.cu",
            "flash_attention.cu", "flash_attention_bwd.cu")
-HEADERS = ("smem_io.cuh", "int8_mma.cuh", "tf32_mma.cuh", "bf16_mma.cuh")  # included; hashed
+HEADERS = ("smem_io.cuh", "int8_mma.cuh", "tf32_mma.cuh", "bf16_mma.cuh",
+           "flash_bf16.cuh")  # included; hashed
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 _CHECKOUT = Path(__file__).resolve().parents[3]

@@ -801,10 +801,15 @@ def _entries_since(before):
 
 
 # the bf16 forward: the fp32 cases, plus head dim 8 and 16 in the model
-# layout (the k16 MMA's zero padding; 8-element rows read in place)
+# layout (the k16 MMA's zero padding; 8-element rows read in place), and
+# cases ragged against its block and ring tiles (64 rows; 64 keys, 32 at
+# D = 256): Sq * G = 129 rows over Sk = 75 keys at D = 256 (Q's fragments
+# read at each step), and Sk = 150 at D = 32
 FLASH_BF16_CASES = FLASH_CASES + [
     ("model", 2, 2, 4, 33, 70, 8, True, 0, None),
     ("model", 2, 2, 3, 21, 45, 16, False, 0, 40),
+    ("model", 2, 2, 3, 43, 75, 256, True, 0, None),
+    ("model", 2, 2, 2, 70, 150, 32, True, 0, None),
 ]
 
 
@@ -825,6 +830,38 @@ def test_flash_bf16_kernel_matches_plain(dev, case):
     _bf16_close(out, po)
     _stat_close(m, pm)
     _stat_close(l, pl)
+
+
+@pytest.mark.parametrize("shape", [(8, 128, 8, 2, 128, 128), (2, 65, 2, 2, 97, 256),
+                                   (2, 70, 2, 3, 150, 8), (2, 70, 2, 3, 150, 16),
+                                   (2, 70, 2, 3, 150, 32)],
+                         ids=["trained", "d256", "d8", "d16", "d32"])
+def test_flash_bf16_fwd_kernel_repeats_bitwise(dev, shape):
+    """Each bf16 forward row has one owning warp, which walks the key tiles
+    in a fixed order and writes out, m and l from its registers (no
+    cross-warp merge, no atomics), so later launches on the same inputs
+    repeat the first bitwise: at the trained shape, at D = 256 (Q's
+    fragments read at each step, 32-key ring tiles) and at D = 8, 16 and 32,
+    each ragged against the 64-row blocks and the ring tiles. Remat "full"
+    runs the forward twice per layer, and the backward reads the second
+    launch's m and l."""
+    b, sq, kv, g, sk, d = shape
+    rng = np.random.default_rng(d + 31)
+
+    def make(*dims):
+        x = rng.standard_normal(dims).astype(np.float32)
+        return torch.from_numpy(x).to(dev, torch.bfloat16)
+
+    q, k, v = make(b, sq, kv, g, d), make(b, sk, kv, d), make(b, sk, kv, d)
+    kw = dict(scale=d ** -0.5, causal=True, q_offset=0, kv_len=None)
+    out, m, l = flash_fwd(q, k, v, **kw)
+    po, pm, pl = flash_fwd_plain(q, k, v, **kw)
+    _bf16_close(out, po)
+    _stat_close(m, pm)
+    _stat_close(l, pl)
+    for _ in range(3):
+        out2, m2, l2 = flash_fwd(q, k, v, **kw)
+        assert torch.equal(out2, out) and torch.equal(m2, m) and torch.equal(l2, l)
 
 
 def _bf16_do(q, seed):

@@ -198,3 +198,21 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
                        text=True, env=env, timeout=120, cwd=tmp_path)
     assert r.returncode != 0
     assert '"ok": true' not in r.stdout
+
+
+def test_every_kernel_source_and_header_is_built_and_hashed():
+    """The library's name hashes SOURCES and HEADERS alone, so a header left
+    out would let a stale library load after an edit: every .cu under csrc/
+    is in SOURCES, every .cuh in HEADERS, and every quoted #include of a
+    source or header names a listed header."""
+    import re
+
+    from repro_torch.kernels import cuda
+
+    csrc = PKG / "kernels" / "csrc"
+    assert sorted(p.name for p in csrc.glob("*.cu")) == sorted(cuda.SOURCES)
+    assert sorted(p.name for p in csrc.glob("*.cuh")) == sorted(cuda.HEADERS)
+    assert cuda.CSRC == csrc
+    for path in sorted(csrc.glob("*.cu*")):
+        for inc in re.findall(r'^\s*#\s*include\s+"([^"]+)"', path.read_text(), re.M):
+            assert inc in cuda.HEADERS, f"{path.name} includes {inc}, not in HEADERS"
