@@ -3,8 +3,9 @@
 `repro.configs.base`).
 
 The dataclasses carry every field of the reference's, so a config file
-copies over verbatim. The registry loads only the architectures the port
-serves (`_ARCH_MODULES`); the others join with their families (ROADMAP).
+copies over verbatim. The registry loads the dense LM family (`_ARCH_MODULES`);
+the MoE, MLA, hybrid, SSM, VLM and audio configs join with their families
+(ROADMAP queue 1 item 16).
 `ModelConfig.n_params` counts from the parameter shapes without allocating
 them (`models.model.count_params_analytic`).
 """
@@ -207,6 +208,9 @@ def list_archs() -> list[str]:
 _LOADED = False
 
 _ARCH_MODULES = [
+    "stablelm_12b",
+    "mistral_large_123b",
+    "minitron_8b",
     "qwen3_0_6b",
 ]
 

@@ -38,6 +38,11 @@
 // (B, S_max, KV, D) keys, so the decode path reads the cache in place with no
 // transpose. m and l are (BKV, G, Sq), contiguous.
 //
+// Head dims: the fp32 and int8 K/V forwards are instantiated at D = 8, 16,
+// 32, 64, 128, 160 (stablelm-12b: d_model 5120 over 32 heads) and 256; the
+// body needs only 8 | D (k8 steps, float4 rows). The bf16 forward keeps
+// 8 ... 256 without 160.
+//
 // What bounds the kernel on this card: at the shapes it runs (served
 // prefill B4 Sq32 Sk64 and decode Sq1 kv_len <= 64 at KV 8, G 2, D 128; the
 // trained forward B8 Sq = Sk = 128) neither bytes (a few MB) nor operations
@@ -801,6 +806,7 @@ int repro_flash_fwd_f32(const float* q, const float* k, const float* v, float* o
     case 32: return launch_f32<32>(q, k, v, out, m, l, p, nbkv, s);
     case 64: return launch_f32<64>(q, k, v, out, m, l, p, nbkv, s);
     case 128: return launch_f32<128>(q, k, v, out, m, l, p, nbkv, s);
+    case 160: return launch_f32<160>(q, k, v, out, m, l, p, nbkv, s);
     case 256: return launch_f32<256>(q, k, v, out, m, l, p, nbkv, s);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -844,6 +850,7 @@ int repro_flash_fwd_q8(const float* q, const int8_t* k, const int8_t* v,
     case 32: return launch_q8<32>(q, k, v, k_scale, v_scale, out, p, nbkv, s);
     case 64: return launch_q8<64>(q, k, v, k_scale, v_scale, out, p, nbkv, s);
     case 128: return launch_q8<128>(q, k, v, k_scale, v_scale, out, p, nbkv, s);
+    case 160: return launch_q8<160>(q, k, v, k_scale, v_scale, out, p, nbkv, s);
     case 256: return launch_q8<256>(q, k, v, k_scale, v_scale, out, p, nbkv, s);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -382,7 +382,20 @@ def launch_bsr(h, w, ids, cnt, *, block: tuple, sh=None, sw=None):
     return out
 
 
+# the head dims each flash entry point is instantiated at: the fp32 and int8
+# K/V forwards add stablelm-12b's 160; the bf16 forward and the backward
+# passes do not take it yet (ROADMAP queue 2 item [10], interface parity)
 FLASH_HEAD_DIMS = (8, 16, 32, 64, 128, 256)
+FLASH_FWD_HEAD_DIMS = (8, 16, 32, 64, 128, 160, 256)
+FLASH_ENTRY_HEAD_DIMS = {
+    "repro_flash_fwd_f32": FLASH_FWD_HEAD_DIMS,
+    "repro_flash_fwd_q8": FLASH_FWD_HEAD_DIMS,
+    "repro_flash_fwd_bf16": FLASH_HEAD_DIMS,
+    "repro_flash_bwd_dq_f32": FLASH_HEAD_DIMS,
+    "repro_flash_bwd_dkv_f32": FLASH_HEAD_DIMS,
+    "repro_flash_bwd_dq_bf16": FLASH_HEAD_DIMS,
+    "repro_flash_bwd_dkv_bf16": FLASH_HEAD_DIMS,
+}
 # the most query groups per kv head the flash kernels take: their tiles
 # flatten (position, group) rows, and the tests cover G up to 64
 FLASH_MAX_GROUPS = 64
@@ -454,14 +467,18 @@ def flash_bwd_strides(q, k, v, do, dq, dk, dv) -> tuple:
             + _key_strides(dv, kl))
 
 
-def _check_flash_kernel(nbkv: int, g: int, d: int, tensors) -> None:
-    """What every CUDA flash kernel refuses: a head dim that is not
-    contiguous or not one they are built for, more than FLASH_MAX_GROUPS
-    groups, a grid past 65535 kv heads."""
+def _check_flash_kernel(entry: str, nbkv: int, g: int, d: int, tensors) -> None:
+    """What the CUDA flash entry point `entry` refuses: a head dim that is
+    not contiguous or not one it is built for (`FLASH_ENTRY_HEAD_DIMS`), more
+    than FLASH_MAX_GROUPS groups, a grid past 65535 kv heads."""
     if any(t.stride(-1) != 1 for t in tensors):
         raise ValueError("the CUDA flash kernel needs a contiguous head dim")
-    if d not in FLASH_HEAD_DIMS:
-        raise ValueError(f"the CUDA flash kernel takes head dims {FLASH_HEAD_DIMS}, got {d}")
+    dims = FLASH_ENTRY_HEAD_DIMS[entry]
+    if d not in dims:
+        later = (" (head dim 160 is ROADMAP queue 2 item [10], interface parity)"
+                 if d in FLASH_FWD_HEAD_DIMS else "")
+        raise ValueError(f"the CUDA flash kernel {entry} takes head dims {dims}, "
+                         f"got {d}{later}")
     if g > FLASH_MAX_GROUPS or nbkv > 65535:
         raise ValueError(f"{g} groups / {nbkv} kv heads exceed the CUDA flash "
                          f"kernel's grid ({FLASH_MAX_GROUPS} / 65535)")
@@ -499,7 +516,9 @@ def launch_flash(q, k, v, *, scale: float, causal: bool, q_offset: int = 0,
                  or k_scale.stride() != v_scale.stride()):
         raise TypeError(f"k_scale and v_scale must be float32 in one layout, got "
                         f"{k_scale.dtype}/{v_scale.dtype}")
-    _check_flash_kernel(nbkv, g, d, (q, k, v))
+    entry = ("repro_flash_fwd_q8" if int8 else "repro_flash_fwd_bf16"
+             if q.dtype == torch.bfloat16 else "repro_flash_fwd_f32")
+    _check_flash_kernel(entry, nbkv, g, d, (q, k, v))
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("the CUDA flash forward records no autograd graph: "
                            "differentiate through FlashAttentionFn "
@@ -513,7 +532,6 @@ def launch_flash(q, k, v, *, scale: float, causal: bool, q_offset: int = 0,
     with torch.cuda.device(dev):
         if int8:
             m = l = None
-            entry = "repro_flash_fwd_q8"
             err = lib.repro_flash_fwd_q8(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                          k_scale.data_ptr(), v_scale.data_ptr(),
                                          out.data_ptr(), dims, strides, float(scale),
@@ -521,8 +539,6 @@ def launch_flash(q, k, v, *, scale: float, causal: bool, q_offset: int = 0,
         else:
             m = torch.empty((nbkv, g, sq), device=dev, dtype=torch.float32)
             l = torch.empty((nbkv, g, sq), device=dev, dtype=torch.float32)
-            entry = ("repro_flash_fwd_bf16" if q.dtype == torch.bfloat16
-                     else "repro_flash_fwd_f32")
             err = getattr(lib, entry)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                       out.data_ptr(), m.data_ptr(), l.data_ptr(),
                                       dims, strides, float(scale), stream)
@@ -559,7 +575,9 @@ def launch_flash_bwd(q, k, v, do, m, l, delta, *, part: str, scale: float,
         raise ValueError(f"m, l and delta must be contiguous ({nbkv}, {g}, {sq})")
     if part not in ("dq", "dkv"):
         raise ValueError(f"part {part!r}: choose 'dq' or 'dkv'")
-    _check_flash_kernel(nbkv, g, d, (q, k, v, do))
+    entry = (f"repro_flash_bwd_{part}_"
+             f"{'bf16' if q.dtype == torch.bfloat16 else 'f32'}")
+    _check_flash_kernel(entry, nbkv, g, d, (q, k, v, do))
     dq = torch.empty(q.shape, device=dev, dtype=q.dtype) if part == "dq" else q
     dk, dv = (torch.empty(k.shape, device=dev, dtype=k.dtype),
               torch.empty(v.shape, device=dev, dtype=v.dtype)) \
@@ -567,8 +585,6 @@ def launch_flash_bwd(q, k, v, do, m, l, delta, *, part: str, scale: float,
     dims = _flash_dims(nbkv, nh, g, sq, sk, d, causal, q_offset, kv_len)
     strides = (ctypes.c_longlong * 24)(*flash_bwd_strides(q, k, v, do, dq, dk, dv))
     ptrs = tuple(t.data_ptr() for t in (q, k, v, do, m, l, delta))
-    entry = (f"repro_flash_bwd_{part}_"
-             f"{'bf16' if q.dtype == torch.bfloat16 else 'f32'}")
     lib = library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):

@@ -22,6 +22,7 @@ from repro_torch.kernels.tiles import (
     i8_conv_tile,
     resolve_block_c,
     resolve_block_o,
+    resolve_conv_tile,
 )
 
 
@@ -137,3 +138,21 @@ def ecr_conv_cost(c: int, h: int, w: int, o: int, kh: int = 3, kw: int = 3, *,
     k_bytes = occupancy * o * c * kh * kw * dtype_bytes
     return {"flops": flops, "bytes": act_bytes + out_bytes + k_bytes,
             "out_elems": o * oh * ow * batch}
+
+
+def channel_block_occupancy(x_chw: torch.Tensor, block_c: int = 128,
+                            compact: bool = False) -> float:
+    """Fraction of live channel blocks of a (C, H, W) map: the share of the
+    kernel's work its schedule does not skip, at the block size `ecr_conv`
+    resolves for this shape (`resolve_conv_tile`). A block_c that does not
+    divide C pads the tail channels up to a whole block. compact=True gives
+    the occupancy after channel compaction, ceil(n_live / bc) / n_blocks."""
+    c, h, w = x_chw.shape
+    bc = resolve_conv_tile(h, w, c, c, TileConfig(block_c=block_c))[0]
+    n_cb = -(-c // bc)
+    if compact:
+        n_live = int((x_chw != 0).flatten(1).any(1).sum())
+        return -(-n_live // bc) / n_cb
+    xp = F.pad(x_chw, (0, 0, 0, 0, 0, n_cb * bc - c))
+    occ = block_occupancy(xp.permute(1, 2, 0), (h, w, bc))
+    return float(occ.float().mean())

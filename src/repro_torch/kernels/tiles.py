@@ -114,7 +114,7 @@ def resolve_conv_tile(h: int, w: int, c: int, o: int,
                       tile: TileConfig | None = None,
                       dtype_bytes: int = 4) -> tuple:
     """(bc, bo) by the reference's rule; bo is clamped into [.., max(8, o)].
-    Kept for the parity test of the rule: the launches resolve the output
+    `channel_block_occupancy` reads its bc; the launches resolve the output
     tile through `resolve_block_o`."""
     bc = resolve_block_c(h, w, c, tile, dtype_bytes)
     bo = tile.block_o if tile is not None and tile.block_o > 0 else 128

@@ -1,12 +1,16 @@
 """LM serving launcher on the port: batched prefill, then a greedy decode
 loop over a KV cache, fp32 or int8 (counterpart of `repro.launch.serve`,
-dense LMs; no mesh).
+dense LMs; no mesh). The dense archs: qwen3-0.6b, minitron-8b, stablelm-12b
+and mistral-large-123b.
 
-Run on the card (default device "cuda"):
+Run on the card (default device "cuda"), at full width with fp32 weights
+(minitron-8b takes 31 GB of the card, stablelm-12b 49 GB; mistral-large-123b
+fits no single card and serves only reduced):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b --full
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b --full --kv-cache-dtype int8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch minitron-8b --full --kv-cache-dtype int8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-12b --full
 On the host, through the kernels' plain PyTorch versions (reduced config):
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch minitron-8b --device cpu
 """
 from __future__ import annotations
 
@@ -42,16 +46,19 @@ def _sync(dev: torch.device) -> None:
 
 def serve(arch: str, *, reduced: bool = True, batch: int = 4, prompt_len: int = 32,
           gen_len: int = 32, seed: int = 0, device=None,
-          kv_cache_dtype: str = "float32") -> ServeResult:
-    """Random weights from `torch.Generator(seed)`, random prompt tokens from
-    `seed + 1`; returns the generated tokens and the step times."""
+          kv_cache_dtype: str = "float32", params: dict | None = None) -> ServeResult:
+    """Random weights from `torch.Generator(seed)` (drawn on the host and
+    moved leaf by leaf), or `params`, a tree `init_params` made for this
+    config on `device`; random prompt tokens from `seed + 1`. Returns the
+    generated tokens and the step times."""
     if kv_cache_dtype not in KV_CACHE_DTYPES:
         raise ValueError(f"kv_cache_dtype {kv_cache_dtype!r}: choose from "
                          f"{sorted(KV_CACHE_DTYPES)}")
     dev = resolve_device(device)
     cfg = get_config(arch, reduced=reduced)
     run = DEFAULT_RUN.replace(kv_cache_dtype=kv_cache_dtype)
-    params = M.init_params(cfg, torch.Generator().manual_seed(seed), device=dev)
+    if params is None:
+        params = M.init_params(cfg, torch.Generator().manual_seed(seed), device=dev)
     caches = M.init_cache(cfg, batch, prompt_len + gen_len,
                           KV_CACHE_DTYPES[kv_cache_dtype], device=dev)
     prefill = make_prefill_step(cfg, run)

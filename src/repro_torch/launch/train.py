@@ -10,8 +10,12 @@ a `ShapeConfig("custom_train", seq_len, global_batch, "train")`. For the
 float32 trainer, build the state with `init_train_state` and the step with
 `make_train_step` at `DEFAULT_RUN.replace(param_dtype="float32")`.
 
-Run on the card (default device "cuda"):
+Run on the card (default device "cuda"); qwen3-0.6b trains at full width,
+the larger dense archs (minitron-8b, stablelm-12b, mistral-large-123b) at
+their reduced configs, since bf16 weights with fp32 moments take 12 bytes a
+parameter, past one card at 8 B parameters:
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b --full --steps 6
+    PYTHONPATH=src python -m repro_torch.launch.train --arch minitron-8b --steps 3 --no-resume
 On the host, through the kernels' plain PyTorch versions (reduced config):
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b --device cpu --steps 4
 """

@@ -23,7 +23,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.kernel import dequantize, flash_fwd, flash_fwd_q8
 from repro_torch.kernels.flash_attention.ops import FlashAttentionFn
-from repro_torch.models.layers import dense_init, ones_init, rms_norm, rope
+from repro_torch.models.layers import as_drawn, dense_init, ones_init, rms_norm, rope
 
 
 def flash_attention(q, k, v, *, causal: bool, scale: float, q_offset=0,
@@ -41,18 +41,17 @@ def flash_attention(q, k, v, *, causal: bool, scale: float, q_offset=0,
     return out
 
 
-def init_gqa(generator: torch.Generator, cfg: ModelConfig) -> dict:
+def init_gqa(generator: torch.Generator, cfg: ModelConfig, place=as_drawn) -> dict:
+    """`place` takes each leaf as it is drawn."""
     d, h, kv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
     hd = cfg.resolved_head_dim
-    p = {
-        "wq": dense_init(generator, (d, h, hd)),
-        "wk": dense_init(generator, (d, kv, hd)),
-        "wv": dense_init(generator, (d, kv, hd)),
-        "wo": dense_init(generator, (h, hd, d), fan_in=h * hd),
-    }
+    p = {"wq": place(dense_init(generator, (d, h, hd)))}
+    p["wk"] = place(dense_init(generator, (d, kv, hd)))
+    p["wv"] = place(dense_init(generator, (d, kv, hd)))
+    p["wo"] = place(dense_init(generator, (h, hd, d), fan_in=h * hd))
     if cfg.qk_norm:
-        p["q_norm"] = ones_init((hd,))
-        p["k_norm"] = ones_init((hd,))
+        p["q_norm"] = place(ones_init((hd,)))
+        p["k_norm"] = place(ones_init((hd,)))
     return p
 
 

@@ -2,15 +2,21 @@
 (counterpart of `repro.models.layers`; parameters are plain tensors, with no
 logical-axis annotations, since the port has no mesh).
 
-The initializers draw on the host from a `torch.Generator`, so one seed gives
-the same weights on every device; the caller moves them. Given no generator
-they return uninitialized tensors of the same shapes (the parameter count
-takes them on the meta device)."""
+The initializers draw from a `torch.Generator` on the generator's own device:
+a host generator gives the same weights whatever device the caller moves them
+to, a CUDA generator draws on the card. Given no generator they return
+uninitialized tensors of the same shapes (the parameter count takes them on
+the meta device)."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+
+
+def as_drawn(t: torch.Tensor) -> torch.Tensor:
+    """The initializers' default `place`: a drawn leaf stays as drawn."""
+    return t
 
 
 def dense_init(generator: torch.Generator, shape, fan_in: Optional[int] = None,
@@ -20,13 +26,15 @@ def dense_init(generator: torch.Generator, shape, fan_in: Optional[int] = None,
     if generator is None:
         return torch.empty(tuple(shape), dtype=dtype)
     fi = fan_in or (shape[-2] if len(shape) >= 2 else shape[-1])
-    return torch.randn(tuple(shape), generator=generator, dtype=dtype) * (fi ** -0.5)
+    return torch.randn(tuple(shape), generator=generator, device=generator.device,
+                       dtype=dtype) * (fi ** -0.5)
 
 
 def embed_init(generator: torch.Generator, shape, dtype=torch.float32) -> torch.Tensor:
     if generator is None:
         return torch.empty(tuple(shape), dtype=dtype)
-    return torch.randn(tuple(shape), generator=generator, dtype=dtype) * 0.02
+    return torch.randn(tuple(shape), generator=generator, device=generator.device,
+                       dtype=dtype) * 0.02
 
 
 def ones_init(shape, dtype=torch.float32) -> torch.Tensor:

@@ -7,8 +7,9 @@ Step semantics:
   decode:  forward(one token, caches, write_pos=pos) -> next-token logits
 
 Parameters are a plain dict with the reference's tree and layouts
-({"embed", "final_norm", "groups", ["unembed"]}), drawn on the host from a
-`torch.Generator` and moved to `device` (None = the card). Without caches
+({"embed", "final_norm", "groups", ["unembed"]}), drawn from a
+`torch.Generator` on its own device and moved to `device` (None = the card)
+leaf by leaf. Without caches
 `forward` and `lm_loss` are differentiable (the attention backward is the
 flash backward kernels); the cache paths are for serving and run under
 `torch.no_grad()`, as `launch/serve.py` does.
@@ -36,24 +37,25 @@ def _check_family(cfg: ModelConfig) -> None:
                                   f"ported yet; see {FAMILIES_TODO}")
 
 
-def _to(tree, device, dtype):
-    if isinstance(tree, dict):
-        return {k: _to(v, device, dtype) for k, v in tree.items()}
-    return tree.to(device=device, dtype=dtype)
-
-
 def init_params(cfg: ModelConfig, generator: torch.Generator, *, device=None,
                 dtype=torch.float32) -> dict:
     """Random parameters in the reference's tree (no logical-axes tree: the
-    port has no mesh)."""
+    port has no mesh), drawn leaf by leaf in a fixed order on the
+    generator's device, each cast to `dtype` and moved to `device` as soon as
+    it is drawn: a host generator holds one leaf at a time on the host and
+    gives the same tree on every device."""
     _check_family(cfg)
     dev = resolve_device(device)
+
+    def place(t):
+        return t.to(device=dev, dtype=dtype)
+
     d, v = cfg.d_model, cfg.vocab_size
-    p = {"embed": embed_init(generator, (v, d)), "final_norm": ones_init((d,)),
-         "groups": init_groups(generator, cfg)}
+    p = {"embed": place(embed_init(generator, (v, d))), "final_norm": place(ones_init((d,))),
+         "groups": init_groups(generator, cfg, place)}
     if not cfg.tie_embeddings:
-        p["unembed"] = embed_init(generator, (d, v))
-    return _to(p, dev, dtype)
+        p["unembed"] = place(embed_init(generator, (d, v)))
+    return p
 
 
 def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:

@@ -24,7 +24,8 @@ from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sparse_ffn import activation_fn
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.layers import dense_init, ones_init, rms_norm
+from repro_torch.models.layers import as_drawn, dense_init, ones_init, rms_norm
+from repro_torch.tree import tree_leaves, tree_map
 
 FAMILIES_TODO = "ROADMAP queue 1 item 16 (the other LM families)"
 
@@ -53,14 +54,14 @@ def n_groups(cfg: ModelConfig) -> int:
 # ---------------------------------------------------------------------------
 
 
-def init_ffn(generator: torch.Generator, cfg: ModelConfig, d_ff: int) -> dict:
+def init_ffn(generator: torch.Generator, cfg: ModelConfig, d_ff: int,
+             place=as_drawn) -> dict:
     d = cfg.d_model
-    if cfg.mlp_activation in ("relu", "relu2"):  # non-gated: the ECR-sparse form
-        return {"w1": dense_init(generator, (d, d_ff)),
-                "w2": dense_init(generator, (d_ff, d), fan_in=d_ff)}
-    return {"w1": dense_init(generator, (d, d_ff)),
-            "w3": dense_init(generator, (d, d_ff)),
-            "w2": dense_init(generator, (d_ff, d), fan_in=d_ff)}
+    p = {"w1": place(dense_init(generator, (d, d_ff)))}
+    if cfg.mlp_activation not in ("relu", "relu2"):  # gated; non-gated is the ECR-sparse form
+        p["w3"] = place(dense_init(generator, (d, d_ff)))
+    p["w2"] = place(dense_init(generator, (d_ff, d), fan_in=d_ff))
+    return p
 
 
 def ffn_apply(p, x, cfg: ModelConfig):
@@ -68,34 +69,42 @@ def ffn_apply(p, x, cfg: ModelConfig):
     if "w3" in p:
         h = act(x @ p["w1"].to(x.dtype)) * (x @ p["w3"].to(x.dtype))
     else:
+        # ffn_sparsity="block_ecr" (minitron) stays this dense product: the
+        # reference's branch only re-shards h and masks nothing, and the
+        # block-masked form is `core.sparse_ffn.sparse_ffn_apply`
         h = act(x @ p["w1"].to(x.dtype))
     return h @ p["w2"].to(x.dtype)
 
 
-def init_sublayer(generator: torch.Generator, sub: Sub, cfg: ModelConfig) -> dict:
+def init_sublayer(generator: torch.Generator, sub: Sub, cfg: ModelConfig,
+                  place=as_drawn) -> dict:
     if sub.kind != "attn":
         raise NotImplementedError(f"sublayer {sub.kind!r}: see {FAMILIES_TODO}")
-    p = {"ln1": ones_init((cfg.d_model,)), "mix": attn_mod.init_gqa(generator, cfg)}
+    p = {"ln1": place(ones_init((cfg.d_model,))),
+         "mix": attn_mod.init_gqa(generator, cfg, place)}
     if sub.ffn != "none":
-        p["ln2"] = ones_init((cfg.d_model,))
-        p["ffn"] = init_ffn(generator, cfg, cfg.d_ff)
+        p["ln2"] = place(ones_init((cfg.d_model,)))
+        p["ffn"] = init_ffn(generator, cfg, cfg.d_ff, place)
     return p
 
 
-def _stack(trees: list):
-    """Stack a list of parameter trees along a new leading layers axis."""
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    if trees[0].is_meta:  # shapes only (the parameter count): no stack kernel
-        return trees[0].new_empty((len(trees),) + tuple(trees[0].shape))
-    return torch.stack(trees)
-
-
-def init_groups(generator: torch.Generator, cfg: ModelConfig) -> dict:
-    """{"sub0": {...}} with every leaf stacked (n_groups, ...), on the host."""
+def init_groups(generator: torch.Generator, cfg: ModelConfig, place=as_drawn) -> dict:
+    """{"sub0": {...}} with every leaf stacked (n_groups, ...). Layer by
+    layer, each leaf goes to `place` as soon as it is drawn and is then
+    copied into its slot of the stacked leaf, made where `place` put layer
+    0's: with `place` moving leaves to the card, the host holds one leaf at a
+    time."""
     lay = group_layout(cfg)
-    return _stack([{f"sub{i}": init_sublayer(generator, s, cfg)
-                    for i, s in enumerate(lay)} for _ in range(n_groups(cfg))])
+    n = n_groups(cfg)
+    stacked = None
+    for i in range(n):
+        layer = {f"sub{j}": init_sublayer(generator, s, cfg, place)
+                 for j, s in enumerate(lay)}
+        if stacked is None:
+            stacked = tree_map(lambda t: t.new_empty((n,) + tuple(t.shape)), layer)
+        for dst, src in zip(tree_leaves(stacked), tree_leaves(layer)):
+            dst[i].copy_(src)
+    return stacked
 
 
 def unstack_groups(tree, n: int) -> list:

@@ -603,6 +603,59 @@ def test_flash_q8_kernel_matches_plain(dev, case):
     _close(out, flash_fwd_q8_plain(q, kq, vq, ks, vs, **kw))
 
 
+# Head dim 160 (stablelm-12b, d_model 5120 over 32 heads), rows 9 and 10:
+# the served prefill and decode shapes (KV 8, G 4) read from a stacked cache,
+# ragged Sq / Sk, causal with q_offset > 0, kv_len < Sk, a fully masked block.
+FLASH_D160_CASES = [
+    ("model", 4, 8, 4, 32, 64, 160, True, 0, 32),
+    ("model", 4, 8, 4, 1, 64, 160, True, 40, 41),
+    ("kernel", 3, 1, 3, 37, 53, 160, False, 0, None),
+    ("kernel", 3, 1, 3, 37, 53, 160, True, 16, None),
+    ("kernel", 2, 1, 1, 100, 300, 160, True, 200, 290),
+    ("kernel", 2, 1, 2, 8, 32, 160, False, 0, 0),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_D160_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_flash_kernels_at_head_dim_160_match_plain(dev, case):
+    """Rows 9 (fp32 K/V: out, m, l) and 10 (int8 K/V) at head dim 160, one
+    launch each, within the fp32 limit of their plain versions."""
+    layout, b, kv, g, sq, sk, d, causal, q_offset, kv_len = case
+    q, k, v = _flash_operands(dev, layout, b, kv, g, sq, sk, d, seed=sq + sk + 7)
+    kw = dict(scale=d ** -0.5, causal=causal, q_offset=q_offset, kv_len=kv_len)
+    before = flash_fwd.launches
+    for got, want in zip(flash_fwd(q, k, v, **kw), flash_fwd_plain(q, k, v, **kw)):
+        _close(got, want)
+    assert flash_fwd.launches == before + 1
+    if layout == "kernel":
+        kq, ks = (t[:, :, 0] for t in _quantize_kv(k[:, :, None]))
+        vq, vs = (t[:, :, 0] for t in _quantize_kv(v[:, :, None]))
+    else:
+        kq, ks = _quantize_kv(k)
+        vq, vs = _quantize_kv(v)
+    before = flash_fwd_q8.launches
+    _close(flash_fwd_q8(q, kq, vq, ks, vs, **kw), flash_fwd_q8_plain(q, kq, vq, ks, vs, **kw))
+    assert flash_fwd_q8.launches == before + 1
+
+
+def test_bf16_and_backward_flash_refuse_head_dim_160(dev):
+    """The bf16 forward and the backward passes are not built at 160: they
+    raise before launching and count nothing."""
+    from repro_torch.kernels.flash_attention.kernel import flash_bwd_dkv, flash_bwd_dq
+
+    q, k, v = _flash_operands(dev, "kernel", 1, 1, 2, 16, 16, 160, seed=1)
+    kw = dict(scale=160 ** -0.5, causal=True, q_offset=0, kv_len=None)
+    _, m, l = flash_fwd(q, k, v, **kw)
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    before = (flash_fwd.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches)
+    with pytest.raises(ValueError, match=r"ROADMAP queue 2 item \[10\]"):
+        flash_fwd(qb, kb, vb, **kw)
+    for part in (flash_bwd_dq, flash_bwd_dkv):
+        with pytest.raises(ValueError, match=r"ROADMAP queue 2 item \[10\]"):
+            part(q, k, v, torch.ones_like(q), m, l, torch.zeros_like(m), **kw)
+    assert (flash_fwd.launches, flash_bwd_dq.launches, flash_bwd_dkv.launches) == before
+
+
 def _run_flash(q, k, v, kw):
     """fp32 flash kernel vs plain within the fp32 limit on out, m and l, one
     launch counted."""

@@ -67,7 +67,7 @@ def test_configs_match_the_reference(reduced):
     assert [f.name for f in dataclasses.fields(ModelConfig)] == \
         [f.name for f in dataclasses.fields(jbase.ModelConfig)]
     assert dataclasses.asdict(RunConfig()) == dataclasses.asdict(jbase.RunConfig())
-    assert list_archs() == [ARCH]
+    assert list_archs() == ["minitron-8b", "mistral-large-123b", ARCH, "stablelm-12b"]
     assert get_config(ARCH).rope_theta == 10_000.0  # the repo's default, kept
 
 
