@@ -266,6 +266,31 @@
    printed beside the host's fp32 grad norm on the same weights, not held:
    without qk_norm their scores have a std of ~32 (wq and wk drawn at
    fan-in n_heads) and bf16 rounding decides their gradients.
+10b. The MoE phase, after the dense LM phase has released its weights.
+   arctic-480b (d_model 7168, 56 query / 8 KV heads: head dim 128, G 7;
+   128 experts top-2, expert width 4864, a dense residual FFN of 4864,
+   vocab 32,000) at full width with its depth cut to one layer (~56 GB of
+   fp32 weights; two layers do not fit the card), weights drawn on the
+   card (seconds and peak allocated printed), served through
+   `serve(cfg, params=...)` (the launcher takes the cut config) at batch 4, prompt 32, 32
+   tokens with an fp32 and an int8 KV cache, the flash counters set to 0
+   just before each served run and read just after: 32 launches of
+   flash_fwd (fp32) or flash_fwd_q8 (int8), none of the other. Each served
+   call's routing is printed (token count, capacity: 8 at T = 128 and T =
+   4, tokens per expert, pairs dropped at capacity). The served tokens must
+   equal the card's teacher-forced argmax, with finite logits; a warm
+   prefill and decode step per cache type are traced. The flash kernels are
+   checked at the captured G 7 prefill and decode shapes of layer 0 as in
+   step 10, timed beside SDPA. Layer 0's routed FFN on its captured prefill
+   input is held against an fp64 brute force on the card over 4 tokens
+   (and any token with a dropped pair): fp64 routing, the reference's
+   drops, each kept pair's gated expert weighted by its gate; within
+   1e-4*max|fp64|. Reduced arctic-480b (2 layers, 8 experts, dense
+   residual), drawn on the host: teacher-forced logits on the card against
+   the host over fp32 and int8 caches (rtol 1e-3 + 1e-3*max|host|, the int8
+   rounding pinned as in step 10), then 3 bf16 train steps card vs host as
+   in step 10 (registered: the loss; qk_norm: loss, grad norm and step-0
+   leaves), the router aux loss in the loss.
 11. The scenario phase, on the published VGG-19 (weights and calibration
    images as in step 3; Engines at block_c=8, occ_threshold=0.75,
    max_batch=8, on a SimClock charged with the measured service time):
@@ -317,7 +342,8 @@
    "shapes", and launches count the served qwen3-0.6b run; "dense_lm" lists
    the same per served dense arch (head dim, launches, layer 0's times), and
    "launches_by_head_dim" the served runs' launches by head dim (160:
-   stablelm-12b). The flash bound is
+   stablelm-12b; arctic-480b's add to 128), "moe_lm" the same as
+   "dense_lm" for arctic-480b at depth 1 (G 7). The flash bound is
    max(4*B*H*(visible q.k pairs)*D / 165 TFLOP/s (split-TF32), bytes /
    3.35 TB/s), the
    bytes being the K/V of the keys read (4 bytes, or 1 byte plus the fp32
@@ -2880,6 +2906,37 @@ def logits_close(card, host) -> tuple:
     return worst, scale, ok
 
 
+def card_vs_host(label, cfg, params, params_cpu, prompt, follow, kvd, dev, max_len,
+                 failures) -> dict:
+    """Teacher-forced logits of the same weights on the card and on the
+    host's plain path (prefill + `follow`'s decode steps; for the int8 cache
+    the host quantizes its own K/V, is held within one step and
+    DENSE_SLICE_SCALE_TOL of the card's, then attends over the card's
+    values, `pin_quantization`), at rtol 1e-3 + 1e-3*max|host|."""
+    with pin_quantization("record") as rec:
+        card = teacher_forced(cfg, params, prompt, follow, kvd, dev, max_len)
+    t0 = time.perf_counter()
+    with (pin_quantization("replay", rec.recorded) if kvd == "int8"
+          else contextlib.nullcontext()) as pinned:
+        host = teacher_forced(cfg, params_cpu, prompt, follow, kvd, "cpu", max_len)
+    host_s = time.perf_counter() - t0
+    worst, scale, ok = logits_close(card, host)
+    pin = ""
+    if pinned is not None:
+        q_ok = pinned.worst_step <= 1 and pinned.worst_scale <= DENSE_SLICE_SCALE_TOL
+        pin = (f" (host on the card's int8 cache values: {pinned.moved} of "
+               f"{pinned.total} one step apart (limit 1), scales within "
+               f"{pinned.worst_scale:.2e} relative (limit "
+               f"{DENSE_SLICE_SCALE_TOL:g}): {'ok' if q_ok else 'FAIL'})")
+        ok &= q_ok
+    print(f"{label}, {kvd} cache, card vs host plain path{pin}, teacher-forced prefill + "
+          f"{follow.shape[1]} decode steps: max_abs_err={worst:.3e} (max|host|={scale:.3e}, "
+          f"rtol=1e-3, atol=1e-3*max|host|): {'ok' if ok else 'FAIL'}; host {host_s:.1f} s")
+    if not ok:
+        failures.append(f"{label} {kvd}: the card's logits disagree with the host")
+    return {"max_abs_err": worst, "max_host": scale, "ok": ok, "host_s": host_s}
+
+
 def dense_serve(arch, book, dev, failures) -> dict:
     """One dense arch at full width: weights drawn on the card, served
     (fp32 and int8 KV cache) through `serve(params=...)` with the flash
@@ -2902,7 +2959,8 @@ def dense_serve(arch, book, dev, failures) -> dict:
 
     cfg = get_config(arch)
     n_layers, d = cfg.n_layers, cfg.resolved_head_dim
-    out = {"head_dim": d, "n_params": cfg.n_params(), "runs": {}, "service": {}}
+    out = {"head_dim": d, "groups": cfg.n_heads // cfg.n_kv_heads, "n_params": cfg.n_params(),
+           "runs": {}, "service": {}}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(LM_SERVE["seed"]),
@@ -3038,42 +3096,19 @@ def dense_serve(arch, book, dev, failures) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     sl_cpu = tree_to(sl, "cpu")
-    out["slice"] = {}
-    for kvd, res in served.items():
-        prompt, follow = res.prompt.cpu(), res.tokens.cpu()[:, :LM_TF_STEPS]
-        with pin_quantization("record") as rec:
-            card = teacher_forced(cfg2, sl, prompt, follow, kvd, dev, max_len)
-        t0 = time.perf_counter()
-        with (pin_quantization("replay", rec.recorded) if kvd == "int8"
-              else contextlib.nullcontext()) as pinned:
-            host = teacher_forced(cfg2, sl_cpu, prompt, follow, kvd, "cpu", max_len)
-        host_s = time.perf_counter() - t0
-        worst, scale, ok = logits_close(card, host)
-        pin = ""
-        if pinned is not None:
-            q_ok = pinned.worst_step <= 1 and pinned.worst_scale <= DENSE_SLICE_SCALE_TOL
-            pin = (f" (host on the card's int8 cache values: {pinned.moved} of "
-                   f"{pinned.total} one step apart (limit 1), scales within "
-                   f"{pinned.worst_scale:.2e} relative (limit "
-                   f"{DENSE_SLICE_SCALE_TOL:g}): {'ok' if q_ok else 'FAIL'})")
-            ok &= q_ok
-        print(f"{arch} depth-{DENSE_SLICE_LAYERS} slice at full width, {kvd} cache, card vs "
-              f"host plain path{pin}, teacher-forced prefill + {LM_TF_STEPS} decode steps: "
-              f"max_abs_err={worst:.3e} (max|host|={scale:.3e}, rtol=1e-3, "
-              f"atol=1e-3*max|host|): {'ok' if ok else 'FAIL'}; host {host_s:.1f} s")
-        if not ok:
-            failures.append(f"{arch} {kvd}: the depth-{DENSE_SLICE_LAYERS} slice's card "
-                            f"logits disagree with the host")
-        out["slice"][kvd] = {"max_abs_err": worst, "max_host": scale, "ok": ok,
-                             "host_s": host_s}
+    out["slice"] = {
+        kvd: card_vs_host(f"{arch} depth-{DENSE_SLICE_LAYERS} slice at full width", cfg2, sl,
+                          sl_cpu, res.prompt.cpu(), res.tokens.cpu()[:, :LM_TF_STEPS], kvd,
+                          dev, max_len, failures)
+        for kvd, res in served.items()}
     del sl, sl_cpu
     gc.collect()
     torch.cuda.empty_cache()
     return out
 
 
-def dense_train(dev, failures) -> dict:
-    """Each dense arch's REDUCED config trained 3 bf16 steps on the card
+def dense_train(dev, failures, archs=DENSE_TRAIN_ARCHS) -> dict:
+    """Each of `archs`' REDUCED config trained 3 bf16 steps on the card
     (`make_train_step` at the reference launcher's types, remat "full")
     beside the host's plain path (remat "none") from the same state and
     batches, the flash counters set to 0 just before the steps and read just
@@ -3102,7 +3137,7 @@ def dense_train(dev, failures) -> dict:
                 "flash_bwd_dkv": flash_bwd_dkv}
     gb, sl, seed = DENSE_TRAIN["global_batch"], DENSE_TRAIN["seq_len"], DENSE_TRAIN["seed"]
     out = {}
-    for arch in DENSE_TRAIN_ARCHS:
+    for arch in archs:
         for variant in ("registered", "qk_norm"):
             cfg = get_config(arch, reduced=True)
             if variant == "qk_norm":
@@ -3174,16 +3209,17 @@ def dense_train(dev, failures) -> dict:
     return out
 
 
-def dense_rows(name, kvd, dense_lm) -> list:
-    """For the kernel line's flash rows: per served dense arch, its head dim,
-    the served run's launches and layer 0's prefill + decode times."""
+def dense_rows(name, kvd, dense_lm, archs=DENSE_SERVE_ARCHS) -> list:
+    """For the kernel line's flash rows: per served arch of `archs` (its
+    results in `dense_lm`), its head dim, query heads per KV head, the
+    served run's launches and layer 0's prefill + decode times."""
     rows = []
-    for arch in DENSE_SERVE_ARCHS:
+    for arch in archs:
         res = dense_lm.get(arch)
         if not res:
             continue
         timed = res.get("timed", {}).get(name, [])
-        rows.append({"arch": arch, "head_dim": res["head_dim"],
+        rows.append({"arch": arch, "head_dim": res["head_dim"], "groups": res["groups"],
                      "launches": res["runs"].get(kvd, {}).get("launches", {}).get(name, 0),
                      **{k: sum(r[k] for r in timed) for k in
                         ("ms", "plain_ms", "library_ms", "bound_ms")},
@@ -3192,12 +3228,17 @@ def dense_rows(name, kvd, dense_lm) -> list:
     return rows
 
 
-def launches_by_head_dim(name, kvd, lm, dense_lm) -> dict:
+def launches_by_head_dim(name, kvd, lm, dense_lm, moe_lm) -> dict:
     """The served runs' launches of one flash row, by head dim."""
     out = {128: lm.get("runs", {}).get(kvd, {}).get("launches", {}).get(name, 0)}
-    for row in dense_rows(name, kvd, dense_lm):
+    for row in dense_rows(name, kvd, dense_lm) + moe_rows(name, kvd, moe_lm):
         out[row["head_dim"]] = out.get(row["head_dim"], 0) + row["launches"]
     return out
+
+
+def moe_rows(name, kvd, moe_lm) -> list:
+    """`dense_rows` for the MoE phase's served arch (arctic-480b, G 7)."""
+    return dense_rows(name, kvd, {MOE_ARCH: moe_lm.get("serve")}, (MOE_ARCH,))
 
 
 def dense_phase(book, dev, failures) -> dict:
@@ -3227,6 +3268,305 @@ def dense_phase(book, dev, failures) -> dict:
     out["seconds"] = time.perf_counter() - t0
     print(f"dense LM phase: peak memory_allocated {out['peak_allocated_gib']:.2f} GiB; "
           f"{out['seconds']:.1f} s")
+    return out
+
+
+MOE_ARCH = "arctic-480b"
+# one full-width arctic-480b layer holds ~56.3 GB of fp32 weights (the three
+# expert leaves 17.85 GB each); two do not fit the card's 80 GB
+MOE_LAYERS = 1
+MOE_BRUTE_TOKENS = 4  # tokens of the captured prefill input the fp64 brute force runs
+# the routed FFN on the card against its fp64 brute force: the fp32 limit of
+# the kernels (1e-4 * max|fp64|); cuBLAS's fp32 products over K = 7168 and
+# 4864 sit near 1e-6 of it
+MOE_BRUTE_TOL = 1e-4
+
+
+class capture_moe:
+    """Within the block, record every routing (`models.moe.route`: token
+    count, capacity, tokens per expert, pairs dropped) and the input and
+    output of the first routed FFN call (layer 0 of a prefill), then run the
+    calls as usual. The records stay on the card until read."""
+
+    def __enter__(self):
+        import repro_torch.models.moe as MOE
+        import repro_torch.models.transformer as T
+
+        self.MOE, self.T = MOE, T
+        self.orig_route, self.orig_ffn = MOE.route, T.moe_ffn
+        self.routes, self.first = [], None
+
+        def route(router, xt, cfg):
+            r = self.orig_route(router, xt, cfg)
+            self.routes.append((xt.shape[0], r.cap, r.eidx.detach().clone(),
+                                r.keep.clone(), r.gates.detach().clone()))
+            return r
+
+        def moe_ffn(p, x, cfg):
+            y, aux = self.orig_ffn(p, x, cfg)
+            if self.first is None:
+                self.first = (x.detach().clone(), y.detach().clone())
+            return y, aux
+
+        MOE.route, T.moe_ffn = route, moe_ffn
+        return self
+
+    def __exit__(self, *exc):
+        self.MOE.route, self.T.moe_ffn = self.orig_route, self.orig_ffn
+
+    def per_call(self, n_experts) -> list:
+        """[(T, cap, tokens per expert, pairs dropped)] per routing call."""
+        import torch
+
+        out = []
+        for t, cap, eidx, keep, _ in self.routes:
+            counts = torch.bincount(eidx.reshape(-1).cpu(), minlength=n_experts)
+            out.append((t, cap, counts.tolist(), int((~keep).sum())))
+        return out
+
+
+def moe_brute_force(cfg, params, x, y, failures) -> dict:
+    """The routed FFN of layer 0 on its captured prefill input `x` against
+    an fp64 brute force on the card over the first MOE_BRUTE_TOKENS tokens
+    (and any token with a pair dropped): fp64 router softmax and top-k, the
+    reference's drops (a pair past its expert's capacity, in token order,
+    counts nothing), and each kept pair's gated silu expert in fp64,
+    weighted by its renormalised gate (`tests/test_moe.py::
+    test_brute_force_equivalence_no_drops`)."""
+    import torch
+
+    from repro_torch.models.moe import _capacity
+
+    moe = params["groups"]["sub0"]["moe"]
+    xt = x.reshape(-1, cfg.d_model).double()
+    yt = y.reshape(-1, cfg.d_model).double()
+    t, k = xt.shape[0], cfg.top_k
+    probs = torch.softmax(xt @ moe["router"][0].double(), dim=-1)
+    top, eidx = torch.topk(probs, k + 1, dim=-1)
+    margin = float((top[:, k - 1] - top[:, k]).min())
+    gates = top[:, :k] / top[:, :k].sum(-1, keepdim=True)
+    eidx = eidx[:, :k].cpu()
+    cap = _capacity(t, cfg)
+    seen = torch.zeros(cfg.n_experts, dtype=torch.int64)
+    keep = torch.zeros((t, k), dtype=torch.bool)
+    for i in range(t):
+        for j in range(k):
+            e = int(eidx[i, j])
+            keep[i, j] = seen[e] < cap
+            seen[e] += 1
+    rows = sorted(set(range(MOE_BRUTE_TOKENS)) | {i for i in range(t) if not keep[i].all()})
+    ref = torch.zeros((len(rows), cfg.d_model), dtype=torch.float64, device=x.device)
+    for r, i in enumerate(rows):
+        for j in range(k):
+            if keep[i, j]:
+                e = int(eidx[i, j])
+                h = xt[i] @ moe["w1"][0, e].double()
+                h = h * torch.sigmoid(h) * (xt[i] @ moe["w3"][0, e].double())
+                ref[r] += gates[i, j] * (h @ moe["w2"][0, e].double())
+    err = float((yt[rows] - ref).abs().max())
+    scale = float(ref.abs().max())
+    ok = err <= MOE_BRUTE_TOL * scale and bool(torch.isfinite(yt).all())
+    out = {"tokens": rows, "pairs": int(keep[rows].sum()), "dropped": int((~keep).sum()),
+           "capacity": cap, "min_top_k_margin": margin, "max_abs_err": err,
+           "max_ref": scale, "ok": ok}
+    print(f"{MOE_ARCH} routed FFN of layer 0 on its captured prefill input (T {t}, "
+          f"capacity {cap}, {out['dropped']} pairs dropped), tokens {rows} "
+          f"({out['pairs']} kept pairs) against an fp64 brute force on the card: "
+          f"max_abs_err={err:.3e} (max|fp64|={scale:.3e}, limit {MOE_BRUTE_TOL:g}*max): "
+          f"{'ok' if ok else 'FAIL'}; smallest fp64 top-{k} margin {margin:.3e}")
+    if not ok:
+        failures.append(f"{MOE_ARCH}: the routed FFN disagrees with its fp64 brute force")
+    return out
+
+
+def moe_serve(book, dev, failures) -> dict:
+    """arctic-480b at full width cut to MOE_LAYERS: weights drawn on the
+    card, served (fp32 and int8 KV cache) through `serve(cfg, params=...)` with the
+    flash counters set to 0 just before and read just after, the routing of
+    every served call, the served tokens against the card's teacher-forced
+    argmax, warm prefill / decode traces, the flash kernels at the captured
+    G 7 shapes, and the routed FFN against an fp64 brute force."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention.kernel import flash_fwd, flash_fwd_q8
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_leaves
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
+    n_layers, d = cfg.n_layers, cfg.resolved_head_dim
+    out = {"n_layers": n_layers, "head_dim": d, "groups": cfg.n_heads // cfg.n_kv_heads,
+           "n_params": cfg.n_params(), "n_active_params": cfg.n_active_params(),
+           "runs": {}, "service": {}, "routing": {}}
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(LM_SERVE["seed"]),
+                           device=dev)
+    torch.cuda.synchronize()
+    out["card_draw_s"] = time.perf_counter() - t0
+    out["weight_gb"] = sum(t.numel() * t.element_size() for t in tree_leaves(params)) / 1e9
+    out["draw_peak_allocated_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{MOE_ARCH} at full width, depth {n_layers} (of 35): {out['n_params']:,} params "
+          f"({out['n_active_params']:,} active per token), {out['weight_gb']:.2f} GB at "
+          f"fp32, drawn on the card in {out['card_draw_s']:.2f} s; peak memory_allocated "
+          f"while drawing {out['draw_peak_allocated_gib']:.2f} GiB; head dim {d}, G "
+          f"{out['groups']}, {cfg.n_experts} experts top-{cfg.top_k}")
+    wrappers = {"flash_fwd": flash_fwd, "flash_fwd_q8": flash_fwd_q8}
+    max_len = LM_SERVE["prompt_len"] + LM_SERVE["gen_len"]
+    expect = n_layers * LM_SERVE["gen_len"]
+    keep = (0, n_layers - 1, n_layers, 2 * n_layers - 1)
+    captured, first_moe = {}, None
+    for kvd, want in (("float32", "flash_fwd"), ("int8", "flash_fwd_q8")):
+        serve(cfg, device=dev, kv_cache_dtype=kvd, params=params, **dict(LM_SERVE, gen_len=2))
+        with capture_moe() as cm:
+            reset_counts(wrappers)
+            res = serve(cfg, device=dev, kv_cache_dtype=kvd, params=params, **LM_SERVE)
+            launches = read_counts(wrappers)
+        other = "flash_fwd_q8" if want == "flash_fwd" else "flash_fwd"
+        print(f"{MOE_ARCH} served ({kvd} KV cache): batch {LM_SERVE['batch']}, prompt "
+              f"{LM_SERVE['prompt_len']}, {LM_SERVE['gen_len']} tokens: prefill "
+              f"{res.prefill_ms:.2f} ms, decode {res.decode_ms:.3f} ms/step, "
+              f"{res.tok_s:.1f} tok/s; launches {launches} (expected {expect} of {want}, "
+              f"none of {other})")
+        if launches[want] != expect or launches[other] != 0:
+            failures.append(f"{MOE_ARCH} {kvd}: launches {launches}, expected {expect} of "
+                            f"{want} and none of {other}")
+        calls = cm.per_call(cfg.n_experts)
+        if len(calls) != n_layers * LM_SERVE["gen_len"]:
+            failures.append(f"{MOE_ARCH} {kvd}: {len(calls)} routing calls")
+        for i, (t, cap, counts, dropped) in enumerate(calls):
+            reached = {e: c for e, c in enumerate(counts) if c}
+            shown = counts if i == 0 else reached
+            print(f"  routing call {i} ({'prefill' if i < n_layers else 'decode'} layer "
+                  f"{i % n_layers}): T {t}, capacity {cap}, {dropped} of {t * cfg.top_k} "
+                  f"pairs dropped, {len(reached)} experts reached, most {max(counts)}; "
+                  f"tokens per expert {shown}")
+        out["routing"][kvd] = [{"T": t, "capacity": cap, "dropped": dropped,
+                                "experts_reached": sum(1 for c in counts if c),
+                                "max_per_expert": max(counts)}
+                               for t, cap, counts, dropped in calls]
+        caps = {(t, cap) for t, cap, _, _ in calls}
+        if caps != {(LM_SERVE["batch"] * LM_SERVE["prompt_len"], 8), (LM_SERVE["batch"], 8)}:
+            failures.append(f"{MOE_ARCH} {kvd}: capacities {sorted(caps)}, expected 8 at "
+                            f"T = 128 and T = 4")
+        toks = res.tokens.cpu()
+        if toks.shape != (LM_SERVE["batch"], LM_SERVE["gen_len"]) or not bool(
+                ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+            failures.append(f"{MOE_ARCH} {kvd}: served tokens malformed")
+        prompt, follow = res.prompt.cpu(), toks[:, :LM_TF_STEPS]
+        with capture_attention(keep) as cap, capture_moe() as cf:
+            card = teacher_forced(cfg, params, prompt, follow, kvd, dev, max_len)
+        captured[kvd] = cap.calls
+        first_moe = cf.first if first_moe is None else first_moe
+        greedy = torch.stack([card[0][:, -1].argmax(-1)] + [
+            lg[:, 0].argmax(-1) for lg in card[1:LM_TF_STEPS]], 1).to(torch.int32)
+        same = bool(torch.equal(greedy, follow))
+        finite = all(bool(torch.isfinite(lg).all()) for lg in card)
+        print(f"{MOE_ARCH} {kvd}: served tokens equal the card's teacher-forced argmax "
+              f"(prefill + {LM_TF_STEPS - 1} steps): {same}; logits finite: {finite}")
+        if not (same and finite):
+            failures.append(f"{MOE_ARCH} {kvd}: served tokens are not the card's greedy "
+                            f"argmax, or its logits are not finite")
+        out["runs"][kvd] = {"prefill_ms": res.prefill_ms, "decode_ms": res.decode_ms,
+                            "tok_s": res.tok_s, "launches": launches, "greedy": same}
+        dt = torch.int8 if kvd == "int8" else torch.float32
+        cache = M.init_cache(cfg, LM_SERVE["batch"], max_len, dt, device=dev)
+        nxt = res.tokens[:, :1]
+
+        def prefill():
+            with torch.no_grad():
+                return M.prefill(cfg, params, cache, {"tokens": res.prompt})
+
+        def decode():
+            with torch.no_grad():
+                return M.decode_step(cfg, params, cache, {"tokens": nxt},
+                                     LM_SERVE["prompt_len"])
+
+        for step, fn in (("prefill", prefill), ("decode", decode)):
+            br = trace_breakdown(fn)
+            out["service"][f"{kvd} {step}"] = br
+            print(f"{MOE_ARCH} {kvd} warm {step}: wall {br['wall_ms']:.3f} ms (median of 5), "
+                  f"device {br['device_ms']:.3f} ms in {br['device_ops']} device ops, "
+                  f"idle share {br['idle_share']}; by class "
+                  + ", ".join(f"{c} {ms:.3f}" for c, ms in
+                              sorted(br["by_class_ms"].items(), key=lambda kv: -kv[1])))
+        del cache
+
+    print(f"{MOE_ARCH} flash kernel checks at head dim {d}, G {out['groups']} (the fp32 "
+          f"limit, {KERNEL_TOL.split(';')[0]}):")
+    for kvd, calls in captured.items():
+        for idx in sorted(set(keep)):
+            if idx not in calls:
+                failures.append(f"{MOE_ARCH} {kvd}: attention call {idx} not captured")
+                continue
+            args, kw_ = calls[idx]
+            layer = idx % n_layers
+            label = f"{'prefill' if idx < n_layers else 'decode'} layer {layer}"
+            row = check_flash(book, label, args, kw_, timed=(layer == 0), phase=MOE_ARCH,
+                              saturated=True)
+            if row is not None:
+                out.setdefault("timed", {}).setdefault(row["kernel"], []).append(
+                    {k: row[k] for k in ("shape", "ms", "plain_ms", "library_ms",
+                                         "bound_ms", "flop_ms", "byte_ms")})
+    del captured
+    for name in ("flash_fwd", "flash_fwd_q8"):
+        if len(out.get("timed", {}).get(name, [])) != 2:
+            failures.append(f"{MOE_ARCH}: {name} was not timed at layer 0's served shapes")
+    if first_moe is None:
+        failures.append(f"{MOE_ARCH}: layer 0's routed FFN input was not captured")
+    else:
+        out["brute_force"] = moe_brute_force(cfg, params, *first_moe, failures)
+    del params, first_moe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_reduced(dev, failures) -> dict:
+    """Reduced arctic-480b (2 layers, 8 experts, dense residual FFN) drawn on
+    the host: `card_vs_host` over fp32 and int8 caches."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+
+    cfg = get_config(MOE_ARCH, reduced=True)
+    params_cpu = M.init_params(cfg, torch.Generator().manual_seed(LM_SERVE["seed"]),
+                               device="cpu")
+    params = tree_to(params_cpu, dev)
+    gen = torch.Generator().manual_seed(LM_SERVE["seed"] + 1)
+    prompt = torch.randint(0, cfg.vocab_size, (LM_SERVE["batch"], LM_SERVE["prompt_len"]),
+                           generator=gen)
+    follow = torch.randint(0, cfg.vocab_size, (LM_SERVE["batch"], LM_TF_STEPS), generator=gen)
+    max_len = LM_SERVE["prompt_len"] + LM_TF_STEPS
+    return {kvd: card_vs_host(f"{MOE_ARCH} reduced", cfg, params, params_cpu, prompt, follow,
+                              kvd, dev, max_len, failures)
+            for kvd in ("float32", "int8")}
+
+
+def moe_phase(book, dev, failures) -> dict:
+    """The MoE LM family (see `moe_serve`, `moe_reduced`, and `dense_train`
+    on reduced arctic-480b); memory reserved before it and the peak in it."""
+    import torch
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"memory_reserved_before_gib": torch.cuda.memory_reserved() / 2**30}
+    print(f"MoE phase: memory_reserved before it {out['memory_reserved_before_gib']:.2f} GiB")
+    for key, fn in (("serve", lambda: moe_serve(book, dev, failures)),
+                    ("reduced", lambda: moe_reduced(dev, failures)),
+                    ("train", lambda: dense_train(dev, failures, archs=(MOE_ARCH,)))):
+        try:
+            out[key] = fn()
+        except Exception:
+            traceback.print_exc()
+            failures.append(f"{MOE_ARCH} {key} failed")
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"MoE phase: {out['seconds']:.1f} s")
     return out
 
 
@@ -4403,6 +4743,14 @@ def main() -> int:
     except Exception:
         traceback.print_exc()
         failures.append("dense LM phase failed")
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_lm = {}
+    try:
+        moe_lm = moe_phase(book, dev, failures)
+    except Exception:
+        traceback.print_exc()
+        failures.append("MoE phase failed")
 
     csrc = "src/repro_torch/kernels/csrc/"
     # (name, book key, row suffix, source, replaces, the phase that serves it)
@@ -4494,7 +4842,9 @@ def main() -> int:
             # the dense LM phase's served archs: layer 0's prefill and decode
             # launch by graph replay and the served run's launches, per arch
             "dense_lm": dense_rows(name, kvd, dense_lm),
-            "launches_by_head_dim": launches_by_head_dim(name, kvd, lm, dense_lm),
+            # the same for the MoE phase's arctic-480b (depth 1, G 7)
+            "moe_lm": moe_rows(name, kvd, moe_lm),
+            "launches_by_head_dim": launches_by_head_dim(name, kvd, lm, dense_lm, moe_lm),
             # the fp32 trainer's run (the main training run is bf16)
             "train_launches": (train_summary.get("fp32", {}).get("entries", {})
                                .get("repro_flash_fwd_f32", 0) if name == "flash_fwd" else 0),
@@ -4557,7 +4907,7 @@ def main() -> int:
         args.layers_out.write_text(json.dumps(
             {"card": card, "rows": book.rows, "kernels": kernels,
              "service": services, "variants": variants, "obs": obs, "lm": lm,
-             "dense_lm": dense_lm,
+             "dense_lm": dense_lm, "moe_lm": moe_lm,
              "train": train_summary, "paper": paper, "verifier": verifier,
              "geometry": geometry, "lint": lint, "scenario": scenario,
              "graphs": graphs, "verified": VERIFIED},

@@ -3,9 +3,10 @@
 `repro.configs.base`).
 
 The dataclasses carry every field of the reference's, so a config file
-copies over verbatim. The registry loads the dense LM family (`_ARCH_MODULES`);
-the MoE, MLA, hybrid, SSM, VLM and audio configs join with their families
-(ROADMAP queue 1 item 16).
+copies over verbatim. The registry loads the dense LM family and the MoE
+family's GQA config, arctic-480b (`_ARCH_MODULES`); the MLA (deepseek-v2),
+hybrid, SSM, VLM and audio configs join with their families (ROADMAP queue 1
+item 16).
 `ModelConfig.n_params` counts from the parameter shapes without allocating
 them (`models.model.count_params_analytic`).
 """
@@ -212,6 +213,7 @@ _ARCH_MODULES = [
     "mistral_large_123b",
     "minitron_8b",
     "qwen3_0_6b",
+    "arctic_480b",
 ]
 
 

@@ -37,43 +37,36 @@ def lm_params_from_jax(np_params: dict, cfg, device=None, dtype=torch.float32) -
     """The JAX LM's parameter values tree (`repro.models.model.init_params`'s
     first result, leaves as array-likes) -> the port's tree on `device`
     (None = the card): `embed`, `final_norm`, [`unembed`] and
-    `groups.sub0.{ln1, mix.{wq, wk, wv, wo[, q_norm, k_norm]}, ln2,
-    ffn.{w1[, w3], w2}}`, each group leaf with its leading layer axis. The two
-    trees have the same keys and layouts; a missing or misshapen leaf raises.
-    Leaves in `dtype` (float32, or bfloat16 for the reference's default
-    training type). Dense LMs only (the families the port serves)."""
-    from repro_torch.models.transformer import group_layout, n_groups
+    `groups.sub0.{ln1, mix.{wq, wk, wv, wo[, q_norm, k_norm]}, ln2}` with
+    the FFN the group layout gives: `ffn.{w1[, w3], w2}` (dense), and for
+    the MoE family `moe.{router, w1, w3, w2[, shared.{w1, w3, w2}]}` (beside
+    `ffn` for arctic's dense residual), each group leaf with its leading
+    layer axis. The two trees have the same keys and layouts: the port's
+    tree (made on the meta device) names the leaves to carry, and a missing
+    leaf or one of another shape raises. Leaves in `dtype` (float32, or
+    bfloat16 for the reference's default training type). The families the
+    port serves only (`models.transformer.group_layout` raises for the
+    others)."""
+    from repro_torch.models import model as M
+    from repro_torch.models.transformer import n_groups
 
     dev = resolve_device(device)
-    group_layout(cfg)  # raises for a family the port does not serve
+    with torch.device("meta"):
+        like = M.init_params(cfg, None, device="meta")
     n = n_groups(cfg)
 
-    def t(a, where):
-        x = np.array(a, dtype=np.float32)
+    def carry(want, src, where):
+        if isinstance(want, dict):
+            return {k: carry(want[k], src[k], f"{where}.{k}" if where else k) for k in want}
+        x = np.array(src, dtype=np.float32)
         if where.startswith("groups") and (x.ndim == 0 or x.shape[0] != n):
             raise ValueError(f"{where}: leading axis {x.shape[:1]} is not the "
                              f"{n} layers of {cfg.name}")
+        if x.shape != tuple(want.shape):
+            raise ValueError(f"{where}: shape {x.shape} is not {tuple(want.shape)}")
         return torch.from_numpy(x).to(dev, dtype)
 
-    sub = np_params["groups"]["sub0"]
-    mix = ("wq", "wk", "wv", "wo") + (("q_norm", "k_norm") if cfg.qk_norm else ())
-    ffn = ("w1", "w2") if cfg.mlp_activation in ("relu", "relu2") else ("w1", "w3", "w2")
-    out = {
-        "embed": t(np_params["embed"], "embed"),
-        "final_norm": t(np_params["final_norm"], "final_norm"),
-        "groups": {"sub0": {
-            "ln1": t(sub["ln1"], "groups.sub0.ln1"),
-            "mix": {k: t(sub["mix"][k], f"groups.sub0.mix.{k}") for k in mix},
-            "ln2": t(sub["ln2"], "groups.sub0.ln2"),
-            "ffn": {k: t(sub["ffn"][k], f"groups.sub0.ffn.{k}") for k in ffn},
-        }},
-    }
-    if not cfg.tie_embeddings:
-        out["unembed"] = t(np_params["unembed"], "unembed")
-    d, v = cfg.d_model, cfg.vocab_size
-    if tuple(out["embed"].shape) != (v, d):
-        raise ValueError(f"embed {tuple(out['embed'].shape)} is not ({v}, {d})")
-    return out
+    return carry(like, np_params, "")
 
 
 def train_state_from_jax(np_state, cfg, device=None, dtype=torch.float32):

@@ -1,16 +1,20 @@
 """LM serving launcher on the port: batched prefill, then a greedy decode
-loop over a KV cache, fp32 or int8 (counterpart of `repro.launch.serve`,
-dense LMs; no mesh). The dense archs: qwen3-0.6b, minitron-8b, stablelm-12b
-and mistral-large-123b.
+loop over a KV cache, fp32 or int8 (counterpart of `repro.launch.serve`;
+no mesh). The archs: the dense qwen3-0.6b, minitron-8b, stablelm-12b and
+mistral-large-123b, and the MoE arctic-480b (128 experts top-2 beside a
+dense residual FFN).
 
 Run on the card (default device "cuda"), at full width with fp32 weights
 (minitron-8b takes 31 GB of the card, stablelm-12b 49 GB; mistral-large-123b
-fits no single card and serves only reduced):
+fits no single card and serves only reduced, and so does arctic-480b, whose
+35 layers hold ~477 B parameters: `chip_smoke.py` drives it at full width
+with its depth cut to one layer, 56 GB):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b --full
     PYTHONPATH=src python -m repro_torch.launch.serve --arch minitron-8b --full --kv-cache-dtype int8
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-12b --full
 On the host, through the kernels' plain PyTorch versions (reduced config):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch minitron-8b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch arctic-480b --device cpu
 """
 from __future__ import annotations
 
@@ -21,7 +25,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.configs.base import DEFAULT_RUN, get_config
+from repro_torch.configs.base import DEFAULT_RUN, ModelConfig, get_config
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import make_prefill_step, make_serve_step
 from repro_torch.models import model as M
@@ -44,10 +48,12 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def serve(arch: str, *, reduced: bool = True, batch: int = 4, prompt_len: int = 32,
+def serve(arch: str | ModelConfig, *, reduced: bool = True, batch: int = 4, prompt_len: int = 32,
           gen_len: int = 32, seed: int = 0, device=None,
           kv_cache_dtype: str = "float32", params: dict | None = None) -> ServeResult:
-    """Random weights from `torch.Generator(seed)` (drawn on the host and
+    """`arch` is a registered arch's name (its full or reduced config) or a
+    `ModelConfig` itself, such as a full-width arch with its depth cut.
+    Random weights from `torch.Generator(seed)` (drawn on the host and
     moved leaf by leaf), or `params`, a tree `init_params` made for this
     config on `device`; random prompt tokens from `seed + 1`. Returns the
     generated tokens and the step times."""
@@ -55,7 +61,7 @@ def serve(arch: str, *, reduced: bool = True, batch: int = 4, prompt_len: int = 
         raise ValueError(f"kv_cache_dtype {kv_cache_dtype!r}: choose from "
                          f"{sorted(KV_CACHE_DTYPES)}")
     dev = resolve_device(device)
-    cfg = get_config(arch, reduced=reduced)
+    cfg = arch if isinstance(arch, ModelConfig) else get_config(arch, reduced=reduced)
     run = DEFAULT_RUN.replace(kv_cache_dtype=kv_cache_dtype)
     if params is None:
         params = M.init_params(cfg, torch.Generator().manual_seed(seed), device=dev)

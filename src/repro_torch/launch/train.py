@@ -1,6 +1,6 @@
 """Training launcher on the port: supervised loop over the train step with
-async checkpoints and restart (counterpart of `repro.launch.train`, dense LMs;
-no mesh, so no `--model-axis`).
+async checkpoints and restart (counterpart of `repro.launch.train`, the
+dense and MoE LMs; no mesh, so no `--model-axis`).
 
 It trains as the reference's launcher does, at `DEFAULT_RUN`'s types:
 bfloat16 parameters and activations (the flash kernels' bf16 entry points
@@ -11,13 +11,15 @@ float32 trainer, build the state with `init_train_state` and the step with
 `make_train_step` at `DEFAULT_RUN.replace(param_dtype="float32")`.
 
 Run on the card (default device "cuda"); qwen3-0.6b trains at full width,
-the larger dense archs (minitron-8b, stablelm-12b, mistral-large-123b) at
-their reduced configs, since bf16 weights with fp32 moments take 12 bytes a
-parameter, past one card at 8 B parameters:
+the larger archs (minitron-8b, stablelm-12b, mistral-large-123b, and the
+MoE arctic-480b, whose router aux loss joins the loss) at their reduced
+configs, since bf16 weights with fp32 moments take 12 bytes a parameter,
+past one card at 8 B parameters (arctic-480b has ~477 B):
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b --full --steps 6
     PYTHONPATH=src python -m repro_torch.launch.train --arch minitron-8b --steps 3 --no-resume
 On the host, through the kernels' plain PyTorch versions (reduced config):
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b --device cpu --steps 4
+    PYTHONPATH=src python -m repro_torch.launch.train --arch arctic-480b --device cpu --steps 2 --no-resume
 """
 from __future__ import annotations
 

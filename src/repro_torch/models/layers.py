@@ -26,15 +26,16 @@ def dense_init(generator: torch.Generator, shape, fan_in: Optional[int] = None,
     if generator is None:
         return torch.empty(tuple(shape), dtype=dtype)
     fi = fan_in or (shape[-2] if len(shape) >= 2 else shape[-1])
+    # scaled in place: an expert leaf of full-width arctic-480b is 17.85 GB
     return torch.randn(tuple(shape), generator=generator, device=generator.device,
-                       dtype=dtype) * (fi ** -0.5)
+                       dtype=dtype).mul_(fi ** -0.5)
 
 
 def embed_init(generator: torch.Generator, shape, dtype=torch.float32) -> torch.Tensor:
     if generator is None:
         return torch.empty(tuple(shape), dtype=dtype)
     return torch.randn(tuple(shape), generator=generator, device=generator.device,
-                       dtype=dtype) * 0.02
+                       dtype=dtype).mul_(0.02)
 
 
 def ones_init(shape, dtype=torch.float32) -> torch.Tensor:

@@ -23,18 +23,18 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import embed_init, ones_init, rms_norm
 from repro_torch.models.transformer import (
-    FAMILIES_TODO,
+    group_layout,
     init_group_caches,
     init_groups,
     stack_apply,
 )
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_paths
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.is_encoder_decoder or cfg.family != "dense":
-        raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not "
-                                  f"ported yet; see {FAMILIES_TODO}")
+    """Raises NotImplementedError for a family the port does not have yet
+    (the dense LM and the MoE LM with GQA attention are ported)."""
+    group_layout(cfg)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, *, device=None,
@@ -58,16 +58,29 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *, device=None,
     return p
 
 
+EXPERT_LEAVES = ("w1", "w3", "w2")  # under groups.<sub>.moe: (layers, E, ...)
+
+
 def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:
     """The number of parameters `init_params` makes for `cfg`, counted from
     the shapes of its tree made on the meta device with no generator (no
-    memory, no random numbers). `active_only` counts what one token uses; the
-    reference scales the expert leaves by top_k / n_experts, and the port's
-    families have no experts yet (ROADMAP queue 1 item 16), so it equals the
-    full count."""
+    memory, no random numbers). `active_only` counts what one token uses:
+    each routed-expert leaf scaled by top_k / n_experts, rounded down leaf
+    by leaf, as the reference scales the leaves whose axes name "experts".
+    The port has no axes tree, so those are found by path
+    (`groups.<sub>.moe.{w1, w3, w2}`; the router and the shared experts are
+    not among them)."""
     with torch.device("meta"):
         params = init_params(cfg, None, device="meta")
-    return sum(leaf.numel() for leaf in tree_leaves(params))
+    total = 0
+    for path, leaf in tree_paths(params):
+        n = leaf.numel()
+        parts = path.split("/")
+        if (active_only and parts[0] == "groups" and len(parts) == 4
+                and parts[2] == "moe" and parts[3] in EXPERT_LEAVES):
+            n = int(n * cfg.top_k / max(cfg.n_experts, 1))
+        total += n
+    return total
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.float32,

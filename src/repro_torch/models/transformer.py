@@ -2,9 +2,11 @@
 `repro.models.transformer`).
 
 A *group* is the smallest repeating pattern of sublayers. The port covers
-the dense LM, whose group is one [attn] sublayer with a dense FFN; the other
-families (MoE, MLA, hybrid, SSM, VLM, audio) raise NotImplementedError until
-ROADMAP queue 1 item 16 ports them.
+the dense LM and the MoE LM with GQA attention, whose group is one [attn]
+sublayer with a dense FFN, a routed-expert FFN (`models.moe`) or both side
+by side (arctic's dense residual); the other families (MLA, hybrid, SSM,
+VLM, audio) raise NotImplementedError until ROADMAP queue 1 item 16 ports
+them.
 
 Group parameters keep the reference's stacked leaves: every leaf of
 `groups["sub0"]` carries a leading (n_layers,) axis, so weights carry over
@@ -15,6 +17,7 @@ stacked (n_layers, ...) cache, written in place.
 from __future__ import annotations
 
 import functools
+import itertools
 from typing import NamedTuple
 
 import torch
@@ -25,21 +28,28 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sparse_ffn import activation_fn
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.layers import as_drawn, dense_init, ones_init, rms_norm
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.models.moe import init_moe, moe_ffn
+from repro_torch.tree import tree_map
 
 FAMILIES_TODO = "ROADMAP queue 1 item 16 (the other LM families)"
 
 
 class Sub(NamedTuple):
     kind: str  # attn (mla | cross | mamba | mlstm | slstm: not ported)
-    ffn: str  # dense | none (moe | moe+dense: not ported)
+    ffn: str  # dense | moe | moe+dense | none
 
 
 def group_layout(cfg: ModelConfig) -> list:
-    if cfg.family == "dense" and not cfg.n_experts and cfg.attn_type == "gqa":
-        return [Sub("attn", "dense")]
-    raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} is not ported "
-                              f"yet; see {FAMILIES_TODO}")
+    """The reference's rule for the families the port has: a dense LM, or a
+    MoE LM with GQA attention, is one [attn] sublayer whose FFN is routed
+    ("moe"), routed beside a dense residual FFN ("moe+dense") or dense."""
+    if not cfg.is_encoder_decoder and (
+            cfg.family == "dense" or (cfg.family == "moe" and cfg.attn_type == "gqa")):
+        base_ffn = "moe+dense" if (cfg.n_experts and cfg.dense_residual_ff) else (
+            "moe" if cfg.n_experts else "dense")
+        return [Sub("attn", base_ffn)]
+    raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} (attention "
+                              f"{cfg.attn_type!r}) is not ported yet; see {FAMILIES_TODO}")
 
 
 def n_groups(cfg: ModelConfig) -> int:
@@ -84,27 +94,40 @@ def init_sublayer(generator: torch.Generator, sub: Sub, cfg: ModelConfig,
          "mix": attn_mod.init_gqa(generator, cfg, place)}
     if sub.ffn != "none":
         p["ln2"] = place(ones_init((cfg.d_model,)))
-        p["ffn"] = init_ffn(generator, cfg, cfg.d_ff, place)
+        if "moe" in sub.ffn:
+            p["moe"] = init_moe(generator, cfg, place)
+        if sub.ffn in ("dense", "moe+dense"):
+            p["ffn"] = init_ffn(generator, cfg, cfg.d_ff, place)
     return p
 
 
 def init_groups(generator: torch.Generator, cfg: ModelConfig, place=as_drawn) -> dict:
     """{"sub0": {...}} with every leaf stacked (n_groups, ...). Layer by
-    layer, each leaf goes to `place` as soon as it is drawn and is then
-    copied into its slot of the stacked leaf, made where `place` put layer
-    0's: with `place` moving leaves to the card, the host holds one leaf at a
-    time."""
+    layer, each leaf goes to `place` as soon as it is drawn, then into its
+    slot of the stacked leaf (made at layer 0 where `place` put the leaf),
+    and is freed before the next leaf is drawn: the peak is the stacked tree
+    plus one leaf (one full-width arctic-480b layer: 56 GB plus a 17.85 GB
+    expert leaf), and with `place` moving leaves to the card the host holds
+    one leaf at a time."""
     lay = group_layout(cfg)
     n = n_groups(cfg)
-    stacked = None
+    stacked = []  # in draw order
+
+    def into_slot(i):
+        drawn = itertools.count()
+
+        def put(t):
+            t, j = place(t), next(drawn)
+            if i == 0:
+                stacked.append(t.new_empty((n,) + tuple(t.shape)))
+            stacked[j][i].copy_(t)
+            return j  # the layer's tree holds each leaf's index in draw order
+        return put
+
     for i in range(n):
-        layer = {f"sub{j}": init_sublayer(generator, s, cfg, place)
+        layer = {f"sub{j}": init_sublayer(generator, s, cfg, into_slot(i))
                  for j, s in enumerate(lay)}
-        if stacked is None:
-            stacked = tree_map(lambda t: t.new_empty((n,) + tuple(t.shape)), layer)
-        for dst, src in zip(tree_leaves(stacked), tree_leaves(layer)):
-            dst[i].copy_(src)
-    return stacked
+    return tree_map(lambda j: stacked[j], layer)
 
 
 def unstack_groups(tree, n: int) -> list:
@@ -149,24 +172,37 @@ def _layer_cache(cache, i: int):
 
 
 def apply_sublayer(sub: Sub, p, x, *, cfg, positions, cache, write_pos, causal):
+    """-> (x, cache, aux): the routed FFN's output plus the dense FFN's,
+    both from the same normed input, added to the residual; aux is the
+    routed FFN's load-balancing loss (None without one)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     out, new_cache = attn_mod.gqa_attention(
         p["mix"], h, cfg=cfg, positions=positions, causal=causal, cache=cache,
         write_pos=write_pos)
     x = x + out
+    aux = None
     if sub.ffn != "none":
-        x = x + ffn_apply(p["ffn"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
-    return x, new_cache
+        h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+        if "moe" in p:
+            delta, aux = moe_ffn(p["moe"], h2, cfg)
+            if "ffn" in p:
+                delta = delta + ffn_apply(p["ffn"], h2, cfg)
+        else:
+            delta = ffn_apply(p["ffn"], h2, cfg)
+        x = x + delta
+    return x, new_cache, aux
 
 
 def dots_policy(ctx, op, *args, **kwargs):
     """remat "dots" (the reference's `dots_with_no_batch_dims_saveable`):
     save the outputs of the matmuls that contract with no batch dimension,
-    the q/k/v/o projections and the FFN's three, and recompute everything
-    else, the attention region included. `torch.einsum` lowers a batch-free
-    contraction such as "bsd,dhk->bshk" to `aten.bmm` over a batch of one,
-    `x @ w` to `aten.mm`: the policy keys on the batch the op contracts
-    over, not on its name alone."""
+    the q/k/v/o projections, the FFN's three, the router and the shared
+    experts, and recompute everything else, the attention region included.
+    `torch.einsum` lowers a batch-free contraction such as "bsd,dhk->bshk"
+    to `aten.bmm` over a batch of one, `x @ w` to `aten.mm`: the policy keys
+    on the batch the op contracts over, not on its name alone. The routed
+    experts' products are `bmm`s over E > 1 experts, a batch dimension, so
+    they are recomputed, as the reference's "ecd,edf->ecf" einsums are."""
     aten = torch.ops.aten
     if op is aten.mm.default or (op is aten.bmm.default and args[0].shape[0] == 1):
         return CheckpointPolicy.MUST_SAVE
@@ -176,7 +212,8 @@ def dots_policy(ctx, op, *args, **kwargs):
 def stack_apply(groups_params, x, *, cfg: ModelConfig, positions, caches=None,
                 write_pos=None, causal=True, remat: str = "none"):
     """Run the full group stack. Returns (x, caches, aux_loss); the caches are
-    the ones given, updated in place (None without caches).
+    the ones given, updated in place (None without caches); aux_loss sums
+    the routed FFNs' losses over groups and sublayers (fp32).
 
     remat "full" recomputes each group's activations in the backward pass
     (`torch.utils.checkpoint`, non-reentrant: the reference's
@@ -189,22 +226,25 @@ def stack_apply(groups_params, x, *, cfg: ModelConfig, positions, caches=None,
     lay = group_layout(cfg)
     groups = unstack_groups(groups_params, n_groups(cfg))
 
-    def group(gi, x):
+    def group(gi, x, aux):
         gp = groups[gi]
         for i, sub in enumerate(lay):
             cache = None if caches is None else _layer_cache(caches[i], gi)
-            x, _ = apply_sublayer(sub, gp[f"sub{i}"], x, cfg=cfg, positions=positions,
-                                  cache=cache, write_pos=write_pos, causal=causal)
-        return x
+            x, _, a = apply_sublayer(sub, gp[f"sub{i}"], x, cfg=cfg, positions=positions,
+                                     cache=cache, write_pos=write_pos, causal=causal)
+            if a is not None:
+                aux = aux + a
+        return x, aux
 
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for gi in range(n_groups(cfg)):
         if remat == "full":
-            x = torch.utils.checkpoint.checkpoint(group, gi, x, use_reentrant=False)
+            x, aux = torch.utils.checkpoint.checkpoint(group, gi, x, aux, use_reentrant=False)
         elif remat == "dots":
-            x = torch.utils.checkpoint.checkpoint(
-                group, gi, x, use_reentrant=False,
+            x, aux = torch.utils.checkpoint.checkpoint(
+                group, gi, x, aux, use_reentrant=False,
                 context_fn=functools.partial(create_selective_checkpoint_contexts,
                                              dots_policy))
         else:
-            x = group(gi, x)
-    return x, caches, torch.zeros((), dtype=torch.float32, device=x.device)
+            x, aux = group(gi, x, aux)
+    return x, caches, aux
