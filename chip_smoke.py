@@ -10,8 +10,9 @@
    per source, in parallel) and times the build; counts HMMA, LDGSTS, LDS
    and FFMA in the SASS (cuobjdump) of each instantiation of the split-TF32
    kernels (the fp32 ECR / PECR kernel, the fp32 BSR kernel, the fp32
-   flash forward and both flash backward passes) and of the bf16 flash
-   kernels (with LDSM), and fails unless every one has HMMA and LDGSTS,
+   flash forward, both flash backward passes and the MLA kernel) and of the
+   bf16 flash kernels (with LDSM), and fails unless every one has HMMA and
+   LDGSTS,
    every bf16 one LDSM (ldmatrix), and the expected number of
    instantiations exists; prints each one's registers, stack frame and
    spill bytes (nvcc -Xptxas -v, from the build's output).
@@ -291,6 +292,29 @@
    rounding pinned as in step 10), then 3 bf16 train steps card vs host as
    in step 10 (registered: the loss; qk_norm: loss, grad norm and step-0
    leaves), the router aux loss in the loss.
+10c. The MLA phase, after the MoE phase has released arctic's weights.
+   deepseek-v2-236b (d_model 5120, 128 heads on one latent kv head: keys
+   [c_kv ; k_rope] of width 512 + 64, values c_kv of width 512; 160
+   experts top-6 and 2 shared, expert width 1536, vocab 102,400) at full
+   width with its depth cut to two layers (~36 GB of fp32 weights),
+   weights drawn on the card (seconds, GB and peak allocated printed),
+   served through `serve(cfg, params=...)` at batch 4, prompt 32, 32 tokens
+   over the fp32 latent cache and the int8 request's bf16 latent cache, the
+   flash counters set to 0 just before each served run and read just
+   after: 64 launches of repro_flash_fwd_mla_f32 (fp32) or
+   repro_flash_fwd_mla_bf16kv (bf16 latent), and none of the other MLA
+   entry or of repro_flash_fwd_f32 / repro_flash_fwd_q8. The served tokens
+   must equal the card's teacher-forced argmax, with finite logits; a warm
+   prefill and decode step per cache are traced. The MLA kernel is held
+   against its plain version at the captured prefill and decode shapes of
+   layers 0 and 1 (fp32 latent: out 1e-4*max|plain| + 1e-5*min(1,
+   max|plain|), m and l 1e-5*max|plain|; bf16 latent: out 2^-7*max|plain|,
+   m and l 1e-5*max|plain|), layer 0 timed by CUDA-graph replay beside its
+   plain version, SDPA on the same function (the backend it ran named) and
+   the bound. Reduced deepseek-v2 (2 layers, 4 heads on a 32 + 16 latent),
+   drawn on the host: teacher-forced logits on the card against the host,
+   within 1e-4*max|host| (fp32 latent) and 2^-7*max|host| (bf16 latent).
+   The phase's seconds and peak memory are printed.
 11. The scenario phase, on the published VGG-19 (weights and calibration
    images as in step 3; Engines at block_c=8, occ_threshold=0.75,
    max_batch=8, on a SimClock charged with the measured service time):
@@ -376,7 +400,14 @@
    TFLOP/s; the N=1 rows say "split_reduction": false (the kernel does not
    split its reduction across blocks). flash_fwd carries "redesigned_in":
    17 (its rows were always timed by graph replay; flash_fwd_q8 runs on
-   its body).
+   its body). The MLA rows (flash_fwd_mla_f32, flash_fwd_mla_bf16kv) sum
+   one prefill and one decode launch at layer 0 of the served deepseek-v2
+   by graph replay, launches count its served run over their cache type,
+   "replaces" names flash_fwd_pallas's function (no pallas_call site sits
+   on the reference's MLA path, which runs the jnp flash_attention named
+   in "reference_call"), and the bound is max(2*B*H*(visible pairs)*(r +
+   dr + r) / 165 TFLOP/s, bytes / 3.35 TB/s), the bytes being q, the keys
+   read once, out, and m, l.
    `--layers-out PATH` also writes the per-layer numbers there as JSON.
 """
 from __future__ import annotations
@@ -408,10 +439,12 @@ KERNEL_TOL = ("fp32: max|kernel - plain| <= 1e-4*max|plain| + 1e-5*min(1, max|pl
 PRUNE_DENSITY = 0.3
 # the split-TF32 kernels and their instantiations: ECR / PECR (4 tiles x
 # pool), BSR (16- or 4-byte copies x 8, 4 or 2 row-blocks per block), the
-# fp32 flash forward (7 head dims: 8 ... 256 and stablelm-12b's 160) and both
-# backward passes (6 head dims each)
+# fp32 flash forward (7 head dims: 8 ... 256 and stablelm-12b's 160), both
+# backward passes (6 head dims each) and the MLA kernel (fp32 and bf16
+# latent x (r, dr) 512/64 and 32/16; TF32 products)
 SPLIT_TF32_KERNELS = {"ecr_conv_kernel": 8, "bsr_matmul_kernel": 6, "flash_fwd_kernel": 7,
-                      "flash_bwd_dq_kernel": 6, "flash_bwd_dkv_kernel": 6}
+                      "flash_bwd_dq_kernel": 6, "flash_bwd_dkv_kernel": 6,
+                      "flash_mla_kernel": 4}
 # the bf16 tensor-core kernels (the training step at bf16): 6 head dims each,
 # and the backward passes' other block tile at head dim 128; the SASS of
 # each must show ldmatrix (LDSM) beside HMMA and LDGSTS
@@ -591,6 +624,20 @@ class KernelBook:
         if got.dtype != want.dtype or not err <= lim:
             raise AssertionError(f"{kernel} {label}: {err} > {lim} or {got.dtype} is not "
                                  f"{want.dtype} ({KERNEL_TOL})")
+
+    def check_stat(self, kernel, label, got, want, widen=0.0):
+        """m and l of the MLA kernel (fp32): 1e-5 * max|plain|, plus `widen` *
+        max|plain| for l where the fp32 rounding of large scores moves it
+        more (`score_widening`)."""
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        lim = (1e-5 + widen) * scale
+        self.max_err[kernel] = max(self.max_err.get(kernel, 0.0), err)
+        wide = f", widened by {widen:.2e} x max|plain|" if widen else ""
+        print(f"  {kernel:15s} {label:46s} max_abs_err={err:.3e} (limit {lim:.3e}{wide}, "
+              f"max|plain|={scale:.3e})")
+        if got.dtype != want.dtype or not err <= lim:
+            raise AssertionError(f"{kernel} {label}: {err} > {lim} ({MLA_TOL})")
 
     def exact(self, kernel, label, got, want):
         """int8 kernels: bitwise equal to the plain version."""
@@ -1215,7 +1262,8 @@ def ptxas_usage(text: str) -> dict:
 
 def kernel_category(name: str) -> str:
     """Coarse class of a CUDA kernel by its symbol name."""
-    for stem, cat in (("flash_bwd_dq_bf16_kernel", "flash bwd dq bf16 kernel"),
+    for stem, cat in (("flash_mla_kernel", "flash MLA kernel"),
+                      ("flash_bwd_dq_bf16_kernel", "flash bwd dq bf16 kernel"),
                       ("flash_bwd_dkv_bf16_kernel", "flash bwd dk/dv bf16 kernel"),
                       ("flash_fwd_bf16_kernel", "flash bf16 kernel")):
         if stem in name:
@@ -3570,6 +3618,347 @@ def moe_phase(book, dev, failures) -> dict:
     return out
 
 
+MLA_ARCH = "deepseek-v2-236b"
+# depth 2 of 60: the smallest depth with a second layer in the stacked
+# (n_layers, B, S_max, r) latent cache; 35.97 GB of fp32 weights (one
+# layer's largest leaf, an expert leaf, is 5.03 GB)
+MLA_LAYERS = 2
+MLA_ENTRIES = ("repro_flash_fwd_mla_f32", "repro_flash_fwd_mla_bf16kv")
+# what the MLA kernel's fp32 and bf16 entries are held to against the plain
+# version; l (and fp32 out) widen by `score_widening` at scores up to S: both
+# sides' scores are fp32 sums of 576 terms, and at S near 30 one fp32 ulp of
+# a score moves l by about 1e-5 of itself
+MLA_TOL = ("fp32 latent: out 1e-4*max|plain| + 1e-5*min(1, max|plain|), m 1e-5*max|plain|, "
+           "l 1e-5*max|plain|; bf16 latent: out 2^-7*max|plain|, m and l 1e-5*max|plain|; "
+           "fp32 out and both l + 8*2^-24*S*max|plain| at scores up to S")
+
+
+class capture_mla:
+    """Within the block, record the (q, c_kv, k_rope, kwargs) of the MLA
+    kernel calls whose running index is in `keep` (cloned: the cache is
+    written in place), then run the call as usual."""
+
+    def __init__(self, keep):
+        self.keep, self.calls, self.n = set(keep), {}, 0
+
+    def __enter__(self):
+        import repro_torch.models.attention as A
+
+        self.A, self.orig = A, A.flash_fwd_mla
+
+        def rec(*args, **kw):
+            if self.n in self.keep:
+                self.calls[self.n] = (tuple(a.clone() for a in args), dict(kw))
+            self.n += 1
+            return self.orig(*args, **kw)
+
+        A.flash_fwd_mla = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.A.flash_fwd_mla = self.orig
+
+
+def mla_bound(q, c_kv, kw):
+    """(op time, byte time) in ms of the MLA kernel's work: 2 * B * H *
+    pairs * (Dk + Dv) operations (q.k over r + dr, p.v over r) at 165
+    TFLOP/s (split-TF32; the bf16 entry's products are TF32 too); q read,
+    the keys any row reads ([c_kv ; k_rope] once: the values are the same
+    c_kv rows), out written in the latent's type, and m, l, over 3.35 TB/s."""
+    b, sq, h, dk = q.shape
+    sk, r = c_kv.shape[1], c_kv.shape[2]
+    eb = c_kv.element_size()
+    pairs, keys = visible_pairs(sq, sk, kw["causal"], kw["q_offset"], kw["kv_len"])
+    ops = 2.0 * b * h * pairs * (dk + r)
+    nbytes = 4.0 * b * sq * h * dk + eb * b * keys * dk + eb * b * sq * h * r + 8.0 * b * sq * h
+    return ops / PEAK_TF32_SPLIT_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+
+
+def mla_library(q, c_kv, k_rope, kw):
+    """F.scaled_dot_product_attention on the same function: q (B, H, Sq,
+    r + dr) over the keys [c_kv ; k_rope] and values c_kv of the one latent
+    head, expanded to the H heads, in fp32 (a bf16 latent widened inside
+    the call), the same boolean mask. Tries SDPA's backends in turn and
+    keeps the first that runs -> (fn, backend name)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    b, sq, h, dk = q.shape
+    qh = q.transpose(1, 2)
+    mask = attention_mask(sq, c_kv.shape[1], kw, q.device)
+
+    def call():
+        c = c_kv.float()[:, None].expand(b, h, -1, -1)
+        k = torch.cat([c_kv.float(), k_rope.float()], -1)[:, None].expand(b, h, -1, -1)
+        return F.scaled_dot_product_attention(qh, k, c, attn_mask=mask, scale=kw["scale"])
+
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]):
+                call()
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+
+        def fn(backend=backend):
+            with sdpa_kernel([backend]):
+                return call()
+        return fn, backend.name
+    raise RuntimeError("no SDPA backend takes the MLA shape")
+
+
+def check_mla(book, label, args, kw, *, timed) -> dict | None:
+    """The MLA kernel against its plain version (out, m, l) at the limits of
+    MLA_TOL; when `timed`, kernel / plain / SDPA by CUDA-graph replay and
+    eager, and the bound. Returns the timing row or None."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.kernel import flash_fwd_mla, flash_fwd_mla_plain
+
+    bf16 = args[1].dtype == torch.bfloat16
+    name = "flash_fwd_mla_bf16kv" if bf16 else "flash_fwd_mla_f32"
+    kernel = lambda: flash_fwd_mla(*args, **kw)  # noqa: E731
+    plain = lambda: flash_fwd_mla_plain(*args, **kw)  # noqa: E731
+    got = kernel()
+    torch.cuda.synchronize()
+    want = plain()
+    tag = (f"{label} q{tuple(args[0].shape)} c_kv{tuple(args[1].shape)} "
+           f"q_offset={kw['q_offset']} kv_len={kw['kv_len']}")
+    m = want[1][want[1] > -1e29]  # rows that see no key carry the mask value
+    widen = score_widening(float(m.abs().max()) if m.numel() else 0.0)
+    if bf16:
+        book.check_bf16(name, f"{tag} out", got[0], want[0])
+    else:
+        book.check(name, f"{tag} out", got[0], want[0], widen=widen)
+    book.check_stat(name, f"{tag} m", got[1], want[1])
+    book.check_stat(name, f"{tag} l", got[2], want[2], widen=widen)
+    if not timed:
+        return None
+    lib, backend = mla_library(*args, kw)
+    lib_err = float((lib().transpose(1, 2).float() - got[0].float()).abs().max())
+    fns = {"kernel": kernel, "plain": plain, "library": lib}
+    t = time_graph_turns(fns)
+    te = time_turns(fns)
+    ft, bt = mla_bound(args[0], args[1], kw)
+    row = {"kernel": name, "shape": label, "q": list(args[0].shape),
+           "c_kv": list(args[1].shape), "q_offset": kw["q_offset"], "kv_len": kw["kv_len"],
+           "ms": t["kernel"], "plain_ms": t["plain"], "library_ms": t["library"],
+           "library_backend": backend, "eager_ms": te["kernel"], "eager_plain_ms": te["plain"],
+           "eager_library_ms": te["library"], "flop_ms": ft, "byte_ms": bt,
+           "bound_ms": max(ft, bt), "bound_by": "operations" if ft >= bt else "bytes",
+           "library_max_abs_diff": lib_err, "phase": MLA_ARCH}
+    book.rows.append(row)
+    print(f"    {name} {label}: ms={t['kernel']:.4f} plain_ms={t['plain']:.4f} "
+          f"library_ms={t['library']:.4f} (SDPA {backend}) bound_ms={max(ft, bt):.4f} "
+          f"({row['bound_by']}) [CUDA-graph replay]; eager calls: {te['kernel']:.4f} / "
+          f"{te['plain']:.4f} / {te['library']:.4f} ms; |kernel - SDPA| {lib_err:.2e}")
+    return row
+
+
+def mla_counts() -> dict:
+    """The MLA and GQA flash launches since `mla_reset`, per entry point."""
+    from repro_torch.kernels import cuda as kcuda
+
+    return {**{k: kcuda.MLA_ENTRY_LAUNCHES[k] for k in MLA_ENTRIES},
+            **{k: kcuda.FLASH_ENTRY_LAUNCHES[k] for k in ("repro_flash_fwd_f32",
+                                                          "repro_flash_fwd_q8")}}
+
+
+def mla_reset() -> None:
+    from repro_torch.kernels import cuda as kcuda
+    from repro_torch.kernels.flash_attention.kernel import flash_fwd, flash_fwd_mla, flash_fwd_q8
+
+    for d in (kcuda.MLA_ENTRY_LAUNCHES, kcuda.FLASH_ENTRY_LAUNCHES):
+        for k in d:
+            d[k] = 0
+    reset_counts({"flash_fwd_mla": flash_fwd_mla, "flash_fwd": flash_fwd,
+                  "flash_fwd_q8": flash_fwd_q8})
+
+
+def mla_serve(book, dev, failures) -> dict:
+    """deepseek-v2-236b at full width cut to MLA_LAYERS: weights drawn on the
+    card, served (fp32 latent cache, and the int8 request's bf16 latent)
+    through `serve(cfg, params=...)` with the flash counters set to 0 just
+    before and read just after, the served tokens against the card's
+    teacher-forced argmax, warm prefill / decode traces, and the MLA kernel
+    at the captured layer 0 and 1 shapes against its plain version, layer 0
+    timed beside SDPA."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention.kernel import flash_fwd_mla
+    from repro_torch.launch.serve import cache_kind, serve
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_leaves
+
+    cfg = dataclasses.replace(get_config(MLA_ARCH), n_layers=MLA_LAYERS)
+    n_layers = cfg.n_layers
+    out = {"n_layers": n_layers, "n_params": cfg.n_params(),
+           "n_active_params": cfg.n_active_params(), "runs": {}, "service": {}}
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(LM_SERVE["seed"]),
+                           device=dev)
+    torch.cuda.synchronize()
+    out["card_draw_s"] = time.perf_counter() - t0
+    out["weight_gb"] = sum(t.numel() * t.element_size() for t in tree_leaves(params)) / 1e9
+    out["draw_peak_allocated_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{MLA_ARCH} at full width, depth {n_layers} (of 60): {out['n_params']:,} params "
+          f"({out['n_active_params']:,} active per token), {out['weight_gb']:.2f} GB at "
+          f"fp32, drawn on the card in {out['card_draw_s']:.2f} s; peak memory_allocated "
+          f"while drawing {out['draw_peak_allocated_gib']:.2f} GiB; {cfg.n_heads} heads on "
+          f"one latent (r {cfg.kv_lora_rank}, dr {cfg.rope_head_dim}), {cfg.n_experts} "
+          f"experts top-{cfg.top_k} and {cfg.n_shared_experts} shared")
+    max_len = LM_SERVE["prompt_len"] + LM_SERVE["gen_len"]
+    expect = n_layers * LM_SERVE["gen_len"]
+    keep = (0, n_layers - 1, n_layers, 2 * n_layers - 1)
+    captured = {}
+    for kvd, want in (("float32", MLA_ENTRIES[0]), ("int8", MLA_ENTRIES[1])):
+        serve(cfg, device=dev, kv_cache_dtype=kvd, params=params, **dict(LM_SERVE, gen_len=2))
+        mla_reset()
+        res = serve(cfg, device=dev, kv_cache_dtype=kvd, params=params, **LM_SERVE)
+        launches = mla_counts()
+        wrapper = flash_fwd_mla.launches
+        print(f"{MLA_ARCH} served ({cache_kind(cfg, kvd)} cache, {kvd} requested): batch "
+              f"{LM_SERVE['batch']}, prompt {LM_SERVE['prompt_len']}, {LM_SERVE['gen_len']} "
+              f"tokens: prefill {res.prefill_ms:.2f} ms, decode {res.decode_ms:.3f} ms/step, "
+              f"{res.tok_s:.1f} tok/s; launches {launches} (wrapper {wrapper}; expected "
+              f"{expect} of {want}, none of the others)")
+        if launches[want] != expect or wrapper != expect or sum(launches.values()) != expect:
+            failures.append(f"{MLA_ARCH} {kvd}: launches {launches} (wrapper {wrapper}), "
+                            f"expected {expect} of {want} and none of the others")
+        toks = res.tokens.cpu()
+        if toks.shape != (LM_SERVE["batch"], LM_SERVE["gen_len"]) or not bool(
+                ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+            failures.append(f"{MLA_ARCH} {kvd}: served tokens malformed")
+        prompt, follow = res.prompt.cpu(), toks[:, :LM_TF_STEPS]
+        with capture_mla(keep) as cap:
+            card = teacher_forced(cfg, params, prompt, follow, kvd, dev, max_len)
+        captured[kvd] = cap.calls
+        greedy = torch.stack([card[0][:, -1].argmax(-1)] + [
+            lg[:, 0].argmax(-1) for lg in card[1:LM_TF_STEPS]], 1).to(torch.int32)
+        same = bool(torch.equal(greedy, follow))
+        finite = all(bool(torch.isfinite(lg).all()) for lg in card)
+        print(f"{MLA_ARCH} {kvd}: served tokens equal the card's teacher-forced argmax "
+              f"(prefill + {LM_TF_STEPS - 1} steps): {same}; logits finite: {finite}")
+        if not (same and finite):
+            failures.append(f"{MLA_ARCH} {kvd}: served tokens are not the card's greedy "
+                            f"argmax, or its logits are not finite")
+        out["runs"][kvd] = {"prefill_ms": res.prefill_ms, "decode_ms": res.decode_ms,
+                            "tok_s": res.tok_s, "launches": launches, "greedy": same,
+                            "cache": cache_kind(cfg, kvd)}
+        cache = M.init_cache(cfg, LM_SERVE["batch"], max_len,
+                             torch.int8 if kvd == "int8" else torch.float32, device=dev)
+        nxt = res.tokens[:, :1]
+
+        def prefill():
+            with torch.no_grad():
+                return M.prefill(cfg, params, cache, {"tokens": res.prompt})
+
+        def decode():
+            with torch.no_grad():
+                return M.decode_step(cfg, params, cache, {"tokens": nxt},
+                                     LM_SERVE["prompt_len"])
+
+        for step, fn in (("prefill", prefill), ("decode", decode)):
+            br = trace_breakdown(fn)
+            out["service"][f"{kvd} {step}"] = br
+            print(f"{MLA_ARCH} {kvd} warm {step}: wall {br['wall_ms']:.3f} ms (median of 5), "
+                  f"device {br['device_ms']:.3f} ms in {br['device_ops']} device ops, "
+                  f"idle share {br['idle_share']}; by class "
+                  + ", ".join(f"{c} {ms:.3f}" for c, ms in
+                              sorted(br["by_class_ms"].items(), key=lambda kv: -kv[1])))
+        del cache
+
+    print(f"{MLA_ARCH} MLA kernel checks ({MLA_TOL}):")
+    for kvd, calls in captured.items():
+        for idx in sorted(set(keep)):
+            if idx not in calls:
+                failures.append(f"{MLA_ARCH} {kvd}: MLA call {idx} not captured")
+                continue
+            args, kw_ = calls[idx]
+            layer = idx % n_layers
+            label = f"{'prefill' if idx < n_layers else 'decode'} layer {layer}"
+            row = check_mla(book, label, args, kw_, timed=(layer == 0))
+            if row is not None:
+                out.setdefault("timed", {}).setdefault(row["kernel"], []).append(
+                    {k: row[k] for k in ("shape", "ms", "plain_ms", "library_ms",
+                                         "library_backend", "bound_ms", "flop_ms", "byte_ms")})
+    del captured
+    for name in ("flash_fwd_mla_f32", "flash_fwd_mla_bf16kv"):
+        if len(out.get("timed", {}).get(name, [])) != 2:
+            failures.append(f"{MLA_ARCH}: {name} was not timed at layer 0's served shapes")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mla_reduced(dev, failures) -> dict:
+    """Reduced deepseek-v2 (2 layers, 4 heads on a 32-wide latent, 8 experts
+    top-2 and 1 shared) drawn on the host: teacher-forced logits on the card
+    (the MLA kernel) against the host (its plain version), within
+    1e-4*max|host| over the fp32 latent cache and 2^-7*max over the bf16 one
+    (the int8 request)."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+
+    cfg = get_config(MLA_ARCH, reduced=True)
+    params_cpu = M.init_params(cfg, torch.Generator().manual_seed(LM_SERVE["seed"]),
+                               device="cpu")
+    params = tree_to(params_cpu, dev)
+    gen = torch.Generator().manual_seed(LM_SERVE["seed"] + 1)
+    prompt = torch.randint(0, cfg.vocab_size, (LM_SERVE["batch"], LM_SERVE["prompt_len"]),
+                           generator=gen)
+    follow = torch.randint(0, cfg.vocab_size, (LM_SERVE["batch"], LM_TF_STEPS), generator=gen)
+    max_len = LM_SERVE["prompt_len"] + LM_TF_STEPS
+    out = {}
+    for kvd, rel in (("float32", 1e-4), ("int8", 2.0 ** -7)):
+        card = teacher_forced(cfg, params, prompt, follow, kvd, dev, max_len)
+        host = teacher_forced(cfg, params_cpu, prompt, follow, kvd, "cpu", max_len)
+        err = max(float((c - h).abs().max()) for c, h in zip(card, host))
+        scale = max(float(h.abs().max()) for h in host)
+        ok = err <= rel * scale and all(bool(torch.isfinite(c).all()) for c in card)
+        print(f"{MLA_ARCH} reduced, {kvd} requested ({'bf16' if kvd == 'int8' else 'fp32'} "
+              f"latent cache), card vs host plain path, teacher-forced prefill + "
+              f"{LM_TF_STEPS} decode steps: max_abs_err={err:.3e} (max|host|={scale:.3e}, "
+              f"limit {rel:g}*max): {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"{MLA_ARCH} reduced {kvd}: the card's logits disagree with the host")
+        out[kvd] = {"max_abs_err": err, "max_host": scale, "ok": ok}
+    return out
+
+
+def mla_phase(book, dev, failures) -> dict:
+    """The MLA family (see `mla_serve`, `mla_reduced`); memory reserved
+    before it and the peak in it."""
+    import torch
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"memory_reserved_before_gib": torch.cuda.memory_reserved() / 2**30}
+    print(f"MLA phase: memory_reserved before it {out['memory_reserved_before_gib']:.2f} GiB")
+    for key, fn in (("serve", lambda: mla_serve(book, dev, failures)),
+                    ("reduced", lambda: mla_reduced(dev, failures))):
+        try:
+            out[key] = fn()
+        except Exception:
+            traceback.print_exc()
+            failures.append(f"{MLA_ARCH} {key} failed")
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["peak_allocated_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["seconds"] = time.perf_counter() - t0
+    print(f"MLA phase: peak memory_allocated {out['peak_allocated_gib']:.2f} GiB; "
+          f"{out['seconds']:.1f} s")
+    return out
+
+
 PAPER_IMPLS = ("dense", "im2col", "ecr", "pecr", "ecr_pallas", "pecr_pallas")
 VERIFIED = []  # one entry per plan this script builds
 
@@ -4751,6 +5140,14 @@ def main() -> int:
     except Exception:
         traceback.print_exc()
         failures.append("MoE phase failed")
+    gc.collect()
+    torch.cuda.empty_cache()
+    mla_lm = {}
+    try:
+        mla_lm = mla_phase(book, dev, failures)
+    except Exception:
+        traceback.print_exc()
+        failures.append("MLA phase failed")
 
     csrc = "src/repro_torch/kernels/csrc/"
     # (name, book key, row suffix, source, replaces, the phase that serves it)
@@ -4902,12 +5299,42 @@ def main() -> int:
                        for r in rows]})
         if len(main_rows) != 1:
             failures.append(f"{name}: the trained shape was not timed")
+    # the MLA rows: one prefill plus one decode launch at the served shapes
+    # (layer 0), launches over the served deepseek-v2 run of their cache type;
+    # no pallas_call site sits on the reference's MLA path: its chunked jnp
+    # flash_attention computes flash_fwd_pallas's function at Dk != Dv
+    serve_runs = mla_lm.get("serve", {}).get("runs", {})
+    for name, kvd, entry in (("flash_fwd_mla_f32", "float32", MLA_ENTRIES[0]),
+                             ("flash_fwd_mla_bf16kv", "int8", MLA_ENTRIES[1])):
+        rows = [r for r in book.rows if r["kernel"] == name]
+        main_rows = [r for r in rows if r["shape"] in ("prefill layer 0", "decode layer 0")]
+        flop_ms = sum(r["flop_ms"] for r in main_rows)
+        byte_ms = sum(r["byte_ms"] for r in main_rows)
+        kernels.append({
+            "name": name, "route": "cuda", "source": csrc + "flash_mla.cu",
+            "replaces": flash_src + ":94", "reference_call": "src/repro/models/attention.py:336",
+            "timing": "CUDA-graph replay (plain_ms too)",
+            "launches": serve_runs.get(kvd, {}).get("launches", {}).get(entry, 0),
+            "max_abs_err": book.max_err.get(name, 0.0),
+            "ms": sum(r["ms"] for r in main_rows),
+            "plain_ms": sum(r["plain_ms"] for r in main_rows),
+            "bound_ms": sum(r["bound_ms"] for r in main_rows),
+            "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
+            "library_ms": sum(r["library_ms"] for r in main_rows),
+            "library_backend": sorted({r["library_backend"] for r in main_rows}),
+            "eager_ms": sum(r["eager_ms"] for r in main_rows),
+            "eager_library_ms": sum(r["eager_library_ms"] for r in main_rows),
+            "phase": MLA_ARCH,
+            "shapes": [{k: r[k] for k in ("shape", "q", "c_kv", "ms", "plain_ms", "library_ms",
+                                          "bound_ms", "bound_by")} for r in rows]})
+        if len(main_rows) != 2:
+            failures.append(f"{name}: the served shapes were not timed")
     if args.layers_out is not None:
         args.layers_out.parent.mkdir(parents=True, exist_ok=True)
         args.layers_out.write_text(json.dumps(
             {"card": card, "rows": book.rows, "kernels": kernels,
              "service": services, "variants": variants, "obs": obs, "lm": lm,
-             "dense_lm": dense_lm, "moe_lm": moe_lm,
+             "dense_lm": dense_lm, "moe_lm": moe_lm, "mla_lm": mla_lm,
              "train": train_summary, "paper": paper, "verifier": verifier,
              "geometry": geometry, "lint": lint, "scenario": scenario,
              "graphs": graphs, "verified": VERIFIED},

@@ -4,9 +4,9 @@
 
 The dataclasses carry every field of the reference's, so a config file
 copies over verbatim. The registry loads the dense LM family and the MoE
-family's GQA config, arctic-480b (`_ARCH_MODULES`); the MLA (deepseek-v2),
-hybrid, SSM, VLM and audio configs join with their families (ROADMAP queue 1
-item 16).
+family: arctic-480b (GQA attention) and deepseek-v2-236b (MLA attention)
+(`_ARCH_MODULES`); the hybrid, SSM, VLM and audio configs join with their
+families (ROADMAP queue 1 item 16).
 `ModelConfig.n_params` counts from the parameter shapes without allocating
 them (`models.model.count_params_analytic`).
 """
@@ -214,6 +214,7 @@ _ARCH_MODULES = [
     "minitron_8b",
     "qwen3_0_6b",
     "arctic_480b",
+    "deepseek_v2_236b",
 ]
 
 

@@ -37,13 +37,15 @@ def lm_params_from_jax(np_params: dict, cfg, device=None, dtype=torch.float32) -
     """The JAX LM's parameter values tree (`repro.models.model.init_params`'s
     first result, leaves as array-likes) -> the port's tree on `device`
     (None = the card): `embed`, `final_norm`, [`unembed`] and
-    `groups.sub0.{ln1, mix.{wq, wk, wv, wo[, q_norm, k_norm]}, ln2}` with
+    `groups.sub0.{ln1, mix.{wq, wk, wv, wo[, q_norm, k_norm]}, ln2}` (MLA:
+    `mix.{w_dq, w_uq, w_dkv, w_uk, w_uv, w_kr, w_o, q_norm, kv_norm}`) with
     the FFN the group layout gives: `ffn.{w1[, w3], w2}` (dense), and for
     the MoE family `moe.{router, w1, w3, w2[, shared.{w1, w3, w2}]}` (beside
     `ffn` for arctic's dense residual), each group leaf with its leading
     layer axis. The two trees have the same keys and layouts: the port's
-    tree (made on the meta device) names the leaves to carry, and a missing
-    leaf or one of another shape raises. Leaves in `dtype` (float32, or
+    tree (made on the meta device) names the leaves to carry, so a family's
+    leaves carry with no code of their own (the MLA leaves too), and a
+    missing leaf or one of another shape raises. Leaves in `dtype` (float32, or
     bfloat16 for the reference's default training type). The families the
     port serves only (`models.transformer.group_layout` raises for the
     others)."""

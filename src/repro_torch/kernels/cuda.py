@@ -13,8 +13,10 @@ cores, and the int8 tensor-core ECR conv), `launch_bsr` (the block-sparse
 matmul, fp32 on the split-TF32 tensor cores, and its int8 tensor-core form),
 `launch_flash` (the flash attention forward: fp32 on the split-TF32 tensor
 cores, int8 K/V dequantized as it is staged into the same body, bf16 on the
-bf16 tensor cores) and `launch_flash_bwd` (its two backward passes, fp32 on
-the split-TF32 tensor cores, bf16 on the bf16 ones) are the launch sites:
+bf16 tensor cores), `launch_flash_bwd` (its two backward passes, fp32 on
+the split-TF32 tensor cores, bf16 on the bf16 ones) and `launch_flash_mla`
+(the MLA attention forward over one latent kv head, fp32 q over an fp32 or
+a bf16 latent, on the TF32 tensor cores) are the launch sites:
 they check
 device, dtype, layout and shapes, allocate the outputs with `torch.empty`,
 launch on PyTorch's current stream without synchronising, and raise on a
@@ -26,7 +28,8 @@ its `.launches`, and one more in the calling thread's open
 `recording_launches` record, which is how a CUDA-graph runner learns which
 kernels one replay of its graph launches. `FLASH_ENTRY_LAUNCHES` counts the
 flash launches per C entry point, so that a report can tell the bf16
-launches from the fp32 ones.
+launches from the fp32 ones; `MLA_ENTRY_LAUNCHES` does the same for the MLA
+kernel's two entry points.
 """
 from __future__ import annotations
 
@@ -43,7 +46,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("ecr_conv.cu", "ecr_conv_int8.cu", "bsr_matmul.cu", "bsr_matmul_int8.cu",
-           "flash_attention.cu", "flash_attention_bwd.cu")
+           "flash_attention.cu", "flash_attention_bwd.cu", "flash_mla.cu")
 HEADERS = ("smem_io.cuh", "int8_mma.cuh", "tf32_mma.cuh", "bf16_mma.cuh",
            "flash_bf16.cuh")  # included; hashed
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -59,6 +62,8 @@ FLASH_ENTRY_LAUNCHES = dict.fromkeys((
     "repro_flash_fwd_f32", "repro_flash_fwd_bf16", "repro_flash_fwd_q8",
     "repro_flash_bwd_dq_f32", "repro_flash_bwd_dq_bf16", "repro_flash_bwd_dkv_f32",
     "repro_flash_bwd_dkv_bf16"), 0)
+# launches per MLA entry point: fp32 q over an fp32 latent, or over a bf16 one
+MLA_ENTRY_LAUNCHES = dict.fromkeys(("repro_flash_fwd_mla_f32", "repro_flash_fwd_mla_bf16kv"), 0)
 
 
 def count_launch(wrapper) -> None:
@@ -196,6 +201,11 @@ def library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = [ctypes.c_void_p] * n_ptrs + [dims, strides, ctypes.c_float,
                                                             ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+            for name in MLA_ENTRY_LAUNCHES:
+                fn = getattr(lib, name)
+                fn.argtypes = [ctypes.c_void_p] * 6 + [dims, strides, ctypes.c_float,
+                                                       ctypes.c_void_p]
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
@@ -596,3 +606,82 @@ def launch_flash_bwd(q, k, v, do, m, l, delta, *, part: str, scale: float,
                            f"causal {causal}, q_offset {q_offset}, kv_len {kv_len})")
     FLASH_ENTRY_LAUNCHES[entry] += 1
     return dq if part == "dq" else (dk, dv)
+
+
+# the (kv_lora_rank, rope_head_dim) pairs the MLA kernel is instantiated at:
+# reduced and full-width deepseek-v2-236b; and the most query heads it takes
+MLA_DIMS = ((32, 16), (512, 64))
+MLA_MAX_HEADS = 128
+
+
+def check_mla_operands(q, c_kv, k_rope) -> tuple:
+    """Validate the MLA attention operands, q (B, Sq, H, r + dr) over the
+    latent c_kv (B, Sk, r) and the rotary key k_rope (B, Sk, dr), and return
+    (b, sq, h, sk, r, dr). q is float32; c_kv and k_rope both float32 or
+    both bfloat16 (the latent cache of an int8 request)."""
+    if q.ndim != 4 or c_kv.ndim != 3 or k_rope.ndim != 3:
+        raise ValueError(f"expected q (B,Sq,H,r+dr), c_kv (B,Sk,r), k_rope (B,Sk,dr); got "
+                         f"q {tuple(q.shape)}, c_kv {tuple(c_kv.shape)}, "
+                         f"k_rope {tuple(k_rope.shape)}")
+    b, sq, h, dk = q.shape
+    sk, r = c_kv.shape[1], c_kv.shape[2]
+    dr = k_rope.shape[2]
+    if (c_kv.shape[0], k_rope.shape[0], k_rope.shape[1]) != (b, b, sk) or dk != r + dr:
+        raise ValueError(f"c_kv {tuple(c_kv.shape)} / k_rope {tuple(k_rope.shape)} do not "
+                         f"match q {tuple(q.shape)} (want (B, Sk, r), (B, Sk, dr) with "
+                         f"r + dr = {dk})")
+    if min(b, sq, h, sk, r, dr) < 1:
+        raise ValueError(f"empty MLA operands: q {tuple(q.shape)}, c_kv {tuple(c_kv.shape)}, "
+                         f"k_rope {tuple(k_rope.shape)}")
+    if (q.dtype != torch.float32 or c_kv.dtype != k_rope.dtype
+            or c_kv.dtype not in (torch.float32, torch.bfloat16)):
+        raise TypeError(f"MLA attention takes a float32 q over float32 or bfloat16 c_kv and "
+                        f"k_rope of one type, got {q.dtype}/{c_kv.dtype}/{k_rope.dtype}")
+    return b, sq, h, sk, r, dr
+
+
+def launch_flash_mla(q, c_kv, k_rope, *, scale: float, causal: bool, q_offset: int = 0,
+                     kv_len=None):
+    """Launch the MLA attention forward on CUDA tensors (`check_mla_operands`'
+    shapes and types): out (B, Sq, H, r) in c_kv's type, m and l (B, Sq * H)
+    fp32, row s * H + h. c_kv and k_rope may be strided views (a layer of
+    the stacked cache) as long as their last dim is contiguous. Raises for
+    (r, dr) not in MLA_DIMS, more than MLA_MAX_HEADS heads, a tensor that
+    needs grad, or operands off one CUDA device."""
+    b, sq, h, sk, r, dr = check_mla_operands(q, c_kv, k_rope)
+    if any(t.stride(-1) != 1 for t in (q, c_kv, k_rope)):
+        raise ValueError("the CUDA MLA kernel needs a contiguous last dim")
+    if (r, dr) not in MLA_DIMS:
+        raise ValueError(f"the CUDA MLA kernel takes (kv_lora_rank, rope_head_dim) in "
+                         f"{MLA_DIMS}, got ({r}, {dr})")
+    if h > MLA_MAX_HEADS or b > 65535:
+        raise ValueError(f"{h} heads / batch {b} exceed the CUDA MLA kernel's "
+                         f"{MLA_MAX_HEADS} / 65535")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, c_kv, k_rope)):
+        raise RuntimeError("the CUDA MLA kernel has no backward: call it under "
+                           "torch.no_grad()")
+    dev = q.device
+    if dev.type != "cuda" or c_kv.device != dev or k_rope.device != dev:
+        raise ValueError("CUDA kernel needs every operand on one CUDA device")
+    entry = ("repro_flash_fwd_mla_bf16kv" if c_kv.dtype == torch.bfloat16
+             else "repro_flash_fwd_mla_f32")
+    out = torch.empty((b, sq, h, r), device=dev, dtype=c_kv.dtype)
+    m = torch.empty((b, sq * h), device=dev, dtype=torch.float32)
+    l = torch.empty((b, sq * h), device=dev, dtype=torch.float32)
+    kvl = -1 if kv_len is None else max(0, int(kv_len))
+    dims = (ctypes.c_int * 9)(b, h, sq, sk, r, dr, int(bool(causal)), int(q_offset), kvl)
+    strides = (ctypes.c_longlong * 10)(
+        q.stride(0), q.stride(1), q.stride(2), c_kv.stride(0), c_kv.stride(1),
+        k_rope.stride(0), k_rope.stride(1), out.stride(0), out.stride(1), out.stride(2))
+    lib = library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = getattr(lib, entry)(q.data_ptr(), c_kv.data_ptr(), k_rope.data_ptr(),
+                                  out.data_ptr(), m.data_ptr(), l.data_ptr(), dims, strides,
+                                  float(scale), stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA MLA kernel launch failed ({entry}): cudaError {err} "
+                           f"(q {tuple(q.shape)}, c_kv {tuple(c_kv.shape)} {c_kv.dtype}, "
+                           f"causal {causal}, q_offset {q_offset}, kv_len {kv_len})")
+    MLA_ENTRY_LAUNCHES[entry] += 1
+    return out, m, l

@@ -5,9 +5,14 @@ and `flash_fwd_q8` replaces `flash_fwd_q8_pallas` (kernels in
 `repro_torch/kernels/csrc/flash_attention.cu`); `flash_bwd` replaces
 `flash_bwd_pallas` through its two passes, `flash_bwd_dq` (the `_dq_kernel`
 call) and `flash_bwd_dkv` (the `_dkv_kernel` call), kernels in
-`csrc/flash_attention_bwd.cu`. On a CUDA tensor each wrapper launches its
-hand-written kernel and counts the launch in its `.launches`; on a CPU tensor
-it runs its plain version. There is no fallback from one to the other.
+`csrc/flash_attention_bwd.cu`. `flash_fwd_mla` computes `flash_fwd_pallas`'s
+function at MLA's shape (key width r + dr, value width r, one kv head under
+H query heads), which the reference runs as its chunked jnp
+`flash_attention` (`repro/models/attention.py:336`) because the Pallas
+kernel takes no Dk != Dv (kernel in `csrc/flash_mla.cu`). On a CUDA tensor
+each wrapper launches its hand-written kernel and counts the launch in its
+`.launches`; on a CPU tensor it runs its plain version. There is no
+fallback from one to the other.
 
 All take the Pallas kernels' layout, q (BKV, G, Sq, D) with k, v (BKV, Sk, D),
 or the model's, q (B, Sq, KV, G, D) with k, v (B, Sk, KV, D) read in place
@@ -40,7 +45,13 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.cuda import check_flash_operands, launch_flash, launch_flash_bwd
+from repro_torch.kernels.cuda import (
+    check_flash_operands,
+    check_mla_operands,
+    launch_flash,
+    launch_flash_bwd,
+    launch_flash_mla,
+)
 
 NEG = -1e30
 
@@ -147,6 +158,46 @@ def flash_fwd(q, k, v, *, scale, causal, q_offset=0, kv_len=None):
 
 
 flash_fwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# MLA: one latent kv head, keys [c_kv ; k_rope], values c_kv
+# ---------------------------------------------------------------------------
+
+
+def flash_fwd_mla_plain(q, c_kv, k_rope, *, scale, causal, q_offset=0, kv_len=None):
+    """The MLA kernels' function in plain PyTorch: q (B, Sq, H, r + dr) over
+    keys [c_kv ; k_rope] (B, Sk, r + dr) and values c_kv (B, Sk, r) ->
+    (out (B, Sq, H, r) in c_kv's type, m, l (B, Sq * H) fp32, row s * H + h).
+    Scores are fp32 sums of q * scale times the (widened) keys; over a bf16
+    latent p is rounded to bf16 before P.V and out once at the end, as the
+    reference's `flash_attention` rounds (`p.astype(v.dtype)`,
+    `out.astype(v.dtype)`)."""
+    b, sq, h, _, _, _ = check_mla_operands(q, c_kv, k_rope)
+    out, m, l = _plain_softmax(q.permute(0, 2, 1, 3), torch.cat([c_kv, k_rope], dim=-1),
+                               c_kv, scale=scale, causal=causal, q_offset=q_offset,
+                               kv_len=kv_len)
+    rows = (b, sq * h)
+    return (out.permute(0, 2, 1, 3).contiguous().to(c_kv.dtype),
+            m.permute(0, 2, 1).reshape(rows), l.permute(0, 2, 1).reshape(rows))
+
+
+def flash_fwd_mla(q, c_kv, k_rope, *, scale, causal, q_offset=0, kv_len=None):
+    """MLA flash attention forward, one latent kv head under the H query
+    heads -> (out (B, Sq, H, r) in c_kv's type, m, l (B, Sq * H) fp32).
+    q float32 over float32 latents (`repro_flash_fwd_mla_f32`) or over a
+    bfloat16 latent cache (`repro_flash_fwd_mla_bf16kv`). CUDA tensor: the
+    CUDA kernel, reading c_kv and k_rope (a layer's view of the stacked
+    cache) in place; CPU tensor: the plain version."""
+    kw = dict(scale=scale, causal=causal, q_offset=q_offset, kv_len=kv_len)
+    if not _on_card(q, "flash_fwd_mla"):
+        return flash_fwd_mla_plain(q, c_kv, k_rope, **kw)
+    out = launch_flash_mla(q, c_kv, k_rope, **kw)
+    flash_fwd_mla.launches += 1
+    return out
+
+
+flash_fwd_mla.launches = 0
 
 
 def dequantize(x_q8, scale):

@@ -2,19 +2,24 @@
 loop over a KV cache, fp32 or int8 (counterpart of `repro.launch.serve`;
 no mesh). The archs: the dense qwen3-0.6b, minitron-8b, stablelm-12b and
 mistral-large-123b, and the MoE arctic-480b (128 experts top-2 beside a
-dense residual FFN).
+dense residual FFN) and deepseek-v2-236b (MLA attention over a latent
+cache, 160 experts top-6 and 2 shared). deepseek-v2's cache is its latent
+(c_kv, k_rope): an int8 request gives a bf16 latent cache, as in the
+reference, and the summary line says so.
 
 Run on the card (default device "cuda"), at full width with fp32 weights
 (minitron-8b takes 31 GB of the card, stablelm-12b 49 GB; mistral-large-123b
-fits no single card and serves only reduced, and so does arctic-480b, whose
-35 layers hold ~477 B parameters: `chip_smoke.py` drives it at full width
-with its depth cut to one layer, 56 GB):
+fits no single card and serves only reduced, and so do arctic-480b, whose
+35 layers hold ~477 B parameters, and deepseek-v2-236b, 239 B:
+`chip_smoke.py` drives arctic-480b at full width with its depth cut to one
+layer, 56 GB, and deepseek-v2-236b with its depth cut to two, 36 GB):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b --full
     PYTHONPATH=src python -m repro_torch.launch.serve --arch minitron-8b --full --kv-cache-dtype int8
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-12b --full
 On the host, through the kernels' plain PyTorch versions (reduced config):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch minitron-8b --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch arctic-480b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b --device cpu --kv-cache-dtype int8
 """
 from __future__ import annotations
 
@@ -41,6 +46,14 @@ class ServeResult(NamedTuple):
     prefill_ms: float  # the prefill step, synchronised
     decode_ms: float  # mean decode step (gen_len - 1 steps), synchronised
     tok_s: float  # batch * gen_len over prefill plus decode
+
+
+def cache_kind(cfg: ModelConfig, kv_cache_dtype: str) -> str:
+    """What a request for `kv_cache_dtype` gets: a KV cache of that type, or
+    for MLA the latent cache, bfloat16 for an int8 request."""
+    if cfg.attn_type == "mla":
+        return "bfloat16 latent" if kv_cache_dtype == "int8" else f"{kv_cache_dtype} latent"
+    return kv_cache_dtype
 
 
 def _sync(dev: torch.device) -> None:
@@ -91,7 +104,7 @@ def serve(arch: str | ModelConfig, *, reduced: bool = True, batch: int = 4, prom
                       decode_ms=(t2 - t1) * 1e3 / max(gen_len - 1, 1), tok_s=tok_s)
     log.info("served %d seqs x %d tokens in %.2fs (%.1f tok/s): prefill %.2f ms, "
              "decode %.3f ms/step, %s cache, %s", batch, gen_len, t2 - t0, tok_s,
-             res.prefill_ms, res.decode_ms, kv_cache_dtype, dev)
+             res.prefill_ms, res.decode_ms, cache_kind(cfg, kv_cache_dtype), dev)
     return res
 
 

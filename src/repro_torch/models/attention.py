@@ -1,18 +1,29 @@
-"""GQA self-attention over a KV cache, fp32 or int8 (counterpart of
-`repro.models.attention`; MLA, cross-attention, the mesh head-padding branch
-and the dry-run stand-in are not ported).
+"""GQA and MLA self-attention over a cache (counterpart of
+`repro.models.attention`; cross-attention, the mesh head-padding branch and
+the dry-run stand-in are not ported).
 
-The attention region runs through the flash kernels. Without a cache (the
-training path) it goes through `FlashAttentionFn`, whose backward is the
-flash backward kernels. With a cache (prefill and decode, under
+GQA: the attention region runs through the flash kernels. Without a cache
+(the training path) it goes through `FlashAttentionFn`, whose backward is
+the flash backward kernels. With a cache (prefill and decode, under
 `torch.no_grad()`) an fp32 cache goes through `flash_fwd`, an int8 cache
 straight through `flash_fwd_q8` with its scales (the reference dequantizes
 the whole cache first, then attends; the q8 kernel forms the same fp32
 products per tile). The kernels read the model's (B, S, KV, G, hd) queries
 and the (B, S_max, KV, hd) cache in place.
 
+MLA (deepseek-v2) keeps the reference's absorbed form: w_uk is folded into
+the queries, so the cache holds only the latent `c_kv` (B, S, r) and the
+shared rotary key `k_rope` (B, S, dr), and attention runs as one shared kv
+head of key width r + dr and value width r over the H query heads
+(`flash_fwd_mla`, the MLA kernel). The kernel reads a layer's view of the
+stacked cache in place; the reference concatenates [c_kv ; k_rope] into
+its keys on every step. An fp32 request gives an fp32 latent cache, an
+int8 request a bf16 one (the reference's `init_group_caches`: latent
+states are not quantized). The MLA kernel has no backward yet: with
+autograd recording `mla_attention` raises (ROADMAP queue 1 item 24).
+
 Unlike the reference's functional update, the cache is written in place:
-`gqa_attention` returns the same `KVCache` it was given.
+both attentions return the cache they were given.
 """
 from __future__ import annotations
 
@@ -21,7 +32,12 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.flash_attention.kernel import dequantize, flash_fwd, flash_fwd_q8
+from repro_torch.kernels.flash_attention.kernel import (
+    dequantize,
+    flash_fwd,
+    flash_fwd_mla,
+    flash_fwd_q8,
+)
 from repro_torch.kernels.flash_attention.ops import FlashAttentionFn
 from repro_torch.models.layers import as_drawn, dense_init, ones_init, rms_norm, rope
 
@@ -124,4 +140,81 @@ def gqa_attention(p, x, *, cfg: ModelConfig, positions, causal=True,
                               q_offset=wp, kv_len=wp + s, **scales)
     out = out.reshape(b, s, h, hd)
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(out.dtype))
+    return out, cache
+
+
+# ---------------------------------------------------------------------------
+# MLA block (deepseek-v2), absorbed formulation
+# ---------------------------------------------------------------------------
+
+MLA_TRAINING_TODO = "ROADMAP queue 1 item 24 (MLA training: the MLA kernel's backward)"
+
+
+def init_mla(generator: torch.Generator, cfg: ModelConfig, place=as_drawn) -> dict:
+    """The reference's leaves, shapes and fan-ins; `place` takes each leaf
+    as it is drawn."""
+    d, h = cfg.d_model, cfg.n_heads
+    dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
+    r, qr = cfg.kv_lora_rank, cfg.q_lora_rank
+    return {
+        "w_dq": place(dense_init(generator, (d, qr))),
+        "w_uq": place(dense_init(generator, (qr, h, dn + dr))),
+        "w_dkv": place(dense_init(generator, (d, r))),
+        "w_uk": place(dense_init(generator, (r, h, dn))),
+        "w_uv": place(dense_init(generator, (r, h, dv))),
+        "w_kr": place(dense_init(generator, (d, dr))),
+        "w_o": place(dense_init(generator, (h, dv, d), fan_in=h * dv)),
+        "q_norm": place(ones_init((qr,))),
+        "kv_norm": place(ones_init((r,))),
+    }
+
+
+class MLACache(NamedTuple):
+    c_kv: torch.Tensor  # (B, S_max, r) the compressed latent: keys and values
+    k_rope: torch.Tensor  # (B, S_max, dr) the shared rotary key
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                   device=None) -> MLACache:
+    """dtype float32 or bfloat16 (the reference's latent cache for an int8
+    request)."""
+    return MLACache(
+        c_kv=torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=dtype, device=device),
+        k_rope=torch.zeros((batch, max_len, cfg.rope_head_dim), dtype=dtype, device=device))
+
+
+def mla_attention(p, x, *, cfg: ModelConfig, positions, causal=True,
+                  cache: Optional[MLACache] = None, write_pos=None):
+    """x: (B,S,D). cache + write_pos: write c_kv / k_rope at write_pos (in
+    place, in the cache's type), attend over the whole cache. Returns (out,
+    cache). Forward only: raises NotImplementedError when autograd would
+    record it."""
+    if torch.is_grad_enabled() and (x.requires_grad or any(t.requires_grad for t in p.values())):
+        raise NotImplementedError(f"MLA attention records no autograd graph: the MLA "
+                                  f"kernel has no backward yet; see {MLA_TRAINING_TODO}")
+    b, s, _ = x.shape
+    dn, dr = cfg.nope_head_dim, cfg.rope_head_dim
+    cq = rms_norm(x @ p["w_dq"].to(x.dtype), p["q_norm"], cfg.norm_eps)
+    q = torch.einsum("bsq,qhk->bshk", cq, p["w_uq"].to(x.dtype))
+    q_nope, q_rope = q[..., :dn], rope(q[..., dn:], positions, cfg.rope_theta)
+    # absorb w_uk: queries into the latent space, so the cache never
+    # expands per head
+    q_lat = torch.einsum("bshn,rhn->bshr", q_nope, p["w_uk"].to(x.dtype))
+    c_kv = rms_norm(x @ p["w_dkv"].to(x.dtype), p["kv_norm"], cfg.norm_eps)
+    k_rope = rope(x @ p["w_kr"].to(x.dtype), positions, cfg.rope_theta)
+
+    kv_len, q_offset = None, 0
+    if cache is not None:
+        wp = int(write_pos)
+        cache.c_kv[:, wp:wp + s] = c_kv.to(cache.c_kv.dtype)
+        cache.k_rope[:, wp:wp + s] = k_rope.to(cache.k_rope.dtype)
+        c_kv, k_rope = cache.c_kv, cache.k_rope
+        kv_len, q_offset = wp + s, wp
+    # one shared kv head: keys [c_kv ; k_rope], values c_kv, queries
+    # [q_lat ; q_rope] over the H heads
+    q_eff = torch.cat([q_lat, q_rope], dim=-1)  # (B, S, H, r + dr)
+    out_lat, _, _ = flash_fwd_mla(q_eff, c_kv, k_rope, scale=(dn + dr) ** -0.5,
+                                  causal=causal, q_offset=q_offset, kv_len=kv_len)
+    out = torch.einsum("bshr,rhv->bshv", out_lat.to(x.dtype), p["w_uv"].to(x.dtype))
+    out = torch.einsum("bshv,hvd->bsd", out, p["w_o"].to(x.dtype))
     return out, cache

@@ -33,7 +33,7 @@ from repro_torch.tree import tree_paths
 
 def _check_family(cfg: ModelConfig) -> None:
     """Raises NotImplementedError for a family the port does not have yet
-    (the dense LM and the MoE LM with GQA attention are ported)."""
+    (the dense LM and the MoE LM, with GQA or MLA attention, are ported)."""
     group_layout(cfg)
 
 
@@ -85,8 +85,10 @@ def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.float32,
                device=None) -> tuple:
-    """The decode/prefill cache tree: one KVCache per sublayer position,
-    stacked over layers; dtype torch.int8 quantizes K/V (fp32 scales)."""
+    """The decode/prefill cache tree: one cache per sublayer position,
+    stacked over layers: a KVCache, where dtype torch.int8 quantizes K/V
+    (fp32 scales), or for MLA an MLACache of the latent and the rotary key,
+    bfloat16 for an int8 request."""
     _check_family(cfg)
     return init_group_caches(cfg, batch, max_len, dtype, device=resolve_device(device))
 

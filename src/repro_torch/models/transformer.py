@@ -2,11 +2,12 @@
 `repro.models.transformer`).
 
 A *group* is the smallest repeating pattern of sublayers. The port covers
-the dense LM and the MoE LM with GQA attention, whose group is one [attn]
-sublayer with a dense FFN, a routed-expert FFN (`models.moe`) or both side
-by side (arctic's dense residual); the other families (MLA, hybrid, SSM,
-VLM, audio) raise NotImplementedError until ROADMAP queue 1 item 16 ports
-them.
+the dense LM and the MoE LM. A dense LM or a MoE LM with GQA attention is
+one [attn] sublayer with a dense FFN, a routed-expert FFN (`models.moe`) or
+both side by side (arctic's dense residual); a MoE LM with MLA attention
+(deepseek-v2) is one [mla] sublayer with a routed FFN, whose cache is the
+latent `MLACache`. The other families (hybrid, SSM, VLM, audio) raise
+NotImplementedError until ROADMAP queue 1 item 16 ports them.
 
 Group parameters keep the reference's stacked leaves: every leaf of
 `groups["sub0"]` carries a leading (n_layers,) axis, so weights carry over
@@ -35,19 +36,22 @@ FAMILIES_TODO = "ROADMAP queue 1 item 16 (the other LM families)"
 
 
 class Sub(NamedTuple):
-    kind: str  # attn (mla | cross | mamba | mlstm | slstm: not ported)
+    kind: str  # attn | mla (cross | mamba | mlstm | slstm: not ported)
     ffn: str  # dense | moe | moe+dense | none
 
 
 def group_layout(cfg: ModelConfig) -> list:
     """The reference's rule for the families the port has: a dense LM, or a
     MoE LM with GQA attention, is one [attn] sublayer whose FFN is routed
-    ("moe"), routed beside a dense residual FFN ("moe+dense") or dense."""
+    ("moe"), routed beside a dense residual FFN ("moe+dense") or dense; a
+    MoE LM with MLA attention is one [mla] sublayer with a routed FFN."""
     if not cfg.is_encoder_decoder and (
             cfg.family == "dense" or (cfg.family == "moe" and cfg.attn_type == "gqa")):
         base_ffn = "moe+dense" if (cfg.n_experts and cfg.dense_residual_ff) else (
             "moe" if cfg.n_experts else "dense")
         return [Sub("attn", base_ffn)]
+    if not cfg.is_encoder_decoder and cfg.family == "moe" and cfg.attn_type == "mla":
+        return [Sub("mla", "moe")]
     raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} (attention "
                               f"{cfg.attn_type!r}) is not ported yet; see {FAMILIES_TODO}")
 
@@ -88,10 +92,10 @@ def ffn_apply(p, x, cfg: ModelConfig):
 
 def init_sublayer(generator: torch.Generator, sub: Sub, cfg: ModelConfig,
                   place=as_drawn) -> dict:
-    if sub.kind != "attn":
+    init_mix = {"attn": attn_mod.init_gqa, "mla": attn_mod.init_mla}.get(sub.kind)
+    if init_mix is None:
         raise NotImplementedError(f"sublayer {sub.kind!r}: see {FAMILIES_TODO}")
-    p = {"ln1": place(ones_init((cfg.d_model,))),
-         "mix": attn_mod.init_gqa(generator, cfg, place)}
+    p = {"ln1": place(ones_init((cfg.d_model,))), "mix": init_mix(generator, cfg, place)}
     if sub.ffn != "none":
         p["ln2"] = place(ones_init((cfg.d_model,)))
         if "moe" in sub.ffn:
@@ -150,20 +154,28 @@ def unstack_groups(tree, n: int) -> list:
 
 def init_group_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
                       device=None) -> tuple:
-    """Per sublayer position, a KVCache stacked (n_groups, B, S_max, KV, hd);
-    dtype torch.int8 gives the quantized cache with its scales."""
+    """Per sublayer position, its cache stacked over the groups: an [attn]
+    sublayer's KVCache (n_groups, B, S_max, KV, hd), where dtype torch.int8
+    gives the quantized cache with its scales; an [mla] sublayer's MLACache
+    (n_groups, B, S_max, r) and (n_groups, B, S_max, dr), bfloat16 for an
+    int8 request (the reference quantizes no latent state)."""
     g = n_groups(cfg)
     caches = []
-    for _ in group_layout(cfg):
-        c = attn_mod.init_gqa_cache(cfg, batch, max_len, dtype, device=device)
-        caches.append(attn_mod.KVCache(*(None if x is None else
-                                         x.expand((g,) + x.shape).contiguous()
-                                         for x in c)))
+    for sub in group_layout(cfg):
+        if sub.kind == "mla":
+            c = attn_mod.init_mla_cache(cfg, batch, max_len,
+                                        torch.bfloat16 if dtype == torch.int8 else dtype,
+                                        device=device)
+        else:
+            c = attn_mod.init_gqa_cache(cfg, batch, max_len, dtype, device=device)
+        caches.append(type(c)(*(None if x is None else x.expand((g,) + x.shape).contiguous()
+                                for x in c)))
     return tuple(caches)
 
 
 def _layer_cache(cache, i: int):
-    return attn_mod.KVCache(*(None if x is None else x[i] for x in cache))
+    """Group i's view of a stacked KVCache or MLACache."""
+    return type(cache)(*(None if x is None else x[i] for x in cache))
 
 
 # ---------------------------------------------------------------------------
@@ -176,9 +188,9 @@ def apply_sublayer(sub: Sub, p, x, *, cfg, positions, cache, write_pos, causal):
     both from the same normed input, added to the residual; aux is the
     routed FFN's load-balancing loss (None without one)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    out, new_cache = attn_mod.gqa_attention(
-        p["mix"], h, cfg=cfg, positions=positions, causal=causal, cache=cache,
-        write_pos=write_pos)
+    mix = attn_mod.mla_attention if sub.kind == "mla" else attn_mod.gqa_attention
+    out, new_cache = mix(p["mix"], h, cfg=cfg, positions=positions, causal=causal,
+                         cache=cache, write_pos=write_pos)
     x = x + out
     aux = None
     if sub.ffn != "none":

@@ -1,0 +1,179 @@
+"""The MLA kernel (`csrc/flash_mla.cu`) against its plain PyTorch version on
+the card, and the reduced deepseek-v2 on the card against the host. These
+tests need an NVIDIA GPU and nvcc; without a card they skip (the check runs
+inside the fixture, never at import). This file imports no JAX (the card's
+machine need not have it): run it on the card with
+`PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_mla_cuda.py`.
+The host's parity tests against the JAX package are `tests/test_torch_mla.py`.
+
+Limits against the plain version: fp32 latent (`repro_flash_fwd_mla_f32`,
+split-TF32): out within 1e-4 * max|plain| + 1e-5 * min(1, max|plain|), m
+and l within 1e-5 * max|plain|; bf16 latent (`repro_flash_fwd_mla_bf16kv`):
+out (bf16) within 2^-7 * max|plain| (one bf16 ulp at the largest value:
+both round p and out to bf16 at the same points of fp32 sums taken in
+another order), m and l within 1e-5 * max|plain|."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs.base import get_config  # noqa: E402
+from repro_torch.kernels.cuda import MLA_ENTRY_LAUNCHES  # noqa: E402
+from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
+    flash_fwd_mla,
+    flash_fwd_mla_plain,
+)
+from repro_torch.models import attention as A  # noqa: E402
+from repro_torch.models import model as M  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.device import strict_fp32
+
+    strict_fp32()
+    return torch.device("cuda")
+
+
+def _operands(dev, b, sq, sk, r, dr, h, dtype, seed, stacked=False):
+    """q (B, Sq, H, r + dr) fp32 over c_kv, k_rope in `dtype`; `stacked`:
+    the latents are layer 1 of a (3, B, Sk, .) stacked cache, read in place."""
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.standard_normal((b, sq, h, r + dr)).astype(np.float32)).to(dev)
+    lead = (3,) if stacked else ()
+    c = torch.from_numpy(rng.standard_normal(lead + (b, sk, r)).astype(np.float32))
+    k = torch.from_numpy(rng.standard_normal(lead + (b, sk, dr)).astype(np.float32))
+    c, k = c.to(dev, dtype), k.to(dev, dtype)
+    return (q, c[1], k[1]) if stacked else (q, c, k)
+
+
+def _check(got, want, bf16):
+    out, m, l = got
+    w_out, w_m, w_l = want
+    assert out.dtype == w_out.dtype and out.shape == w_out.shape
+    scale = float(w_out.float().abs().max())
+    err = float((out.float() - w_out.float()).abs().max())
+    limit = 2.0 ** -7 * scale if bf16 else 1e-4 * scale + 1e-5 * min(1.0, scale)
+    assert err <= limit, ("out", err, scale)
+    for name, g, w in (("m", m, w_m), ("l", l, w_l)):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        e = float((g - w).abs().max())
+        assert e <= 1e-5 * float(w.abs().max()), (name, e)
+
+
+# (B, Sq, Sk, H, causal, q_offset, kv_len, stacked): the served prefill's
+# shape cut (causal, 8 positions x 128 heads over a 16-key cache), decode
+# over a cache tail at kv_len 1, 33 and 64 (one and two key tiles), a ragged
+# key count past two tiles, rows that see no key (negative offset: the mean
+# of the values), an empty cache, a head count whose rows do not fill a
+# 16-row tile, and the latents read in place from a stacked cache
+MLA_CASES = [
+    (2, 8, 16, 128, True, 0, 8, False),
+    (3, 1, 64, 128, True, 0, 1, True),
+    (3, 1, 64, 128, True, 32, 33, True),
+    (2, 1, 64, 128, True, 63, 64, False),
+    (1, 5, 70, 16, False, 0, 67, False),
+    (2, 6, 16, 4, True, -3, None, False),
+    (1, 2, 8, 128, True, 0, 0, False),
+    (2, 7, 40, 3, True, 33, 40, True),
+]
+
+
+@pytest.mark.parametrize("dims", [(512, 64), (32, 16)], ids=["full", "reduced"])
+@pytest.mark.parametrize("latent", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", MLA_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_mla_kernel_matches_plain(dev, case, latent, dims):
+    """Each entry point launches once (and no other) and holds its limits."""
+    b, sq, sk, h, causal, q_offset, kv_len, stacked = case
+    r, dr = dims
+    bf16 = latent == "bfloat16"
+    q, c, k = _operands(dev, b, sq, sk, r, dr, h, torch.bfloat16 if bf16 else torch.float32,
+                        seed=sq + sk + h + r, stacked=stacked)
+    kw = dict(scale=(128 + dr) ** -0.5, causal=causal, q_offset=q_offset, kv_len=kv_len)
+    before = dict(MLA_ENTRY_LAUNCHES)
+    got = flash_fwd_mla(q, c, k, **kw)
+    torch.cuda.synchronize()
+    entry = "repro_flash_fwd_mla_bf16kv" if bf16 else "repro_flash_fwd_mla_f32"
+    assert {e: n - before[e] for e, n in MLA_ENTRY_LAUNCHES.items() if n != before[e]} == {
+        entry: 1}
+    _check(got, flash_fwd_mla_plain(q, c, k, **kw), bf16)
+
+
+@pytest.mark.parametrize("dims", [(512, 64), (32, 16)], ids=["full", "reduced"])
+@pytest.mark.parametrize("latent", ["float32", "bfloat16"])
+def test_mla_kernel_off_alignment(dev, latent, dims):
+    """q, c_kv and k_rope as views whose rows start one element past each
+    other (row strides r + dr + 1, r + 1, dr + 1): the kernel stages them by
+    plain loads and holds the same limits."""
+    r, dr = dims
+    dt = torch.bfloat16 if latent == "bfloat16" else torch.float32
+    rng = np.random.default_rng(11)
+    b, sq, sk, h = 2, 3, 40, 16
+
+    def view(shape, dtype):
+        x = torch.from_numpy(rng.standard_normal(shape[:-1] + (shape[-1] + 1,)).astype(
+            np.float32)).to(dev, dtype)
+        return x[..., 1:]
+
+    q, c, k = view((b, sq, h, r + dr), torch.float32), view((b, sk, r), dt), view((b, sk, dr), dt)
+    assert q.stride(-2) % 4 and c.stride(-2) % 4 and k.stride(-2) % 4
+    kw = dict(scale=(128 + dr) ** -0.5, causal=True, q_offset=30, kv_len=33)
+    _check(flash_fwd_mla(q, c, k, **kw), flash_fwd_mla_plain(q, c, k, **kw),
+           latent == "bfloat16")
+
+
+@pytest.mark.parametrize("latent", ["float32", "bfloat16"])
+def test_mla_kernel_repeats_bitwise(dev, latent):
+    """A second launch on the same inputs repeats the first bitwise, at the
+    served decode shape (two key tiles) and a causal prefill."""
+    dt = torch.bfloat16 if latent == "bfloat16" else torch.float32
+    for b, sq, sk, q_offset, kv_len in ((4, 1, 64, 40, 41), (2, 16, 32, 0, 16)):
+        q, c, k = _operands(dev, b, sq, sk, 512, 64, 128, dt, seed=7)
+        kw = dict(scale=192 ** -0.5, causal=True, q_offset=q_offset, kv_len=kv_len)
+        first = flash_fwd_mla(q, c, k, **kw)
+        second = flash_fwd_mla(q, c, k, **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+def test_mla_attention_refuses_autograd_on_the_card(dev):
+    cfg = get_config("deepseek-v2-236b", reduced=True)
+    p = A.init_mla(torch.Generator().manual_seed(0), cfg,
+                   place=lambda t: t.to(dev).requires_grad_())
+    x = torch.randn((1, 4, cfg.d_model), device=dev)
+    pos = torch.arange(4, device=dev)[None]
+    with pytest.raises(NotImplementedError, match="item 24"):
+        A.mla_attention(p, x, cfg=cfg, positions=pos)
+    with torch.no_grad():
+        out, _ = A.mla_attention(p, x, cfg=cfg, positions=pos)
+    assert out.shape == x.shape and bool(torch.isfinite(out).all())
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.int8], ids=["fp32", "bf16_latent"])
+def test_reduced_deepseek_on_the_card_matches_the_host(dev, kv_dtype):
+    """Reduced deepseek-v2, prefill then 3 teacher-forced decode steps: the
+    card's logits (the MLA kernel) against the host's (its plain version) at
+    1e-4 * max|host| over the fp32 latent, 2^-7 * max over the bf16 one."""
+    cfg = get_config("deepseek-v2-236b", reduced=True)
+    params_cpu = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    params = M.init_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, 12), generator=torch.Generator().manual_seed(1),
+                         dtype=torch.int32)
+    rel = 2.0 ** -7 if kv_dtype == torch.int8 else 1e-4
+    outs = {}
+    for where, p in (("cpu", params_cpu), ("cuda", params)):
+        cache = M.init_cache(cfg, 2, 16, kv_dtype, device=where)
+        with torch.no_grad():
+            lg, cache = M.prefill(cfg, p, cache, {"tokens": toks[:, :8].to(where)})
+            seq = [lg.cpu()]
+            for t in range(8, 11):
+                lg, cache = M.decode_step(cfg, p, cache, {"tokens": toks[:, t:t + 1].to(where)}, t)
+                seq.append(lg.cpu())
+        outs[where] = seq
+    for c, h in zip(outs["cuda"], outs["cpu"]):
+        err, scale = float((c - h).abs().max()), float(h.abs().max())
+        assert err <= rel * scale, (err, scale)

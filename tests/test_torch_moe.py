@@ -356,8 +356,9 @@ def test_configs_match_the_reference(reduced):
     assert port == dataclasses.asdict(j_get_config(ARCH, reduced=reduced))
     assert (port["family"], port["attn_type"], port["dense_residual_ff"]) == ("moe", "gqa", True)
     assert ARCH in list_archs() and "deepseek-v2-236b" in j_list_archs()
-    with pytest.raises(KeyError):
-        get_config("deepseek-v2-236b")
+    mla = get_config("deepseek-v2-236b", reduced=reduced)
+    assert (mla.family, mla.attn_type) == ("moe", "mla")
+    assert (mla.kv_lora_rank, mla.rope_head_dim) == ((32, 16) if reduced else (512, 64))
 
 
 def _stand_in(jcfg) -> ModelConfig:
@@ -365,11 +366,11 @@ def _stand_in(jcfg) -> ModelConfig:
     return ModelConfig(**dataclasses.asdict(jcfg))
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "jamba-v0.1-52b", "xlstm-125m",
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "xlstm-125m",
                                   "llama-3.2-vision-90b", "whisper-tiny"])
 @pytest.mark.parametrize("reduced", [True, False])
 def test_unported_families_raise(arch, reduced):
-    """MLA (deepseek-v2), hybrid, SSM, VLM and audio fields: group_layout,
+    """Hybrid, SSM, VLM and audio fields: group_layout,
     init_params and init_cache raise NotImplementedError naming item 16."""
     cfg = _stand_in(j_get_config(arch, reduced=reduced))
     with pytest.raises(NotImplementedError, match="item 16"):
