@@ -315,6 +315,39 @@
    drawn on the host: teacher-forced logits on the card against the host,
    within 1e-4*max|host| (fp32 latent) and 2^-7*max|host| (bf16 latent).
    The phase's seconds and peak memory are printed.
+10d. The recurrent phase, after the MLA phase has released deepseek-v2's
+   weights. jamba-v0.1-52b (d_model 4096, Mamba d_inner 8192 and state N
+   16; attention with 32 query / 8 KV heads, head dim 128, G 4; 16 experts
+   top-2 on the odd layers; vocab 65,536) at full width with its depth cut
+   to one interleave group of 8 layers, [mamba x4, attn, mamba x3] (~53 GB
+   of fp32 weights), weights drawn on the card (seconds, GB and peak
+   allocated printed), served through `serve(cfg, params=...)` at batch 4,
+   prompt 32, 32 tokens over the fp32 and the int8 KV cache (beside the
+   fp32 recurrent state), the launch counters set to 0 just before each
+   served run and read just after: 7 x 32 = 224 launches of the selective
+   scan (repro_selective_scan_f32) and 32 of repro_flash_fwd_f32 (fp32) or
+   repro_flash_fwd_q8 (int8), none of any other entry. The served tokens
+   must equal the card's teacher-forced argmax, with finite logits; a warm
+   prefill and decode step per cache type are traced. The scan is held
+   against its plain version at the captured prefill and decode operands
+   of the first and last Mamba layers (the fp32 limit), layer 0's timed by
+   CUDA-graph replay and eager beside its plain version and the bound
+   (max(B*S*di*(7N + 7) operations / 67 TFLOP/s, bytes / 3.35 TB/s): x,
+   dt, z, B, C, A, D and the state read once, out and the state written
+   once); no single PyTorch call computes the scan, so no library time.
+   The flash kernels are held against their plain versions at the
+   attention layer's captured prefill and decode operands (G 4, the
+   saturated-scores widening of step 10). xlstm-125m (12 layers of mLSTM /
+   sLSTM, d_model 768, 4 heads, vocab 50,304) at full width and depth
+   (0.58 GB), served the same way at prompt 128, so that every mLSTM
+   prefill takes the chunkwise form (6 calls per prefill, counted), then
+   32 tokens on the sequential form; no kernel of the port is on its path
+   (every counter must stay 0); tokens against the teacher-forced argmax
+   and traces as above. Reduced jamba and xlstm (xlstm at prompt 128),
+   drawn on the host: teacher-forced logits on the card against the host
+   over the fp32 and the int8 request (rtol 1e-3 + 1e-3*max|host|, the int8
+   rounding pinned as in step 10). The phase's seconds and peak memory
+   are printed.
 11. The scenario phase, on the published VGG-19 (weights and calibration
    images as in step 3; Engines at block_c=8, occ_threshold=0.75,
    max_batch=8, on a SimClock charged with the measured service time):
@@ -407,7 +440,12 @@
    on the reference's MLA path, which runs the jnp flash_attention named
    in "reference_call"), and the bound is max(2*B*H*(visible pairs)*(r +
    dr + r) / 165 TFLOP/s, bytes / 3.35 TB/s), the bytes being q, the keys
-   read once, out, and m, l.
+   read once, out, and m, l. The selective_scan row sums one prefill and
+   one decode launch at layer 0 of the served jamba by graph replay (its
+   plain version too), its launches count the served fp32 run
+   ("int8_request_launches" the int8 one), "replaces" names the
+   reference's `lax.scan` (no pallas_call site), its bound is step 10d's
+   and its library_ms is null.
    `--layers-out PATH` also writes the per-layer numbers there as JSON.
 """
 from __future__ import annotations
@@ -1263,6 +1301,7 @@ def ptxas_usage(text: str) -> dict:
 def kernel_category(name: str) -> str:
     """Coarse class of a CUDA kernel by its symbol name."""
     for stem, cat in (("flash_mla_kernel", "flash MLA kernel"),
+                      ("selective_scan_kernel", "selective scan kernel"),
                       ("flash_bwd_dq_bf16_kernel", "flash bwd dq bf16 kernel"),
                       ("flash_bwd_dkv_bf16_kernel", "flash bwd dk/dv bf16 kernel"),
                       ("flash_fwd_bf16_kernel", "flash bf16 kernel")):
@@ -3959,6 +3998,417 @@ def mla_phase(book, dev, failures) -> dict:
     return out
 
 
+SSM_ARCH = "jamba-v0.1-52b"
+# depth 8 of 32: one interleave group [mamba x4, attn, mamba x3], the least
+# depth the group layout allows; 53.18 GB of fp32 weights (one layer's
+# largest leaf, an expert leaf, is 3.76 GB)
+SSM_LAYERS = 8
+XLSTM_ARCH = "xlstm-125m"
+# xlstm serves a 128-token prompt, so that every mLSTM prefill takes the
+# chunkwise form (chunk 128), then decodes on the sequential one
+XLSTM_SERVE = dict(LM_SERVE, prompt_len=128)
+SCAN_ENTRY = "repro_selective_scan_f32"
+
+
+class capture_scan:
+    """Within the block, record the operands of the selective-scan calls
+    whose running index is in `keep` (cloned), then run the call as usual."""
+
+    def __init__(self, keep):
+        self.keep, self.calls, self.n = set(keep), {}, 0
+
+    def __enter__(self):
+        import repro_torch.models.ssm as S
+
+        self.S, self.orig = S, S.selective_scan
+
+        def rec(*args):
+            if self.n in self.keep:
+                self.calls[self.n] = tuple(a.clone() for a in args)
+            self.n += 1
+            return self.orig(*args)
+
+        S.selective_scan = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.S.selective_scan = self.orig
+
+
+class count_chunkwise:
+    """Count the chunkwise mLSTM's calls within the block."""
+
+    def __enter__(self):
+        import repro_torch.models.xlstm as X
+
+        self.X, self.orig, self.n = X, X._mlstm_chunkwise, 0
+
+        def rec(*args):
+            self.n += 1
+            return self.orig(*args)
+
+        X._mlstm_chunkwise = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.X._mlstm_chunkwise = self.orig
+
+
+def scan_bound(args):
+    """(op time, byte time) in ms of the selective scan: per channel and
+    step 7 fp32 operations per state (dt * A, its exp, the decay, the input
+    product and sum, the output product and sum) and 7 for the skip and the
+    gate, at 67 TFLOP/s; x, dt, z, B, C, A, D and h0 read once, out and
+    h_last written once, over 3.35 TB/s."""
+    x, _, a, bm, _, _, _, h0 = args
+    b, s, di = x.shape
+    n = a.shape[1]
+    ops = float(b * s * di * (7 * n + 7))
+    nbytes = 4.0 * (4 * b * s * di + 2 * b * s * n + a.numel() + di + 2 * h0.numel())
+    return ops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+
+
+def check_scan(book, label, args, *, timed) -> dict | None:
+    """The selective scan against its plain version (out and h_last, the
+    fp32 limit); when `timed`, kernel and plain by CUDA-graph replay and
+    eager, and the bound. No single PyTorch call computes this function:
+    the row's library time is None."""
+    import torch
+
+    from repro_torch.kernels.selective_scan.kernel import selective_scan, selective_scan_plain
+
+    kernel = lambda: selective_scan(*args)  # noqa: E731
+    plain = lambda: selective_scan_plain(*args)  # noqa: E731
+    with torch.no_grad():
+        got = kernel()
+        torch.cuda.synchronize()
+        want = plain()
+    tag = f"{label} x{tuple(args[0].shape)} N={args[2].shape[1]}"
+    for part, g_, w_ in zip(("out", "h_last"), got, want):
+        book.check("selective_scan", f"{tag} {part}", g_, w_)
+    if not timed:
+        return None
+    fns = {"kernel": kernel, "plain": plain}
+    with torch.no_grad():
+        t = time_graph_turns(fns)
+        te = time_turns(fns)
+    ft, bt = scan_bound(args)
+    row = {"kernel": "selective_scan", "shape": label, "x": list(args[0].shape),
+           "n": args[2].shape[1], "ms": t["kernel"], "plain_ms": t["plain"], "library_ms": None,
+           "eager_ms": te["kernel"], "eager_plain_ms": te["plain"], "flop_ms": ft,
+           "byte_ms": bt, "bound_ms": max(ft, bt),
+           "bound_by": "operations" if ft >= bt else "bytes", "phase": SSM_ARCH}
+    book.rows.append(row)
+    print(f"    selective_scan {label}: ms={t['kernel']:.4f} plain_ms={t['plain']:.4f} "
+          f"library_ms=None (no single PyTorch call) bound_ms={max(ft, bt):.4f} "
+          f"({row['bound_by']}) [CUDA-graph replay]; eager calls: {te['kernel']:.4f} / "
+          f"{te['plain']:.4f} ms")
+    return row
+
+
+def recurrent_counts() -> dict:
+    """The scan and GQA flash launches since `recurrent_reset`, per entry
+    point, and the wrappers' own counts."""
+    from repro_torch.kernels import cuda as kcuda
+    from repro_torch.kernels.flash_attention.kernel import flash_fwd, flash_fwd_q8
+    from repro_torch.kernels.selective_scan.kernel import selective_scan
+
+    return {SCAN_ENTRY: kcuda.SCAN_ENTRY_LAUNCHES[SCAN_ENTRY],
+            **{k: kcuda.FLASH_ENTRY_LAUNCHES[k] for k in ("repro_flash_fwd_f32",
+                                                          "repro_flash_fwd_q8")},
+            **{k: kcuda.MLA_ENTRY_LAUNCHES[k] for k in MLA_ENTRIES},
+            "wrappers": {"selective_scan": selective_scan.launches,
+                         "flash_fwd": flash_fwd.launches, "flash_fwd_q8": flash_fwd_q8.launches}}
+
+
+def recurrent_reset() -> None:
+    from repro_torch.kernels import cuda as kcuda
+    from repro_torch.kernels.selective_scan.kernel import selective_scan
+
+    mla_reset()  # the flash and MLA counters
+    kcuda.SCAN_ENTRY_LAUNCHES[SCAN_ENTRY] = 0
+    selective_scan.launches = 0
+
+
+def serve_and_hold(name, cfg, params, run, kvd, dev, failures, *, expect) -> tuple:
+    """One served run through `serve(cfg, params=...)` after a 2-token
+    warm-up, the launch counters set to 0 just before it and read just
+    after and held to `expect` (entry point -> launches; every other entry
+    0), then the served tokens against the card's teacher-forced argmax
+    (prefill + LM_TF_STEPS - 1 steps). Returns (the run's summary, the
+    ServeResult)."""
+    import torch
+
+    from repro_torch.launch.serve import cache_kind, serve
+
+    serve(cfg, device=dev, kv_cache_dtype=kvd, params=params, **dict(run, gen_len=2))
+    recurrent_reset()
+    res = serve(cfg, device=dev, kv_cache_dtype=kvd, params=params, **run)
+    launches = recurrent_counts()
+    wrappers = launches.pop("wrappers")
+    print(f"{name} served ({cache_kind(cfg, kvd)} cache, {kvd} requested): batch "
+          f"{run['batch']}, prompt {run['prompt_len']}, {run['gen_len']} tokens: prefill "
+          f"{res.prefill_ms:.2f} ms, decode {res.decode_ms:.3f} ms/step, {res.tok_s:.1f} "
+          f"tok/s; launches {launches} (wrappers {wrappers}; expected {expect}, none of "
+          f"the others)")
+    want = {k: expect.get(k, 0) for k in launches}
+    want_wrappers = {"selective_scan": expect.get(SCAN_ENTRY, 0),
+                     "flash_fwd": expect.get("repro_flash_fwd_f32", 0),
+                     "flash_fwd_q8": expect.get("repro_flash_fwd_q8", 0)}
+    if launches != want or wrappers != want_wrappers:
+        failures.append(f"{name} {kvd}: launches {launches} (wrappers {wrappers}), expected "
+                        f"{expect} and none of the others")
+    toks = res.tokens.cpu()
+    if toks.shape != (run["batch"], run["gen_len"]) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        failures.append(f"{name} {kvd}: served tokens malformed")
+    return {"prefill_ms": res.prefill_ms, "decode_ms": res.decode_ms, "tok_s": res.tok_s,
+            "launches": launches, "cache": cache_kind(cfg, kvd)}, res
+
+
+def hold_greedy(name, kvd, card, follow, failures) -> bool:
+    import torch
+
+    greedy = torch.stack([card[0][:, -1].argmax(-1)] + [
+        lg[:, 0].argmax(-1) for lg in card[1:LM_TF_STEPS]], 1).to(torch.int32)
+    same = bool(torch.equal(greedy, follow))
+    finite = all(bool(torch.isfinite(lg).all()) for lg in card)
+    print(f"{name} {kvd}: served tokens equal the card's teacher-forced argmax "
+          f"(prefill + {LM_TF_STEPS - 1} steps): {same}; logits finite: {finite}")
+    if not (same and finite):
+        failures.append(f"{name} {kvd}: served tokens are not the card's greedy argmax, or "
+                        f"its logits are not finite")
+    return same
+
+
+def trace_steps(name, cfg, params, res, kvd, run, dev) -> dict:
+    """A torch.profiler trace of one warm prefill and one warm decode step
+    (`trace_breakdown`) over a fresh cache of the served request's type."""
+    import torch
+
+    from repro_torch.models import model as M
+
+    cache = M.init_cache(cfg, run["batch"], run["prompt_len"] + run["gen_len"],
+                         torch.int8 if kvd == "int8" else torch.float32, device=dev)
+    nxt = res.tokens[:, :1]
+
+    def prefill():
+        with torch.no_grad():
+            return M.prefill(cfg, params, cache, {"tokens": res.prompt})
+
+    def decode():
+        with torch.no_grad():
+            return M.decode_step(cfg, params, cache, {"tokens": nxt}, run["prompt_len"])
+
+    out = {}
+    for step, fn in (("prefill", prefill), ("decode", decode)):
+        br = trace_breakdown(fn)
+        out[f"{kvd} {step}"] = br
+        print(f"{name} {kvd} warm {step}: wall {br['wall_ms']:.3f} ms (median of 5), "
+              f"device {br['device_ms']:.3f} ms in {br['device_ops']} device ops, idle share "
+              f"{br['idle_share']}; by class "
+              + ", ".join(f"{c} {ms:.3f}" for c, ms in
+                          sorted(br["by_class_ms"].items(), key=lambda kv: -kv[1])))
+    return out
+
+
+def draw_on_card(name, cfg, dev, note) -> tuple:
+    """Weights drawn on the card from a CUDA generator (seconds, GB, peak)."""
+    import torch
+
+    from repro_torch.models import model as M
+    from repro_torch.tree import tree_leaves
+
+    out = {"n_layers": cfg.n_layers, "n_params": cfg.n_params(),
+           "n_active_params": cfg.n_active_params()}
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(LM_SERVE["seed"]),
+                           device=dev)
+    torch.cuda.synchronize()
+    out["card_draw_s"] = time.perf_counter() - t0
+    out["weight_gb"] = sum(t.numel() * t.element_size() for t in tree_leaves(params)) / 1e9
+    out["draw_peak_allocated_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"{name} at full width, {note}: {out['n_params']:,} params "
+          f"({out['n_active_params']:,} active per token), {out['weight_gb']:.2f} GB at fp32, "
+          f"drawn on the card in {out['card_draw_s']:.2f} s; peak memory_allocated while "
+          f"drawing {out['draw_peak_allocated_gib']:.2f} GiB")
+    return params, out
+
+
+def jamba_serve(book, dev, failures) -> dict:
+    """jamba-v0.1-52b at full width cut to SSM_LAYERS (one interleave
+    group): weights drawn on the card, served over the fp32 and the int8 KV
+    cache (beside the fp32 recurrent state) with the counters set to 0 just
+    before and read just after: 7 x 32 scan launches and 32 of the request's
+    flash entry (head dim 128, G 4); the served tokens against the card's
+    teacher-forced argmax; warm prefill / decode traces; the scan at the
+    captured prefill and decode operands of the first and last Mamba layer
+    against its plain version, layer 0 timed; the flash kernel at the
+    attention layer's captured prefill and decode operands."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_config(SSM_ARCH), n_layers=SSM_LAYERS)
+    lay = T.group_layout(cfg)
+    n_mamba, n_attn = sum(s.kind == "mamba" for s in lay), sum(s.kind == "attn" for s in lay)
+    params, out = draw_on_card(SSM_ARCH, cfg, dev, f"depth {cfg.n_layers} (of 32), one group "
+                               f"{[s.kind for s in lay]}, {cfg.n_experts} experts top-"
+                               f"{cfg.top_k} on {sum(s.ffn == 'moe' for s in lay)} layers, "
+                               f"d_inner {cfg.ssm_expand * cfg.d_model}, N {cfg.ssm_state_dim}")
+    out.update(runs={}, service={})
+    run = LM_SERVE
+    max_len = run["prompt_len"] + run["gen_len"]
+    keep_scan = (0, n_mamba - 1, n_mamba, 2 * n_mamba - 1)  # prefill and first decode
+    keep_attn = (0, n_attn)
+    scans, attns = {}, {}
+    for kvd, entry in (("float32", "repro_flash_fwd_f32"), ("int8", "repro_flash_fwd_q8")):
+        expect = {SCAN_ENTRY: n_mamba * run["gen_len"], entry: n_attn * run["gen_len"]}
+        summary, res = serve_and_hold(SSM_ARCH, cfg, params, run, kvd, dev, failures,
+                                      expect=expect)
+        prompt, follow = res.prompt.cpu(), res.tokens.cpu()[:, :LM_TF_STEPS]
+        with capture_scan(keep_scan) as cap, capture_attention(keep_attn) as acap:
+            card = teacher_forced(cfg, params, prompt, follow, kvd, dev, max_len)
+        scans[kvd], attns[kvd] = cap.calls, acap.calls
+        summary["greedy"] = hold_greedy(SSM_ARCH, kvd, card, follow, failures)
+        out["runs"][kvd] = summary
+        out["service"].update(trace_steps(SSM_ARCH, cfg, params, res, kvd, run, dev))
+    print(f"{SSM_ARCH} selective scan checks ({KERNEL_TOL}):")
+    for kvd, calls in scans.items():
+        for idx in keep_scan:
+            if idx not in calls:
+                failures.append(f"{SSM_ARCH} {kvd}: scan call {idx} not captured")
+                continue
+            step = "prefill" if idx < n_mamba else "decode"
+            layer = [i for i, s in enumerate(lay) if s.kind == "mamba"][idx % n_mamba]
+            row = check_scan(book, f"{step} layer {layer}", calls[idx],
+                             timed=(kvd == "float32" and layer == 0))
+            if row is not None:
+                out.setdefault("timed", []).append(
+                    {k: row[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "flop_ms",
+                                         "byte_ms", "eager_ms", "eager_plain_ms")})
+    if len(out.get("timed", [])) != 2:
+        failures.append(f"{SSM_ARCH}: the scan was not timed at layer 0's served shapes")
+    attn_layer = [i for i, s in enumerate(lay) if s.kind == "attn"][0]
+    for kvd, calls in attns.items():
+        for idx in keep_attn:
+            if idx not in calls:
+                failures.append(f"{SSM_ARCH} {kvd}: attention call {idx} not captured")
+                continue
+            args, kw_ = calls[idx]
+            step = "prefill" if idx < n_attn else "decode"
+            check_flash(book, f"{step} layer {attn_layer}", args, kw_, timed=False,
+                        phase=SSM_ARCH, saturated=True)
+    del params, scans, attns
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def xlstm_serve(dev, failures) -> dict:
+    """xlstm-125m at full width and depth (12 layers): weights drawn on the
+    card, served at prompt 128 (every mLSTM prefill chunkwise: 6 calls of
+    the chunkwise form per prefill) and 32 tokens, once per request type
+    (both give the same recurrent state), the counters set to 0 just before
+    and read just after (no kernel of the port is on this path: all 0); the
+    served tokens against the card's teacher-forced argmax; warm prefill /
+    decode traces."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = get_config(XLSTM_ARCH)
+    lay = T.group_layout(cfg)
+    n_mlstm = T.n_groups(cfg) * sum(s.kind == "mlstm" for s in lay)
+    params, out = draw_on_card(XLSTM_ARCH, cfg, dev, f"full depth {cfg.n_layers}, groups "
+                               f"{[s.kind for s in lay]}, {cfg.n_heads} heads")
+    out.update(runs={}, service={})
+    run = XLSTM_SERVE
+    for kvd in ("float32", "int8"):
+        with count_chunkwise() as chunked:
+            summary, res = serve_and_hold(XLSTM_ARCH, cfg, params, run, kvd, dev, failures,
+                                          expect={})
+        # the warm-up and the served run each prefill once
+        summary["chunkwise_calls"] = chunked.n
+        print(f"{XLSTM_ARCH} {kvd}: chunkwise mLSTM calls over the warm-up and the served "
+              f"run {chunked.n} (expected {2 * n_mlstm}: {n_mlstm} per prefill)")
+        if chunked.n != 2 * n_mlstm:
+            failures.append(f"{XLSTM_ARCH} {kvd}: the prefill did not take the chunkwise mLSTM")
+        prompt, follow = res.prompt.cpu(), res.tokens.cpu()[:, :LM_TF_STEPS]
+        card = teacher_forced(cfg, params, prompt, follow, kvd, dev,
+                              run["prompt_len"] + run["gen_len"])
+        summary["greedy"] = hold_greedy(XLSTM_ARCH, kvd, card, follow, failures)
+        out["runs"][kvd] = summary
+        out["service"].update(trace_steps(XLSTM_ARCH, cfg, params, res, kvd, run, dev))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def recurrent_reduced(dev, failures) -> dict:
+    """Reduced jamba (one group at d_model 128, di 256, N 8) and xlstm (2
+    layers), drawn on the host: teacher-forced logits on the card (the scan
+    kernel, flash, cuBLAS) against the host's plain path over the fp32 and
+    the int8 request (`card_vs_host`: rtol 1e-3 + 1e-3 * max|host|, the int8
+    rounding pinned); xlstm at prompt 128 (chunkwise prefill)."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+
+    out = {}
+    for arch, prompt_len in ((SSM_ARCH, LM_SERVE["prompt_len"]),
+                             (XLSTM_ARCH, XLSTM_SERVE["prompt_len"])):
+        cfg = get_config(arch, reduced=True)
+        params_cpu = M.init_params(cfg, torch.Generator().manual_seed(LM_SERVE["seed"]),
+                                   device="cpu")
+        params = tree_to(params_cpu, dev)
+        gen = torch.Generator().manual_seed(LM_SERVE["seed"] + 1)
+        prompt = torch.randint(0, cfg.vocab_size, (LM_SERVE["batch"], prompt_len),
+                               generator=gen)
+        follow = torch.randint(0, cfg.vocab_size, (LM_SERVE["batch"], LM_TF_STEPS),
+                               generator=gen)
+        for kvd in ("float32", "int8"):
+            out[f"{arch} {kvd}"] = card_vs_host(f"{arch} reduced", cfg, params, params_cpu,
+                                                prompt, follow, kvd, dev,
+                                                prompt_len + LM_TF_STEPS, failures)
+    return out
+
+
+def recurrent_phase(book, dev, failures) -> dict:
+    """The recurrent-state families (see `jamba_serve`, `xlstm_serve`,
+    `recurrent_reduced`); memory reserved before it and the peak in it."""
+    import torch
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"memory_reserved_before_gib": torch.cuda.memory_reserved() / 2**30}
+    print(f"recurrent phase: memory_reserved before it "
+          f"{out['memory_reserved_before_gib']:.2f} GiB")
+    peak = 0.0  # each part's draw resets the peak: keep the largest
+    for key, fn in (("jamba", lambda: jamba_serve(book, dev, failures)),
+                    ("xlstm", lambda: xlstm_serve(dev, failures)),
+                    ("reduced", lambda: recurrent_reduced(dev, failures))):
+        try:
+            out[key] = fn()
+        except Exception:
+            traceback.print_exc()
+            failures.append(f"recurrent phase: {key} failed")
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["peak_allocated_gib"] = peak / 2**30
+    out["seconds"] = time.perf_counter() - t0
+    print(f"recurrent phase: peak memory_allocated {out['peak_allocated_gib']:.2f} GiB; "
+          f"{out['seconds']:.1f} s")
+    return out
+
+
 PAPER_IMPLS = ("dense", "im2col", "ecr", "pecr", "ecr_pallas", "pecr_pallas")
 VERIFIED = []  # one entry per plan this script builds
 
@@ -5148,6 +5598,14 @@ def main() -> int:
     except Exception:
         traceback.print_exc()
         failures.append("MLA phase failed")
+    gc.collect()
+    torch.cuda.empty_cache()
+    recurrent_lm = {}
+    try:
+        recurrent_lm = recurrent_phase(book, dev, failures)
+    except Exception:
+        traceback.print_exc()
+        failures.append("recurrent phase failed")
 
     csrc = "src/repro_torch/kernels/csrc/"
     # (name, book key, row suffix, source, replaces, the phase that serves it)
@@ -5329,12 +5787,39 @@ def main() -> int:
                                           "bound_ms", "bound_by")} for r in rows]})
         if len(main_rows) != 2:
             failures.append(f"{name}: the served shapes were not timed")
+    # the selective scan: one prefill plus one decode launch at the served
+    # shapes (jamba's layer 0), launches over the served fp32 jamba run; no
+    # pallas_call site: the reference runs the recurrence as a jnp lax.scan
+    rows = [r for r in book.rows if r["kernel"] == "selective_scan"]
+    flop_ms = sum(r["flop_ms"] for r in rows)
+    byte_ms = sum(r["byte_ms"] for r in rows)
+    jamba_runs = recurrent_lm.get("jamba", {}).get("runs", {})
+    kernels.append({
+        "name": "selective_scan", "route": "cuda", "source": csrc + "selective_scan.cu",
+        "replaces": "src/repro/models/ssm.py:106",
+        "timing": "CUDA-graph replay (plain_ms too)",
+        "launches": jamba_runs.get("float32", {}).get("launches", {}).get(SCAN_ENTRY, 0),
+        "int8_request_launches": jamba_runs.get("int8", {}).get("launches", {}).get(
+            SCAN_ENTRY, 0),
+        "max_abs_err": book.max_err.get("selective_scan", 0.0),
+        "ms": sum(r["ms"] for r in rows),
+        "plain_ms": sum(r["plain_ms"] for r in rows),
+        "bound_ms": sum(r["bound_ms"] for r in rows),
+        "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
+        "library_ms": None,
+        "eager_ms": sum(r["eager_ms"] for r in rows),
+        "phase": SSM_ARCH,
+        "shapes": [{k: r[k] for k in ("shape", "x", "n", "ms", "plain_ms", "bound_ms",
+                                      "bound_by")} for r in rows]})
+    if len(rows) != 2:
+        failures.append("selective_scan: the served shapes were not timed")
     if args.layers_out is not None:
         args.layers_out.parent.mkdir(parents=True, exist_ok=True)
         args.layers_out.write_text(json.dumps(
             {"card": card, "rows": book.rows, "kernels": kernels,
              "service": services, "variants": variants, "obs": obs, "lm": lm,
              "dense_lm": dense_lm, "moe_lm": moe_lm, "mla_lm": mla_lm,
+             "recurrent_lm": recurrent_lm,
              "train": train_summary, "paper": paper, "verifier": verifier,
              "geometry": geometry, "lint": lint, "scenario": scenario,
              "graphs": graphs, "verified": VERIFIED},

@@ -3,10 +3,11 @@
 `repro.configs.base`).
 
 The dataclasses carry every field of the reference's, so a config file
-copies over verbatim. The registry loads the dense LM family and the MoE
-family: arctic-480b (GQA attention) and deepseek-v2-236b (MLA attention)
-(`_ARCH_MODULES`); the hybrid, SSM, VLM and audio configs join with their
-families (ROADMAP queue 1 item 16).
+copies over verbatim. The registry loads the dense LM family, the MoE
+family, arctic-480b (GQA attention) and deepseek-v2-236b (MLA attention),
+and the recurrent-state families, jamba-v0.1-52b (hybrid) and xlstm-125m
+(SSM) (`_ARCH_MODULES`); the VLM and audio configs join with their families
+(ROADMAP queue 1 item 16).
 `ModelConfig.n_params` counts from the parameter shapes without allocating
 them (`models.model.count_params_analytic`).
 """
@@ -215,6 +216,8 @@ _ARCH_MODULES = [
     "qwen3_0_6b",
     "arctic_480b",
     "deepseek_v2_236b",
+    "jamba_v0_1_52b",
+    "xlstm_125m",
 ]
 
 

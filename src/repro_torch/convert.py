@@ -42,10 +42,15 @@ def lm_params_from_jax(np_params: dict, cfg, device=None, dtype=torch.float32) -
     the FFN the group layout gives: `ffn.{w1[, w3], w2}` (dense), and for
     the MoE family `moe.{router, w1, w3, w2[, shared.{w1, w3, w2}]}` (beside
     `ffn` for arctic's dense residual), each group leaf with its leading
-    layer axis. The two trees have the same keys and layouts: the port's
-    tree (made on the meta device) names the leaves to carry, so a family's
-    leaves carry with no code of their own (the MLA leaves too), and a
-    missing leaf or one of another shape raises. Leaves in `dtype` (float32, or
+    layer axis. A hybrid (jamba) has `groups.sub0` ... `sub7`, its Mamba
+    sublayers' `mix.{in_proj, conv_w, x_proj, dt_proj, a_log, d_skip,
+    out_proj}`; an xLSTM has `groups.sub0.mix.{up, wq, wk, wv, wi, wf,
+    down}` (mLSTM) and `groups.sub1.mix.{wz, wi, wf, wo, r, ffn_up,
+    ffn_down, norm}` (sLSTM), with no `ln2` or FFN. The two trees have the
+    same keys and layouts: the port's tree (made on the meta device) names
+    the leaves to carry, so a family's leaves carry with no code of their
+    own (the MLA and recurrent leaves too), and a missing leaf or one of
+    another shape raises. Leaves in `dtype` (float32, or
     bfloat16 for the reference's default training type). The families the
     port serves only (`models.transformer.group_layout` raises for the
     others)."""

@@ -16,7 +16,8 @@ cores, int8 K/V dequantized as it is staged into the same body, bf16 on the
 bf16 tensor cores), `launch_flash_bwd` (its two backward passes, fp32 on
 the split-TF32 tensor cores, bf16 on the bf16 ones) and `launch_flash_mla`
 (the MLA attention forward over one latent kv head, fp32 q over an fp32 or
-a bf16 latent, on the TF32 tensor cores) are the launch sites:
+a bf16 latent, on the TF32 tensor cores) and `launch_selective_scan` (the
+Mamba selective scan, fp32, one thread per channel) are the launch sites:
 they check
 device, dtype, layout and shapes, allocate the outputs with `torch.empty`,
 launch on PyTorch's current stream without synchronising, and raise on a
@@ -29,7 +30,8 @@ its `.launches`, and one more in the calling thread's open
 kernels one replay of its graph launches. `FLASH_ENTRY_LAUNCHES` counts the
 flash launches per C entry point, so that a report can tell the bf16
 launches from the fp32 ones; `MLA_ENTRY_LAUNCHES` does the same for the MLA
-kernel's two entry points.
+kernel's two entry points and `SCAN_ENTRY_LAUNCHES` for the selective
+scan's one.
 """
 from __future__ import annotations
 
@@ -46,7 +48,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("ecr_conv.cu", "ecr_conv_int8.cu", "bsr_matmul.cu", "bsr_matmul_int8.cu",
-           "flash_attention.cu", "flash_attention_bwd.cu", "flash_mla.cu")
+           "flash_attention.cu", "flash_attention_bwd.cu", "flash_mla.cu",
+           "selective_scan.cu")
 HEADERS = ("smem_io.cuh", "int8_mma.cuh", "tf32_mma.cuh", "bf16_mma.cuh",
            "flash_bf16.cuh")  # included; hashed
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -64,6 +67,8 @@ FLASH_ENTRY_LAUNCHES = dict.fromkeys((
     "repro_flash_bwd_dkv_bf16"), 0)
 # launches per MLA entry point: fp32 q over an fp32 latent, or over a bf16 one
 MLA_ENTRY_LAUNCHES = dict.fromkeys(("repro_flash_fwd_mla_f32", "repro_flash_fwd_mla_bf16kv"), 0)
+# launches of the Mamba selective scan's entry point
+SCAN_ENTRY_LAUNCHES = {"repro_selective_scan_f32": 0}
 
 
 def count_launch(wrapper) -> None:
@@ -207,6 +212,9 @@ def library() -> ctypes.CDLL:
                 fn.argtypes = [ctypes.c_void_p] * 6 + [dims, strides, ctypes.c_float,
                                                        ctypes.c_void_p]
                 fn.restype = ctypes.c_int
+            lib.repro_selective_scan_f32.argtypes = [ctypes.c_void_p] * 10 + [
+                dims, strides, ctypes.c_void_p]
+            lib.repro_selective_scan_f32.restype = ctypes.c_int
             _lib = lib
         return _lib
 
@@ -685,3 +693,79 @@ def launch_flash_mla(q, c_kv, k_rope, *, scale: float, causal: bool, q_offset: i
                            f"causal {causal}, q_offset {q_offset}, kv_len {kv_len})")
     MLA_ENTRY_LAUNCHES[entry] += 1
     return out, m, l
+
+
+# the state sizes the selective scan is instantiated at: reduced and
+# full-width jamba (the reference's configs use no other)
+SCAN_STATE_DIMS = (8, 16)
+SCAN_BACKWARD_TODO = "ROADMAP queue 1 item 25 (the selective scan's backward kernel)"
+
+
+def check_scan_operands(x, dt, a, b, c, d, z, h0) -> tuple:
+    """Validate the selective scan's operands, x, dt, z (B, S, di) and d
+    (di,) of one floating type (the activations'), b and c (B, S, N), a
+    (di, N) and h0 (B, di, N) float32, and return (batch, s, di, n)."""
+    if x.ndim != 3 or b.ndim != 3 or a.ndim != 2:
+        raise ValueError(f"expected x (B,S,di), b (B,S,N), a (di,N); got x {tuple(x.shape)}, "
+                         f"b {tuple(b.shape)}, a {tuple(a.shape)}")
+    batch, s, di = x.shape
+    n = a.shape[1]
+    want = {"dt": (dt, (batch, s, di)), "z": (z, (batch, s, di)), "b": (b, (batch, s, n)),
+            "c": (c, (batch, s, n)), "a": (a, (di, n)), "d": (d, (di,)),
+            "h0": (h0, (batch, di, n))}
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} {tuple(t.shape)} does not match x {tuple(x.shape)} "
+                             f"and a {tuple(a.shape)} (want {shape})")
+    if min(batch, s, di, n) < 1:
+        raise ValueError(f"empty selective scan operands: x {tuple(x.shape)}, "
+                         f"a {tuple(a.shape)}")
+    if (any(t.dtype != torch.float32 for t in (a, b, c, h0)) or not x.dtype.is_floating_point
+            or any(t.dtype != x.dtype for t in (dt, d, z))):
+        raise TypeError(f"the selective scan takes x, dt, d, z of one floating type and "
+                        f"float32 a, b, c, h0; got x {x.dtype}, dt {dt.dtype}, d {d.dtype}, "
+                        f"z {z.dtype}, a {a.dtype}, b {b.dtype}, c {c.dtype}, h0 {h0.dtype}")
+    return batch, s, di, n
+
+
+def launch_selective_scan(x, dt, a, b, c, d, z, h0):
+    """Launch the selective scan on CUDA tensors (`check_scan_operands`'
+    shapes, float32): out (B, S, di) and h_last (B, di, N), both fp32. x,
+    dt, z, b and c may be strided views with a contiguous last dim; a, d
+    and h0 must be contiguous. Raises for N not in SCAN_STATE_DIMS, a tensor
+    that needs grad (the kernel has no backward), or operands off one CUDA
+    device."""
+    batch, s, di, n = check_scan_operands(x, dt, a, b, c, d, z, h0)
+    if x.dtype != torch.float32:
+        raise TypeError(f"the CUDA selective scan takes float32 activations, got {x.dtype}")
+    if any(t.stride(-1) != 1 for t in (x, dt, z, b, c)):
+        raise ValueError("the CUDA selective scan needs a contiguous last dim")
+    if not all(t.is_contiguous() for t in (a, d, h0)):
+        raise ValueError("the CUDA selective scan needs contiguous a, d and h0")
+    if n not in SCAN_STATE_DIMS:
+        raise ValueError(f"the CUDA selective scan takes a state dim (ssm_state_dim) in "
+                         f"{SCAN_STATE_DIMS}, got {n}")
+    if batch > 65535:
+        raise ValueError(f"batch {batch} exceeds the CUDA selective scan's 65535")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, a, b, c, d, z, h0)):
+        raise RuntimeError(f"the CUDA selective scan has no backward: call it under "
+                           f"torch.no_grad(); see {SCAN_BACKWARD_TODO}")
+    dev = x.device
+    if dev.type != "cuda" or any(t.device != dev for t in (dt, a, b, c, d, z, h0)):
+        raise ValueError("CUDA kernel needs every operand on one CUDA device")
+    out = torch.empty((batch, s, di), device=dev, dtype=torch.float32)
+    h_last = torch.empty((batch, di, n), device=dev, dtype=torch.float32)
+    dims = (ctypes.c_int * 4)(batch, s, di, n)
+    strides = (ctypes.c_longlong * 10)(*(st for t in (x, dt, z, b, c)
+                                         for st in (t.stride(0), t.stride(1))))
+    lib = library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.repro_selective_scan_f32(
+            *(t.data_ptr() for t in (x, dt, z, b, c, a, d, h0, out, h_last)), dims, strides,
+            stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA selective scan launch failed: cudaError {err} "
+                           f"(x {tuple(x.shape)}, N {n})")
+    SCAN_ENTRY_LAUNCHES["repro_selective_scan_f32"] += 1
+    return out, h_last

@@ -3,23 +3,33 @@ loop over a KV cache, fp32 or int8 (counterpart of `repro.launch.serve`;
 no mesh). The archs: the dense qwen3-0.6b, minitron-8b, stablelm-12b and
 mistral-large-123b, and the MoE arctic-480b (128 experts top-2 beside a
 dense residual FFN) and deepseek-v2-236b (MLA attention over a latent
-cache, 160 experts top-6 and 2 shared). deepseek-v2's cache is its latent
-(c_kv, k_rope): an int8 request gives a bf16 latent cache, as in the
-reference, and the summary line says so.
+cache, 160 experts top-6 and 2 shared), and the recurrent-state families,
+the hybrid jamba-v0.1-52b (Mamba layers around one attention layer per 8,
+16 experts top-2 on every other layer) and the xLSTM xlstm-125m.
+deepseek-v2's cache is its latent (c_kv, k_rope): an int8 request gives a
+bf16 latent cache, as in the reference. jamba's cache is a KV cache for its
+attention layers beside the Mamba layers' recurrent state (conv ring and
+SSM state, fp32 for either request); xlstm's is recurrent state only, the
+same for either request. The summary line says which.
 
 Run on the card (default device "cuda"), at full width with fp32 weights
 (minitron-8b takes 31 GB of the card, stablelm-12b 49 GB; mistral-large-123b
 fits no single card and serves only reduced, and so do arctic-480b, whose
 35 layers hold ~477 B parameters, and deepseek-v2-236b, 239 B:
 `chip_smoke.py` drives arctic-480b at full width with its depth cut to one
-layer, 56 GB, and deepseek-v2-236b with its depth cut to two, 36 GB):
+layer, 56 GB, deepseek-v2-236b with its depth cut to two, 36 GB, and
+jamba-v0.1-52b with its depth cut to one interleave group of 8, 53 GB;
+xlstm-125m serves at full width and depth):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b --full
     PYTHONPATH=src python -m repro_torch.launch.serve --arch minitron-8b --full --kv-cache-dtype int8
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-12b --full
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m --full --prompt-len 128
 On the host, through the kernels' plain PyTorch versions (reduced config):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch minitron-8b --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch arctic-480b --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b --device cpu --kv-cache-dtype int8
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m --device cpu
 """
 from __future__ import annotations
 
@@ -49,8 +59,14 @@ class ServeResult(NamedTuple):
 
 
 def cache_kind(cfg: ModelConfig, kv_cache_dtype: str) -> str:
-    """What a request for `kv_cache_dtype` gets: a KV cache of that type, or
-    for MLA the latent cache, bfloat16 for an int8 request."""
+    """What a request for `kv_cache_dtype` gets: a KV cache of that type;
+    for MLA the latent cache, bfloat16 for an int8 request; for a hybrid a
+    KV cache of that type beside the recurrent state; for an SSM LM the
+    recurrent state alone."""
+    if cfg.family == "ssm":
+        return "recurrent state"
+    if cfg.family == "hybrid":
+        return f"{kv_cache_dtype} KV + recurrent state"
     if cfg.attn_type == "mla":
         return "bfloat16 latent" if kv_cache_dtype == "int8" else f"{kv_cache_dtype} latent"
     return kv_cache_dtype

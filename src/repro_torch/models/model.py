@@ -33,7 +33,8 @@ from repro_torch.tree import tree_paths
 
 def _check_family(cfg: ModelConfig) -> None:
     """Raises NotImplementedError for a family the port does not have yet
-    (the dense LM and the MoE LM, with GQA or MLA attention, are ported)."""
+    (the dense LM, the MoE LM with GQA or MLA attention, the hybrid and the
+    SSM LM are ported; VLM and audio are not)."""
     group_layout(cfg)
 
 
@@ -86,9 +87,10 @@ def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.float32,
                device=None) -> tuple:
     """The decode/prefill cache tree: one cache per sublayer position,
-    stacked over layers: a KVCache, where dtype torch.int8 quantizes K/V
-    (fp32 scales), or for MLA an MLACache of the latent and the rotary key,
-    bfloat16 for an int8 request."""
+    stacked over groups: a KVCache, where dtype torch.int8 quantizes K/V
+    (fp32 scales), for MLA an MLACache of the latent and the rotary key,
+    bfloat16 for an int8 request, and for a recurrent sublayer its state
+    (`models.transformer.init_group_caches`)."""
     _check_family(cfg)
     return init_group_caches(cfg, batch, max_len, dtype, device=resolve_device(device))
 

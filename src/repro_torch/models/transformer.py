@@ -1,19 +1,27 @@
 """Decoder stack as a loop over repeating layer groups (counterpart of
 `repro.models.transformer`).
 
-A *group* is the smallest repeating pattern of sublayers. The port covers
-the dense LM and the MoE LM. A dense LM or a MoE LM with GQA attention is
-one [attn] sublayer with a dense FFN, a routed-expert FFN (`models.moe`) or
-both side by side (arctic's dense residual); a MoE LM with MLA attention
-(deepseek-v2) is one [mla] sublayer with a routed FFN, whose cache is the
-latent `MLACache`. The other families (hybrid, SSM, VLM, audio) raise
-NotImplementedError until ROADMAP queue 1 item 16 ports them.
+A *group* is the smallest repeating pattern of sublayers:
+  dense / MoE LM (GQA) -> [attn]                      x n_layers groups
+  MoE LM with MLA      -> [mla]                       x n_layers groups
+  jamba hybrid         -> [mamba x4, attn, mamba x3]  x n_layers / 8 groups
+                          (attention at index attn_every // 2; a routed FFN
+                          on the odd indices, dense on the even)
+  xlstm                -> [mlstm, slstm]              x n_layers / 2 groups
+An [attn] sublayer's FFN is dense, routed (`models.moe`) or both side by
+side (arctic's dense residual); an [mla] sublayer's (deepseek-v2) is routed,
+and its cache the latent `MLACache`. The recurrent sublayers (`models.ssm`,
+`models.xlstm`) carry a state in place of a KV cache, replaced at every
+call. VLM and audio raise NotImplementedError until ROADMAP queue 1 item
+16 ports them.
 
 Group parameters keep the reference's stacked leaves: every leaf of
-`groups["sub0"]` carries a leading (n_layers,) axis, so weights carry over
+`groups["sub<i>"]` carries a leading (n_groups,) axis, so weights carry over
 from the JAX tree as they are. The reference's `lax.scan` over groups is a
 Python loop over that axis here, and a layer's cache is a view into the
-stacked (n_layers, ...) cache, written in place.
+stacked (n_groups, ...) cache, written in place: attention writes its
+KV / latent cache at write_pos itself; a recurrent sublayer returns its new
+state and `apply_sublayer` copies it into the stacked slot.
 """
 from __future__ import annotations
 
@@ -28,15 +36,17 @@ from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.sparse_ffn import activation_fn
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.layers import as_drawn, dense_init, ones_init, rms_norm
 from repro_torch.models.moe import init_moe, moe_ffn
 from repro_torch.tree import tree_map
 
-FAMILIES_TODO = "ROADMAP queue 1 item 16 (the other LM families)"
+FAMILIES_TODO = "ROADMAP queue 1 item 16 (the VLM and audio families)"
 
 
 class Sub(NamedTuple):
-    kind: str  # attn | mla (cross | mamba | mlstm | slstm: not ported)
+    kind: str  # attn | mla | mamba | mlstm | slstm (cross: not ported)
     ffn: str  # dense | moe | moe+dense | none
 
 
@@ -44,7 +54,11 @@ def group_layout(cfg: ModelConfig) -> list:
     """The reference's rule for the families the port has: a dense LM, or a
     MoE LM with GQA attention, is one [attn] sublayer whose FFN is routed
     ("moe"), routed beside a dense residual FFN ("moe+dense") or dense; a
-    MoE LM with MLA attention is one [mla] sublayer with a routed FFN."""
+    MoE LM with MLA attention is one [mla] sublayer with a routed FFN; a
+    hybrid is `attn_every` sublayers, mamba but for attention at index
+    attn_every // 2, with a routed FFN where the index is 1 modulo
+    `moe_every` and a dense one elsewhere; an SSM LM (xLSTM) is [mlstm,
+    slstm] with no FFN of their own."""
     if not cfg.is_encoder_decoder and (
             cfg.family == "dense" or (cfg.family == "moe" and cfg.attn_type == "gqa")):
         base_ffn = "moe+dense" if (cfg.n_experts and cfg.dense_residual_ff) else (
@@ -52,6 +66,13 @@ def group_layout(cfg: ModelConfig) -> list:
         return [Sub("attn", base_ffn)]
     if not cfg.is_encoder_decoder and cfg.family == "moe" and cfg.attn_type == "mla":
         return [Sub("mla", "moe")]
+    if cfg.family == "hybrid":
+        attn_pos = cfg.attn_every // 2
+        return [Sub("attn" if i == attn_pos else "mamba",
+                    "moe" if (cfg.moe_every and i % cfg.moe_every == 1) else "dense")
+                for i in range(cfg.attn_every)]
+    if cfg.family == "ssm":
+        return [Sub("mlstm", "none"), Sub("slstm", "none")]
     raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} (attention "
                               f"{cfg.attn_type!r}) is not ported yet; see {FAMILIES_TODO}")
 
@@ -92,7 +113,9 @@ def ffn_apply(p, x, cfg: ModelConfig):
 
 def init_sublayer(generator: torch.Generator, sub: Sub, cfg: ModelConfig,
                   place=as_drawn) -> dict:
-    init_mix = {"attn": attn_mod.init_gqa, "mla": attn_mod.init_mla}.get(sub.kind)
+    init_mix = {"attn": attn_mod.init_gqa, "mla": attn_mod.init_mla,
+                "mamba": ssm_mod.init_mamba, "mlstm": xlstm_mod.init_mlstm,
+                "slstm": xlstm_mod.init_slstm}.get(sub.kind)
     if init_mix is None:
         raise NotImplementedError(f"sublayer {sub.kind!r}: see {FAMILIES_TODO}")
     p = {"ln1": place(ones_init((cfg.d_model,))), "mix": init_mix(generator, cfg, place)}
@@ -129,8 +152,8 @@ def init_groups(generator: torch.Generator, cfg: ModelConfig, place=as_drawn) ->
         return put
 
     for i in range(n):
-        layer = {f"sub{j}": init_sublayer(generator, s, cfg, into_slot(i))
-                 for j, s in enumerate(lay)}
+        put = into_slot(i)  # one draw order over the whole group
+        layer = {f"sub{j}": init_sublayer(generator, s, cfg, put) for j, s in enumerate(lay)}
     return tree_map(lambda j: stacked[j], layer)
 
 
@@ -158,7 +181,10 @@ def init_group_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
     sublayer's KVCache (n_groups, B, S_max, KV, hd), where dtype torch.int8
     gives the quantized cache with its scales; an [mla] sublayer's MLACache
     (n_groups, B, S_max, r) and (n_groups, B, S_max, dr), bfloat16 for an
-    int8 request (the reference quantizes no latent state)."""
+    int8 request (the reference quantizes no latent state); a recurrent
+    sublayer's state, (n_groups, ...) of `MambaState` (see
+    `init_mamba_state`), `MLSTMState` or `SLSTMState`, fp32 for every
+    request and whatever `max_len`."""
     g = n_groups(cfg)
     caches = []
     for sub in group_layout(cfg):
@@ -166,6 +192,12 @@ def init_group_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
             c = attn_mod.init_mla_cache(cfg, batch, max_len,
                                         torch.bfloat16 if dtype == torch.int8 else dtype,
                                         device=device)
+        elif sub.kind == "mamba":
+            c = ssm_mod.init_mamba_state(cfg, batch, device=device)
+        elif sub.kind == "mlstm":
+            c = xlstm_mod.init_mlstm_state(cfg, batch, device=device)
+        elif sub.kind == "slstm":
+            c = xlstm_mod.init_slstm_state(cfg, batch, device=device)
         else:
             c = attn_mod.init_gqa_cache(cfg, batch, max_len, dtype, device=device)
         caches.append(type(c)(*(None if x is None else x.expand((g,) + x.shape).contiguous()
@@ -174,7 +206,8 @@ def init_group_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
 
 
 def _layer_cache(cache, i: int):
-    """Group i's view of a stacked KVCache or MLACache."""
+    """Group i's view of a stacked cache (KVCache, MLACache or a recurrent
+    state)."""
     return type(cache)(*(None if x is None else x[i] for x in cache))
 
 
@@ -186,11 +219,22 @@ def _layer_cache(cache, i: int):
 def apply_sublayer(sub: Sub, p, x, *, cfg, positions, cache, write_pos, causal):
     """-> (x, cache, aux): the routed FFN's output plus the dense FFN's,
     both from the same normed input, added to the residual; aux is the
-    routed FFN's load-balancing loss (None without one)."""
+    routed FFN's load-balancing loss (None without one). A recurrent
+    sublayer's new state is copied into `cache` (a view of the stacked
+    state), which is returned."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    mix = attn_mod.mla_attention if sub.kind == "mla" else attn_mod.gqa_attention
-    out, new_cache = mix(p["mix"], h, cfg=cfg, positions=positions, causal=causal,
-                         cache=cache, write_pos=write_pos)
+    if sub.kind in ("attn", "mla"):
+        mix = attn_mod.mla_attention if sub.kind == "mla" else attn_mod.gqa_attention
+        out, new_cache = mix(p["mix"], h, cfg=cfg, positions=positions, causal=causal,
+                             cache=cache, write_pos=write_pos)
+    else:
+        block = {"mamba": ssm_mod.mamba_block, "mlstm": xlstm_mod.mlstm_block,
+                 "slstm": xlstm_mod.slstm_block}[sub.kind]
+        out, state = block(p["mix"], h, cfg, state=cache)
+        if cache is not None:
+            for slot, new in zip(cache, state):
+                slot.copy_(new)
+        new_cache = cache
     x = x + out
     aux = None
     if sub.ffn != "none":

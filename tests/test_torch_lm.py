@@ -67,8 +67,8 @@ def test_configs_match_the_reference(reduced):
     assert [f.name for f in dataclasses.fields(ModelConfig)] == \
         [f.name for f in dataclasses.fields(jbase.ModelConfig)]
     assert dataclasses.asdict(RunConfig()) == dataclasses.asdict(jbase.RunConfig())
-    assert list_archs() == ["arctic-480b", "deepseek-v2-236b", "minitron-8b",
-                            "mistral-large-123b", ARCH, "stablelm-12b"]
+    assert list_archs() == ["arctic-480b", "deepseek-v2-236b", "jamba-v0.1-52b", "minitron-8b",
+                            "mistral-large-123b", ARCH, "stablelm-12b", "xlstm-125m"]
     assert get_config(ARCH).rope_theta == 10_000.0  # the repo's default, kept
 
 
@@ -197,7 +197,7 @@ def test_serve_rejects_an_unknown_cache_dtype():
 
 
 def test_other_families_are_not_ported_yet(model):
-    cfg = dataclasses.replace(model[0], family="ssm")
+    cfg = dataclasses.replace(model[0], family="vlm")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         group_layout(cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
