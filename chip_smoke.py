@@ -348,6 +348,54 @@
    over the fp32 and the int8 request (rtol 1e-3 + 1e-3*max|host|, the int8
    rounding pinned as in step 10). The phase's seconds and peak memory
    are printed.
+10e. The cross phase, after the recurrent phase has released jamba's
+   weights. llama-3.2-vision-90b (d_model 8192, 64 query / 8 KV heads, head
+   dim 128, G 8; a gated cross-attention layer over 1,024 image tokens
+   after every four self-attention layers; vocab 128,256) at full width
+   with its depth cut to one group of 5, [attn x4, cross] (6.38 B
+   parameters, 25.5 GB at fp32), weights drawn on the card, served through
+   `serve(cfg, params=...)` at batch 4, prompt 32, 32 tokens over the fp32
+   and the int8 KV cache, with the reference's zero image embeddings at
+   prefill and every decode step; the launch counters set to 0 just before
+   each served run and read just after: fp32, 5 x 32 = 160 launches of
+   repro_flash_fwd_f32; int8, 4 x 32 = 128 of repro_flash_fwd_q8 and 32 of
+   repro_flash_fwd_f32 (the cross layer keeps no cache: its K / V are
+   recomputed from the image embeddings at every step); none of any other
+   entry. The served tokens must equal the card's teacher-forced argmax
+   over the same zero inputs, with finite logits; a warm prefill and
+   decode step per cache type are traced; the self-attention layer 0's
+   flash calls at prefill and decode are held against their plain
+   versions (G 8, the saturated-scores widening of step 10). A cross
+   layer's gate is drawn as 0.0, and zero image embeddings give K = V = 0,
+   so the cross path is then checked with the gate at 0.7 and unit-normal
+   image embeddings: the logits must move against the gate at 0, and the
+   cross layer's flash call at prefill (Sq 32) and at the first decode
+   step (Sq 1), non-causal over the 1,024 image tokens, is held against
+   its plain version and timed by CUDA-graph replay beside its plain
+   version, SDPA and the bound. whisper-tiny at full size (41,158,276
+   parameters: 4 encoder layers, 4 decoder layers of self- and
+   cross-attention, d_model 384, 6 heads of 64, G 1), drawn on the host and
+   moved to the card, served the same way with the reference's zero frames
+   at prefill and zero encoder output at each decode step: fp32, 4 + 32 x 8
+   = 260 launches of repro_flash_fwd_f32 (the encoder once, then each
+   decoder layer's self- and cross-attention per step); int8, 4 x 32 = 128
+   of repro_flash_fwd_q8 and 4 + 4 x 32 = 132 of repro_flash_fwd_f32; the
+   greedy check and traces as above; the served requests' teacher-forced
+   logits on the card against the host's at full size over both requests
+   (rtol 1e-3 + 1e-3*max|host|, the int8 rounding pinned). With the gates
+   at 0.7, unit-normal frames at prefill and a unit-normal encoder output at
+   decode, the encoder's layer 0 (non-causal, Sq = Sk = 32) and the
+   decoder's cross layer 0 (prefill and first decode step) are checked and
+   timed on repro_flash_fwd_f32 at head dim 64, and the decoder's
+   self-attention layer 0 on repro_flash_fwd_q8. With those inputs the
+   registered weights (wq and wk at fan-in n_heads, no qk_norm) amplify
+   fp32 rounding until a 1e-7 relative nudge of the inputs moves the
+   host's logits by about a tenth of their max, so their card-vs-host error is
+   printed beside that gap and not held; the same widths with qk_norm on
+   are held card against host at the limit over both requests. Reduced
+   llama-3.2-vision-90b and whisper-tiny, drawn on the host with the gates
+   at 0.7 and unit-normal side inputs: card against host over both
+   requests. The phase's seconds and peak memory are printed.
 11. The scenario phase, on the published VGG-19 (weights and calibration
    images as in step 3; Engines at block_c=8, occ_threshold=0.75,
    max_batch=8, on a SimClock charged with the measured service time):
@@ -399,8 +447,11 @@
    "shapes", and launches count the served qwen3-0.6b run; "dense_lm" lists
    the same per served dense arch (head dim, launches, layer 0's times), and
    "launches_by_head_dim" the served runs' launches by head dim (160:
-   stablelm-12b; arctic-480b's add to 128), "moe_lm" the same as
-   "dense_lm" for arctic-480b at depth 1 (G 7). The flash bound is
+   stablelm-12b; 64: whisper-tiny; arctic-480b's and llama-3.2-vision-90b's
+   add to 128), "moe_lm" the same as
+   "dense_lm" for arctic-480b at depth 1 (G 7), "cross_lm" per cross-phase
+   arch its launches per request and its timed shapes (step 10e). The flash
+   bound is
    max(4*B*H*(visible q.k pairs)*D / 165 TFLOP/s (split-TF32), bytes /
    3.35 TB/s), the
    bytes being the K/V of the keys read (4 bytes, or 1 byte plus the fp32
@@ -1881,22 +1932,26 @@ class pin_quantization:
         self.A._quantize_kv = self.orig
 
 
-def teacher_forced(cfg, params, prompt, follow, kv_dtype, dev, max_len):
+def teacher_forced(cfg, params, prompt, follow, kv_dtype, dev, max_len, inputs=None):
     """Prefill the prompt, then decode the `follow` tokens one by one:
-    [prefill logits (B,S,V)] + one (B,1,V) per step, on the host."""
+    [prefill logits (B,S,V)] + one (B,1,V) per step, on the host. `inputs`
+    = (prefill's, each decode step's) batch entries beside the tokens (a
+    VLM's image embeddings, whisper's frames and encoder output), moved to
+    `dev`."""
     import torch
 
     from repro_torch.models import model as M
 
+    pre, dec = ({k: v.to(dev) for k, v in d.items()} for d in (inputs or ({}, {})))
     dt = torch.int8 if kv_dtype == "int8" else torch.float32
     cache = M.init_cache(cfg, prompt.shape[0], max_len, dt, device=dev)
     out = []
     with torch.no_grad():
-        lg, cache = M.prefill(cfg, params, cache, {"tokens": prompt.to(dev)})
+        lg, cache = M.prefill(cfg, params, cache, {"tokens": prompt.to(dev), **pre})
         out.append(lg.cpu())
         for t in range(follow.shape[1]):
             lg, cache = M.decode_step(cfg, params, cache,
-                                      {"tokens": follow[:, t:t + 1].to(dev)},
+                                      {"tokens": follow[:, t:t + 1].to(dev), **dec},
                                       prompt.shape[1] + t)
             out.append(lg.cpu())
     return out
@@ -2994,18 +3049,19 @@ def logits_close(card, host) -> tuple:
 
 
 def card_vs_host(label, cfg, params, params_cpu, prompt, follow, kvd, dev, max_len,
-                 failures) -> dict:
+                 failures, inputs=None) -> dict:
     """Teacher-forced logits of the same weights on the card and on the
-    host's plain path (prefill + `follow`'s decode steps; for the int8 cache
-    the host quantizes its own K/V, is held within one step and
-    DENSE_SLICE_SCALE_TOL of the card's, then attends over the card's
-    values, `pin_quantization`), at rtol 1e-3 + 1e-3*max|host|."""
+    host's plain path (prefill + `follow`'s decode steps, fed `inputs` as
+    `teacher_forced` takes them; for the int8 cache the host quantizes its
+    own K/V, is held within one step and DENSE_SLICE_SCALE_TOL of the
+    card's, then attends over the card's values, `pin_quantization`), at
+    rtol 1e-3 + 1e-3*max|host|."""
     with pin_quantization("record") as rec:
-        card = teacher_forced(cfg, params, prompt, follow, kvd, dev, max_len)
+        card = teacher_forced(cfg, params, prompt, follow, kvd, dev, max_len, inputs)
     t0 = time.perf_counter()
     with (pin_quantization("replay", rec.recorded) if kvd == "int8"
           else contextlib.nullcontext()) as pinned:
-        host = teacher_forced(cfg, params_cpu, prompt, follow, kvd, "cpu", max_len)
+        host = teacher_forced(cfg, params_cpu, prompt, follow, kvd, "cpu", max_len, inputs)
     host_s = time.perf_counter() - t0
     worst, scale, ok = logits_close(card, host)
     pin = ""
@@ -3315,11 +3371,14 @@ def dense_rows(name, kvd, dense_lm, archs=DENSE_SERVE_ARCHS) -> list:
     return rows
 
 
-def launches_by_head_dim(name, kvd, lm, dense_lm, moe_lm) -> dict:
-    """The served runs' launches of one flash row, by head dim."""
+def launches_by_head_dim(name, kvd, lm, dense_lm, moe_lm, cross_lm) -> dict:
+    """The served runs' launches of one flash row, by head dim, over the
+    request of type `kvd`."""
     out = {128: lm.get("runs", {}).get(kvd, {}).get("launches", {}).get(name, 0)}
     for row in dense_rows(name, kvd, dense_lm) + moe_rows(name, kvd, moe_lm):
         out[row["head_dim"]] = out.get(row["head_dim"], 0) + row["launches"]
+    for row in cross_rows(name, cross_lm):
+        out[row["head_dim"]] = out.get(row["head_dim"], 0) + row["launches"].get(kvd, 0)
     return out
 
 
@@ -4181,24 +4240,27 @@ def hold_greedy(name, kvd, card, follow, failures) -> bool:
     return same
 
 
-def trace_steps(name, cfg, params, res, kvd, run, dev) -> dict:
+def trace_steps(name, cfg, params, res, kvd, run, dev, inputs=None) -> dict:
     """A torch.profiler trace of one warm prefill and one warm decode step
-    (`trace_breakdown`) over a fresh cache of the served request's type."""
+    (`trace_breakdown`) over a fresh cache of the served request's type,
+    fed `inputs` (on `dev`) as `teacher_forced` takes them."""
     import torch
 
     from repro_torch.models import model as M
 
+    pre, dec = inputs or ({}, {})
     cache = M.init_cache(cfg, run["batch"], run["prompt_len"] + run["gen_len"],
                          torch.int8 if kvd == "int8" else torch.float32, device=dev)
     nxt = res.tokens[:, :1]
 
     def prefill():
         with torch.no_grad():
-            return M.prefill(cfg, params, cache, {"tokens": res.prompt})
+            return M.prefill(cfg, params, cache, {"tokens": res.prompt, **pre})
 
     def decode():
         with torch.no_grad():
-            return M.decode_step(cfg, params, cache, {"tokens": nxt}, run["prompt_len"])
+            return M.decode_step(cfg, params, cache, {"tokens": nxt, **dec},
+                                 run["prompt_len"])
 
     out = {}
     for step, fn in (("prefill", prefill), ("decode", decode)):
@@ -4407,6 +4469,365 @@ def recurrent_phase(book, dev, failures) -> dict:
     print(f"recurrent phase: peak memory_allocated {out['peak_allocated_gib']:.2f} GiB; "
           f"{out['seconds']:.1f} s")
     return out
+
+
+CROSS_ARCH = "llama-3.2-vision-90b"
+# one [attn x4, cross] group at full width: the least depth the layout allows
+# (6,379,626,497 parameters, 25.5 GB at fp32; 87.7 B at the published 100)
+CROSS_LAYERS = 5
+AUDIO_ARCH = "whisper-tiny"
+# a cross sublayer's gate is drawn as 0.0 (tanh(0) = 0: a fresh cross layer
+# adds nothing), and the served requests carry zero image embeddings and
+# frames (K = V = 0): every card check of the cross path runs these weights
+# with the gates at 0.7 and unit-normal side inputs
+CROSS_GATE = 0.7
+
+
+class capture_cross:
+    """Within the block, record the (q, k, v) and kwargs of the cache-less
+    flash calls (`FlashAttentionFn`'s forward: the cross layers and
+    whisper's encoder) whose running index is in `keep` (cloned), then run
+    the call as usual."""
+
+    def __init__(self, keep):
+        self.keep, self.calls, self.n = set(keep), {}, 0
+
+    def __enter__(self):
+        import repro_torch.kernels.flash_attention.ops as O
+
+        self.O, self.orig = O, O.flash_fwd
+
+        def rec(q, k, v, **kw):
+            if self.n in self.keep:
+                self.calls[self.n] = ((q.clone(), k.clone(), v.clone()), dict(kw))
+            self.n += 1
+            return self.orig(q, k, v, **kw)
+
+        O.flash_fwd = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.O.flash_fwd = self.orig
+
+
+def set_gates(params, value) -> int:
+    """Every cross sublayer's gate leaf set to `value` in place; returns how
+    many stacked gate leaves there were."""
+    n = 0
+    for stack in ("groups", "enc_groups"):
+        for sub in params.get(stack, {}).values():
+            if "gate" in sub["mix"]:
+                sub["mix"]["gate"].fill_(value)
+                n += 1
+    return n
+
+
+def unit_inputs(cfg, batch, prompt_len, seed) -> tuple:
+    """Unit-normal side inputs on the host, as `teacher_forced` takes them:
+    a VLM's image embeddings (prefill and decode), whisper's frames
+    (prefill) and an encoder output (decode), (batch, n, d_model)."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    if cfg.family == "vlm":
+        img = torch.randn((batch, cfg.n_image_tokens, cfg.d_model), generator=gen)
+        return {"img_embeds": img}, {"img_embeds": img}
+    return ({"frames": torch.randn((batch, prompt_len, cfg.d_model), generator=gen)},
+            {"enc_out": torch.randn((batch, prompt_len, cfg.d_model), generator=gen)})
+
+
+def cross_entries(cfg, kvd, gen_len) -> dict:
+    """The flash launches one served request makes (prefill + gen_len - 1
+    decode steps): every self-attention layer on the request's entry at
+    each step, every cross layer on the fp32 one (it keeps no cache), and
+    whisper's encoder layers once, at prefill, on the fp32 one."""
+    from repro_torch.models import model as M
+
+    lay, groups = M.group_stacks(cfg)["groups"]
+    n_self = groups * sum(s.kind == "attn" for s in lay)
+    n_cross = groups * sum(s.kind == "cross" for s in lay)
+    n_enc = cfg.n_encoder_layers if cfg.is_encoder_decoder else 0
+    if kvd == "int8":
+        return {"repro_flash_fwd_q8": n_self * gen_len,
+                "repro_flash_fwd_f32": n_enc + n_cross * gen_len}
+    return {"repro_flash_fwd_f32": n_enc + (n_self + n_cross) * gen_len}
+
+
+def cross_serve_runs(name, cfg, params, out, book, dev, failures) -> tuple:
+    """Both requests through `serve(cfg, params=...)` with the counters set
+    to 0 just before and read just after (`cross_entries`), the served
+    tokens against the card's teacher-forced argmax over the same zero
+    side inputs, warm prefill / decode traces; the self-attention layer 0's
+    flash calls at prefill and decode checked (not timed). Returns the last
+    request's (prompt, follow)."""
+    from repro_torch.launch.serve import request_inputs
+    from repro_torch.models import model as M
+
+    run = LM_SERVE
+    max_len = run["prompt_len"] + run["gen_len"]
+    lay, groups = M.group_stacks(cfg)["groups"]
+    n_self = groups * sum(s.kind == "attn" for s in lay)
+    zero = request_inputs(cfg, run["batch"], run["prompt_len"], dev)
+    for kvd in ("float32", "int8"):
+        summary, res = serve_and_hold(name, cfg, params, run, kvd, dev, failures,
+                                      expect=cross_entries(cfg, kvd, run["gen_len"]))
+        prompt, follow = res.prompt.cpu(), res.tokens.cpu()[:, :LM_TF_STEPS]
+        with capture_attention((0, n_self)) as cap:
+            card = teacher_forced(cfg, params, prompt, follow, kvd, dev, max_len, zero)
+        summary["greedy"] = hold_greedy(name, kvd, card, follow, failures)
+        out["runs"][kvd] = summary
+        out["service"].update(trace_steps(name, cfg, params, res, kvd, run, dev, zero))
+        for idx in (0, n_self):
+            if idx not in cap.calls:
+                failures.append(f"{name} {kvd}: self-attention call {idx} not captured")
+                continue
+            args, kw = cap.calls[idx]
+            check_flash(book, f"{'prefill' if idx == 0 else 'decode'} self layer 0", args,
+                        kw, timed=False, phase=name, saturated=True)
+    return prompt, follow
+
+
+def check_cross_calls(name, book, calls, labels, out, failures, timed=True) -> None:
+    """The captured cache-less flash calls `labels` (index -> label) against
+    their plain versions, timed against SDPA and the bound."""
+    for idx, label in labels.items():
+        if idx not in calls:
+            failures.append(f"{name}: flash call {idx} ({label}) not captured")
+            continue
+        args, kw = calls[idx]
+        row = check_flash(book, label, args, kw, timed=timed, phase=name, saturated=True)
+        if row is not None:
+            out.setdefault("timed", {}).setdefault(row["kernel"], []).append(row)
+
+
+def vlm_serve(book, dev, failures) -> dict:
+    """llama-3.2-vision-90b at full width cut to CROSS_LAYERS (one [attn x4,
+    cross] group): weights drawn on the card, served over the fp32 and the
+    int8 KV cache with zero image embeddings (`cross_serve_runs`); then,
+    with the gate at CROSS_GATE and unit-normal image embeddings, the
+    cross layer's flash call at prefill (Sq 32) and at the first decode step
+    (Sq 1) over the 1,024 image tokens, non-causal, G 8, D 128, against its
+    plain version and timed; the logits with the gate open against it
+    closed (the cross path must move them)."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(get_config(CROSS_ARCH), n_layers=CROSS_LAYERS)
+    lay = T.group_layout(cfg)
+    params, out = draw_on_card(CROSS_ARCH, cfg, dev, f"depth {cfg.n_layers} (of 100), one group "
+                               f"{[s.kind for s in lay]}, {cfg.n_image_tokens} image tokens, "
+                               f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads")
+    out.update(runs={}, service={}, head_dim=cfg.resolved_head_dim,
+               groups=cfg.n_heads // cfg.n_kv_heads)
+    prompt, follow = cross_serve_runs(CROSS_ARCH, cfg, params, out, book, dev, failures)
+    run = LM_SERVE
+    max_len = run["prompt_len"] + run["gen_len"]
+    inputs = unit_inputs(cfg, run["batch"], run["prompt_len"], LM_SERVE["seed"] + 2)
+    closed = teacher_forced(cfg, params, prompt, follow[:, :1], "float32", dev, max_len, inputs)
+    out["gates"] = set_gates(params, CROSS_GATE)
+    with capture_cross((0, 1)) as cap:
+        opened = teacher_forced(cfg, params, prompt, follow[:, :1], "float32", dev, max_len,
+                                inputs)
+    moved = max(float((a - b).abs().max()) for a, b in zip(opened, closed))
+    scale = max(float(a.abs().max()) for a in opened)
+    finite = all(bool(torch.isfinite(a).all()) for a in opened)
+    out["gate_moves_logits"] = moved
+    print(f"{CROSS_ARCH}: gate {CROSS_GATE} with unit-normal image embeddings moves the "
+          f"teacher-forced logits by {moved:.3e} (max|logits| {scale:.3e}) against the gate "
+          f"at 0; finite {finite}")
+    if not finite or moved <= 1e-3 * scale:
+        failures.append(f"{CROSS_ARCH}: the cross path does not move the logits, or they are "
+                        f"not finite")
+    print(f"{CROSS_ARCH} cross-layer flash checks ({KERNEL_TOL}):")
+    check_cross_calls(CROSS_ARCH, book, cap.calls, {0: "cross prefill layer 4",
+                                                    1: "cross decode layer 4"}, out, failures)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def nudge_gap(cfg, params_cpu, prompt, follow, inputs, max_len, seeds=2) -> float:
+    """How far fp32 rounding alone moves these logits on the host: the
+    largest change of the host's teacher-forced logits when the side inputs
+    are nudged by a relative 1e-7 (normal noise), over `seeds` nudges."""
+    import torch
+
+    base = teacher_forced(cfg, params_cpu, prompt, follow, "float32", "cpu", max_len, inputs)
+    gap = 0.0
+    for seed in range(seeds):
+        gen = torch.Generator().manual_seed(100 + seed)
+        nudged = tuple({k: v * (1 + 1e-7 * torch.randn(v.shape, generator=gen))
+                        for k, v in d.items()} for d in inputs)
+        out = teacher_forced(cfg, params_cpu, prompt, follow, "float32", "cpu", max_len, nudged)
+        gap = max(gap, max(float((a - b).abs().max()) for a, b in zip(out, base)))
+    return gap
+
+
+def whisper_serve(book, dev, failures) -> dict:
+    """whisper-tiny at full size: weights drawn on the host and moved to the
+    card, served over both requests (`cross_serve_runs`: the reference's
+    zero frames at prefill and zero encoder output at decode), and the
+    served requests' teacher-forced logits held card against host
+    (`card_vs_host`: rtol 1e-3 + 1e-3 * max|host|, the int8 rounding
+    pinned). Then the cross path, with the gates at CROSS_GATE, unit-normal
+    frames at prefill and a unit-normal encoder output at decode: the
+    encoder's layer 0 and the decoder's cross layer 0 (prefill and first
+    decode step, D 64, G 1) checked and timed on the fp32 entry, the
+    decoder's self-attention layer 0 on the int8 entry. With these inputs
+    the registered weights (wq and wk drawn at fan-in n_heads, no qk_norm)
+    amplify fp32 rounding layer by layer, until a 1e-7 relative nudge of the
+    inputs moves the host's own logits by about a tenth of their max: their card
+    against host error is printed beside that gap, and not held. The same
+    widths with qk_norm on are held card against host at the LM limit over
+    both requests."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.serve import request_inputs
+    from repro_torch.models import model as M
+
+    cfg = get_config(AUDIO_ARCH)
+    run = LM_SERVE
+    max_len = run["prompt_len"] + run["gen_len"]
+    out = {"n_params": cfg.n_params(), "runs": {}, "service": {},
+           "head_dim": cfg.resolved_head_dim, "groups": cfg.n_heads // cfg.n_kv_heads,
+           "card_vs_host": {}}
+    params_cpu = M.init_params(cfg, torch.Generator().manual_seed(run["seed"]), device="cpu")
+    params = tree_to(params_cpu, dev)
+    print(f"{AUDIO_ARCH} at full size: {out['n_params']:,} params, encoder "
+          f"{cfg.n_encoder_layers} x {[tuple(s) for s in M.AUDIO_ENC_LAYOUT]}, decoder "
+          f"{cfg.n_layers} x {[tuple(s) for s in M.AUDIO_DEC_LAYOUT]}, head dim "
+          f"{cfg.resolved_head_dim}")
+    prompt, follow = cross_serve_runs(AUDIO_ARCH, cfg, params, out, book, dev, failures)
+    zero = request_inputs(cfg, run["batch"], run["prompt_len"], "cpu")
+    for kvd in ("float32", "int8"):
+        out["card_vs_host"][f"served {kvd}"] = card_vs_host(
+            f"{AUDIO_ARCH} full size, served inputs", cfg, params, params_cpu, prompt, follow,
+            kvd, dev, max_len, failures, zero)
+    out["gates"] = set_gates(params, CROSS_GATE)
+    set_gates(params_cpu, CROSS_GATE)
+    inputs = unit_inputs(cfg, run["batch"], run["prompt_len"], run["seed"] + 2)
+    n_enc, n_dec = cfg.n_encoder_layers, cfg.n_layers
+    with capture_cross((0, n_enc, n_enc + n_dec)) as cap:
+        card = teacher_forced(cfg, params, prompt, follow, "float32", dev, max_len, inputs)
+    host = teacher_forced(cfg, params_cpu, prompt, follow, "float32", "cpu", max_len, inputs)
+    worst, scale, _ = logits_close(card, host)
+    gap = nudge_gap(cfg, params_cpu, prompt, follow, inputs, max_len)
+    finite = all(bool(torch.isfinite(c).all()) for c in card)
+    out["open_gate_card_vs_host"] = {"max_abs_err": worst, "max_host": scale,
+                                     "nudge_gap": gap, "finite": finite}
+    print(f"{AUDIO_ARCH} full size, gate {CROSS_GATE}, unit-normal frames, float32 cache, "
+          f"card vs host, teacher-forced prefill + {follow.shape[1]} decode steps: "
+          f"max_abs_err={worst:.3e} (max|host|={scale:.3e}); a 1e-7 relative nudge of the "
+          f"inputs moves the host's own logits by {gap:.3e}: not held (see the qk_norm "
+          f"lines); logits finite {finite}")
+    if not finite:
+        failures.append(f"{AUDIO_ARCH} full size, gate {CROSS_GATE}: logits not finite")
+    print(f"{AUDIO_ARCH} float32 flash checks ({KERNEL_TOL}):")
+    check_cross_calls(AUDIO_ARCH, book, cap.calls, {
+        0: "encoder layer 0", n_enc: "cross prefill layer 0",
+        n_enc + n_dec: "cross decode layer 0"}, out, failures)
+    with capture_attention((0, n_dec)) as acap:
+        teacher_forced(cfg, params, prompt, follow[:, :1], "int8", dev, max_len, inputs)
+    print(f"{AUDIO_ARCH} int8 flash checks ({KERNEL_TOL}):")
+    check_cross_calls(AUDIO_ARCH, book, acap.calls, {
+        0: "prefill self layer 0", n_dec: "decode self layer 0"}, out, failures)
+    del params, params_cpu
+    qk = dataclasses.replace(cfg, qk_norm=True)
+    params_cpu = M.init_params(qk, torch.Generator().manual_seed(run["seed"]), device="cpu")
+    set_gates(params_cpu, CROSS_GATE)
+    params = tree_to(params_cpu, dev)
+    for kvd in ("float32", "int8"):
+        out["card_vs_host"][f"qk_norm {kvd}"] = card_vs_host(
+            f"{AUDIO_ARCH} full size with qk_norm, gate {CROSS_GATE}", qk, params, params_cpu,
+            prompt, follow, kvd, dev, max_len, failures, inputs)
+    del params, params_cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def cross_reduced(dev, failures) -> dict:
+    """Reduced llama-3.2-vision-90b and whisper-tiny drawn on the host with
+    the gates at CROSS_GATE: teacher-forced logits on the card against the
+    host's plain path, fed unit-normal image embeddings or frames and
+    encoder output, over the fp32 and the int8 request (`card_vs_host`)."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import model as M
+
+    out = {}
+    run = LM_SERVE
+    for arch in (CROSS_ARCH, AUDIO_ARCH):
+        cfg = get_config(arch, reduced=True)
+        params_cpu = M.init_params(cfg, torch.Generator().manual_seed(run["seed"]),
+                                   device="cpu")
+        set_gates(params_cpu, CROSS_GATE)
+        params = tree_to(params_cpu, dev)
+        gen = torch.Generator().manual_seed(run["seed"] + 1)
+        prompt = torch.randint(0, cfg.vocab_size, (run["batch"], run["prompt_len"]),
+                               generator=gen)
+        follow = torch.randint(0, cfg.vocab_size, (run["batch"], LM_TF_STEPS), generator=gen)
+        inputs = unit_inputs(cfg, run["batch"], run["prompt_len"], run["seed"] + 2)
+        for kvd in ("float32", "int8"):
+            out[f"{arch} {kvd}"] = card_vs_host(f"{arch} reduced, gate {CROSS_GATE}", cfg,
+                                                params, params_cpu, prompt, follow, kvd, dev,
+                                                run["prompt_len"] + LM_TF_STEPS, failures,
+                                                inputs)
+    return out
+
+
+def cross_phase(book, dev, failures) -> dict:
+    """The cross-attention families (see `vlm_serve`, `whisper_serve`,
+    `cross_reduced`); memory reserved before it and the peak in it."""
+    import torch
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"memory_reserved_before_gib": torch.cuda.memory_reserved() / 2**30}
+    print(f"cross phase: memory_reserved before it {out['memory_reserved_before_gib']:.2f} GiB")
+    peak = 0.0  # the VLM's draw resets the peak: keep the largest
+    for key, fn in (("vlm", lambda: vlm_serve(book, dev, failures)),
+                    ("whisper", lambda: whisper_serve(book, dev, failures)),
+                    ("reduced", lambda: cross_reduced(dev, failures))):
+        try:
+            out[key] = fn()
+        except Exception:
+            traceback.print_exc()
+            failures.append(f"cross phase: {key} failed")
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["peak_allocated_gib"] = peak / 2**30
+    out["seconds"] = time.perf_counter() - t0
+    print(f"cross phase: peak memory_allocated {out['peak_allocated_gib']:.2f} GiB; "
+          f"{out['seconds']:.1f} s")
+    return out
+
+
+def cross_rows(name, cross_lm) -> list:
+    """For the kernel line's flash rows (`name` flash_fwd or flash_fwd_q8):
+    per cross-phase arch, its head dim, query heads per KV head, the served
+    runs' launches of the row's entry per request, and its timed shapes."""
+    entry = "repro_flash_fwd_q8" if name == "flash_fwd_q8" else "repro_flash_fwd_f32"
+    rows = []
+    for arch, key in ((CROSS_ARCH, "vlm"), (AUDIO_ARCH, "whisper")):
+        res = cross_lm.get(key)
+        if not res:
+            continue
+        timed = res.get("timed", {}).get(name, [])
+        rows.append({"arch": arch, "head_dim": res["head_dim"], "groups": res["groups"],
+                     "launches": {kvd: r.get("launches", {}).get(entry, 0)
+                                  for kvd, r in res.get("runs", {}).items()},
+                     "shapes": [{k: r[k] for k in ("shape", "q", "k", "ms", "plain_ms",
+                                                   "library_ms", "bound_ms", "bound_by",
+                                                   "eager_ms", "eager_library_ms")}
+                                for r in timed]})
+    return rows
 
 
 PAPER_IMPLS = ("dense", "im2col", "ecr", "pecr", "ecr_pallas", "pecr_pallas")
@@ -5606,6 +6027,14 @@ def main() -> int:
     except Exception:
         traceback.print_exc()
         failures.append("recurrent phase failed")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cross_lm = {}
+    try:
+        cross_lm = cross_phase(book, dev, failures)
+    except Exception:
+        traceback.print_exc()
+        failures.append("cross phase failed")
 
     csrc = "src/repro_torch/kernels/csrc/"
     # (name, book key, row suffix, source, replaces, the phase that serves it)
@@ -5699,7 +6128,12 @@ def main() -> int:
             "dense_lm": dense_rows(name, kvd, dense_lm),
             # the same for the MoE phase's arctic-480b (depth 1, G 7)
             "moe_lm": moe_rows(name, kvd, moe_lm),
-            "launches_by_head_dim": launches_by_head_dim(name, kvd, lm, dense_lm, moe_lm),
+            # the cross phase's archs: llama-3.2-vision-90b (depth 5: its
+            # cross layer non-causal over 1,024 image tokens, G 8, D 128) and
+            # whisper-tiny (D 64, G 1), launches per request and timed shapes
+            "cross_lm": cross_rows(name, cross_lm),
+            "launches_by_head_dim": launches_by_head_dim(name, kvd, lm, dense_lm, moe_lm,
+                                                         cross_lm),
             # the fp32 trainer's run (the main training run is bf16)
             "train_launches": (train_summary.get("fp32", {}).get("entries", {})
                                .get("repro_flash_fwd_f32", 0) if name == "flash_fwd" else 0),
@@ -5819,7 +6253,7 @@ def main() -> int:
             {"card": card, "rows": book.rows, "kernels": kernels,
              "service": services, "variants": variants, "obs": obs, "lm": lm,
              "dense_lm": dense_lm, "moe_lm": moe_lm, "mla_lm": mla_lm,
-             "recurrent_lm": recurrent_lm,
+             "recurrent_lm": recurrent_lm, "cross_lm": cross_lm,
              "train": train_summary, "paper": paper, "verifier": verifier,
              "geometry": geometry, "lint": lint, "scenario": scenario,
              "graphs": graphs, "verified": VERIFIED},

@@ -3,11 +3,14 @@
 `repro.configs.base`).
 
 The dataclasses carry every field of the reference's, so a config file
-copies over verbatim. The registry loads the dense LM family, the MoE
-family, arctic-480b (GQA attention) and deepseek-v2-236b (MLA attention),
-and the recurrent-state families, jamba-v0.1-52b (hybrid) and xlstm-125m
-(SSM) (`_ARCH_MODULES`); the VLM and audio configs join with their families
-(ROADMAP queue 1 item 16).
+copies over verbatim. The registry loads every LM arch of the reference
+(`_ARCH_MODULES`): the dense LM family, the MoE family, arctic-480b (GQA
+attention) and deepseek-v2-236b (MLA attention), the recurrent-state
+families, jamba-v0.1-52b (hybrid) and xlstm-125m (SSM), and the
+cross-attention families, llama-3.2-vision-90b (VLM) and whisper-tiny
+(audio encoder-decoder). The reference also registers a "vgg19-sparse"
+ModelConfig; the port keeps its CNN configs in `configs.vgg19_sparse` as
+`CNNConfig`s only.
 `ModelConfig.n_params` counts from the parameter shapes without allocating
 them (`models.model.count_params_analytic`).
 """
@@ -218,6 +221,8 @@ _ARCH_MODULES = [
     "deepseek_v2_236b",
     "jamba_v0_1_52b",
     "xlstm_125m",
+    "llama_3_2_vision_90b",
+    "whisper_tiny",
 ]
 
 

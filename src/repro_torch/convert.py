@@ -46,29 +46,32 @@ def lm_params_from_jax(np_params: dict, cfg, device=None, dtype=torch.float32) -
     sublayers' `mix.{in_proj, conv_w, x_proj, dt_proj, a_log, d_skip,
     out_proj}`; an xLSTM has `groups.sub0.mix.{up, wq, wk, wv, wi, wf,
     down}` (mLSTM) and `groups.sub1.mix.{wz, wi, wf, wo, r, ffn_up,
-    ffn_down, norm}` (sLSTM), with no `ln2` or FFN. The two trees have the
+    ffn_down, norm}` (sLSTM), with no `ln2` or FFN; a VLM's cross sublayer
+    adds `mix.gate`, and an encoder-decoder (whisper) has `enc_groups` and
+    `enc_norm` beside its decoder's `groups`. The two trees have the
     same keys and layouts: the port's tree (made on the meta device) names
     the leaves to carry, so a family's leaves carry with no code of their
     own (the MLA and recurrent leaves too), and a missing leaf or one of
-    another shape raises. Leaves in `dtype` (float32, or
-    bfloat16 for the reference's default training type). The families the
-    port serves only (`models.transformer.group_layout` raises for the
-    others)."""
+    another shape raises; so does a stacked leaf whose leading axis is not
+    its own stack's group count (`models.model.group_stacks`: the layout's
+    groups for `groups`, `n_encoder_layers` for `enc_groups`). Leaves in
+    `dtype` (float32, or bfloat16 for the reference's default training
+    type)."""
     from repro_torch.models import model as M
-    from repro_torch.models.transformer import n_groups
 
     dev = resolve_device(device)
     with torch.device("meta"):
         like = M.init_params(cfg, None, device="meta")
-    n = n_groups(cfg)
+    counts = {name: n for name, (_, n) in M.group_stacks(cfg).items()}
 
     def carry(want, src, where):
         if isinstance(want, dict):
             return {k: carry(want[k], src[k], f"{where}.{k}" if where else k) for k in want}
         x = np.array(src, dtype=np.float32)
-        if where.startswith("groups") and (x.ndim == 0 or x.shape[0] != n):
-            raise ValueError(f"{where}: leading axis {x.shape[:1]} is not the "
-                             f"{n} layers of {cfg.name}")
+        n = counts.get(where.split(".")[0])
+        if n is not None and (x.ndim == 0 or x.shape[0] != n):
+            raise ValueError(f"{where}: leading axis {x.shape[:1]} is not the {n} "
+                             f"stacked layers of {cfg.name}'s {where.split('.')[0]}")
         if x.shape != tuple(want.shape):
             raise ValueError(f"{where}: shape {x.shape} is not {tuple(want.shape)}")
         return torch.from_numpy(x).to(dev, dtype)

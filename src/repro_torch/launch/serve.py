@@ -5,7 +5,15 @@ mistral-large-123b, and the MoE arctic-480b (128 experts top-2 beside a
 dense residual FFN) and deepseek-v2-236b (MLA attention over a latent
 cache, 160 experts top-6 and 2 shared), and the recurrent-state families,
 the hybrid jamba-v0.1-52b (Mamba layers around one attention layer per 8,
-16 experts top-2 on every other layer) and the xLSTM xlstm-125m.
+16 experts top-2 on every other layer) and the xLSTM xlstm-125m, and the
+cross-attention families, the VLM llama-3.2-vision-90b (a gated
+cross-attention layer over image embeddings every 5th layer) and the
+encoder-decoder whisper-tiny. As in the reference, a VLM request gets zero
+image embeddings (batch, n_image_tokens, d_model) at prefill and at every
+decode step, and a whisper request zero frames (batch, prompt_len,
+d_model) through the encoder at prefill, then a zero encoder output of that
+shape at every decode step (so its decode steps do not attend over the
+encoder output its prefill made). Cross-attention layers keep no cache.
 deepseek-v2's cache is its latent (c_kv, k_rope): an int8 request gives a
 bf16 latent cache, as in the reference. jamba's cache is a KV cache for its
 attention layers beside the Mamba layers' recurrent state (conv ring and
@@ -17,19 +25,23 @@ Run on the card (default device "cuda"), at full width with fp32 weights
 fits no single card and serves only reduced, and so do arctic-480b, whose
 35 layers hold ~477 B parameters, and deepseek-v2-236b, 239 B:
 `chip_smoke.py` drives arctic-480b at full width with its depth cut to one
-layer, 56 GB, deepseek-v2-236b with its depth cut to two, 36 GB, and
-jamba-v0.1-52b with its depth cut to one interleave group of 8, 53 GB;
-xlstm-125m serves at full width and depth):
+layer, 56 GB, deepseek-v2-236b with its depth cut to two, 36 GB,
+jamba-v0.1-52b with its depth cut to one interleave group of 8, 53 GB, and
+llama-3.2-vision-90b, 351 GB, with its depth cut to one group of 5, 25.5 GB;
+xlstm-125m and whisper-tiny serve at full width and depth):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b --full
     PYTHONPATH=src python -m repro_torch.launch.serve --arch minitron-8b --full --kv-cache-dtype int8
     PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-12b --full
     PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m --full --prompt-len 128
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny --full --kv-cache-dtype int8
 On the host, through the kernels' plain PyTorch versions (reduced config):
     PYTHONPATH=src python -m repro_torch.launch.serve --arch minitron-8b --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch arctic-480b --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v2-236b --device cpu --kv-cache-dtype int8
     PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch xlstm-125m --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama-3.2-vision-90b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny --device cpu --kv-cache-dtype int8
 """
 from __future__ import annotations
 
@@ -62,14 +74,36 @@ def cache_kind(cfg: ModelConfig, kv_cache_dtype: str) -> str:
     """What a request for `kv_cache_dtype` gets: a KV cache of that type;
     for MLA the latent cache, bfloat16 for an int8 request; for a hybrid a
     KV cache of that type beside the recurrent state; for an SSM LM the
-    recurrent state alone."""
+    recurrent state alone; for a VLM and an encoder-decoder a KV cache of
+    that type for the (decoder's) self-attention layers only."""
     if cfg.family == "ssm":
         return "recurrent state"
     if cfg.family == "hybrid":
         return f"{kv_cache_dtype} KV + recurrent state"
+    if cfg.is_encoder_decoder:
+        return f"{kv_cache_dtype} decoder KV (self-attention layers only)"
+    if cfg.family == "vlm":
+        return f"{kv_cache_dtype} KV (self-attention layers only)"
     if cfg.attn_type == "mla":
         return "bfloat16 latent" if kv_cache_dtype == "int8" else f"{kv_cache_dtype} latent"
     return kv_cache_dtype
+
+
+def request_inputs(cfg: ModelConfig, batch: int, prompt_len: int, device) -> tuple:
+    """The inputs a request carries beside its tokens, as the reference's
+    `serve` makes them: ({prefill's}, {each decode step's}). VLM: zero
+    `img_embeds` (batch, n_image_tokens, d_model) in both; encoder-decoder:
+    zero `frames` (batch, prompt_len, d_model) at prefill, a zero `enc_out`
+    of that shape at each decode step; none for the other families."""
+    def zeros(s):
+        return torch.zeros((batch, s, cfg.d_model), device=device)
+
+    if cfg.family == "vlm":
+        img = zeros(cfg.n_image_tokens)
+        return {"img_embeds": img}, {"img_embeds": img}
+    if cfg.is_encoder_decoder:
+        return {"frames": zeros(prompt_len)}, {"enc_out": zeros(prompt_len)}
+    return {}, {}
 
 
 def _sync(dev: torch.device) -> None:
@@ -100,17 +134,19 @@ def serve(arch: str | ModelConfig, *, reduced: bool = True, batch: int = 4, prom
     step = make_serve_step(cfg, run)
     toks = torch.randint(0, cfg.vocab_size, (batch, prompt_len), dtype=torch.int32,
                          generator=torch.Generator().manual_seed(seed + 1)).to(dev)
+    pre_in, dec_in = request_inputs(cfg, batch, prompt_len, dev)
 
     _sync(dev)
     t0 = time.perf_counter()
     with torch.no_grad():
-        logits, caches = prefill(params, caches, {"tokens": toks})
+        logits, caches = prefill(params, caches, {"tokens": toks, **pre_in})
         nxt = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
     _sync(dev)
     t1 = time.perf_counter()
     out_tokens = [nxt]
     for i in range(gen_len - 1):
-        nxt, caches = step(params, caches, {"tokens": nxt[:, None]}, prompt_len + i)
+        nxt, caches = step(params, caches, {"tokens": nxt[:, None], **dec_in},
+                           prompt_len + i)
         out_tokens.append(nxt)
     _sync(dev)
     t2 = time.perf_counter()

@@ -1,5 +1,5 @@
-"""GQA and MLA self-attention over a cache (counterpart of
-`repro.models.attention`; cross-attention, the mesh head-padding branch and
+"""GQA self- and cross-attention and MLA self-attention over a cache
+(counterpart of `repro.models.attention`; the mesh head-padding branch and
 the dry-run stand-in are not ported).
 
 GQA: the attention region runs through the flash kernels. Without a cache
@@ -10,6 +10,17 @@ straight through `flash_fwd_q8` with its scales (the reference dequantizes
 the whole cache first, then attends; the q8 kernel forms the same fp32
 products per tile). The kernels read the model's (B, S, KV, G, hd) queries
 and the (B, S_max, KV, hd) cache in place.
+
+A cross-attention sublayer (llama-3.2-vision's image layers, whisper's
+decoder) is GQA whose K and V are projected from `kv_src` (image
+embeddings, or the encoder's output) instead of x: non-causal, without
+rope, without a cache (its K / V are recomputed from `kv_src` at every
+call, as the reference does), and its output scaled by tanh of the
+sublayer's `gate`, an fp32 scalar drawn as 0.0. It runs through
+`FlashAttentionFn` like the training path, so under `torch.no_grad()` too
+a cross call launches `repro_flash_fwd_f32`, whatever the request's cache
+type. Given no `kv_src` a cross sublayer attends over x itself, with rope
+(the reference's fallback, `repro/models/attention.py:190, 196`).
 
 MLA (deepseek-v2) keeps the reference's absorbed form: w_uk is folded into
 the queries, so the cache holds only the latent `c_kv` (B, S, r) and the
@@ -57,8 +68,11 @@ def flash_attention(q, k, v, *, causal: bool, scale: float, q_offset=0,
     return out
 
 
-def init_gqa(generator: torch.Generator, cfg: ModelConfig, place=as_drawn) -> dict:
-    """`place` takes each leaf as it is drawn."""
+def init_gqa(generator: torch.Generator, cfg: ModelConfig, place=as_drawn,
+             cross: bool = False) -> dict:
+    """`place` takes each leaf as it is drawn. A cross-attention sublayer
+    adds `gate`, an fp32 scalar 0.0 (no draw): tanh(0) = 0, so a fresh cross
+    sublayer adds nothing to the residual."""
     d, h, kv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
     hd = cfg.resolved_head_dim
     p = {"wq": place(dense_init(generator, (d, h, hd)))}
@@ -68,6 +82,8 @@ def init_gqa(generator: torch.Generator, cfg: ModelConfig, place=as_drawn) -> di
     if cfg.qk_norm:
         p["q_norm"] = place(ones_init((hd,)))
         p["k_norm"] = place(ones_init((hd,)))
+    if cross:
+        p["gate"] = place(torch.zeros((), dtype=torch.float32))
     return p
 
 
@@ -105,23 +121,28 @@ def _dequantize_kv(q, scale, dtype):
 
 
 def gqa_attention(p, x, *, cfg: ModelConfig, positions, causal=True,
-                  cache: Optional[KVCache] = None, write_pos=None):
-    """x: (B,S,D). cache + write_pos: write k/v at write_pos (in place),
-    attend over the whole cache. Returns (out, cache)."""
+                  cache: Optional[KVCache] = None, write_pos=None,
+                  kv_src: Optional[torch.Tensor] = None):
+    """x: (B,S,D); kv_src: (B,Sk,D) image or encoder states for
+    cross-attention (K and V come from it, no rope). cache + write_pos:
+    write k/v at write_pos (in place), attend over the whole cache. A
+    sublayer with a `gate` scales its output by tanh(gate). Returns (out,
+    cache)."""
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    src = x if kv_src is None else kv_src
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(x.dtype))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(x.dtype))
+    k = torch.einsum("bsd,dhk->bshk", src, p["wk"].to(src.dtype))
+    v = torch.einsum("bsd,dhk->bshk", src, p["wv"].to(src.dtype))
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    if cfg.rope_theta:
+    if cfg.rope_theta and kv_src is None:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     q = q.reshape(b, s, kv, h // kv, hd)
 
-    if cache is None:  # training: differentiable through the backward kernels
+    if cache is None:  # training and cross-attention: no cache, no kv_len
         out = FlashAttentionFn.apply(q, k, v, hd ** -0.5, causal, 0, None)
     else:
         wp, scales = int(write_pos), {}
@@ -140,6 +161,8 @@ def gqa_attention(p, x, *, cfg: ModelConfig, positions, causal=True,
                               q_offset=wp, kv_len=wp + s, **scales)
     out = out.reshape(b, s, h, hd)
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(out.dtype))
+    if "gate" in p:  # gated cross-attention (llama-vision style)
+        out = torch.tanh(p["gate"].to(out.dtype)) * out
     return out, cache
 
 

@@ -14,11 +14,15 @@ through `configs.vgg19_sparse.vgg19_graph` and runs through
 `graph.executor`, whose registry resolves every (kind, impl) pair,
 including which stage-final layers fuse into PECR. It also holds
 `shift_dead_channels`, which gives random weights a trained net's dead
-filters. The reference's whisper conv frontend is ROADMAP queue 1, item 16.
+filters, and whisper's conv frontend (`init_whisper_frontend`,
+`whisper_frontend`): two dense 1-D convolutions, as the reference computes
+them with `conv_general_dilated` outside any Pallas kernel; the whisper
+model itself takes the frame embeddings as its input.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.vgg19_sparse import CNNConfig, vgg19_graph
 from repro_torch.device import resolve_device
@@ -110,3 +114,34 @@ def shift_dead_channels(params, rate: float = 0.04, shift: float = 0.12):
         return {"stages": [[next(it) for _ in convs] for convs in params["stages"]],
                 "fc1": params["fc1"], "fc2": params["fc2"]}
     return {"conv": shifted_ws, "dense": list(params["dense"])}
+
+
+# ---------------------------------------------------------------------------
+# whisper conv frontend (off the served path, as in the reference)
+# ---------------------------------------------------------------------------
+
+
+def init_whisper_frontend(generator: torch.Generator, n_mels: int, d_model: int, *,
+                          device=None, dtype=torch.float32) -> dict:
+    """conv1 (d_model, n_mels, 3) and conv2 (d_model, d_model, 3), normal at
+    fan-in (channels * 3) ** -0.5, drawn on the host from `generator` and
+    moved to `device` (None = the card)."""
+    dev = resolve_device(device)
+
+    def draw(shape):
+        fan_in = shape[1] * shape[2]
+        return (torch.randn(shape, generator=generator, dtype=dtype)
+                * fan_in ** -0.5).to(dev)
+
+    return {"conv1": draw((d_model, n_mels, 3)), "conv2": draw((d_model, d_model, 3))}
+
+
+def whisper_frontend(params, mel: torch.Tensor, stride2: bool = True) -> torch.Tensor:
+    """mel (n_mels, T) -> (T // 2, d_model) frame embeddings (T with
+    `stride2=False`): conv1 (padding 1), gelu, conv2 (stride 2, padding 1),
+    gelu, with jax.nn.gelu's tanh approximation."""
+    x = F.conv1d(mel[None], params["conv1"], padding=1)
+    x = F.gelu(x, approximate="tanh")
+    x = F.conv1d(x, params["conv2"], stride=2 if stride2 else 1, padding=1)
+    x = F.gelu(x, approximate="tanh")
+    return x[0].T

@@ -1,6 +1,6 @@
-"""Shared LM layer primitives: norms, rotary embeddings, initializers
-(counterpart of `repro.models.layers`; parameters are plain tensors, with no
-logical-axis annotations, since the port has no mesh).
+"""Shared LM layer primitives: norms, rotary and sinusoidal positions,
+initializers (counterpart of `repro.models.layers`; parameters are plain
+tensors, with no logical-axis annotations, since the port has no mesh).
 
 The initializers draw from a `torch.Generator` on the generator's own device:
 a host generator gives the same weights whatever device the caller moves them
@@ -9,6 +9,7 @@ uninitialized tensors of the same shapes (the parameter count takes them on
 the meta device)."""
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -61,3 +62,15 @@ def rope(x, positions, theta: float = 10_000.0):
     cos, sin = torch.cos(ang), torch.sin(ang)
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def sinusoid_positions(n: int, d: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """(n, d) sinusoidal positions of 0 .. n-1: sin in the even columns, cos in
+    the odd ones (the whisper encoder's table)."""
+    pos = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(-torch.arange(0, d, 2, dtype=torch.float32, device=device) / d
+                    * math.log(10_000.0))
+    pe = torch.zeros((n, d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe.to(dtype)

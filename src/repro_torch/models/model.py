@@ -1,5 +1,16 @@
 """Public LM API: init / cache / forward / loss / prefill / decode
-(counterpart of `repro.models.model`, the decoder-only LM branch).
+(counterpart of `repro.models.model`).
+
+All families go through one `forward`:
+  - LM (dense / moe / ssm / hybrid / vlm): token embed -> group stack ->
+    logits; a VLM batch carries `img_embeds` (B, n_image_tokens, D), the
+    cross sublayers' `kv_src`;
+  - audio (whisper): a batch with `frames` (B, T, D) runs them plus
+    sinusoidal positions through the non-causal encoder stack (`enc_groups`,
+    then `enc_norm`), one without reads the encoder output `enc_out`; the
+    decoder stack (self-attention with a cache, then cross-attention over
+    the encoder output) runs over the tokens plus absolute sinusoidal
+    positions.
 
 Step semantics:
   train:   lm_loss(batch with tokens, labels) -> scalar next-token loss
@@ -7,7 +18,8 @@ Step semantics:
   decode:  forward(one token, caches, write_pos=pos) -> next-token logits
 
 Parameters are a plain dict with the reference's tree and layouts
-({"embed", "final_norm", "groups", ["unembed"]}), drawn from a
+({"embed", "final_norm", "groups", ["unembed"]}, and for an
+encoder-decoder "enc_groups" and "enc_norm"), drawn from a
 `torch.Generator` on its own device and moved to `device` (None = the card)
 leaf by leaf. Without caches
 `forward` and `lm_loss` are differentiable (the attention backward is the
@@ -16,26 +28,37 @@ flash backward kernels); the cache paths are for serving and run under
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.layers import embed_init, ones_init, rms_norm
+from repro_torch.models.layers import embed_init, ones_init, rms_norm, sinusoid_positions
 from repro_torch.models.transformer import (
+    Sub,
     group_layout,
     init_group_caches,
     init_groups,
+    n_groups,
     stack_apply,
 )
 from repro_torch.tree import tree_paths
 
+AUDIO_DEC_LAYOUT = [Sub("attn", "none"), Sub("cross", "dense")]
+AUDIO_ENC_LAYOUT = [Sub("attn", "dense")]
 
-def _check_family(cfg: ModelConfig) -> None:
-    """Raises NotImplementedError for a family the port does not have yet
-    (the dense LM, the MoE LM with GQA or MLA attention, the hybrid and the
-    SSM LM are ported; VLM and audio are not)."""
-    group_layout(cfg)
+
+def group_stacks(cfg: ModelConfig) -> dict:
+    """Each stacked-group subtree of the parameters -> (its layout, its
+    number of groups): "groups" for every arch (an encoder-decoder's
+    decoder: AUDIO_DEC_LAYOUT x n_layers), and "enc_groups" (AUDIO_ENC_LAYOUT
+    x n_encoder_layers) for an encoder-decoder."""
+    if cfg.is_encoder_decoder:
+        return {"enc_groups": (AUDIO_ENC_LAYOUT, cfg.n_encoder_layers),
+                "groups": (AUDIO_DEC_LAYOUT, cfg.n_layers)}
+    return {"groups": (group_layout(cfg), n_groups(cfg))}
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, *, device=None,
@@ -45,15 +68,17 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *, device=None,
     generator's device, each cast to `dtype` and moved to `device` as soon as
     it is drawn: a host generator holds one leaf at a time on the host and
     gives the same tree on every device."""
-    _check_family(cfg)
     dev = resolve_device(device)
 
     def place(t):
         return t.to(device=dev, dtype=dtype)
 
     d, v = cfg.d_model, cfg.vocab_size
-    p = {"embed": place(embed_init(generator, (v, d))), "final_norm": place(ones_init((d,))),
-         "groups": init_groups(generator, cfg, place)}
+    p = {"embed": place(embed_init(generator, (v, d))), "final_norm": place(ones_init((d,)))}
+    for name, (layout, groups) in group_stacks(cfg).items():
+        p[name] = init_groups(generator, cfg, place, layout=layout, groups=groups)
+        if name == "enc_groups":
+            p["enc_norm"] = place(ones_init((d,)))
     if not cfg.tie_embeddings:
         p["unembed"] = place(embed_init(generator, (d, v)))
     return p
@@ -89,10 +114,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.float32,
     """The decode/prefill cache tree: one cache per sublayer position,
     stacked over groups: a KVCache, where dtype torch.int8 quantizes K/V
     (fp32 scales), for MLA an MLACache of the latent and the rotary key,
-    bfloat16 for an int8 request, and for a recurrent sublayer its state
-    (`models.transformer.init_group_caches`)."""
-    _check_family(cfg)
-    return init_group_caches(cfg, batch, max_len, dtype, device=resolve_device(device))
+    bfloat16 for an int8 request, for a recurrent sublayer its state, and
+    None for a cross-attention sublayer (`models.transformer.
+    init_group_caches`); an encoder-decoder's over its decoder stack."""
+    layout, groups = group_stacks(cfg)["groups"]
+    return init_group_caches(cfg, batch, max_len, dtype, device=resolve_device(device),
+                             layout=layout, groups=groups)
 
 
 def _logits(cfg, params, x):
@@ -109,18 +136,64 @@ def forward(cfg: ModelConfig, params, batch: dict, *, caches=None, write_pos=Non
     """Returns (logits, caches, aux_loss), or (final-normed hidden states,
     caches, aux_loss) with `return_hidden`; the caches, if given, are
     updated in place and returned."""
-    _check_family(cfg)
     wp = 0 if write_pos is None else int(write_pos)
+    if cfg.is_encoder_decoder:
+        return _forward_encdec(cfg, params, batch, caches=caches, write_pos=wp,
+                               remat=remat, return_hidden=return_hidden)
     tokens = batch["tokens"]
     b, s = tokens.shape
     x = params["embed"][tokens]
     positions = (wp + torch.arange(s, device=tokens.device))[None, :].expand(b, s)
+    kv_src = batch.get("img_embeds") if cfg.family == "vlm" else None
     x, new_caches, aux = stack_apply(params["groups"], x, cfg=cfg, positions=positions,
                                      caches=caches, write_pos=write_pos, causal=True,
-                                     remat=remat)
+                                     kv_src=kv_src, remat=remat)
     if return_hidden:
         return rms_norm(x, params["final_norm"], cfg.norm_eps), new_caches, aux
     return _logits(cfg, params, x), new_caches, aux
+
+
+def encode(cfg: ModelConfig, params, frames, *, remat: str = "none"):
+    """The encoder of an encoder-decoder: frames (B, T, D) plus sinusoidal
+    positions through the non-causal `enc_groups` stack, then `enc_norm`
+    -> the decoder's `kv_src` (B, T, D)."""
+    t = frames.shape[1]
+    pe = sinusoid_positions(t, cfg.d_model, frames.dtype, device=frames.device)
+    pos = torch.arange(t, device=frames.device)[None].expand(frames.shape[0], t)
+    enc_out, _, _ = stack_apply(params["enc_groups"], frames + pe[None], cfg=cfg,
+                                positions=pos, causal=False, remat=remat,
+                                layout=AUDIO_ENC_LAYOUT)
+    return rms_norm(enc_out, params["enc_norm"], cfg.norm_eps)
+
+
+def _forward_encdec(cfg, params, batch, *, caches, write_pos, remat,
+                    return_hidden: bool = False):
+    """The reference's `_forward_encdec`: the encoder over `frames` if the
+    batch has them, else its `enc_out`; then the decoder stack over the
+    tokens at absolute positions write_pos .., cross-attending to it."""
+    enc_out = (encode(cfg, params, batch["frames"], remat=remat) if "frames" in batch
+               else batch["enc_out"])
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    x = params["embed"][tokens]
+    pos = (write_pos + torch.arange(s, device=tokens.device))[None, :]
+    x = x + _abs_pos(pos, cfg.d_model, x.dtype)
+    x, new_caches, aux = stack_apply(
+        params["groups"], x, cfg=cfg, positions=pos.expand(b, s), caches=caches,
+        write_pos=write_pos, causal=True, kv_src=enc_out, remat=remat,
+        layout=AUDIO_DEC_LAYOUT)
+    if return_hidden:
+        return rms_norm(x, params["final_norm"], cfg.norm_eps), new_caches, aux
+    return _logits(cfg, params, x), new_caches, aux
+
+
+def _abs_pos(pos, d: int, dtype):
+    """Sinusoidal absolute positions of `pos` (any shape), [sin ; cos] over
+    the last axis (not the interleaved layout of `sinusoid_positions`)."""
+    div = torch.exp(-torch.arange(0, d, 2, dtype=torch.float32, device=pos.device) / d
+                    * math.log(10_000.0))
+    ang = pos.float()[..., None] * div
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
 
 
 def _chunked_xent(x, w_t, labels, vocab_chunk: int = 16384):

@@ -8,12 +8,16 @@ A *group* is the smallest repeating pattern of sublayers:
                           (attention at index attn_every // 2; a routed FFN
                           on the odd indices, dense on the even)
   xlstm                -> [mlstm, slstm]              x n_layers / 2 groups
+  llama-vision         -> [attn x4, cross]            x n_layers / 5 groups
+  whisper (audio)      -> decoder [attn (no FFN), cross], encoder [attn]
+                          (`models.model`'s layouts, passed as `layout=`)
 An [attn] sublayer's FFN is dense, routed (`models.moe`) or both side by
 side (arctic's dense residual); an [mla] sublayer's (deepseek-v2) is routed,
 and its cache the latent `MLACache`. The recurrent sublayers (`models.ssm`,
 `models.xlstm`) carry a state in place of a KV cache, replaced at every
-call. VLM and audio raise NotImplementedError until ROADMAP queue 1 item
-16 ports them.
+call. A [cross] sublayer attends over `kv_src` (image embeddings or the
+encoder's output), non-causal and gated, and keeps no cache: its slot in
+the cache tuple is None.
 
 Group parameters keep the reference's stacked leaves: every leaf of
 `groups["sub<i>"]` carries a leading (n_groups,) axis, so weights carry over
@@ -42,39 +46,41 @@ from repro_torch.models.layers import as_drawn, dense_init, ones_init, rms_norm
 from repro_torch.models.moe import init_moe, moe_ffn
 from repro_torch.tree import tree_map
 
-FAMILIES_TODO = "ROADMAP queue 1 item 16 (the VLM and audio families)"
-
-
 class Sub(NamedTuple):
-    kind: str  # attn | mla | mamba | mlstm | slstm (cross: not ported)
+    kind: str  # attn | mla | cross | mamba | mlstm | slstm
     ffn: str  # dense | moe | moe+dense | none
 
 
 def group_layout(cfg: ModelConfig) -> list:
-    """The reference's rule for the families the port has: a dense LM, or a
-    MoE LM with GQA attention, is one [attn] sublayer whose FFN is routed
-    ("moe"), routed beside a dense residual FFN ("moe+dense") or dense; a
-    MoE LM with MLA attention is one [mla] sublayer with a routed FFN; a
-    hybrid is `attn_every` sublayers, mamba but for attention at index
-    attn_every // 2, with a routed FFN where the index is 1 modulo
-    `moe_every` and a dense one elsewhere; an SSM LM (xLSTM) is [mlstm,
-    slstm] with no FFN of their own."""
-    if not cfg.is_encoder_decoder and (
-            cfg.family == "dense" or (cfg.family == "moe" and cfg.attn_type == "gqa")):
+    """The reference's rule: a dense LM, a VLM, the audio family (for
+    `n_groups` and the parameter count; its stacks have layouts of their
+    own, `models.model.AUDIO_*_LAYOUT`) or a MoE LM with GQA attention is
+    one [attn] sublayer whose FFN is routed ("moe"), routed beside a dense
+    residual FFN ("moe+dense") or dense, and a VLM with `cross_attn_every`
+    n is n - 1 of them and a [cross] with the same FFN; a MoE LM with MLA
+    attention is one [mla] sublayer with a routed FFN; a hybrid is
+    `attn_every` sublayers, mamba but for attention at index attn_every //
+    2, with a routed FFN where the index is 1 modulo `moe_every` and a
+    dense one elsewhere; an SSM LM (xLSTM) is [mlstm, slstm] with no FFN of
+    their own. Another family raises ValueError."""
+    fam = cfg.family
+    if fam in ("dense", "vlm", "audio") or (fam == "moe" and cfg.attn_type == "gqa"):
         base_ffn = "moe+dense" if (cfg.n_experts and cfg.dense_residual_ff) else (
             "moe" if cfg.n_experts else "dense")
+        if fam == "vlm" and cfg.cross_attn_every:
+            n = cfg.cross_attn_every
+            return [Sub("attn", base_ffn)] * (n - 1) + [Sub("cross", base_ffn)]
         return [Sub("attn", base_ffn)]
-    if not cfg.is_encoder_decoder and cfg.family == "moe" and cfg.attn_type == "mla":
+    if fam == "moe":  # mla
         return [Sub("mla", "moe")]
-    if cfg.family == "hybrid":
+    if fam == "hybrid":
         attn_pos = cfg.attn_every // 2
         return [Sub("attn" if i == attn_pos else "mamba",
                     "moe" if (cfg.moe_every and i % cfg.moe_every == 1) else "dense")
                 for i in range(cfg.attn_every)]
-    if cfg.family == "ssm":
+    if fam == "ssm":
         return [Sub("mlstm", "none"), Sub("slstm", "none")]
-    raise NotImplementedError(f"{cfg.name}: family {cfg.family!r} (attention "
-                              f"{cfg.attn_type!r}) is not ported yet; see {FAMILIES_TODO}")
+    raise ValueError(f"{cfg.name}: family {fam!r} has no group layout")
 
 
 def n_groups(cfg: ModelConfig) -> int:
@@ -114,10 +120,11 @@ def ffn_apply(p, x, cfg: ModelConfig):
 def init_sublayer(generator: torch.Generator, sub: Sub, cfg: ModelConfig,
                   place=as_drawn) -> dict:
     init_mix = {"attn": attn_mod.init_gqa, "mla": attn_mod.init_mla,
+                "cross": functools.partial(attn_mod.init_gqa, cross=True),
                 "mamba": ssm_mod.init_mamba, "mlstm": xlstm_mod.init_mlstm,
                 "slstm": xlstm_mod.init_slstm}.get(sub.kind)
     if init_mix is None:
-        raise NotImplementedError(f"sublayer {sub.kind!r}: see {FAMILIES_TODO}")
+        raise ValueError(f"sublayer kind {sub.kind!r}")
     p = {"ln1": place(ones_init((cfg.d_model,))), "mix": init_mix(generator, cfg, place)}
     if sub.ffn != "none":
         p["ln2"] = place(ones_init((cfg.d_model,)))
@@ -128,16 +135,19 @@ def init_sublayer(generator: torch.Generator, sub: Sub, cfg: ModelConfig,
     return p
 
 
-def init_groups(generator: torch.Generator, cfg: ModelConfig, place=as_drawn) -> dict:
-    """{"sub0": {...}} with every leaf stacked (n_groups, ...). Layer by
+def init_groups(generator: torch.Generator, cfg: ModelConfig, place=as_drawn,
+                layout=None, groups=None) -> dict:
+    """{"sub0": {...}} with every leaf stacked (n_groups, ...): `layout`
+    (default `group_layout(cfg)`) repeated `groups` times (default
+    `n_groups(cfg)`; whisper's encoder and decoder stacks pass theirs). Layer by
     layer, each leaf goes to `place` as soon as it is drawn, then into its
     slot of the stacked leaf (made at layer 0 where `place` put the leaf),
     and is freed before the next leaf is drawn: the peak is the stacked tree
     plus one leaf (one full-width arctic-480b layer: 56 GB plus a 17.85 GB
     expert leaf), and with `place` moving leaves to the card the host holds
     one leaf at a time."""
-    lay = group_layout(cfg)
-    n = n_groups(cfg)
+    lay = layout or group_layout(cfg)
+    n = groups or n_groups(cfg)
     stacked = []  # in draw order
 
     def into_slot(i):
@@ -155,6 +165,14 @@ def init_groups(generator: torch.Generator, cfg: ModelConfig, place=as_drawn) ->
         put = into_slot(i)  # one draw order over the whole group
         layer = {f"sub{j}": init_sublayer(generator, s, cfg, put) for j, s in enumerate(lay)}
     return tree_map(lambda j: stacked[j], layer)
+
+
+def stacked_groups(tree) -> int:
+    """The number of groups a stacked parameter tree holds: its first
+    leaf's leading axis (`unstack_groups` holds every leaf to it)."""
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return tree.shape[0]
 
 
 def unstack_groups(tree, n: int) -> list:
@@ -176,18 +194,24 @@ def unstack_groups(tree, n: int) -> list:
 
 
 def init_group_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
-                      device=None) -> tuple:
-    """Per sublayer position, its cache stacked over the groups: an [attn]
+                      device=None, layout=None, groups=None) -> tuple:
+    """Per sublayer position of `layout` (default `group_layout(cfg)`), its
+    cache stacked over the `groups` (default `n_groups(cfg)`): an [attn]
     sublayer's KVCache (n_groups, B, S_max, KV, hd), where dtype torch.int8
     gives the quantized cache with its scales; an [mla] sublayer's MLACache
     (n_groups, B, S_max, r) and (n_groups, B, S_max, dr), bfloat16 for an
     int8 request (the reference quantizes no latent state); a recurrent
     sublayer's state, (n_groups, ...) of `MambaState` (see
     `init_mamba_state`), `MLSTMState` or `SLSTMState`, fp32 for every
-    request and whatever `max_len`."""
-    g = n_groups(cfg)
+    request and whatever `max_len`; a [cross] sublayer's None (its K / V are
+    recomputed from `kv_src` at every call)."""
+    lay = layout or group_layout(cfg)
+    g = groups or n_groups(cfg)
     caches = []
-    for sub in group_layout(cfg):
+    for sub in lay:
+        if sub.kind == "cross":
+            caches.append(None)
+            continue
         if sub.kind == "mla":
             c = attn_mod.init_mla_cache(cfg, batch, max_len,
                                         torch.bfloat16 if dtype == torch.int8 else dtype,
@@ -207,7 +231,9 @@ def init_group_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
 
 def _layer_cache(cache, i: int):
     """Group i's view of a stacked cache (KVCache, MLACache or a recurrent
-    state)."""
+    state; None for a [cross] slot)."""
+    if cache is None:
+        return None
     return type(cache)(*(None if x is None else x[i] for x in cache))
 
 
@@ -216,17 +242,24 @@ def _layer_cache(cache, i: int):
 # ---------------------------------------------------------------------------
 
 
-def apply_sublayer(sub: Sub, p, x, *, cfg, positions, cache, write_pos, causal):
+def apply_sublayer(sub: Sub, p, x, *, cfg, positions, cache, write_pos, causal,
+                   kv_src=None):
     """-> (x, cache, aux): the routed FFN's output plus the dense FFN's,
     both from the same normed input, added to the residual; aux is the
     routed FFN's load-balancing loss (None without one). A recurrent
     sublayer's new state is copied into `cache` (a view of the stacked
-    state), which is returned."""
+    state), which is returned. `kv_src` reaches only a [cross] sublayer,
+    which runs non-causal."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    if sub.kind in ("attn", "mla"):
-        mix = attn_mod.mla_attention if sub.kind == "mla" else attn_mod.gqa_attention
-        out, new_cache = mix(p["mix"], h, cfg=cfg, positions=positions, causal=causal,
-                             cache=cache, write_pos=write_pos)
+    if sub.kind in ("attn", "cross"):
+        out, new_cache = attn_mod.gqa_attention(
+            p["mix"], h, cfg=cfg, positions=positions,
+            causal=causal and sub.kind == "attn", cache=cache, write_pos=write_pos,
+            kv_src=kv_src if sub.kind == "cross" else None)
+    elif sub.kind == "mla":
+        out, new_cache = attn_mod.mla_attention(p["mix"], h, cfg=cfg, positions=positions,
+                                                causal=causal, cache=cache,
+                                                write_pos=write_pos)
     else:
         block = {"mamba": ssm_mod.mamba_block, "mlstm": xlstm_mod.mlstm_block,
                  "slstm": xlstm_mod.slstm_block}[sub.kind]
@@ -266,10 +299,15 @@ def dots_policy(ctx, op, *args, **kwargs):
 
 
 def stack_apply(groups_params, x, *, cfg: ModelConfig, positions, caches=None,
-                write_pos=None, causal=True, remat: str = "none"):
-    """Run the full group stack. Returns (x, caches, aux_loss); the caches are
-    the ones given, updated in place (None without caches); aux_loss sums
-    the routed FFNs' losses over groups and sublayers (fp32).
+                write_pos=None, causal=True, kv_src=None, remat: str = "none",
+                layout=None):
+    """Run the full group stack: `group_layout(cfg)` over `n_groups(cfg)`
+    groups, or a `layout` given over as many groups as the stacked
+    parameters hold (whisper's encoder and decoder). Returns (x, caches,
+    aux_loss); the caches are the ones given, updated in place (None
+    without caches); aux_loss sums the routed FFNs' losses over groups and
+    sublayers (fp32). `kv_src` goes to the [cross] sublayers; `causal` to
+    the [attn] ones.
 
     remat "full" recomputes each group's activations in the backward pass
     (`torch.utils.checkpoint`, non-reentrant: the reference's
@@ -279,21 +317,23 @@ def stack_apply(groups_params, x, *, cfg: ModelConfig, positions, caches=None,
     "full" and "dots" alike each group's attention forward runs twice."""
     if remat not in ("none", "full", "dots"):
         raise ValueError(f"remat {remat!r}: choose from 'none', 'full', 'dots'")
-    lay = group_layout(cfg)
-    groups = unstack_groups(groups_params, n_groups(cfg))
+    lay = layout or group_layout(cfg)
+    n = n_groups(cfg) if layout is None else stacked_groups(groups_params)
+    groups = unstack_groups(groups_params, n)
 
     def group(gi, x, aux):
         gp = groups[gi]
         for i, sub in enumerate(lay):
             cache = None if caches is None else _layer_cache(caches[i], gi)
             x, _, a = apply_sublayer(sub, gp[f"sub{i}"], x, cfg=cfg, positions=positions,
-                                     cache=cache, write_pos=write_pos, causal=causal)
+                                     cache=cache, write_pos=write_pos, causal=causal,
+                                     kv_src=kv_src)
             if a is not None:
                 aux = aux + a
         return x, aux
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for gi in range(n_groups(cfg)):
+    for gi in range(n):
         if remat == "full":
             x, aux = torch.utils.checkpoint.checkpoint(group, gi, x, aux, use_reentrant=False)
         elif remat == "dots":

@@ -67,8 +67,12 @@ def test_configs_match_the_reference(reduced):
     assert [f.name for f in dataclasses.fields(ModelConfig)] == \
         [f.name for f in dataclasses.fields(jbase.ModelConfig)]
     assert dataclasses.asdict(RunConfig()) == dataclasses.asdict(jbase.RunConfig())
-    assert list_archs() == ["arctic-480b", "deepseek-v2-236b", "jamba-v0.1-52b", "minitron-8b",
-                            "mistral-large-123b", ARCH, "stablelm-12b", "xlstm-125m"]
+    # every LM arch of the reference; its "vgg19-sparse" entry is a CNN, which
+    # the port keeps as a CNNConfig
+    assert list_archs() == [a for a in jbase.list_archs() if a != "vgg19-sparse"]
+    assert list_archs() == ["arctic-480b", "deepseek-v2-236b", "jamba-v0.1-52b",
+                            "llama-3.2-vision-90b", "minitron-8b", "mistral-large-123b", ARCH,
+                            "stablelm-12b", "whisper-tiny", "xlstm-125m"]
     assert get_config(ARCH).rope_theta == 10_000.0  # the repo's default, kept
 
 
@@ -197,10 +201,17 @@ def test_serve_rejects_an_unknown_cache_dtype():
 
 
 def test_other_families_are_not_ported_yet(model):
+    """Every family of the reference is ported: a VLM config without
+    `cross_attn_every` is the reference's plain [attn] stack; a family with
+    no group layout raises ValueError, as the reference's `group_layout`
+    does."""
     cfg = dataclasses.replace(model[0], family="vlm")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    assert group_layout(cfg) == [("attn", "dense")]
+    assert len(M.init_cache(cfg, 1, 4, device="cpu")) == 1
+    cfg = dataclasses.replace(model[0], family="cnn")
+    with pytest.raises(ValueError, match="family 'cnn'"):
         group_layout(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="family 'cnn'"):
         M.init_cache(cfg, 1, 4, device="cpu")
 
 

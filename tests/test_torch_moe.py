@@ -44,6 +44,7 @@ from repro.launch.steps import init_train_state as j_init_train_state  # noqa: E
 from repro.launch.steps import make_train_step as j_make_train_step  # noqa: E402
 from repro.models import model as JM  # noqa: E402
 from repro.models import moe as JMOE  # noqa: E402
+from repro.models import transformer as j_transformer  # noqa: E402
 from repro_torch.configs.base import DEFAULT_RUN, ModelConfig, get_config, list_archs  # noqa: E402
 from repro_torch.convert import lm_params_from_jax, train_state_from_jax  # noqa: E402
 from repro_torch.data import make_pipeline  # noqa: E402
@@ -369,15 +370,24 @@ def _stand_in(jcfg) -> ModelConfig:
 @pytest.mark.parametrize("arch", ["llama-3.2-vision-90b", "whisper-tiny"])
 @pytest.mark.parametrize("reduced", [True, False])
 def test_unported_families_raise(arch, reduced):
-    """VLM and audio fields: group_layout, init_params and init_cache raise
-    NotImplementedError naming item 16 (the hybrid and SSM families are
-    ported: `tests/test_torch_ssm.py`)."""
-    cfg = _stand_in(j_get_config(arch, reduced=reduced))
-    with pytest.raises(NotImplementedError, match="item 16"):
+    """No family is left unported: the VLM and audio fields give the
+    reference's group layout and parameter count (the cross-attention
+    families' own tests are `tests/test_torch_cross.py`); with a family
+    the reference has no layout for, group_layout, init_params and
+    init_cache raise ValueError."""
+    jcfg = j_get_config(arch, reduced=reduced)
+    cfg = _stand_in(jcfg)
+    assert [tuple(s) for s in T.group_layout(cfg)] == [
+        tuple(s) for s in j_transformer.group_layout(jcfg)]
+    assert cfg.n_params() == JM.count_params_analytic(jcfg)
+    # (an encoder-decoder's stacks have layouts of their own: a decoder-only
+    # config with the unknown family)
+    cfg = dataclasses.replace(cfg, family="cnn", is_encoder_decoder=False)
+    with pytest.raises(ValueError, match="family 'cnn'"):
         T.group_layout(cfg)
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(ValueError, match="family 'cnn'"):
         M.init_params(cfg, None, device="meta")
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(ValueError, match="family 'cnn'"):
         M.init_cache(cfg, 1, 4, device="cpu")
 
 
