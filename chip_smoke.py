@@ -1352,7 +1352,11 @@ def ptxas_usage(text: str) -> dict:
 def kernel_category(name: str) -> str:
     """Coarse class of a CUDA kernel by its symbol name."""
     for stem, cat in (("flash_mla_kernel", "flash MLA kernel"),
+                      ("mla_bwd_dq_kernel", "flash MLA bwd dq kernel"),
+                      ("mla_bwd_dkv", "flash MLA bwd dkv kernel"),
                       ("selective_scan_kernel", "selective scan kernel"),
+                      ("selective_scan_bwd_kernel", "selective scan bwd kernel"),
+                      ("scan_bwd_reduce", "selective scan bwd kernel"),
                       ("flash_bwd_dq_bf16_kernel", "flash bwd dq bf16 kernel"),
                       ("flash_bwd_dkv_bf16_kernel", "flash bwd dk/dv bf16 kernel"),
                       ("flash_fwd_bf16_kernel", "flash bf16 kernel")):
@@ -3250,24 +3254,124 @@ def dense_serve(arch, book, dev, failures) -> dict:
     return out
 
 
-def dense_train(dev, failures, archs=DENSE_TRAIN_ARCHS) -> dict:
+def train_entries(cfg, steps, sfx="bf16") -> dict:
+    """The kernel launches `steps` train steps at remat "full" make, per
+    entry point of the `sfx` type ("bf16" or "f32"): every attention
+    sublayer (self, cross and encoder) the flash forward twice (forward and
+    recompute) and each backward pass once; every MLA sublayer the MLA
+    forward twice (the bf16 latent's entry at bf16) and its dq and dkv
+    passes once; every Mamba sublayer the scan forward twice and its
+    backward once."""
+    from repro_torch.models import model as M
+
+    kinds = {}
+    for layout, groups in M.group_stacks(cfg).values():
+        for sub in layout:
+            kinds[sub.kind] = kinds.get(sub.kind, 0) + groups
+    n_attn = kinds.get("attn", 0) + kinds.get("cross", 0)
+    n_mla, n_mamba = kinds.get("mla", 0), kinds.get("mamba", 0)
+    want = {}
+    if n_attn:
+        want.update({f"repro_flash_fwd_{sfx}": 2 * n_attn * steps,
+                     f"repro_flash_bwd_dq_{sfx}": n_attn * steps,
+                     f"repro_flash_bwd_dkv_{sfx}": n_attn * steps})
+    if n_mla:
+        want.update({"repro_flash_fwd_mla_" + ("bf16kv" if sfx == "bf16" else "f32"):
+                     2 * n_mla * steps, f"repro_flash_bwd_mla_dq_{sfx}": n_mla * steps,
+                     f"repro_flash_bwd_mla_dkv_{sfx}": n_mla * steps})
+    if n_mamba:
+        want.update({f"repro_selective_scan_{sfx}": 2 * n_mamba * steps,
+                     f"repro_selective_scan_bwd_{sfx}": n_mamba * steps})
+    return want
+
+
+def entry_counts() -> dict:
+    """Every flash, MLA and scan entry point's launches so far."""
+    from repro_torch.kernels import cuda as kcuda
+
+    return {**kcuda.FLASH_ENTRY_LAUNCHES, **kcuda.MLA_ENTRY_LAUNCHES,
+            **kcuda.SCAN_ENTRY_LAUNCHES}
+
+
+def entries_since(before) -> dict:
+    return {k: n - before[k] for k, n in entry_counts().items() if n != before[k]}
+
+
+class count_plain:
+    """Count, within the block, the calls of the LM kernels' plain versions
+    (a step on the card must make none)."""
+
+    NAMES = {"repro_torch.kernels.flash_attention.kernel": (
+                 "flash_fwd_plain", "flash_fwd_q8_plain", "flash_bwd_dq_plain",
+                 "flash_bwd_dkv_plain", "flash_bwd_plain", "flash_fwd_mla_plain",
+                 "flash_bwd_mla_plain"),
+             "repro_torch.kernels.selective_scan.kernel": (
+                 "selective_scan_plain", "selective_scan_bwd_plain")}
+
+    def __enter__(self):
+        import importlib
+
+        self.saved, self.n = [], 0
+        for mod_name, names in self.NAMES.items():
+            mod = importlib.import_module(mod_name)
+            for name in names:
+                orig = getattr(mod, name)
+
+                def rec(*a, _orig=orig, **k):
+                    self.n += 1
+                    return _orig(*a, **k)
+
+                setattr(mod, name, rec)
+                self.saved.append((mod, name, orig))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, orig in self.saved:
+            setattr(mod, name, orig)
+
+
+def side_batch(cfg, batch, seq_len, seed, dtype) -> dict:
+    """A training batch with a VLM's image embeddings or whisper's frames
+    added, unit-normal from `seed`, in the parameters' type `dtype` (the
+    pipeline gives tokens only; a bf16 trainer feeds bf16 activations)."""
+    if cfg.family not in ("vlm", "audio"):
+        return batch
+    side = unit_inputs(cfg, batch["tokens"].shape[0], seq_len, seed)[0]
+    return {**batch, **{k: v.to(dtype) for k, v in side.items()}}
+
+
+def dense_train(dev, failures, archs=DENSE_TRAIN_ARCHS, variants=("registered", "qk_norm"),
+                held=None, trace=False) -> dict:
     """Each of `archs`' REDUCED config trained 3 bf16 steps on the card
     (`make_train_step` at the reference launcher's types, remat "full")
     beside the host's plain path (remat "none") from the same state and
-    batches, the flash counters set to 0 just before the steps and read just
-    after; step 0's gradients first. Registered configs hold the loss per
-    step within 1e-2 relative; their grad norm and leaves are printed beside
-    the host's fp32 grad norm on the same weights, which shows bf16 rounding
-    deciding them (no qk_norm: the scores' std is ~32 and the softmax
-    saturates). The same configs with qk_norm on hold all three bf16 limits
-    (1e-2 / 3e-2 / 5e-2)."""
+    batches (cross archs: the gates at CROSS_GATE and unit-normal side
+    inputs), the launch counters set to 0 just before the steps and read
+    just after (`train_entries`), and the plain versions' calls counted in
+    the card's steps (none allowed); step 0's gradients first. Every variant
+    holds the loss per step within 1e-2 relative; `held` maps a variant to
+    what it holds besides: "grad_norm" within 3e-2, "leaves" (step 0's
+    worst leaf) within 5e-2 (default: the qk_norm variant holds both).
+    What is not held is printed beside the host's fp32 gradients on the
+    same weights, which show bf16 rounding deciding it: registered configs
+    without qk_norm (the scores' std is ~32 and the softmax saturates), and
+    leaves whose host bf16 gradient lies farther than the limit from the
+    host's fp32 one (the "host bf16 vs fp32" figure). With `trace`, the
+    first variant's step is traced after the steps (`trace_breakdown`)."""
     import torch
 
     from repro_torch.configs.base import DEFAULT_RUN, get_config
     from repro_torch.data import make_pipeline
-    from repro_torch.kernels.cuda import FLASH_ENTRY_LAUNCHES
-    from repro_torch.kernels.flash_attention.kernel import flash_bwd_dkv, flash_bwd_dq, flash_fwd
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_bwd_dkv,
+        flash_bwd_dq,
+        flash_bwd_mla,
+        flash_fwd,
+        flash_fwd_mla,
+    )
+    from repro_torch.kernels.selective_scan.kernel import selective_scan, selective_scan_bwd
     from repro_torch.launch.steps import (
+        DTYPES,
         init_train_state,
         loss_and_grads,
         make_train_step,
@@ -3276,12 +3380,15 @@ def dense_train(dev, failures, archs=DENSE_TRAIN_ARCHS) -> dict:
     from repro_torch.optim import global_norm
     from repro_torch.tree import tree_leaves, tree_map
 
+    held = {"qk_norm": ("grad_norm", "leaves")} if held is None else held
     wrappers = {"flash_fwd": flash_fwd, "flash_bwd_dq": flash_bwd_dq,
-                "flash_bwd_dkv": flash_bwd_dkv}
+                "flash_bwd_dkv": flash_bwd_dkv, "flash_fwd_mla": flash_fwd_mla,
+                "flash_bwd_mla": flash_bwd_mla, "selective_scan": selective_scan,
+                "selective_scan_bwd": selective_scan_bwd}
     gb, sl, seed = DENSE_TRAIN["global_batch"], DENSE_TRAIN["seq_len"], DENSE_TRAIN["seed"]
     out = {}
     for arch in archs:
-        for variant in ("registered", "qk_norm"):
+        for variant in variants:
             cfg = get_config(arch, reduced=True)
             if variant == "qk_norm":
                 cfg = dataclasses.replace(cfg, qk_norm=True)
@@ -3290,66 +3397,124 @@ def dense_train(dev, failures, archs=DENSE_TRAIN_ARCHS) -> dict:
             state_c = init_train_state(cfg, run, torch.Generator().manual_seed(seed), device=dev)
             state_h = init_train_state(cfg, hrun, torch.Generator().manual_seed(seed),
                                        device="cpu")
+            for st in (state_c, state_h):
+                set_gates(st.params, CROSS_GATE)
             pipe = make_pipeline(cfg, sl, gb, seed=seed)
-            b0 = pipe.batch_at(0)
+            batches = [side_batch(cfg, to_device(pipe.batch_at(s), "cpu"), sl, seed + s,
+                                  DTYPES[run.param_dtype])
+                       for s in range(DENSE_TRAIN["steps"])]
+            b0 = batches[0]
             _, g_c = loss_and_grads(cfg, run, state_c.params, to_device(b0, dev))
             _, g_h = loss_and_grads(cfg, hrun, state_h.params, to_device(b0, "cpu"))
             _, g_f = loss_and_grads(cfg, hrun.replace(param_dtype="float32"),
                                     tree_map(lambda t: t.float(), state_h.params),
                                     to_device(b0, "cpu"))
-            worst = 0.0
-            for a, b in zip(tree_leaves(g_c), tree_leaves(g_h)):
+            worst = host_gap = 0.0
+            for a, b, f in zip(tree_leaves(g_c), tree_leaves(g_h), tree_leaves(g_f)):
                 a, b = a.float().cpu(), b.float()
                 worst = max(worst, float((a - b).abs().max()) / max(float(b.abs().max()),
                                                                      1e-30))
+                host_gap = max(host_gap, float((b - f).abs().max())
+                               / max(float(f.abs().max()), 1e-30))
             gn_f = float(global_norm(g_f))
             del g_c, g_h, g_f
             step_c = make_train_step(cfg, run, 10, device=dev)
             step_h = make_train_step(cfg, hrun, 10, device="cpu")
             reset_counts(wrappers)
-            before = dict(FLASH_ENTRY_LAUNCHES)
-            losses, norms = [], []
-            for s in range(DENSE_TRAIN["steps"]):
-                batch = pipe.batch_at(s)
-                state_c, mc = step_c(state_c, batch)
+            before = entry_counts()
+            losses, norms, plain_calls = [], [], 0
+            for batch in batches:
+                with count_plain() as pc:
+                    state_c, mc = step_c(state_c, batch)
+                plain_calls += pc.n
                 state_h, mh = step_h(state_h, batch)
                 losses.append((float(mc["loss"]), float(mh["loss"])))
                 norms.append((float(mc["grad_norm"]), float(mh["grad_norm"])))
             launches = read_counts(wrappers)
-            entries = {k: n - before[k] for k, n in FLASH_ENTRY_LAUNCHES.items()
-                       if n != before[k]}
-            n, steps = cfg.n_layers, DENSE_TRAIN["steps"]
-            want = {"repro_flash_fwd_bf16": 2 * n * steps, "repro_flash_bwd_dq_bf16": n * steps,
-                    "repro_flash_bwd_dkv_bf16": n * steps}
+            entries = entries_since(before)
+            steps = DENSE_TRAIN["steps"]
+            want = train_entries(cfg, steps)
             ok_loss = all(abs(c - h) <= 1e-2 * abs(h) for c, h in losses)
             ok_norm = all(abs(c - h) <= 3e-2 * h for c, h in norms)
             ok_leaf = worst <= 5e-2
-            held = variant == "qk_norm"
+            holds = held.get(variant, ())
             finite = all(map(lambda v: v == v and abs(v) < float("inf"),
                              [c for c, _ in losses + norms]))
+
+            def verdict(ok, what):
+                return ("ok" if ok else "FAIL") if what in holds else "not held"
+
             print(f"{arch} reduced ({variant}, head dim {cfg.resolved_head_dim}) bf16 x "
                   f"{steps} steps, batch {gb} x {sl}, card vs host: loss "
                   f"{[f'{c:.5f}/{h:.5f}' for c, h in losses]} "
                   f"({'ok' if ok_loss else 'FAIL'}, 1e-2 rel); grad norm "
                   f"{[f'{c:.4f}/{h:.4f}' for c, h in norms]} "
-                  f"({('ok' if ok_norm else 'FAIL') if held else 'not held'}, 3e-2 rel); "
+                  f"({verdict(ok_norm, 'grad_norm')}, 3e-2 rel); "
                   f"step-0 worst leaf max|card - host| / max|host| {worst:.2e} "
-                  f"({('ok' if ok_leaf else 'FAIL') if held else 'not held'}, 5e-2); host "
-                  f"fp32 grad norm on the same weights {gn_f:.4f}; flash launches "
-                  f"{launches}, per entry point {entries}")
-            if not (ok_loss and finite) or (held and not (ok_norm and ok_leaf)):
+                  f"({verdict(ok_leaf, 'leaves')}, 5e-2); host fp32 grad norm on the same "
+                  f"weights {gn_f:.4f}, host bf16 vs fp32 worst leaf {host_gap:.2e}; launches "
+                  f"{launches}, per entry point {entries} (expected {want}); plain-version "
+                  f"calls in the card's steps: {plain_calls}")
+            if (not (ok_loss and finite) or ("grad_norm" in holds and not ok_norm)
+                    or ("leaves" in holds and not ok_leaf)):
                 failures.append(f"{arch} reduced {variant}: bf16 card steps disagree with "
                                 f"the host")
             if entries != want:
-                failures.append(f"{arch} reduced {variant}: flash entry launches {entries}, "
+                failures.append(f"{arch} reduced {variant}: entry launches {entries}, "
                                 f"expected {want}")
+            if plain_calls:
+                failures.append(f"{arch} reduced {variant}: the card's steps called a plain "
+                                f"version {plain_calls} times")
+            if trace and variant == variants[0]:
+                br = trace_breakdown(lambda: step_c(state_c, batches[0]),
+                                     {"batch": gb, "seq": sl})
+                print(f"{arch} reduced ({variant}) warm bf16 train step: wall "
+                      f"{br['wall_ms']:.3f} ms (median of 5), device {br['device_ms']:.3f} ms "
+                      f"in {br['device_ops']} device ops, idle share {br['idle_share']}; by "
+                      f"class " + ", ".join(f"{c} {ms:.3f}" for c, ms in sorted(
+                          br["by_class_ms"].items(), key=lambda kv: -kv[1])))
+                out[f"{arch} step"] = br
             out[f"{arch} {variant}"] = {"loss": losses, "grad_norm": norms,
                                         "worst_leaf_rel": worst, "host_fp32_grad_norm": gn_f,
+                                        "host_bf16_vs_fp32_leaf": host_gap,
                                         "launches": launches, "entries": entries,
-                                        "held": ["loss", "grad_norm", "leaves"] if held
-                                        else ["loss"]}
+                                        "plain_calls": plain_calls,
+                                        "held": ["loss", *holds]}
             del state_c, state_h
     return out
+
+
+def fp32_train_step(arch, dev, failures) -> dict:
+    """One fp32 train step of the reduced `arch` on the card beside the
+    host's (the fp32 trainer reaches the fp32 entry points): the counters
+    set to 0 just before it and read just after (`train_entries` at "f32"),
+    the loss within 1e-4 relative."""
+    import torch
+
+    from repro_torch.configs.base import DEFAULT_RUN, get_config
+    from repro_torch.data import make_pipeline
+    from repro_torch.launch.steps import init_train_state, make_train_step, to_device
+
+    cfg = get_config(arch, reduced=True)
+    run = DEFAULT_RUN.replace(param_dtype="float32", warmup_steps=2)
+    seed, sl, gb = DENSE_TRAIN["seed"], DENSE_TRAIN["seq_len"], DENSE_TRAIN["global_batch"]
+    batch = to_device(make_pipeline(cfg, sl, gb, seed=seed).batch_at(0), "cpu")
+    res = {}
+    for where, r in ((dev, run), ("cpu", run.replace(remat="none"))):
+        state = init_train_state(cfg, r, torch.Generator().manual_seed(seed), device=where)
+        before = entry_counts()
+        _, m = make_train_step(cfg, r, 10, device=where)(state, batch)
+        res[str(where)] = (float(m["loss"]), entries_since(before))
+    (lc, entries), (lh, _) = res[str(dev)], res["cpu"]
+    want = train_entries(cfg, 1, "f32")
+    ok = abs(lc - lh) <= 1e-4 * abs(lh)
+    print(f"{arch} reduced fp32 train step, card vs host: loss {lc:.6f} vs {lh:.6f} "
+          f"({'ok' if ok else 'FAIL'}, 1e-4 rel); entries {entries} (expected {want})")
+    if not ok:
+        failures.append(f"{arch} reduced fp32 step: the card's loss disagrees with the host")
+    if entries != want:
+        failures.append(f"{arch} reduced fp32 step: entry launches {entries}, expected {want}")
+    return {"loss": [lc, lh], "entries": entries}
 
 
 def dense_rows(name, kvd, dense_lm, archs=DENSE_SERVE_ARCHS) -> list:
@@ -4032,9 +4197,285 @@ def mla_reduced(dev, failures) -> dict:
     return out
 
 
+# training at full width: one MLA sublayer (layer 0's weights) at B 2, S 128
+MLA_TRAIN = dict(batch=2, seq_len=128, seed=0)
+# what a sublayer's gradients are held to, card against host, at fp32:
+# the linear loss sum(out * g), the gradients' global norm, every leaf
+SUBLAYER_LIMITS = (1e-4, 1e-3, 1e-3)
+
+
+class capture_fn_bwd:
+    """Within the block, record the operands of the first call of `name` in
+    module `mod` (a name an autograd Function's backward calls: a wrapper,
+    or the launch a wrapper calls), cloned, then run the call as usual."""
+
+    def __init__(self, mod, name):
+        self.mod_name, self.name, self.calls = mod, name, []
+
+    def __enter__(self):
+        import importlib
+
+        self.mod = importlib.import_module(self.mod_name)
+        self.orig = getattr(self.mod, self.name)
+
+        def rec(*args, **kw):
+            if not self.calls:
+                self.calls.append((tuple(a.detach().clone() if a is not None else None
+                                         for a in args), dict(kw)))
+            return self.orig(*args, **kw)
+
+        setattr(self.mod, self.name, rec)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.mod, self.name, self.orig)
+
+
+def mla_bwd_bound(q, c_kv, kw, *, part, peak=None):
+    """(op time, byte time) in ms of one MLA backward pass for these inputs:
+    per visible (row, key) pair 2 (Dk + Dv + Dk) operations for dq (s, dp,
+    ds.K) and 2 (2 Dk + 2 Dv) for dc_kv / dk_rope (s, dp, ds^T qs, p^T
+    do), at `peak` (default: the rate of the operands' type, split-TF32 165
+    TFLOP/s for fp32, the bf16 tensor cores' 989 for bf16); q and do of
+    every row and the keys any row reads, in the operands' type, m, l,
+    delta, and dq or dc_kv and dk_rope written once, over 3.35 TB/s."""
+    b, sq, h, dk = q.shape
+    sk, r = c_kv.shape[1], c_kv.shape[2]
+    eb = c_kv.element_size()
+    if peak is None:
+        peak = PEAK_BF16_FLOPS if eb == 2 else PEAK_TF32_SPLIT_FLOPS
+    pairs, keys = visible_pairs(sq, sk, kw["causal"], kw["q_offset"], kw["kv_len"])
+    per = 2.0 * (2 * dk + r) if part == "dq" else 2.0 * (2 * dk + 2 * r)
+    ops = per * b * h * pairs
+    rows = b * sq * h
+    nbytes = (eb * rows * (dk + r) + eb * b * keys * dk + 12.0 * rows
+              + (eb * rows * dk if part == "dq" else eb * b * sk * dk))
+    return ops / peak * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+
+
+def mla_sdpa_backward(q, c_kv, k_rope, do, kw):
+    """The memory-efficient attention backward op (SDPA's fused backend for
+    a masked fp32 or bf16 call) on MLA's function: q (B, H, Sq, r + dr) over
+    the keys [c_kv ; k_rope] and values c_kv expanded to the H heads, the
+    same mask as an additive bias, fed by that op's own forward, all three
+    gradients. Returns (fn, None), or (None, the reason) where the op takes
+    no such call."""
+    import torch
+
+    b, sq, h, dk = q.shape
+    sk = c_kv.shape[1]
+    dt = c_kv.dtype
+    qh = q.to(dt).transpose(1, 2).contiguous()
+    kh = torch.cat([c_kv, k_rope], -1)[:, None].expand(b, h, sk, dk).contiguous()
+    vh = c_kv[:, None].expand(b, h, sk, c_kv.shape[2]).contiguous()
+    doh = do.transpose(1, 2).contiguous()
+    mask = attention_mask(sq, sk, kw, q.device)
+    bias = torch.zeros((sq, sk), device=q.device, dtype=dt).masked_fill(~mask, float("-inf"))
+    bias = bias.expand(b, h, sq, sk)
+    aten = torch.ops.aten
+    try:
+        o, lse, seed, offset = aten._scaled_dot_product_efficient_attention(
+            qh, kh, vh, bias, True, 0.0, False, scale=kw["scale"])
+
+        def fn():
+            return aten._scaled_dot_product_efficient_attention_backward(
+                doh, qh, kh, vh, bias, o, lse, seed, offset, 0.0, [True, True, True, False],
+                False, scale=kw["scale"])[:3]
+
+        fn()
+        torch.cuda.synchronize()
+        return fn, None
+    except RuntimeError as e:
+        return None, str(e).splitlines()[0][:200]
+
+
+def check_mla_bwd(book, label, ops, kw, *, timed) -> list:
+    """Both MLA backward passes against the plain version on captured
+    operands (q, c_kv, k_rope, do, m, l, delta) at MLA_TOL's limits (fp32
+    widened at the row maxes), each repeated bitwise; when `timed`, kernel /
+    plain / SDPA's backward by CUDA-graph replay, and the bound. Returns the
+    rows."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.kernel import flash_bwd_mla, flash_bwd_mla_plain
+
+    bf16 = ops[1].dtype == torch.bfloat16
+    sfx = "_bf16" if bf16 else "_f32"
+    fns = {part: (lambda part=part: flash_bwd_mla(*ops, part=part, **kw)) for part in
+           ("dq", "dkv")}
+    fns.update({f"{part}_plain": (lambda part=part: flash_bwd_mla_plain(*ops, part=part, **kw))
+                for part in ("dq", "dkv")})
+    got = {part: fns[part]() for part in ("dq", "dkv")}
+    again = {part: fns[part]() for part in ("dq", "dkv")}
+    torch.cuda.synchronize()
+    want = flash_bwd_mla_plain(*ops, **kw)
+    m = ops[4][ops[4] > -1e29]
+    widen = score_widening(float(m.abs().max()) if m.numel() else 0.0)
+    tag = f"{label} q{tuple(ops[0].shape)} c_kv{tuple(ops[1].shape)} causal={kw['causal']}"
+    for part, names, gs, ws in (("dq", ("dq",), (got["dq"],), want[:1]),
+                                ("dkv", ("dc_kv", "dk_rope"), got["dkv"], want[1:])):
+        name = f"flash_bwd_mla_{part}{sfx}"
+        for n_, g_, w_ in zip(names, gs, ws):
+            if bf16:
+                book.check_bf16(name, f"{tag} {n_}", g_, w_)
+            else:
+                book.check(name, f"{tag} {n_}", g_, w_, widen=widen)
+        same = all(torch.equal(x, y) for x, y in zip(
+            (again[part],) if part == "dq" else again[part], gs))
+        print(f"    {name} repeats bitwise: {same}")
+        if not same:
+            raise AssertionError(f"{name}: a repeat is not bitwise the same")
+    if not timed:
+        return []
+    lib, why = mla_sdpa_backward(ops[0], ops[1], ops[2], ops[3], kw)
+    if lib is not None:
+        fns["library"] = lib
+    t = time_graph_turns(fns)
+    rows = []
+    for part in ("dq", "dkv"):
+        name = f"flash_bwd_mla_{part}{sfx}"
+        ft, bt = mla_bwd_bound(ops[0], ops[1], kw, part=part)
+        fc, _ = mla_bwd_bound(ops[0], ops[1], kw, part=part, peak=PEAK_FP32_FLOPS)
+        row = {"kernel": name, "shape": label, "q": list(ops[0].shape),
+               "c_kv": list(ops[1].shape), "ms": t[part], "plain_ms": t[part + "_plain"],
+               "library_ms": t.get("library"), "library_note": why or
+               "SDPA memory-efficient backward, all three gradients, q and the keys "
+               "expanded to the H heads", "flop_ms": ft, "byte_ms": bt,
+               "bound_ms": max(ft, bt), "bound_by": "operations" if ft >= bt else "bytes",
+               "fp32_core_bound_ms": max(fc, bt), "phase": MLA_ARCH + "-train"}
+        book.rows.append(row)
+        rows.append(row)
+        lib_s = f"{t['library']:.4f}" if lib is not None else f"None ({why})"
+        print(f"    {name} {label}: ms={t[part]:.4f} plain_ms={t[part + '_plain']:.4f} "
+              f"library_ms={lib_s} bound_ms={max(ft, bt):.4f} ({row['bound_by']}; CUDA cores "
+              f"{max(fc, bt):.4f}) [CUDA-graph replay]")
+    return rows
+
+
+def sublayer_vs_host(name, fn, params, inputs, g, dev, failures) -> dict:
+    """A sublayer's gradients on the card against the host's: `fn(params,
+    inputs...)` -> out on each device from the same fp32 weights and inputs,
+    the linear loss sum(out * g), the gradients' global norm and every leaf
+    (the weights and the inputs) at SUBLAYER_LIMITS."""
+    import torch
+
+    res = {}
+    for where in (dev, "cpu"):
+        p = {k: v.detach().to(where).requires_grad_() for k, v in params.items()}
+        xs = [x.detach().to(where).requires_grad_() for x in inputs]
+        gw = g.to(where)
+        t0 = time.perf_counter()
+        out = fn(p, *xs)
+        grads = torch.autograd.grad(out, list(p.values()) + xs, gw)
+        loss = float((out.detach() * gw).sum())
+        if str(where) != "cpu":
+            torch.cuda.synchronize()
+        res[str(where)] = (loss, [t.detach().float().cpu() for t in grads],
+                           time.perf_counter() - t0)
+        del p, xs, grads, out
+    (lc, gc_, sc), (lh, gh, sh) = res[str(dev)], res["cpu"]
+    lim_loss, lim_norm, lim_leaf = SUBLAYER_LIMITS
+    nc = float(torch.stack([t.norm() for t in gc_]).norm())
+    nh = float(torch.stack([t.norm() for t in gh]).norm())
+    names = list(params) + [f"input{i}" for i in range(len(inputs))]
+    worst, bad = 0.0, []
+    for n_, a, b in zip(names, gc_, gh):
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max())
+        worst = max(worst, err / scale if scale else err)
+        if not err <= lim_leaf * scale:
+            bad.append(n_)
+    ok_loss = abs(lc - lh) <= lim_loss * abs(lh)
+    ok_norm = abs(nc - nh) <= lim_norm * nh
+    print(f"{name} full-width sublayer fp32 gradients, card vs host: loss {lc:.6e} vs {lh:.6e} "
+          f"({'ok' if ok_loss else 'FAIL'}, {lim_loss:g} rel), grad norm {nc:.6e} vs "
+          f"{nh:.6e} ({'ok' if ok_norm else 'FAIL'}, {lim_norm:g} rel), worst leaf "
+          f"max|card - host| / max|host| {worst:.2e} ({'ok' if not bad else bad}, "
+          f"{lim_leaf:g}); card {sc:.2f} s, host {sh:.2f} s")
+    if not (ok_loss and ok_norm) or bad:
+        failures.append(f"{name} sublayer: card gradients disagree with the host")
+    return {"loss": [lc, lh], "grad_norm": [nc, nh], "worst_leaf_rel": worst,
+            "host_s": sh}
+
+
+def mla_sublayer(book, dev, failures) -> dict:
+    """deepseek-v2's MLA sublayer at full width (128 heads on a 512-wide
+    latent, Dk 576 / Dv 512), weights drawn on the card, at B 2 x S 128:
+    forward and backward through `mla_attention` (MLAAttentionFn) at fp32
+    and bf16 with the MLA counters set to 0 just before and read just after
+    (the forward and each backward pass once), both backward passes against
+    their plain version on the captured operands (timed, beside SDPA's
+    backward), and at fp32 the sublayer's gradients against the host's."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import cuda as kcuda
+    from repro_torch.models import attention as A
+
+    cfg = get_config(MLA_ARCH)
+    b, s = MLA_TRAIN["batch"], MLA_TRAIN["seq_len"]
+    gen = torch.Generator(device=dev).manual_seed(MLA_TRAIN["seed"])
+    p32 = A.init_mla(gen, cfg, place=lambda t: t.to(dev))
+    x32 = torch.randn((b, s, cfg.d_model), device=dev, generator=gen)
+    g32 = torch.randn((b, s, cfg.d_model), device=dev, generator=gen)
+    pos = torch.arange(s, device=dev)[None].expand(b, s)
+    gb = sum(t.numel() * t.element_size() for t in p32.values()) / 1e9
+    print(f"{MLA_ARCH} MLA sublayer at full width: {gb:.2f} GB of fp32 weights drawn on the "
+          f"card; B {b} x S {s}, {cfg.n_heads} heads, Dk {cfg.kv_lora_rank + cfg.rope_head_dim}"
+          f" / Dv {cfg.kv_lora_rank}")
+
+    def fwd(p, x):
+        return A.mla_attention(p, x, cfg=cfg, positions=pos.to(x.device))[0]
+
+    out = {"weight_gb": gb, "runs": {}}
+    for dtype, sfx in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        p = {k: v.to(dtype).requires_grad_() for k, v in p32.items()}
+        x = x32.to(dtype).requires_grad_()
+        before = dict(kcuda.MLA_ENTRY_LAUNCHES)
+        with capture_fn_bwd("repro_torch.kernels.flash_attention.ops", "flash_bwd_mla") as cap:
+            y = fwd(p, x)
+            grads = torch.autograd.grad(y, list(p.values()) + [x], g32.to(dtype))
+        torch.cuda.synchronize()
+        launched = {k: n - before[k] for k, n in kcuda.MLA_ENTRY_LAUNCHES.items()
+                    if n != before[k]}
+        want = {"repro_flash_fwd_mla_" + ("bf16kv" if sfx == "bf16" else "f32"): 1,
+                f"repro_flash_bwd_mla_dq_{sfx}": 1, f"repro_flash_bwd_mla_dkv_{sfx}": 1}
+        finite = all(bool(torch.isfinite(t).all()) for t in grads)
+        print(f"{MLA_ARCH} sublayer {sfx} forward + backward: launches {launched} (expected "
+              f"{want}); gradients finite: {finite}")
+        if launched != want or not finite:
+            failures.append(f"{MLA_ARCH} sublayer {sfx}: launches {launched} or non-finite "
+                            f"gradients")
+        del y, grads, p, x
+        args, kw = cap.calls[0]
+        print(f"{MLA_ARCH} MLA backward kernel checks, {sfx} ({MLA_TOL}):")
+        rows = check_mla_bwd(book, "sublayer", args, kw, timed=True)
+        out["runs"][sfx] = {"launches": launched,
+                            "timed": [{k: r[k] for k in ("kernel", "ms", "plain_ms",
+                                                         "library_ms", "bound_ms")}
+                                      for r in rows]}
+        del args, cap
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["host"] = sublayer_vs_host(MLA_ARCH + " MLA", fwd, p32, [x32], g32, dev, failures)
+    return out
+
+
+def mla_train(book, dev, failures) -> dict:
+    """The MLA family's training: the full-width sublayer (`mla_sublayer`),
+    one fp32 train step of the reduced config (`fp32_train_step`), and 3
+    bf16 steps of it beside the host (`dense_train`; qk_norm does not reach
+    MLA, whose latents are always normed, so the registered config is held
+    at all three limits)."""
+    return {"sublayer": mla_sublayer(book, dev, failures),
+            "fp32_step": fp32_train_step(MLA_ARCH, dev, failures),
+            "reduced": dense_train(dev, failures, archs=(MLA_ARCH,), variants=("registered",),
+                                   held={"registered": ("grad_norm", "leaves")}, trace=True)}
+
+
 def mla_phase(book, dev, failures) -> dict:
-    """The MLA family (see `mla_serve`, `mla_reduced`); memory reserved
-    before it and the peak in it."""
+    """The MLA family (see `mla_serve`, `mla_reduced`, `mla_train`); memory
+    reserved before it and the peak in it."""
     import torch
 
     t0 = time.perf_counter()
@@ -4042,7 +4483,8 @@ def mla_phase(book, dev, failures) -> dict:
     out = {"memory_reserved_before_gib": torch.cuda.memory_reserved() / 2**30}
     print(f"MLA phase: memory_reserved before it {out['memory_reserved_before_gib']:.2f} GiB")
     for key, fn in (("serve", lambda: mla_serve(book, dev, failures)),
-                    ("reduced", lambda: mla_reduced(dev, failures))):
+                    ("reduced", lambda: mla_reduced(dev, failures)),
+                    ("train", lambda: mla_train(book, dev, failures))):
         try:
             out[key] = fn()
         except Exception:
@@ -4117,13 +4559,15 @@ def scan_bound(args):
     """(op time, byte time) in ms of the selective scan: per channel and
     step 7 fp32 operations per state (dt * A, its exp, the decay, the input
     product and sum, the output product and sum) and 7 for the skip and the
-    gate, at 67 TFLOP/s; x, dt, z, B, C, A, D and h0 read once, out and
-    h_last written once, over 3.35 TB/s."""
+    gate, at 67 TFLOP/s; x, dt, z, D (in the activation type), B, C, A and
+    h0 read once, out and h_last written once, over 3.35 TB/s."""
     x, _, a, bm, _, _, _, h0 = args
     b, s, di = x.shape
     n = a.shape[1]
+    eb = x.element_size()
     ops = float(b * s * di * (7 * n + 7))
-    nbytes = 4.0 * (4 * b * s * di + 2 * b * s * n + a.numel() + di + 2 * h0.numel())
+    nbytes = (eb * (4 * b * s * di + di)
+              + 4.0 * (2 * b * s * n + a.numel() + 2 * h0.numel()))
     return ops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
 
 
@@ -4442,9 +4886,176 @@ def recurrent_reduced(dev, failures) -> dict:
     return out
 
 
+# training at full width: one Mamba sublayer (layer 0's weights) at B 4, S 128
+SSM_TRAIN = dict(batch=4, seq_len=128, seed=0)
+
+
+def scan_bwd_bound(args):
+    """(op time, byte time) in ms of the scan's backward: per channel, step
+    and state about 20 fp32 operations (the states recomputed: the decay's
+    exp, the update; then dh, dB, dC, du, the decay's gradient, dA, ddt)
+    and 20 per channel and step for the gate and the skip, at 67 TFLOP/s;
+    x, dt, z, dout, D (activation type), B, C, A, h0, dh_last read once and
+    dx, ddt, dz, dD, dB, dC, dA, dh0 written once, over 3.35 TB/s."""
+    x, _, a, bm, _, _, _, h0 = args[:8]
+    b, s, di = x.shape
+    n = a.shape[1]
+    eb = x.element_size()
+    ops = float(b * s * di * (20 * n + 20))
+    nbytes = (eb * (7 * b * s * di + 2 * di)
+              + 4.0 * (4 * b * s * n + 2 * a.numel() + 3 * h0.numel()))
+    return ops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+
+
+def check_scan_train(book, label, args, dout, dh_last, *, timed) -> list:
+    """The scan's forward (the activation type's entry) and backward against
+    their plain versions on captured training operands, the backward
+    repeated bitwise; when `timed`, kernel and plain by CUDA-graph replay
+    and the bounds (no single PyTorch call computes either: library None).
+    Returns the rows (the backward's, and the bf16 forward's)."""
+    import torch
+
+    from repro_torch.kernels.selective_scan.kernel import (
+        selective_scan,
+        selective_scan_bwd,
+        selective_scan_bwd_plain,
+        selective_scan_plain,
+    )
+
+    bf16 = args[0].dtype == torch.bfloat16
+    sfx = "_bf16" if bf16 else "_f32"
+    fwd_name = "selective_scan_bf16" if bf16 else "selective_scan"
+    fns = {"fwd": lambda: selective_scan(*args), "fwd_plain": lambda: selective_scan_plain(*args),
+           "bwd": lambda: selective_scan_bwd(*args, dout, dh_last),
+           "bwd_plain": lambda: selective_scan_bwd_plain(*args, dout, dh_last)}
+    tag = f"{label} x{tuple(args[0].shape)} N={args[2].shape[1]}"
+    check = book.check_bf16 if bf16 else book.check
+    with torch.no_grad():
+        got_f, got_b, again = fns["fwd"](), fns["bwd"](), fns["bwd"]()
+        torch.cuda.synchronize()
+        want_f, want_b = fns["fwd_plain"](), fns["bwd_plain"]()
+    for part, g_, w_ in zip(("out", "h_last"), got_f, want_f):
+        (book.check if part == "h_last" else check)(fwd_name, f"{tag} {part}", g_, w_)
+    for part, g_, w_ in zip(("dx", "ddt", "da", "db", "dc", "dd", "dz", "dh0"), got_b, want_b):
+        (check if g_.dtype == torch.bfloat16 else book.check)(
+            "selective_scan_bwd" + sfx, f"{tag} {part}", g_, w_)
+    same = all(torch.equal(x, y) for x, y in zip(got_b, again))
+    print(f"    selective_scan_bwd{sfx} repeats bitwise: {same}")
+    if not same:
+        raise AssertionError(f"selective_scan_bwd{sfx}: a repeat is not bitwise the same")
+    if not timed:
+        return []
+    if not bf16:  # the fp32 forward is timed at the served shapes
+        del fns["fwd"], fns["fwd_plain"]
+    with torch.no_grad():
+        t = time_graph_turns(fns)
+    rows = []
+    for key, name, (ft, bt) in (("bwd", "selective_scan_bwd" + sfx, scan_bwd_bound(args)),
+                                ("fwd", fwd_name, scan_bound(args))):
+        if key not in t:
+            continue
+        row = {"kernel": name, "shape": label, "x": list(args[0].shape),
+               "n": args[2].shape[1], "ms": t[key], "plain_ms": t[key + "_plain"],
+               "library_ms": None, "flop_ms": ft, "byte_ms": bt, "bound_ms": max(ft, bt),
+               "bound_by": "operations" if ft >= bt else "bytes", "phase": SSM_ARCH + "-train"}
+        book.rows.append(row)
+        rows.append(row)
+        print(f"    {name} {label}: ms={t[key]:.4f} plain_ms={t[key + '_plain']:.4f} "
+              f"library_ms=None (no single PyTorch call) bound_ms={max(ft, bt):.4f} "
+              f"({row['bound_by']}) [CUDA-graph replay]")
+    return rows
+
+
+def mamba_sublayer(book, dev, failures) -> dict:
+    """jamba's Mamba sublayer at full width (d_model 4096, di 8192, N 16),
+    weights drawn on the card, at B 4 x S 128: forward and backward through
+    `mamba_block` (SelectiveScanFn) at fp32 and bf16 with the scan counters
+    set to 0 just before and read just after (the forward and the backward
+    once), the scan's forward and backward against their plain versions on
+    the captured operands (timed), and at fp32 the sublayer's gradients
+    against the host's."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import cuda as kcuda
+    from repro_torch.models import ssm as S
+
+    cfg = get_config(SSM_ARCH)
+    b, s = SSM_TRAIN["batch"], SSM_TRAIN["seq_len"]
+    gen = torch.Generator(device=dev).manual_seed(SSM_TRAIN["seed"])
+    p32 = S.init_mamba(gen, cfg, place=lambda t: t.to(dev))
+    x32 = torch.randn((b, s, cfg.d_model), device=dev, generator=gen)
+    g32 = torch.randn((b, s, cfg.d_model), device=dev, generator=gen)
+    gb = sum(t.numel() * t.element_size() for t in p32.values()) / 1e9
+    print(f"{SSM_ARCH} Mamba sublayer at full width: {gb:.2f} GB of fp32 weights drawn on the "
+          f"card; B {b} x S {s}, di {S._d_inner(cfg)}, N {cfg.ssm_state_dim}")
+
+    def fwd(p, x):
+        return S.mamba_block(p, x, cfg)[0]
+
+    out = {"weight_gb": gb, "runs": {}}
+    for dtype, sfx in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        p = {k: v.to(dtype).requires_grad_() for k, v in p32.items()}
+        x = x32.to(dtype).requires_grad_()
+        before = dict(kcuda.SCAN_ENTRY_LAUNCHES)
+        with capture_fn_bwd("repro_torch.kernels.selective_scan.kernel",
+                            "launch_selective_scan_bwd") as cap:
+            y = fwd(p, x)
+            grads = torch.autograd.grad(y, list(p.values()) + [x], g32.to(dtype))
+        torch.cuda.synchronize()
+        launched = {k: n - before[k] for k, n in kcuda.SCAN_ENTRY_LAUNCHES.items()
+                    if n != before[k]}
+        want = {f"repro_selective_scan_{sfx}": 1, f"repro_selective_scan_bwd_{sfx}": 1}
+        finite = all(bool(torch.isfinite(t).all()) for t in grads)
+        print(f"{SSM_ARCH} sublayer {sfx} forward + backward: launches {launched} (expected "
+              f"{want}); gradients finite: {finite}")
+        if launched != want or not finite:
+            failures.append(f"{SSM_ARCH} sublayer {sfx}: launches {launched} or non-finite "
+                            f"gradients")
+        del y, grads, p, x
+        args, _ = cap.calls[0]
+        print(f"{SSM_ARCH} scan kernel checks at training, {sfx} ({KERNEL_TOL}):")
+        rows = check_scan_train(book, "sublayer", args[:8], args[8], args[9], timed=True)
+        out["runs"][sfx] = {"launches": launched,
+                            "timed": [{k: r[k] for k in ("kernel", "ms", "plain_ms", "bound_ms")}
+                                      for r in rows]}
+        del args, cap
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["host"] = sublayer_vs_host(SSM_ARCH + " Mamba", fwd, p32, [x32], g32, dev, failures)
+    return out
+
+
+def jamba_train(book, dev, failures) -> dict:
+    """The hybrid family's training: the full-width Mamba sublayer
+    (`mamba_sublayer`), one fp32 train step of the reduced jamba
+    (`fp32_train_step`), and 3 bf16 steps of it beside the host
+    (`dense_train`: registered, and with qk_norm on, which holds the loss
+    and the grad norm; its leaves are rounding-decided on the host itself,
+    whose bf16 gradients lie up to ~40% of a Mamba or expert leaf's max
+    from its fp32 ones)."""
+    return {"sublayer": mamba_sublayer(book, dev, failures),
+            "fp32_step": fp32_train_step(SSM_ARCH, dev, failures),
+            "reduced": dense_train(dev, failures, archs=(SSM_ARCH,),
+                                   held={"qk_norm": ("grad_norm",)}, trace=True)}
+
+
+def cross_train(dev, failures) -> dict:
+    """3 bf16 steps of the reduced llama-3.2-vision and whisper-tiny beside
+    the host (`dense_train`: gates at CROSS_GATE, unit-normal side inputs;
+    registered, and with qk_norm on, which holds all three limits for the
+    VLM, the loss and the grad norm for whisper: its cross layer's wq, wk
+    and norm gradients peak near 5e-5 and the host's own bf16 ones lie ~10%
+    of that from its fp32 ones)."""
+    return {**dense_train(dev, failures, archs=(CROSS_ARCH,), trace=True),
+            **dense_train(dev, failures, archs=(AUDIO_ARCH,),
+                          held={"qk_norm": ("grad_norm",)}, trace=True)}
+
+
 def recurrent_phase(book, dev, failures) -> dict:
     """The recurrent-state families (see `jamba_serve`, `xlstm_serve`,
-    `recurrent_reduced`); memory reserved before it and the peak in it."""
+    `recurrent_reduced`, `jamba_train`); memory reserved before it and the
+    peak in it."""
     import torch
 
     t0 = time.perf_counter()
@@ -4455,7 +5066,8 @@ def recurrent_phase(book, dev, failures) -> dict:
     peak = 0.0  # each part's draw resets the peak: keep the largest
     for key, fn in (("jamba", lambda: jamba_serve(book, dev, failures)),
                     ("xlstm", lambda: xlstm_serve(dev, failures)),
-                    ("reduced", lambda: recurrent_reduced(dev, failures))):
+                    ("reduced", lambda: recurrent_reduced(dev, failures)),
+                    ("train", lambda: jamba_train(book, dev, failures))):
         try:
             out[key] = fn()
         except Exception:
@@ -4783,7 +5395,8 @@ def cross_reduced(dev, failures) -> dict:
 
 def cross_phase(book, dev, failures) -> dict:
     """The cross-attention families (see `vlm_serve`, `whisper_serve`,
-    `cross_reduced`); memory reserved before it and the peak in it."""
+    `cross_reduced`, `cross_train`); memory reserved before it and the peak
+    in it."""
     import torch
 
     t0 = time.perf_counter()
@@ -4793,7 +5406,8 @@ def cross_phase(book, dev, failures) -> dict:
     peak = 0.0  # the VLM's draw resets the peak: keep the largest
     for key, fn in (("vlm", lambda: vlm_serve(book, dev, failures)),
                     ("whisper", lambda: whisper_serve(book, dev, failures)),
-                    ("reduced", lambda: cross_reduced(dev, failures))):
+                    ("reduced", lambda: cross_reduced(dev, failures)),
+                    ("train", lambda: cross_train(dev, failures))):
         try:
             out[key] = fn()
         except Exception:
@@ -6247,6 +6861,56 @@ def main() -> int:
                                       "bound_by")} for r in rows]})
     if len(rows) != 2:
         failures.append("selective_scan: the served shapes were not timed")
+    # the training rows of the MLA and hybrid families: each timed at its
+    # full-width sublayer (deepseek-v2's MLA at B 2 x S 128, jamba's Mamba at
+    # B 4 x S 128), launches over the phase's training runs (the sublayer's
+    # forward and backward, the reduced config's fp32 step and its 3 bf16
+    # steps, each counted from 0 just before and read just after)
+    for name, entry, lm, src, replaces, ref in (
+            ("flash_bwd_mla_dq_f32", "repro_flash_bwd_mla_dq_f32", mla_lm, "flash_mla_bwd.cu",
+             flash_src + ":265", "src/repro/models/attention.py:336"),
+            ("flash_bwd_mla_dkv_f32", "repro_flash_bwd_mla_dkv_f32", mla_lm,
+             "flash_mla_bwd.cu", flash_src + ":284", "src/repro/models/attention.py:336"),
+            ("flash_bwd_mla_dq_bf16", "repro_flash_bwd_mla_dq_bf16", mla_lm,
+             "flash_mla_bwd.cu", flash_src + ":265", "src/repro/models/attention.py:336"),
+            ("flash_bwd_mla_dkv_bf16", "repro_flash_bwd_mla_dkv_bf16", mla_lm,
+             "flash_mla_bwd.cu", flash_src + ":284", "src/repro/models/attention.py:336"),
+            ("selective_scan_bf16", "repro_selective_scan_bf16", recurrent_lm,
+             "selective_scan.cu", "src/repro/models/ssm.py:106", None),
+            ("selective_scan_bwd_f32", "repro_selective_scan_bwd_f32", recurrent_lm,
+             "selective_scan.cu", "src/repro/models/ssm.py:106", None),
+            ("selective_scan_bwd_bf16", "repro_selective_scan_bwd_bf16", recurrent_lm,
+             "selective_scan.cu", "src/repro/models/ssm.py:106", None)):
+        train = lm.get("train", {})
+        sub = train.get("sublayer", {}).get("runs", {})
+        launched = (sum(r.get("launches", {}).get(entry, 0) for r in sub.values())
+                    + train.get("fp32_step", {}).get("entries", {}).get(entry, 0)
+                    + sum(r.get("entries", {}).get(entry, 0)
+                          for k, r in train.get("reduced", {}).items()
+                          if not k.endswith(" step")))
+        rows = [r for r in book.rows if r["kernel"] == name and r["shape"] == "sublayer"]
+        kernels.append({
+            "name": name, "route": "cuda", "source": csrc + src, "replaces": replaces,
+            **({"reference_call": ref} if ref else {}),
+            "timing": "CUDA-graph replay (plain_ms too)",
+            "launches": launched,
+            "max_abs_err": book.max_err.get(name, 0.0),
+            "ms": sum(r["ms"] for r in rows),
+            "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": sum(r["bound_ms"] for r in rows),
+            "bound_by": rows[0]["bound_by"] if rows else "operations",
+            "library_ms": (rows[0]["library_ms"] if rows else None),
+            **({"library_note": rows[0]["library_note"]} if rows and "library_note" in rows[0]
+               else {}),
+            **({"fp32_core_bound_ms": rows[0]["fp32_core_bound_ms"]}
+               if rows and "fp32_core_bound_ms" in rows[0] else {}),
+            "phase": (MLA_ARCH if lm is mla_lm else SSM_ARCH) + "-train",
+            "shapes": [{k: r[k] for k in ("shape", "ms", "plain_ms", "library_ms", "bound_ms",
+                                          "bound_by") if k in r} for r in rows]})
+        if len(rows) != 1:
+            failures.append(f"{name}: the full-width sublayer was not timed")
+        if not launched:
+            failures.append(f"{name}: no launch in its family's training runs")
     if args.layers_out is not None:
         args.layers_out.parent.mkdir(parents=True, exist_ok=True)
         args.layers_out.write_text(json.dumps(

@@ -14,15 +14,17 @@ matmul, fp32 on the split-TF32 tensor cores, and its int8 tensor-core form),
 `launch_flash` (the flash attention forward: fp32 on the split-TF32 tensor
 cores, int8 K/V dequantized as it is staged into the same body, bf16 on the
 bf16 tensor cores), `launch_flash_bwd` (its two backward passes, fp32 on
-the split-TF32 tensor cores, bf16 on the bf16 ones) and `launch_flash_mla`
+the split-TF32 tensor cores, bf16 on the bf16 ones), `launch_flash_mla`
 (the MLA attention forward over one latent kv head, fp32 q over an fp32 or
-a bf16 latent, on the TF32 tensor cores) and `launch_selective_scan` (the
-Mamba selective scan, fp32, one thread per channel) are the launch sites:
-they check
-device, dtype, layout and shapes, allocate the outputs with `torch.empty`,
-launch on PyTorch's current stream without synchronising, and raise on a
-nonzero `cudaGetLastError()`. The conv and BSR kernels take contiguous
-operands; the flash kernel reads its operands through element strides.
+a bf16 latent, on the TF32 tensor cores), `launch_flash_mla_bwd` (its dq
+and dkv backward passes, fp32 on the CUDA cores), `launch_selective_scan`
+(the Mamba selective scan, fp32 or bf16 activations, one thread per
+channel) and `launch_selective_scan_bwd` (its backward) are the launch
+sites: they check device, dtype, layout and shapes, allocate the outputs
+(and scratch) with `torch.empty`, launch on PyTorch's current stream
+without synchronising, and raise on a nonzero `cudaGetLastError()`. The
+conv and BSR kernels and both backwards take contiguous operands; the
+flash kernels and the scan's forward read theirs through element strides.
 
 `count_launch` is how a CNN kernel's wrapper counts a launch: one more in
 its `.launches`, and one more in the calling thread's open
@@ -30,8 +32,7 @@ its `.launches`, and one more in the calling thread's open
 kernels one replay of its graph launches. `FLASH_ENTRY_LAUNCHES` counts the
 flash launches per C entry point, so that a report can tell the bf16
 launches from the fp32 ones; `MLA_ENTRY_LAUNCHES` does the same for the MLA
-kernel's two entry points and `SCAN_ENTRY_LAUNCHES` for the selective
-scan's one.
+kernels' entry points and `SCAN_ENTRY_LAUNCHES` for the selective scan's.
 """
 from __future__ import annotations
 
@@ -49,7 +50,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("ecr_conv.cu", "ecr_conv_int8.cu", "bsr_matmul.cu", "bsr_matmul_int8.cu",
            "flash_attention.cu", "flash_attention_bwd.cu", "flash_mla.cu",
-           "selective_scan.cu")
+           "flash_mla_bwd.cu", "selective_scan.cu")
 HEADERS = ("smem_io.cuh", "int8_mma.cuh", "tf32_mma.cuh", "bf16_mma.cuh",
            "flash_bf16.cuh")  # included; hashed
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -65,10 +66,17 @@ FLASH_ENTRY_LAUNCHES = dict.fromkeys((
     "repro_flash_fwd_f32", "repro_flash_fwd_bf16", "repro_flash_fwd_q8",
     "repro_flash_bwd_dq_f32", "repro_flash_bwd_dq_bf16", "repro_flash_bwd_dkv_f32",
     "repro_flash_bwd_dkv_bf16"), 0)
-# launches per MLA entry point: fp32 q over an fp32 latent, or over a bf16 one
-MLA_ENTRY_LAUNCHES = dict.fromkeys(("repro_flash_fwd_mla_f32", "repro_flash_fwd_mla_bf16kv"), 0)
-# launches of the Mamba selective scan's entry point
-SCAN_ENTRY_LAUNCHES = {"repro_selective_scan_f32": 0}
+# launches per MLA entry point: the forward (fp32 q over an fp32 latent, or
+# over a bf16 one) and its two backward passes (fp32, or over a bf16 latent)
+MLA_FWD_ENTRIES = ("repro_flash_fwd_mla_f32", "repro_flash_fwd_mla_bf16kv")
+MLA_BWD_ENTRIES = ("repro_flash_bwd_mla_dq_f32", "repro_flash_bwd_mla_dq_bf16",
+                   "repro_flash_bwd_mla_dkv_f32", "repro_flash_bwd_mla_dkv_bf16")
+MLA_ENTRY_LAUNCHES = dict.fromkeys(MLA_FWD_ENTRIES + MLA_BWD_ENTRIES, 0)
+# launches per entry point of the Mamba selective scan: forward and backward,
+# over fp32 or bf16 activations
+SCAN_ENTRY_LAUNCHES = dict.fromkeys((
+    "repro_selective_scan_f32", "repro_selective_scan_bf16",
+    "repro_selective_scan_bwd_f32", "repro_selective_scan_bwd_bf16"), 0)
 
 
 def count_launch(wrapper) -> None:
@@ -207,14 +215,24 @@ def library() -> ctypes.CDLL:
                 fn.argtypes = [ctypes.c_void_p] * n_ptrs + [dims, strides, ctypes.c_float,
                                                             ctypes.c_void_p]
                 fn.restype = ctypes.c_int
-            for name in MLA_ENTRY_LAUNCHES:
+            for name in MLA_FWD_ENTRIES:
                 fn = getattr(lib, name)
                 fn.argtypes = [ctypes.c_void_p] * 6 + [dims, strides, ctypes.c_float,
                                                        ctypes.c_void_p]
                 fn.restype = ctypes.c_int
-            lib.repro_selective_scan_f32.argtypes = [ctypes.c_void_p] * 10 + [
-                dims, strides, ctypes.c_void_p]
-            lib.repro_selective_scan_f32.restype = ctypes.c_int
+            for name in MLA_BWD_ENTRIES:
+                fn = getattr(lib, name)
+                fn.argtypes = ([ctypes.c_void_p] * 8 + [dims, ctypes.c_float, ctypes.c_float,
+                                                        ctypes.c_void_p]
+                               if "_dq_" in name else
+                               [ctypes.c_void_p] * 10 + [dims, ctypes.c_float, ctypes.c_void_p])
+                fn.restype = ctypes.c_int
+            for name in SCAN_ENTRY_LAUNCHES:
+                fn = getattr(lib, name)
+                fn.argtypes = ([ctypes.c_void_p] * 22 + [dims, ctypes.c_void_p]
+                               if "_bwd_" in name else
+                               [ctypes.c_void_p] * 10 + [dims, strides, ctypes.c_void_p])
+                fn.restype = ctypes.c_int
             _lib = lib
         return _lib
 
@@ -620,13 +638,19 @@ def launch_flash_bwd(q, k, v, do, m, l, delta, *, part: str, scale: float,
 # reduced and full-width deepseek-v2-236b; and the most query heads it takes
 MLA_DIMS = ((32, 16), (512, 64))
 MLA_MAX_HEADS = 128
+# the (q, latent) types MLA attention takes; the kernels take float32 q only
+# (a bf16 q enters them multiplied by the scale, rounded to bf16 and widened)
+MLA_TYPES = ((torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+             (torch.bfloat16, torch.bfloat16), (torch.float64, torch.float64))
 
 
 def check_mla_operands(q, c_kv, k_rope) -> tuple:
     """Validate the MLA attention operands, q (B, Sq, H, r + dr) over the
     latent c_kv (B, Sk, r) and the rotary key k_rope (B, Sk, dr), and return
-    (b, sq, h, sk, r, dr). q is float32; c_kv and k_rope both float32 or
-    both bfloat16 (the latent cache of an int8 request)."""
+    (b, sq, h, sk, r, dr). c_kv and k_rope are of one type; q is float32
+    over a float32 latent or over a bfloat16 one (the latent cache of an
+    int8 request), bfloat16 over a bfloat16 latent (training at bf16), or
+    float64 over a float64 latent (the host's gradient checks)."""
     if q.ndim != 4 or c_kv.ndim != 3 or k_rope.ndim != 3:
         raise ValueError(f"expected q (B,Sq,H,r+dr), c_kv (B,Sk,r), k_rope (B,Sk,dr); got "
                          f"q {tuple(q.shape)}, c_kv {tuple(c_kv.shape)}, "
@@ -641,10 +665,10 @@ def check_mla_operands(q, c_kv, k_rope) -> tuple:
     if min(b, sq, h, sk, r, dr) < 1:
         raise ValueError(f"empty MLA operands: q {tuple(q.shape)}, c_kv {tuple(c_kv.shape)}, "
                          f"k_rope {tuple(k_rope.shape)}")
-    if (q.dtype != torch.float32 or c_kv.dtype != k_rope.dtype
-            or c_kv.dtype not in (torch.float32, torch.bfloat16)):
-        raise TypeError(f"MLA attention takes a float32 q over float32 or bfloat16 c_kv and "
-                        f"k_rope of one type, got {q.dtype}/{c_kv.dtype}/{k_rope.dtype}")
+    if c_kv.dtype != k_rope.dtype or (q.dtype, c_kv.dtype) not in MLA_TYPES:
+        raise TypeError(f"MLA attention takes q over c_kv and k_rope of one type, as "
+                        f"{[f'{a}/{b}' for a, b in MLA_TYPES]} (q/latent), got "
+                        f"{q.dtype}/{c_kv.dtype}/{k_rope.dtype}")
     return b, sq, h, sk, r, dr
 
 
@@ -656,17 +680,13 @@ def launch_flash_mla(q, c_kv, k_rope, *, scale: float, causal: bool, q_offset: i
     the stacked cache) as long as their last dim is contiguous. Raises for
     (r, dr) not in MLA_DIMS, more than MLA_MAX_HEADS heads, a tensor that
     needs grad, or operands off one CUDA device."""
-    b, sq, h, sk, r, dr = check_mla_operands(q, c_kv, k_rope)
+    b, sq, h, sk, r, dr = _check_mla_kernel(q, c_kv, k_rope)
     if any(t.stride(-1) != 1 for t in (q, c_kv, k_rope)):
         raise ValueError("the CUDA MLA kernel needs a contiguous last dim")
-    if (r, dr) not in MLA_DIMS:
-        raise ValueError(f"the CUDA MLA kernel takes (kv_lora_rank, rope_head_dim) in "
-                         f"{MLA_DIMS}, got ({r}, {dr})")
-    if h > MLA_MAX_HEADS or b > 65535:
-        raise ValueError(f"{h} heads / batch {b} exceed the CUDA MLA kernel's "
-                         f"{MLA_MAX_HEADS} / 65535")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, c_kv, k_rope)):
-        raise RuntimeError("the CUDA MLA kernel has no backward: call it under "
+        raise RuntimeError("the CUDA MLA forward records no autograd graph: "
+                           "differentiate through MLAAttentionFn "
+                           "(kernels/flash_attention/ops.py), or call it under "
                            "torch.no_grad()")
     dev = q.device
     if dev.type != "cuda" or c_kv.device != dev or k_rope.device != dev:
@@ -695,16 +715,101 @@ def launch_flash_mla(q, c_kv, k_rope, *, scale: float, causal: bool, q_offset: i
     return out, m, l
 
 
+def _check_mla_kernel(q, c_kv, k_rope) -> tuple:
+    """`check_mla_operands`, and what every MLA kernel refuses besides: a q
+    that is not float32, (r, dr) not in MLA_DIMS, more than MLA_MAX_HEADS
+    heads, a batch past 65535."""
+    b, sq, h, sk, r, dr = check_mla_operands(q, c_kv, k_rope)
+    if q.dtype != torch.float32:
+        raise TypeError(f"the CUDA MLA kernels take a float32 q, got {q.dtype}")
+    if (r, dr) not in MLA_DIMS:
+        raise ValueError(f"the CUDA MLA kernel takes (kv_lora_rank, rope_head_dim) in "
+                         f"{MLA_DIMS}, got ({r}, {dr})")
+    if h > MLA_MAX_HEADS or b > 65535:
+        raise ValueError(f"{h} heads / batch {b} exceed the CUDA MLA kernel's "
+                         f"{MLA_MAX_HEADS} / 65535")
+    return b, sq, h, sk, r, dr
+
+
+MLA_BWD_BLOCKS = 264  # the dkv pass splits its rows until about this many blocks run
+
+
+def mla_dkv_chunks(b: int, rows: int, sk: int) -> int:
+    """How many chunks the dkv pass splits each batch element's Sq * H rows
+    into: enough for about MLA_BWD_BLOCKS blocks (16 keys by one chunk
+    each), at most one per 16-row tile, and no chunk left empty."""
+    tiles = -(-rows // 16)
+    nc = max(1, min(tiles, -(-MLA_BWD_BLOCKS // (b * -(-sk // 16)))))
+    per = -(-tiles // nc)
+    return -(-tiles // per)
+
+
+def launch_flash_mla_bwd(q, c_kv, k_rope, do, m, l, delta, *, part: str, scale: float,
+                         dscale=None, causal: bool, q_offset: int = 0, kv_len=None):
+    """Launch one MLA backward pass on contiguous CUDA tensors: q (B, Sq, H,
+    r + dr) float32, c_kv (B, Sk, r), k_rope (B, Sk, dr) and do (B, Sq, H, r)
+    all float32 or all bfloat16, the forward's m and l and delta =
+    rowsum(do * out), each (B, Sq * H) float32. Scores are (q * scale) .
+    [c_kv ; k_rope]. part "dq" -> dq (q's shape, in the latent's type), the
+    gradient of q * scale times `dscale` (default `scale`); part "dkv" ->
+    (dc_kv, dk_rope) in the latent's type. Raises as `launch_flash_mla` does
+    and for a tensor that is not contiguous."""
+    b, sq, h, sk, r, dr = _check_mla_kernel(q, c_kv, k_rope)
+    dev = q.device
+    stats = (m, l, delta)
+    if do.dtype != c_kv.dtype or any(t.dtype != torch.float32 for t in stats):
+        raise TypeError(f"the CUDA MLA backward takes do in the latent's type and float32 "
+                        f"m, l, delta, got {[str(t.dtype) for t in (c_kv, do) + stats]}")
+    if tuple(do.shape) != (b, sq, h, r):
+        raise ValueError(f"do {tuple(do.shape)} does not match out ({b}, {sq}, {h}, {r})")
+    if any(tuple(t.shape) != (b, sq * h) for t in stats):
+        raise ValueError(f"m, l and delta must be ({b}, {sq * h})")
+    if not all(t.is_contiguous() for t in (q, c_kv, k_rope, do) + stats):
+        raise ValueError("the CUDA MLA backward needs contiguous operands")
+    if part not in ("dq", "dkv"):
+        raise ValueError(f"part {part!r}: choose 'dq' or 'dkv'")
+    if dev.type != "cuda" or any(t.device != dev for t in (c_kv, k_rope, do) + stats):
+        raise ValueError("CUDA kernel needs every operand on one CUDA device")
+    entry = (f"repro_flash_bwd_mla_{part}_"
+             f"{'bf16' if c_kv.dtype == torch.bfloat16 else 'f32'}")
+    nc = mla_dkv_chunks(b, sq * h, sk)
+    kvl = -1 if kv_len is None else max(0, int(kv_len))
+    dims = (ctypes.c_int * 10)(b, h, sq, sk, r, dr, int(bool(causal)), int(q_offset), kvl, nc)
+    ptrs = tuple(t.data_ptr() for t in (q, c_kv, k_rope, do, m, l, delta))
+    lib = library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        if part == "dq":
+            dq = torch.empty(q.shape, device=dev, dtype=c_kv.dtype)
+            err = getattr(lib, entry)(*ptrs, dq.data_ptr(), dims, float(scale),
+                                      float(scale if dscale is None else dscale), stream)
+            res = dq
+        else:
+            scratch = torch.empty((nc, b, sk, r + dr), device=dev, dtype=torch.float32)
+            dc = torch.empty(c_kv.shape, device=dev, dtype=c_kv.dtype)
+            dkr = torch.empty(k_rope.shape, device=dev, dtype=k_rope.dtype)
+            err = getattr(lib, entry)(*ptrs, scratch.data_ptr(), dc.data_ptr(),
+                                      dkr.data_ptr(), dims, float(scale), stream)
+            res = (dc, dkr)
+    if err != 0:
+        raise RuntimeError(f"CUDA MLA backward launch failed ({entry}): cudaError {err} "
+                           f"(q {tuple(q.shape)}, c_kv {tuple(c_kv.shape)} {c_kv.dtype}, "
+                           f"causal {causal}, q_offset {q_offset}, kv_len {kv_len})")
+    MLA_ENTRY_LAUNCHES[entry] += 1
+    return res
+
+
 # the state sizes the selective scan is instantiated at: reduced and
 # full-width jamba (the reference's configs use no other)
 SCAN_STATE_DIMS = (8, 16)
-SCAN_BACKWARD_TODO = "ROADMAP queue 1 item 25 (the selective scan's backward kernel)"
+SCAN_CHUNK = 32  # the backward's checkpoint interval (kChunk in selective_scan.cu)
 
 
 def check_scan_operands(x, dt, a, b, c, d, z, h0) -> tuple:
     """Validate the selective scan's operands, x, dt, z (B, S, di) and d
     (di,) of one floating type (the activations'), b and c (B, S, N), a
-    (di, N) and h0 (B, di, N) float32, and return (batch, s, di, n)."""
+    (di, N) and h0 (B, di, N) float32 (float64 with float64 activations:
+    the host's gradient checks), and return (batch, s, di, n)."""
     if x.ndim != 3 or b.ndim != 3 or a.ndim != 2:
         raise ValueError(f"expected x (B,S,di), b (B,S,N), a (di,N); got x {tuple(x.shape)}, "
                          f"b {tuple(b.shape)}, a {tuple(a.shape)}")
@@ -720,7 +825,8 @@ def check_scan_operands(x, dt, a, b, c, d, z, h0) -> tuple:
     if min(batch, s, di, n) < 1:
         raise ValueError(f"empty selective scan operands: x {tuple(x.shape)}, "
                          f"a {tuple(a.shape)}")
-    if (any(t.dtype != torch.float32 for t in (a, b, c, h0)) or not x.dtype.is_floating_point
+    state = torch.float64 if x.dtype == torch.float64 else torch.float32
+    if (any(t.dtype != state for t in (a, b, c, h0)) or not x.dtype.is_floating_point
             or any(t.dtype != x.dtype for t in (dt, d, z))):
         raise TypeError(f"the selective scan takes x, dt, d, z of one floating type and "
                         f"float32 a, b, c, h0; got x {x.dtype}, dt {dt.dtype}, d {d.dtype}, "
@@ -728,44 +834,105 @@ def check_scan_operands(x, dt, a, b, c, d, z, h0) -> tuple:
     return batch, s, di, n
 
 
-def launch_selective_scan(x, dt, a, b, c, d, z, h0):
-    """Launch the selective scan on CUDA tensors (`check_scan_operands`'
-    shapes, float32): out (B, S, di) and h_last (B, di, N), both fp32. x,
-    dt, z, b and c may be strided views with a contiguous last dim; a, d
-    and h0 must be contiguous. Raises for N not in SCAN_STATE_DIMS, a tensor
-    that needs grad (the kernel has no backward), or operands off one CUDA
-    device."""
+def _check_scan_kernel(args, contiguous: bool) -> tuple:
+    """`check_scan_operands`, and what the CUDA scan refuses besides:
+    activations other than float32 or bfloat16, N not in SCAN_STATE_DIMS, a
+    batch past 65535, operands off one CUDA device, a last dim (or, with
+    `contiguous`, any operand) that is not contiguous; returns (batch, s,
+    di, n, entry suffix)."""
+    x, dt, a, b, c, d, z, h0 = args[:8]
     batch, s, di, n = check_scan_operands(x, dt, a, b, c, d, z, h0)
-    if x.dtype != torch.float32:
-        raise TypeError(f"the CUDA selective scan takes float32 activations, got {x.dtype}")
-    if any(t.stride(-1) != 1 for t in (x, dt, z, b, c)):
-        raise ValueError("the CUDA selective scan needs a contiguous last dim")
-    if not all(t.is_contiguous() for t in (a, d, h0)):
-        raise ValueError("the CUDA selective scan needs contiguous a, d and h0")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the CUDA selective scan takes float32 or bfloat16 activations, "
+                        f"got {x.dtype}")
+    if contiguous:
+        if not all(t.is_contiguous() for t in args):
+            raise ValueError("the CUDA selective scan backward needs contiguous operands")
+    else:
+        if any(t.stride(-1) != 1 for t in (x, dt, z, b, c)):
+            raise ValueError("the CUDA selective scan needs a contiguous last dim")
+        if not all(t.is_contiguous() for t in (a, d, h0)):
+            raise ValueError("the CUDA selective scan needs contiguous a, d and h0")
     if n not in SCAN_STATE_DIMS:
         raise ValueError(f"the CUDA selective scan takes a state dim (ssm_state_dim) in "
                          f"{SCAN_STATE_DIMS}, got {n}")
     if batch > 65535:
         raise ValueError(f"batch {batch} exceeds the CUDA selective scan's 65535")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, a, b, c, d, z, h0)):
-        raise RuntimeError(f"the CUDA selective scan has no backward: call it under "
-                           f"torch.no_grad(); see {SCAN_BACKWARD_TODO}")
     dev = x.device
-    if dev.type != "cuda" or any(t.device != dev for t in (dt, a, b, c, d, z, h0)):
+    if dev.type != "cuda" or any(t.device != dev for t in args):
         raise ValueError("CUDA kernel needs every operand on one CUDA device")
-    out = torch.empty((batch, s, di), device=dev, dtype=torch.float32)
+    return batch, s, di, n, "bf16" if x.dtype == torch.bfloat16 else "f32"
+
+
+def launch_selective_scan(x, dt, a, b, c, d, z, h0):
+    """Launch the selective scan on CUDA tensors (`check_scan_operands`'
+    shapes; float32 or bfloat16 activations): out (B, S, di) in x's type and
+    h_last (B, di, N) fp32. x, dt, z, b and c may be strided views with a
+    contiguous last dim; a, d and h0 must be contiguous. Raises for N not in
+    SCAN_STATE_DIMS, a tensor that needs grad, or operands off one CUDA
+    device."""
+    args = (x, dt, a, b, c, d, z, h0)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        raise RuntimeError("the CUDA selective scan records no autograd graph: "
+                           "differentiate through SelectiveScanFn "
+                           "(kernels/selective_scan/kernel.py), or call it under "
+                           "torch.no_grad()")
+    batch, s, di, n, sfx = _check_scan_kernel(args, contiguous=False)
+    dev = x.device
+    out = torch.empty((batch, s, di), device=dev, dtype=x.dtype)
     h_last = torch.empty((batch, di, n), device=dev, dtype=torch.float32)
     dims = (ctypes.c_int * 4)(batch, s, di, n)
     strides = (ctypes.c_longlong * 10)(*(st for t in (x, dt, z, b, c)
                                          for st in (t.stride(0), t.stride(1))))
+    entry = f"repro_selective_scan_{sfx}"
     lib = library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = lib.repro_selective_scan_f32(
+        err = getattr(lib, entry)(
             *(t.data_ptr() for t in (x, dt, z, b, c, a, d, h0, out, h_last)), dims, strides,
             stream)
     if err != 0:
-        raise RuntimeError(f"CUDA selective scan launch failed: cudaError {err} "
-                           f"(x {tuple(x.shape)}, N {n})")
-    SCAN_ENTRY_LAUNCHES["repro_selective_scan_f32"] += 1
+        raise RuntimeError(f"CUDA selective scan launch failed ({entry}): cudaError {err} "
+                           f"(x {tuple(x.shape)} {x.dtype}, N {n})")
+    SCAN_ENTRY_LAUNCHES[entry] += 1
     return out, h_last
+
+
+def launch_selective_scan_bwd(x, dt, a, b, c, d, z, h0, dout, dh_last):
+    """Launch the selective scan's backward on contiguous CUDA tensors: the
+    forward's operands, dout (B, S, di) in the activations' type and dh_last
+    (B, di, N) fp32 -> (dx, ddt, da, db, dc, dd, dz, dh0), each in its
+    operand's type. Raises as `launch_selective_scan` does, and for a
+    tensor that is not contiguous."""
+    args = (x, dt, a, b, c, d, z, h0, dout, dh_last)
+    batch, s, di, n, sfx = _check_scan_kernel(args, contiguous=True)
+    if dout.dtype != x.dtype or tuple(dout.shape) != tuple(x.shape):
+        raise ValueError(f"dout {tuple(dout.shape)} {dout.dtype} does not match x "
+                         f"{tuple(x.shape)} {x.dtype}")
+    if dh_last.dtype != torch.float32 or tuple(dh_last.shape) != tuple(h0.shape):
+        raise ValueError(f"dh_last {tuple(dh_last.shape)} {dh_last.dtype} does not match h0 "
+                         f"{tuple(h0.shape)} float32")
+    dev = x.device
+
+    def empty(shape, dtype=torch.float32):
+        return torch.empty(shape, device=dev, dtype=dtype)
+
+    dx, ddt, dz = (empty((batch, s, di), x.dtype) for _ in range(3))
+    dh0, db, dc, da, dd = (empty(h0.shape), empty(b.shape), empty(c.shape), empty(a.shape),
+                           empty(d.shape, d.dtype))
+    warps = 4 * -(-di // 128)
+    scratch = (empty((batch, -(-s // SCAN_CHUNK), n, di)), empty((warps, batch, s, 2 * n)),
+               empty((batch, n, di)), empty((batch, di)))
+    dims = (ctypes.c_int * 4)(batch, s, di, n)
+    entry = f"repro_selective_scan_bwd_{sfx}"
+    lib = library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = getattr(lib, entry)(
+            *(t.data_ptr() for t in (x, dt, z, b, c, a, d, h0, dout, dh_last, dx, ddt, dz, dh0)
+              + scratch + (db, dc, da, dd)), dims, stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA selective scan backward launch failed ({entry}): cudaError "
+                           f"{err} (x {tuple(x.shape)} {x.dtype}, N {n})")
+    SCAN_ENTRY_LAUNCHES[entry] += 1
+    return dx, ddt, da, db, dc, dd, dz, dh0

@@ -9,7 +9,9 @@ call) and `flash_bwd_dkv` (the `_dkv_kernel` call), kernels in
 function at MLA's shape (key width r + dr, value width r, one kv head under
 H query heads), which the reference runs as its chunked jnp
 `flash_attention` (`repro/models/attention.py:336`) because the Pallas
-kernel takes no Dk != Dv (kernel in `csrc/flash_mla.cu`). On a CUDA tensor
+kernel takes no Dk != Dv (kernel in `csrc/flash_mla.cu`), and
+`flash_bwd_mla` its gradients, which the reference takes by autodiff of
+that jnp code (kernels in `csrc/flash_mla_bwd.cu`). On a CUDA tensor
 each wrapper launches its hand-written kernel and counts the launch in its
 `.launches`; on a CPU tensor it runs its plain version. There is no
 fallback from one to the other.
@@ -51,6 +53,7 @@ from repro_torch.kernels.cuda import (
     launch_flash,
     launch_flash_bwd,
     launch_flash_mla,
+    launch_flash_mla_bwd,
 )
 
 NEG = -1e30
@@ -105,17 +108,22 @@ def _prescaled(q, scale):
     return _wide(q) * scale
 
 
-def _scores(q, k, *, scale, causal, q_offset, kv_len):
-    """Scores from the pre-scaled q in the (BKV, ...) layout, masked at -1e30."""
-    sq, sk = q.shape[2], k.shape[1]
-    s = torch.einsum("bgqd,bkd->bgqk", _prescaled(q, scale), _wide(k))
-    qpos = q_offset + torch.arange(sq, device=q.device)
-    kpos = torch.arange(sk, device=q.device)
-    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+def _mask(sq, sk, causal, q_offset, kv_len, device):
+    """(Sq, Sk) True where a query position sees a key."""
+    qpos = q_offset + torch.arange(sq, device=device)
+    kpos = torch.arange(sk, device=device)
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
     if causal:
         mask &= qpos[:, None] >= kpos[None, :]
     if kv_len is not None:
         mask &= (kpos < kv_len)[None, :]
+    return mask
+
+
+def _scores(q, k, *, scale, causal, q_offset, kv_len):
+    """Scores from the pre-scaled q in the (BKV, ...) layout, masked at -1e30."""
+    s = torch.einsum("bgqd,bkd->bgqk", _prescaled(q, scale), _wide(k))
+    mask = _mask(q.shape[2], k.shape[1], causal, q_offset, kv_len, q.device)
     return torch.where(mask, s, torch.full((), NEG, dtype=s.dtype, device=q.device))
 
 
@@ -165,18 +173,35 @@ flash_fwd.launches = 0
 # ---------------------------------------------------------------------------
 
 
+def _mla_prescaled(q, scale):
+    """q * scale as the reference's jnp `flash_attention` forms it
+    (`q = q * scale`, repro/models/attention.py:61), widened: for a bf16 q
+    the product with bf16(scale) rounded to bf16 (a weakly typed scalar
+    takes the array's type, and so does the product), else the product in
+    q's (wide) type."""
+    if q.dtype == torch.bfloat16:
+        return (q.float() * _bf16_scale(scale)).to(torch.bfloat16).float()
+    return _wide(q) * scale
+
+
+def _mla_dscale(q, scale) -> float:
+    """What the gradient of q * scale is multiplied by to give dq."""
+    return _bf16_scale(scale) if q.dtype == torch.bfloat16 else scale
+
+
 def flash_fwd_mla_plain(q, c_kv, k_rope, *, scale, causal, q_offset=0, kv_len=None):
     """The MLA kernels' function in plain PyTorch: q (B, Sq, H, r + dr) over
     keys [c_kv ; k_rope] (B, Sk, r + dr) and values c_kv (B, Sk, r) ->
     (out (B, Sq, H, r) in c_kv's type, m, l (B, Sq * H) fp32, row s * H + h).
-    Scores are fp32 sums of q * scale times the (widened) keys; over a bf16
-    latent p is rounded to bf16 before P.V and out once at the end, as the
-    reference's `flash_attention` rounds (`p.astype(v.dtype)`,
-    `out.astype(v.dtype)`)."""
+    Scores are fp32 sums of q * scale (`_mla_prescaled`: rounded to bf16
+    for a bf16 q) times the (widened) keys; over a bf16 latent p is rounded
+    to bf16 before P.V and out once at the end, as the reference's
+    `flash_attention` rounds (`p.astype(v.dtype)`, `out.astype(v.dtype)`).
+    float64 operands compute in float64."""
     b, sq, h, _, _, _ = check_mla_operands(q, c_kv, k_rope)
-    out, m, l = _plain_softmax(q.permute(0, 2, 1, 3), torch.cat([c_kv, k_rope], dim=-1),
-                               c_kv, scale=scale, causal=causal, q_offset=q_offset,
-                               kv_len=kv_len)
+    out, m, l = _plain_softmax(_mla_prescaled(q, scale).permute(0, 2, 1, 3),
+                               torch.cat([c_kv, k_rope], dim=-1), c_kv, scale=1.0,
+                               causal=causal, q_offset=q_offset, kv_len=kv_len)
     rows = (b, sq * h)
     return (out.permute(0, 2, 1, 3).contiguous().to(c_kv.dtype),
             m.permute(0, 2, 1).reshape(rows), l.permute(0, 2, 1).reshape(rows))
@@ -186,18 +211,90 @@ def flash_fwd_mla(q, c_kv, k_rope, *, scale, causal, q_offset=0, kv_len=None):
     """MLA flash attention forward, one latent kv head under the H query
     heads -> (out (B, Sq, H, r) in c_kv's type, m, l (B, Sq * H) fp32).
     q float32 over float32 latents (`repro_flash_fwd_mla_f32`) or over a
-    bfloat16 latent cache (`repro_flash_fwd_mla_bf16kv`). CUDA tensor: the
-    CUDA kernel, reading c_kv and k_rope (a layer's view of the stacked
-    cache) in place; CPU tensor: the plain version."""
+    bfloat16 latent (`repro_flash_fwd_mla_bf16kv`); a bfloat16 q over a
+    bfloat16 latent (training at bf16) enters the bf16 latent's kernel as
+    `_mla_prescaled(q, scale)` with scale 1, which rounds where the
+    reference rounds (the kernel reads that fp32 q: twice a bf16 q's bytes).
+    CUDA tensor: the CUDA kernel, reading c_kv and k_rope (a layer's view of
+    the stacked cache) in place; CPU tensor: the plain version."""
     kw = dict(scale=scale, causal=causal, q_offset=q_offset, kv_len=kv_len)
     if not _on_card(q, "flash_fwd_mla"):
         return flash_fwd_mla_plain(q, c_kv, k_rope, **kw)
+    if q.dtype == torch.bfloat16:
+        check_mla_operands(q, c_kv, k_rope)
+        q, kw["scale"] = _mla_prescaled(q, scale), 1.0
     out = launch_flash_mla(q, c_kv, k_rope, **kw)
     flash_fwd_mla.launches += 1
     return out
 
 
 flash_fwd_mla.launches = 0
+
+
+def mla_delta(do, out):
+    """delta = rowsum(do * out) over the value width, (B, Sq * H) in float32
+    (float64 for float64), contiguous."""
+    dl = (_wide(do) * _wide(out)).sum(-1)
+    return dl.reshape(dl.shape[0], -1).contiguous()
+
+
+def flash_bwd_mla_plain(q, c_kv, k_rope, do, m, l, delta, *, scale, causal, q_offset=0,
+                        kv_len=None, part=None):
+    """The MLA backward kernels' function in plain PyTorch -> (dq, dc_kv,
+    dk_rope), each in its input's type (part "dq": dq; "dkv": (dc_kv,
+    dk_rope)). From qs = `_mla_prescaled(q, scale)` and the forward's m, l:
+    p = exp(s - m) / l over the scores s = qs . [c_kv ; k_rope] (-1e30 where
+    masked), dp = do . c_kv, ds = p * (dp - delta), 0 where masked (the
+    reference's `where` passes no gradient to a masked score);
+    dq = dscale * ds . K, dc_kv = ds^T qs[:r] + p^T do, dk_rope = ds^T
+    qs[r:]. Sums in float32 (float64 for float64), each result rounded to
+    its type once."""
+    b, sq, h, sk, r, _ = check_mla_operands(q, c_kv, k_rope)
+    qs = _mla_prescaled(q, scale)
+    keys = _wide(torch.cat([c_kv, k_rope], dim=-1))
+    mask = _mask(sq, sk, causal, q_offset, kv_len, q.device)[None, :, None, :]
+    s = torch.einsum("bqhd,bkd->bqhk", qs, keys)
+    s = torch.where(mask, s, torch.full((), NEG, dtype=s.dtype, device=q.device))
+    stat = (b, sq, h, 1)
+    p = torch.exp(s - m.reshape(stat)) / torch.clamp_min(l.reshape(stat), 1e-30)
+    dow = _wide(do)
+    dp = torch.einsum("bqhr,bkr->bqhk", dow, keys[..., :r])
+    ds = torch.where(mask, p * (dp - delta.reshape(stat)), torch.zeros((), dtype=p.dtype,
+                                                                      device=q.device))
+    dq = torch.einsum("bqhk,bkd->bqhd", ds, keys) * _mla_dscale(q, scale)
+    dq = dq.to(q.dtype)
+    if part == "dq":
+        return dq
+    dkeys = torch.einsum("bqhk,bqhd->bkd", ds, qs)
+    dc = (dkeys[..., :r] + torch.einsum("bqhk,bqhr->bkr", p, dow)).to(c_kv.dtype)
+    dkr = dkeys[..., r:].contiguous().to(k_rope.dtype)
+    return (dc, dkr) if part == "dkv" else (dq, dc, dkr)
+
+
+def flash_bwd_mla(q, c_kv, k_rope, do, m, l, delta, *, scale, causal, q_offset=0,
+                  kv_len=None, part=None):
+    """MLA flash attention backward -> (dq, dc_kv, dk_rope) in the inputs'
+    types, from the forward's m, l and delta = `mla_delta(do, out)` (part
+    "dq" or "dkv": that pass alone). CUDA tensor: the dq kernel
+    (`repro_flash_bwd_mla_dq_f32` / `_bf16`) and the dkv kernel
+    (`repro_flash_bwd_mla_dkv_f32` / `_bf16`) on contiguous copies, a bf16 q
+    entering them as `_mla_prescaled(q, scale)` with scale 1; `.launches`
+    counts the calls. CPU tensor: the plain version."""
+    kw = dict(scale=scale, causal=causal, q_offset=q_offset, kv_len=kv_len)
+    if not _on_card(q, "flash_bwd_mla"):
+        return flash_bwd_mla_plain(q, c_kv, k_rope, do, m, l, delta, part=part, **kw)
+    check_mla_operands(q, c_kv, k_rope)
+    dscale = _mla_dscale(q, scale)
+    if q.dtype == torch.bfloat16:
+        q, kw["scale"] = _mla_prescaled(q, scale), 1.0
+    ops = tuple(t.contiguous() for t in (q, c_kv, k_rope, do, m, l, delta))
+    dq = launch_flash_mla_bwd(*ops, part="dq", dscale=dscale, **kw) if part != "dkv" else None
+    dkv = launch_flash_mla_bwd(*ops, part="dkv", **kw) if part != "dq" else None
+    flash_bwd_mla.launches += 1
+    return dq if part == "dq" else dkv if part == "dkv" else (dq, *dkv)
+
+
+flash_bwd_mla.launches = 0
 
 
 def dequantize(x_q8, scale):

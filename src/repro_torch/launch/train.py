@@ -11,15 +11,22 @@ float32 trainer, build the state with `init_train_state` and the step with
 `make_train_step` at `DEFAULT_RUN.replace(param_dtype="float32")`.
 
 Run on the card (default device "cuda"); qwen3-0.6b trains at full width,
-the larger archs (minitron-8b, stablelm-12b, mistral-large-123b, and the
-MoE arctic-480b, whose router aux loss joins the loss) at their reduced
-configs, since bf16 weights with fp32 moments take 12 bytes a parameter,
-past one card at 8 B parameters (arctic-480b has ~477 B):
+the larger archs (minitron-8b, stablelm-12b, mistral-large-123b, the MoE
+arctic-480b, whose router aux loss joins the loss, the MLA deepseek-v2-236b
+and the hybrid jamba-v0.1-52b) at their reduced configs, since bf16 weights
+with fp32 moments take 12 bytes a parameter, past one card at 8 B
+parameters (arctic-480b has ~477 B). MLA trains through `MLAAttentionFn`
+(the MLA kernel and its two backward kernels), Mamba through
+`SelectiveScanFn` (the scan and its backward kernel):
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b --full --steps 6
     PYTHONPATH=src python -m repro_torch.launch.train --arch minitron-8b --steps 3 --no-resume
+    PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-v2-236b --steps 3 --no-resume
+    PYTHONPATH=src python -m repro_torch.launch.train --arch jamba-v0.1-52b --steps 3 --no-resume
 On the host, through the kernels' plain PyTorch versions (reduced config):
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b --device cpu --steps 4
     PYTHONPATH=src python -m repro_torch.launch.train --arch arctic-480b --device cpu --steps 2 --no-resume
+    PYTHONPATH=src python -m repro_torch.launch.train --arch deepseek-v2-236b --device cpu --steps 2 --no-resume
+    PYTHONPATH=src python -m repro_torch.launch.train --arch jamba-v0.1-52b --device cpu --steps 2 --no-resume
 """
 from __future__ import annotations
 

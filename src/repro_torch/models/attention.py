@@ -30,8 +30,9 @@ head of key width r + dr and value width r over the H query heads
 stacked cache in place; the reference concatenates [c_kv ; k_rope] into
 its keys on every step. An fp32 request gives an fp32 latent cache, an
 int8 request a bf16 one (the reference's `init_group_caches`: latent
-states are not quantized). The MLA kernel has no backward yet: with
-autograd recording `mla_attention` raises (ROADMAP queue 1 item 24).
+states are not quantized). Without a cache and with autograd recording (the
+training path) it goes through `MLAAttentionFn`, whose backward is the MLA
+backward kernels.
 
 Unlike the reference's functional update, the cache is written in place:
 both attentions return the cache they were given.
@@ -49,7 +50,7 @@ from repro_torch.kernels.flash_attention.kernel import (
     flash_fwd_mla,
     flash_fwd_q8,
 )
-from repro_torch.kernels.flash_attention.ops import FlashAttentionFn
+from repro_torch.kernels.flash_attention.ops import FlashAttentionFn, MLAAttentionFn
 from repro_torch.models.layers import as_drawn, dense_init, ones_init, rms_norm, rope
 
 
@@ -170,9 +171,6 @@ def gqa_attention(p, x, *, cfg: ModelConfig, positions, causal=True,
 # MLA block (deepseek-v2), absorbed formulation
 # ---------------------------------------------------------------------------
 
-MLA_TRAINING_TODO = "ROADMAP queue 1 item 24 (MLA training: the MLA kernel's backward)"
-
-
 def init_mla(generator: torch.Generator, cfg: ModelConfig, place=as_drawn) -> dict:
     """The reference's leaves, shapes and fan-ins; `place` takes each leaf
     as it is drawn."""
@@ -210,11 +208,8 @@ def mla_attention(p, x, *, cfg: ModelConfig, positions, causal=True,
                   cache: Optional[MLACache] = None, write_pos=None):
     """x: (B,S,D). cache + write_pos: write c_kv / k_rope at write_pos (in
     place, in the cache's type), attend over the whole cache. Returns (out,
-    cache). Forward only: raises NotImplementedError when autograd would
-    record it."""
-    if torch.is_grad_enabled() and (x.requires_grad or any(t.requires_grad for t in p.values())):
-        raise NotImplementedError(f"MLA attention records no autograd graph: the MLA "
-                                  f"kernel has no backward yet; see {MLA_TRAINING_TODO}")
+    cache). Without a cache, with autograd recording, differentiable through
+    `MLAAttentionFn`."""
     b, s, _ = x.shape
     dn, dr = cfg.nope_head_dim, cfg.rope_head_dim
     cq = rms_norm(x @ p["w_dq"].to(x.dtype), p["q_norm"], cfg.norm_eps)
@@ -236,8 +231,12 @@ def mla_attention(p, x, *, cfg: ModelConfig, positions, causal=True,
     # one shared kv head: keys [c_kv ; k_rope], values c_kv, queries
     # [q_lat ; q_rope] over the H heads
     q_eff = torch.cat([q_lat, q_rope], dim=-1)  # (B, S, H, r + dr)
-    out_lat, _, _ = flash_fwd_mla(q_eff, c_kv, k_rope, scale=(dn + dr) ** -0.5,
-                                  causal=causal, q_offset=q_offset, kv_len=kv_len)
+    scale = (dn + dr) ** -0.5
+    if cache is None and torch.is_grad_enabled():  # training: no cache, no kv_len
+        out_lat = MLAAttentionFn.apply(q_eff, c_kv, k_rope, scale, causal, 0, None)
+    else:
+        out_lat, _, _ = flash_fwd_mla(q_eff, c_kv, k_rope, scale=scale, causal=causal,
+                                      q_offset=q_offset, kv_len=kv_len)
     out = torch.einsum("bshr,rhv->bshv", out_lat.to(x.dtype), p["w_uv"].to(x.dtype))
     out = torch.einsum("bshv,hvd->bsd", out, p["w_o"].to(x.dtype))
     return out, cache

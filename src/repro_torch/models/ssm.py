@@ -7,7 +7,9 @@ through `kernels.selective_scan.selective_scan`: on the card one launch of
 the hand-written scan kernel, which keeps each channel's state in registers
 for the whole sequence (the reference's jnp `lax.scan`, unrolled so that
 its state crosses device memory less often); on the host its plain version,
-a loop over time of the reference's tensor ops.
+a loop over time of the reference's tensor ops. With autograd recording (the
+training path) it goes through `SelectiveScanFn`, whose backward is the
+scan's backward kernel on the card and its plain version on the host.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.selective_scan.kernel import selective_scan
+from repro_torch.kernels.selective_scan.kernel import SelectiveScanFn, selective_scan
 from repro_torch.models.layers import as_drawn, dense_init, ones_init
 
 
@@ -82,9 +84,12 @@ def mamba_block(p, x, cfg: ModelConfig, state: Optional[MambaState] = None):
     dt = torch.logaddexp(dt_in, torch.zeros((), dtype=dt_in.dtype, device=x.device))  # softplus
     bmat = proj[..., dt_rank:dt_rank + n].float()  # (B,S,n)
     cmat = proj[..., dt_rank + n:].float()
-    a = -torch.exp(p["a_log"])  # (di, n) fp32
+    # the exp in the parameters' type (bf16 when training at bf16), widened as
+    # the reference's step widens it (`dtt.astype(f32)[..., None] * a`)
+    a = (-torch.exp(p["a_log"])).float()  # (di, n)
     h0 = (state.ssm if state is not None
           else torch.zeros((b, di, n), dtype=torch.float32, device=x.device))
-    y, h_last = selective_scan(xc, dt, a, bmat, cmat, p["d_skip"].to(x.dtype), z, h0)
+    scan = SelectiveScanFn.apply if torch.is_grad_enabled() else selective_scan
+    y, h_last = scan(xc, dt, a, bmat, cmat, p["d_skip"].to(x.dtype), z, h0)
     out = y @ p["out_proj"].to(x.dtype)
     return out, MambaState(conv=new_conv, ssm=h_last)

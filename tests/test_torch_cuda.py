@@ -927,10 +927,15 @@ def _bf16_do(q, seed):
 # Sq * G = 129 rows and Sk = 75 keys at D = 256: ragged against both passes'
 # block tiles (32 or 64 rows, 32 or 64 keys), with the dk/dv pass's two warps
 # per 16 keys splitting dK's and dV's columns and A fragments read by ldmatrix
-# at each step (none kept in registers at D = 256)
+# at each step (none kept in registers at D = 256); and the cross-attention
+# sublayers' training shapes, non-causal with Sq != Sk: 32 text positions
+# over 1,024 image embeddings at llama-3.2-vision's D 128, G 8, and at
+# whisper's D 64, G 1
 FLASH_BF16_BWD_CASES = FLASH_BWD_CASES + [
     ("model", 2, 2, 2, 40, 40, 8, True, 0, None),
     ("model", 2, 2, 3, 43, 75, 256, True, 0, None),
+    ("model", 2, 8, 8, 32, 1024, 128, False, 0, None),
+    ("model", 2, 6, 1, 32, 1024, 64, False, 0, None),
 ]
 
 

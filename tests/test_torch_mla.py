@@ -6,7 +6,8 @@ values c_kv, one kv head under H query heads), the whole reduced
 deepseek-v2 (`forward`, prefill plus teacher-forced decode over the fp32
 latent cache and the int8 request's bf16 one), decode against teacher
 forcing, `lm_params_from_jax` on the MLA tree, and the refusals of the
-kernel's launch site and of `mla_attention` under autograd. Inputs and
+kernel's launch site. Training (the MLA backward, `MLAAttentionFn`) is
+held in `tests/test_torch_family_train.py`. Inputs and
 weights come from a numpy seed, or the JAX package's weights carried over
 as numpy. The JAX side runs without a mesh. The card's tests are in
 `tests/test_torch_mla_cuda.py`, which imports no JAX.
@@ -40,7 +41,7 @@ torch = pytest.importorskip("torch")
 from repro.configs import get_config as j_get_config  # noqa: E402
 from repro.models import attention as JA  # noqa: E402
 from repro.models import model as JM  # noqa: E402
-from repro_torch.configs.base import DEFAULT_RUN, get_config  # noqa: E402
+from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.convert import lm_params_from_jax  # noqa: E402
 from repro_torch.kernels import cuda as kcuda  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
@@ -48,7 +49,6 @@ from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
     flash_fwd_mla_plain,
 )
 from repro_torch.launch.serve import cache_kind, serve  # noqa: E402
-from repro_torch.launch.steps import loss_and_grads  # noqa: E402
 from repro_torch.models import attention as A  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
@@ -310,29 +310,6 @@ def test_mla_attention_prefill_then_decode_matches_jax(mla_case, latent):
             assert np.all(np.abs(g - r_) <= _bf16_ulp(r_)), float(np.abs(g - r_).max())
 
 
-def test_mla_attention_refuses_autograd(mla_case):
-    """The MLA kernel has no backward yet: with autograd recording,
-    `mla_attention` raises naming the ROADMAP item, and so does a training
-    step; under no_grad the same parameters run."""
-    cfg, _, w, x = mla_case
-    pos = torch.from_numpy(_positions(*x.shape[:2]))
-    p = {k: torch.from_numpy(v).requires_grad_(k == "w_uk") for k, v in w.items()}
-    xt = torch.from_numpy(x)
-    with pytest.raises(NotImplementedError, match="item 24"):
-        A.mla_attention(p, xt, cfg=cfg, positions=pos)
-    with pytest.raises(NotImplementedError, match="item 24"):
-        A.mla_attention({k: v.detach() for k, v in p.items()}, xt.clone().requires_grad_(),
-                        cfg=cfg, positions=pos)
-    with torch.no_grad():
-        out, _ = A.mla_attention(p, xt, cfg=cfg, positions=pos)
-    assert out.shape == x.shape
-    params = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32),
-             "labels": torch.zeros((1, 4), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="MLA training"):
-        loss_and_grads(cfg, DEFAULT_RUN.replace(param_dtype="float32"), params, batch)
-
-
 # ---------------------------------------------------------------------------
 # the kernel's launch site: what it refuses before it reaches a card
 # ---------------------------------------------------------------------------
@@ -352,7 +329,7 @@ def test_launch_flash_mla_refuses(what):
     if what == "shape":
         k, match = torch.zeros((1, 4, 64)), "do not match"
     elif what == "q dtype":
-        q, err = q.to(torch.bfloat16), TypeError
+        q, err = q.to(torch.float16), TypeError
     elif what == "latent dtypes":
         c, err = c.to(torch.bfloat16), TypeError
     elif what == "last dim":
@@ -362,7 +339,7 @@ def test_launch_flash_mla_refuses(what):
     elif what == "heads":
         (q, c, k), match = _launch_args(h=129), "heads"
     elif what == "grad":
-        c, err, match = c.requires_grad_(), RuntimeError, "no backward"
+        c, err, match = c.requires_grad_(), RuntimeError, "MLAAttentionFn"
     else:
         match = "CUDA device"
     with pytest.raises(err, match=match):
@@ -376,8 +353,11 @@ def test_launch_flash_mla_takes_the_built_dims_and_a_bf16_latent():
     """Every (r, dr) pair the kernel is built at passes the checks, over an
     fp32 and a bf16 latent, up to 128 heads: only the device check is left."""
     assert kcuda.MLA_DIMS == ((32, 16), (512, 64))
-    assert set(kcuda.MLA_ENTRY_LAUNCHES) == {"repro_flash_fwd_mla_f32",
-                                             "repro_flash_fwd_mla_bf16kv"}
+    assert set(kcuda.MLA_ENTRY_LAUNCHES) == {
+        "repro_flash_fwd_mla_f32", "repro_flash_fwd_mla_bf16kv",
+        "repro_flash_bwd_mla_dq_f32", "repro_flash_bwd_mla_dq_bf16",
+        "repro_flash_bwd_mla_dkv_f32", "repro_flash_bwd_mla_dkv_bf16"}
+    assert "flash_mla_bwd.cu" in kcuda.SOURCES
     for r, dr in kcuda.MLA_DIMS:
         for dt in (torch.float32, torch.bfloat16):
             with pytest.raises(ValueError, match="CUDA device"):

@@ -11,7 +11,11 @@ split-TF32): out within 1e-4 * max|plain| + 1e-5 * min(1, max|plain|), m
 and l within 1e-5 * max|plain|; bf16 latent (`repro_flash_fwd_mla_bf16kv`):
 out (bf16) within 2^-7 * max|plain| (one bf16 ulp at the largest value:
 both round p and out to bf16 at the same points of fp32 sums taken in
-another order), m and l within 1e-5 * max|plain|."""
+another order), m and l within 1e-5 * max|plain|. The backward kernels
+(`csrc/flash_mla_bwd.cu`) against `flash_bwd_mla_plain`: fp32 within the
+same fp32 rule plus 8 * 2^-24 * S * max|plain| at row maxes S, bf16 within
+2^-7 * max|plain|; the MLA sublayer's gradients, card against host, within
+1e-3 * max|host|."""
 import numpy as np
 import pytest
 
@@ -20,8 +24,11 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs.base import get_config  # noqa: E402
 from repro_torch.kernels.cuda import MLA_ENTRY_LAUNCHES  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
+    flash_bwd_mla,
+    flash_bwd_mla_plain,
     flash_fwd_mla,
     flash_fwd_mla_plain,
+    mla_delta,
 )
 from repro_torch.models import attention as A  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
@@ -140,17 +147,109 @@ def test_mla_kernel_repeats_bitwise(dev, latent):
         assert all(torch.equal(x, y) for x, y in zip(first, second))
 
 
-def test_mla_attention_refuses_autograd_on_the_card(dev):
-    cfg = get_config("deepseek-v2-236b", reduced=True)
-    p = A.init_mla(torch.Generator().manual_seed(0), cfg,
-                   place=lambda t: t.to(dev).requires_grad_())
-    x = torch.randn((1, 4, cfg.d_model), device=dev)
-    pos = torch.arange(4, device=dev)[None]
-    with pytest.raises(NotImplementedError, match="item 24"):
-        A.mla_attention(p, x, cfg=cfg, positions=pos)
+# the MLA backward kernels' cases, (B, Sq, Sk, H, causal, q_offset, kv_len):
+# full-width training's sublayer cut in rows (causal, 128 heads), a causal
+# window at an offset past a tile edge with kv_len, rows that see no key, a
+# non-causal kv_len mask at a ragged Sk, a head count whose rows do not fill
+# a tile, and kv_len 0
+MLA_BWD_CASES = [
+    (2, 16, 16, 128, True, 0, None),
+    (1, 5, 40, 128, True, 30, 35),
+    (2, 6, 16, 4, True, -3, None),
+    (1, 5, 70, 16, False, 0, 67),
+    (2, 7, 40, 3, True, 33, 40),
+    (1, 2, 8, 4, True, 0, 0),
+]
+
+
+def _bwd_operands(dev, b, sq, sk, r, dr, h, dtype, seed):
+    """q, c_kv, k_rope and do in `dtype` (float32, or bfloat16 for all four:
+    training at bf16)."""
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
+            for shape in ((b, sq, h, r + dr), (b, sk, r), (b, sk, dr), (b, sq, h, r))]
+
+
+def _check_grads(got, want, bf16, widen=0.0):
+    for name, g, w in zip(("dq", "dc_kv", "dk_rope"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        scale = float(w.float().abs().max())
+        err = float((g.float() - w.float()).abs().max())
+        limit = (2.0 ** -7 * scale if bf16 else
+                 1e-4 * scale + 1e-5 * min(1.0, scale) + widen * scale)
+        assert err <= limit, (name, err, scale)
+
+
+@pytest.mark.parametrize("dims", [(512, 64), (32, 16)], ids=["full", "reduced"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", MLA_BWD_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_mla_backward_kernels_match_plain(dev, case, dtype, dims):
+    """The dq and dkv passes (one launch of each entry point, no other)
+    against `flash_bwd_mla_plain` on the kernel forward's m, l and delta:
+    fp32 within the port's rule widened by 8 * 2^-24 * S at row maxes S
+    (the scores are recomputed in another order than m took them), bf16
+    within 2^-7 * max|plain|."""
+    b, sq, sk, h, causal, q_offset, kv_len = case
+    r, dr = dims
+    bf16 = dtype == "bfloat16"
+    q, c, k, do = _bwd_operands(dev, b, sq, sk, r, dr, h,
+                                torch.bfloat16 if bf16 else torch.float32, seed=sq + sk + h)
+    kw = dict(scale=(128 + dr) ** -0.5, causal=causal, q_offset=q_offset, kv_len=kv_len)
     with torch.no_grad():
-        out, _ = A.mla_attention(p, x, cfg=cfg, positions=pos)
-    assert out.shape == x.shape and bool(torch.isfinite(out).all())
+        out, m, l = flash_fwd_mla(q, c, k, **kw)
+        ops = (q, c, k, do, m, l, mla_delta(do, out))
+        before = dict(MLA_ENTRY_LAUNCHES)
+        got = flash_bwd_mla(*ops, **kw)
+        torch.cuda.synchronize()
+    sfx = "bf16" if bf16 else "f32"
+    assert {e: n - before[e] for e, n in MLA_ENTRY_LAUNCHES.items() if n != before[e]} == {
+        f"repro_flash_bwd_mla_dq_{sfx}": 1, f"repro_flash_bwd_mla_dkv_{sfx}": 1}
+    seen = m[m > -1e29]
+    widen = 8 * 2.0 ** -24 * (float(seen.abs().max()) if seen.numel() else 0.0)
+    _check_grads(got, flash_bwd_mla_plain(*ops, **kw), bf16, widen)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mla_backward_kernels_repeat_bitwise(dev, dtype):
+    """A second launch of both passes on the same inputs repeats the first
+    bitwise (the dkv pass sums its row chunks in a second kernel, in order)."""
+    dt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    q, c, k, do = _bwd_operands(dev, 2, 32, 32, 512, 64, 128, dt, seed=5)
+    kw = dict(scale=192 ** -0.5, causal=True, q_offset=0, kv_len=None)
+    with torch.no_grad():
+        out, m, l = flash_fwd_mla(q, c, k, **kw)
+        ops = (q, c, k, do, m, l, mla_delta(do, out))
+        first, second = flash_bwd_mla(*ops, **kw), flash_bwd_mla(*ops, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+def test_mla_attention_grads_on_the_card_match_the_host(dev):
+    """The reduced deepseek-v2's MLA sublayer under autograd: forward through
+    MLAAttentionFn (the MLA kernel), backward through both backward kernels,
+    each launched once; its gradients (every weight and x) against the
+    host's plain path within the port's fp32 train leaf limit, 1e-3 *
+    max|host| (cuBLAS against the host's BLAS around the kernels)."""
+    cfg = get_config("deepseek-v2-236b", reduced=True)
+    p_cpu = A.init_mla(torch.Generator().manual_seed(0), cfg)
+    x_cpu = torch.randn((2, 12, cfg.d_model), generator=torch.Generator().manual_seed(1))
+    g_cpu = torch.randn((2, 12, cfg.d_model), generator=torch.Generator().manual_seed(2))
+    pos = torch.arange(12)[None].expand(2, 12)
+    grads = {}
+    for where in ("cpu", "cuda"):
+        p = {k: v.to(where).requires_grad_() for k, v in p_cpu.items()}
+        x = x_cpu.to(where).requires_grad_()
+        before = dict(MLA_ENTRY_LAUNCHES)
+        out, _ = A.mla_attention(p, x, cfg=cfg, positions=pos.to(where))
+        gs = torch.autograd.grad(out, list(p.values()) + [x], g_cpu.to(where))
+        grads[where] = [g.cpu() for g in gs]
+        launched = {e: n - before[e] for e, n in MLA_ENTRY_LAUNCHES.items() if n != before[e]}
+        assert launched == ({} if where == "cpu" else {
+            "repro_flash_fwd_mla_f32": 1, "repro_flash_bwd_mla_dq_f32": 1,
+            "repro_flash_bwd_mla_dkv_f32": 1})
+    for name, c, h in zip(list(p_cpu) + ["x"], grads["cuda"], grads["cpu"]):
+        err, scale = float((c - h).abs().max()), float(h.abs().max())
+        assert err <= 1e-3 * scale, (name, err, scale)
 
 
 @pytest.mark.parametrize("kv_dtype", [torch.float32, torch.int8], ids=["fp32", "bf16_latent"])

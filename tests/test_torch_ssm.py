@@ -339,7 +339,8 @@ def test_launch_selective_scan_refuses(what):
     elif what == "state dtype":
         args[7], err = args[7].double(), TypeError
     elif what == "activation dtype":
-        args, err, match = list(_launch_args(dtype=torch.bfloat16)), TypeError, "float32 activ"
+        args, err, match = (list(_launch_args(dtype=torch.float16)), TypeError,
+                            "float32 or bfloat16 activ")
     elif what == "state dim":
         args, match = list(_launch_args(n=4)), "ssm_state_dim"
     elif what == "last dim":
@@ -347,7 +348,7 @@ def test_launch_selective_scan_refuses(what):
     elif what == "h0 layout":
         args[7], match = torch.zeros((2, 16, 256)).transpose(1, 2), "contiguous a, d and h0"
     elif what == "grad":
-        args[1], err, match = args[1].requires_grad_(), RuntimeError, "item 25"
+        args[1], err, match = args[1].requires_grad_(), RuntimeError, "SelectiveScanFn"
     else:
         match = "CUDA device"
     with pytest.raises(err, match=match):
@@ -358,10 +359,12 @@ def test_launch_selective_scan_refuses(what):
 
 
 def test_launch_selective_scan_takes_the_built_state_dims():
-    """N 8 and 16 pass every check but the device's; the entry point and its
-    counter are registered."""
+    """N 8 and 16 pass every check but the device's; the entry points and
+    their counters are registered."""
     assert kcuda.SCAN_STATE_DIMS == (8, 16)
-    assert kcuda.SCAN_ENTRY_LAUNCHES.keys() == {"repro_selective_scan_f32"}
+    assert kcuda.SCAN_ENTRY_LAUNCHES.keys() == {
+        "repro_selective_scan_f32", "repro_selective_scan_bf16",
+        "repro_selective_scan_bwd_f32", "repro_selective_scan_bwd_bf16"}
     assert "selective_scan.cu" in kcuda.SOURCES
     for n in kcuda.SCAN_STATE_DIMS:
         with pytest.raises(ValueError, match="CUDA device"):
