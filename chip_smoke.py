@@ -92,6 +92,29 @@
    printed beside the kernel symbol). Then a hot swap to another params set
    with the same zeros (so the same plan and key) and back: no build, no
    capture, each batch bitwise equal to its own params' run_plan.
+5c. The sharded phase: the published VGG-19 served data-parallel through
+   Engine(mesh=data_mesh(2, devices=[cuda:0, cuda:0])), two slots of the
+   one card standing for the reference's virtual devices, for the
+   dense-weight fp32 variant (ECR and PECR per shard) and the pruned 0.3 +
+   int8 variant (int8 BSR, and int8 ECR where planned), 16 requests each
+   (two 8-buckets, each split 4 + 4). Counters set to 0 just before serving
+   and read just after: every kernel's launches equal 2 x the sum of the
+   slots' per-replay counts, no eager launch, no runner built while
+   serving. Each shard's logits bitwise equal to run_plan on its slice
+   (cuDNN picks its algorithm per batch size, so the whole bucket's rows
+   are not the contract); the fp32 variant's 16 logits against the dense
+   cuDNN path at rtol 1e-3 + 1e-3*max, the int8 variant's top-1 agreement
+   and max drift against the fp32 dense path printed. A ragged bucket of 4
+   images and 4 all-zero pads (the second shard all padding): the
+   aggregated occupancy within 1e-6 of run_plan's n_valid-masked
+   statistic. Captures and graph-pool bytes per slot; the warm batch-8
+   service, sharded against an unsharded runner of the same plan, in turns
+   (device time and host wall by graph replay: on one card the shards
+   share its SMs, so this is the cost of sharding, not a speed-up). The
+   default Engine (mesh="auto") on a one-card machine: one slot and
+   PlanKey.mesh_shape (). With two or more cards, the fp32 variant also
+   serves over auto_mesh's real cards; with one, the phase says that part
+   did not run.
 6. The obs phase: measure -> calibrate -> search -> plan on the published
    VGG-19 and on it pruned to 0.3, at batch 8 (eight calibration images):
    - profile_plan times every layer under dense (cuDNN), ECR, PECR (on the
@@ -441,7 +464,9 @@
    bound_ms are sums over the served plan's layers that run the kernel (one
    batch-8 VGG-19 forward, or N=1 for the single-image rows); launches count
    the serving run of the phase that runs the kernel, and are 0 for the
-   single-image rows, which the engine (buckets of 2 or more) never runs. In
+   single-image rows, which the engine (buckets of 2 or more) never runs;
+   "sharded_launches" counts the kernel's launches in the sharded phase
+   (step 5c, both variants). In
    the flash rows they are sums of one prefill launch and one decode launch
    at the served shapes (layer 0), with every timed shape listed under
    "shapes", and launches count the served qwen3-0.6b run; "dense_lm" lists
@@ -5913,6 +5938,189 @@ def graphs_phase(dev, failures) -> dict:
     return out
 
 
+SHARD_VARIANTS = (("vgg19", 1.0, False), ("vgg19-pruned-int8", PRUNE_DENSITY, True))
+
+
+def sharded_variant(name, graph, dev, wrappers, failures, *, prune_density, int8,
+                    slots) -> dict:
+    """One VGG-19 variant served over a 1-D data mesh of `slots` (step
+    5c): 16 requests through Engine(mesh=), the checks and the per-slot
+    figures; the warm batch-8 service against an unsharded runner of the
+    same plan when the slots share one card."""
+    import numpy as np
+    import torch
+
+    from repro_torch.graph import run_graph
+    from repro_torch.launch.serve_cnn import synth_requests
+    from repro_torch.parallel import data_mesh
+    from repro_torch.pipeline import plan_network, run_plan
+    from repro_torch.serving import Engine, SimClock
+    from repro_torch.serving.graph_runner import CompiledRunner
+
+    tag = f"sharded {name} over {[str(d) for d in slots]}"
+    params, calib, _ = make_params(graph, seed=0, dev=dev, prune_density=prune_density)
+    t0 = time.perf_counter()
+    plan = plan_network(params, calib, graph, occ_threshold=0.75, block_c=8, int8=int8,
+                        int8_budget=0.0)
+    eng = Engine(params, graph=graph, plan=plan, max_batch=8, clock=SimClock(),
+                 mesh=data_mesh(len(slots), devices=slots), device=dev)
+    eng.warmup()
+    build_s = time.perf_counter() - t0
+    runner = eng._executable(8)
+    print(f"{tag}: plan {plan_line(plan)}; buckets {eng.batcher.exec_buckets()} built in "
+          f"{build_s:.2f} s (planning included); per slot captures "
+          f"{eng.stats()['captures_per_slot']}, capture s at bucket 8 "
+          f"{[round(r.capture_s, 3) for r in runner.runners]}")
+    imgs = torch.stack(synth_requests(graph, 16, seed=2, device=dev))
+    captures = eng.stats()["captures"]
+    reset_counts(wrappers)
+    for pool in eng.cache.pools:
+        pool.replay_launches.clear()
+    wall0 = time.perf_counter()
+    served = eng.serve(list(imgs))  # two 8-buckets, each split 4 + 4
+    wall = time.perf_counter() - wall0
+    eager = read_counts(wrappers)
+    replayed = {}
+    for pool in eng.cache.pools:
+        for k, n in pool.replay_launches.items():
+            replayed[k] = replayed.get(k, 0) + n
+    launches = {k: eager[k] + replayed.get(fn.__name__, 0) for k, fn in wrappers.items()}
+    per_replay = {}
+    for r in runner.runners:
+        for k, n in r.launches_per_replay.items():
+            per_replay[k] = per_replay.get(k, 0) + n
+    want = {k: 2 * per_replay.get(fn.__name__, 0) for k, fn in wrappers.items()}
+    stats = eng.stats()
+    print(f"{tag} served 16 requests in {stats['batches']} batches: launches {launches} "
+          f"(2 x the slots' per-replay counts {want}: {launches == want}; eager {eager}), "
+          f"{stats['captures'] - captures} captures while serving ({stats['batch_builds']} "
+          f"by a batch), host wall {wall:.3f} s")
+    if launches != want or any(eager.values()):
+        failures.append(f"{tag}: launches {launches}, want {want} by replay alone")
+    if stats["batch_builds"] or stats["captures"] != captures or stats["batches"] != 2:
+        failures.append(f"{tag}: a runner was built while serving, or not 2 batches")
+    kernels = {"ecr_pallas": "ecr_conv", "pecr_pallas": "conv_pool", "bsr": "bsr_matmul",
+               "ecr_int8": "ecr_conv_int8", "bsr_int8": "bsr_matmul_int8"}
+    for impl in {lp.impl for lp in plan.layers} & set(kernels):
+        if launches[kernels[impl]] < 1:
+            failures.append(f"{tag}: {kernels[impl]} ({impl}) never launched")
+    shard_equal, shard_diff = True, 0.0
+    for b in range(2):
+        for i in range(2):
+            rows = slice(8 * b + 4 * i, 8 * b + 4 * i + 4)
+            ref = run_plan(plan, params, imgs[rows]).cpu().numpy()
+            shard_equal &= bool(np.array_equal(served[rows], ref))
+            shard_diff = max(shard_diff, float(np.abs(served[rows] - ref).max()))
+    print(f"{tag}: every shard's logits bitwise equal to run_plan on its slice: "
+          f"{shard_equal} (max diff {shard_diff:.3e})")
+    if not shard_equal:
+        failures.append(f"{tag}: a shard's logits differ from run_plan on its slice")
+    dense = run_graph(graph, params, imgs, "dense").cpu().numpy()
+    scale = float(np.abs(dense).max())
+    err = float(np.abs(served - dense).max())
+    if not np.all(np.isfinite(served)) or served.shape != (16, 1000):
+        failures.append(f"{tag}: served logits not finite or of the wrong shape")
+    out = {"plan": plan_line(plan), "slots": [str(d) for d in slots],
+           "launches": launches, "per_replay": per_replay, "shard_bitwise": shard_equal,
+           "max_abs_vs_dense": err, "max_abs_dense": scale,
+           "captures_per_slot": stats["captures_per_slot"],
+           "graph_pool_bytes_per_slot": stats["graph_pool_bytes_per_slot"],
+           "capture_s_bucket8": [r.capture_s for r in runner.runners]}
+    if int8:
+        agree = float((served.argmax(-1) == dense.argmax(-1)).mean())
+        out["top1_vs_dense"] = agree
+        print(f"{tag} served logits vs the fp32 dense path: top-1 agreement {agree:.3f}, "
+              f"max drift {err:.3e} (max|dense|={scale:.3e})")
+    else:
+        ok = np.allclose(served, dense, rtol=1e-3, atol=1e-3 * scale)
+        print(f"{tag} vs dense cuDNN: max_abs_err={err:.3e} (max|dense|={scale:.3e}, "
+              f"rtol=1e-3, atol=1e-3*max|dense|): {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"{tag}: served logits disagree with the dense path")
+    ragged = torch.cat([imgs[:4], torch.zeros_like(imgs[:4])])
+    _, occs = runner(params, ragged, 4)
+    _, ref_occs = run_plan(plan, params, ragged, collect_occupancy=True, n_valid=4)
+    occ_err = float((occs - ref_occs).abs().max())
+    occ_ok = bool(torch.allclose(occs, ref_occs, rtol=1e-6, atol=1e-6))
+    out["ragged_occupancy_err"] = occ_err
+    print(f"{tag} ragged bucket (4 real + 4 zero, the second shard all padding): "
+          f"aggregated occupancy vs run_plan's n_valid=4 statistic max diff {occ_err:.3e} "
+          f"(rtol 1e-6, atol 1e-6): {'ok' if occ_ok else 'FAIL'}")
+    if not occ_ok:
+        failures.append(f"{tag}: the aggregated occupancy of a ragged bucket is off")
+    print(f"{tag} graph pool per slot: "
+          f"{[round(b / 2**20, 1) for b in stats['graph_pool_bytes_per_slot']]} MiB")
+    if len(set(slots)) == 1:
+        single = CompiledRunner(plan, params, 8, dev)
+        x8 = imgs[:8]
+        turns = []
+        for label in ("unsharded", "sharded", "sharded", "unsharded"):
+            fn = (lambda: single(params, x8, 8)) if label == "unsharded" \
+                else (lambda: runner(params, x8, 8))
+            turns.append((label, trace_breakdown(fn, {"batch": 8})))
+        single.release()
+        out["service"] = [{"route": label, **{k: t[k] for k in (
+            "wall_ms", "device_ms", "device_ops", "idle_share", "by_class_ms")}}
+            for label, t in turns]
+        out["card"] = card_line()
+        print(f"{tag} warm batch-8 service by CUDA-graph replay on {out['card']}, in turns "
+              f"(the two shards share one card's SMs: the cost of sharding, not a "
+              f"speed-up): " + "; ".join(
+                  f"{label} wall {t['wall_ms']:.3f} ms device {t['device_ms']:.3f} ms "
+                  f"({t['device_ops']} ops, idle {t['idle_share']})" for label, t in turns))
+    del eng, runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_phase(dev, wrappers, failures) -> dict:
+    """Step 5c: `sharded_variant` for SHARD_VARIANTS over two slots of
+    cuda:0, the default engine's mesh, and real cards where present."""
+    import torch
+
+    from repro_torch.configs.vgg19_sparse import CNNConfig, vgg19_graph
+    from repro_torch.serving import Engine, SimClock, auto_mesh, plan_key
+
+    t0 = time.perf_counter()
+    graph = vgg19_graph(CNNConfig())
+    out = {}
+    card0 = torch.device("cuda", 0)
+    for name, prune, int8 in SHARD_VARIANTS:
+        try:
+            out[name] = sharded_variant(name, graph, dev, wrappers, failures,
+                                        prune_density=prune, int8=int8, slots=[card0] * 2)
+        except Exception:
+            traceback.print_exc()
+            failures.append(f"sharded {name} failed")
+    params, calib, _ = make_params(graph, seed=0, dev=dev)
+    auto = Engine(params, graph=graph, calib=calib, occ_threshold=0.75, block_c=8,
+                  max_batch=8, clock=SimClock(), device=dev)
+    n_cards = torch.cuda.device_count()
+    shape = plan_key(8, auto.plan, auto.mesh).mesh_shape
+    out["default_engine"] = {"cards": n_cards, "n_devices": auto.n_devices,
+                             "mesh_shape": shape}
+    print(f"sharded: the default Engine (mesh='auto') on {n_cards} card(s): n_devices "
+          f"{auto.n_devices}, PlanKey.mesh_shape {shape}")
+    if n_cards == 1 and (auto.n_devices != 1 or shape != ()):
+        failures.append("sharded: the default engine on one card is not unsharded")
+    del auto, params, calib
+    if n_cards >= 2:
+        slots = auto_mesh(8).slots
+        try:
+            out["cards"] = sharded_variant("vgg19", graph, dev, wrappers, failures,
+                                           prune_density=1.0, int8=False, slots=slots)
+        except Exception:
+            traceback.print_exc()
+            failures.append("sharded vgg19 over real cards failed")
+    else:
+        print("sharded: serving over several real cards did not run (this machine has "
+              "one card)")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"sharded phase: {out['seconds']:.1f} s")
+    return out
+
+
 SCN_RATE = 200.0  # req/s offered in the hot-swap and diurnal streams
 
 
@@ -6543,6 +6751,16 @@ def main() -> int:
         failures.append("graphs phase failed")
     torch.cuda.empty_cache()
 
+    # ---- data-parallel serving: Engine(mesh=) over two slots of the card --
+    sharded = {}
+    try:
+        sharded = sharded_phase(dev, wrappers, failures)
+    except Exception:
+        traceback.print_exc()
+        failures.append("sharded phase failed")
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # ---- obs: measure -> calibrate -> search -> plan on VGG-19 --------------
     obs = {}
     outdir = args.layers_out.parent if args.layers_out is not None else None
@@ -6696,7 +6914,11 @@ def main() -> int:
             "bound_ms": bound,
             "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
             "library_ms": sum(r["library_ms" + sfx] for r in rows),
-            "phase": phase, "layers": [r["layer"] for r in rows]})
+            "phase": phase, "layers": [r["layer"] for r in rows],
+            # the sharded phase's runs (two slots of the card), both variants
+            "sharded_launches": 0 if single else sum(
+                sharded.get(v[0], {}).get("launches", {}).get(key, 0)
+                for v in SHARD_VARIANTS)})
         if name in redesigned and ms > 0:
             kernels[-1].update({
                 "redesigned_in": redesigned[name],
@@ -6920,7 +7142,7 @@ def main() -> int:
              "recurrent_lm": recurrent_lm, "cross_lm": cross_lm,
              "train": train_summary, "paper": paper, "verifier": verifier,
              "geometry": geometry, "lint": lint, "scenario": scenario,
-             "graphs": graphs, "verified": VERIFIED},
+             "graphs": graphs, "sharded": sharded, "verified": VERIFIED},
             indent=1, default=str))
     if failures:
         for f in failures:

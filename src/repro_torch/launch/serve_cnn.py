@@ -17,19 +17,24 @@ bursts, a diurnal occupancy step (forces a re-plan), a hot swap to a
 0.3-density pruned variant at the stream's midpoint, or two models
 multi-tenant over one plan cache. `--history DB` ingests the serving summary
 and telemetry snapshot (and any fitted calibration) into the perf-history
-BenchDB, which `python -m repro_torch.obs.history.cli` reads.
+BenchDB, which `python -m repro_torch.obs.history.cli` reads. `--devices N`
+serves data-parallel over a 1-D "data" mesh of N slots: the first N cards,
+or on the host N slots of the CPU (standing for the reference's virtual
+CPU devices); 0 (the default) takes the engine's `auto_mesh`.
 
 Run on the card (default device "cuda"):
     PYTHONPATH=src python -m repro_torch.launch.serve_cnn --rate 50 --n-requests 24
     PYTHONPATH=src python -m repro_torch.launch.serve_cnn --model lenet --full
     PYTHONPATH=src python -m repro_torch.launch.serve_cnn --full --prune-density 0.3 --int8
     PYTHONPATH=src python -m repro_torch.launch.serve_cnn --full --scenario hotswap --history benchdb.jsonl
+    PYTHONPATH=src python -m repro_torch.launch.serve_cnn --full --devices 2
 On the host, through the kernels' plain PyTorch versions:
     PYTHONPATH=src python -m repro_torch.launch.serve_cnn --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve_cnn --device cpu --prune-density 0.3 --int8 --n-requests 8
     PYTHONPATH=src python -m repro_torch.launch.serve_cnn --device cpu --calibrate --tile-search --autotune --trace-out t.json --calib-out cal.json --n-requests 8
     PYTHONPATH=src python -m repro_torch.launch.serve_cnn --device cpu --scenario diurnal --n-requests 16 --rate 100
     PYTHONPATH=src python -m repro_torch.launch.serve_cnn --device cpu --scenario hotswap --n-requests 16 --rate 100 --history benchdb.jsonl
+    PYTHONPATH=src python -m repro_torch.launch.serve_cnn --device cpu --devices 2 --n-requests 8
 """
 from __future__ import annotations
 
@@ -44,7 +49,8 @@ from repro_torch.core.sparsity import dead_channel_band
 from repro_torch.device import resolve_device
 from repro_torch.graph import LayerGraph, as_graph, init_graph
 from repro_torch.models.cnn import shift_dead_channels
-from repro_torch.serving import Engine, SimClock, replay_stream
+from repro_torch.parallel import data_mesh, local_devices
+from repro_torch.serving import Engine, SimClock, auto_mesh, replay_stream
 
 log = logging.getLogger("repro_torch.serve_cnn")
 
@@ -82,6 +88,19 @@ def synth_requests(graph, n: int, seed: int = 0, dead_frac: float = 0.5,
     return [dead_channel_band(
         torch.rand(shape, generator=torch.Generator().manual_seed(seed * 1000 + i)),
         dead_frac).to(dev) for i in range(n)]
+
+
+def serving_mesh(devices: int, max_batch: int, device):
+    """`--devices`' mesh on `device`'s kind: `devices` slots over the first
+    cards, or over the CPU repeated on the host; 0 takes `auto_mesh`."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        slots = local_devices("cuda")
+    else:  # the host: N slots of the CPU stand for N devices
+        slots = [dev] * max(devices, 1)
+    if devices:
+        return data_mesh(devices, devices=slots)
+    return auto_mesh(max_batch, devices=slots)
 
 
 def _scenario_setup(scenario, model, engine, *, full, n_requests, rate, seed):
@@ -137,7 +156,7 @@ def _scenario_setup(scenario, model, engine, *, full, n_requests, rate, seed):
                          max_batch=engine.batcher.max_batch,
                          deadline_s=engine.batcher.deadline_s,
                          clock=engine.clock, cache=engine.cache,
-                         device=engine.device)
+                         device=engine.device, mesh=engine.mesh)
         engine2.warmup()
         tenants = ((model, TenantSpec(in_shape=shape,
                                       n_requests=n_requests // 2,
@@ -160,18 +179,21 @@ def serve_cnn(*, model: str = "vgg19", full: bool = False,
               do_autotune: bool = False, trace_out: str | None = None,
               calibrate: bool = False, calib_out: str | None = None,
               tile_search: bool = False, scenario: str = "steady",
-              history: str | None = None, device=None) -> dict:
+              history: str | None = None, devices: int = 0, device=None) -> dict:
     """Serve `n_requests` requests of `model` under the `scenario` traffic
     regime and return the serving summary (plan, throughput and latency on
-    the SimClock, cache counters). `calibrate`, `tile_search`,
+    the SimClock, cache counters, data-parallel slots). `devices` is
+    `serving_mesh`'s slot count (0: `auto_mesh`). `calibrate`, `tile_search`,
     `do_autotune`, `calib_out` and `trace_out` run the measure -> calibrate
     -> search -> plan loop before serving; `history` ingests the summary
     into that BenchDB (see the module docstring)."""
     dev = resolve_device(device)
+    mesh = serving_mesh(devices, max_batch, dev)
     graph = serving_graph(model, full)
     params = shift_dead_channels(init_graph(torch.Generator().manual_seed(seed),
                                             graph, device=dev))
-    calib = torch.stack(synth_requests(graph, 2, seed=seed + 1, device=dev))
+    calib = torch.stack(synth_requests(graph, max(2, mesh.size), seed=seed + 1,
+                                       device=dev))
     achieved_density = 1.0
     if prune_density < 1.0:
         from repro_torch.sparse_weights.prune import prune_graph_params
@@ -237,7 +259,7 @@ def serve_cnn(*, model: str = "vgg19", full: bool = False,
 
         with (tracer or NULL_TRACER).span("plan", graph=graph.name, autotune=True):
             result = autotune(params, calib, graph, thresholds=(0.5, 0.75, 0.9),
-                              block_cs=(0, 8), calibration=calibration,
+                              block_cs=(0, 8), mesh=mesh, calibration=calibration,
                               tiles=tiles, int8=int8, int8_budget=int8_budget)
         plan = result.plan
         log.info("autotune picked occ_threshold=%.2f block_c=%d (model "
@@ -248,7 +270,7 @@ def serve_cnn(*, model: str = "vgg19", full: bool = False,
                     max_batch=max_batch, deadline_s=deadline_ms * 1e-3,
                     clock=clock, replan_band=replan_band, tracer=tracer,
                     calibration=calibration, tiles=tiles, int8=int8,
-                    int8_budget=int8_budget, device=dev)
+                    int8_budget=int8_budget, device=dev, mesh=mesh)
     rep8 = engine.plan.int8_report
     if rep8 is not None:
         log.info("int8 probe: %d layers quantized (%d demoted), top-1 "
@@ -258,8 +280,8 @@ def serve_cnn(*, model: str = "vgg19", full: bool = False,
     log.info("%s plan: %s", graph.name, " ".join(
         f"conv{lp.index + 1}={lp.impl}@{lp.occupancy:.2f}" for lp in engine.plan.layers))
     built = engine.warmup()
-    log.info("built %d bucket runners (buckets=%s)", built,
-             engine.batcher.exec_buckets())
+    log.info("built %d bucket runners (buckets=%s, devices=%d)", built,
+             engine.batcher.exec_buckets(), engine.n_devices)
     t_start = clock()
     if scenario == "steady":
         results = replay_stream(engine, synth_requests(graph, n_requests, seed=seed + 2,
@@ -277,6 +299,7 @@ def serve_cnn(*, model: str = "vgg19", full: bool = False,
         "model": graph.name,
         "scenario": scenario,
         "device": str(dev),
+        "devices": engine.n_devices,
         "plan": [f"{lp.impl}@{lp.occupancy:.2f}" for lp in engine.plan.layers],
         "prune_density": achieved_density,
         "plan_bsr": stats["plan_bsr"],
@@ -379,6 +402,10 @@ def main():
                          "serving summary and telemetry snapshot as cross-run "
                          "series for python -m repro_torch.obs.history.cli")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--devices", type=int, default=0,
+                    help="data-parallel slots: the first N cards (on the host, N "
+                         "slots of the CPU); 0 = the largest count that divides "
+                         "--max-batch (auto_mesh)")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs the kernels' "
                          "plain PyTorch versions)")
@@ -392,7 +419,7 @@ def main():
               do_autotune=args.autotune, trace_out=args.trace_out,
               calibrate=args.calibrate, calib_out=args.calib_out,
               tile_search=args.tile_search, scenario=args.scenario,
-              history=args.history, device=args.device)
+              history=args.history, devices=args.devices, device=args.device)
 
 
 if __name__ == "__main__":

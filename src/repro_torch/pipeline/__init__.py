@@ -7,6 +7,7 @@ from repro_torch.pipeline.planner import (
     occupancy_stat,
     plan_network,
     run_plan,
+    run_plan_sharded,
     run_plan_unchecked,
     validate_plan,
 )
@@ -18,6 +19,7 @@ __all__ = [
     "occupancy_stat",
     "plan_network",
     "run_plan",
+    "run_plan_sharded",
     "run_plan_unchecked",
     "validate_plan",
 ]

@@ -29,7 +29,12 @@ Every plan is verified before `plan_network` returns it and again by
 serving engine's compiled runners verify once, when they are built, and
 then run `run_plan_unchecked`.
 
-Not ported: `run_plan_sharded` (ROADMAP queue 1, item 13).
+`run_plan_sharded` runs a plan data-parallel over the slots of a 1-D
+"data" mesh (`repro_torch.parallel`): each slot runs its slice of the batch,
+with its own per-sample schedules, and the occupancy statistic is
+aggregated over the shards. Its pieces (`shard_rows`, `shard_n_valid`,
+`slot_params`, `aggregate_occupancy`) are shared with the serving engine's
+`graph_runner.ShardedRunner`.
 """
 from __future__ import annotations
 
@@ -386,4 +391,110 @@ def run_plan_unchecked(plan: PipelinePlan, params, imgs: torch.Tensor, *,
     logits = run_head(x, dense_ws, plan.graph.head())
     if collect_occupancy:
         return logits, torch.stack(occs)
+    return logits
+
+
+def shard_rows(mesh, shape) -> int:
+    """Rows per shard of a batch of `shape` (N, ...) over `mesh`'s "data"
+    axis. The logical rules decide the split (`parallel.logical_spec`):
+    "batch" resolves to ("data",) exactly when the axis divides N. Raises
+    on a mesh without a "data" axis or with other axes of more than one
+    slot, and on a batch the axis does not divide."""
+    from repro_torch.parallel.api import logical_spec
+
+    if "data" not in mesh.axis_names:
+        raise ValueError(f"run_plan_sharded needs a mesh with a 'data' axis, got axes "
+                         f"{tuple(mesh.axis_names)}")
+    n_dev = int(mesh.shape["data"])
+    if mesh.size != n_dev:
+        raise ValueError(f"run_plan_sharded splits the batch over 'data' alone; the "
+                         f"mesh {mesh.shape} has other axes of more than one slot")
+    n = int(shape[0])
+    spec = logical_spec(tuple(shape), ("batch",) + (None,) * (len(shape) - 1), mesh)
+    if n_dev > 1 and spec[0] != "data":
+        raise ValueError(f"batch of {n} does not divide the {n_dev}-device data axis — "
+                         f"pad to a device-aligned bucket (MicroBatcher(align={n_dev}))")
+    return n // n_dev
+
+
+def shard_n_valid(n_valid, shard: int, rows: int, device):
+    """Shard `shard`'s count of real samples, clip(n_valid - shard * rows, 0,
+    rows): an int for an int, a 0-dim int32 tensor on `device` for a tensor
+    (read on the device, never on the host). Pad samples sit at the tail of
+    the batch, so they land on the highest-index shards."""
+    if isinstance(n_valid, torch.Tensor):
+        return (n_valid.to(device=device, dtype=torch.int32) - shard * rows).clamp(0, rows)
+    return min(max(int(n_valid) - shard * rows, 0), rows)
+
+
+def slot_params(params, mesh, device) -> dict:
+    """`params`' weights on `device`, placed through `mesh.place`: the
+    tensors themselves where they live there, else copies the mesh keeps."""
+    conv, dense = graph_weights(params)
+    return {"conv": [mesh.place(w, device) for w in conv],
+            "dense": [mesh.place(w, device) for w in dense]}
+
+
+def aggregate_occupancy(occs: list, weights=None) -> torch.Tensor:
+    """One (n_layers,) statistic from the shards' own, on the first shard's
+    device, summed in shard order: their mean when `weights` is None (a
+    full bucket), else sum(occ_i * w_i) / max(sum(w_i), 1) with w_i a
+    shard's count of real samples (an int or a 0-dim tensor), so an
+    all-pad shard weighs nothing."""
+    dev = occs[0].device
+    if weights is None:
+        acc = occs[0]
+        for o in occs[1:]:
+            acc = acc + o.to(dev)
+        return acc / len(occs)
+    ws = [w.to(device=dev, dtype=torch.float32) if isinstance(w, torch.Tensor)
+          else torch.full((), int(w), dtype=torch.float32, device=dev) for w in weights]
+    num, den = occs[0] * ws[0], ws[0]
+    for o, w in zip(occs[1:], ws[1:]):
+        num = num + o.to(dev) * w
+        den = den + w
+    return num / den.clamp(min=1.0)
+
+
+def run_plan_sharded(plan: PipelinePlan, params, imgs: torch.Tensor, mesh, *,
+                     collect_occupancy: bool = False, n_valid=None):
+    """`run_plan` data-parallel over a 1-D "data" mesh.
+
+    Shard i runs rows [i*n/N, (i+1)*n/N) of the batch on slot i's device,
+    with the params placed once per slot (`slot_params`) and its own
+    per-sample (ids, cnt) schedules: sparsity skipping never needs another
+    shard. Logits are gathered to slot 0 in shard order. With
+    `collect_occupancy`, the shards' statistics are aggregated
+    (`aggregate_occupancy`): the mean for a full batch, weighted by each
+    shard's real samples when `n_valid` (the global count) is given.
+
+    A shard's logits are bitwise `run_plan_unchecked` on its own slice; they
+    equal the whole batch's rows where the convolutions are
+    batch-invariant and the co-batched samples share a live-channel union
+    (the engine's contract). `mesh=None` (or one slot) runs `run_plan`. The
+    batch must divide the data axis: the batcher's device-aligned buckets
+    guarantee it, and anything else raises. The plan is validated once, at
+    the shard's batch."""
+    if imgs.ndim == 3:
+        imgs = imgs[None]
+    if mesh is None or mesh.size == 1:
+        return run_plan(plan, params, imgs, collect_occupancy=collect_occupancy,
+                        n_valid=n_valid)
+    rows = shard_rows(mesh, imgs.shape)
+    validate_plan(plan, params, imgs[:rows])
+    logits, occs, weights = [], [], []
+    for i, dev in enumerate(mesh.slots):
+        x = imgs[i * rows:(i + 1) * rows].to(dev)
+        nv = None if n_valid is None else shard_n_valid(n_valid, i, rows, dev)
+        out = run_plan_unchecked(plan, slot_params(params, mesh, dev), x,
+                                 collect_occupancy=collect_occupancy, n_valid=nv)
+        if collect_occupancy:
+            out, occ = out
+            occs.append(occ)
+            weights.append(nv)
+        logits.append(out)
+    dev0 = logits[0].device
+    logits = torch.cat([o.to(dev0) for o in logits])
+    if collect_occupancy:
+        return logits, aggregate_occupancy(occs, None if n_valid is None else weights)
     return logits

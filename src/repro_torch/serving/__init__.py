@@ -1,6 +1,7 @@
 """Sparsity-aware serving engine over the pipeline planner (counterpart of
 `repro.serving`): `MicroBatcher` buckets, `PlanCache` runners, the `Engine`
-with its occupancy-drift re-planner and `hot_swap`, the scenario library
+with its occupancy-drift re-planner, `hot_swap` and data-parallel `mesh=`
+(`auto_mesh`), the scenario library
 (burst, diurnal drift, multi-tenant, hot swap) with its SimClock replay
 driver, and the offline (occ_threshold, block_c) `autotune`."""
 from repro_torch.serving.autotune import AutotuneResult, Candidate, autotune, plan_model_us
@@ -11,7 +12,7 @@ from repro_torch.serving.batcher import (
     SimClock,
     bucket_sizes,
 )
-from repro_torch.serving.engine import Engine, ServedResult, replay_stream
+from repro_torch.serving.engine import Engine, ServedResult, auto_mesh, replay_stream
 from repro_torch.serving.metrics import LatencyReservoir, MetricsTracker
 from repro_torch.serving.plan_cache import PlanCache, PlanKey, plan_key
 from repro_torch.serving.scenarios import (
@@ -48,6 +49,7 @@ __all__ = [
     "ServedResult",
     "SimClock",
     "TenantSpec",
+    "auto_mesh",
     "autotune",
     "bucket_sizes",
     "plan_key",

@@ -15,8 +15,12 @@ The noisy-clock fallback ranks by `plan_model_us`, the registry's roofline
 per layer, for every plan. The reference ranks all-dense plans by XLA's
 HLO cost instead (`hlo_model_us`, through `launch/hlo_cost`); the port has
 no HLO and `launch/hlo_cost` is not ported (ROADMAP queue 1, item 16), so
-all-dense plans are modeled layer by layer like the others. The
-data-parallel `mesh=` waits for item 13.
+all-dense plans are modeled layer by layer like the others.
+
+`mesh=` (a 1-D "data" mesh) times each candidate through the sharded
+runner the serving engine would run (`graph_runner.ShardedRunner`); the
+calibration batch must divide the mesh's slots. The model fallback stays
+per device, as in the reference.
 """
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ from repro_torch.graph import as_graph
 from repro_torch.graph.registry import unit_model_us
 from repro_torch.obs import constants
 from repro_torch.pipeline.planner import PipelinePlan, plan_network
-from repro_torch.serving.graph_runner import CompiledRunner
+from repro_torch.serving.graph_runner import CompiledRunner, ShardedRunner
 from repro_torch.serving.plan_cache import plan_key
 
 
@@ -100,8 +104,8 @@ def _time_us(f, *args, iters: int = 3, warmup: int = 1) -> tuple:
 def autotune(params, calib, graph=None, *,
              thresholds=(0.0, 0.5, 0.75, 0.9), block_cs=(0, 8),
              iters: int = 3, warmup: int = 1, noise_tol: float = 0.25,
-             use_pallas: bool = True, mode: str = "auto", calibration=None, tiles=None,
-             int8: bool = False, int8_budget: float = 0.98) -> AutotuneResult:
+             use_pallas: bool = True, mode: str = "auto", mesh=None, calibration=None,
+             tiles=None, int8: bool = False, int8_budget: float = 0.98) -> AutotuneResult:
     """Grid-search (occ_threshold, block_c); return the plan that serves the
     calibration batch fastest. `graph` is a LayerGraph or CNNConfig (None =
     VGG-19).
@@ -114,11 +118,14 @@ def autotune(params, calib, graph=None, *,
 
     `use_pallas`, `calibration`, `tiles`, `int8` and `int8_budget` pass
     through to `plan_network`, so the search ranks the plans that would serve; the
-    model fallback prices them through `calibration` too.
+    model fallback prices them through `calibration` too. `mesh` times the
+    candidates data-parallel (module docstring); a one-slot mesh is None.
     """
     graph = as_graph(graph)
     if calib.ndim == 3:
         calib = calib[None]
+    if mesh is not None and mesh.size == 1:
+        mesh = None
     seen: dict = {}
     cands: list = []
     for th in thresholds:
@@ -134,7 +141,8 @@ def autotune(params, calib, graph=None, *,
             if mode == "model":  # ranking by model only: skip the timing runs
                 wall, spread, ts = float("inf"), 0.0, []
             else:
-                runner = CompiledRunner(plan, params, calib.shape[0], calib.device)
+                runner = CompiledRunner(plan, params, calib.shape[0], calib.device) \
+                    if mesh is None else ShardedRunner(plan, params, calib.shape[0], mesh)
                 try:
                     wall, spread, ts = _time_us(
                         lambda p, x, r=runner: r(p, x, x.shape[0]), params, calib,

@@ -26,6 +26,14 @@
   (a hot swap's, an adopted re-plan's) is verified against the params it
   will run with before anything changes; a refused one is counted in
   `stats()["verify_rejects"]` and the current model keeps serving.
+- With a data mesh of N > 1 slots (`mesh=`, `repro_torch.parallel`), a
+  bucket is served data-parallel: the batcher's buckets are N-aligned, each
+  slot runs its slice of the bucket through a captured runner of its own
+  (`graph_runner.ShardedRunner`), the plan-cache keys carry the mesh shape,
+  and the occupancy EMA reads the statistic aggregated over the shards by
+  their real samples, so the drift detector sees all the traffic. It is
+  one process and needs no collective: the shards' schedules are their
+  own, and the statistic is summed on slot 0 after the gather.
 
 Exactness contract, per bucket: a request's logits are bit-identical to
 `run_plan` on the same bucket (the same images, padded with all-zero
@@ -35,7 +43,8 @@ batch-composition-invariant); the all-zero pad samples never perturb the
 union. Across buckets they can differ in the last bits on the card: cuDNN
 picks its algorithm per batch size (up to 8.1e-10 between N=1 or 2 and N=8
 on VGG-19 logits on an H100). On the host the dense layers are
-batch-invariant too, as in the reference.
+batch-invariant too, as in the reference. Sharded, the bucket's slices are
+the batches: a shard's logits are bitwise `run_plan` on its slice.
 
 `int8=True` lets the first plan and every re-plan upgrade layers to the
 int8 kernels under the probe's top-1 agreement budget `int8_budget`
@@ -49,8 +58,6 @@ and impl into `stats()["telemetry"]["profile"]`.
 "pecr"), as in the reference. Every plan the engine builds is verified by
 the planner, and again by the plan cache before it builds a runner
 (`repro_torch.analysis`).
-
-Not ported: the data-parallel mesh (ROADMAP queue 1, item 13).
 """
 from __future__ import annotations
 
@@ -65,9 +72,10 @@ from repro_torch.device import resolve_device
 from repro_torch.graph import as_graph
 from repro_torch.graph.ir import graph_weights
 from repro_torch.obs.trace import NULL_TRACER
+from repro_torch.parallel.api import data_mesh, local_devices
 from repro_torch.pipeline.planner import PipelinePlan, plan_network
 from repro_torch.serving.batcher import MicroBatch, MicroBatcher, SimClock
-from repro_torch.serving.graph_runner import CompiledRunner
+from repro_torch.serving.graph_runner import CompiledRunner, ShardedRunner
 from repro_torch.serving.metrics import MetricsTracker
 from repro_torch.serving.plan_cache import PlanCache, plan_key
 
@@ -88,13 +96,34 @@ class ServedResult:
         return self.t_done - self.t_arrival
 
 
+def auto_mesh(max_batch: int = 8, min_bucket: int = 2, devices=None):
+    """The engine's mesh="auto" policy: a 1-D "data" mesh over the LARGEST
+    prefix of `devices` (default `local_devices()`) whose size divides
+    `max_batch` and leaves every shard at least `min_bucket` samples of a
+    full bucket, the two constraints the batcher's device-aligned buckets
+    enforce. Never raises for lack of devices: 3 devices at max_batch 8
+    give 2, and 1 device is always acceptable."""
+    devs = local_devices() if devices is None else list(devices)
+    fits = [d for d in range(1, len(devs) + 1)
+            if max_batch % d == 0 and max_batch // d >= min_bucket]
+    return data_mesh(max(fits) if fits else 1, devices=devs)
+
+
 class Engine:
     """Sparsity-aware serving engine for any planned LayerGraph conv stack
     (pass `graph=` or a legacy `CNNConfig`).
 
     Drive it with `submit()` + `poll()` (event loop), `drain()` (end of
     stream), or the synchronous convenience `serve(imgs)`. `device` (None =
-    the card) is where requests are placed and must hold `params`."""
+    the card) is where requests are placed and must hold `params`.
+
+    `mesh` is the data-parallel layout: "auto" (the default) spans the
+    largest prefix of the local devices of the engine's device type that
+    `auto_mesh` admits (one on a one-card machine and on the host), an
+    explicit 1-D "data" mesh (`parallel.data_mesh`) pins the slots and
+    raises when `max_batch` is not a multiple of them, and None serves
+    unsharded. A one-slot mesh is None: the same keys, runners and
+    numbers."""
 
     def __init__(self, params, ccfg=None, *, graph=None,
                  plan: PipelinePlan | None = None, calib=None,
@@ -107,7 +136,7 @@ class Engine:
                  metrics: MetricsTracker | None = None,
                  sim_service_s=None, tracer=None, calibration=None,
                  tiles=None, int8: bool = False,
-                 int8_budget: float = 0.98, device=None):
+                 int8_budget: float = 0.98, device=None, mesh="auto"):
         # tracer: an obs.trace.Tracer for the plan / compile / execute /
         # re-plan spans; the NULL_TRACER default records nothing.
         # calibration / tiles: CalibrationDBs every plan this engine builds
@@ -134,12 +163,28 @@ class Engine:
                                     use_pallas=self.use_pallas,
                                     calibration=calibration, tiles=tiles,
                                     int8=self.int8, int8_budget=self.int8_budget)
+        if isinstance(mesh, str):
+            if mesh != "auto":
+                raise ValueError(f"mesh must be 'auto', None or a Mesh, got {mesh!r}")
+            mesh = auto_mesh(max_batch, min_bucket, local_devices(self.device.type))
+        if mesh is not None and mesh.size == 1:
+            mesh = None
+        if mesh is not None:
+            if "data" not in mesh.axis_names:
+                raise ValueError(f"Engine needs a mesh with a 'data' axis, got "
+                                 f"{tuple(mesh.axis_names)}")
+            if any(d.type != self.device.type for d in mesh.slots):
+                raise ValueError(f"the engine serves on {self.device}, the mesh's "
+                                 f"slots are {[str(d) for d in mesh.slots]}")
+        self.mesh = mesh
+        self.n_devices = int(mesh.shape["data"]) if mesh is not None else 1
         self.params = params
         self.graph = graph
         self.plan = plan
         self.clock = clock
         self.batcher = MicroBatcher(max_batch=max_batch, deadline_s=deadline_s,
-                                    clock=clock, min_bucket=min_bucket)
+                                    clock=clock, min_bucket=min_bucket,
+                                    align=self.n_devices)
         self.cache = cache if cache is not None else PlanCache(max_entries=cache_entries)
         self.metrics = metrics if metrics is not None else MetricsTracker()
         # sim_service_s: deterministic service-time model for SimClock
@@ -241,11 +286,16 @@ class Engine:
         """Serving state + telemetry (`MetricsTracker.snapshot()` under
         ``"telemetry"``)."""
         c = self.plan.counts()
+        pools = self.cache.slot_pools(self.n_devices)
+        pool_bytes = [p.nbytes() for p in pools]
         return {
             **self.cache.stats(),
-            "captures": self.cache.graphs.captures,
-            "graph_pool_bytes": self.cache.graphs.nbytes(),
+            "captures": sum(p.captures for p in self.cache.pools),
+            "graph_pool_bytes": sum(p.nbytes() for p in self.cache.pools),
+            "captures_per_slot": [p.captures for p in pools],
+            "graph_pool_bytes_per_slot": pool_bytes,
             "device": str(self.device),
+            "devices": self.n_devices,
             "requests": self.n_requests,
             "batches": self.n_batches,
             "pad_samples": self.n_pad_samples,
@@ -296,18 +346,24 @@ class Engine:
     # ------------------------------------------------------------------
 
     def _executable(self, bucket: int, plan: PipelinePlan | None = None,
-                    params=None) -> CompiledRunner:
+                    params=None):
         """The runner of `plan` at `bucket` (default: the served plan and
-        params), built on a cache miss: verified, and captured on the card."""
+        params) on the engine's mesh, built on a cache miss: verified, and
+        captured on the card (a `CompiledRunner`, or with a mesh a
+        `ShardedRunner` over the cache's slot pools)."""
         plan = self.plan if plan is None else plan
         params = self.params if params is None else params
+        mesh = self.mesh
 
         def build():
-            with self.tracer.span("compile", bucket=bucket):
-                return CompiledRunner(plan, params, bucket, self.device,
-                                      pool=self.cache.graphs)
+            with self.tracer.span("compile", bucket=bucket, devices=self.n_devices):
+                if mesh is None:
+                    return CompiledRunner(plan, params, bucket, self.device,
+                                          pool=self.cache.graphs)
+                return ShardedRunner(plan, params, bucket, mesh,
+                                     pools=self.cache.slot_pools(mesh.size))
 
-        exe = self.cache.get_or_compile(plan_key(bucket, plan), plan, build)
+        exe = self.cache.get_or_compile(plan_key(bucket, plan, mesh), plan, build)
         self._warm.add(int(bucket))
         return exe
 
@@ -318,7 +374,7 @@ class Engine:
         copies weights, and a failed capture leaves the served model as it
         was."""
         for b in sorted(self._warm):
-            self._executable(b, plan, params).slots.bind(params)
+            self._executable(b, plan, params).bind(params)
 
     def _run_batch(self, batch: MicroBatch) -> list:
         # spans on the engine's own clock: under a SimClock the charged

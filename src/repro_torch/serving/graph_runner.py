@@ -34,6 +34,14 @@ its outputs before the next replay. The kernel wrappers count launches
 (`.launches`) only while the body runs in Python, at warm-up and capture;
 each replay adds the launches its capture recorded to
 `GraphPool.replay_launches`.
+
+A `ShardedRunner` is the executor of one (bucket, plan) pair over a 1-D
+"data" mesh (`repro_torch.parallel`), the counterpart of the reference's
+runner under `shard_map`: one `CompiledRunner` per mesh slot at the
+bucket's slice of rows, each with its own CUDA graph, its slot's pool and
+weight slots on its slot's device. Its runners are replayed back to back,
+then their logits gathered and their occupancies aggregated
+(`pipeline.planner.aggregate_occupancy`).
 """
 from __future__ import annotations
 
@@ -43,7 +51,14 @@ import torch
 
 from repro_torch.graph.ir import graph_weights
 from repro_torch.kernels.cuda import recording_launches
-from repro_torch.pipeline.planner import run_plan_unchecked, validate_plan
+from repro_torch.pipeline.planner import (
+    aggregate_occupancy,
+    run_plan_unchecked,
+    shard_n_valid,
+    shard_rows,
+    slot_params,
+    validate_plan,
+)
 
 WARMUP_CALLS = 2  # eager runs on the capture stream before the capture
 
@@ -159,6 +174,10 @@ class CompiledRunner:
             e.add_note(f"while capturing the runner of {self.key}")
             raise
 
+    def bind(self, params) -> bool:
+        """Load `params` into the weight slots (`ParamSlots.bind`)."""
+        return self.slots.bind(params)
+
     def _body(self):
         return run_plan_unchecked(self.plan, self.slots.params, self._imgs,
                                   collect_occupancy=True, n_valid=self._nv)
@@ -227,3 +246,61 @@ class CompiledRunner:
             self._graph.reset()
         self._graph = None
         self._out = None
+
+
+class ShardedRunner:
+    """The whole-batch executor of `plan` at `bucket` images over the 1-D
+    "data" mesh `mesh` (module docstring): slot i's `CompiledRunner` runs
+    rows [i*bucket/N, (i+1)*bucket/N) on `mesh.slots[i]` with the params
+    placed there once (`slot_params`). `pools` are the slots' `GraphPool`s
+    (None: private ones). A call returns (logits (bucket, classes) on slot
+    0's device, occupancies (layers,) aggregated over the shards by their
+    real samples)."""
+
+    def __init__(self, plan, params, bucket: int, mesh, pools=None):
+        from repro_torch.serving.plan_cache import plan_key
+
+        self.bucket = int(bucket)
+        self.mesh = mesh
+        self.key = plan_key(self.bucket, plan, mesh)
+        self.rows = shard_rows(mesh, (self.bucket,))
+        slots = mesh.slots
+        pools = pools if pools is not None else [GraphPool() for _ in slots]
+        self.runners = []
+        for i, (dev, pool) in enumerate(zip(slots, pools)):
+            try:
+                self.runners.append(CompiledRunner(plan, slot_params(params, mesh, dev),
+                                                   self.rows, dev, pool=pool))
+            except Exception as e:
+                e.add_note(f"while building slot {i} ({dev}) of the runner of {self.key}")
+                self.release()
+                raise
+
+    def bind(self, params) -> bool:
+        """Load `params` into every slot's weight slots. Returns whether any
+        copied."""
+        copied = [r.bind(slot_params(params, self.mesh, r.device)) for r in self.runners]
+        return any(copied)
+
+    def __call__(self, params, imgs: torch.Tensor, n_valid):
+        """(logits, occupancies) of `imgs` (bucket, C, H, W), the occupancy
+        over the first `n_valid` samples (an int or a 0-dim tensor)."""
+        if imgs.ndim != 4 or int(imgs.shape[0]) != self.bucket:
+            raise ValueError(f"the sharded runner of bucket {self.bucket} takes "
+                             f"{self.bucket} images, got shape {tuple(imgs.shape)}")
+        rows = self.rows
+        logits, occs, weights = [], [], []
+        for i, r in enumerate(self.runners):
+            nv = shard_n_valid(n_valid, i, rows, r.device)
+            out, occ = r(slot_params(params, self.mesh, r.device),
+                         imgs[i * rows:(i + 1) * rows].to(r.device), nv)
+            logits.append(out)
+            occs.append(occ)
+            weights.append(nv)
+        dev0 = logits[0].device
+        return torch.cat([o.to(dev0) for o in logits]), aggregate_occupancy(occs, weights)
+
+    def release(self) -> None:
+        """Free every slot's graph (the plan cache evicted the runner)."""
+        for r in self.runners:
+            r.release()

@@ -2,7 +2,7 @@
 `repro.serving.plan_cache`).
 
 The key is (batch bucket, block_c, per-layer (kind, impl) decisions, graph
-signature, weight signature, tile signature): the measured occupancies only
+signature, weight signature, tile signature, mesh shape): the measured occupancies only
 reach the executed program through which side of `occ_threshold` each layer
 fell, so two re-plans whose occupancies drifted but whose schedules agree
 share one entry. The weight signature lists each weight-sparse (BSR) layer
@@ -12,16 +12,19 @@ get a runner built for their own plan; every dense, ECR or PECR plan keeps
 the key it had before. The tile signature lists each layer whose plan
 carries a searched `TileConfig`, so a plan that differs only in kernel
 geometry gets a runner of its own; a plan at the default geometry keeps the
-key it had before.
+key it had before. The mesh shape is the data mesh's ((axis, size), ...), ()
+for no mesh or one slot: a sharded runner holds one captured runner per
+slot, so one cache holds a schedule's 1..N-slot layouts side by side, and
+every unsharded key is the one it was before.
 
 The reference compiles each key ahead of time with XLA. Here the engine's
 build is a `graph_runner.CompiledRunner`: the plan verified against the
 params once and, on the card, the whole-batch executor captured as one CUDA
 graph. `compiles` counts builds, one per distinct key as in the reference.
-The cache's runners share one `GraphPool` (`graphs`): one CUDA graph memory
+The cache's runners share one `GraphPool` per mesh slot (`pools`; slot 0's,
+which every unsharded runner uses, is `graphs`): one CUDA graph memory
 pool, the weight slots, and the capture and replay counters. Evicting an
-entry releases its graph. The reference's `mesh_shape` is ROADMAP queue 1,
-item 13.
+entry releases its graphs.
 """
 from __future__ import annotations
 
@@ -39,14 +42,18 @@ class PlanKey:
     graph_sig: tuple  # LayerGraph.signature() — the network's structure
     weight_sig: tuple = ()  # (layer index, rounded density) per BSR layer
     tile_sig: tuple = ()  # (layer index, TileConfig.key()) per tiled layer
+    mesh_shape: tuple = ()  # ((axis, size), ...) of the data mesh; () = 1 slot
 
 
-def plan_key(bucket: int, plan) -> PlanKey:
-    """The cache key of executing `plan` at batch size `bucket`. Only
-    weight-sparse layers enter `weight_sig` (density rounded to 2 dp, the
-    granularity pruning achieves), and only layers with a non-default tile
-    enter `tile_sig`."""
+def plan_key(bucket: int, plan, mesh=None) -> PlanKey:
+    """The cache key of executing `plan` at batch size `bucket` on `mesh`
+    (None or a 1-slot mesh key as `()`). Only weight-sparse layers enter
+    `weight_sig` (density rounded to 2 dp, the granularity pruning
+    achieves), and only layers with a non-default tile enter `tile_sig`."""
     from repro_torch.graph.registry import get_op
+
+    mesh_shape = () if mesh is None or mesh.size == 1 else tuple(
+        (str(a), int(s)) for a, s in mesh.shape.items())
 
     weight_sig = tuple((lp.index, round(lp.weight_density, 2)) for lp in plan.layers
                        if get_op(lp.kind, lp.impl).weight_sparse)
@@ -55,7 +62,7 @@ def plan_key(bucket: int, plan) -> PlanKey:
     return PlanKey(bucket=int(bucket), block_c=int(plan.block_c),
                    occ_sig=tuple((lp.kind, lp.impl) for lp in plan.layers),
                    graph_sig=plan.graph.signature(), weight_sig=weight_sig,
-                   tile_sig=tile_sig)
+                   tile_sig=tile_sig, mesh_shape=mesh_shape)
 
 
 class PlanCache:
@@ -64,11 +71,22 @@ class PlanCache:
     def __init__(self, max_entries: int = 32):
         self.max_entries = max_entries
         self._entries: OrderedDict = OrderedDict()  # PlanKey -> (runner, plan)
-        self.graphs = GraphPool()  # what this cache's CompiledRunners share
+        self.pools = [GraphPool()]  # what this cache's runners share, per mesh slot
         self.compiles = 0
         self.hits = 0
         self.misses = 0
         self.evictions = 0
+
+    @property
+    def graphs(self) -> GraphPool:
+        """Slot 0's pool: the one every unsharded runner uses."""
+        return self.pools[0]
+
+    def slot_pools(self, n: int) -> list:
+        """The pools of mesh slots 0..n-1, made on first use."""
+        while len(self.pools) < n:
+            self.pools.append(GraphPool())
+        return self.pools[:n]
 
     def get_or_compile(self, key: PlanKey, plan, build):
         """Return the runner for `key`, building it via `build()` on a miss
@@ -95,7 +113,7 @@ class PlanCache:
             _, (old, _) = self._entries.popitem(last=False)
             release = getattr(old, "release", None)
             if release is not None:
-                release()  # a CompiledRunner frees its graph
+                release()  # a runner frees its graphs
             self.evictions += 1
         return exe
 
