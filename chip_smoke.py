@@ -10,8 +10,10 @@
    per source, in parallel) and times the build; counts HMMA, LDGSTS, LDS
    and FFMA in the SASS (cuobjdump) of each instantiation of the split-TF32
    kernels (the fp32 ECR / PECR kernel, the fp32 BSR kernel, the fp32
-   flash forward, both flash backward passes and the MLA kernel) and of the
-   bf16 flash kernels (with LDSM), and fails unless every one has HMMA and
+   flash forward, both flash backward passes and the MLA kernel), of the
+   MLA backward's dq and dkv kernels (fp32 and bf16 latent, on the TF32
+   tensor cores) and of the bf16 flash kernels (with LDSM, also counted
+   for the rest), and fails unless every one has HMMA and
    LDGSTS,
    every bf16 one LDSM (ldmatrix), and the expected number of
    instantiations exists; prints each one's registers, stack frame and
@@ -337,7 +339,15 @@
    the bound. Reduced deepseek-v2 (2 layers, 4 heads on a 32 + 16 latent),
    drawn on the host: teacher-forced logits on the card against the host,
    within 1e-4*max|host| (fp32 latent) and 2^-7*max|host| (bf16 latent).
-   The phase's seconds and peak memory are printed.
+   The train part: one full-width MLA sublayer (B 2, S 128) forward and
+   backward through MLAAttentionFn at fp32 and bf16 (each entry launched
+   once), both backward passes against the plain version on the captured
+   operands (each repeated bitwise) and timed by CUDA-graph replay beside
+   it, SDPA's memory-efficient backward and the bound, both passes also as
+   the one call autograd makes; the same at B 1 x S 1024 on operands drawn
+   on the card (times printed, not gated); the fp32 sublayer's gradients
+   card vs host; reduced deepseek-v2's fp32 and 3 bf16 train steps against
+   the host. The phase's seconds and peak memory are printed.
 10d. The recurrent phase, after the MLA phase has released deepseek-v2's
    weights. jamba-v0.1-52b (d_model 4096, Mamba d_inner 8192 and state N
    16; attention with 32 query / 8 KV heads, head dim 128, G 4; 16 experts
@@ -567,6 +577,9 @@ BF16_KERNELS = {"flash_fwd_bf16_kernel": 6, "flash_bwd_dq_bf16_kernel": 7,
 # the bf16 backward passes' block tiles (rows a dq block owns, keys a dk/dv
 # block owns), both timed at head dim 128
 BF16_BWD_TILES = (32, 64)
+# the MLA backward passes on the TF32 tensor cores: fp32 and bf16 latent x
+# (r, dr) 512/64 and 32/16 each
+MLA_BWD_KERNELS = {"mla_bwd_dq_kernel": 4, "mla_bwd_dkv_kernel": 4}
 
 
 def fail(msg: str) -> int:
@@ -4224,6 +4237,8 @@ def mla_reduced(dev, failures) -> dict:
 
 # training at full width: one MLA sublayer (layer 0's weights) at B 2, S 128
 MLA_TRAIN = dict(batch=2, seq_len=128, seed=0)
+# the MLA backward's longer timed shape: full width, 131,072 rows
+MLA_LONG = dict(batch=1, seq_len=1024, seed=1)
 # what a sublayer's gradients are held to, card against host, at fp32:
 # the linear loss sum(out * g), the gradients' global norm, every leaf
 SUBLAYER_LIMITS = (1e-4, 1e-3, 1e-3)
@@ -4330,6 +4345,7 @@ def check_mla_bwd(book, label, ops, kw, *, timed) -> list:
            ("dq", "dkv")}
     fns.update({f"{part}_plain": (lambda part=part: flash_bwd_mla_plain(*ops, part=part, **kw))
                 for part in ("dq", "dkv")})
+    fns["pair"] = lambda: flash_bwd_mla(*ops, **kw)  # both passes in one call, as autograd
     got = {part: fns[part]() for part in ("dq", "dkv")}
     again = {part: fns[part]() for part in ("dq", "dkv")}
     torch.cuda.synchronize()
@@ -4367,14 +4383,69 @@ def check_mla_bwd(book, label, ops, kw, *, timed) -> list:
                "SDPA memory-efficient backward, all three gradients, q and the keys "
                "expanded to the H heads", "flop_ms": ft, "byte_ms": bt,
                "bound_ms": max(ft, bt), "bound_by": "operations" if ft >= bt else "bytes",
-               "fp32_core_bound_ms": max(fc, bt), "phase": MLA_ARCH + "-train"}
+               "fp32_core_bound_ms": max(fc, bt), "pair_ms": t["pair"],
+               "phase": MLA_ARCH + "-train"}
         book.rows.append(row)
         rows.append(row)
         lib_s = f"{t['library']:.4f}" if lib is not None else f"None ({why})"
         print(f"    {name} {label}: ms={t[part]:.4f} plain_ms={t[part + '_plain']:.4f} "
-              f"library_ms={lib_s} bound_ms={max(ft, bt):.4f} ({row['bound_by']}; CUDA cores "
-              f"{max(fc, bt):.4f}) [CUDA-graph replay]")
+              f"library_ms={lib_s} bound_ms={max(ft, bt):.4f} ({row['bound_by']}; "
+              f"{max(ft, bt) / t[part]:.1%} of it reached; CUDA cores {max(fc, bt):.4f}) "
+              f"[CUDA-graph replay]")
+    vs = (f"{t['library']:.4f} ({t['pair'] / t['library']:.2f}x)" if lib is not None
+          else f"None ({why})")
+    print(f"    flash_bwd_mla{sfx} {label}: dq + dkv in one call (as autograd makes it) "
+          f"{t['pair']:.4f} ms (the passes apart {t['dq'] + t['dkv']:.4f}) against SDPA's "
+          f"backward {vs}; each pass against its plain version: dq "
+          f"{t['dq'] / t['dq_plain']:.2f}x, dkv {t['dkv'] / t['dkv_plain']:.2f}x")
     return rows
+
+
+def mla_drawn_operands(dev, dtype, batch, seq_len, seed) -> tuple:
+    """(args, kw) of an MLA backward at full width, `batch` x `seq_len`, 128
+    heads, causal: q, c_kv, k_rope and do drawn unit-normal on the card in
+    `dtype`, and m, l and delta from the kernel forward."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention.kernel import flash_fwd_mla, mla_delta
+
+    cfg = get_config(MLA_ARCH)
+    h, r, dr = cfg.n_heads, cfg.kv_lora_rank, cfg.rope_head_dim
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ops = [torch.randn(shape, device=dev, generator=gen).to(dtype)
+           for shape in ((batch, seq_len, h, r + dr), (batch, seq_len, r),
+                         (batch, seq_len, dr), (batch, seq_len, h, r))]
+    kw = dict(scale=(cfg.nope_head_dim + dr) ** -0.5, causal=True, q_offset=0, kv_len=None)
+    with torch.no_grad():
+        o, m, l = flash_fwd_mla(*ops[:3], **kw)
+        return (*ops, m, l, mla_delta(ops[3], o)), kw
+
+
+def mla_long_backward(book, dev, failures) -> dict:
+    """Both MLA backward passes at a longer shape than the sublayer's
+    (`MLA_LONG`: full width, B 1 x S 1024, 131,072 rows, 67 M visible
+    pairs), fp32 and bf16, on `mla_drawn_operands`: checked against the
+    plain version and timed beside it, SDPA's backward and the bound
+    (`check_mla_bwd`); the times gate nothing."""
+    import torch
+
+    b, s = MLA_LONG["batch"], MLA_LONG["seq_len"]
+    out = {}
+    for dtype, sfx in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        try:
+            args, kw = mla_drawn_operands(dev, dtype, b, s, MLA_LONG["seed"])
+            print(f"{MLA_ARCH} MLA backward at B {b} x S {s}, 128 heads, causal, {sfx}:")
+            rows = check_mla_bwd(book, f"S {s}", args, kw, timed=True)
+            out[sfx] = [{k: x[k] for k in ("kernel", "ms", "plain_ms", "library_ms",
+                                          "bound_ms")} for x in rows]
+            del args
+        except Exception:
+            traceback.print_exc()
+            failures.append(f"{MLA_ARCH} MLA backward at S {s}, {sfx}, failed")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 def sublayer_vs_host(name, fn, params, inputs, g, dev, failures) -> dict:
@@ -4493,6 +4564,7 @@ def mla_train(book, dev, failures) -> dict:
     MLA, whose latents are always normed, so the registered config is held
     at all three limits)."""
     return {"sublayer": mla_sublayer(book, dev, failures),
+            "long": mla_long_backward(book, dev, failures),
             "fp32_step": fp32_train_step(MLA_ARCH, dev, failures),
             "reduced": dense_train(dev, failures, archs=(MLA_ARCH,), variants=("registered",),
                                    held={"registered": ("grad_norm", "leaves")}, trace=True)}
@@ -6568,13 +6640,14 @@ def main() -> int:
 
     book = KernelBook()
     failures = []
-    # the fp32 tensor-core bodies (ECR / PECR, BSR, the fp32 flash forward)
-    # run on the TF32 tensor cores (HMMA), staged by cp.async (LDGSTS); the
+    # the fp32 tensor-core bodies (ECR / PECR, BSR, the fp32 flash forward,
+    # the MLA kernel and its backward passes) run on the TF32 tensor cores
+    # (HMMA), staged by cp.async (LDGSTS); the
     # conv body has no CUDA-core fp32 multiply-add (FFMA) left; the bf16
     # flash kernels run on the bf16 tensor cores (HMMA), staged by cp.async
     all_sass = sass_counts(lib_path)
     usage = ptxas_usage(build_out.getvalue())  # empty if the library was built before
-    for stem, want in {**SPLIT_TF32_KERNELS, **BF16_KERNELS}.items():
+    for stem, want in {**SPLIT_TF32_KERNELS, **BF16_KERNELS, **MLA_BWD_KERNELS}.items():
         sass = {k: v for k, v in all_sass.items() if stem in k}
         for fn, ops in sorted(sass.items()):
             res = usage.get(fn)
@@ -7110,7 +7183,8 @@ def main() -> int:
                     + sum(r.get("entries", {}).get(entry, 0)
                           for k, r in train.get("reduced", {}).items()
                           if not k.endswith(" step")))
-        rows = [r for r in book.rows if r["kernel"] == name and r["shape"] == "sublayer"]
+        shapes = [r for r in book.rows if r["kernel"] == name]
+        rows = [r for r in shapes if r["shape"] == "sublayer"]
         kernels.append({
             "name": name, "route": "cuda", "source": csrc + src, "replaces": replaces,
             **({"reference_call": ref} if ref else {}),
@@ -7128,7 +7202,7 @@ def main() -> int:
                if rows and "fp32_core_bound_ms" in rows[0] else {}),
             "phase": (MLA_ARCH if lm is mla_lm else SSM_ARCH) + "-train",
             "shapes": [{k: r[k] for k in ("shape", "ms", "plain_ms", "library_ms", "bound_ms",
-                                          "bound_by") if k in r} for r in rows]})
+                                          "bound_by") if k in r} for r in shapes]})
         if len(rows) != 1:
             failures.append(f"{name}: the full-width sublayer was not timed")
         if not launched:

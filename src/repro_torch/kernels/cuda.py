@@ -17,7 +17,7 @@ bf16 tensor cores), `launch_flash_bwd` (its two backward passes, fp32 on
 the split-TF32 tensor cores, bf16 on the bf16 ones), `launch_flash_mla`
 (the MLA attention forward over one latent kv head, fp32 q over an fp32 or
 a bf16 latent, on the TF32 tensor cores), `launch_flash_mla_bwd` (its dq
-and dkv backward passes, fp32 on the CUDA cores), `launch_selective_scan`
+and dkv backward passes, on the TF32 tensor cores), `launch_selective_scan`
 (the Mamba selective scan, fp32 or bf16 activations, one thread per
 channel) and `launch_selective_scan_bwd` (its backward) are the launch
 sites: they check device, dtype, layout and shapes, allocate the outputs
@@ -731,15 +731,24 @@ def _check_mla_kernel(q, c_kv, k_rope) -> tuple:
     return b, sq, h, sk, r, dr
 
 
-MLA_BWD_BLOCKS = 264  # the dkv pass splits its rows until about this many blocks run
+# the dkv pass's geometry (kKvKeys, kKvRows in csrc/flash_mla_bwd.cu): a
+# block owns 32 keys and walks its row chunk in tiles of 16 rows
+MLA_DKV_KEYS = 32
+MLA_DKV_ROWS = 16
+# the dkv pass splits its rows until about this many blocks exist (one runs
+# on an SM at a time; blocks whose rows cannot touch their keys exit at once)
+MLA_BWD_BLOCKS = 1056
 
 
 def mla_dkv_chunks(b: int, rows: int, sk: int) -> int:
     """How many chunks the dkv pass splits each batch element's Sq * H rows
-    into: enough for about MLA_BWD_BLOCKS blocks (16 keys by one chunk
-    each), at most one per 16-row tile, and no chunk left empty."""
-    tiles = -(-rows // 16)
-    nc = max(1, min(tiles, -(-MLA_BWD_BLOCKS // (b * -(-sk // 16)))))
+    into: enough for about MLA_BWD_BLOCKS blocks (MLA_DKV_KEYS keys by one
+    chunk each), at most one per MLA_DKV_ROWS-row tile, and no chunk left
+    empty (chunk c takes tiles [c * per, (c + 1) * per), per = ceil(tiles /
+    nc), as the kernel does)."""
+    tiles = -(-rows // MLA_DKV_ROWS)
+    key_blocks = -(-sk // MLA_DKV_KEYS)
+    nc = max(1, min(tiles, -(-MLA_BWD_BLOCKS // (b * key_blocks))))
     per = -(-tiles // nc)
     return -(-tiles // per)
 

@@ -177,10 +177,11 @@ def _mla_prescaled(q, scale):
     """q * scale as the reference's jnp `flash_attention` forms it
     (`q = q * scale`, repro/models/attention.py:61), widened: for a bf16 q
     the product with bf16(scale) rounded to bf16 (a weakly typed scalar
-    takes the array's type, and so does the product), else the product in
-    q's (wide) type."""
+    takes the array's type, and so does the product: PyTorch multiplies a
+    bf16 tensor by a Python float in fp32, where this product is exact, and
+    rounds it once), else the product in q's (wide) type."""
     if q.dtype == torch.bfloat16:
-        return (q.float() * _bf16_scale(scale)).to(torch.bfloat16).float()
+        return (q * _bf16_scale(scale)).float()
     return _wide(q) * scale
 
 

@@ -151,7 +151,11 @@ def test_mla_kernel_repeats_bitwise(dev, latent):
 # full-width training's sublayer cut in rows (causal, 128 heads), a causal
 # window at an offset past a tile edge with kv_len, rows that see no key, a
 # non-causal kv_len mask at a ragged Sk, a head count whose rows do not fill
-# a tile, and kv_len 0
+# a tile, and kv_len 0; then the tiles of the tensor-core passes (a dq block
+# owns 32 rows and walks 16-key tiles, a dkv block owns 32 keys and walks
+# 16-row tiles): 24 heads, whose rows fill neither, over Sk 33, one key past
+# a dkv block; Sk 33 at a causal offset with kv_len, so that the last key
+# takes a block of its own; and a long sum, 32,768 rows into key 0's dc_kv
 MLA_BWD_CASES = [
     (2, 16, 16, 128, True, 0, None),
     (1, 5, 40, 128, True, 30, 35),
@@ -159,6 +163,9 @@ MLA_BWD_CASES = [
     (1, 5, 70, 16, False, 0, 67),
     (2, 7, 40, 3, True, 33, 40),
     (1, 2, 8, 4, True, 0, 0),
+    (2, 7, 33, 24, True, 0, None),
+    (1, 6, 33, 128, True, 27, 33),
+    (1, 256, 256, 128, True, 0, None),
 ]
 
 
@@ -207,6 +214,34 @@ def test_mla_backward_kernels_match_plain(dev, case, dtype, dims):
     seen = m[m > -1e29]
     widen = 8 * 2.0 ** -24 * (float(seen.abs().max()) if seen.numel() else 0.0)
     _check_grads(got, flash_bwd_mla_plain(*ops, **kw), bf16, widen)
+
+
+@pytest.mark.parametrize("dims", [(512, 64), (32, 16)], ids=["full", "reduced"])
+@pytest.mark.parametrize("case", MLA_BWD_CASES[:2] + MLA_BWD_CASES[6:8],
+                         ids=lambda c: "-".join(map(str, c)))
+def test_mla_backward_bf16_entries_take_an_fp32_q(dev, case, dims):
+    """An fp32 q over a bf16 latent and do: the bf16 entry points with a q
+    that is not exact in TF32 (so its lo part takes part in every product
+    with q), against `flash_bwd_mla_plain` within 2^-7 * max|plain|; dq comes
+    in the latent's type (`launch_flash_mla_bwd`), so the plain dq is
+    rounded to bf16 before the comparison."""
+    b, sq, sk, h, causal, q_offset, kv_len = case
+    r, dr = dims
+    _, c, k, do = _bwd_operands(dev, b, sq, sk, r, dr, h, torch.bfloat16, seed=sq + sk + h)
+    rng = np.random.default_rng(sq + sk + h + 1)
+    q = torch.from_numpy(rng.standard_normal((b, sq, h, r + dr)).astype(np.float32)).to(dev)
+    assert bool(((q.view(torch.int32) & 0x1fff) != 0).any())
+    kw = dict(scale=(128 + dr) ** -0.5, causal=causal, q_offset=q_offset, kv_len=kv_len)
+    with torch.no_grad():
+        out, m, l = flash_fwd_mla(q, c, k, **kw)
+        ops = (q, c, k, do, m, l, mla_delta(do, out))
+        before = dict(MLA_ENTRY_LAUNCHES)
+        got = flash_bwd_mla(*ops, **kw)
+        torch.cuda.synchronize()
+    assert {e: n - before[e] for e, n in MLA_ENTRY_LAUNCHES.items() if n != before[e]} == {
+        "repro_flash_bwd_mla_dq_bf16": 1, "repro_flash_bwd_mla_dkv_bf16": 1}
+    dq, dc, dkr = flash_bwd_mla_plain(*ops, **kw)
+    _check_grads(got, (dq.to(torch.bfloat16), dc, dkr), True)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
