@@ -14,8 +14,10 @@
    MLA backward's dq and dkv kernels (fp32 and bf16 latent, on the TF32
    tensor cores) and of the bf16 flash kernels (with LDSM, also counted
    for the rest), and fails unless every one has HMMA and
-   LDGSTS,
-   every bf16 one LDSM (ldmatrix), and the expected number of
+   LDGSTS (the MLA forward's key-split combine, which has neither, is
+   only counted),
+   every bf16 one (and the MLA forward over a bf16 latent) LDSM
+   (ldmatrix), and the expected number of
    instantiations exists; prints each one's registers, stack frame and
    spill bytes (nvcc -Xptxas -v, from the build's output).
 3. Serves the published VGG-19 (3x224x224, 1000 classes, random weights from
@@ -336,7 +338,11 @@
    max|plain|), m and l 1e-5*max|plain|; bf16 latent: out 2^-7*max|plain|,
    m and l 1e-5*max|plain|), layer 0 timed by CUDA-graph replay beside its
    plain version, SDPA on the same function (the backend it ran named) and
-   the bound. Reduced deepseek-v2 (2 layers, 4 heads on a 32 + 16 latent),
+   the bound; the served run's launches are also counted by shape (2 at
+   prefill, 62 at decode). Off the served path, a decode over 4,096 keys
+   at B 4 (`MLA_LONG_DECODE`, operands drawn on the card, the key-split
+   path of the kernel and its combine) is held and timed the same way, for
+   both latents. Reduced deepseek-v2 (2 layers, 4 heads on a 32 + 16 latent),
    drawn on the host: teacher-forced logits on the card against the host,
    within 1e-4*max|host| (fp32 latent) and 2^-7*max|host| (bf16 latent).
    The train part: one full-width MLA sublayer (B 2, S 128) forward and
@@ -521,7 +527,9 @@
    17 (its rows were always timed by graph replay; flash_fwd_q8 runs on
    its body). The MLA rows (flash_fwd_mla_f32, flash_fwd_mla_bf16kv) sum
    one prefill and one decode launch at layer 0 of the served deepseek-v2
-   by graph replay, launches count its served run over their cache type,
+   by graph replay, launches count its served run over their cache type
+   ("launches_by_shape" splits them into prefill and decode), "shapes" also
+   hold the 4,096-key decode,
    "replaces" names flash_fwd_pallas's function (no pallas_call site sits
    on the reference's MLA path, which runs the jnp flash_attention named
    in "reference_call"), and the bound is max(2*B*H*(visible pairs)*(r +
@@ -565,10 +573,14 @@ PRUNE_DENSITY = 0.3
 # pool), BSR (16- or 4-byte copies x 8, 4 or 2 row-blocks per block), the
 # fp32 flash forward (7 head dims: 8 ... 256 and stablelm-12b's 160), both
 # backward passes (6 head dims each) and the MLA kernel (fp32 and bf16
-# latent x (r, dr) 512/64 and 32/16; TF32 products)
+# latent x (r, dr, column slices) 512/64/1, 512/64/4 and 32/16/1; TF32
+# products, P.V over a bf16 latent on the bf16 ones, so its SASS shows LDSM)
+# with its key-split combine (fp32 and bf16 x r 512 and 32: no MMA, no
+# cp.async: the SASS check counts its instantiations only)
 SPLIT_TF32_KERNELS = {"ecr_conv_kernel": 8, "bsr_matmul_kernel": 6, "flash_fwd_kernel": 7,
                       "flash_bwd_dq_kernel": 6, "flash_bwd_dkv_kernel": 6,
-                      "flash_mla_kernel": 4}
+                      "flash_mla_kernel": 6, "flash_mla_combine_kernel": 4}
+NO_MMA_KERNELS = ("flash_mla_combine_kernel",)
 # the bf16 tensor-core kernels (the training step at bf16): 6 head dims each,
 # and the backward passes' other block tile at head dim 128; the SASS of
 # each must show ldmatrix (LDSM) beside HMMA and LDGSTS
@@ -1390,6 +1402,7 @@ def ptxas_usage(text: str) -> dict:
 def kernel_category(name: str) -> str:
     """Coarse class of a CUDA kernel by its symbol name."""
     for stem, cat in (("flash_mla_kernel", "flash MLA kernel"),
+                      ("flash_mla_combine_kernel", "flash MLA kernel"),
                       ("mla_bwd_dq_kernel", "flash MLA bwd dq kernel"),
                       ("mla_bwd_dkv", "flash MLA bwd dkv kernel"),
                       ("selective_scan_kernel", "selective scan kernel"),
@@ -3937,10 +3950,11 @@ MLA_TOL = ("fp32 latent: out 1e-4*max|plain| + 1e-5*min(1, max|plain|), m 1e-5*m
 class capture_mla:
     """Within the block, record the (q, c_kv, k_rope, kwargs) of the MLA
     kernel calls whose running index is in `keep` (cloned: the cache is
-    written in place), then run the call as usual."""
+    written in place), then run the call as usual; `n` counts the calls and
+    `prefill` those with more than one query position."""
 
     def __init__(self, keep):
-        self.keep, self.calls, self.n = set(keep), {}, 0
+        self.keep, self.calls, self.n, self.prefill = set(keep), {}, 0, 0
 
     def __enter__(self):
         import repro_torch.models.attention as A
@@ -3951,6 +3965,7 @@ class capture_mla:
             if self.n in self.keep:
                 self.calls[self.n] = (tuple(a.clone() for a in args), dict(kw))
             self.n += 1
+            self.prefill += args[0].shape[1] > 1
             return self.orig(*args, **kw)
 
         A.flash_fwd_mla = rec
@@ -4058,6 +4073,53 @@ def check_mla(book, label, args, kw, *, timed) -> dict | None:
     return row
 
 
+# a decode over 4,096 keys at full width, off the served path: B 4 x 128
+# heads over a 4,096-key latent (the key-split path of the MLA kernel and
+# its combine), fp32 and bf16 latent, operands drawn on the card
+MLA_LONG_DECODE = dict(batch=4, kv_len=4096, seed=2)
+
+
+def mla_long_decode(book, dev, failures) -> dict:
+    """The MLA kernel at `MLA_LONG_DECODE` (q at position kv_len - 1, causal,
+    kv_len keys), both latents: held against its plain version at MLA_TOL's
+    limits, repeated bitwise, and timed beside it, SDPA and the bound
+    (`check_mla`, label "decode 4096"); the times gate nothing."""
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention.kernel import flash_fwd_mla
+
+    cfg = get_config(MLA_ARCH)
+    b, n = MLA_LONG_DECODE["batch"], MLA_LONG_DECODE["kv_len"]
+    r, dr, h = cfg.kv_lora_rank, cfg.rope_head_dim, cfg.n_heads
+    out = {}
+    for dtype, sfx in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        try:
+            gen = torch.Generator(device=dev).manual_seed(MLA_LONG_DECODE["seed"])
+            args = (torch.randn((b, 1, h, r + dr), generator=gen, device=dev),
+                    torch.randn((b, n, r), generator=gen, device=dev).to(dtype),
+                    torch.randn((b, n, dr), generator=gen, device=dev).to(dtype))
+            kw = dict(scale=(cfg.nope_head_dim + dr) ** -0.5, causal=True, q_offset=n - 1,
+                      kv_len=n)
+            print(f"{MLA_ARCH} MLA forward, a decode over {n} keys at B {b}, {h} heads, {sfx}:")
+            first, second = flash_fwd_mla(*args, **kw), flash_fwd_mla(*args, **kw)
+            torch.cuda.synchronize()
+            same = all(torch.equal(x, y) for x, y in zip(first, second))
+            print(f"  repeats bitwise: {same}")
+            if not same:
+                failures.append(f"{MLA_ARCH} MLA decode over {n} keys, {sfx}: repeats differ")
+            row = check_mla(book, f"decode {n}", args, kw, timed=True)
+            out[sfx] = {k: row[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                            "bound_by")}
+            del args, first, second
+        except Exception:
+            traceback.print_exc()
+            failures.append(f"{MLA_ARCH} MLA decode over {n} keys, {sfx}, failed")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def mla_counts() -> dict:
     """The MLA and GQA flash launches since `mla_reset`, per entry point."""
     from repro_torch.kernels import cuda as kcuda
@@ -4120,14 +4182,16 @@ def mla_serve(book, dev, failures) -> dict:
     for kvd, want in (("float32", MLA_ENTRIES[0]), ("int8", MLA_ENTRIES[1])):
         serve(cfg, device=dev, kv_cache_dtype=kvd, params=params, **dict(LM_SERVE, gen_len=2))
         mla_reset()
-        res = serve(cfg, device=dev, kv_cache_dtype=kvd, params=params, **LM_SERVE)
+        with capture_mla(()) as shapes:
+            res = serve(cfg, device=dev, kv_cache_dtype=kvd, params=params, **LM_SERVE)
         launches = mla_counts()
         wrapper = flash_fwd_mla.launches
+        by_shape = {"prefill": shapes.prefill, "decode": shapes.n - shapes.prefill}
         print(f"{MLA_ARCH} served ({cache_kind(cfg, kvd)} cache, {kvd} requested): batch "
               f"{LM_SERVE['batch']}, prompt {LM_SERVE['prompt_len']}, {LM_SERVE['gen_len']} "
               f"tokens: prefill {res.prefill_ms:.2f} ms, decode {res.decode_ms:.3f} ms/step, "
               f"{res.tok_s:.1f} tok/s; launches {launches} (wrapper {wrapper}; expected "
-              f"{expect} of {want}, none of the others)")
+              f"{expect} of {want}, none of the others; by shape {by_shape})")
         if launches[want] != expect or wrapper != expect or sum(launches.values()) != expect:
             failures.append(f"{MLA_ARCH} {kvd}: launches {launches} (wrapper {wrapper}), "
                             f"expected {expect} of {want} and none of the others")
@@ -4150,7 +4214,7 @@ def mla_serve(book, dev, failures) -> dict:
                             f"argmax, or its logits are not finite")
         out["runs"][kvd] = {"prefill_ms": res.prefill_ms, "decode_ms": res.decode_ms,
                             "tok_s": res.tok_s, "launches": launches, "greedy": same,
-                            "cache": cache_kind(cfg, kvd)}
+                            "launches_by_shape": by_shape, "cache": cache_kind(cfg, kvd)}
         cache = M.init_cache(cfg, LM_SERVE["batch"], max_len,
                              torch.int8 if kvd == "int8" else torch.float32, device=dev)
         nxt = res.tokens[:, :1]
@@ -4580,6 +4644,7 @@ def mla_phase(book, dev, failures) -> dict:
     out = {"memory_reserved_before_gib": torch.cuda.memory_reserved() / 2**30}
     print(f"MLA phase: memory_reserved before it {out['memory_reserved_before_gib']:.2f} GiB")
     for key, fn in (("serve", lambda: mla_serve(book, dev, failures)),
+                    ("long_decode", lambda: mla_long_decode(book, dev, failures)),
                     ("reduced", lambda: mla_reduced(dev, failures)),
                     ("train", lambda: mla_train(book, dev, failures))):
         try:
@@ -6658,9 +6723,12 @@ def main() -> int:
             print(f"sass {fn[:100]}: " + ", ".join(f"{op} {ops.get(op, 0)}" for op in
                                                   ("HMMA", "LDGSTS", "LDSM", "LDS", "FFMA"))
                   + f"; {regs}")
+            if stem in NO_MMA_KERNELS:
+                continue
             if not ops.get("HMMA") or not ops.get("LDGSTS"):
                 failures.append(f"{fn}: no HMMA or no LDGSTS in its SASS")
-            if stem in BF16_KERNELS and not ops.get("LDSM"):
+            bf16_mla = stem == "flash_mla_kernel" and "kernelIt" in fn
+            if (stem in BF16_KERNELS or bf16_mla) and not ops.get("LDSM"):
                 failures.append(f"{fn}: no LDSM (ldmatrix) in its SASS")
         if len(sass) != want:
             failures.append(f"expected {want} {stem} instantiations, found {len(sass)}")
@@ -7116,6 +7184,7 @@ def main() -> int:
             "replaces": flash_src + ":94", "reference_call": "src/repro/models/attention.py:336",
             "timing": "CUDA-graph replay (plain_ms too)",
             "launches": serve_runs.get(kvd, {}).get("launches", {}).get(entry, 0),
+            "launches_by_shape": serve_runs.get(kvd, {}).get("launches_by_shape", {}),
             "max_abs_err": book.max_err.get(name, 0.0),
             "ms": sum(r["ms"] for r in main_rows),
             "plain_ms": sum(r["plain_ms"] for r in main_rows),

@@ -16,7 +16,8 @@ cores, int8 K/V dequantized as it is staged into the same body, bf16 on the
 bf16 tensor cores), `launch_flash_bwd` (its two backward passes, fp32 on
 the split-TF32 tensor cores, bf16 on the bf16 ones), `launch_flash_mla`
 (the MLA attention forward over one latent kv head, fp32 q over an fp32 or
-a bf16 latent, on the TF32 tensor cores), `launch_flash_mla_bwd` (its dq
+a bf16 latent, on the TF32 tensor cores; P.V over a bf16 latent on the
+bf16 ones), `launch_flash_mla_bwd` (its dq
 and dkv backward passes, on the TF32 tensor cores), `launch_selective_scan`
 (the Mamba selective scan, fp32 or bf16 activations, one thread per
 channel) and `launch_selective_scan_bwd` (its backward) are the launch
@@ -217,7 +218,7 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             for name in MLA_FWD_ENTRIES:
                 fn = getattr(lib, name)
-                fn.argtypes = [ctypes.c_void_p] * 6 + [dims, strides, ctypes.c_float,
+                fn.argtypes = [ctypes.c_void_p] * 7 + [dims, strides, ctypes.c_float,
                                                        ctypes.c_void_p]
                 fn.restype = ctypes.c_int
             for name in MLA_BWD_ENTRIES:
@@ -672,12 +673,72 @@ def check_mla_operands(q, c_kv, k_rope) -> tuple:
     return b, sq, h, sk, r, dr
 
 
+# the MLA forward's geometry (kRows, kKeys, kSlots in csrc/flash_mla.cu): a
+# row tile is 16 (position, head) rows, a key tile 16 keys, and a block's
+# ring holds 48 keys (64 over a bf16 latent), which stay there across its
+# row tiles
+MLA_FWD_ROWS = 16
+MLA_FWD_KEYS = 16
+MLA_FWD_RESIDENT = 48
+# blocks that run at once: one 8-warp block an SM on the H100's 132
+MLA_FWD_SLOTS = 132
+# the column slices the kernel is instantiated at (full width only), taken
+# over at most this many keys
+MLA_FWD_COLUMN_SLICES = 4
+MLA_FWD_SLICE_KEYS = 64
+
+
+def mla_visit_end(sq: int, sk: int, causal: bool, q_offset: int, kv_len,
+                  s_first: int = 0, s_last=None) -> int:
+    """The end of the keys the MLA forward visits for the rows at positions
+    [s_first, s_last] (default: all Sq): the last key one of them sees + 1
+    (kv_len, the causal diagonal), taken only when every one sees key 0,
+    else Sk (a row that sees no key averages all Sk). `visit_end` in
+    csrc/flash_mla.cu."""
+    s_last = sq - 1 if s_last is None else s_last
+    kv_lim = sk if kv_len is None else min(max(0, int(kv_len)), sk)
+    kend = sk
+    if kv_lim > 0 and (not causal or q_offset + s_first >= 0):
+        kend = kv_lim
+        if causal:
+            kend = min(kend, q_offset + s_last + 1)
+    return kend
+
+
+def mla_fwd_split(b: int, rows: int, sk: int, r: int = 512) -> tuple:
+    """How the MLA forward spreads its work -> (row tiles a block, column
+    slices, key chunks), from the batch, the Sq * H rows of each element and
+    the keys they visit (`mla_visit_end`), for latent width r. With as many
+    row tiles as SMs or more: one slice, one chunk, and enough row tiles a
+    block (at most 8, strided: block j takes row tiles j, j + n, ... of n
+    blocks, so a causal prefill's blocks each see short and long rows) for
+    about MLA_FWD_SLOTS blocks when the keys fit the ring (each key is then
+    staged once a block, and a row tile's q loads while the one before
+    computes), else one (blocks balance by the scheduler). With fewer: at r = 512 over at most MLA_FWD_SLICE_KEYS
+    keys, the columns in MLA_FWD_COLUMN_SLICES slices (each recomputes S,
+    which is cheap there); over more keys, the key tiles in about
+    MLA_FWD_SLOTS / (row tiles) chunks, combined by a second kernel in
+    chunk order."""
+    tiles = -(-rows // MLA_FWD_ROWS)
+    total = b * tiles
+    key_tiles = -(-sk // MLA_FWD_KEYS)
+    if total >= MLA_FWD_SLOTS:
+        nrt = min(8, -(-total // MLA_FWD_SLOTS)) if sk <= MLA_FWD_RESIDENT else 1
+        return nrt, 1, 1
+    if sk <= MLA_FWD_SLICE_KEYS:
+        return 1, (MLA_FWD_COLUMN_SLICES if r == 512 else 1), 1
+    return 1, 1, max(1, min(key_tiles, MLA_FWD_SLOTS // total))
+
+
 def launch_flash_mla(q, c_kv, k_rope, *, scale: float, causal: bool, q_offset: int = 0,
                      kv_len=None):
     """Launch the MLA attention forward on CUDA tensors (`check_mla_operands`'
     shapes and types): out (B, Sq, H, r) in c_kv's type, m and l (B, Sq * H)
     fp32, row s * H + h. c_kv and k_rope may be strided views (a layer of
-    the stacked cache) as long as their last dim is contiguous. Raises for
+    the stacked cache) as long as their last dim is contiguous. The work is
+    spread as `mla_fwd_split` says; a key split allocates its workspace
+    here and launches the combine kernel from the same entry point (one
+    count in MLA_ENTRY_LAUNCHES either way). Raises for
     (r, dr) not in MLA_DIMS, more than MLA_MAX_HEADS heads, a tensor that
     needs grad, or operands off one CUDA device."""
     b, sq, h, sk, r, dr = _check_mla_kernel(q, c_kv, k_rope)
@@ -697,7 +758,12 @@ def launch_flash_mla(q, c_kv, k_rope, *, scale: float, causal: bool, q_offset: i
     m = torch.empty((b, sq * h), device=dev, dtype=torch.float32)
     l = torch.empty((b, sq * h), device=dev, dtype=torch.float32)
     kvl = -1 if kv_len is None else max(0, int(kv_len))
-    dims = (ctypes.c_int * 9)(b, h, sq, sk, r, dr, int(bool(causal)), int(q_offset), kvl)
+    nrt, ncs, nks = mla_fwd_split(b, sq * h, mla_visit_end(sq, sk, causal, q_offset, kv_len), r)
+    # the key chunks' parts (acc, then m, then l) when the keys are split
+    ws = (torch.empty(nks * b * sq * h * (r + 2), device=dev, dtype=torch.float32)
+          if nks > 1 else None)
+    dims = (ctypes.c_int * 12)(b, h, sq, sk, r, dr, int(bool(causal)), int(q_offset), kvl,
+                               nrt, ncs, nks)
     strides = (ctypes.c_longlong * 10)(
         q.stride(0), q.stride(1), q.stride(2), c_kv.stride(0), c_kv.stride(1),
         k_rope.stride(0), k_rope.stride(1), out.stride(0), out.stride(1), out.stride(2))
@@ -705,7 +771,8 @@ def launch_flash_mla(q, c_kv, k_rope, *, scale: float, causal: bool, q_offset: i
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = getattr(lib, entry)(q.data_ptr(), c_kv.data_ptr(), k_rope.data_ptr(),
-                                  out.data_ptr(), m.data_ptr(), l.data_ptr(), dims, strides,
+                                  out.data_ptr(), m.data_ptr(), l.data_ptr(),
+                                  None if ws is None else ws.data_ptr(), dims, strides,
                                   float(scale), stream)
     if err != 0:
         raise RuntimeError(f"CUDA MLA kernel launch failed ({entry}): cudaError {err} "

@@ -77,7 +77,12 @@ def _check(got, want, bf16):
 # over a cache tail at kv_len 1, 33 and 64 (one and two key tiles), a ragged
 # key count past two tiles, rows that see no key (negative offset: the mean
 # of the values), an empty cache, a head count whose rows do not fill a
-# 16-row tile, and the latents read in place from a stacked cache
+# 16-row tile, and the latents read in place from a stacked cache; then the
+# key splits (`mla_fwd_split`: few row tiles over many keys): a decode over
+# 4,096 keys read in place from a stacked cache, a decode whose kv_len ends
+# inside a key chunk (16 chunks of 3 key tiles, the last one empty), and
+# rows that see no key under a split (the mean over all 600 keys); and the
+# served prefill's own shape (4 row tiles a block, keys staged once)
 MLA_CASES = [
     (2, 8, 16, 128, True, 0, 8, False),
     (3, 1, 64, 128, True, 0, 1, True),
@@ -87,6 +92,10 @@ MLA_CASES = [
     (2, 6, 16, 4, True, -3, None, False),
     (1, 2, 8, 128, True, 0, 0, False),
     (2, 7, 40, 3, True, 33, 40, True),
+    (4, 1, 4096, 128, True, 4095, 4096, True),
+    (2, 1, 1024, 128, True, 700, 701, False),
+    (1, 2, 600, 64, True, -1, None, False),
+    (4, 32, 64, 128, True, 0, 32, True),
 ]
 
 
@@ -136,9 +145,11 @@ def test_mla_kernel_off_alignment(dev, latent, dims):
 @pytest.mark.parametrize("latent", ["float32", "bfloat16"])
 def test_mla_kernel_repeats_bitwise(dev, latent):
     """A second launch on the same inputs repeats the first bitwise, at the
-    served decode shape (two key tiles) and a causal prefill."""
+    served decode shape (column slices), a causal prefill, and a decode over
+    4,096 keys (key chunks and their combine)."""
     dt = torch.bfloat16 if latent == "bfloat16" else torch.float32
-    for b, sq, sk, q_offset, kv_len in ((4, 1, 64, 40, 41), (2, 16, 32, 0, 16)):
+    for b, sq, sk, q_offset, kv_len in ((4, 1, 64, 40, 41), (2, 16, 32, 0, 16),
+                                        (4, 1, 4096, 4095, 4096)):
         q, c, k = _operands(dev, b, sq, sk, 512, 64, 128, dt, seed=7)
         kw = dict(scale=192 ** -0.5, causal=True, q_offset=q_offset, kv_len=kv_len)
         first = flash_fwd_mla(q, c, k, **kw)
