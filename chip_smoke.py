@@ -592,6 +592,11 @@ BF16_BWD_TILES = (32, 64)
 # the MLA backward passes on the TF32 tensor cores: fp32 and bf16 latent x
 # (r, dr) 512/64 and 32/16 each
 MLA_BWD_KERNELS = {"mla_bwd_dq_kernel": 4, "mla_bwd_dkv_kernel": 4}
+# the selective scan's CUDA-core kernels (fp32 and bf16 activations x N 8
+# and 16): no MMA; the backward keeps its chunk's states in registers, so
+# its SASS must show no local memory (LDL, STL)
+SCAN_KERNELS = {"selective_scan_kernel": 4, "selective_scan_bwd_kernel": 4,
+                "scan_bwd_reduce": 4}
 
 
 def fail(msg: str) -> int:
@@ -4304,8 +4309,10 @@ MLA_TRAIN = dict(batch=2, seq_len=128, seed=0)
 # the MLA backward's longer timed shape: full width, 131,072 rows
 MLA_LONG = dict(batch=1, seq_len=1024, seed=1)
 # what a sublayer's gradients are held to, card against host, at fp32:
-# the linear loss sum(out * g), the gradients' global norm, every leaf
+# the linear loss sum(out * g), the gradients' global norm, every leaf;
+# and at bf16 (the bf16 train-step limits)
 SUBLAYER_LIMITS = (1e-4, 1e-3, 1e-3)
+SUBLAYER_BF16_LIMITS = (1e-2, 3e-2, 5e-2)
 
 
 class capture_fn_bwd:
@@ -4512,29 +4519,33 @@ def mla_long_backward(book, dev, failures) -> dict:
     return out
 
 
-def sublayer_vs_host(name, fn, params, inputs, g, dev, failures) -> dict:
+def sublayer_vs_host(name, fn, params, inputs, g, dev, failures, dtype=None) -> dict:
     """A sublayer's gradients on the card against the host's: `fn(params,
-    inputs...)` -> out on each device from the same fp32 weights and inputs,
-    the linear loss sum(out * g), the gradients' global norm and every leaf
-    (the weights and the inputs) at SUBLAYER_LIMITS."""
+    inputs...)` -> out on each device from the same fp32 weights and inputs
+    (cast to `dtype` on both when given: bfloat16 is held at
+    SUBLAYER_BF16_LIMITS), the linear loss sum(out * g), the gradients'
+    global norm and every leaf (the weights and the inputs) at
+    SUBLAYER_LIMITS."""
     import torch
 
+    bf16 = dtype == torch.bfloat16
+    tag = "bf16" if bf16 else "fp32"
     res = {}
     for where in (dev, "cpu"):
-        p = {k: v.detach().to(where).requires_grad_() for k, v in params.items()}
-        xs = [x.detach().to(where).requires_grad_() for x in inputs]
-        gw = g.to(where)
+        p = {k: v.detach().to(where, dtype).requires_grad_() for k, v in params.items()}
+        xs = [x.detach().to(where, dtype).requires_grad_() for x in inputs]
+        gw = g.to(where, dtype)
         t0 = time.perf_counter()
         out = fn(p, *xs)
         grads = torch.autograd.grad(out, list(p.values()) + xs, gw)
-        loss = float((out.detach() * gw).sum())
+        loss = float((out.detach().float() * gw.float()).sum())
         if str(where) != "cpu":
             torch.cuda.synchronize()
         res[str(where)] = (loss, [t.detach().float().cpu() for t in grads],
                            time.perf_counter() - t0)
         del p, xs, grads, out
     (lc, gc_, sc), (lh, gh, sh) = res[str(dev)], res["cpu"]
-    lim_loss, lim_norm, lim_leaf = SUBLAYER_LIMITS
+    lim_loss, lim_norm, lim_leaf = SUBLAYER_BF16_LIMITS if bf16 else SUBLAYER_LIMITS
     nc = float(torch.stack([t.norm() for t in gc_]).norm())
     nh = float(torch.stack([t.norm() for t in gh]).norm())
     names = list(params) + [f"input{i}" for i in range(len(inputs))]
@@ -4547,13 +4558,13 @@ def sublayer_vs_host(name, fn, params, inputs, g, dev, failures) -> dict:
             bad.append(n_)
     ok_loss = abs(lc - lh) <= lim_loss * abs(lh)
     ok_norm = abs(nc - nh) <= lim_norm * nh
-    print(f"{name} full-width sublayer fp32 gradients, card vs host: loss {lc:.6e} vs {lh:.6e} "
+    print(f"{name} full-width sublayer {tag} gradients, card vs host: loss {lc:.6e} vs {lh:.6e} "
           f"({'ok' if ok_loss else 'FAIL'}, {lim_loss:g} rel), grad norm {nc:.6e} vs "
           f"{nh:.6e} ({'ok' if ok_norm else 'FAIL'}, {lim_norm:g} rel), worst leaf "
           f"max|card - host| / max|host| {worst:.2e} ({'ok' if not bad else bad}, "
           f"{lim_leaf:g}); card {sc:.2f} s, host {sh:.2f} s")
     if not (ok_loss and ok_norm) or bad:
-        failures.append(f"{name} sublayer: card gradients disagree with the host")
+        failures.append(f"{name} sublayer: card {tag} gradients disagree with the host")
     return {"loss": [lc, lh], "grad_norm": [nc, nh], "worst_leaf_rel": worst,
             "host_s": sh}
 
@@ -4565,7 +4576,9 @@ def mla_sublayer(book, dev, failures) -> dict:
     and bf16 with the MLA counters set to 0 just before and read just after
     (the forward and each backward pass once), both backward passes against
     their plain version on the captured operands (timed, beside SDPA's
-    backward), and at fp32 the sublayer's gradients against the host's."""
+    backward), and at fp32 and bf16 the sublayer's gradients against the
+    host's (bf16: the forward's rows see up to 128 keys, past the key ring
+    that holds 64 over a bf16 latent)."""
     import torch
 
     from repro_torch.configs.base import get_config
@@ -4618,6 +4631,8 @@ def mla_sublayer(book, dev, failures) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     out["host"] = sublayer_vs_host(MLA_ARCH + " MLA", fwd, p32, [x32], g32, dev, failures)
+    out["host_bf16"] = sublayer_vs_host(MLA_ARCH + " MLA", fwd, p32, [x32], g32, dev, failures,
+                                        dtype=torch.bfloat16)
     return out
 
 
@@ -6730,6 +6745,17 @@ def main() -> int:
             bf16_mla = stem == "flash_mla_kernel" and "kernelIt" in fn
             if (stem in BF16_KERNELS or bf16_mla) and not ops.get("LDSM"):
                 failures.append(f"{fn}: no LDSM (ldmatrix) in its SASS")
+        if len(sass) != want:
+            failures.append(f"expected {want} {stem} instantiations, found {len(sass)}")
+    for stem, want in SCAN_KERNELS.items():
+        sass = {k: v for k, v in all_sass.items() if stem in k}
+        for fn, ops in sorted(sass.items()):
+            res = usage.get(fn) or {}
+            print(f"sass {fn[:100]}: " + ", ".join(f"{op} {ops.get(op, 0)}" for op in
+                                                  ("FFMA", "MUFU", "SHFL", "LDL", "STL"))
+                  + f"; registers {res.get('registers')}, stack frame {res.get('stack')} B")
+            if stem == "selective_scan_bwd_kernel" and (ops.get("LDL") or ops.get("STL")):
+                failures.append(f"{fn}: local memory (LDL / STL) in its SASS")
         if len(sass) != want:
             failures.append(f"expected {want} {stem} instantiations, found {len(sass)}")
     wrappers = {"ecr_conv": ecr_conv_batch, "conv_pool": conv_pool_batch,

@@ -5,7 +5,9 @@ combine's instantiations (nvcc's `-Xptxas -v`) and their SASS counts
 (HMMA, LDGSTS, LDSM, LDS, FFMA); then, at full width with 128 heads on
 operands drawn on the card at deepseek-v2-236b's served shapes (B 4: the
 prefill, Sq 32 over a 64-slot stacked cache at kv_len 32; a decode step,
-Sq 1 at kv_len 33; and a decode over 4,096 keys), fp32 and bf16 latent:
+Sq 1 at kv_len 33; and a decode over 4,096 keys) and at its full-width
+sublayer's training shape (B 2, causal S 128: rows past the key ring),
+fp32 and bf16 latent:
 the kernel against the plain version at its limits, and kernel, plain,
 SDPA and the bound by CUDA-graph replay in turns (`chip_smoke.check_mla`),
 with the split `mla_fwd_split` chose.
@@ -31,7 +33,8 @@ called directly with the wrapper's arguments and timed in turns:
 (the ablated copies' outputs are wrong by design; `full` is held to the
 plain version), beside the wrapper (`flash_fwd_mla`) and, with `--parent
 FILE`, a flash_mla.cu of an earlier tree built the same way (its entry
-points take no workspace and no split), held to the plain version too.
+points taking a workspace and a split, as these do), held to the plain
+version too.
 Imports no JAX. Run from the root of a checkout on a machine with the
 card:
 
@@ -52,12 +55,13 @@ import traceback
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-# (label, Sq, Sk, q_offset, kv_len, stacked): deepseek-v2's served prefill
-# and first decode step (a 64-slot cache of 2 layers, read in place), and a
-# decode over 4,096 keys; B 4 and 128 heads throughout
-SHAPES = (("prefill", 32, 64, 0, 32, True), ("decode", 1, 64, 32, 33, True),
-          ("decode 4096", 1, 4096, 4095, 4096, False))
-BATCH = 4
+# (label, B, Sq, Sk, q_offset, kv_len, stacked): deepseek-v2's served
+# prefill and first decode step (a 64-slot cache of 2 layers, read in
+# place), a decode over 4,096 keys, and the full-width sublayer's training
+# forward (`chip_smoke.MLA_TRAIN`); 128 heads throughout
+SHAPES = (("prefill", 4, 32, 64, 0, 32, True), ("decode", 4, 1, 64, 32, 33, True),
+          ("decode 4096", 4, 1, 4096, 4095, 4096, False),
+          ("train", 2, 128, 128, 0, None, False))
 
 VARIANTS = {  # name -> the ablation flags set
     "full": (), "empty": ("EMPTY",), "no-q": ("NO_Q",), "no-stage": ("NO_STAGE",),
@@ -98,11 +102,11 @@ def _unprefixed(symbol: str) -> str:
     return re.sub(r"^.*?_cu_[0-9a-f]+", "", symbol)
 
 
-def _load(path: Path, n_ptrs: int) -> ctypes.CDLL:
+def _load(path: Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     for entry in ENTRIES:
         fn = getattr(lib, entry)
-        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.POINTER(ctypes.c_int),
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.POINTER(ctypes.c_int),
                                                     ctypes.POINTER(ctypes.c_longlong),
                                                     ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -131,22 +135,22 @@ def build(kcuda, parent) -> tuple:
         sout, err = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {name}:\n{err[-4000:]}")
-        libs[name] = _load(out / f"{name}.so", 6 if name == "parent" else 7)
+        libs[name] = _load(out / f"{name}.so")
         if name == "full":
             report = sout + err
     return libs, libs.pop("parent", None), report
 
 
-def operands(dev, dtype, sq, sk, q_offset, kv_len, stacked, seed):
-    """(args, kw) at full width, B 4, 128 heads: q fp32, the latents in
-    `dtype` (layer 0 of a 2-layer stacked cache when `stacked`)."""
+def operands(dev, dtype, batch, sq, sk, q_offset, kv_len, stacked, seed):
+    """(args, kw) at full width, 128 heads: q fp32, the latents in `dtype`
+    (layer 0 of a 2-layer stacked cache when `stacked`)."""
     import torch
 
     gen = torch.Generator(device=dev).manual_seed(seed)
     lead = (2,) if stacked else ()
-    q = torch.randn((BATCH, sq, 128, 576), generator=gen, device=dev)
-    c = torch.randn(lead + (BATCH, sk, 512), generator=gen, device=dev).to(dtype)
-    k = torch.randn(lead + (BATCH, sk, 64), generator=gen, device=dev).to(dtype)
+    q = torch.randn((batch, sq, 128, 576), generator=gen, device=dev)
+    c = torch.randn(lead + (batch, sk, 512), generator=gen, device=dev).to(dtype)
+    k = torch.randn(lead + (batch, sk, 64), generator=gen, device=dev).to(dtype)
     if stacked:
         c, k = c[0], k[0]
     return (q, c, k), dict(scale=192 ** -0.5, causal=True, q_offset=q_offset, kv_len=kv_len)
@@ -170,25 +174,22 @@ def direct_calls(kcuda, libs, parent, args, kw) -> dict:
     ws = torch.empty(split[2] * b * sq * h * (r + 2), device=q.device)
     head = (b, h, sq, sk, r, dr, 1, kw["q_offset"], kvl)
     dims = (ctypes.c_int * 12)(*head, *split)
-    dims9 = (ctypes.c_int * 9)(*head)
     strides = (ctypes.c_longlong * 10)(q.stride(0), q.stride(1), q.stride(2), c.stride(0),
                                        c.stride(1), k.stride(0), k.stride(1), out.stride(0),
                                        out.stride(1), out.stride(2))
     ptrs = [t.data_ptr() for t in (q, c, k, out, m, l)]
 
-    def call(lib, old=False):
+    def call(lib):
         fn = getattr(lib, entry)
 
         def run():
             stream = torch.cuda.current_stream().cuda_stream
-            if old:
-                return fn(*ptrs, dims9, strides, kw["scale"], stream)
             return fn(*ptrs, ws.data_ptr(), dims, strides, kw["scale"], stream)
         return run
 
     fns = {name: call(lib) for name, lib in libs.items()}
     if parent is not None:
-        fns["parent"] = call(parent, old=True)
+        fns["parent"] = call(parent)
     return fns, (out, m, l), split
 
 
@@ -196,9 +197,10 @@ def ablation(cs, kcuda, K, libs, parent, dev, failures) -> None:
     """The ablation table at each shape, fp32 and bf16 latent."""
     import torch
 
-    for label, sq, sk, q_offset, kv_len, stacked in SHAPES:
+    for label, batch, sq, sk, q_offset, kv_len, stacked in SHAPES:
         for dtype, sfx in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-            args, kw = operands(dev, dtype, sq, sk, q_offset, kv_len, stacked, seed=sk + sq)
+            args, kw = operands(dev, dtype, batch, sq, sk, q_offset, kv_len, stacked,
+                                seed=sk + sq)
             fns, (out, m, l), split = direct_calls(kcuda, libs, parent, args, kw)
             want = K.flash_fwd_mla_plain(*args, **kw)
             for key in ("full", "parent"):
@@ -272,11 +274,12 @@ def main() -> int:
         if "kernelIt" in fn and not ops.get("LDSM"):
             failures.append(f"{fn}: no LDSM over the bf16 latent")
     book = cs.KernelBook()
-    for label, sq, sk, q_offset, kv_len, stacked in SHAPES:
+    for label, batch, sq, sk, q_offset, kv_len, stacked in SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             try:
-                args, kw = operands(dev, dtype, sq, sk, q_offset, kv_len, stacked, seed=sk + sq)
-                print(f"{label}: B {BATCH}, Sq {sq}, Sk {sk}, 128 heads, causal, q_offset "
+                args, kw = operands(dev, dtype, batch, sq, sk, q_offset, kv_len, stacked,
+                                    seed=sk + sq)
+                print(f"{label}: B {batch}, Sq {sq}, Sk {sk}, 128 heads, causal, q_offset "
                       f"{q_offset}, kv_len {kv_len}, {dtype}:")
                 cs.check_mla(book, label, args, kw, timed=True)
                 del args

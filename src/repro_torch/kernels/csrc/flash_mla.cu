@@ -75,8 +75,13 @@
 //   scores wait in shared memory until the last tile, and p = exp(s - m) is
 //   formed against the row's max, as the plain version forms it (over a
 //   bf16 latent p is rounded there); else the softmax runs online over the
-//   row's 16 lanes a tile at a time. p and the rescale go to shared memory,
-//   so every warp's P.V sees the same p, m and l bitwise.
+//   row's 16 lanes a tile at a time. Over a bf16 latent with a row's keys in
+//   one chunk, a first pass over its key tiles (S only) takes the row's max,
+//   so that the online pass forms and rounds p against the row's max too (a
+//   running max rounds p elsewhere, and that moved reduced deepseek-v2's
+//   bf16 gradients past the train-step limits at S 128). p and the rescale
+//   go to shared memory, so every warp's P.V sees the same p, m and l
+//   bitwise.
 // - P.V: the output accumulator is 16 x (r / NCS) fp32; each warp owns an
 //   eighth of the block's columns (8 n8 tiles at full width and NCS 1: 32
 //   registers a lane). fp32: split-TF32, three MMAs per step, four n8
@@ -437,136 +442,147 @@ flash_mla_kernel(const float* __restrict__ q, const KT* __restrict__ ckv,
 
     // all of this row tile's key tiles fit the ring: its softmax runs once,
     // over all of them (p against the row's max, as the plain version forms
-    // it); else online, a tile at a time
+    // it); else online, a tile at a time. Over a bf16 latent with the row's
+    // keys in one chunk, a first pass over the tiles takes the row's max, so
+    // that the online pass forms and rounds p against it, as the plain
+    // version does (its rescales are then exp(0) = 1)
     const bool whole = t1 - t0 <= SL;
-    for (int it = t0; it < t1; ++it) {
-      // tile `it` landed: behind it in flight may be the tiles up to it + SL
-      // - 2 and, for the first SL - 1, the next q
-      if (it < t0 + SL - 1)
-        cp_async_wait<SL - 1>();
-      else
-        cp_async_wait<SL - 2>();
-      __syncthreads();  // ... for every thread; every warp is done with tile it - 1
-      stage(it + SL - 1, it + SL - 1 < t1);  // into tile it - 1's slot
-      const KT* const kt = ring + (it % SL) * kKeys * KP;
-      const int key0 = it * kKeys;
+    const bool premax = G::kBf16 && !whole && p.nks == 1;
+    for (int pass = premax ? 0 : 1; pass < 2; ++pass) {
+      if (pass == 1 && premax) {
+        __syncthreads();  // every warp is done with the first pass's tiles and parts
+#pragma unroll
+        for (int d = 0; d < SL - 1; ++d) stage(t0 + d, t0 + d < t1);
+      }
+      for (int it = t0; it < t1; ++it) {
+        // tile `it` landed: behind it in flight may be the tiles up to it + SL
+        // - 2 and, for the first SL - 1 of the first pass, the next q
+        if (it < t0 + SL - 1 && !(premax && pass == 1))
+          cp_async_wait<SL - 1>();
+        else
+          cp_async_wait<SL - 2>();
+        __syncthreads();  // ... for every thread; every warp is done with tile it - 1
+        stage(it + SL - 1, it + SL - 1 < t1);  // into tile it - 1's slot
+        const KT* const kt = ring + (it % SL) * kKeys * KP;
+        const int key0 = it * kKeys;
 
-      // this warp's part of S over its k8 steps and the NV n8 tiles with keys
-      // below kend, SU steps' MMA chains interleaved (each step's products
-      // into a zeroed fragment), into the partial tile: rows g (e = 0, 1) and
-      // g + 8 (e = 2, 3), keys 8n + 2t + e % 2
-      auto s_part = [&](auto nv) {
-        constexpr int NV = decltype(nv)::value;
-        float sp[NV][4];
+        // this warp's part of S over its k8 steps and the NV n8 tiles with keys
+        // below kend, SU steps' MMA chains interleaved (each step's products
+        // into a zeroed fragment), into the partial tile: rows g (e = 0, 1) and
+        // g + 8 (e = 2, 3), keys 8n + 2t + e % 2
+        auto s_part = [&](auto nv) {
+          constexpr int NV = decltype(nv)::value;
+          float sp[NV][4];
 #pragma unroll
-        for (int n = 0; n < NV; ++n)
+          for (int n = 0; n < NV; ++n)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) sp[n][e] = 0.f;
+            for (int e = 0; e < 4; ++e) sp[n][e] = 0.f;
 #pragma unroll
-        for (int i0 = 0; i0 < QS; i0 += G::SU) {
-          if (G::KS % kWarps != 0 && warp + kWarps * i0 >= G::KS) break;
-          uint32_t ah[G::SU][4], al[G::SU][4], bh[G::SU][NV][2], bl[G::SU][NV][2];
-          float c[G::SU][NV][4];
+          for (int i0 = 0; i0 < QS; i0 += G::SU) {
+            if (G::KS % kWarps != 0 && warp + kWarps * i0 >= G::KS) break;
+            uint32_t ah[G::SU][4], al[G::SU][4], bh[G::SU][NV][2], bl[G::SU][NV][2];
+            float c[G::SU][NV][4];
 #pragma unroll
-          for (int u = 0; u < G::SU; ++u) {
-            const int i = i0 + u, ks = warp + kWarps * i;
-            split(qf[i][0].x, ah[u][0], al[u][0]);
-            split(qf[i][1].x, ah[u][1], al[u][1]);
-            split(qf[i][0].y, ah[u][2], al[u][2]);
-            split(qf[i][1].y, ah[u][3], al[u][3]);
+            for (int u = 0; u < G::SU; ++u) {
+              const int i = i0 + u, ks = warp + kWarps * i;
+              split(qf[i][0].x, ah[u][0], al[u][0]);
+              split(qf[i][1].x, ah[u][1], al[u][1]);
+              split(qf[i][0].y, ah[u][2], al[u][2]);
+              split(qf[i][1].y, ah[u][3], al[u][3]);
 #pragma unroll
-            for (int n = 0; n < NV; ++n) {
-              const KT* kr = kt + (8 * n + g) * KP + 8 * ks + 2 * t;
-              if constexpr (G::kBf16) {  // keys exact in TF32: q's two parts only
-                const uint32_t w = *reinterpret_cast<const uint32_t*>(kr);
-                bh[u][n][0] = w << 16;
-                bh[u][n][1] = w & 0xffff0000u;
-              } else {
-                const float2 kv = *reinterpret_cast<const float2*>(kr);
-                split(kv.x, bh[u][n][0], bl[u][n][0]);
-                split(kv.y, bh[u][n][1], bl[u][n][1]);
+              for (int n = 0; n < NV; ++n) {
+                const KT* kr = kt + (8 * n + g) * KP + 8 * ks + 2 * t;
+                if constexpr (G::kBf16) {  // keys exact in TF32: q's two parts only
+                  const uint32_t w = *reinterpret_cast<const uint32_t*>(kr);
+                  bh[u][n][0] = w << 16;
+                  bh[u][n][1] = w & 0xffff0000u;
+                } else {
+                  const float2 kv = *reinterpret_cast<const float2*>(kr);
+                  split(kv.x, bh[u][n][0], bl[u][n][0]);
+                  split(kv.y, bh[u][n][1], bl[u][n][1]);
+                }
+#pragma unroll
+                for (int e = 0; e < 4; ++e) c[u][n][e] = 0.f;
               }
-#pragma unroll
-              for (int e = 0; e < 4; ++e) c[u][n][e] = 0.f;
             }
-          }
-          // tf32_mma.cuh's mma_split order per chain: lo * hi, hi * lo, hi * hi
-#pragma unroll
-          for (int u = 0; u < G::SU; ++u)
-#pragma unroll
-            for (int n = 0; n < NV; ++n) mma_tf32(c[u][n], al[u], bh[u][n][0], bh[u][n][1]);
-          if constexpr (!G::kBf16) {
+            // tf32_mma.cuh's mma_split order per chain: lo * hi, hi * lo, hi * hi
 #pragma unroll
             for (int u = 0; u < G::SU; ++u)
 #pragma unroll
-              for (int n = 0; n < NV; ++n) mma_tf32(c[u][n], ah[u], bl[u][n][0], bl[u][n][1]);
+              for (int n = 0; n < NV; ++n) mma_tf32(c[u][n], al[u], bh[u][n][0], bh[u][n][1]);
+            if constexpr (!G::kBf16) {
+#pragma unroll
+              for (int u = 0; u < G::SU; ++u)
+#pragma unroll
+                for (int n = 0; n < NV; ++n) mma_tf32(c[u][n], ah[u], bl[u][n][0], bl[u][n][1]);
+            }
+#pragma unroll
+            for (int u = 0; u < G::SU; ++u)
+#pragma unroll
+              for (int n = 0; n < NV; ++n) mma_tf32(c[u][n], ah[u], bh[u][n][0], bh[u][n][1]);
+#pragma unroll
+            for (int u = 0; u < G::SU; ++u)
+#pragma unroll
+              for (int n = 0; n < NV; ++n)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) sp[n][e] += c[u][n][e];
           }
+          float* const mine = part + warp * kRows * kSP;
 #pragma unroll
-          for (int u = 0; u < G::SU; ++u)
-#pragma unroll
-            for (int n = 0; n < NV; ++n) mma_tf32(c[u][n], ah[u], bh[u][n][0], bh[u][n][1]);
-#pragma unroll
-          for (int u = 0; u < G::SU; ++u)
-#pragma unroll
-            for (int n = 0; n < NV; ++n)
-#pragma unroll
-              for (int e = 0; e < 4; ++e) sp[n][e] += c[u][n][e];
-        }
-        float* const mine = part + warp * kRows * kSP;
-#pragma unroll
-        for (int n = 0; n < NV; ++n) {
-          *reinterpret_cast<float2*>(mine + g * kSP + 8 * n + 2 * t) =
-              make_float2(sp[n][0], sp[n][1]);
-          *reinterpret_cast<float2*>(mine + (g + 8) * kSP + 8 * n + 2 * t) =
-              make_float2(sp[n][2], sp[n][3]);
-        }
-      };
-      if (kend - key0 > 8)
-        s_part(std::integral_constant<int, 2>{});
-      else
-        s_part(std::integral_constant<int, 1>{});
-      __syncthreads();  // every warp's part landed
+          for (int n = 0; n < NV; ++n) {
+            *reinterpret_cast<float2*>(mine + g * kSP + 8 * n + 2 * t) =
+                make_float2(sp[n][0], sp[n][1]);
+            *reinterpret_cast<float2*>(mine + (g + 8) * kSP + 8 * n + 2 * t) =
+                make_float2(sp[n][2], sp[n][3]);
+          }
+        };
+        if (kend - key0 > 8)
+          s_part(std::integral_constant<int, 2>{});
+        else
+          s_part(std::integral_constant<int, 1>{});
+        __syncthreads();  // every warp's part landed
 
-      // this lane's score (row rr, key kk), summed over the parts in warp
-      // order and masked, and the row's max over its 16 lanes
-      const int kpos = key0 + kk;
-      float x = part[rr * kSP + kk];
+        // this lane's score (row rr, key kk), summed over the parts in warp
+        // order and masked, and the row's max over its 16 lanes
+        const int kpos = key0 + kk;
+        float x = part[rr * kSP + kk];
 #pragma unroll
-      for (int w = 1; w < kWarps; ++w) x += part[(w * kRows + rr) * kSP + kk];
-      if (kpos >= kend)
-        x = -INFINITY;  // past the visited keys: no part in the softmax
-      else if ((p.causal && qpos < kpos) || (p.kv_len >= 0 && kpos >= p.kv_len))
-        x = kNeg;
-      float mx = x;
+        for (int w = 1; w < kWarps; ++w) x += part[(w * kRows + rr) * kSP + kk];
+        if (kpos >= kend)
+          x = -INFINITY;  // past the visited keys: no part in the softmax
+        else if ((p.causal && qpos < kpos) || (p.kv_len >= 0 && kpos >= p.kv_len))
+          x = kNeg;
+        float mx = x;
 #pragma unroll
-      for (int d = 1; d < 16; d *= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, d));
-      const float mnew = fmaxf(mrow, mx);
-      if (whole) {  // keep the score; P.V after the last tile
-        ptile[rr * PP + kKeys * (it - t0) + kk] = x;
-        mrow = mnew;
-        continue;
-      }
-      // the online softmax: p and the row's rescale to shared memory
-      const float a = expf(mrow - mnew), pe = expf(x - mnew);
-      float ps = pe;
-#pragma unroll
-      for (int d = 1; d < 16; d *= 2) ps += __shfl_xor_sync(0xffffffffu, ps, d);
-      lrow = lrow * a + ps;
-      mrow = mnew;
-      ptile[rr * PP + kk] = pe;
-      if (kk == 0) alpha[rr] = a;
-      __syncthreads();  // p and the rescale landed
-      if (!owns) continue;
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const float sc = alpha[g + 8 * hf];
-#pragma unroll
-        for (int n = 0; n < NW; ++n) {
-          acc[n][2 * hf] *= sc;
-          acc[n][2 * hf + 1] *= sc;
+        for (int d = 1; d < 16; d *= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, d));
+        const float mnew = fmaxf(mrow, mx);
+        if (whole || pass == 0) {  // keep the score (P.V after the last tile), or the max
+          if (whole) ptile[rr * PP + kKeys * (it - t0) + kk] = x;
+          mrow = mnew;
+          continue;
         }
+        // the online softmax: p and the row's rescale to shared memory
+        const float a = expf(mrow - mnew), pe = expf(x - mnew);
+        float ps = pe;
+#pragma unroll
+        for (int d = 1; d < 16; d *= 2) ps += __shfl_xor_sync(0xffffffffu, ps, d);
+        lrow = lrow * a + ps;
+        mrow = mnew;
+        ptile[rr * PP + kk] = pe;
+        if (kk == 0) alpha[rr] = a;
+        __syncthreads();  // p and the rescale landed
+        if (!owns) continue;
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const float sc = alpha[g + 8 * hf];
+#pragma unroll
+          for (int n = 0; n < NW; ++n) {
+            acc[n][2 * hf] *= sc;
+            acc[n][2 * hf + 1] *= sc;
+          }
+        }
+        pv_tile(kt, key0, 0);
       }
-      pv_tile(kt, key0, 0);
     }
     if (whole && t0 < t1) {
       // p = exp(score - the row's max) for every key the row tile visits,

@@ -234,6 +234,9 @@ def library() -> ctypes.CDLL:
                                if "_bwd_" in name else
                                [ctypes.c_void_p] * 10 + [dims, strides, ctypes.c_void_p])
                 fn.restype = ctypes.c_int
+            geometry = (ctypes.c_int * 2)()
+            lib.repro_selective_scan_bwd_geometry(geometry)
+            check_scan_geometry(tuple(geometry))
             _lib = lib
         return _lib
 
@@ -878,7 +881,33 @@ def launch_flash_mla_bwd(q, c_kv, k_rope, do, m, l, delta, *, part: str, scale: 
 # the state sizes the selective scan is instantiated at: reduced and
 # full-width jamba (the reference's configs use no other)
 SCAN_STATE_DIMS = (8, 16)
-SCAN_CHUNK = 32  # the backward's checkpoint interval (kChunk in selective_scan.cu)
+# the backward's channels a block (kBwdChannels in selective_scan.cu) and
+# steps a chunk (kChunk: the checkpoint interval, and the steps whose states
+# a lane keeps in registers); `library()` checks them against the kernel's
+SCAN_BWD_CHANNELS = 32
+SCAN_CHUNK = 8
+
+
+def scan_bwd_scratch(batch: int, s: int, di: int, n: int) -> dict:
+    """The selective scan backward's scratch, {name: shape}, all fp32: ck,
+    the state at the start of every chunk of SCAN_CHUNK steps but the first
+    and the last (B, max(chunks - 2, 0), di, N); pbc, each block of
+    SCAN_BWD_CHANNELS channels' dB and dC sums (blocks, B, S, 2N); pa, dA per
+    batch element (B, di, N); pd, dD's (B, di)."""
+    blocks = -(-di // SCAN_BWD_CHANNELS)
+    chunks = -(-s // SCAN_CHUNK)
+    return {"ck": (batch, max(chunks - 2, 0), di, n), "pbc": (blocks, batch, s, 2 * n),
+            "pa": (batch, di, n), "pd": (batch, di)}
+
+
+def check_scan_geometry(kernel: tuple) -> None:
+    """Raise unless the backward kernel's (channels a block, steps a
+    chunk) are the ones `scan_bwd_scratch` sizes its scratch by: a scratch
+    sized for other ones would be written out of bounds."""
+    if tuple(kernel) != (SCAN_BWD_CHANNELS, SCAN_CHUNK):
+        raise RuntimeError(f"selective_scan.cu's backward takes (channels a block, steps a "
+                           f"chunk) {tuple(kernel)}, but kernels/cuda.py sizes its scratch "
+                           f"for {(SCAN_BWD_CHANNELS, SCAN_CHUNK)}")
 
 
 def check_scan_operands(x, dt, a, b, c, d, z, h0) -> tuple:
@@ -996,9 +1025,7 @@ def launch_selective_scan_bwd(x, dt, a, b, c, d, z, h0, dout, dh_last):
     dx, ddt, dz = (empty((batch, s, di), x.dtype) for _ in range(3))
     dh0, db, dc, da, dd = (empty(h0.shape), empty(b.shape), empty(c.shape), empty(a.shape),
                            empty(d.shape, d.dtype))
-    warps = 4 * -(-di // 128)
-    scratch = (empty((batch, -(-s // SCAN_CHUNK), n, di)), empty((warps, batch, s, 2 * n)),
-               empty((batch, n, di)), empty((batch, di)))
+    scratch = tuple(map(empty, scan_bwd_scratch(batch, s, di, n).values()))
     dims = (ctypes.c_int * 4)(batch, s, di, n)
     entry = f"repro_selective_scan_bwd_{sfx}"
     lib = library()

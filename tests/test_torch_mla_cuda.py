@@ -16,6 +16,8 @@ another order), m and l within 1e-5 * max|plain|. The backward kernels
 same fp32 rule plus 8 * 2^-24 * S * max|plain| at row maxes S, bf16 within
 2^-7 * max|plain|; the MLA sublayer's gradients, card against host, within
 1e-3 * max|host|."""
+import contextlib
+
 import numpy as np
 import pytest
 
@@ -81,8 +83,11 @@ def _check(got, want, bf16):
 # key splits (`mla_fwd_split`: few row tiles over many keys): a decode over
 # 4,096 keys read in place from a stacked cache, a decode whose kv_len ends
 # inside a key chunk (16 chunks of 3 key tiles, the last one empty), and
-# rows that see no key under a split (the mean over all 600 keys); and the
-# served prefill's own shape (4 row tiles a block, keys staged once)
+# rows that see no key under a split (the mean over all 600 keys); the
+# served prefill's own shape (4 row tiles a block, keys staged once); and a
+# causal prefill whose rows see up to 96 keys, past the key ring (48 keys at
+# fp32, 64 over a bf16 latent: online softmax, after a first pass for the
+# row's max over a bf16 latent)
 MLA_CASES = [
     (2, 8, 16, 128, True, 0, 8, False),
     (3, 1, 64, 128, True, 0, 1, True),
@@ -96,6 +101,7 @@ MLA_CASES = [
     (2, 1, 1024, 128, True, 700, 701, False),
     (1, 2, 600, 64, True, -1, None, False),
     (4, 32, 64, 128, True, 0, 32, True),
+    (2, 96, 96, 16, True, 0, None, False),
 ]
 
 
@@ -146,10 +152,11 @@ def test_mla_kernel_off_alignment(dev, latent, dims):
 def test_mla_kernel_repeats_bitwise(dev, latent):
     """A second launch on the same inputs repeats the first bitwise, at the
     served decode shape (column slices), a causal prefill, and a decode over
-    4,096 keys (key chunks and their combine)."""
+    4,096 keys (key chunks and their combine), and a causal prefill past the
+    key ring."""
     dt = torch.bfloat16 if latent == "bfloat16" else torch.float32
     for b, sq, sk, q_offset, kv_len in ((4, 1, 64, 40, 41), (2, 16, 32, 0, 16),
-                                        (4, 1, 4096, 4095, 4096)):
+                                        (4, 1, 4096, 4095, 4096), (2, 96, 96, 0, 96)):
         q, c, k = _operands(dev, b, sq, sk, 512, 64, 128, dt, seed=7)
         kw = dict(scale=192 ** -0.5, causal=True, q_offset=q_offset, kv_len=kv_len)
         first = flash_fwd_mla(q, c, k, **kw)
@@ -296,6 +303,169 @@ def test_mla_attention_grads_on_the_card_match_the_host(dev):
     for name, c, h in zip(list(p_cpu) + ["x"], grads["cuda"], grads["cpu"]):
         err, scale = float((c - h).abs().max()), float(h.abs().max())
         assert err <= 1e-3 * scale, (name, err, scale)
+
+
+@contextlib.contextmanager
+def routing_from(picks: dict, record: bool):
+    """Within the block, `moe.route` keeps each router's top-k experts in
+    `picks`, keyed by the router's bytes: recording, it stores the experts
+    it picks; else it takes them from `picks` in place of its own top-k
+    (the gates are then the picked experts' probabilities, in the stored
+    order). Under remat "full" a layer's route runs again in the backward
+    and finds its own key. Yields `picks`."""
+    from repro_torch.models import moe
+
+    real = moe.route
+
+    def route(router, xt, cfg):
+        key = router.detach().float().cpu().numpy().tobytes()
+        if record:
+            r = real(router, xt, cfg)
+            picks[key] = r.eidx.cpu()
+            return r
+        eidx = picks[key].to(xt.device)
+        topk = torch.topk
+        torch.topk = lambda probs, k, dim=-1: (probs.gather(-1, eidx), eidx)
+        try:
+            return real(router, xt, cfg)
+        finally:
+            torch.topk = topk
+
+    moe.route = route
+    try:
+        yield picks
+    finally:
+        moe.route = real
+
+
+@contextlib.contextmanager
+def plain_mla(fwd: bool = True, bwd: bool = True):
+    """Within the block, the MLA autograd function calls the forward's
+    (`fwd`) and both backward passes' (`bwd`) plain versions in place of
+    the kernels, on the card's tensors too."""
+    from repro_torch.kernels.flash_attention import kernel as K
+    from repro_torch.kernels.flash_attention import ops
+
+    saved = ops.flash_fwd_mla, ops.flash_bwd_mla
+    if fwd:
+        ops.flash_fwd_mla = K.flash_fwd_mla_plain
+    if bwd:
+        ops.flash_bwd_mla = K.flash_bwd_mla_plain
+    try:
+        yield
+    finally:
+        ops.flash_fwd_mla, ops.flash_bwd_mla = saved
+
+
+# the router's and the routed experts' leaves
+ROUTED = ("moe/router", "moe/w1", "moe/w2", "moe/w3")
+# card against host past the key ring, bf16: loss and global norm relative
+# (the train-step limits), every leaf but the routed ones, and the routed
+# ones (the train-step limit), each relative to max|host leaf|
+RING_LIMITS = (1e-2, 3e-2, 3.5e-2, 5e-2)
+
+
+def bf16_vs_host(cfg, run, params, batch, dev) -> dict:
+    """One bf16 loss-and-gradients pass on the host's plain path (remat
+    "none") and two on the card (`run`) on the same weights and batch, with
+    the MLA kernels and with their plain versions, the card's top-k routing
+    taken from the host's -> {"launched": MLA launches of the kernels' pass,
+    "kernels" and "plain": {"loss": rel, "grad_norm": rel, "leaves": {name:
+    max|card - host| / max|host|}}, "kernels_vs_plain": {name: max|kernels -
+    plain| / max|plain|}}."""
+    from repro_torch.launch.steps import loss_and_grads, to_device
+    from repro_torch.optim import global_norm
+    from repro_torch.tree import tree_map, tree_paths
+
+    def rel(a, b):
+        err = float((a.float().cpu() - b.float().cpu()).abs().max())
+        return err / max(float(b.float().abs().max()), 1e-30)
+
+    host = tree_map(lambda t: t.detach().cpu(), params)
+    with routing_from({}, record=True) as picks:
+        lh, g_h = loss_and_grads(cfg, run.replace(remat="none"), host, batch)
+    nh = float(global_norm(g_h))
+    out, grads = {}, {}
+    for label in ("kernels", "plain"):
+        before = dict(MLA_ENTRY_LAUNCHES)
+        with routing_from(picks, record=False), (
+                plain_mla() if label == "plain" else contextlib.nullcontext()):
+            lc, g_c = loss_and_grads(cfg, run, params, to_device(batch, dev))
+        if label == "kernels":
+            out["launched"] = {e: n - before[e] for e, n in MLA_ENTRY_LAUNCHES.items()
+                               if n != before[e]}
+        grads[label] = tree_paths(g_c)
+        out[label] = {"loss": abs(float(lc) - float(lh)) / abs(float(lh)),
+                      "grad_norm": abs(float(global_norm(g_c)) - nh) / nh,
+                      "leaves": {name: rel(c, h) for (name, c), (_, h)
+                                 in zip(grads[label], tree_paths(g_h))}}
+    out["kernels_vs_plain"] = {name: rel(k, pl) for (name, k), (_, pl)
+                               in zip(grads["kernels"], grads["plain"])}
+    return out
+
+
+def ring_misses(res) -> dict:
+    """{what: (value, limit)} of `bf16_vs_host`'s result past RING_LIMITS:
+    the kernels' loss and global norm; every leaf but the routed ones
+    against the host's; a routed leaf against the host's, or, where the
+    plain versions' pass also misses the host's past the limit, against the
+    plain versions'."""
+    l_loss, l_norm, l_leaf, l_routed = RING_LIMITS
+    k, pl = res["kernels"], res["plain"]
+    miss = {}
+    for what, v, lim in (("loss", k["loss"], l_loss), ("grad_norm", k["grad_norm"], l_norm)):
+        if not v <= lim:
+            miss[what] = (v, lim)
+    for name, v in k["leaves"].items():
+        if not name.endswith(ROUTED):
+            if not v <= l_leaf:
+                miss[name] = (v, l_leaf)
+        elif pl["leaves"][name] <= l_routed:
+            if not v <= l_routed:
+                miss[name] = (v, l_routed)
+        elif not res["kernels_vs_plain"][name] <= l_routed:
+            miss[name + " (vs plain)"] = (res["kernels_vs_plain"][name], l_routed)
+    return miss
+
+
+@pytest.mark.parametrize("seq_len", [128, 96])
+def test_reduced_deepseek_bf16_training_past_the_key_ring(dev, seq_len):
+    """Reduced deepseek-v2 trained 3 bf16 steps at DEFAULT_RUN (remat
+    "full") on the card, at sequences whose causal rows see more keys than
+    the MLA forward's key ring holds over a bf16 latent (64 keys): S 128
+    (two of the reference's 64-key `attn_chunk` chunks) and S 96 (one chunk,
+    the whole row). Before every step, on the card's weights of that step
+    and the same batch, the card's loss and gradients are held against the
+    host's plain path (remat "none") with the card's top-2 routing taken
+    from the host's (`routing_from`: where a token's two best experts
+    nearly tie, any other rounding flips the pick and moves whole rows of
+    the routed gradients), at `RING_LIMITS` (`ring_misses`): the loss
+    within 1e-2 and the global norm within 3e-2 relative; every leaf but
+    the router's and the routed experts' within 3.5e-2 * max|host leaf|,
+    between the kernel that rounded p against a 16-key running max past the
+    ring (3.9e-2 at S 96, 4.7e-2 at S 128) and the plain versions on the
+    card (2.8e-2); the routed leaves within 5e-2, of the host's where the
+    card's plain versions meet that, else of the plain versions' (at S 96,
+    step 0, a routed expert's leaf lies 7.1e-2 from the host's with the
+    plain versions too). `scripts/mla_bf16_ring_check.py` prints these
+    readings."""
+    from repro_torch.configs.base import DEFAULT_RUN
+    from repro_torch.data import make_pipeline
+    from repro_torch.launch.steps import init_train_state, make_train_step, to_device
+
+    cfg = get_config("deepseek-v2-236b", reduced=True)
+    run = DEFAULT_RUN.replace(warmup_steps=2)
+    state = init_train_state(cfg, run, torch.Generator().manual_seed(0), device=dev)
+    pipe = make_pipeline(cfg, seq_len, 4, seed=0)
+    step = make_train_step(cfg, run, 10, device=dev)
+    for s in range(3):
+        batch = to_device(pipe.batch_at(s), "cpu")
+        res = bf16_vs_host(cfg, run, state.params, batch, dev)
+        assert res["launched"].get("repro_flash_fwd_mla_bf16kv", 0) > 0, res["launched"]
+        assert "repro_flash_fwd_mla_f32" not in res["launched"]
+        miss = ring_misses(res)
+        assert not miss, (s, miss)
+        state, _ = step(state, batch)
 
 
 @pytest.mark.parametrize("kv_dtype", [torch.float32, torch.int8], ids=["fp32", "bf16_latent"])

@@ -89,13 +89,18 @@ def _act(args, dtype):
     return [t.to(dtype) if i in (0, 1, 5, 6) else t for i, t in enumerate(args)]
 
 
-# (B, S, di, N, h0, views): full-width jamba's decode and prefill shapes (di
-# 8192, N 16), the reduced (di 256, N 8), S past one and four chunks of 32
-# steps, di not a multiple of the block's 128 channels, zero and carried
-# states, and the model's strided views
+# (B, S, di, N, h0, views): full-width jamba's decode, prefill and training
+# shapes (di 8192, N 16), the reduced (di 256, N 8), S within one chunk (16
+# steps in the forward, 8 in the backward) and past it, di not a multiple
+# of a block's channels (the forward's 32 at N 16 and 64 at N 8, the
+# backward's 32), at N 8 and 16, zero and carried states, and the model's
+# strided views
 SCAN_CASES = [
     (4, 1, 8192, 16, True, True),
     (4, 32, 8192, 16, False, True),
+    (4, 128, 8192, 16, False, True),
+    (2, 40, 328, 8, True, False),
+    (4, 48, 8200, 16, True, True),
     (2, 7, 256, 8, True, False),
     (2, 32, 256, 8, False, True),
     (1, 129, 200, 16, True, False),
@@ -167,6 +172,21 @@ def test_scan_backward_kernel_repeats_bitwise(dev, dtype):
                      selective_scan_bwd(*args, dout, dh_last))
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+def test_scan_backward_kernel_repeats_bitwise_at_full_width_over_launches(dev):
+    """Eight launches of the bf16 backward at full width with a carried
+    state, a cotangent on h_last and di 8200 (ragged past the blocks' 32 and
+    64 channels): every gradient bitwise equal to the first launch's."""
+    args = _act(_operands(dev, 4, 128, 8200, 16, seed=5, views=True), torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    dout = torch.randn((4, 128, 8200), device=dev, generator=gen).to(torch.bfloat16)
+    dh_last = torch.randn((4, 8200, 16), device=dev, generator=gen)
+    first = selective_scan_bwd(*args, dout, dh_last)
+    for _ in range(7):
+        again = selective_scan_bwd(*args, dout, dh_last)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(first, again))
 
 
 @pytest.mark.parametrize("what", ["state dim", "grad", "host operand"])
