@@ -255,6 +255,29 @@
    tiles` line per timed shape. Last,
    at the reduced config and bf16, a 10-step run against one with a failure
    at step 7 (checkpoints every 3): losses bitwise equal.
+9b. The distributed phase: full-width qwen3-0.6b at the trainer's bf16
+   defaults (remat full), B 4 x S 128, 3 steps, trained by the sharded
+   trainer (`launch.train.build_trainer`) over 2 gloo ranks sharing cuda:0
+   (spawned after the kernels are built) on meshes (2, 1) and (1, 2), and
+   by the unsharded trainer on rank 0 in the same run. Per rank: step ms,
+   memory (the state it holds plus the most a step allocates above what it
+   held before the step) against the unsharded trainer's, its parameter
+   shard, the
+   launches of the bf16 flash forward and both backward passes (counters
+   read just before and after the 3 steps; each must equal the 3-step
+   count) and each step's loss and grad norm within 1e-2 / 3e-2 relative of
+   the unsharded trainer's; the worst gathered leaf after step 3 within
+   5e-2 of max|leaf|, and each leaf's change over the 3 steps within 0.2
+   of the unsharded change's, in norm. The runs take no warm-up, so every
+   step moves the state at the peak rate. Elastic: a step on (2, 1),
+   `shrink_mesh` to (1, 1) at grad_accum 2 (`rebalance_grad_accum`),
+   `reshard_state` from the gathered arrays, step 2 within the same limits
+   of the unsharded step 2, its change to each leaf too; the dropped rank
+   leaves. GPipe (`pipeline_apply`) over the 2 ranks at
+   the reference test's case (L 8, M 6, mb 4) at D 16 and D 1024: output
+   within 2e-4 of the sequential stack, each stage's gradient within 2e-4
+   of autograd's and on its own rank only. With 2 cards it runs again
+   over NCCL, a card a rank; with one it prints that NCCL was not run.
 10. The dense LM phase, after the earlier phases have released their
    engines, graph pools and weights (del, gc.collect(), empty_cache();
    memory_reserved printed before it, the peak allocated in it, and its
@@ -3056,6 +3079,305 @@ def train_phase(book, dev, failures) -> dict:
 # stablelm-12b (head dim 160) served at full width, all three trained reduced
 # ---------------------------------------------------------------------------
 
+DIST_TRAIN = dict(steps=3, global_batch=4, seq_len=128, seed=0)
+DIST_MESHES = ((2, 1), (1, 2))
+DIST_LIMITS = (1e-2, 3e-2, 5e-2)  # loss, grad norm (relative), worst leaf (of max|leaf|)
+DIST_DELTA_LIMIT = 0.2  # each leaf's change in norm, of the unsharded change's (bf16)
+DIST_PIPE_DIMS = (16, 1024)  # the reference test's case (L 8, M 6, mb 4) at two widths
+DIST_ENTRIES = ("repro_flash_fwd_bf16", "repro_flash_bwd_dq_bf16", "repro_flash_bwd_dkv_bf16")
+
+
+def distributed_rank(rank, world, port, out_dir, backend):
+    """One rank of the distributed phase (step 9b): gloo ranks sharing
+    cuda:0, or NCCL ranks with a card each. Writes its numbers to
+    out_dir/rank_<rank>.json."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import os
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // world))
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=300))
+    from repro_torch.configs.base import DEFAULT_RUN, ShapeConfig, get_config
+    from repro_torch.data import make_pipeline
+    from repro_torch.launch.mesh import rank_device
+    from repro_torch.launch.steps import TrainState, init_train_state, make_train_step
+    from repro_torch.launch.train import ShardedTrainStep, build_trainer
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import OptState
+    from repro_torch.parallel import ProcessMesh, gather_tree
+    from repro_torch.parallel.pipeline import pipeline_apply, split_stages
+    from repro_torch.runtime import rebalance_grad_accum, reshard_state, shrink_mesh
+    from repro_torch.tree import state_leaves, tree_leaves
+
+    dev = rank_device("cuda:0", backend)
+    torch.cuda.init()  # the allocator's statistics exist from here
+    cfg = get_config(LM_ARCH)
+    # bf16 params, fp32 moments, remat full; no warm-up, so that every step
+    # moves the state at the peak rate
+    run = DEFAULT_RUN.replace(warmup_steps=0)
+    steps, gb, sl = DIST_TRAIN["steps"], DIST_TRAIN["global_batch"], DIST_TRAIN["seq_len"]
+    shape = ShapeConfig("distributed", sl, gb, "train")
+    pipe = make_pipeline(cfg, sl, gb, seed=DIST_TRAIN["seed"])
+    res = {"rank": rank, "device": str(dev), "backend": backend}
+
+    def change_err(changes):
+        """The worst leaf's ||got - want|| / ||want|| over (got, want) pairs,
+        one a leaf, of the change a run made to it: against the unsharded
+        run's change."""
+        return max(float((g - w).norm() / w.norm().clamp_min(1e-30)) for g, w in changes)
+
+    transient = [0.0]  # the most a step allocated above what was held before it, GiB
+
+    def timed_steps(step_fn, state, first, n):
+        hist, ms = [], []
+        for s in range(first, first + n):
+            torch.cuda.synchronize(dev)
+            base = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            state, m = step_fn(state, pipe.batch_at(s))
+            hist.append((float(m["loss"]), float(m["grad_norm"])))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            transient[0] = max(transient[0],
+                               (torch.cuda.max_memory_allocated(dev) - base) / 2**30)
+        return state, hist, ms
+
+    def state_gib(state):
+        return sum(t.numel() * t.element_size() for t in state_leaves(state)) / 2**30
+
+    # the unsharded trainer on rank 0's card (the other ranks wait at the
+    # barrier); its parameters kept after each step (copies: the step
+    # updates them in place)
+    ref_params = None  # rank 0's unsharded parameters, [p0, p1, .., p_steps]
+    if rank == 0:
+        state = init_train_state(cfg, run, torch.Generator().manual_seed(DIST_TRAIN["seed"]),
+                                 device=dev)
+        ref_params = [[p.clone() for p in tree_leaves(state.params)]]
+        step_fn = make_train_step(cfg, run, steps, device=dev)
+        hist, ms = [], []
+        transient[0] = 0.0
+        for s in range(steps):
+            state, h, m = timed_steps(step_fn, state, s, 1)
+            hist, ms = hist + h, ms + m
+            ref_params.append([p.clone() for p in tree_leaves(state.params)])
+        res["unsharded"] = {"hist": hist, "ms": ms, "state_gib": state_gib(state),
+                            "step_gib": transient[0]}
+        del state, step_fn
+    dist.barrier()
+
+    # the sharded trainer on each mesh; on (2, 1) the whole state after step 1
+    # is kept for the elastic check
+    from repro_torch.kernels import cuda as kcuda
+
+    snapshot = None
+    for shp in DIST_MESHES:
+        mesh = ProcessMesh(shp, ("data", "model"), device=dev)
+        step_fn, state = build_trainer(cfg, run, shape, mesh, steps, DIST_TRAIN["seed"])
+        transient[0] = 0.0
+        before = {k: kcuda.FLASH_ENTRY_LAUNCHES[k] for k in DIST_ENTRIES}
+        hist, ms = [], []
+        for s in range(steps):
+            state, h, m = timed_steps(step_fn, state, s, 1)
+            hist, ms = hist + h, ms + m
+            if shp == (2, 1) and s == 0:
+                snapshot = (mesh, gather_tree(state, step_fn.specs, mesh))
+        launches = {k: kcuda.FLASH_ENTRY_LAUNCHES[k] - before[k] for k in DIST_ENTRIES}
+        whole = gather_tree(state.params, step_fn.specs.params, mesh)
+        entry = {"hist": hist, "ms": ms, "state_gib": state_gib(state), "step_gib": transient[0],
+                 "launches": launches, "param_shard_gib": state_gib(state.params)}
+        if rank == 0:
+            entry["worst_leaf"] = max(
+                float((a.float() - b.float()).abs().max() / b.float().abs().max())
+                for a, b in zip(tree_leaves(whole), ref_params[steps]))
+            entry["worst_delta"] = change_err(
+                (a.float() - p0.float(), b.float() - p0.float())
+                for a, b, p0 in zip(tree_leaves(whole), ref_params[steps], ref_params[0]))
+        res[f"{shp[0]}x{shp[1]}"] = entry
+        del whole, state, step_fn
+        torch.cuda.empty_cache()
+
+    # elastic: from the (2, 1) state after step 1, shrink to (1, 1) at
+    # grad_accum 2, reshard the gathered arrays, take step 2
+    mesh, whole = snapshot
+    del snapshot
+    new = shrink_mesh(mesh, lost_data_slices=1)
+    run2 = rebalance_grad_accum(run, mesh, new)
+    el = {"member": new.member, "grad_accum": run2.grad_accum,
+          "hist0": res["2x1"]["hist"][:1]}
+    if new.member:
+        paxes = M.param_axes(cfg)
+        axes = TrainState(params=paxes, opt=OptState(step=(), m=paxes, v=paxes))
+        state = reshard_state(whole, axes, new)
+        # p1 copied: on (1, 1) the resharded state is the gathered arrays
+        p1 = [t.clone() for t in tree_leaves(whole.params)] if rank == 0 else None
+        del whole
+        step2 = ShardedTrainStep(cfg, run2, shape, new, steps, dev)
+        state, hist1, ms1 = timed_steps(step2, state, 1, 1)
+        el.update(hist1=hist1, ms=ms1, new_shape=new.shape)
+        if rank == 0:  # step 2's own change to each leaf, on the resharded moments
+            p2 = gather_tree(state.params, step2.specs.params, new)
+            el["step2_delta"] = change_err(
+                (a.float() - b.float(), c.float() - d.float())
+                for a, b, c, d in zip(tree_leaves(p2), p1, ref_params[2], ref_params[1]))
+        del state, p1
+    else:
+        del whole
+    res["elastic"] = el
+    del ref_params
+    torch.cuda.empty_cache()
+    dist.barrier()
+
+    # GPipe over the ranks on ("pod",)
+    mesh = ProcessMesh((world,), ("pod",), device=dev)
+    res["pipeline"] = {}
+    for d in DIST_PIPE_DIMS:
+        rng = np.random.default_rng(0)
+        ws = torch.from_numpy((rng.standard_normal((8, d, d)) * 1.2 / np.sqrt(d))
+                              .astype(np.float32)).to(dev)
+        x = torch.from_numpy(rng.standard_normal((6, 4, d)).astype(np.float32)).to(dev)
+
+        def stage_fn(sp, h):
+            for i in range(sp.shape[0]):
+                h = torch.tanh(h @ sp[i])
+            return h
+
+        stages = split_stages(ws, world).requires_grad_(True)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        y = pipeline_apply(stage_fn, stages, x, mesh=mesh, axis="pod")
+        (y ** 2).sum().backward()
+        torch.cuda.synchronize(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        seq_w = ws.clone().requires_grad_(True)
+        h = x
+        for i in range(seq_w.shape[0]):
+            h = torch.tanh(h @ seq_w[i])
+        (h ** 2).sum().backward()
+        s = mesh.coords["pod"]
+        g_ref = split_stages(seq_w.grad, world)
+        others = torch.cat([stages.grad[:s], stages.grad[s + 1:]])
+        res["pipeline"][str(d)] = {
+            "stage": s, "ms": ms, "y_err": float((y - h).abs().max()),
+            "y_scale": float(h.abs().max()),
+            "grad_err": float((stages.grad[s] - g_ref[s]).abs().max()),
+            "grad_scale": float(g_ref[s].abs().max()),
+            "other_stages_grad": float(others.abs().sum())}
+    (Path(out_dir) / f"rank_{rank}.json").write_text(json.dumps(res))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def distributed_phase(failures) -> dict:
+    """Step 9b: full-width qwen3-0.6b trained by the sharded trainer over 2
+    gloo ranks sharing the card, on meshes (2, 1) and (1, 2), against the
+    unsharded trainer in the same run; elastic shrink; GPipe. Over NCCL
+    with a card per rank where the machine has 2 cards."""
+    import socket
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs.base import get_config
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            return s.getsockname()[1]
+
+    backends = ["gloo"] + (["nccl"] if torch.cuda.device_count() >= 2 else [])
+    if "nccl" not in backends:
+        print(f"distributed nccl: not run, {torch.cuda.device_count()} card (one card a "
+              "rank needs 2)")
+    lim = DIST_LIMITS
+    summary = {}
+    for backend in backends:
+        t0 = time.perf_counter()
+        out = Path(tempfile.mkdtemp(prefix="repro_torch_dist_"))
+        mp.spawn(distributed_rank, args=(2, free_port(), str(out), backend), nprocs=2)
+        ranks = [json.loads((out / f"rank_{r}.json").read_text()) for r in range(2)]
+        wall = time.perf_counter() - t0
+        base = ranks[0]["unsharded"]
+        print(f"distributed {backend}: unsharded {LM_ARCH} bf16 B {DIST_TRAIN['global_batch']} "
+              f"x S {DIST_TRAIN['seq_len']} on rank 0: step ms "
+              f"{[round(m, 2) for m in base['ms']]}, state {base['state_gib']:.3f} GiB + a "
+              f"step's transient {base['step_gib']:.3f} GiB = "
+              f"{base['state_gib'] + base['step_gib']:.3f}, "
+              f"loss {[round(h[0], 5) for h in base['hist']]}")
+        want = train_entries(get_config(LM_ARCH), DIST_TRAIN["steps"])
+        for shp in DIST_MESHES:
+            key = f"{shp[0]}x{shp[1]}"
+            for r in ranks:
+                e = r[key]
+                errs = [(abs(a[0] - b[0]) / abs(b[0]), abs(a[1] - b[1]) / abs(b[1]))
+                        for a, b in zip(e["hist"], base["hist"])]
+                print(f"distributed {backend} {key} rank {r['rank']} ({r['device']}): step ms "
+                      f"{[round(m, 2) for m in e['ms']]}, state shards {e['state_gib']:.3f} "
+                      f"GiB + a step's transient {e['step_gib']:.3f} GiB = "
+                      f"{e['state_gib'] + e['step_gib']:.3f} vs unsharded "
+                      f"{base['state_gib'] + base['step_gib']:.3f}, param shard "
+                      f"{e['param_shard_gib']:.3f} GiB, launches {e['launches']}, loss / "
+                      f"grad norm rel err {[(f'{a:.2e}', f'{b:.2e}') for a, b in errs]}"
+                      + (f", worst leaf {e['worst_leaf']:.3e}, worst leaf change "
+                         f"{e['worst_delta']:.3e}" if "worst_leaf" in e else ""))
+                if any(a > lim[0] or b > lim[1] for a, b in errs):
+                    failures.append(f"distributed {backend} {key} rank {r['rank']}: loss or "
+                                    f"grad norm off the unsharded trainer's")
+                if e.get("worst_leaf", 0.0) > lim[2]:
+                    failures.append(f"distributed {backend} {key}: worst leaf "
+                                    f"{e['worst_leaf']:.3e} > {lim[2]}")
+                if e.get("worst_delta", 0.0) > DIST_DELTA_LIMIT:
+                    failures.append(f"distributed {backend} {key}: worst leaf change "
+                                    f"{e['worst_delta']:.3e} > {DIST_DELTA_LIMIT}")
+                if e["launches"] != {k: want[k] for k in DIST_ENTRIES}:
+                    failures.append(f"distributed {backend} {key} rank {r['rank']}: launches "
+                                    f"{e['launches']}, want {want}")
+        kept = [r["elastic"] for r in ranks if r["elastic"]["member"]]
+        for r in ranks:
+            el = r["elastic"]
+            line = (f"distributed {backend} elastic rank {r['rank']}: on (2, 1) step 1 loss "
+                    f"{el['hist0'][0][0]:.5f}; shrink -> member {el['member']}, grad_accum "
+                    f"{el['grad_accum']}")
+            if el["member"]:
+                a, b = el["hist1"][0], base["hist"][1]
+                ea, eb = abs(a[0] - b[0]) / abs(b[0]), abs(a[1] - b[1]) / abs(b[1])
+                line += (f", {el['new_shape']} step 2 {el['ms'][0]:.2f} ms, loss / grad norm "
+                         f"rel err to the unsharded step 2 {ea:.2e} / {eb:.2e}")
+                if "step2_delta" in el:
+                    line += (f", step 2's change to the worst leaf {el['step2_delta']:.3e} of "
+                             f"the unsharded step 2's")
+                if ea > lim[0] or eb > lim[1] or el.get("step2_delta", 0.0) > DIST_DELTA_LIMIT:
+                    failures.append(f"distributed {backend} elastic: step 2 off the "
+                                    f"unsharded trainer's")
+            print(line)
+        if len(kept) != 1 or any(r["elastic"]["grad_accum"] != 2 for r in ranks):
+            failures.append(f"distributed {backend} elastic: {len(kept)} ranks kept, grad_accum "
+                            f"{[r['elastic']['grad_accum'] for r in ranks]}")
+        for d in DIST_PIPE_DIMS:
+            for r in ranks:
+                pr = r["pipeline"][str(d)]
+                ok = (pr["y_err"] <= 2e-4 * max(1.0, pr["y_scale"])
+                      and pr["grad_err"] <= 2e-4 * max(1.0, pr["grad_scale"])
+                      and pr["other_stages_grad"] == 0.0)
+                print(f"distributed {backend} pipeline D {d} rank {r['rank']} (stage "
+                      f"{pr['stage']}): forward + backward {pr['ms']:.2f} ms, output err "
+                      f"{pr['y_err']:.2e} (max {pr['y_scale']:.3f}), stage grad err "
+                      f"{pr['grad_err']:.2e} (max {pr['grad_scale']:.3e}), other stages' "
+                      f"grad {pr['other_stages_grad']}")
+                if not ok:
+                    failures.append(f"distributed {backend} pipeline D {d} rank {r['rank']} "
+                                    f"off the sequential stack")
+        print(f"distributed {backend}: phase {wall:.1f} s")
+        summary[backend] = {"ranks": ranks, "seconds": wall}
+    return summary
+
+
 DENSE_SERVE_ARCHS = ("minitron-8b", "stablelm-12b")
 DENSE_TRAIN_ARCHS = ("minitron-8b", "stablelm-12b", "mistral-large-123b")
 DENSE_SLICE_LAYERS = 2  # the full-width slice held against the host
@@ -4588,7 +4910,7 @@ def mla_sublayer(book, dev, failures) -> dict:
     cfg = get_config(MLA_ARCH)
     b, s = MLA_TRAIN["batch"], MLA_TRAIN["seq_len"]
     gen = torch.Generator(device=dev).manual_seed(MLA_TRAIN["seed"])
-    p32 = A.init_mla(gen, cfg, place=lambda t: t.to(dev))
+    p32 = A.init_mla(gen, cfg, place=lambda t, axes: t.to(dev))
     x32 = torch.randn((b, s, cfg.d_model), device=dev, generator=gen)
     g32 = torch.randn((b, s, cfg.d_model), device=dev, generator=gen)
     pos = torch.arange(s, device=dev)[None].expand(b, s)
@@ -5160,7 +5482,7 @@ def mamba_sublayer(book, dev, failures) -> dict:
     cfg = get_config(SSM_ARCH)
     b, s = SSM_TRAIN["batch"], SSM_TRAIN["seq_len"]
     gen = torch.Generator(device=dev).manual_seed(SSM_TRAIN["seed"])
-    p32 = S.init_mamba(gen, cfg, place=lambda t: t.to(dev))
+    p32 = S.init_mamba(gen, cfg, place=lambda t, axes: t.to(dev))
     x32 = torch.randn((b, s, cfg.d_model), device=dev, generator=gen)
     g32 = torch.randn((b, s, cfg.d_model), device=dev, generator=gen)
     gb = sum(t.numel() * t.element_size() for t in p32.values()) / 1e9
@@ -6991,6 +7313,16 @@ def main() -> int:
         traceback.print_exc()
         failures.append(f"{LM_ARCH}-train phase failed")
 
+    # ---- full-width qwen3-0.6b trained over 2 ranks sharing the card ------
+    gc.collect()
+    torch.cuda.empty_cache()
+    distributed = {}
+    try:
+        distributed = distributed_phase(failures)
+    except Exception:
+        traceback.print_exc()
+        failures.append("distributed phase failed")
+
     # ---- the dense LM family at full width, after the earlier phases have
     # released their engines, graph pools and weights ----------------------
     del params, imgs, batch, x, dense, e2, p2, im2
@@ -7311,7 +7643,8 @@ def main() -> int:
              "recurrent_lm": recurrent_lm, "cross_lm": cross_lm,
              "train": train_summary, "paper": paper, "verifier": verifier,
              "geometry": geometry, "lint": lint, "scenario": scenario,
-             "graphs": graphs, "sharded": sharded, "verified": VERIFIED},
+             "graphs": graphs, "sharded": sharded, "distributed": distributed,
+             "verified": VERIFIED},
             indent=1, default=str))
     if failures:
         for f in failures:

@@ -106,7 +106,7 @@ def sublayer(cs, dev) -> None:
     cfg = get_config(cs.MLA_ARCH)
     b, s = cs.MLA_TRAIN["batch"], cs.MLA_TRAIN["seq_len"]
     gen = torch.Generator(device=dev).manual_seed(cs.MLA_TRAIN["seed"])
-    p32 = A.init_mla(gen, cfg, place=lambda t: t.to(dev))
+    p32 = A.init_mla(gen, cfg, place=lambda t, axes: t.to(dev))
     x32 = torch.randn((b, s, cfg.d_model), device=dev, generator=gen)
     g32 = torch.randn((b, s, cfg.d_model), device=dev, generator=gen)
     pos = torch.arange(s, device=dev)[None].expand(b, s)

@@ -76,15 +76,16 @@ def init_gqa(generator: torch.Generator, cfg: ModelConfig, place=as_drawn,
     sublayer adds nothing to the residual."""
     d, h, kv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
     hd = cfg.resolved_head_dim
-    p = {"wq": place(dense_init(generator, (d, h, hd)))}
-    p["wk"] = place(dense_init(generator, (d, kv, hd)))
-    p["wv"] = place(dense_init(generator, (d, kv, hd)))
-    p["wo"] = place(dense_init(generator, (h, hd, d), fan_in=h * hd))
+    p = {"wq": place(dense_init(generator, (d, h, hd)), ("embed", "heads", "head_dim"))}
+    p["wk"] = place(dense_init(generator, (d, kv, hd)), ("embed", "kv_heads", "head_dim"))
+    p["wv"] = place(dense_init(generator, (d, kv, hd)), ("embed", "kv_heads", "head_dim"))
+    p["wo"] = place(dense_init(generator, (h, hd, d), fan_in=h * hd),
+                    ("heads", "head_dim", "embed"))
     if cfg.qk_norm:
-        p["q_norm"] = place(ones_init((hd,)))
-        p["k_norm"] = place(ones_init((hd,)))
+        p["q_norm"] = place(ones_init((hd,)), (None,))
+        p["k_norm"] = place(ones_init((hd,)), (None,))
     if cross:
-        p["gate"] = place(torch.zeros((), dtype=torch.float32))
+        p["gate"] = place(torch.zeros((), dtype=torch.float32), ())
     return p
 
 
@@ -93,6 +94,15 @@ class KVCache(NamedTuple):
     v: torch.Tensor
     k_scale: Optional[torch.Tensor] = None  # (B, S_max, KV) per-token-head absmax
     v_scale: Optional[torch.Tensor] = None
+
+
+def cache_axes(quantized: bool) -> KVCache:
+    """The cache's logical axes (the reference's `cache_axes`); the scale
+    fields are None for an unquantized cache, as its tensors are."""
+    sc = ("batch", "cache_seq", "cache_kv") if quantized else None
+    return KVCache(k=("batch", "cache_seq", "cache_kv", "cache_hd"),
+                   v=("batch", "cache_seq", "cache_kv", "cache_hd"),
+                   k_scale=sc, v_scale=sc)
 
 
 def init_gqa_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
@@ -178,21 +188,26 @@ def init_mla(generator: torch.Generator, cfg: ModelConfig, place=as_drawn) -> di
     dn, dr, dv = cfg.nope_head_dim, cfg.rope_head_dim, cfg.v_head_dim
     r, qr = cfg.kv_lora_rank, cfg.q_lora_rank
     return {
-        "w_dq": place(dense_init(generator, (d, qr))),
-        "w_uq": place(dense_init(generator, (qr, h, dn + dr))),
-        "w_dkv": place(dense_init(generator, (d, r))),
-        "w_uk": place(dense_init(generator, (r, h, dn))),
-        "w_uv": place(dense_init(generator, (r, h, dv))),
-        "w_kr": place(dense_init(generator, (d, dr))),
-        "w_o": place(dense_init(generator, (h, dv, d), fan_in=h * dv)),
-        "q_norm": place(ones_init((qr,))),
-        "kv_norm": place(ones_init((r,))),
+        "w_dq": place(dense_init(generator, (d, qr)), ("embed", "q_lora")),
+        "w_uq": place(dense_init(generator, (qr, h, dn + dr)), ("q_lora", "heads", "head_dim")),
+        "w_dkv": place(dense_init(generator, (d, r)), ("embed", "kv_lora")),
+        "w_uk": place(dense_init(generator, (r, h, dn)), ("kv_lora", "heads", "head_dim")),
+        "w_uv": place(dense_init(generator, (r, h, dv)), ("kv_lora", "heads", "head_dim")),
+        "w_kr": place(dense_init(generator, (d, dr)), ("embed", "head_dim")),
+        "w_o": place(dense_init(generator, (h, dv, d), fan_in=h * dv),
+                     ("heads", "head_dim", "embed")),
+        "q_norm": place(ones_init((qr,)), (None,)),
+        "kv_norm": place(ones_init((r,)), (None,)),
     }
 
 
 class MLACache(NamedTuple):
     c_kv: torch.Tensor  # (B, S_max, r) the compressed latent: keys and values
     k_rope: torch.Tensor  # (B, S_max, dr) the shared rotary key
+
+
+MLA_CACHE_AXES = MLACache(c_kv=("batch", "cache_seq", None),
+                          k_rope=("batch", "cache_seq", None))
 
 
 def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,

@@ -1,6 +1,7 @@
 """Shared LM layer primitives: norms, rotary and sinusoidal positions,
 initializers (counterpart of `repro.models.layers`; parameters are plain
-tensors, with no logical-axis annotations, since the port has no mesh).
+tensors, and each init function hands every leaf to its `place` callback
+with the leaf's logical axes, where the reference wraps it in a `Px`).
 
 The initializers draw from a `torch.Generator` on the generator's own device:
 a host generator gives the same weights whatever device the caller moves them
@@ -15,8 +16,9 @@ from typing import Optional
 import torch
 
 
-def as_drawn(t: torch.Tensor) -> torch.Tensor:
-    """The initializers' default `place`: a drawn leaf stays as drawn."""
+def as_drawn(t: torch.Tensor, axes: tuple = ()) -> torch.Tensor:
+    """The initializers' default `place(leaf, axes)`: a drawn leaf stays as
+    drawn, its logical axes unused."""
     return t
 
 

@@ -19,7 +19,9 @@ Step semantics:
 
 Parameters are a plain dict with the reference's tree and layouts
 ({"embed", "final_norm", "groups", ["unembed"]}, and for an
-encoder-decoder "enc_groups" and "enc_norm"), drawn from a
+encoder-decoder "enc_groups" and "enc_norm"), each leaf with the
+reference's logical axes (`param_axes`, `abstract_params`; the caches'
+`abstract_cache`, the steps' `input_specs`), drawn from a
 `torch.Generator` on its own device and moved to `device` (None = the card)
 leaf by leaf. Without caches
 `forward` and `lm_loss` are differentiable (the attention backward is the
@@ -33,18 +35,19 @@ import math
 import torch
 import torch.utils.checkpoint
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.layers import embed_init, ones_init, rms_norm, sinusoid_positions
 from repro_torch.models.transformer import (
     Sub,
     group_layout,
+    group_cache_axes,
     init_group_caches,
     init_groups,
     n_groups,
     stack_apply,
 )
-from repro_torch.tree import tree_paths
+from repro_torch.tree import tree_leaves
 
 AUDIO_DEC_LAYOUT = [Sub("attn", "none"), Sub("cross", "dense")]
 AUDIO_ENC_LAYOUT = [Sub("attn", "dense")]
@@ -62,48 +65,61 @@ def group_stacks(cfg: ModelConfig) -> dict:
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, *, device=None,
-                dtype=torch.float32) -> dict:
-    """Random parameters in the reference's tree (no logical-axes tree: the
-    port has no mesh), drawn leaf by leaf in a fixed order on the
-    generator's device, each cast to `dtype` and moved to `device` as soon as
-    it is drawn: a host generator holds one leaf at a time on the host and
-    gives the same tree on every device."""
+                dtype=torch.float32, with_axes: bool = False):
+    """Random parameters in the reference's tree, drawn leaf by leaf in a
+    fixed order on the generator's device, each cast to `dtype` and moved to
+    `device` as soon as it is drawn: a host generator holds one leaf at a
+    time on the host and gives the same tree on every device. `with_axes`
+    returns (params, logical-axes tree), as the reference's `init_params`
+    does; each leaf's axes are named where it is drawn."""
     dev = resolve_device(device)
 
     def place(t):
         return t.to(device=dev, dtype=dtype)
 
+    p, axes = {}, {}
+
+    def leaf(name, t, ax):
+        p[name], axes[name] = place(t), ax
+
     d, v = cfg.d_model, cfg.vocab_size
-    p = {"embed": place(embed_init(generator, (v, d))), "final_norm": place(ones_init((d,)))}
+    leaf("embed", embed_init(generator, (v, d)), ("vocab", "embed"))
+    leaf("final_norm", ones_init((d,)), (None,))
     for name, (layout, groups) in group_stacks(cfg).items():
-        p[name] = init_groups(generator, cfg, place, layout=layout, groups=groups)
+        p[name], axes[name] = init_groups(generator, cfg, place, layout=layout,
+                                          groups=groups, with_axes=True)
         if name == "enc_groups":
-            p["enc_norm"] = place(ones_init((d,)))
+            leaf("enc_norm", ones_init((d,)), (None,))
     if not cfg.tie_embeddings:
-        p["unembed"] = place(embed_init(generator, (d, v)))
-    return p
+        leaf("unembed", embed_init(generator, (d, v)), ("embed", "vocab"))
+    return (p, axes) if with_axes else p
 
 
-EXPERT_LEAVES = ("w1", "w3", "w2")  # under groups.<sub>.moe: (layers, E, ...)
+def abstract_params(cfg: ModelConfig, dtype=torch.float32) -> tuple:
+    """(tree of meta tensors in `dtype`, logical-axes tree): the parameters'
+    shapes with no memory and no random numbers (the reference's
+    ShapeDtypeStruct tree)."""
+    with torch.device("meta"):
+        return init_params(cfg, None, device="meta", dtype=dtype, with_axes=True)
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """The logical-axes tree matching `init_params`' tree."""
+    return abstract_params(cfg)[1]
 
 
 def count_params_analytic(cfg: ModelConfig, active_only: bool = False) -> int:
     """The number of parameters `init_params` makes for `cfg`, counted from
-    the shapes of its tree made on the meta device with no generator (no
-    memory, no random numbers). `active_only` counts what one token uses:
-    each routed-expert leaf scaled by top_k / n_experts, rounded down leaf
-    by leaf, as the reference scales the leaves whose axes name "experts".
-    The port has no axes tree, so those are found by path
-    (`groups.<sub>.moe.{w1, w3, w2}`; the router and the shared experts are
-    not among them)."""
-    with torch.device("meta"):
-        params = init_params(cfg, None, device="meta")
+    `abstract_params`. `active_only` counts what one token uses: each leaf
+    whose axes name "experts" (the routed experts) scaled by
+    top_k / n_experts, rounded down leaf by leaf, as the reference does."""
+    from repro_torch.parallel.api import axes_leaves  # parallel imports this module
+
+    shapes, axes = abstract_params(cfg)
     total = 0
-    for path, leaf in tree_paths(params):
-        n = leaf.numel()
-        parts = path.split("/")
-        if (active_only and parts[0] == "groups" and len(parts) == 4
-                and parts[2] == "moe" and parts[3] in EXPERT_LEAVES):
+    for s, a in zip(tree_leaves(shapes), axes_leaves(axes)):
+        n = s.numel()
+        if active_only and "experts" in a:
             n = int(n * cfg.top_k / max(cfg.n_experts, 1))
         total += n
     return total
@@ -120,6 +136,36 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.float32,
     layout, groups = group_stacks(cfg)["groups"]
     return init_group_caches(cfg, batch, max_len, dtype, device=resolve_device(device),
                              layout=layout, groups=groups)
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=torch.float32) -> tuple:
+    """(cache tree of meta tensors, logical-axes tree) without allocating:
+    `init_cache`'s tree on the meta device, and per sublayer position its
+    cache's axes behind "layers" (the reference's `abstract_cache`)."""
+    with torch.device("meta"):
+        caches = init_cache(cfg, batch, max_len, dtype, device="meta")
+    layout, _ = group_stacks(cfg)["groups"]
+    return caches, group_cache_axes(cfg, dtype == torch.int8, layout)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig, dtype=torch.bfloat16) -> dict:
+    """The step's inputs as meta tensors (the reference's ShapeDtypeStruct
+    stand-ins): tokens / labels (B, S) int32 for a train shape, tokens for
+    prefill, one token (B, 1) for decode; img_embeds for a VLM; frames
+    (B, S, D) for an encoder-decoder, or enc_out at decode."""
+    b, s = shape.global_batch, shape.seq_len
+
+    def meta(shp, dt=dtype):
+        return torch.empty(shp, dtype=dt, device="meta")
+
+    spec = {"tokens": meta((b, 1 if shape.kind == "decode" else s), torch.int32)}
+    if shape.kind == "train":
+        spec["labels"] = meta((b, s), torch.int32)
+    if cfg.family == "vlm":
+        spec["img_embeds"] = meta((b, cfg.n_image_tokens, cfg.d_model))
+    if cfg.is_encoder_decoder:
+        spec["enc_out" if shape.kind == "decode" else "frames"] = meta((b, s, cfg.d_model))
+    return spec
 
 
 def _logits(cfg, params, x):

@@ -35,15 +35,15 @@ def init_moe(generator: torch.Generator, cfg: ModelConfig, place=as_drawn) -> di
     f * n_shared_experts when the config has shared experts. `place` takes
     each leaf as it is drawn."""
     d, e, f = cfg.d_model, cfg.n_experts, cfg.moe_d_ff or cfg.d_ff
-    p = {"router": place(dense_init(generator, (d, e)))}
-    p["w1"] = place(dense_init(generator, (e, d, f), fan_in=d))
-    p["w3"] = place(dense_init(generator, (e, d, f), fan_in=d))
-    p["w2"] = place(dense_init(generator, (e, f, d), fan_in=f))
+    p = {"router": place(dense_init(generator, (d, e)), ("embed", None))}
+    p["w1"] = place(dense_init(generator, (e, d, f), fan_in=d), ("experts", "embed", "mlp"))
+    p["w3"] = place(dense_init(generator, (e, d, f), fan_in=d), ("experts", "embed", "mlp"))
+    p["w2"] = place(dense_init(generator, (e, f, d), fan_in=f), ("experts", "mlp", "embed"))
     if cfg.n_shared_experts:
         fs = f * cfg.n_shared_experts
-        p["shared"] = {"w1": place(dense_init(generator, (d, fs)))}
-        p["shared"]["w3"] = place(dense_init(generator, (d, fs)))
-        p["shared"]["w2"] = place(dense_init(generator, (fs, d), fan_in=fs))
+        p["shared"] = {"w1": place(dense_init(generator, (d, fs)), ("embed", "mlp"))}
+        p["shared"]["w3"] = place(dense_init(generator, (d, fs)), ("embed", "mlp"))
+        p["shared"]["w2"] = place(dense_init(generator, (fs, d), fan_in=fs), ("mlp", "embed"))
     return p
 
 

@@ -33,19 +33,23 @@ def init_mamba(generator: torch.Generator, cfg: ModelConfig, place=as_drawn) -> 
     d, di, n, cw = cfg.d_model, _d_inner(cfg), cfg.ssm_state_dim, cfg.ssm_conv_width
     dt_rank = max(1, d // 16)
     return {
-        "in_proj": place(dense_init(generator, (d, 2 * di))),
-        "conv_w": place(dense_init(generator, (cw, di), fan_in=cw)),
-        "x_proj": place(dense_init(generator, (di, dt_rank + 2 * n))),
-        "dt_proj": place(dense_init(generator, (dt_rank, di))),
-        "a_log": place(torch.log(torch.arange(1, n + 1, dtype=torch.float32)).repeat(di, 1)),
-        "d_skip": place(ones_init((di,))),
-        "out_proj": place(dense_init(generator, (di, d), fan_in=di)),
+        "in_proj": place(dense_init(generator, (d, 2 * di)), ("embed", "mlp")),
+        "conv_w": place(dense_init(generator, (cw, di), fan_in=cw), (None, "mlp")),
+        "x_proj": place(dense_init(generator, (di, dt_rank + 2 * n)), ("mlp", None)),
+        "dt_proj": place(dense_init(generator, (dt_rank, di)), (None, "mlp")),
+        "a_log": place(torch.log(torch.arange(1, n + 1, dtype=torch.float32)).repeat(di, 1),
+                       ("mlp", None)),
+        "d_skip": place(ones_init((di,)), ("mlp",)),
+        "out_proj": place(dense_init(generator, (di, d), fan_in=di), ("mlp", "embed")),
     }
 
 
 class MambaState(NamedTuple):
     conv: torch.Tensor  # (B, cw-1, di) ring of the last inputs, fp32
     ssm: torch.Tensor  # (B, di, N) fp32
+
+
+MAMBA_STATE_AXES = MambaState(conv=("batch", None, "mlp"), ssm=("batch", "mlp", None))
 
 
 def init_mamba_state(cfg: ModelConfig, batch: int, device=None) -> MambaState:

@@ -98,10 +98,10 @@ def n_groups(cfg: ModelConfig) -> int:
 def init_ffn(generator: torch.Generator, cfg: ModelConfig, d_ff: int,
              place=as_drawn) -> dict:
     d = cfg.d_model
-    p = {"w1": place(dense_init(generator, (d, d_ff)))}
+    p = {"w1": place(dense_init(generator, (d, d_ff)), ("embed", "mlp"))}
     if cfg.mlp_activation not in ("relu", "relu2"):  # gated; non-gated is the ECR-sparse form
-        p["w3"] = place(dense_init(generator, (d, d_ff)))
-    p["w2"] = place(dense_init(generator, (d_ff, d), fan_in=d_ff))
+        p["w3"] = place(dense_init(generator, (d, d_ff)), ("embed", "mlp"))
+    p["w2"] = place(dense_init(generator, (d_ff, d), fan_in=d_ff), ("mlp", "embed"))
     return p
 
 
@@ -125,9 +125,10 @@ def init_sublayer(generator: torch.Generator, sub: Sub, cfg: ModelConfig,
                 "slstm": xlstm_mod.init_slstm}.get(sub.kind)
     if init_mix is None:
         raise ValueError(f"sublayer kind {sub.kind!r}")
-    p = {"ln1": place(ones_init((cfg.d_model,))), "mix": init_mix(generator, cfg, place)}
+    p = {"ln1": place(ones_init((cfg.d_model,)), (None,)),
+         "mix": init_mix(generator, cfg, place)}
     if sub.ffn != "none":
-        p["ln2"] = place(ones_init((cfg.d_model,)))
+        p["ln2"] = place(ones_init((cfg.d_model,)), (None,))
         if "moe" in sub.ffn:
             p["moe"] = init_moe(generator, cfg, place)
         if sub.ffn in ("dense", "moe+dense"):
@@ -136,27 +137,29 @@ def init_sublayer(generator: torch.Generator, sub: Sub, cfg: ModelConfig,
 
 
 def init_groups(generator: torch.Generator, cfg: ModelConfig, place=as_drawn,
-                layout=None, groups=None) -> dict:
+                layout=None, groups=None, with_axes: bool = False):
     """{"sub0": {...}} with every leaf stacked (n_groups, ...): `layout`
     (default `group_layout(cfg)`) repeated `groups` times (default
     `n_groups(cfg)`; whisper's encoder and decoder stacks pass theirs). Layer by
-    layer, each leaf goes to `place` as soon as it is drawn, then into its
-    slot of the stacked leaf (made at layer 0 where `place` put the leaf),
+    layer, each leaf goes to `place(leaf)` as soon as it is drawn, then into
+    its slot of the stacked leaf (made at layer 0 where `place` put the leaf),
     and is freed before the next leaf is drawn: the peak is the stacked tree
     plus one leaf (one full-width arctic-480b layer: 56 GB plus a 17.85 GB
     expert leaf), and with `place` moving leaves to the card the host holds
-    one leaf at a time."""
+    one leaf at a time. `with_axes` also returns the logical-axes tree, each
+    leaf's axes as drawn behind "layers" (the reference's `_stack_px`)."""
     lay = layout or group_layout(cfg)
     n = groups or n_groups(cfg)
-    stacked = []  # in draw order
+    stacked, stacked_axes = [], []  # in draw order
 
     def into_slot(i):
         drawn = itertools.count()
 
-        def put(t):
+        def put(t, axes):
             t, j = place(t), next(drawn)
             if i == 0:
                 stacked.append(t.new_empty((n,) + tuple(t.shape)))
+                stacked_axes.append(("layers",) + tuple(axes))
             stacked[j][i].copy_(t)
             return j  # the layer's tree holds each leaf's index in draw order
         return put
@@ -164,7 +167,8 @@ def init_groups(generator: torch.Generator, cfg: ModelConfig, place=as_drawn,
     for i in range(n):
         put = into_slot(i)  # one draw order over the whole group
         layer = {f"sub{j}": init_sublayer(generator, s, cfg, put) for j, s in enumerate(lay)}
-    return tree_map(lambda j: stacked[j], layer)
+    tree = tree_map(lambda j: stacked[j], layer)
+    return (tree, tree_map(lambda j: stacked_axes[j], layer)) if with_axes else tree
 
 
 def stacked_groups(tree) -> int:
@@ -227,6 +231,21 @@ def init_group_caches(cfg: ModelConfig, batch: int, max_len: int, dtype,
         caches.append(type(c)(*(None if x is None else x.expand((g,) + x.shape).contiguous()
                                 for x in c)))
     return tuple(caches)
+
+
+def group_cache_axes(cfg: ModelConfig, quantized: bool, layout=None) -> tuple:
+    """The logical axes of `init_group_caches`' tree: per sublayer position,
+    its cache's axes behind "layers" (None for a [cross] slot), as the
+    reference's `init_group_caches` returns them."""
+    per_kind = {"attn": attn_mod.cache_axes(quantized), "mla": attn_mod.MLA_CACHE_AXES,
+                "mamba": ssm_mod.MAMBA_STATE_AXES, "mlstm": xlstm_mod.MLSTM_STATE_AXES,
+                "slstm": xlstm_mod.SLSTM_STATE_AXES}
+    out = []
+    for sub in layout or group_layout(cfg):
+        a = per_kind.get(sub.kind)
+        out.append(None if a is None else
+                   type(a)(*(None if x is None else ("layers",) + x for x in a)))
+    return tuple(out)
 
 
 def _layer_cache(cache, i: int):

@@ -39,13 +39,13 @@ def init_mlstm(generator: torch.Generator, cfg: ModelConfig, place=as_drawn) -> 
     d, di, h = cfg.d_model, _di(cfg), cfg.n_heads
     dh = di // h
     return {
-        "up": place(dense_init(generator, (d, 2 * di))),
-        "wq": place(dense_init(generator, (di, h, dh))),
-        "wk": place(dense_init(generator, (di, h, dh))),
-        "wv": place(dense_init(generator, (di, h, dh))),
-        "wi": place(dense_init(generator, (di, h))),
-        "wf": place(dense_init(generator, (di, h))),
-        "down": place(dense_init(generator, (di, d), fan_in=di)),
+        "up": place(dense_init(generator, (d, 2 * di)), ("embed", "mlp")),
+        "wq": place(dense_init(generator, (di, h, dh)), ("mlp", "heads", "head_dim")),
+        "wk": place(dense_init(generator, (di, h, dh)), ("mlp", "heads", "head_dim")),
+        "wv": place(dense_init(generator, (di, h, dh)), ("mlp", "heads", "head_dim")),
+        "wi": place(dense_init(generator, (di, h)), ("mlp", "heads")),
+        "wf": place(dense_init(generator, (di, h)), ("mlp", "heads")),
+        "down": place(dense_init(generator, (di, d), fan_in=di), ("mlp", "embed")),
     }
 
 
@@ -53,6 +53,10 @@ class MLSTMState(NamedTuple):
     c: torch.Tensor  # (B, H, dh, dh) matrix memory
     n: torch.Tensor  # (B, H, dh)
     m: torch.Tensor  # (B, H) stabiliser
+
+
+MLSTM_STATE_AXES = MLSTMState(c=("batch", "heads", None, None),
+                              n=("batch", "heads", None), m=("batch", "heads"))
 
 
 def init_mlstm_state(cfg: ModelConfig, batch: int, device=None) -> MLSTMState:
@@ -176,14 +180,14 @@ def init_slstm(generator: torch.Generator, cfg: ModelConfig, place=as_drawn) -> 
     d = cfg.d_model
     f = int(d * 4 / 3) // 8 * 8  # gated 4/3 FFN, 8-aligned
     return {
-        "wz": place(dense_init(generator, (d, d))),
-        "wi": place(dense_init(generator, (d, d))),
-        "wf": place(dense_init(generator, (d, d))),
-        "wo": place(dense_init(generator, (d, d))),
-        "r": place(dense_init(generator, (d, 4 * d))),
-        "ffn_up": place(dense_init(generator, (d, 2 * f))),
-        "ffn_down": place(dense_init(generator, (f, d), fan_in=f)),
-        "norm": place(ones_init((d,))),
+        "wz": place(dense_init(generator, (d, d)), ("embed", "mlp")),
+        "wi": place(dense_init(generator, (d, d)), ("embed", "mlp")),
+        "wf": place(dense_init(generator, (d, d)), ("embed", "mlp")),
+        "wo": place(dense_init(generator, (d, d)), ("embed", "mlp")),
+        "r": place(dense_init(generator, (d, 4 * d)), ("embed", "mlp")),
+        "ffn_up": place(dense_init(generator, (d, 2 * f)), ("embed", "mlp")),
+        "ffn_down": place(dense_init(generator, (f, d), fan_in=f), ("mlp", "embed")),
+        "norm": place(ones_init((d,)), (None,)),
     }
 
 
@@ -192,6 +196,10 @@ class SLSTMState(NamedTuple):
     n: torch.Tensor
     h: torch.Tensor
     m: torch.Tensor
+
+
+SLSTM_STATE_AXES = SLSTMState(c=("batch", "mlp"), n=("batch", "mlp"),
+                              h=("batch", "mlp"), m=("batch", "mlp"))
 
 
 def init_slstm_state(cfg: ModelConfig, batch: int, device=None) -> SLSTMState:

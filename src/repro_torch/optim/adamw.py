@@ -36,11 +36,13 @@ def global_norm(tree) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(grads, state: OptState, params, *, lr, beta1=0.9, beta2=0.95,
-                 eps=1e-8, weight_decay=0.1, grad_clip=1.0):
+                 eps=1e-8, weight_decay=0.1, grad_clip=1.0, grad_norm=None):
     """Returns (params, new_state, grad_norm); `params` and the moments are
-    updated in place."""
+    updated in place. `grad_norm` is the global norm to clip by when the
+    trees hold shards of the model (the sharded trainer's, counted over
+    the unique shards); by default the norm of `grads`."""
     step = state.step + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     if grad_clip > 0:
         scale = torch.clamp(grad_clip / (gnorm + 1e-9), max=1.0)
     else:

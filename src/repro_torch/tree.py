@@ -44,3 +44,38 @@ def tree_paths(tree, prefix: str = "") -> list:
         return [(prefix, tree)]
     return [pl for k, v in items
             for pl in tree_paths(v, f"{prefix}/{k}" if prefix else str(k))]
+
+
+def state_leaves(tree) -> list:
+    """The tensors of a state tree of NamedTuples (fields in order), tuples,
+    lists and dicts (sorted keys), in `jax.tree_util.tree_leaves` order;
+    None holds no leaf (an unquantized cache's scales, a cross slot)."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in state_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for t in tree for x in state_leaves(t)]
+    return [tree]
+
+
+def state_unflatten(like, leaves: list):
+    """`like`'s structure (as `state_leaves` walks it) with `leaves` at its
+    leaves."""
+    it = iter(leaves)
+
+    def build(t):
+        if t is None:
+            return None
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        if isinstance(t, tuple) and hasattr(t, "_fields"):
+            return type(t)(*(build(x) for x in t))
+        if isinstance(t, (tuple, list)):
+            return type(t)(build(x) for x in t)
+        return next(it)
+
+    out = build(like)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree has")
+    return out
