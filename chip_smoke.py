@@ -278,6 +278,29 @@
    within 2e-4 of the sequential stack, each stage's gradient within 2e-4
    of autograd's and on its own rank only. With 2 cards it runs again
    over NCCL, a card a rank; with one it prints that NCCL was not run.
+9c. The dry-run phase (the compile-time launch tools, `launch/{hlo_cost,
+   hlo_analysis,dryrun}`): in a subprocess of its own, on fake worlds of
+   `torch.distributed`'s "fake" backend and fake tensors, (a) the port's
+   dry run of full-width qwen3-0.6b at decode_32k, prefill_32k and
+   train_4k on the 16x16 production mesh (256 fake ranks): per cell FLOPs,
+   bytes, collectives by kind, the three roofline terms, the dominant one,
+   the useful-FLOP ratio and the trace seconds; it fails on a cell in
+   error or a zero FLOP, byte or collective count. (b) The dry run of step
+   9b's own cell (B 4 x S 128, bf16, warm-up 0) on fake (2, 1) and (1, 2)
+   meshes, held against what step 9b measured in this run: the predicted
+   state of a rank (the dry run's state arguments) within 0.5% of what
+   step 9b's `build_trainer` left allocated on the card (the allocator's
+   `memory_allocated` before and after, which rounds each tensor up to 512
+   bytes), and the predicted
+   transient (the step's counted peak of live bytes) printed with its ratio
+   to the measured transient, no gate. (c) `autotune(mode="model",
+   use_pallas=False)` on VGG-19 at batch 8: every candidate's model_us,
+   `_model_us` taking `hlo_model_us` for each (kernel-free) plan, and the
+   chosen plan's `hlo_model_us` beside its captured runner's device time
+   (CUDA events around graph replays); the eager count ignores L2
+   residency, so the ratio has no gate. (d) The host's nanoseconds a call
+   of `obs.scopes.scope` outside a count (what every attention call pays
+   on the serving path) and inside one, beside a bare call.
 10. The dense LM phase, after the earlier phases have released their
    engines, graph pools and weights (del, gc.collect(), empty_cache();
    memory_reserved printed before it, the peak allocated in it, and its
@@ -3178,7 +3201,13 @@ def distributed_rank(rank, world, port, out_dir, backend):
     snapshot = None
     for shp in DIST_MESHES:
         mesh = ProcessMesh(shp, ("data", "model"), device=dev)
+        # what the built state holds on the card: the allocator's count
+        # before and after (the whole draw is freed inside)
+        torch.cuda.synchronize(dev)
+        held = torch.cuda.memory_allocated(dev)
         step_fn, state = build_trainer(cfg, run, shape, mesh, steps, DIST_TRAIN["seed"])
+        torch.cuda.synchronize(dev)
+        built = torch.cuda.memory_allocated(dev) - held
         transient[0] = 0.0
         before = {k: kcuda.FLASH_ENTRY_LAUNCHES[k] for k in DIST_ENTRIES}
         hist, ms = [], []
@@ -3190,7 +3219,8 @@ def distributed_rank(rank, world, port, out_dir, backend):
         launches = {k: kcuda.FLASH_ENTRY_LAUNCHES[k] - before[k] for k in DIST_ENTRIES}
         whole = gather_tree(state.params, step_fn.specs.params, mesh)
         entry = {"hist": hist, "ms": ms, "state_gib": state_gib(state), "step_gib": transient[0],
-                 "launches": launches, "param_shard_gib": state_gib(state.params)}
+                 "launches": launches, "param_shard_gib": state_gib(state.params),
+                 "built_gib": built / 2**30, "state_tensors": len(state_leaves(state))}
         if rank == 0:
             entry["worst_leaf"] = max(
                 float((a.float() - b.float()).abs().max() / b.float().abs().max())
@@ -3376,6 +3406,177 @@ def distributed_phase(failures) -> dict:
         print(f"distributed {backend}: phase {wall:.1f} s")
         summary[backend] = {"ranks": ranks, "seconds": wall}
     return summary
+
+
+DRYRUN_CELLS = ("decode_32k", "prefill_32k", "train_4k")
+DRYRUN_STATE_TOL = 5e-3  # predicted state of a rank against its allocation on the card
+
+
+def dryrun_records(out_dir) -> dict:
+    """Step 9c's records from a subprocess of their own: the production
+    cells (`run_cell`, 16x16) and step 9b's cell on fake (2, 1) and (1, 2)
+    meshes (`dry_run_cell`)."""
+    code = f"""
+import json, sys, time
+from repro_torch.configs.base import DEFAULT_RUN, ShapeConfig, get_config
+from repro_torch.launch.dryrun import dry_run_cell, fake_world, run_cell
+from repro_torch.parallel.api import ProcessMesh
+recs = {{}}
+for shape in {DRYRUN_CELLS!r}:
+    t0 = time.perf_counter()
+    recs[shape] = run_cell({LM_ARCH!r}, shape, False, force=True, out_dir={str(out_dir)!r})
+    recs[shape]["cell_wall_s"] = time.perf_counter() - t0
+cfg = get_config({LM_ARCH!r})
+shape = ShapeConfig("distributed", {DIST_TRAIN['seq_len']}, {DIST_TRAIN['global_batch']}, "train")
+run = DEFAULT_RUN.replace(warmup_steps=0)
+for shp in {DIST_MESHES!r}:
+    with fake_world(2):
+        mesh = ProcessMesh(shp, ("data", "model"), device="cpu")
+        recs[f"{{shp[0]}}x{{shp[1]}}"] = dry_run_cell(cfg, shape, run, mesh)
+print(json.dumps(recs))
+"""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env,
+                       cwd=str(ROOT), timeout=900)
+    if r.returncode != 0:
+        raise RuntimeError(f"dry-run subprocess exited {r.returncode}: {r.stderr[-3000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def dryrun_phase(dev, distributed, failures) -> dict:
+    """Step 9c: the dry run's production cells, its prediction of step 9b's
+    memory, and `hlo_model_us` in the autotuner against a captured runner."""
+    import importlib
+    import shutil
+    import tempfile
+    import timeit
+
+    import torch
+
+    from repro_torch.configs.vgg19_sparse import CNNConfig, vgg19_graph
+    from repro_torch.launch.serve_cnn import synth_requests
+    from repro_torch.serving.graph_runner import CompiledRunner
+
+    t0 = time.perf_counter()
+    out = Path(tempfile.mkdtemp(prefix="repro_torch_dryrun_"))
+    try:
+        recs = dryrun_records(out)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    sub_s = time.perf_counter() - t0
+    # (a) the production cells
+    for shape in DRYRUN_CELLS:
+        r = recs[shape]
+        if r.get("status") != "ok":
+            failures.append(f"dry run {LM_ARCH} {shape} 16x16: status {r.get('status')} "
+                            f"{r.get('error', r.get('reason', ''))}")
+            continue
+        c = r["collectives"]
+        print(f"dry run {LM_ARCH} {shape} 16x16 (256 fake ranks): FLOPs {r['hlo_flops_per_device']:.4e}"
+              f", bytes {r['hlo_bytes_per_device']:.4e}, collectives {c['bytes_by_kind']} "
+              f"(counts {c['counts']}; by link {r['collective_bytes_by_link']}), terms compute "
+              f"{r['compute_term_s']:.4e} s / memory {r['memory_term_s']:.4e} s / collective "
+              f"{r['collective_term_s']:.4e} s, dominant {r['dominant_term']}, useful_flop_ratio "
+              f"{r['useful_flop_ratio']:.5f}, memory {r['memory_analysis']}, pallas_flash "
+              f"{r.get('pallas_flash')}, trace {r['trace_s']:.2f} s (cell {r['cell_wall_s']:.2f} s)")
+        if not (r["hlo_flops_per_device"] > 0 and r["hlo_bytes_per_device"] > 0
+                and c["total_bytes"] > 0):
+            failures.append(f"dry run {LM_ARCH} {shape}: a zero FLOP, byte or collective count")
+    # (b) step 9b's cell against what step 9b measured
+    ranks = distributed.get("gloo", {}).get("ranks", [])
+    pred = {}
+    for shp in DIST_MESHES:
+        key = f"{shp[0]}x{shp[1]}"
+        r = recs[key]
+        if r.get("status") != "ok":
+            failures.append(f"dry run of step 9b's cell on {shp}: status {r.get('status')} "
+                            f"{r.get('error', '')}")
+            continue
+        state = r["argument_bytes"]["state"] / 2**30
+        temp = r["memory_analysis"]["temp_size_in_bytes"] / 2**30
+        pred[key] = {"state_gib": state, "transient_gib": temp, "flops": r["hlo_flops_per_device"],
+                     "collectives": r["collectives"]["bytes_by_kind"], "trace_s": r["trace_s"]}
+        if not ranks:
+            failures.append(f"dry run {key}: step 9b measured nothing to hold the prediction to")
+            continue
+        for rk in ranks:
+            m = rk[key]
+            # measured: the allocator's count across build_trainer, which
+            # rounds each tensor up to 512 bytes
+            got = m["built_gib"]
+            err = abs(state - got) / got
+            print(f"dry run prediction {key} rank {rk['rank']}: state {state:.6f} GiB against "
+                  f"the {got:.6f} GiB step 9b's build_trainer left allocated on the card "
+                  f"({(got - state) * 2**30:.0f} B apart; the allocator's 512-byte rounding of "
+                  f"its {m['state_tensors']} tensors adds at most "
+                  f"{m['state_tensors'] * 512} B; rel err {err:.2e}, limit {DRYRUN_STATE_TOL}); "
+                  f"a step's transient {temp:.3f} GiB against step 9b's {m['step_gib']:.3f} "
+                  f"(ratio {temp / m['step_gib']:.3f}); FLOPs {r['hlo_flops_per_device']:.4e}, "
+                  f"collectives {r['collectives']['bytes_by_kind']}, trace {r['trace_s']:.2f} s")
+            if err > DRYRUN_STATE_TOL:
+                failures.append(f"dry run {key}: predicted state {state:.6f} GiB off the "
+                                f"{got:.6f} allocated on the card by {err:.2e}")
+    # (c) hlo_model_us in the autotuner's model ranking, VGG-19 at batch 8
+    A = importlib.import_module("repro_torch.serving.autotune")
+    graph = vgg19_graph(CNNConfig())
+    params, _, _ = make_params(graph, seed=0, dev=dev)
+    calib = torch.stack(synth_requests(graph, 8, seed=300, device=dev))
+    routes = []
+    real_hlo, real_plan = A.hlo_model_us, A.plan_model_us
+    A.hlo_model_us = lambda fn, *a: routes.append("hlo_model_us") or real_hlo(fn, *a)
+    A.plan_model_us = lambda *a, **k: routes.append("plan_model_us") or real_plan(*a, **k)
+    try:
+        t1 = time.perf_counter()
+        res = A.autotune(params, calib, graph, mode="model", use_pallas=False)
+        tune_s = time.perf_counter() - t1
+    finally:
+        A.hlo_model_us, A.plan_model_us = real_hlo, real_plan
+    for c in res.candidates:
+        print(f"dry run autotune VGG-19 batch 8 occ_threshold {c.occ_threshold} block_c "
+              f"{c.block_c}: model_us {c.model_us:.2f}, counts {c.plan.counts()}")
+    kernel_free = all(not A.get_op(lp.kind, lp.impl).pallas
+                      for c in res.candidates for lp in c.plan.layers)
+    distinct = len({A.plan_key(8, c.plan) for c in res.candidates})
+    print(f"dry run autotune: routes {routes} for {distinct} distinct kernel-free plans "
+          f"({kernel_free}); picked {plan_line(res.plan)} in {tune_s:.2f} s")
+    if not kernel_free or routes != ["hlo_model_us"] * distinct:
+        failures.append(f"dry run autotune: _model_us took {routes} for {distinct} "
+                        "kernel-free plans")
+    best_us = real_hlo(A._runner_for(res.plan), params, calib)
+    runner = CompiledRunner(res.plan, params, 8, dev)
+    try:
+        dev_ms = time_turns({"replay": lambda: runner(params, calib, 8)})["replay"]
+    finally:
+        runner.release()
+    print(f"dry run autotune: the chosen plan's hlo_model_us {best_us:.2f} us against its "
+          f"captured runner's device time {dev_ms * 1e3:.2f} us (ratio "
+          f"{best_us / (dev_ms * 1e3):.3f}; the eager count ignores L2 residency: no gate)")
+    # (d) what an attention call's scope costs the host, outside a count
+    # (the serving path) and inside one
+    from repro_torch.obs.scopes import counting, scope
+
+    def scoped():
+        with scope("flash_attention"):
+            pass
+
+    def bare():
+        pass
+
+    n = 200_000
+    scope_ns = {}
+    for name, fn, ctx in (("bare call", bare, None), ("scope outside a count", scoped, None),
+                          ("scope inside a count", scoped, counting)):
+        with ctx() if ctx else contextlib.nullcontext():
+            scope_ns[name] = min(timeit.repeat(fn, number=n, repeat=5)) / n * 1e9
+    print("dry run scope cost on the host: " + ", ".join(
+        f"{k} {v:.1f} ns" for k, v in scope_ns.items()))
+    wall = time.perf_counter() - t0
+    print(f"dry-run phase: {wall:.1f} s (subprocess {sub_s:.1f} s)")
+    return {"cells": recs, "prediction": pred, "autotune": [c.row() for c in res.candidates],
+            "routes": routes, "chosen_hlo_model_us": best_us, "chosen_device_ms": dev_ms,
+            "scope_ns": scope_ns, "seconds": wall}
 
 
 DENSE_SERVE_ARCHS = ("minitron-8b", "stablelm-12b")
@@ -7323,6 +7524,14 @@ def main() -> int:
         traceback.print_exc()
         failures.append("distributed phase failed")
 
+    # ---- the compile-time launch tools: the dry run against step 9b ------
+    dryrun = {}
+    try:
+        dryrun = dryrun_phase(dev, distributed, failures)
+    except Exception:
+        traceback.print_exc()
+        failures.append("dry-run phase failed")
+
     # ---- the dense LM family at full width, after the earlier phases have
     # released their engines, graph pools and weights ----------------------
     del params, imgs, batch, x, dense, e2, p2, im2
@@ -7644,7 +7853,7 @@ def main() -> int:
              "train": train_summary, "paper": paper, "verifier": verifier,
              "geometry": geometry, "lint": lint, "scenario": scenario,
              "graphs": graphs, "sharded": sharded, "distributed": distributed,
-             "verified": VERIFIED},
+             "dryrun": dryrun, "verified": VERIFIED},
             indent=1, default=str))
     if failures:
         for f in failures:

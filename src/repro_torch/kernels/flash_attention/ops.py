@@ -11,6 +11,11 @@ layout `flash_fwd` takes and returns the gradients in the inputs' layouts.
 head under H query heads): `flash_fwd_mla` forward, `flash_bwd_mla`
 backward (the MLA kernel and its two backward kernels on the card). The
 reference differentiates its jnp `flash_attention` there instead.
+
+Both Functions run their forward and backward inside
+`obs.scopes.scope("flash_attention")`, so a dispatch count tags the
+backward's ops as well as the forward's, as the reference's scope inside
+its attention body tags both for the dry run.
 """
 from __future__ import annotations
 
@@ -23,6 +28,7 @@ from repro_torch.kernels.flash_attention.kernel import (
     flash_fwd_mla,
     mla_delta,
 )
+from repro_torch.obs.scopes import scope
 
 
 class FlashAttentionFn(torch.autograd.Function):
@@ -31,8 +37,9 @@ class FlashAttentionFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, scale, causal, q_offset, kv_len):
-        out, m, l = flash_fwd(q, k, v, scale=scale, causal=causal, q_offset=q_offset,
-                              kv_len=kv_len)
+        with scope("flash_attention"):
+            out, m, l = flash_fwd(q, k, v, scale=scale, causal=causal, q_offset=q_offset,
+                                  kv_len=kv_len)
         ctx.save_for_backward(q, k, v, out, m, l)
         ctx.kw = dict(scale=scale, causal=causal, q_offset=q_offset, kv_len=kv_len)
         return out
@@ -40,9 +47,10 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, m, l = ctx.saved_tensors
-        if do.stride(-1) != 1:  # the kernels read the head dim contiguously
-            do = do.contiguous()
-        dq, dk, dv = flash_bwd(q, k, v, out, m, l, do, **ctx.kw)
+        with scope("flash_attention"):
+            if do.stride(-1) != 1:  # the kernels read the head dim contiguously
+                do = do.contiguous()
+            dq, dk, dv = flash_bwd(q, k, v, out, m, l, do, **ctx.kw)
         return dq, dk, dv, None, None, None, None
 
 
@@ -54,7 +62,8 @@ class MLAAttentionFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, c_kv, k_rope, scale, causal, q_offset, kv_len):
         kw = dict(scale=scale, causal=causal, q_offset=q_offset, kv_len=kv_len)
-        out, m, l = flash_fwd_mla(q, c_kv, k_rope, **kw)
+        with scope("flash_attention"):
+            out, m, l = flash_fwd_mla(q, c_kv, k_rope, **kw)
         ctx.save_for_backward(q, c_kv, k_rope, out, m, l)
         ctx.kw = kw
         return out
@@ -62,7 +71,9 @@ class MLAAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, c_kv, k_rope, out, m, l = ctx.saved_tensors
-        dq, dc, dkr = flash_bwd_mla(q, c_kv, k_rope, do, m, l, mla_delta(do, out), **ctx.kw)
+        with scope("flash_attention"):
+            dq, dc, dkr = flash_bwd_mla(q, c_kv, k_rope, do, m, l, mla_delta(do, out),
+                                        **ctx.kw)
         return dq, dc, dkr, None, None, None, None
 
 

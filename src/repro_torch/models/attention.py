@@ -36,6 +36,11 @@ backward kernels.
 
 Unlike the reference's functional update, the cache is written in place:
 both attentions return the cache they were given.
+
+The attention calls run inside `obs.scopes.scope("flash_attention")`
+(the serving calls here, the training calls inside their autograd
+Functions), the reference's `jax.named_scope` that the dry run re-accounts
+to the flash kernel's traffic.
 """
 from __future__ import annotations
 
@@ -52,6 +57,7 @@ from repro_torch.kernels.flash_attention.kernel import (
 )
 from repro_torch.kernels.flash_attention.ops import FlashAttentionFn, MLAAttentionFn
 from repro_torch.models.layers import as_drawn, dense_init, ones_init, rms_norm, rope
+from repro_torch.obs.scopes import scope
 
 
 def flash_attention(q, k, v, *, causal: bool, scale: float, q_offset=0,
@@ -168,8 +174,9 @@ def gqa_attention(p, x, *, cfg: ModelConfig, positions, causal=True,
         else:
             cache.k[:, wp:wp + s] = k.to(cache.k.dtype)
             cache.v[:, wp:wp + s] = v.to(cache.v.dtype)
-        out = flash_attention(q, cache.k, cache.v, causal=causal, scale=hd ** -0.5,
-                              q_offset=wp, kv_len=wp + s, **scales)
+        with scope("flash_attention"):
+            out = flash_attention(q, cache.k, cache.v, causal=causal, scale=hd ** -0.5,
+                                  q_offset=wp, kv_len=wp + s, **scales)
     out = out.reshape(b, s, h, hd)
     out = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(out.dtype))
     if "gate" in p:  # gated cross-attention (llama-vision style)
@@ -250,8 +257,9 @@ def mla_attention(p, x, *, cfg: ModelConfig, positions, causal=True,
     if cache is None and torch.is_grad_enabled():  # training: no cache, no kv_len
         out_lat = MLAAttentionFn.apply(q_eff, c_kv, k_rope, scale, causal, 0, None)
     else:
-        out_lat, _, _ = flash_fwd_mla(q_eff, c_kv, k_rope, scale=scale, causal=causal,
-                                      q_offset=q_offset, kv_len=kv_len)
+        with scope("flash_attention"):
+            out_lat, _, _ = flash_fwd_mla(q_eff, c_kv, k_rope, scale=scale, causal=causal,
+                                          q_offset=q_offset, kv_len=kv_len)
     out = torch.einsum("bshr,rhv->bshv", out_lat.to(x.dtype), p["w_uv"].to(x.dtype))
     out = torch.einsum("bshv,hvd->bsd", out, p["w_o"].to(x.dtype))
     return out, cache

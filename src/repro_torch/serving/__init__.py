@@ -4,7 +4,13 @@ with its occupancy-drift re-planner, `hot_swap` and data-parallel `mesh=`
 (`auto_mesh`), the scenario library
 (burst, diurnal drift, multi-tenant, hot swap) with its SimClock replay
 driver, and the offline (occ_threshold, block_c) `autotune`."""
-from repro_torch.serving.autotune import AutotuneResult, Candidate, autotune, plan_model_us
+from repro_torch.serving.autotune import (
+    AutotuneResult,
+    Candidate,
+    autotune,
+    hlo_model_us,
+    plan_model_us,
+)
 from repro_torch.serving.batcher import (
     MicroBatch,
     MicroBatcher,
@@ -52,6 +58,7 @@ __all__ = [
     "auto_mesh",
     "autotune",
     "bucket_sizes",
+    "hlo_model_us",
     "plan_key",
     "plan_model_us",
     "replay_scenario",

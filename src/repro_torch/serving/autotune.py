@@ -11,11 +11,13 @@ share one timing), times each distinct plan's compiled whole-batch runner
 reference times its jitted executor; the eager body on the CPU) through
 `obs.profile.time_callable`, and picks the fastest.
 
-The noisy-clock fallback ranks by `plan_model_us`, the registry's roofline
-per layer, for every plan. The reference ranks all-dense plans by XLA's
-HLO cost instead (`hlo_model_us`, through `launch/hlo_cost`); the port has
-no HLO and `launch/hlo_cost` is not ported (ROADMAP queue 1, item 16), so
-all-dense plans are modeled layer by layer like the others.
+The noisy-clock fallback ranks by `_model_us`, as the reference does: a
+plan with a kernel layer (`OpImpl.pallas`), or any plan when a calibration
+is given, by `plan_model_us`, the registry's roofline per layer; a plan
+with no kernel layer by `hlo_model_us`, the roofline of the ops its eager
+`run_plan` dispatches on the calibration batch (`launch.hlo_cost`, the
+port's counterpart of the reference's HLO cost). Such a plan launches no
+hand-written kernel, so the count sees all its work.
 
 `mesh=` (a 1-D "data" mesh) times each candidate through the sharded
 runner the serving engine would run (`graph_runner.ShardedRunner`); the
@@ -27,9 +29,9 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 from repro_torch.graph import as_graph
-from repro_torch.graph.registry import unit_model_us
+from repro_torch.graph.registry import get_op, unit_model_us
 from repro_torch.obs import constants
-from repro_torch.pipeline.planner import PipelinePlan, plan_network
+from repro_torch.pipeline.planner import PipelinePlan, plan_network, run_plan
 from repro_torch.serving.graph_runner import CompiledRunner, ShardedRunner
 from repro_torch.serving.plan_cache import plan_key
 
@@ -91,6 +93,31 @@ def plan_model_us(plan: PipelinePlan, params, batch: int = 1,
     return us + constants.DEFAULT_ROOFLINE.time_us(flops, nbytes)
 
 
+def hlo_model_us(fn, *args) -> float:
+    """Roofline time (us) of the ops one call `fn(*args)` dispatches
+    (`launch.hlo_cost.analyze`'s FLOPs and bytes at the default constants):
+    the model for plans with no kernel layer."""
+    from repro_torch.launch import hlo_cost
+
+    a = hlo_cost.analyze(fn, *args)
+    return constants.DEFAULT_ROOFLINE.time_us(a["flops"], a["bytes"])
+
+
+def _model_us(plan: PipelinePlan, params, calib, runner, calibration=None) -> float:
+    if calibration is not None or \
+            any(get_op(lp.kind, lp.impl).pallas for lp in plan.layers):
+        return plan_model_us(plan, params, batch=calib.shape[0], calibration=calibration)
+    return hlo_model_us(runner, params, calib)
+
+
+def _runner_for(plan: PipelinePlan):
+    """The unsharded eager runner of a plan: the model fallback's view."""
+    def run(params, imgs):
+        return run_plan(plan, params, imgs)
+
+    return run
+
+
 def _time_us(f, *args, iters: int = 3, warmup: int = 1) -> tuple:
     """(median_us, spread, samples) through the shared timing harness,
     outlier rejection off: the spread feeds the noisy-clock decision, which
@@ -113,8 +140,8 @@ def autotune(params, calib, graph=None, *,
     mode="auto" selects by median wall time, unless the timing cannot
     separate the top two distinct plans (the winner's spread exceeds
     `noise_tol`, or the runner-up is within the larger of the two spreads);
-    then the ranking falls back to `plan_model_us`. mode="time" /
-    mode="model" force one criterion.
+    then the ranking falls back to `_model_us` (module docstring).
+    mode="time" / mode="model" force one criterion.
 
     `use_pallas`, `calibration`, `tiles`, `int8` and `int8_budget` pass
     through to `plan_network`, so the search ranks the plans that would serve; the
@@ -170,9 +197,8 @@ def autotune(params, calib, graph=None, *,
         for c in cands:
             sig = plan_key(calib.shape[0], c.plan)
             if sig not in model_by_sig:
-                model_by_sig[sig] = plan_model_us(c.plan, params,
-                                                  batch=calib.shape[0],
-                                                  calibration=calibration)
+                model_by_sig[sig] = _model_us(c.plan, params, calib,
+                                              _runner_for(c.plan), calibration)
             c.model_us = model_by_sig[sig]
     best = min(cands, key=lambda c: c.model_us) if used_model else by_time[0]
     return AutotuneResult(best=best, candidates=cands, used_model=used_model)
